@@ -1,0 +1,82 @@
+// Kernel 1: one step's fused hyper-reduced local-global iteration loop.
+//
+// Replaces: animsnapbases_tpu/ops/pallas_reduced.py
+//   build_fused_reduced_iterations (:393-489, pallas_call :481).
+// Computes u (3, r) from snT_sel (3, n_sel) and rb_const (3, r):
+//   Vc = snT_sel G_allT (hoisted), then num_iterations of
+//   Vall = Vc + rb C_allT; pT = projection rows; rb = rb_const + pT WT_all,
+//   and finally u = rb inv3.
+//
+// What bounds it on this card: neither bytes (~0.3 MB of operands) nor
+// operations (~0.1 MFLOP per iteration).  It is a serial chain of small
+// dependent contractions (rb -> Vall -> pT -> rb) with a nonlinear step
+// in the middle, so it is bound by latency: one SM, three barriers per
+// iteration, and the L2 reads of C_allT and WT_all each iteration.
+//
+// What the design does about it: the whole loop runs in ONE thread block,
+// so no launch and no device-memory round trip separates the iterations.
+// The iteration state (rb, Vc, Vall, pT: a few KB) lives in shared memory;
+// the per-iteration operands C_allT, WT_all and inv3 (about 0.3-0.4 MB in
+// float32 at r = 64, more than one SM's 227 KB) stay in device memory and
+// are read from L2, where they stay resident across iterations.  Reads
+// are coalesced: consecutive threads take consecutive columns of C_allT
+// and consecutive k of WT_all.  Vc is an index gather, exact because
+// G_allT is one-hot for these group kinds; C_allT and inv3 are taken as
+// the host precomposed them in float64 (usel_inv is never folded into WT).
+#include "iteration.cuh"
+
+namespace ksm {
+
+extern __shared__ __align__(16) unsigned char fused_smem[];
+
+template <typename T>
+__global__ void fused_reduced_kernel(Iter<T> op, const T* snT, int ld_sn,
+                                     const T* rb_const, T* u,
+                                     int num_iterations) {
+  const int r = op.r, g = op.g, m = op.m;
+  T* rbc = reinterpret_cast<T*>(fused_smem);
+  T* rb = rbc + 3 * r;
+  T* vc = rb + 3 * r;
+  T* vall = vc + 3 * g;
+  T* pt = vall + 3 * g;
+  (void)m;
+  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) rbc[i] = rb_const[i];
+  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
+    const int d = i / g, c = i - d * g;
+    vc[i] = snT[(size_t)d * ld_sn + op.gidx[c]];
+  }
+  __syncthreads();
+  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
+  solve_block(op, rb, u);
+}
+
+template <typename T>
+int launch_fused(const void* snT, int ld_sn, const void* rb_const,
+                 const void* C, const void* inv, const void* WT,
+                 const void* gidx, const void* kind, const void* eg,
+                 const void* ef, void* u, int r, int g, int m,
+                 int num_iterations, void* stream) {
+  const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
+  const size_t smem = sizeof(T) * iter_smem_elems(r, g, m);
+  cudaError_t e = allow_smem(fused_reduced_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  fused_reduced_kernel<T><<<1, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      op, static_cast<const T*>(snT), ld_sn, static_cast<const T*>(rb_const),
+      static_cast<T*>(u), num_iterations);
+  return cudaGetLastError();
+}
+
+}  // namespace ksm
+
+#define FUSED_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(const void* snT, int ld_sn, const void* rb_const,      \
+                      const void* C, const void* inv, const void* WT,        \
+                      const void* gidx, const void* kind, const void* eg,    \
+                      const void* ef, void* u, int r, int g, int m,          \
+                      int num_iterations, void* stream) {                    \
+    return ksm::launch_fused<T>(snT, ld_sn, rb_const, C, inv, WT, gidx,      \
+                                kind, eg, ef, u, r, g, m, num_iterations,    \
+                                stream);                                     \
+  }
+
+FUSED_ENTRY(fused_reduced_iterations_f32, float)

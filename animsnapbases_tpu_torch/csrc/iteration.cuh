@@ -1,0 +1,254 @@
+// The hyper-reduced local-global iteration loop, run by ONE thread block.
+//
+// Shared by fused_reduced.cu (kernel 1, the per-step `step()` path) and
+// resident.cu (kernel 2, whose middle launch runs this loop every step).
+// It is the body of animsnapbases_tpu/ops/pallas_resident.py
+// `_make_iteration_loop` and of pallas_reduced.py
+// `build_fused_reduced_iterations`: it carries rb (3, r), forms the
+// gathered vertex values as Vall = Vc + rb C_allT (C_allT = usel_inv G_allT
+// precomposed in float64 on the host), evaluates one projection row per
+// selected element (tris_strain 2x2 clamp, edge_spring), and forms
+// rb = rb_const + pT WT.  At the end u = rb inv3.
+//
+// Element table (built by ops/fused_reduced.py `fused_operands`): column j
+// of pT belongs to element j, of kind `kind[j]`, whose vertex slots read
+// Vall columns eg[s][j]; its rest data lies in rows of ef (13, m):
+//   tris_strain: P0T 0-2, P1T 3-5, DmInv 6-9, row_is0 10, smin 11, smax 12
+//   edge_spring: rest length 0
+// Layout is dims-leading as in the JAX package: positions (3, n), per
+// element values (·, m), matrices (3, r, ·).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace ksm {
+
+enum : int { KIND_TRI = 0, KIND_SPRING = 1 };
+
+template <typename T>
+struct Iter {
+  const T* C;      // (3, r, g)  C_allT
+  const T* inv;    // (3, r, r)  inv(U^T A U), symmetric
+  const T* WT;     // (3, m, r)  WT_all
+  const int* gidx; // (g,)       Vc column c reads snT_sel column gidx[c]
+  const int* kind; // (m,)
+  const int* eg;   // (3, m)
+  const T* ef;     // (13, m)
+  int r, g, m;
+};
+
+__device__ __forceinline__ float tsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ float thypot(float x, float y) {
+  return hypotf(x, y);
+}
+template <typename T>
+__device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
+template <typename T>
+__device__ __forceinline__ T tclip(T x, T lo, T hi) {
+  return tmin(tmax(x, lo), hi);
+}
+
+// (cos x, sin x) from (cos 2x, sin 2x); x in (-pi/2, pi/2].  The root is
+// taken of the larger of (1 + c2)/2 and (1 - c2)/2 and the other value from
+// s2, so neither cancels as c2 -> -1 (ops/strain2d.py _half_angle)
+template <typename T>
+__device__ __forceinline__ void half_angle(T c2, T s2, T& cx, T& sx) {
+  if (c2 >= T(0)) {
+    cx = tsqrt((T(1) + c2) * T(0.5));
+    sx = s2 / (T(2) * cx);
+  } else {
+    const T h = tsqrt((T(1) - c2) * T(0.5));
+    sx = s2 >= T(0) ? h : -h;
+    cx = (s2 >= T(0) ? s2 : -s2) / (T(2) * h);
+  }
+}
+
+// Fhat = U clip(Sigma) V^T of F = [[a, b], [c, d]], trig-free
+// (ops/strain2d.py clamped_fhat_2x2).  Q and R are hypotenuses taken
+// without squaring: near F ~ I the off-diagonal residues can be ~1e-20,
+// whose float32 squares are subnormal and keep only a few digits.
+
+template <typename T>
+__device__ __forceinline__ void clamped_fhat_2x2(T a, T b, T c, T d, T smin,
+                                                 T smax, T& f00, T& f01,
+                                                 T& f10, T& f11) {
+  const T E = (a + d) * T(0.5);
+  const T Fv = (a - d) * T(0.5);
+  const T G = (c + b) * T(0.5);
+  const T H = (c - b) * T(0.5);
+  const T Q = thypot(E, H);
+  const T R = thypot(Fv, G);
+  const T sx = Q + R;
+  const T sy = Q - R;
+  const T invQ = T(1) / tmax(Q, T(1e-30));
+  const T invR = T(1) / tmax(R, T(1e-30));
+  const bool ok_q = Q > T(1e-30);
+  const bool ok_r = R > T(1e-30);
+  const T ca1 = ok_r ? Fv * invR : T(1);
+  const T sa1 = ok_r ? G * invR : T(0);
+  const T ca2 = ok_q ? E * invQ : T(1);
+  const T sa2 = ok_q ? H * invQ : T(0);
+  T c1, s1, c2, s2;
+  half_angle(ca1, sa1, c1, s1);
+  half_angle(ca2, sa2, c2, s2);
+  const T cp = c2 * c1 - s2 * s1;
+  const T sp = s2 * c1 + c2 * s1;
+  const T ct = c1 * c2 + s1 * s2;
+  const T st = s1 * c2 - c1 * s2;
+  const T shx = tclip(sx, smin, smax);
+  const T sgn = sy >= T(0) ? T(1) : T(-1);
+  const T shy = sgn * tclip(sy >= T(0) ? sy : -sy, smin, smax);
+  f00 = shx * cp * ct + shy * sp * st;
+  f01 = shx * cp * st - shy * sp * ct;
+  f10 = shx * sp * ct - shy * cp * st;
+  f11 = shx * sp * st + shy * cp * ct;
+}
+
+// the selected projection row of element j (pallas_reduced.py _tri_p /
+// _spring_p, row form) from the gathered values Vall (3, g)
+template <typename T>
+__device__ __forceinline__ void project_element(const Iter<T>& op,
+                                                const T* vall, int j,
+                                                T out[3]) {
+  const int m = op.m, g = op.g;
+  const T* ef = op.ef;
+  if (op.kind[j] == KIND_TRI) {
+    const int g1 = op.eg[j], g2 = op.eg[m + j], g3 = op.eg[2 * m + j];
+    T e1[3], e2[3], P0[3], P1[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const T v1 = vall[d * g + g1];
+      e1[d] = vall[d * g + g2] - v1;
+      e2[d] = vall[d * g + g3] - v1;
+      P0[d] = ef[d * m + j];
+      P1[d] = ef[(3 + d) * m + j];
+    }
+    const T a = P0[0] * e1[0] + P0[1] * e1[1] + P0[2] * e1[2];
+    const T b = P0[0] * e2[0] + P0[1] * e2[1] + P0[2] * e2[2];
+    const T c = P1[0] * e1[0] + P1[1] * e1[1] + P1[2] * e1[2];
+    const T d_ = P1[0] * e2[0] + P1[1] * e2[1] + P1[2] * e2[2];
+    const T D00 = ef[6 * m + j], D01 = ef[7 * m + j];
+    const T D10 = ef[8 * m + j], D11 = ef[9 * m + j];
+    T f00, f01, f10, f11;
+    clamped_fhat_2x2(a * D00 + b * D10, a * D01 + b * D11,
+                     c * D00 + d_ * D10, c * D01 + d_ * D11,
+                     ef[11 * m + j], ef[12 * m + j], f00, f01, f10, f11);
+    const bool row0 = ef[10 * m + j] > T(0);
+    const T fh0 = row0 ? f00 : f01;
+    const T fh1 = row0 ? f10 : f11;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) out[d] = P0[d] * fh0 + P1[d] * fh1;
+  } else {  // KIND_SPRING
+    const int g0 = op.eg[j], g1 = op.eg[m + j];
+    T s[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) s[d] = vall[d * g + g1] - vall[d * g + g0];
+    const T len = tsqrt(s[0] * s[0] + s[1] * s[1] + s[2] * s[2]);
+    const bool keep = len > T(0);
+    const T inv_len = keep ? T(1) / tmax(len, T(1e-30)) : T(0);
+    const T delta = T(0.5) * (len - ef[j]);
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      out[d] = keep ? T(0.5) * s[d] - delta * inv_len * s[d] : T(0);
+  }
+}
+
+// Shared memory the loop needs, in elements of T: rbc, rb (3r each),
+// Vc, Vall (3g each), pT (3m).
+__host__ __device__ inline int iter_smem_elems(int r, int g, int m) {
+  return 6 * r + 6 * g + 3 * m;
+}
+
+// Runs num_iterations of the loop.  On entry rbc (3r) and vc (3g) hold
+// rb_const and Vc = snT_sel G_allT; on exit rb holds the last rhs.
+// Threads split Vall's columns, then the elements, then rb's (d, k)
+// entries, with a barrier between the phases.
+template <typename T>
+__device__ void iterate_block(const Iter<T>& op, const T* rbc, T* rb,
+                              const T* vc, T* vall, T* pt,
+                              int num_iterations) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int r = op.r, g = op.g, m = op.m;
+  for (int i = tid; i < 3 * r; i += nt) rb[i] = T(0);
+  __syncthreads();
+  for (int it = 0; it < num_iterations; ++it) {
+    for (int i = tid; i < 3 * g; i += nt) {
+      const int d = i / g, c = i - d * g;
+      const T* Cd = op.C + (size_t)d * r * g + c;
+      const T* rbd = rb + d * r;
+      T acc = T(0);
+      for (int k = 0; k < r; ++k) acc += rbd[k] * Cd[(size_t)k * g];
+      vall[i] = vc[i] + acc;
+    }
+    __syncthreads();
+    for (int j = tid; j < m; j += nt) {
+      T o[3];
+      project_element(op, vall, j, o);
+      pt[j] = o[0];
+      pt[m + j] = o[1];
+      pt[2 * m + j] = o[2];
+    }
+    __syncthreads();
+    for (int i = tid; i < 3 * r; i += nt) {
+      const int d = i / r, k = i - d * r;
+      const T* Wd = op.WT + (size_t)d * m * r + k;
+      const T* pd = pt + d * m;
+      T acc = T(0);
+      for (int j = 0; j < m; ++j) acc += pd[j] * Wd[(size_t)j * r];
+      rb[i] = rbc[i] + acc;
+    }
+    __syncthreads();
+  }
+}
+
+// u = rb inv3 per dim (inv3 symmetric: row form as in the JAX kernels)
+template <typename T>
+__device__ void solve_block(const Iter<T>& op, const T* rb, T* u) {
+  const int r = op.r;
+  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
+    const int d = i / r, k = i - d * r;
+    const T* inv = op.inv + (size_t)d * r * r + k;
+    const T* rbd = rb + d * r;
+    T acc = T(0);
+    for (int j = 0; j < r; ++j) acc += rbd[j] * inv[(size_t)j * r];
+    u[i] = acc;
+  }
+}
+
+template <typename T>
+__host__ inline Iter<T> make_iter(const void* C, const void* inv,
+                                  const void* WT, const void* gidx,
+                                  const void* kind, const void* eg,
+                                  const void* ef, int r, int g, int m) {
+  Iter<T> op;
+  op.C = static_cast<const T*>(C);
+  op.inv = static_cast<const T*>(inv);
+  op.WT = static_cast<const T*>(WT);
+  op.gidx = static_cast<const int*>(gidx);
+  op.kind = static_cast<const int*>(kind);
+  op.eg = static_cast<const int*>(eg);
+  op.ef = static_cast<const T*>(ef);
+  op.r = r;
+  op.g = g;
+  op.m = m;
+  return op;
+}
+
+// Raise the dynamic shared-memory cap of `kernel` when `bytes` exceeds
+// the 48 KB default (up to the SM's 227 KB).
+template <typename K>
+__host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace ksm
+
+extern "C" const char* cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

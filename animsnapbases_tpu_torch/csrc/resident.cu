@@ -1,0 +1,225 @@
+// Kernel 2: the standard resident multi-step loop.
+//
+// Replaces: animsnapbases_tpu/ops/pallas_resident.py
+//   build_resident_multistep (:415-555, pallas_call :544).
+// Each of num_steps steps on the permuted state P, V (3, N):
+//   sn = P + dt*eta*V + fa            (fa = dt^2 fext / m, per call)
+//   sn_y = max(sn_y, floor_h)         (floor on: y row only)
+//   rb_const = rb_extra - ut_acT . sn (NT contraction over N)
+//   the iteration loop on snT_sel = sn[:, :n_sel], u = rb inv3
+//   q = sn + U_liftT^T u,  V = (q - P)/dt,  P = q
+// As in the JAX kernel, sn and u are rounded to the storage type of the
+// big matrices (bfloat16 or float32) before they meet them.  Products
+// accumulate in the state type, except the NT contraction (float64, below).
+//
+// What bounds it on this card: per step it streams the two (3, r, N)
+// matrices (2 x 3 x 64 x 14,400 x 2 B = 11.1 MB in bfloat16 at the bench
+// scene, L2-resident on the 50 MB L2) and does ~11 MFLOP of matrix-vector
+// work on them, spread over the SMs; the iteration loop in the middle is
+// the same single-block latency chain as kernel 1.  At the bench scene the
+// latency of that chain, not bytes or FLOPs, sets the step time.
+//
+// What the design does about it: three launches per step on the caller's
+// stream, enqueued by one host loop in this file (no host read-back and no
+// Python between steps):
+//   (a) predict_project: a grid over 128-vertex tiles forms sn, writes it,
+//       and writes one partial (3, r) of ut_acT . sn per tile (one warp
+//       per output row, coalesced reads of ut_acT along N);
+//   (b) resident_iterate: one block sums the partials in a fixed order
+//       (deterministic, no atomics), forms rb_const, gathers Vc from the
+//       selected prefix of sn and runs the iteration loop (iteration.cuh).
+//       The contraction over N accumulates in float64, in (a) and (b): its
+//       14,400 terms cancel to ~4e-4 of their absolute sum (A_c annihilates
+//       translations, and the state sits ~20 units up): with a float32
+//       sum in tile order one step of the bench scene came out 6.2x
+//       further from float64 in P than a float32 cuBLAS product.  The
+//       float64 work is ~2.8 MFLOP a step; rb_const itself is rounded back
+//       to the state type.  The plain version accumulates it the same way.
+//   (c) lift_update: a grid over the 3N entries forms q and V.  Each
+//       thread reads and then writes only its own entry of P and V, so the
+//       update is in place.
+// The predictor uses round-to-nearest intrinsics that the compiler does
+// not contract into an FMA, so sn is bit-for-bit what the plain version
+// (ops/resident.py) computes and the storage-type rounding of sn agrees.
+#include "iteration.cuh"
+
+namespace ksm {
+
+constexpr int TILE = 128;
+constexpr int THREADS = 256;
+
+extern __shared__ __align__(16) unsigned char resident_smem[];
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+// storage type <-> state type
+template <typename T>
+__device__ __forceinline__ T widen(T x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename M, typename T>
+struct Round {
+  __device__ static T apply(T x) { return x; }
+};
+template <>
+struct Round<__nv_bfloat16, float> {
+  __device__ static float apply(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// (a) predictor, floor clamp and the per-tile partial of ut_acT . sn
+template <typename T, typename M>
+__global__ void predict_project(const T* P, const T* V, const T* fa, T* sn,
+                                double* partial, const M* utac, int N, int r,
+                                T dtv, int floor_on, T floor_h) {
+  __shared__ T sns[3][TILE];
+  const int n0 = blockIdx.x * TILE;
+  const int len = min(TILE, N - n0);
+  for (int i = threadIdx.x; i < 3 * TILE; i += blockDim.x) {
+    const int d = i / TILE, t = i - d * TILE;
+    T s = T(0);
+    if (t < len) {
+      const size_t idx = (size_t)d * N + n0 + t;
+      s = add_rn(add_rn(P[idx], mul_rn(dtv, V[idx])), fa[idx]);
+      if (floor_on && d == 1 && s < floor_h) s = floor_h;
+      sn[idx] = s;
+      s = Round<M, T>::apply(s);
+    }
+    sns[d][t] = s;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int o = warp; o < 3 * r; o += nw) {
+    const int d = o / r;
+    const M* row = utac + (size_t)o * N + n0;  // (d, k) row of (3, r, N)
+    double acc = 0.0;
+    for (int t = lane; t < len; t += 32)
+      acc += (double)widen(row[t]) * (double)sns[d][t];
+    acc = warp_sum(acc);
+    if (lane == 0) partial[(size_t)blockIdx.x * 3 * r + o] = acc;
+  }
+}
+
+// (b) reduction of the partials and the iteration loop, one block
+template <typename T>
+__global__ void resident_iterate(Iter<T> op, const T* sn, int N,
+                                 const double* partial, int nblk,
+                                 const T* rb_extra, T* u,
+                                 int num_iterations) {
+  const int r = op.r, g = op.g;
+  T* rbc = reinterpret_cast<T*>(resident_smem);
+  T* rb = rbc + 3 * r;
+  T* vc = rb + 3 * r;
+  T* vall = vc + 3 * g;
+  T* pt = vall + 3 * g;
+  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
+    double s = 0.0;
+    for (int b = 0; b < nblk; ++b) s += partial[(size_t)b * 3 * r + i];
+    rbc[i] = rb_extra[i] - (T)s;
+  }
+  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
+    const int d = i / g, c = i - d * g;
+    vc[i] = sn[(size_t)d * N + op.gidx[c]];
+  }
+  __syncthreads();
+  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
+  solve_block(op, rb, u);
+}
+
+// (c) lift q = sn + U u and the velocity update, in place
+template <typename T, typename M>
+__global__ void lift_update(T* P, T* V, const T* sn, const T* u,
+                            const M* ulift, int N, int r, T dt) {
+  T* us = reinterpret_cast<T*>(resident_smem);
+  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
+    us[i] = Round<M, T>::apply(u[i]);
+  __syncthreads();
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)3 * N) return;
+  const int d = (int)(idx / N);
+  const int n = (int)(idx - (size_t)d * N);
+  const M* col = ulift + (size_t)d * r * N + n;
+  const T* ud = us + d * r;
+  T acc = T(0);
+  for (int k = 0; k < r; ++k) acc += ud[k] * widen(col[(size_t)k * N]);
+  const T q = sn[idx] + acc;
+  V[idx] = (q - P[idx]) / dt;
+  P[idx] = q;
+}
+
+template <typename T, typename M>
+int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
+                    const void* ulift, const void* utac, const void* C,
+                    const void* inv, const void* WT, const void* gidx,
+                    const void* kind, const void* eg, const void* ef,
+                    void* sn, void* partial, void* u, int N, int r, int g,
+                    int m, int num_steps, int num_iterations, double dt,
+                    double dtv, int floor_on, double floor_h,
+                    void* stream) {
+  const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nblk = (N + TILE - 1) / TILE;
+  const int lift_blocks = (3 * N + THREADS - 1) / THREADS;
+  const size_t smem_it = sizeof(T) * iter_smem_elems(r, g, m);
+  const size_t smem_lift = sizeof(T) * 3 * r;
+  cudaError_t e = allow_smem(resident_iterate<T>, smem_it);
+  if (e == cudaSuccess) e = allow_smem(lift_update<T, M>, smem_lift);
+  if (e != cudaSuccess) return e;
+  T* Pt = static_cast<T*>(P);
+  T* Vt = static_cast<T*>(V);
+  T* snt = static_cast<T*>(sn);
+  double* part = static_cast<double*>(partial);
+  T* ut = static_cast<T*>(u);
+  for (int step = 0; step < num_steps; ++step) {
+    predict_project<T, M><<<nblk, THREADS, 0, s>>>(
+        Pt, Vt, static_cast<const T*>(fa), snt, part,
+        static_cast<const M*>(utac), N, r, (T)dtv, floor_on, (T)floor_h);
+    resident_iterate<T><<<1, THREADS, smem_it, s>>>(
+        op, snt, N, part, nblk, static_cast<const T*>(rb_extra), ut,
+        num_iterations);
+    lift_update<T, M><<<lift_blocks, THREADS, smem_lift, s>>>(
+        Pt, Vt, snt, ut, static_cast<const M*>(ulift), N, r, (T)dt);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace ksm
+
+#define RESIDENT_ENTRY(NAME, T, M)                                           \
+  extern "C" int NAME(void* P, void* V, const void* fa,                      \
+                      const void* rb_extra, const void* ulift,               \
+                      const void* utac, const void* C, const void* inv,      \
+                      const void* WT, const void* gidx, const void* kind,    \
+                      const void* eg, const void* ef, void* sn,              \
+                      void* partial, void* u, int N, int r, int g, int m,    \
+                      int num_steps, int num_iterations, double dt,          \
+                      double dtv, int floor_on, double floor_h,              \
+                      void* stream) {                                        \
+    return ksm::launch_resident<T, M>(                                       \
+        P, V, fa, rb_extra, ulift, utac, C, inv, WT, gidx, kind, eg, ef, sn, \
+        partial, u, N, r, g, m, num_steps, num_iterations, dt, dtv,          \
+        floor_on, floor_h, stream);                                          \
+  }
+
+RESIDENT_ENTRY(resident_multistep_f32_f32, float, float)
+RESIDENT_ENTRY(resident_multistep_f32_bf16, float, __nv_bfloat16)
+
+extern "C" int resident_tile() { return ksm::TILE; }

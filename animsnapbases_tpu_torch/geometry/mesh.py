@@ -1,0 +1,71 @@
+"""Mesh topology queries the constraint groups need.
+
+Counterpart of ``animsnapbases_tpu/geometry/mesh.py``: only
+``unique_edges``, ``tet_edges`` and ``build_vertex_stars`` (with its
+``StarEdge`` record), copied so the port imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+def unique_edges(faces: np.ndarray) -> np.ndarray:
+    """Sorted unique undirected edges of a triangle mesh, (E, 2) with
+    edge[i, 0] < edge[i, 1], ordered lexicographically."""
+    faces = np.asarray(faces, dtype=np.int64)
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    e = np.sort(e, axis=1)
+    return np.unique(e, axis=0)
+
+
+def tet_edges(tets: np.ndarray) -> np.ndarray:
+    """Sorted unique undirected edges of a tet mesh (6 per tet)."""
+    tets = np.asarray(tets, dtype=np.int64)
+    pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+    e = np.concatenate([tets[:, list(p)] for p in pairs])
+    e = np.sort(e, axis=1)
+    return np.unique(e, axis=0)
+
+
+@dataclass
+class StarEdge:
+    """One 1-ring edge around a center vertex: neighbor ``v2``, the third
+    vertex and triangle index of each adjacent triangle (t2 == -1 on
+    boundary edges)."""
+    v2: int
+    v_other_t1: int
+    t1: int
+    v_other_t2: int = -1
+    t2: int = -1
+
+
+def build_vertex_stars(n_verts: int,
+                       faces: np.ndarray) -> list[list[StarEdge]]:
+    """1-ring stars for every vertex.  Each star lists the edges (center, v2)
+    with both adjacent triangles where present, in the reference's construction
+    order (triangles in order, vertices within a triangle in order)."""
+    faces = np.asarray(faces, dtype=np.int64)
+    stars: list[list[StarEdge]] = [[] for _ in range(n_verts)]
+    for t in range(faces.shape[0]):
+        tri = faces[t]
+        for v in range(3):
+            v_ind = tri[v]
+            for ov in range(3):
+                if v == ov:
+                    continue
+                nb = tri[ov]
+                third = tri[3 - (v + ov)]
+                for edge in stars[v_ind]:
+                    if edge.v2 == nb:
+                        edge.t2 = t
+                        edge.v_other_t2 = third
+                        break
+                else:
+                    stars[v_ind].append(StarEdge(v2=int(nb),
+                                                 v_other_t1=int(third),
+                                                 t1=t))
+    return stars

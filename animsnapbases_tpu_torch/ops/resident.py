@@ -1,0 +1,206 @@
+"""Kernel 2: the standard resident multi-step loop.
+
+Counterpart of ``animsnapbases_tpu/ops/pallas_resident.py``
+``build_resident_multistep`` (``nb=1``, static targets).  Vertices are
+permuted so that the selected-element union is a prefix of the vertex axis
+(the solver applies ``perm`` at entry and ``iperm`` at exit of
+``run_steps``), so the iteration loop reads ``snT_sel`` as ``sn[:, :n_sel]``.
+
+* ``resident_multistep``: the wrapper.  For CUDA tensors it launches the
+  hand-written kernel ``csrc/resident.cu`` (three launches per step,
+  enqueued by one C loop) and counts the call in
+  ``resident_multistep.launches``; for CPU tensors it runs the plain
+  version; it never falls back from the card to the plain version.
+* ``resident_multistep_plain``: the plain PyTorch version, a
+  transcription of the JAX kernel's step.
+* ``step_once`` (``predict``, the loop, ``lift``): one step of that
+  transcription with the iteration loop passed in, which
+  ``AnimSnapBasesSolver.step`` runs on kernel 1.
+
+As in the JAX kernel, sn and u are rounded to the storage dtype of the big
+(3, r, N) matrices before they meet them, and products accumulate in the
+working dtype, except ``U^T A_c sn``, which kernel and plain version both
+accumulate in float64 (the JAX kernel sums it in its working dtype; see
+ROADMAP Queue C).  With bfloat16 storage the plain version reads the same
+bfloat16-rounded values, so kernel and plain version differ only in the
+order of their sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from animsnapbases_tpu_torch.ops import _build
+from animsnapbases_tpu_torch.ops.fused_reduced import (
+    FusedOperands,
+    fused_reduced_iterations_plain,
+)
+
+
+@dataclass(frozen=True)
+class ResidentOperands:
+    """Everything one resident run needs besides the state."""
+    fused: FusedOperands
+    U_liftT: torch.Tensor    # (3, r, N) storage dtype, permuted vertices
+    ut_acT: torch.Tensor     # (3, r, N) storage dtype, (U^T A_c) permuted
+    mass_inv: torch.Tensor   # (1, N) working dtype, permuted
+    perm: np.ndarray         # selected union first
+    iperm: np.ndarray
+    n_sel: int
+    dt: float
+    eta: float               # 1 - damping
+    floor: bool
+    floor_h: float
+
+    @property
+    def n(self) -> int:
+        return self.U_liftT.shape[2]
+
+
+def resident_operands(fused: FusedOperands, U_liftT, ut_acT, mass_inv,
+                      perm, iperm, n_sel: int, dt: float, eta: float,
+                      floor: bool, floor_h: float,
+                      matmul_dtype=None) -> ResidentOperands:
+    """Cast the host (numpy, float64) resident operands once to the fused
+    operands' device and dtype; the big matrices to ``matmul_dtype``
+    (default: the working dtype)."""
+    device, dtype = fused.C_allT.device, fused.C_allT.dtype
+    mm = dtype if matmul_dtype is None else matmul_dtype
+
+    def big(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float64),
+                               device=device).to(mm).contiguous()
+
+    return ResidentOperands(
+        fused=fused, U_liftT=big(U_liftT), ut_acT=big(ut_acT),
+        mass_inv=torch.as_tensor(
+            np.asarray(mass_inv, np.float64).reshape(1, -1), dtype=dtype,
+            device=device),
+        perm=np.asarray(perm), iperm=np.asarray(iperm), n_sel=int(n_sel),
+        dt=float(dt), eta=float(eta), floor=bool(floor),
+        floor_h=float(floor_h))
+
+
+def force_term(ro: ResidentOperands, fext):
+    """fa = dt^2 fext / m, constant over a call: (3, N)."""
+    return ro.dt * ro.dt * fext * ro.mass_inv
+
+
+def _storage_round(x, mm):
+    return x if x.dtype == mm else x.to(mm).to(x.dtype)
+
+
+def predict(ro: ResidentOperands, P, V, fa, rb_extra):
+    """The damped predictor with the y-row floor clamp, and
+    ``rb_const = rb_extra - U^T A_c sn`` (NT contraction over N) ->
+    (sn, rb_const)."""
+    dtype, mm = P.dtype, ro.ut_acT.dtype
+    sn = P + ro.dt * ro.eta * V + fa
+    if ro.floor:
+        sn = sn.clone()
+        sn[1] = torch.where(sn[1] < ro.floor_h,
+                            torch.full_like(sn[1], ro.floor_h), sn[1])
+    snm = _storage_round(sn, mm)
+    # accumulated in float64 and rounded back, as csrc/resident.cu does:
+    # the N terms cancel to ~4e-4 of their absolute sum
+    proj = torch.bmm(ro.ut_acT.double(), snm.double()[:, :, None])[:, :, 0]
+    return sn, rb_extra - proj.to(dtype)
+
+
+def lift(ro: ResidentOperands, P, sn, u):
+    """``q = sn + U u`` and ``V = (q - P)/dt`` -> (q, V)."""
+    um = _storage_round(u, ro.U_liftT.dtype)
+    q = sn + torch.bmm(um[:, None, :], ro.U_liftT.to(P.dtype))[:, 0, :]
+    return q, (q - P) / ro.dt
+
+
+def step_once(ro: ResidentOperands, P, V, fa, rb_extra, num_iterations,
+              iterate=fused_reduced_iterations_plain):
+    """One full step on the permuted (3, N) state -> (q, V_new), with the
+    iteration loop ``iterate`` (the plain version by default)."""
+    sn, rb_const = predict(ro, P, V, fa, rb_extra)
+    u = iterate(ro.fused, sn[:, :ro.n_sel], rb_const, num_iterations)
+    return lift(ro, P, sn, u)
+
+
+def resident_multistep_plain(ro: ResidentOperands, P, V, fext, rb_extra,
+                             num_steps: int, num_iterations: int):
+    """Plain version of kernel 2: ``num_steps`` steps -> (P', V')."""
+    if P.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    fa = force_term(ro, fext)
+    for _ in range(num_steps):
+        P, V = step_once(ro, P, V, fa, rb_extra, num_iterations)
+    return P, V
+
+
+_SYMBOLS = {
+    (torch.float32, torch.float32): "resident_multistep_f32_f32",
+    (torch.float32, torch.bfloat16): "resident_multistep_f32_bf16",
+}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_ARGTYPES = ((_P,) * 16 + (_I,) * 6 + (_D, _D, _I, _D, _P))
+
+
+def resident_multistep(ro: ResidentOperands, P, V, fext, rb_extra,
+                       num_steps: int, num_iterations: int):
+    """(P', V') after ``num_steps`` steps of ``num_iterations`` iterations
+    from the permuted (3, N) state.  CPU tensors run the plain version;
+    CUDA tensors launch ``csrc/resident.cu`` on the current stream, or
+    raise.  The inputs are not modified."""
+    if P.device.type == "cpu":
+        return resident_multistep_plain(ro, P, V, fext, rb_extra, num_steps,
+                                        num_iterations)
+    if P.device.type != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    fo = ro.fused
+    dtype = fo.C_allT.dtype
+    n, r = ro.n, fo.r
+    for name, t in (("P", P), ("V", V), ("fext", fext)):
+        if t.device != fo.C_allT.device or t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} on {fo.C_allT.device}")
+        if tuple(t.shape) != (3, n):
+            raise ValueError(f"{name} must be (3, {n}), got {tuple(t.shape)}")
+    if tuple(rb_extra.shape) != (3, r) or rb_extra.dtype != dtype:
+        raise ValueError(f"rb_extra must be (3, {r}) {dtype}")
+    key = (dtype, ro.ut_acT.dtype)
+    if key not in _SYMBOLS:
+        raise TypeError(f"no resident kernel for state/storage {key}")
+    fn = _build.function("resident", _SYMBOLS[key], _ARGTYPES)
+    tile = resident_tile()
+    P_out = P.contiguous().clone()
+    V_out = V.contiguous().clone()
+    fa = force_term(ro, fext).contiguous()
+    rb_extra = rb_extra.contiguous()
+    sn = torch.empty_like(P_out)
+    # per-tile partials of U^T A_c sn, accumulated in float64 (resident.cu)
+    partial = torch.empty(((n + tile - 1) // tile, 3, r),
+                          dtype=torch.float64, device=P.device)
+    u = torch.empty((3, r), dtype=dtype, device=P.device)
+    code = fn(_build.ptr(P_out), _build.ptr(V_out), _build.ptr(fa),
+              _build.ptr(rb_extra), _build.ptr(ro.U_liftT),
+              _build.ptr(ro.ut_acT), _build.ptr(fo.C_allT),
+              _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
+              _build.ptr(fo.gidx), _build.ptr(fo.elem_kind),
+              _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(sn),
+              _build.ptr(partial), _build.ptr(u),
+              n, r, fo.g_total, fo.m_total, int(num_steps),
+              int(num_iterations), ro.dt, ro.dt * ro.eta, int(ro.floor),
+              ro.floor_h, _build.stream_of(P.device))
+    _build.check("resident", code, "resident_multistep")
+    resident_multistep.launches += 1
+    return P_out, V_out
+
+
+resident_multistep.launches = 0
+
+
+def resident_tile() -> int:
+    """Vertices per block of the predictor/projection launch."""
+    return int(_build.function("resident", "resident_tile", ())())

@@ -1,0 +1,479 @@
+"""Reduced projective-dynamics solver: the serving path.
+
+Counterpart of ``animsnapbases_tpu/sim/reduced.py`` for the fully-reduced
+configuration (every constraint group hyper-reduced in DEIM row form,
+positions reduced to r modes per dim):
+
+    DeformableModel -> AnimSnapBasesSolver(args).set_model(model)
+        -> prepare(args) -> step() / run_steps()
+
+It reads the same product ``.npz`` bases as the JAX package.  Host-side
+preparation stays numpy/scipy in float64 (the global matrix, ``inv(Ar)``,
+``U^T A_c``, the DEIM ``W`` solves, and the ``C_allT`` precomposition) and
+is cast once to the working dtype on the solver's device.
+
+``step()`` runs one step with the iteration loop on kernel 1
+(``ops/fused_reduced.py``); ``run_steps()`` serves static targets on
+kernel 2 (``ops/resident.py``, the JAX package's "standard" resident
+kernel), with the vertex permutation that makes the selected union a
+prefix applied at entry and exit.  Both run on the permuted layout.
+
+Not ported yet, and raising ``NotImplementedError`` in ``step`` /
+``run_steps``:
+
+* groups that are not fully reduced, or no position reduction
+  (ROADMAP Queue A items 4 and 7);
+* group kinds other than ``tris_strain`` / ``edge_spring``, and block-form
+  groups (Queue A item 9);
+* animated positional targets (Queue A item 10);
+* self-collision (Queue A item 12);
+* ``run_steps(record=True)`` (Queue A item 5).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import scipy.sparse
+import torch
+
+from animsnapbases_tpu_torch.device import (
+    resolve_device,
+    storage_dtype,
+    working_dtype,
+)
+from animsnapbases_tpu_torch.ops.fused_reduced import (
+    PORTED_KINDS,
+    fused_operands,
+    fused_reduced_iterations,
+    pack_edge_spring,
+    pack_tris_strain,
+    prepare_fused_operands,
+)
+from animsnapbases_tpu_torch.ops.resident import (
+    force_term,
+    resident_multistep,
+    resident_operands,
+    step_once,
+)
+from animsnapbases_tpu_torch.sim import collisions
+from animsnapbases_tpu_torch.sim.solver import build_global_matrix
+
+GROUP_ARG_NAMES = {
+    "verts_bending": ("vert_bending_reduced", "vert_bending_num_components"),
+    "edge_spring": ("edge_spring_reduced", "edge_spring_num_components"),
+    "tris_strain": ("tri_strain_reduced", "tri_strain_num_components"),
+    "tets_strain": ("tet_strain_reduced", "tet_strain_num_components"),
+    "tets_deformation_gradient": ("tet_deformation_reduced",
+                                  "tet_deformation_num_components"),
+}
+
+_VERTEX_KEYS = {
+    "verts_bending": ("indices", "neighbors"),
+    "edge_spring": ("edges",),
+    "tris_strain": ("faces",),
+    "tets_strain": ("elements",),
+    "tets_deformation_gradient": ("elements",),
+}
+
+
+def _subset_group_data(g, alphas: np.ndarray) -> dict:
+    """Slice a group's SoA rest data down to the selected elements."""
+    d = g.data
+    name = g.name
+    sub = {}
+    if name == "verts_bending":
+        for k in ("indices", "neighbors", "cotans", "mask", "rest_curvature",
+                  "tri_normal", "dot_with_normal", "wi_eff"):
+            sub[k] = d[k][alphas]
+        sub["prevent_bending_flips"] = d.get("prevent_bending_flips", True)
+    elif name == "edge_spring":
+        sub["edges"] = d["edges"][alphas]
+        sub["rest_length"] = d["rest_length"][alphas]
+    elif name == "tris_strain":
+        for k in ("faces", "P", "DmInv"):
+            sub[k] = d[k][alphas]
+        sub["sigma_min"], sub["sigma_max"] = d["sigma_min"], d["sigma_max"]
+    elif name in ("tets_strain", "tets_deformation_gradient"):
+        for k in ("elements", "DmInv"):
+            sub[k] = d[k][alphas]
+        if name == "tets_strain":
+            sub["sigma_min"], sub["sigma_max"] = d["sigma_min"], d["sigma_max"]
+    else:
+        raise ValueError(f"cannot subset group {name}")
+    return sub
+
+
+class ReducedGroup:
+    """Runtime data of one hyper-reduced constraint group."""
+
+    def __init__(self, name, W, subset_data, row_select, p, num_selected):
+        self.name = name
+        self.W = W                    # (3, out_dim, n_pt) stacked per dim
+        self.subset_data = subset_data
+        self.row_select = row_select  # None (block form) or (m,) row gather
+        self.p = p
+        self.num_selected = num_selected
+
+
+def prepare_reduced_group(g, reduction_type: str, num_components: int,
+                          npz_path: str, n_verts: int,
+                          U: np.ndarray | None = None,
+                          tikhonov: bool = True,
+                          oversample: float = 1.0):
+    """Load a basis .npz and build the precomposed rhs matrices
+    ``W_d = (S^T V)_d (AtA_d + la_d I)^{-1} (PtV^T)_d`` (Ut-composed under
+    position reduction).  Returns (ReducedGroup, alphas, Pt).
+
+    ``oversample`` > 1 keeps ``num_components`` basis modes but takes the
+    interpolation rows selected for ``oversample * num_components`` modes
+    (least-squares DEIM, which keeps the iteration contractive)."""
+    data = np.load(npz_path)
+    row_dim = 1 if reduction_type in ("deim_pod", "deim_pod_vectorized") \
+        else g.p
+    Vj = data["components"].swapaxes(0, 1)[:, :num_components * row_dim, :]
+    ranges = data["interpol_alpha_ranges"]
+    range_idx = min(int(round(num_components * oversample)),
+                    len(ranges)) - 1
+    alpha_range = int(ranges[range_idx])
+    alphas = data["interpol_alphas"][:alpha_range].astype(np.int64)
+
+    if reduction_type in ("deim_pod", "deim_pod_vectorized"):
+        Pt = data["Pt"][:alpha_range].astype(np.int64)
+    else:
+        # block form: all row_dim rows of each selected element, interleaved
+        Pt = (alphas[:, None] * row_dim
+              + np.arange(row_dim)[None, :]).reshape(-1)
+
+    ST = g.assembly_scipy(n_verts)                     # (N, e*p)
+    proj = np.stack([ST @ Vj[:, :, d] for d in range(3)], axis=2)  # (N, m', 3)
+    PtV = Vj[Pt]                                       # (n_pt, m', 3)
+    AtA = np.einsum("nai,ami->nmi", PtV.swapaxes(0, 1), PtV)
+    la = (1e-8 * np.trace(AtA) / AtA.shape[0]) if tikhonov else np.zeros(3)
+    # a dim whose projections are all ~zero (a perfectly flat cloth) has
+    # trace ~0: floor the regularizer with the healthiest dim's scale
+    la = la + 1e-12 * (np.max(np.trace(AtA)) / AtA.shape[0] + 1e-30)
+
+    W = []
+    for d in range(3):
+        A_d = AtA[:, :, d] + la[d] * np.eye(AtA.shape[0])
+        inv_pt = np.linalg.solve(A_d, PtV[:, :, d].T)   # (m', n_pt)
+        base = proj[:, :, d] @ inv_pt                   # (N, n_pt)
+        if U is not None:
+            base = U[:, :, d].T @ base                  # (r, n_pt)
+        W.append(base)
+    W = np.stack(W, axis=0)
+
+    subset = _subset_group_data(g, alphas)
+    if reduction_type in ("deim_pod", "deim_pod_vectorized"):
+        # evaluate one row (Pt % p) of each selected element's projection
+        m = len(alphas)
+        row_select = np.arange(m) * g.p + (Pt % g.p)
+    else:
+        row_select = None
+    return ReducedGroup(g.name, W, subset, row_select, g.p, len(alphas)), \
+        alphas, Pt
+
+
+class AnimSnapBasesSolver:
+    """Reduced solver built from sim args, serving on the port's kernels.
+
+    ``device`` defaults to ``"cuda"`` and raises without a card; tests pass
+    ``device="cpu"`` (plain versions, float64 by default).  ``dtype`` is the
+    working dtype (float32 on the card, float64 on the CPU by default);
+    ``matmul_dtype`` the storage dtype of the two (3, r, N) matrices."""
+
+    def __init__(self, args, device=None, dtype=None, matmul_dtype=None):
+        self.args = args
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device, dtype)
+        self.matmul_dtype = storage_dtype(self.dtype, matmul_dtype)
+        self.model = None
+        self.dirty = True
+        self.dt = None
+        self.eta = 1.0
+        self.frame = 0
+        self.enable_self_collision = False
+
+        self.reduced_position = getattr(args, "position_reduced", False)
+        self.num_pos_modes = getattr(args, "position_num_components", -1)
+        self.position_basis_file = getattr(args, "position_basis_file", "")
+        self.U = None                                  # (N, r, 3)
+
+        self.constraint_projection_reduction_type = (
+            args.constraint_projection_basis_type)
+        self.reduced_flags = {
+            name: getattr(args, flag)
+            for name, (flag, _) in GROUP_ARG_NAMES.items()}
+        self.num_components = {
+            name: getattr(args, num)
+            for name, (_, num) in GROUP_ARG_NAMES.items()}
+        self.has_reduced_constraint_projections = any(
+            self.reduced_flags.values())
+        self.constraint_projection_ready = False
+        self._reduced_groups: dict[str, ReducedGroup] = {}
+        self._resident = None        # ResidentOperands once prepared
+        self._unsupported = "prepare() has not run"
+        self._ut_st_cache = None
+
+    # ------------------------------------------------------------------
+    def set_model(self, model):
+        self.model = model
+        self.constraint_projection_ready = False
+        self._reduced_groups = {}
+        self._resident = None
+        self.set_dirty()
+
+    def set_dirty(self):
+        self.dirty = True
+        self._ut_st_cache = None
+
+    def set_clean(self):
+        self.dirty = False
+
+    def ready(self):
+        return not self.dirty
+
+    # ------------------------------------------------------------------
+    # prepare
+    # ------------------------------------------------------------------
+
+    def _load_position_basis(self):
+        comps = np.load(self.position_basis_file)
+        if hasattr(comps, "files"):
+            comps = comps["components"]
+        r = self.num_pos_modes if self.num_pos_modes > 0 else comps.shape[0]
+        self.U = comps[:r].transpose(1, 0, 2)           # (N, r, 3)
+
+    def prepare_global_matrix(self, args):
+        """Displacement form: solve ``Ar u = c - A_c sn`` with
+        ``q = sn + U u``; the pinned-mass rhs terms cancel analytically,
+        which keeps the reduced rhs at elastic scale (essential in
+        float32).  ``inv(Ar)`` is precomputed per dim in float64."""
+        self.dt = args.dt
+        # velocity damping: the predictor uses s_n = q + dt*eta*v + dt^2
+        # M^-1 f with eta = 1 - damping; stored velocities stay (q'-q)/dt
+        self.eta = 1.0 - float(getattr(args, "damping", 0.0) or 0.0)
+        A = build_global_matrix(self.model, self.dt)
+        if not self.reduced_position:
+            return
+        self._load_position_basis()
+        invs, ut_ac = [], []
+        dt2_inv = 1.0 / (self.dt * self.dt)
+        for d in range(3):
+            A_d = A[d::3, d::3]
+            Ud = self.U[:, :, d]
+            Ar = Ud.T @ (A_d @ Ud)
+            invs.append(np.linalg.inv(Ar))
+            Ac_d = (A_d - scipy.sparse.diags(
+                self.model.mass * dt2_inv)).tocsr()
+            ut_ac.append(np.asarray((Ac_d.T @ Ud).T))   # (r, N) dense
+        self._inv_np = np.stack(invs)                   # (3, r, r)
+        self._ut_ac_np = np.stack(
+            [np.asarray(m) for m in ut_ac])             # (3, r, N)
+
+    def prepare_local_term(self, args):
+        rtype = self.constraint_projection_reduction_type
+        if rtype not in ("deim_pod", "deim_pod_vectorized", "deim_pca_blocks",
+                         "geom_pca_blocks_withSt"):
+            raise ValueError(
+                "Unknown reduction type for constraint projections")
+        base_dir = args.geom_interpolation_basis_dir
+        fname = args.geom_interpolation_basis_file
+        for name, g in self.model.groups.items():
+            if name == "positional" or not self.reduced_flags.get(name):
+                continue
+            npz_path = os.path.join(base_dir, name, fname)
+            rg, _, _ = prepare_reduced_group(
+                g, rtype, self.num_components[name], npz_path,
+                self.model.n_verts, U=self.U,
+                oversample=getattr(args, "deim_oversample", 1.0))
+            self._reduced_groups[name] = rg
+
+    def prepare(self, args):
+        if self.dirty:
+            self.prepare_global_matrix(args)
+        if (self.has_reduced_constraint_projections
+                and not self.constraint_projection_ready):
+            self.prepare_local_term(args)
+            self.constraint_projection_ready = True
+        self._build_step()
+        self.set_clean()
+
+    # ------------------------------------------------------------------
+    # step construction
+    # ------------------------------------------------------------------
+
+    def _ut_st_np(self):
+        """U^T S^T per dim (3, r, e_pos) for the positional group, or None
+        without one (cached until set_dirty)."""
+        if self._ut_st_cache is not None:
+            return self._ut_st_cache
+        pos_group = self.model.groups.get("positional")
+        if pos_group is None:
+            return None
+        ST = pos_group.assembly_scipy(self.model.n_verts)
+        self._ut_st_cache = np.stack(
+            [self.U[:, :, d].T @ ST.toarray() for d in range(3)])
+        return self._ut_st_cache
+
+    def _remapped_subsets(self):
+        """Union of vertices the reduced kernels touch + subset data with
+        vertex indices remapped into the compact union ordering."""
+        union = []
+        for rg in self._reduced_groups.values():
+            for key in _VERTEX_KEYS[rg.name]:
+                union.append(np.asarray(rg.subset_data[key]).reshape(-1))
+        union = np.unique(np.concatenate(union)) if union else np.empty(
+            0, np.int64)
+        lookup = np.zeros(self.model.n_verts, dtype=np.int64)
+        lookup[union] = np.arange(len(union))
+        remapped = {}
+        for name, rg in self._reduced_groups.items():
+            sub = dict(rg.subset_data)
+            for key in _VERTEX_KEYS[name]:
+                sub[key] = lookup[np.asarray(sub[key])]
+            remapped[name] = sub
+        return union, remapped
+
+    def _unsupported_reason(self):
+        """Why this configuration cannot serve on the port yet, or None."""
+        if not self.reduced_position:
+            return ("solves without position reduction (ROADMAP Queue A "
+                    "item 7)")
+        full = [n for n in self.model.groups
+                if n != "positional" and n not in self._reduced_groups]
+        if full:
+            return (f"groups {full} are not hyper-reduced: only the "
+                    "fully-reduced path is ported (ROADMAP Queue A item 4)")
+        if not self._reduced_groups:
+            return "no hyper-reduced group (ROADMAP Queue A item 4)"
+        for name, rg in self._reduced_groups.items():
+            if name not in PORTED_KINDS:
+                return (f"group kind {name} is not ported yet (ROADMAP "
+                        "Queue A item 9)")
+            if rg.row_select is None:
+                return (f"block-form {name} is not ported yet (ROADMAP "
+                        "Queue A item 9)")
+        return None
+
+    def _build_step(self):
+        self._resident = None
+        self._unsupported = self._unsupported_reason()
+        if self._unsupported is not None:
+            return
+        model = self.model
+        union, remapped = self._remapped_subsets()
+        ident = np.arange(len(union))
+        packed = []
+        for name, rg in self._reduced_groups.items():
+            sub = remapped[name]
+            if name == "tris_strain":
+                packed.append(pack_tris_strain(sub, ident, rg.W,
+                                               rg.row_select, np.float64))
+            else:
+                packed.append(pack_edge_spring(sub, ident, rg.W, np.float64))
+        U_selT = np.ascontiguousarray(
+            self.U[union].transpose(2, 1, 0)).astype(np.float64)
+        ops = prepare_fused_operands(packed, U_selT, self._inv_np)
+        n = model.n_verts
+        perm = np.concatenate([union, np.setdiff1d(np.arange(n), union)])
+        iperm = np.argsort(perm)
+        fused = fused_operands(ops, self.device, self.dtype)
+        self._resident = resident_operands(
+            fused,
+            U_liftT=self.U[perm].transpose(2, 1, 0),       # (3, r, N)
+            ut_acT=self._ut_ac_np[:, :, perm],
+            mass_inv=1.0 / model.mass[perm],
+            perm=perm, iperm=iperm, n_sel=len(union), dt=self.dt,
+            eta=self.eta, floor=model.floor_collision,
+            floor_h=model.floor_height, matmul_dtype=self.matmul_dtype)
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+
+    def _require(self):
+        if self.dirty:
+            raise RuntimeError("call prepare() first")
+        if self._unsupported is not None:
+            raise NotImplementedError(self._unsupported)
+        if self.enable_self_collision:
+            raise NotImplementedError(
+                "self-collision is not ported yet (ROADMAP Queue A item 12)")
+
+    def _to_device(self, x):
+        """(N, 3) host array -> permuted (3, N) tensor on the device."""
+        perm = self._resident.perm
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(x)[perm].T),
+                               dtype=self.dtype, device=self.device)
+
+    def _to_host(self, x):
+        """Permuted (3, N) tensor -> (N, 3) float64 host array."""
+        return x.detach().cpu().numpy().astype(float).T[self._resident.iperm]
+
+    def _rb_extra(self):
+        """The positional-target term U^T S^T targets (3, r) of the current
+        frame (zero without a positional group)."""
+        r = self.U.shape[1]
+        uts = self._ut_st_np()
+        if uts is None:
+            rb = np.zeros((3, r))
+        else:
+            targets = np.asarray(self.model.positional_targets(self.frame))
+            rb = np.einsum("dre,ed->dr", uts, targets)
+        return torch.as_tensor(rb, dtype=self.dtype, device=self.device)
+
+    def _animated(self) -> bool:
+        for c in getattr(self.model, "_positional", []):
+            if (c["motion_type"] == "user_defined"
+                    and c["frame_shift"] is not None
+                    and len(c["frame_shift"]) > self.frame):
+                return True
+        return False
+
+    def step(self, fext, num_iterations=10):
+        """One step; the iteration loop runs on kernel 1."""
+        self._require()
+        model = self.model
+        if model.floor_collision:
+            # the step clamps the predictor on the device; mirror the
+            # positions_corrections bookkeeping of the host path
+            a = np.asarray(fext, dtype=float) / model.mass[:, None]
+            sn_raw = (model.positions + self.dt * self.eta * model.velocities
+                      + self.dt * self.dt * a)
+            _, corr = collisions.resolve_floor_collision(
+                sn_raw, model.floor_height)
+            model.positions_corrections = corr
+        ro = self._resident
+        P = self._to_device(model.positions)
+        V = self._to_device(model.velocities)
+        fa = force_term(ro, self._to_device(fext))
+        q, v = step_once(ro, P, V, fa, self._rb_extra(), num_iterations,
+                         iterate=fused_reduced_iterations)
+        model.positions = self._to_host(q)
+        model.velocities = self._to_host(v)
+        self.frame += 1
+
+    def run_steps(self, fext, num_steps, num_iterations=10, record=False):
+        """Advance ``num_steps`` steps in one call of kernel 2 (static
+        targets): the state crosses to the device once at entry and back
+        once at exit."""
+        self._require()
+        if record:
+            raise NotImplementedError(
+                "run_steps(record=True) is not ported yet (ROADMAP Queue A "
+                "item 5)")
+        if self._animated():
+            raise NotImplementedError(
+                "animated positional targets are not ported yet (ROADMAP "
+                "Queue A item 10)")
+        model = self.model
+        P, V = resident_multistep(
+            self._resident, self._to_device(model.positions),
+            self._to_device(model.velocities), self._to_device(fext),
+            self._rb_extra(), num_steps, num_iterations)
+        model.positions = self._to_host(P)
+        model.velocities = self._to_host(V)
+        self.frame += num_steps

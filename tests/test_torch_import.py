@@ -1,0 +1,123 @@
+"""The PyTorch port stands alone: importing it (every module) and
+``chip_smoke`` pulls in neither JAX nor any module of the JAX package, and
+its entry points refuse to run without a card unless the CPU is asked
+for."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from animsnapbases_tpu_torch.config.sim_config import default_sim_args
+from animsnapbases_tpu_torch.device import (
+    resolve_device,
+    storage_dtype,
+    working_dtype,
+)
+from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import json, pkgutil, importlib, sys
+import animsnapbases_tpu_torch, chip_smoke
+names = [m.name for m in pkgutil.walk_packages(
+    animsnapbases_tpu_torch.__path__, "animsnapbases_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter (this one has JAX loaded by conftest)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    res = json.loads(out.strip().splitlines()[-1])
+    loaded = res["loaded"]
+    assert "animsnapbases_tpu_torch.sim.reduced" in res["modules"]
+    assert "animsnapbases_tpu_torch.ops.resident" in loaded
+    assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
+    assert not [m for m in loaded if m == "animsnapbases_tpu"
+                or m.startswith("animsnapbases_tpu.")]
+
+
+def test_default_device_needs_a_card():
+    """No ``device`` means the card: without one the solver raises rather
+    than carry on on the CPU."""
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AnimSnapBasesSolver(default_sim_args())
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+
+
+def test_cpu_policy():
+    dev = resolve_device("cpu")
+    assert dev.type == "cpu"
+    assert working_dtype(dev) == torch.float64
+    assert working_dtype(torch.device("cuda")) == torch.float32
+    with pytest.raises(ValueError):
+        working_dtype(torch.device("cuda"), torch.float64)
+    assert storage_dtype(torch.float32, torch.bfloat16) == torch.bfloat16
+    assert storage_dtype(torch.float64) == torch.float64
+    with pytest.raises(ValueError):
+        storage_dtype(torch.float64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        storage_dtype(torch.float32, torch.float64)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """``chip_smoke.py`` run without a card, and from a directory that holds
+    it and nothing else of the repository, exits non-zero and prints no
+    result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke would run for real")
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    (alone / "chip_smoke.py").write_text(src)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd in (REPO, str(alone)):
+        res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
+
+
+def test_cpu_path_counts_no_launch(tmp_path):
+    """The launch counters are plain integers on the wrappers and count
+    kernel launches only: the CPU path (the plain versions) leaves them."""
+    import numpy as np
+
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+    )
+    from animsnapbases_tpu_torch.ops.resident import resident_multistep
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+    from test_torch_fused_reduced import gravity, small_model
+
+    s = synthetic_reduced_solver(small_model(DeformableModel), device="cpu",
+                                 work_dir=str(tmp_path))
+    before = (fused_reduced_iterations.launches, resident_multistep.launches)
+    assert all(isinstance(n, int) for n in before)
+    f = gravity(s.model)
+    s.step(f, num_iterations=3)
+    s.run_steps(f, 2, num_iterations=3)
+    assert s.frame == 3 and np.isfinite(s.model.positions).all()
+    assert (fused_reduced_iterations.launches,
+            resident_multistep.launches) == before

@@ -1,0 +1,173 @@
+"""The port's serving path as a whole (``AnimSnapBasesSolver``: prepare ->
+step / run_steps) against the JAX package's solver on the same bases
+``.npz``, float64 on the CPU.
+
+Three cases of one parametrised test: the JAX package's synthetic bases
+(``utils/synthetic.py``) as they are, the same constraint bases with a
+position basis that spares the pinned vertices, and real POD/DEIM bases
+recorded by the JAX package's full-order solver
+(``tests/reduction_helpers.record_and_build_bases``).  The JAX reference is
+its ``pallas_mode="off"`` step loop; the tolerances are the ones the JAX
+package holds its own resident kernels to against that loop
+(``tests/test_damping.py``).  Measured max differences after 8 steps at 6
+iterations, the same for step() and run_steps: synthetic |dP| 3.6e-15,
+|dV| 5.6e-14 (|V| ~1); free basis |dP| 2.5e-14, |dV| 3.3e-13 (|V| ~15);
+POD |dP| 4.4e-10, |dV| 9.0e-9 (|V| ~1; the JAX loop projects with the
+Jacobi ``svd2x2``, the port with the closed-form clamp).
+"""
+
+import numpy as np
+import pytest
+
+from animsnapbases_tpu.geometry.procedural import cloth_model as jax_cloth
+from animsnapbases_tpu.sim.model import DeformableModel as JaxModel
+from animsnapbases_tpu_torch.sim.model import DeformableModel
+from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+from test_torch_fused_reduced import (
+    DAMPING,
+    gravity,
+    jax_solver,
+    port_solver,
+    small_model,
+)
+
+STEPS = 8
+ITERS = 6
+
+
+def _pod_args(tmp_path):
+    """Real bases: a JAX full-order recording of the small scene, then
+    pod_vectorized + row DEIM (6 modes and rows) and an 8-mode position
+    POD."""
+    from reduction_helpers import record_and_build_bases
+    from test_sim_solver import sim_args
+
+    basis_dir, pos_path, _ = record_and_build_bases(
+        tmp_path, lambda: small_model(JaxModel, jax_cloth), sim_args(),
+        frames=16, iters=ITERS, num_modes=6, pos_modes=8)
+    return sim_args(
+        constraint_projection_basis_type="deim_pod_vectorized",
+        tri_strain_reduced=True, tri_strain_num_components=6,
+        edge_spring_reduced=True, edge_spring_num_components=6,
+        geom_interpolation_basis_dir=basis_dir,
+        geom_interpolation_basis_file="basis.npz",
+        position_reduced=True, position_num_components=8,
+        position_basis_file=pos_path, damping=DAMPING)
+
+
+def _jax_pair(tmp_path, bases):
+    """(JAX solver in "off" mode, its model, JAX solver in "interpret" mode
+    for the resident state) on one set of bases."""
+    from animsnapbases_tpu.sim.reduced import AnimSnapBasesSolver as JaxSolver
+
+    if bases == "pod":
+        args = _pod_args(tmp_path)
+    else:
+        s, _ = jax_solver(tmp_path, "off", free_basis=(bases == "free"))
+        args = s.args
+    out = []
+    for mode in ("off", "interpret"):
+        model = small_model(JaxModel, jax_cloth)
+        s = JaxSolver(args, pallas_mode=mode)
+        s.set_model(model)
+        s.prepare(args)
+        out += [s, model]
+    return args, out[0], out[1], out[2]
+
+
+@pytest.mark.parametrize("bases", ["synthetic", "free", "pod"])
+def test_serving_path_matches_jax(tmp_path, bases):
+    args, s_jax, m_jax, s_res = _jax_pair(tmp_path, bases)
+    s_port, m_port = port_solver(args)
+
+    # prepare: the same host matrices, DEIM rows and permutation
+    np.testing.assert_allclose(s_port._inv_np, s_jax._inv_np, rtol=1e-12,
+                               atol=0)
+    np.testing.assert_allclose(s_port._ut_ac_np, s_jax._ut_ac_np,
+                               rtol=1e-12, atol=1e-12 * np.abs(
+                                   s_jax._ut_ac_np).max())
+    for name, rg in s_jax._reduced_groups.items():
+        mine = s_port._reduced_groups[name]
+        np.testing.assert_allclose(mine.W, rg.W, rtol=1e-12,
+                                   atol=1e-12 * np.abs(rg.W).max())
+        np.testing.assert_array_equal(mine.row_select, rg.row_select)
+    np.testing.assert_array_equal(s_port._resident.perm,
+                                  s_res._resident_state["perm"])
+
+    # step() loop and run_steps against the JAX per-step loop
+    f = gravity(m_jax)
+    for _ in range(STEPS):
+        s_jax.step(f, num_iterations=ITERS)
+        s_port.step(f, num_iterations=ITERS)
+    m_run = small_model(DeformableModel)
+    s_run = AnimSnapBasesSolver(args, device="cpu")
+    s_run.set_model(m_run)
+    s_run.prepare(args)
+    s_run.run_steps(f, STEPS, num_iterations=ITERS)
+
+    assert np.abs(m_jax.velocities).max() > 0.5       # the cloth moved
+    assert s_port.frame == s_run.frame == STEPS
+    for m in (m_port, m_run):
+        np.testing.assert_allclose(m.positions, m_jax.positions, atol=1e-6)
+        np.testing.assert_allclose(m.velocities, m_jax.velocities,
+                                   atol=1e-4)
+    np.testing.assert_allclose(m_port.positions_corrections,
+                               m_jax.positions_corrections, atol=1e-9)
+
+
+def test_unported_configurations_raise(tmp_path):
+    """What this slice does not port raises NotImplementedError from
+    step/run_steps instead of running something else."""
+    s_jax, _ = jax_solver(tmp_path, "off")
+    s, m = port_solver(s_jax.args)
+    f = gravity(m)
+    with pytest.raises(NotImplementedError, match="record"):
+        s.run_steps(f, 2, record=True)
+    s.enable_self_collision = True
+    with pytest.raises(NotImplementedError, match="self-collision"):
+        s.run_steps(f, 2)
+    s.enable_self_collision = False
+    m.add_positional_constraint(5, frame_shift=np.zeros((10, 3)),
+                                motion_type="user_defined")
+    s.set_dirty()
+    s.prepare(s_jax.args)
+    with pytest.raises(NotImplementedError, match="animated"):
+        s.run_steps(f, 2)
+
+    args = s_jax.args
+    args.edge_spring_reduced = False           # a full (unreduced) group
+    s2 = AnimSnapBasesSolver(args, device="cpu")
+    s2.set_model(small_model(DeformableModel))
+    s2.prepare(args)
+    with pytest.raises(NotImplementedError, match="not hyper-reduced"):
+        s2.step(f)
+
+
+def test_static_positional_targets_match_jax(tmp_path):
+    """A static positional group enters as rb_extra = U^T S^T targets in
+    both step() and run_steps, as in the JAX solver."""
+    from animsnapbases_tpu.sim.reduced import AnimSnapBasesSolver as JaxSolver
+
+    s_tmp, _ = jax_solver(tmp_path, "off")
+    args = s_tmp.args
+    models = [small_model(JaxModel, jax_cloth), small_model(DeformableModel),
+              small_model(DeformableModel)]
+    for m in models:
+        m.add_positional_constraint(99, wi=1e4)
+    s_jax = JaxSolver(args, pallas_mode="off")
+    s_jax.set_model(models[0])
+    s_jax.prepare(args)
+    solvers = []
+    for m in models[1:]:
+        s = AnimSnapBasesSolver(args, device="cpu")
+        s.set_model(m)
+        s.prepare(args)
+        solvers.append(s)
+    f = gravity(models[0])
+    for _ in range(4):
+        s_jax.step(f, num_iterations=ITERS)
+        solvers[0].step(f, num_iterations=ITERS)
+    solvers[1].run_steps(f, 4, num_iterations=ITERS)
+    for m in models[1:]:
+        np.testing.assert_allclose(m.positions, models[0].positions,
+                                   atol=1e-6)
