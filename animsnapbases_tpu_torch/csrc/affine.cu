@@ -1,0 +1,449 @@
+// Kernels 3 and 4: the affine-coordinate resident loops.
+//
+// Replaces: animsnapbases_tpu/ops/pallas_resident.py
+//   build_resident_affine, contact_mode=False (:558-977, pallas_call :948),
+//   the lean build: kernel 3 (mode LEAN, or LEAN_NO_FLOOR);
+//   build_resident_affine_exit (:980-1142, pallas_call :1122): kernel 4
+//   (mode EXIT).
+// Both carry the state as base coefficients over the anchors b0, b1 and
+// the force term fa, plus reduced coordinates (ops/affine.py, affine.cuh).
+// Each step i of num_steps:
+//   rebase when i > 0 and i % rebase_every == 0: materialize P and V, make
+//     them the anchors, reset the coefficients, mark the projections stale;
+//   the exact floor test on the y row of the predictor (floor on);
+//   a free step in affine coordinates: bu0/bu1 = U^T A_c of the anchors
+//     (when stale), rb_const from bu* and M_utac, snT_sel from the anchors'
+//     selected prefix and U_selT, the iteration loop, the coefficient update;
+//   on a clamped step, kernel 4 stops (that step is not applied; the call
+//     reports the steps done) and kernel 3 runs the re-anchoring contact
+//     tail: the standard step on the materialized predictor, whose result
+//     becomes the new anchors.
+// At the end, P and V are materialized into the anchor buffers.
+//
+// What bounds it on this card: a free step reads the (r, N) y slice of the
+// lift for the floor test (1.8 MB in bfloat16 at the bench scene) and a few
+// r x r and r x n_sel operands, ~0.6 us at the HBM rate; its iteration loop
+// is kernel 1's single-block latency chain, which sets the time.  A contact
+// step costs what a step of kernel 2 costs.
+//
+// What the design does about it: as kernel 2 does, one C loop in this file
+// enqueues every step's launches on the caller's stream, and nothing
+// returns to the host between steps.  Which branch a step takes is known
+// only on the device, so each launch reads a device-resident flag block
+// (stale projections, done, steps done, and one "clamped" slot per step)
+// and returns at once when its branch is not taken: 6 launches per step
+// for kernel 3 with the floor on, 3 for kernel 4, 2 more on rebase steps.
+// (A cooperative launch with grid.sync() would need every block resident
+// at once and hangs the card if one is not; the per-launch flags need
+// neither and reuse what kernel 2 proved.)  O(N) work (the floor test,
+// projections, materializations) runs on grids of 128-vertex tiles; the
+// step's serial part runs in one block (iteration.cuh).  Projections
+// through U^T A_c accumulate in float64, in per-tile partials summed in a
+// fixed order (no atomics), as in kernel 2.
+#include "affine.cuh"
+
+namespace ksm {
+
+constexpr int TILE = 128;
+constexpr int THREADS = 256;
+enum : int { LEAN_NO_FLOOR = 0, EXIT = 1, LEAN = 2 };
+enum : int { F_STALE = 0, F_DONE = 1, F_K = 2, F_CLAMPED = 3 };
+// which launches a projection serves
+enum : int { PROJ_ALWAYS = 0, PROJ_REFRESH = 1 };
+
+extern __shared__ __align__(16) unsigned char affine_smem[];
+
+template <typename T, typename M>
+struct Affine {
+  T* b0;  // (3, N) anchors, then the outputs
+  T* b1;
+  const T* fa;
+  const T* rbex;   // (3, r)
+  const M* ulift;  // (3, r, N)
+  const M* utac;   // (3, r, N)
+  const T* mutac;  // (3, r, r)
+  const T* uselT;  // (3, r, n_sel)
+  T* coef;         // ap (9), av (9), wp (3r), wv (3r)
+  T* bu;           // bu0, bu1, bu_fa (3r each)
+  T* sn;           // (3, N) contact tail: the clamped predictor
+  T* Pm;           // (3, N) contact tail: the materialized P
+  T* u;            // (3r)
+  double* partial; // (nblk, 2, 3r)
+  int* flags;      // F_* slots, then one clamped slot per step
+  int N, r, n_sel, nblk;
+  T dt, eta, floor_h;
+
+  __device__ T* ap() const { return coef; }
+  __device__ T* av() const { return coef + 9; }
+  __device__ T* wp() const { return coef + 18; }
+  __device__ T* wv() const { return coef + 18 + 3 * r; }
+};
+
+// Per-tile float64 partials of U^T A_c x0 (and x1), x rounded to the
+// storage type first.  `which` gates the launch on the flags of step i.
+template <typename T, typename M>
+__global__ void project_partials(Affine<T, M> a, const T* x0, const T* x1,
+                                 int which, int step) {
+  const int* fl = a.flags;
+  if (which == PROJ_REFRESH &&
+      (fl[F_DONE] || !fl[F_STALE] || fl[F_CLAMPED + step]))
+    return;
+  __shared__ T xs[2][3][TILE];
+  const int N = a.N, r = a.r;
+  const int n0 = blockIdx.x * TILE;
+  const int len = min(TILE, N - n0);
+  const int nx = x1 ? 2 : 1;
+  for (int i = threadIdx.x; i < nx * 3 * TILE; i += blockDim.x) {
+    const int s = i / (3 * TILE), rem = i - s * 3 * TILE;
+    const int d = rem / TILE, t = rem - d * TILE;
+    const T* x = s ? x1 : x0;
+    xs[s][d][t] = t < len ? Round<M, T>::apply(x[(size_t)d * N + n0 + t])
+                          : T(0);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int o = warp; o < nx * 3 * r; o += nw) {
+    const int s = o / (3 * r), q = o - s * 3 * r, d = q / r;
+    const M* row = a.utac + (size_t)q * N + n0;
+    double acc = 0.0;
+    for (int t = lane; t < len; t += 32)
+      acc += (double)widen(row[t]) * (double)xs[s][d][t];
+    acc = warp_sum(acc);
+    if (lane == 0) a.partial[((size_t)blockIdx.x * 2 + s) * 3 * r + q] = acc;
+  }
+}
+
+// out[i] = (T) sum over tiles of partial slot s, in tile order
+template <typename T, typename M>
+__device__ void sum_partials(const Affine<T, M>& a, int s, T* out) {
+  const int n = 3 * a.r;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    double acc = 0.0;
+    for (int b = 0; b < a.nblk; ++b)
+      acc += a.partial[((size_t)b * 2 + s) * n + i];
+    out[i] = (T)acc;
+  }
+}
+
+// Start of a call: bu_fa = U^T A_c fa (once per call), unit coefficients
+// over the entry state, stale projections.
+template <typename T, typename M>
+__global__ void init_call(Affine<T, M> a) {
+  sum_partials(a, 0, a.bu + 6 * a.r);
+  affine_reset(a.ap(), a.av(), a.wp(), a.wv(), a.r);
+  if (threadIdx.x == 0) a.flags[F_STALE] = 1;
+}
+
+// The exact floor test of step i on the y row of the predictor, one vertex
+// per thread.
+template <typename T, typename M>
+__global__ void y_check(Affine<T, M> a, int step) {
+  if (a.flags[F_DONE]) return;
+  const int N = a.N, r = a.r;
+  T* asn = reinterpret_cast<T*>(affine_smem);  // 9
+  T* avd = asn + 9;                             // 9
+  T* wsn = avd + 9;                             // 3r
+  affine_predictor(a.ap(), a.av(), a.wp(), a.wv(), r, a.dt, a.eta, asn, avd,
+                   wsn);
+  __syncthreads();
+  for (int k = threadIdx.x; k < r; k += blockDim.x)
+    wsn[r + k] = Round<M, T>::apply(wsn[r + k]);
+  __syncthreads();
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  int hit = 0;
+  if (v < N) {
+    const T y = affine_row(asn + 3, wsn + r, a.b0[N + v], a.b1[N + v],
+                           a.fa[N + v], a.ulift + (size_t)r * N, N, r, v);
+    hit = y < a.floor_h;
+  }
+  if (__syncthreads_or(hit) && threadIdx.x == 0)
+    atomicOr(a.flags + F_CLAMPED + step, 1);
+}
+
+// The free step of step i, one block: skipped when the step clamped (kernel
+// 4 then stops for good).
+template <typename T, typename M>
+__global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
+                          int num_iterations) {
+  int* fl = a.flags;
+  if (fl[F_DONE]) return;
+  if (fl[F_CLAMPED + step]) {
+    if (mode == EXIT && threadIdx.x == 0) fl[F_DONE] = 1;
+    return;
+  }
+  const int r = op.r, g = op.g, m = op.m, n_sel = a.n_sel, N = a.N;
+  T* rbc = reinterpret_cast<T*>(affine_smem);
+  T* rb = rbc + 3 * r;
+  T* vc = rb + 3 * r;
+  T* vall = vc + 3 * g;
+  T* pt = vall + 3 * g;
+  T* asn = pt + 3 * m;       // 9
+  T* avd = asn + 9;          // 9
+  T* wsn = avd + 9;          // 3r
+  T* u = wsn + 3 * r;        // 3r
+  T* snsel = u + 3 * r;      // 3 n_sel
+  T* bu0 = a.bu;
+  T* bu1 = a.bu + 3 * r;
+  const bool stale = fl[F_STALE];
+  __syncthreads();
+  if (stale) {
+    sum_partials(a, 0, bu0);
+    sum_partials(a, 1, bu1);
+  }
+  affine_predictor(a.ap(), a.av(), a.wp(), a.wv(), r, a.dt, a.eta, asn, avd,
+                   wsn);
+  __syncthreads();
+  if (stale && threadIdx.x == 0) fl[F_STALE] = 0;
+  affine_rb_const(asn, wsn, bu0, bu1, a.bu + 6 * r, a.mutac, a.rbex, r, rbc);
+  affine_combine(asn, wsn, a.b0, a.b1, a.fa, N, a.uselT, r, n_sel, snsel);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
+    const int d = i / g, c = i - d * g;
+    vc[i] = snsel[d * n_sel + op.gidx[c]];
+  }
+  __syncthreads();
+  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
+  solve_block(op, rb, u);
+  __syncthreads();
+  affine_update(a.ap(), a.av(), a.wp(), a.wv(), asn, avd, wsn, u, r, a.dt);
+  if (mode == EXIT && threadIdx.x == 0) fl[F_K] += 1;
+}
+
+// Contact tail (kernel 3), part 1, on 128-vertex tiles: Pm = the
+// materialized P, sn = the materialized predictor with the y row clamped,
+// and the per-tile partials of U^T A_c sn.
+template <typename T, typename M>
+__global__ void contact_predict(Affine<T, M> a, int step) {
+  if (!a.flags[F_CLAMPED + step]) return;
+  const int N = a.N, r = a.r;
+  T* asn = reinterpret_cast<T*>(affine_smem);  // 9
+  T* avd = asn + 9;                             // 9
+  T* wsn = avd + 9;                             // 3r, rounded below
+  T* wpr = wsn + 3 * r;                         // 3r, rounded
+  T* sns = wpr + 3 * r;                         // 3 x TILE, rounded
+  affine_predictor(a.ap(), a.av(), a.wp(), a.wv(), r, a.dt, a.eta, asn, avd,
+                   wsn);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
+    wsn[i] = Round<M, T>::apply(wsn[i]);
+    wpr[i] = Round<M, T>::apply(a.wp()[i]);
+  }
+  __syncthreads();
+  const int n0 = blockIdx.x * TILE;
+  const int len = min(TILE, N - n0);
+  const T* ap = a.ap();
+  for (int i = threadIdx.x; i < 3 * TILE; i += blockDim.x) {
+    const int d = i / TILE, t = i - d * TILE;
+    T s = T(0);
+    if (t < len) {
+      const int v = n0 + t;
+      const size_t x = (size_t)d * N + v;
+      const M* U = a.ulift + (size_t)d * r * N;
+      a.Pm[x] = affine_row(ap + 3 * d, wpr + d * r, a.b0[x], a.b1[x],
+                           a.fa[x], U, N, r, v);
+      s = affine_row(asn + 3 * d, wsn + d * r, a.b0[x], a.b1[x], a.fa[x],
+                     U, N, r, v);
+      if (d == 1 && s < a.floor_h) s = a.floor_h;
+      a.sn[x] = s;
+      s = Round<M, T>::apply(s);
+    }
+    sns[i] = s;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int o = warp; o < 3 * r; o += nw) {
+    const int d = o / r;
+    const M* row = a.utac + (size_t)o * N + n0;
+    double acc = 0.0;
+    for (int t = lane; t < len; t += 32)
+      acc += (double)widen(row[t]) * (double)sns[d * TILE + t];
+    acc = warp_sum(acc);
+    if (lane == 0) a.partial[(size_t)blockIdx.x * 2 * 3 * r + o] = acc;
+  }
+}
+
+// Contact tail, part 2, one block: rb_const from the partials, the loop on
+// the clamped predictor's selected columns, u; then unit coefficients over
+// the anchors the lift below writes, with stale projections.
+template <typename T, typename M>
+__global__ void contact_solve(Affine<T, M> a, Iter<T> op, int step,
+                              int num_iterations) {
+  if (!a.flags[F_CLAMPED + step]) return;
+  const int r = op.r, g = op.g, N = a.N;
+  T* rbc = reinterpret_cast<T*>(affine_smem);
+  T* rb = rbc + 3 * r;
+  T* vc = rb + 3 * r;
+  T* vall = vc + 3 * g;
+  T* pt = vall + 3 * g;
+  sum_partials(a, 0, rbc);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
+    rbc[i] = a.rbex[i] - rbc[i];
+  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
+    const int d = i / g, c = i - d * g;
+    vc[i] = a.sn[(size_t)d * N + op.gidx[c]];
+  }
+  __syncthreads();
+  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
+  solve_block(op, rb, a.u);
+  affine_reset(a.ap(), a.av(), a.wp(), a.wv(), r);
+  if (threadIdx.x == 0) a.flags[F_STALE] = 1;
+}
+
+// Contact tail, part 3, over the 3N entries: q = sn + U u; the new anchors
+// are b0 = q and b1 = (q - Pm)/dt.
+template <typename T, typename M>
+__global__ void contact_lift(Affine<T, M> a, int step) {
+  if (!a.flags[F_CLAMPED + step]) return;
+  const int N = a.N, r = a.r;
+  T* us = reinterpret_cast<T*>(affine_smem);
+  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
+    us[i] = Round<M, T>::apply(a.u[i]);
+  __syncthreads();
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)3 * N) return;
+  const int d = (int)(idx / N);
+  const int v = (int)(idx - (size_t)d * N);
+  const M* col = a.ulift + (size_t)d * r * N + v;
+  const T* ud = us + d * r;
+  T acc = T(0);
+  for (int k = 0; k < r; ++k) acc += ud[k] * widen(col[(size_t)k * N]);
+  const T q = a.sn[idx] + acc;
+  a.b1[idx] = (q - a.Pm[idx]) / a.dt;
+  a.b0[idx] = q;
+}
+
+// P and V materialized in place over the anchors (a rebase, or the
+// output).  With `skip_done` the launch is a no-op once kernel 4 stopped.
+template <typename T, typename M>
+__global__ void materialize(Affine<T, M> a, int skip_done) {
+  if (skip_done && a.flags[F_DONE]) return;
+  const int N = a.N, r = a.r;
+  T* c = reinterpret_cast<T*>(affine_smem);  // ap, av, round(wp), round(wv)
+  for (int i = threadIdx.x; i < 18 + 6 * r; i += blockDim.x)
+    c[i] = i < 18 ? a.coef[i] : Round<M, T>::apply(a.coef[i]);
+  __syncthreads();
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)3 * N) return;
+  const int d = (int)(idx / N);
+  const int v = (int)(idx - (size_t)d * N);
+  const M* U = a.ulift + (size_t)d * r * N;
+  const T b0 = a.b0[idx], b1 = a.b1[idx], fa = a.fa[idx];
+  const T P = affine_row(c + 3 * d, c + 18 + d * r, b0, b1, fa, U, N, r, v);
+  const T V = affine_row(c + 9 + 3 * d, c + 18 + 3 * r + d * r, b0, b1, fa,
+                         U, N, r, v);
+  a.b0[idx] = P;
+  a.b1[idx] = V;
+}
+
+// After a rebase's materialization: unit coefficients, stale projections.
+template <typename T, typename M>
+__global__ void rebase_reset(Affine<T, M> a) {
+  if (a.flags[F_DONE]) return;
+  affine_reset(a.ap(), a.av(), a.wp(), a.wv(), a.r);
+  if (threadIdx.x == 0) a.flags[F_STALE] = 1;
+}
+
+template <typename T, typename M>
+int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
+                  const void* ulift, const void* utac, const void* mutac,
+                  const void* uselT, const void* C, const void* inv,
+                  const void* WT, const void* gidx, const void* kind,
+                  const void* eg, const void* ef, void* coef, void* bu,
+                  void* sn, void* Pm, void* u, void* partial, void* flags,
+                  int N, int r, int n_sel, int g, int m, int num_steps,
+                  int num_iterations, int rebase_every, int mode, double dt,
+                  double eta, double floor_h, void* stream) {
+  const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
+  Affine<T, M> a;
+  a.b0 = static_cast<T*>(b0);
+  a.b1 = static_cast<T*>(b1);
+  a.fa = static_cast<const T*>(fa);
+  a.rbex = static_cast<const T*>(rbex);
+  a.ulift = static_cast<const M*>(ulift);
+  a.utac = static_cast<const M*>(utac);
+  a.mutac = static_cast<const T*>(mutac);
+  a.uselT = static_cast<const T*>(uselT);
+  a.coef = static_cast<T*>(coef);
+  a.bu = static_cast<T*>(bu);
+  a.sn = static_cast<T*>(sn);
+  a.Pm = static_cast<T*>(Pm);
+  a.u = static_cast<T*>(u);
+  a.partial = static_cast<double*>(partial);
+  a.flags = static_cast<int*>(flags);
+  a.N = N;
+  a.r = r;
+  a.n_sel = n_sel;
+  a.nblk = (N + TILE - 1) / TILE;
+  a.dt = (T)dt;
+  a.eta = (T)eta;
+  a.floor_h = (T)floor_h;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nblk = a.nblk;
+  const int grid3 = (3 * N + THREADS - 1) / THREADS;
+  const size_t smem_free =
+      sizeof(T) * (iter_smem_elems(r, g, m) + 18 + 6 * r + 3 * n_sel);
+  const size_t smem_solve = sizeof(T) * iter_smem_elems(r, g, m);
+  const size_t smem_pred = sizeof(T) * (18 + 6 * r + 3 * TILE);
+  const size_t smem_mat = sizeof(T) * (18 + 6 * r);
+  cudaError_t e = allow_smem(free_step<T, M>, smem_free);
+  if (e == cudaSuccess) e = allow_smem(contact_solve<T, M>, smem_solve);
+  if (e == cudaSuccess) e = allow_smem(contact_predict<T, M>, smem_pred);
+  if (e == cudaSuccess) e = allow_smem(materialize<T, M>, smem_mat);
+  if (e != cudaSuccess) return e;
+  project_partials<T, M><<<nblk, THREADS, 0, s>>>(
+      a, a.fa, nullptr, PROJ_ALWAYS, 0);
+  init_call<T, M><<<1, THREADS, 0, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const bool floor_test = mode != LEAN_NO_FLOOR;
+  const int grid1 = (N + THREADS - 1) / THREADS;
+  for (int i = 0; i < num_steps; ++i) {
+    if (i > 0 && i % rebase_every == 0) {
+      materialize<T, M><<<grid3, THREADS, smem_mat, s>>>(a, 1);
+      rebase_reset<T, M><<<1, THREADS, 0, s>>>(a);
+    }
+    if (floor_test)
+      y_check<T, M><<<grid1, THREADS, sizeof(T) * (18 + 3 * r), s>>>(a, i);
+    project_partials<T, M><<<nblk, THREADS, 0, s>>>(a, a.b0, a.b1,
+                                                    PROJ_REFRESH, i);
+    free_step<T, M><<<1, THREADS, smem_free, s>>>(a, op, i, mode,
+                                                 num_iterations);
+    if (mode == LEAN) {
+      contact_predict<T, M><<<nblk, THREADS, smem_pred, s>>>(a, i);
+      contact_solve<T, M><<<1, THREADS, smem_solve, s>>>(a, op, i,
+                                                        num_iterations);
+      contact_lift<T, M><<<grid3, THREADS, sizeof(T) * 3 * r, s>>>(a, i);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  materialize<T, M><<<grid3, THREADS, smem_mat, s>>>(a, 0);
+  return cudaGetLastError();
+}
+
+}  // namespace ksm
+
+#define AFFINE_ENTRY(NAME, T, M)                                             \
+  extern "C" int NAME(                                                       \
+      void* b0, void* b1, const void* fa, const void* rbex,                 \
+      const void* ulift, const void* utac, const void* mutac,                \
+      const void* uselT, const void* C, const void* inv, const void* WT,     \
+      const void* gidx, const void* kind, const void* eg, const void* ef,    \
+      void* coef, void* bu, void* sn, void* Pm, void* u, void* partial,      \
+      void* flags, int N, int r, int n_sel, int g, int m, int num_steps,     \
+      int num_iterations, int rebase_every, int mode, double dt, double eta, \
+      double floor_h, void* stream) {                                        \
+    return ksm::launch_affine<T, M>(                                         \
+        b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gidx, kind, \
+        eg, ef, coef, bu, sn, Pm, u, partial, flags, N, r, n_sel, g, m,      \
+        num_steps, num_iterations, rebase_every, mode, dt, eta, floor_h,     \
+        stream);                                                             \
+  }
+
+AFFINE_ENTRY(resident_affine_f32_f32, float, float)
+AFFINE_ENTRY(resident_affine_f32_bf16, float, __nv_bfloat16)
+
+extern "C" int affine_tile() { return ksm::TILE; }

@@ -42,6 +42,7 @@
 // not contract into an FMA, so sn is bit-for-bit what the plain version
 // (ops/resident.py) computes and the storage-type rounding of sn agrees.
 #include "iteration.cuh"
+#include "storage.cuh"
 
 namespace ksm {
 
@@ -49,38 +50,6 @@ constexpr int TILE = 128;
 constexpr int THREADS = 256;
 
 extern __shared__ __align__(16) unsigned char resident_smem[];
-
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-
-// storage type <-> state type
-template <typename T>
-__device__ __forceinline__ T widen(T x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename M, typename T>
-struct Round {
-  __device__ static T apply(T x) { return x; }
-};
-template <>
-struct Round<__nv_bfloat16, float> {
-  __device__ static float apply(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // (a) predictor, floor clamp and the per-tile partial of ut_acT . sn
 template <typename T, typename M>

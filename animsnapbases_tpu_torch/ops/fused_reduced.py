@@ -99,8 +99,8 @@ def prepare_fused_operands(groups: list[dict], U_selT: np.ndarray,
                            inv3: np.ndarray) -> dict:
     """Merged gather matrix, merged rhs matrix, inverse-folded lift and
     layout metadata, as the JAX package's ``prepare_fused_operands``
-    builds them.  ``C_allT = usel_inv G_allT`` is precomposed HERE in
-    float64 (inv(Ar) spans ~10 decades with 1e10 pinned masses), and the
+    builds them.  ``C_allT = usel_inv G_allT`` and ``UG_allT = U_selT
+    G_allT`` are precomposed HERE in float64 (inv(Ar) spans ~10 decades with 1e10 pinned masses), and the
     loop keeps the rb sum in r-space: folding ``usel_inv`` into ``WT``
     instead diverges numerically."""
     dtype = U_selT.dtype
@@ -129,6 +129,10 @@ def prepare_fused_operands(groups: list[dict], U_selT: np.ndarray,
          for d in range(3)])
     C_allT = np.stack([uselinv64[d] @ G_all64.T
                        for d in range(3)]).astype(dtype)
+    # U_selT G_allT, the map from reduced coordinates to gathered vertex
+    # values that the chunked affine kernel reads (ops/affine_chunked.py)
+    UG_allT = np.stack([np.asarray(U_selT[d], dtype=np.float64) @ G_all64.T
+                        for d in range(3)]).astype(dtype)
     return {
         "layout": layout,
         "gather_slices": gather_slices,
@@ -136,6 +140,7 @@ def prepare_fused_operands(groups: list[dict], U_selT: np.ndarray,
         "WT_all": WT_all,
         "G_allT": G_allT,
         "C_allT": C_allT,
+        "UG_allT": UG_allT,
         "inv3": inv64.astype(dtype),
     }
 
@@ -151,6 +156,7 @@ class FusedOperands:
     elem_g: torch.Tensor     # (3, m_total) int32 Vall column per vertex slot
     elem_f: torch.Tensor     # (ELEM_ROWS, m_total) rest data
     segments: tuple          # ((kind, first column, m, smin, smax), ...)
+    UG_allT: torch.Tensor    # (3, r, g_total) U_selT G_allT
 
     @property
     def r(self) -> int:
@@ -221,7 +227,8 @@ def fused_operands(ops: dict, device, dtype) -> FusedOperands:
         WT_all=t(np.asarray(ops["WT_all"], np.float64)),
         gidx=t(gidx, torch.int32), elem_kind=t(kind, torch.int32),
         elem_g=t(eg, torch.int32), elem_f=t(ef),
-        segments=tuple(segments))
+        segments=tuple(segments),
+        UG_allT=t(np.asarray(ops["UG_allT"], np.float64)))
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +294,7 @@ def _projection_rows(fo: FusedOperands, Vall):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def _rowvec_bmm(x, mats):
+def rowvec_bmm(x, mats):
     """Per dim d: x[d] (k,) @ mats[d] (k, n) -> (3, n)."""
     return torch.bmm(x[:, None, :], mats)[:, 0, :]
 
@@ -298,15 +305,15 @@ def iterate_plain(fo: FusedOperands, Vc, rb_const, num_iterations: int):
     Returns the last rb."""
     rb = torch.zeros_like(rb_const)
     for _ in range(num_iterations):
-        Vall = Vc + _rowvec_bmm(rb, fo.C_allT)
+        Vall = Vc + rowvec_bmm(rb, fo.C_allT)
         pT = _projection_rows(fo, Vall)
-        rb = rb_const + _rowvec_bmm(pT, fo.WT_all)
+        rb = rb_const + rowvec_bmm(pT, fo.WT_all)
     return rb
 
 
 def solve_plain(fo: FusedOperands, rb):
     """u = rb inv3 per dim (inv(Ar) is symmetric: row form)."""
-    return _rowvec_bmm(rb, fo.inv3)
+    return rowvec_bmm(rb, fo.inv3)
 
 
 def fused_reduced_iterations_plain(fo: FusedOperands, snT_sel, rb_const,

@@ -90,31 +90,41 @@ def force_term(ro: ResidentOperands, fext):
     return ro.dt * ro.dt * fext * ro.mass_inv
 
 
-def _storage_round(x, mm):
+def storage_round(x, mm):
     return x if x.dtype == mm else x.to(mm).to(x.dtype)
+
+
+def project(ro: ResidentOperands, X):
+    """``U^T A_c X`` (3, r) of a (3, N) state (NT contraction over N), with
+    X rounded to the storage dtype first.  Accumulated in float64 and
+    rounded back, as csrc/resident.cu does: the N terms cancel to ~4e-4 of
+    their absolute sum."""
+    Xm = storage_round(X, ro.ut_acT.dtype)
+    proj = torch.bmm(ro.ut_acT.double(), Xm.double()[:, :, None])[:, :, 0]
+    return proj.to(X.dtype)
+
+
+def lift_coords(ro: ResidentOperands, w):
+    """``U w`` (3, N) of reduced coordinates w (3, r), with w rounded to the
+    storage dtype first; accumulated in the working dtype."""
+    wm = storage_round(w, ro.U_liftT.dtype)
+    return torch.bmm(wm[:, None, :], ro.U_liftT.to(w.dtype))[:, 0, :]
 
 
 def predict(ro: ResidentOperands, P, V, fa, rb_extra):
     """The damped predictor with the y-row floor clamp, and
-    ``rb_const = rb_extra - U^T A_c sn`` (NT contraction over N) ->
-    (sn, rb_const)."""
-    dtype, mm = P.dtype, ro.ut_acT.dtype
+    ``rb_const = rb_extra - U^T A_c sn`` -> (sn, rb_const)."""
     sn = P + ro.dt * ro.eta * V + fa
     if ro.floor:
         sn = sn.clone()
         sn[1] = torch.where(sn[1] < ro.floor_h,
                             torch.full_like(sn[1], ro.floor_h), sn[1])
-    snm = _storage_round(sn, mm)
-    # accumulated in float64 and rounded back, as csrc/resident.cu does:
-    # the N terms cancel to ~4e-4 of their absolute sum
-    proj = torch.bmm(ro.ut_acT.double(), snm.double()[:, :, None])[:, :, 0]
-    return sn, rb_extra - proj.to(dtype)
+    return sn, rb_extra - project(ro, sn)
 
 
 def lift(ro: ResidentOperands, P, sn, u):
     """``q = sn + U u`` and ``V = (q - P)/dt`` -> (q, V)."""
-    um = _storage_round(u, ro.U_liftT.dtype)
-    q = sn + torch.bmm(um[:, None, :], ro.U_liftT.to(P.dtype))[:, 0, :]
+    q = sn + lift_coords(ro, u)
     return q, (q - P) / ro.dt
 
 
@@ -148,6 +158,26 @@ _D = ctypes.c_double
 _ARGTYPES = ((_P,) * 16 + (_I,) * 6 + (_D, _D, _I, _D, _P))
 
 
+def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
+    """Raise unless P, V, fext (3, N) and rb_extra (3, r) lie on the
+    operands' device in their working dtype, and a kernel takes that state
+    dtype beside the operands' storage dtype (float32 state; float32 or
+    bfloat16 storage)."""
+    fo = ro.fused
+    dev, dtype = fo.C_allT.device, fo.C_allT.dtype
+    for name, t, shape in (("P", P, (3, ro.n)), ("V", V, (3, ro.n)),
+                           ("fext", fext, (3, ro.n)),
+                           ("rb_extra", rb_extra, (3, fo.r))):
+        if t.device != dev or t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} on {dev}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    key = (dtype, ro.ut_acT.dtype)
+    if key not in _SYMBOLS:
+        raise TypeError(f"no kernel for state/storage {key}")
+    return key
+
+
 def resident_multistep(ro: ResidentOperands, P, V, fext, rb_extra,
                        num_steps: int, num_iterations: int):
     """(P', V') after ``num_steps`` steps of ``num_iterations`` iterations
@@ -159,19 +189,10 @@ def resident_multistep(ro: ResidentOperands, P, V, fext, rb_extra,
                                         num_iterations)
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
+    key = check_state(ro, P, V, fext, rb_extra)
     fo = ro.fused
     dtype = fo.C_allT.dtype
     n, r = ro.n, fo.r
-    for name, t in (("P", P), ("V", V), ("fext", fext)):
-        if t.device != fo.C_allT.device or t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} on {fo.C_allT.device}")
-        if tuple(t.shape) != (3, n):
-            raise ValueError(f"{name} must be (3, {n}), got {tuple(t.shape)}")
-    if tuple(rb_extra.shape) != (3, r) or rb_extra.dtype != dtype:
-        raise ValueError(f"rb_extra must be (3, {r}) {dtype}")
-    key = (dtype, ro.ut_acT.dtype)
-    if key not in _SYMBOLS:
-        raise TypeError(f"no resident kernel for state/storage {key}")
     fn = _build.function("resident", _SYMBOLS[key], _ARGTYPES)
     tile = resident_tile()
     P_out = P.contiguous().clone()

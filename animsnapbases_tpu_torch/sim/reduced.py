@@ -13,10 +13,20 @@ preparation stays numpy/scipy in float64 (the global matrix, ``inv(Ar)``,
 is cast once to the working dtype on the solver's device.
 
 ``step()`` runs one step with the iteration loop on kernel 1
-(``ops/fused_reduced.py``); ``run_steps()`` serves static targets on
-kernel 2 (``ops/resident.py``, the JAX package's "standard" resident
-kernel), with the vertex permutation that makes the selected union a
-prefix applied at entry and exit.  Both run on the permuted layout.
+(``ops/fused_reduced.py``).  ``run_steps()`` serves static targets on two
+tiers, as the JAX solver does (``sim/reduced.py:678-771``, ``:2914-3112``):
+
+* tier 1, contact-free stepping that stops before the first step the floor
+  would clamp: the chunked affine kernel 5 (``ops/affine_chunked.py``), or
+  with ``resident_chunked_tier1 = False`` the in-kernel early-exit affine
+  kernel 4 (``ops/affine.py``);
+* the contact tier, which serves the rest of the window: the lean affine
+  kernel 3 (``ops/affine.py``), or kernel 2 (``ops/resident.py``, the
+  "standard" resident kernel) for models of ``CHUNKED_TIER1_MIN_VERTS``
+  vertices and more.
+
+The vertex permutation that makes the selected union a prefix is applied
+at entry and exit; every kernel runs on the permuted layout.
 
 Not ported yet, and raising ``NotImplementedError`` in ``step`` /
 ``run_steps``:
@@ -27,12 +37,15 @@ Not ported yet, and raising ``NotImplementedError`` in ``step`` /
   groups (Queue A item 9);
 * animated positional targets (Queue A item 10);
 * self-collision (Queue A item 12);
-* ``run_steps(record=True)`` (Queue A item 5).
+* ``run_steps(record=True)`` (Queue A item 5);
+* ``resident_contact_mode = True``, the contact-mode build of the affine
+  kernel (ROADMAP Queue B item 1).
 """
 
 from __future__ import annotations
 
 import os
+from functools import partial
 
 import numpy as np
 import scipy.sparse
@@ -43,6 +56,13 @@ from animsnapbases_tpu_torch.device import (
     storage_dtype,
     working_dtype,
 )
+from animsnapbases_tpu_torch.ops.affine import (
+    CONTACT_MODE_TODO,
+    affine_operands,
+    resident_affine,
+    resident_affine_exit,
+)
+from animsnapbases_tpu_torch.ops.affine_chunked import affine_chunked
 from animsnapbases_tpu_torch.ops.fused_reduced import (
     PORTED_KINDS,
     fused_operands,
@@ -182,7 +202,22 @@ class AnimSnapBasesSolver:
     ``device`` defaults to ``"cuda"`` and raises without a card; tests pass
     ``device="cpu"`` (plain versions, float64 by default).  ``dtype`` is the
     working dtype (float32 on the card, float64 on the CPU by default);
-    ``matmul_dtype`` the storage dtype of the two (3, r, N) matrices."""
+    ``matmul_dtype`` the storage dtype of the two (3, r, N) matrices.
+
+    ``run_steps``' tiers follow the JAX solver's instance switches, read at
+    ``prepare``: ``resident_chunked_tier1`` (default True: kernel 5 is tier
+    1; False: kernel 4), ``resident_contact_mode`` (default False; True
+    raises, not ported) and ``resident_rebase_every`` (default 1024 steps
+    for kernel 5's chunks and 256 for the in-kernel rebase of kernels 3
+    and 4: windows of float32 coefficient drift)."""
+
+    # models of this many vertices or more take kernel 2 as the contact
+    # tier instead of kernel 3: the JAX package's value, which keeps its
+    # tiers.  On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, "Findings"),
+    # at the bench scene's 14,400 vertices kernel 2 runs a contact step in
+    # ~111 us against kernel 3's ~141 us, and a free step in ~110 us against
+    # ~114-117 us: there kernel 2 would be the faster contact tier too.
+    CHUNKED_TIER1_MIN_VERTS = 64000
 
     def __init__(self, args, device=None, dtype=None, matmul_dtype=None):
         self.args = args
@@ -214,6 +249,15 @@ class AnimSnapBasesSolver:
         self.constraint_projection_ready = False
         self._reduced_groups: dict[str, ReducedGroup] = {}
         self._resident = None        # ResidentOperands once prepared
+        self._affine = None          # AffineOperands once prepared
+        # the tiers of run_steps: tier 1 -> (P, V, steps_done), the contact
+        # tier -> (P, V); both called (P, V, fext, rb_extra, steps, iters)
+        self._resident_fast = None
+        self._resident_run = None
+        self._resident_kind = None         # "affine" or "standard"
+        self._resident_fast_kind = None    # "chunked", "exit" or None
+        self._last_fast_steps = None
+        self._contact_mode = False
         self._unsupported = "prepare() has not run"
         self._ut_st_cache = None
 
@@ -223,6 +267,7 @@ class AnimSnapBasesSolver:
         self.constraint_projection_ready = False
         self._reduced_groups = {}
         self._resident = None
+        self._affine = None
         self.set_dirty()
 
     def set_dirty(self):
@@ -359,7 +404,9 @@ class AnimSnapBasesSolver:
         return None
 
     def _build_step(self):
-        self._resident = None
+        self._resident = self._affine = None
+        self._resident_fast = self._resident_run = None
+        self._resident_kind = self._resident_fast_kind = None
         self._unsupported = self._unsupported_reason()
         if self._unsupported is not None:
             return
@@ -389,6 +436,36 @@ class AnimSnapBasesSolver:
             perm=perm, iperm=iperm, n_sel=len(union), dt=self.dt,
             eta=self.eta, floor=model.floor_collision,
             floor_h=model.floor_height, matmul_dtype=self.matmul_dtype)
+        M_utac = np.stack([self._ut_ac_np[d] @ self.U[:, :, d]
+                           for d in range(3)])             # (3, r, r)
+        self._affine = affine_operands(self._resident, M_utac, U_selT)
+        self._build_tiers(n)
+
+    def _build_tiers(self, n: int):
+        """The tiers of run_steps, as sim/reduced.py:678-812 of the JAX
+        package builds them (without its TPU admission gates)."""
+        ao = self._affine
+        every = getattr(self, "resident_rebase_every", None)
+        self._contact_mode = bool(getattr(self, "resident_contact_mode",
+                                          None))
+        chunked_tier1 = getattr(self, "resident_chunked_tier1", None)
+        if chunked_tier1 is None:
+            chunked_tier1 = True
+        if chunked_tier1:
+            self._resident_fast = partial(affine_chunked, ao,
+                                          rebase_every=int(every or 1024))
+            self._resident_fast_kind = "chunked"
+            if n >= self.CHUNKED_TIER1_MIN_VERTS:
+                self._resident_run = partial(resident_multistep, ao.res)
+                self._resident_kind = "standard"
+                return
+        elif self.model.floor_collision:
+            self._resident_fast = partial(resident_affine_exit, ao,
+                                          rebase_every=int(every or 256))
+            self._resident_fast_kind = "exit"
+        self._resident_run = partial(resident_affine, ao,
+                                     rebase_every=int(every or 256))
+        self._resident_kind = "affine"
 
     # ------------------------------------------------------------------
     # stepping
@@ -457,9 +534,14 @@ class AnimSnapBasesSolver:
         self.frame += 1
 
     def run_steps(self, fext, num_steps, num_iterations=10, record=False):
-        """Advance ``num_steps`` steps in one call of kernel 2 (static
-        targets): the state crosses to the device once at entry and back
-        once at exit."""
+        """Advance ``num_steps`` steps with static targets on the tiers:
+        tier 1 commits the steps before the first one the floor would
+        clamp, and the contact tier serves the rest of the window.  The
+        state crosses to the device at the entry of each tier's call and
+        back at its exit.  ``_last_fast_steps == num_steps`` afterwards
+        certifies that tier 1, which tests the floor every step, served
+        the whole window contact-free."""
+        self._last_fast_steps = None
         self._require()
         if record:
             raise NotImplementedError(
@@ -469,11 +551,41 @@ class AnimSnapBasesSolver:
             raise NotImplementedError(
                 "animated positional targets are not ported yet (ROADMAP "
                 "Queue A item 10)")
+        if self._contact_mode:
+            raise NotImplementedError(CONTACT_MODE_TODO)
         model = self.model
-        P, V = resident_multistep(
-            self._resident, self._to_device(model.positions),
-            self._to_device(model.velocities), self._to_device(fext),
-            self._rb_extra(), num_steps, num_iterations)
+        P = self._to_device(model.positions)
+        V = self._to_device(model.velocities)
+        Fx = self._to_device(fext)
+        rb_extra = self._rb_extra()
+        fast = self._resident_fast
+        if fast is not None and model.floor_collision:
+            # float64 host check of the step-0 predictor: skip tier 1 when
+            # its first step would clamp (floor-off models run kernel 5
+            # with the sentinel floor and need no check)
+            sn_y0 = (model.positions[:, 1]
+                     + self.dt * self.eta * model.velocities[:, 1]
+                     + self.dt * self.dt * np.asarray(fext)[:, 1]
+                     / model.mass)
+            if float(sn_y0.min()) < model.floor_height:
+                fast = None
+        if fast is not None:
+            Pf, Vf, k = fast(P, V, Fx, rb_extra, num_steps, num_iterations)
+            if k > 0:
+                model.positions = self._to_host(Pf)
+                model.velocities = self._to_host(Vf)
+                self.frame += k
+                if k == num_steps:
+                    self._last_fast_steps = k
+                    return
+                # contact at step k: the recursion's host check routes the
+                # remainder to the contact tier
+                return self.run_steps(fext, num_steps - k, num_iterations)
+            # k == 0: the working-dtype predictor clamped where the float64
+            # check did not (a floor-grazing state); recursing would repeat
+            # the same call, so the contact tier serves this window
+        P, V = self._resident_run(P, V, Fx, rb_extra, num_steps,
+                                  num_iterations)
         model.positions = self._to_host(P)
         model.velocities = self._to_host(V)
         self.frame += num_steps

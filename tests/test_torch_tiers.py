@@ -1,0 +1,163 @@
+"""The port's tiered ``run_steps`` (tier 1, then the contact tier) against the
+JAX package's ``pallas_mode="off"`` step loop on the same bases, float64 on
+the CPU, mirroring ``tests/test_resident_kernel.py``'s tier tests: P to
+1e-6 and V to 1e-4, the tolerances the JAX package holds its own tiers to.
+
+The small scene is lifted 3 units so that gravity leaves a contact-free
+window; 10x gravity then slams it into the floor.  ``resident_rebase_every
+= 4`` makes both windows cross chunk boundaries and in-kernel rebases.
+"""
+
+import numpy as np
+import pytest
+
+from animsnapbases_tpu.geometry.procedural import cloth_model as jax_cloth
+from animsnapbases_tpu.sim.model import DeformableModel as JaxModel
+from animsnapbases_tpu_torch.ops.affine import (
+    resident_affine,
+    resident_affine_exit,
+)
+from animsnapbases_tpu_torch.ops.affine_chunked import affine_chunked
+from animsnapbases_tpu_torch.ops.resident import resident_multistep
+from animsnapbases_tpu_torch.sim.model import DeformableModel
+from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+from test_torch_fused_reduced import gravity, jax_solver, small_model
+
+ITERS = 6
+LIFT = 3.0
+FREE, SLAM = (1.0, 10), (10.0, 20)    # (force scale, steps) of each window
+
+
+def _lifted(model, floor=True):
+    model.positions[:, 1] += LIFT
+    model.floor_collision = floor
+    return model
+
+
+def jax_reference(args, windows, floor=True):
+    """The JAX "off" step loop over ``windows`` -> (positions, velocities)
+    after each window."""
+    from animsnapbases_tpu.sim.reduced import AnimSnapBasesSolver as JaxSolver
+
+    model = _lifted(small_model(JaxModel, jax_cloth), floor)
+    s = JaxSolver(args, pallas_mode="off")
+    s.set_model(model)
+    s.prepare(args)
+    f = gravity(model)
+    out = []
+    for scale, steps in windows:
+        for _ in range(steps):
+            s.step(f * scale, num_iterations=ITERS)
+        out.append((model.positions.copy(), model.velocities.copy()))
+    return out
+
+
+def port_tiers(args, floor=True, **switches):
+    model = _lifted(small_model(DeformableModel), floor)
+    s = AnimSnapBasesSolver(args, device="cpu")
+    s.resident_rebase_every = 4
+    for k, v in switches.items():
+        setattr(s, k, v)
+    s.set_model(model)
+    s.prepare(args)
+    return s, model
+
+
+def spy_tier1(s):
+    """Record the steps_done of every tier-1 call."""
+    calls = []
+    real = s._resident_fast
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        calls.append(out[2])
+        return out
+
+    s._resident_fast = spy
+    return calls
+
+
+def _close(model, ref):
+    np.testing.assert_allclose(model.positions, ref[0], atol=1e-6)
+    np.testing.assert_allclose(model.velocities, ref[1], atol=1e-4)
+
+
+@pytest.mark.parametrize("config", ["chunked", "exit", "standard"])
+def test_tiers_match_jax_step_loop(tmp_path, config):
+    """Default (kernel 5, then kernel 3), ``resident_chunked_tier1=False``
+    (kernel 4, then kernel 3) and ``CHUNKED_TIER1_MIN_VERTS`` overridden
+    (kernel 5, then kernel 2): the contact-free window is served whole by
+    tier 1 and certified; in the slam window tier 1 exits early, the
+    contact tier finishes and the certificate is withheld.  Measured max
+    |dP| 1.9e-13 and |dV| 1.4e-12 after both windows (|V| ~ 25), the same
+    in the three configurations."""
+    switches = {"chunked": {},
+                "exit": {"resident_chunked_tier1": False},
+                "standard": {"CHUNKED_TIER1_MIN_VERTS": 4}}[config]
+    args = jax_solver(tmp_path, "off")[0].args
+    ref = jax_reference(args, [FREE, SLAM])
+    s, m = port_tiers(args, **switches)
+    tier1, contact = {
+        "chunked": (affine_chunked, resident_affine),
+        "exit": (resident_affine_exit, resident_affine),
+        "standard": (affine_chunked, resident_multistep)}[config]
+    assert s._resident_fast.func is tier1
+    assert s._resident_run.func is contact
+    assert s._resident_kind == ("standard" if config == "standard"
+                                else "affine")
+    assert s._resident_fast_kind == ("exit" if config == "exit"
+                                     else "chunked")
+    calls = spy_tier1(s)
+    f = gravity(m)
+    s.run_steps(f * FREE[0], FREE[1], num_iterations=ITERS)
+    assert calls == [FREE[1]] and s._last_fast_steps == FREE[1]
+    assert s.frame == FREE[1]
+    _close(m, ref[0])
+    s.run_steps(f * SLAM[0], SLAM[1], num_iterations=ITERS)
+    assert 0 < calls[1] < SLAM[1]        # tier 1 exited at the contact
+    assert s._last_fast_steps is None
+    assert s.frame == FREE[1] + SLAM[1]
+    assert m.positions[:, 1].min() > -0.5      # held at the floor
+    _close(m, ref[1])
+
+
+def test_zero_progress_falls_through(tmp_path):
+    """Tier 1 reporting zero steps done (a working-dtype step-0 clamp that
+    the float64 host check missed) hands the window to the contact tier
+    once, without recursing."""
+    args = jax_solver(tmp_path, "off")[0].args
+    ref = jax_reference(args, [(1.0, 6)])
+    s, m = port_tiers(args)
+    calls = []
+
+    def fake_zero(P, V, Fx, rb, steps, iters):
+        calls.append(1)
+        return P, V, 0
+
+    s._resident_fast = fake_zero
+    s.run_steps(gravity(m), 6, num_iterations=ITERS)
+    assert calls == [1]
+    assert s.frame == 6 and s._last_fast_steps is None
+    _close(m, ref[0])
+
+
+def test_floor_off_tier1_never_exits(tmp_path):
+    """With the floor off, kernel 5 runs with the sentinel floor: the slam
+    window carries the cloth through the floor plane in one certified
+    window."""
+    args = jax_solver(tmp_path, "off")[0].args
+    ref = jax_reference(args, [SLAM], floor=False)
+    s, m = port_tiers(args, floor=False)
+    s.run_steps(gravity(m) * SLAM[0], SLAM[1], num_iterations=ITERS)
+    assert s._last_fast_steps == SLAM[1]
+    assert m.positions[:, 1].min() < -0.5
+    _close(m, ref[0])
+
+
+def test_contact_mode_raises(tmp_path):
+    """``resident_contact_mode=True`` names its ROADMAP item instead of
+    serving on another build."""
+    args = jax_solver(tmp_path, "off")[0].args
+    s, m = port_tiers(args, resident_contact_mode=True)
+    with pytest.raises(NotImplementedError, match="Queue B item 1"):
+        s.run_steps(gravity(m), 2)
