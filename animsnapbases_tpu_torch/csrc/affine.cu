@@ -40,16 +40,35 @@
 // step's serial part runs in one block (iteration.cuh).  Projections
 // through U^T A_c accumulate in float64, in per-tile partials summed in a
 // fixed order (no atomics), as in kernel 2.
+//
+// The batched build of kernel 3 (nb sims, the JAX kernel's nb = B; the
+// default route of make_batched_run) keeps sim-major (nb, 3, N) states and
+// per-sim coefficients, projections, partials and flags.  The contact
+// branch is PER SIM: a sim whose predictor the floor clamps takes the
+// re-anchoring tail, the others take the free step (the JAX kernel sends
+// the whole batch through the exact tail when any sim clamps; the clamp is
+// the identity for the airborne sims, so both are exact, and per sim does
+// not pay a full-space step for each of them).  The single-block launches
+// run on a grid of nb blocks, one sim each; the O(N) launches on a grid of
+// (tiles, up to SIM_Y) blocks that loop over the sims; the floor test on
+// (vertex blocks, sim groups of Y_GROUP), each lift element read once for
+// the group.  Every sim's arithmetic runs in the order of the solo call (nb
+// = 1), so sim b of a batched call equals the solo call from sim b's state
+// bit for bit.
 #include "affine.cuh"
 
 namespace ksm {
 
 constexpr int TILE = 128;
 constexpr int THREADS = 256;
+constexpr int SIM_Y = 8;    // sim rows of the O(N) grids
+constexpr int Y_GROUP = 8;  // sims per block of the batched floor test
 enum : int { LEAN_NO_FLOOR = 0, EXIT = 1, LEAN = 2 };
 enum : int { F_STALE = 0, F_DONE = 1, F_K = 2, F_CLAMPED = 3 };
-// which launches a projection serves
-enum : int { PROJ_ALWAYS = 0, PROJ_REFRESH = 1 };
+// what a projection reads; which sims an O(N) launch serves at a step
+enum : int { SRC_FA = 0, SRC_ANCHORS = 1 };
+enum : int { GATE_ALWAYS = 0, GATE_REFRESH = 1, GATE_CLAMPED = 2,
+             GATE_NOT_DONE = 3 };
 
 extern __shared__ __align__(16) unsigned char affine_smem[];
 
@@ -58,11 +77,11 @@ struct Affine {
   T* b0;  // (3, N) anchors, then the outputs
   T* b1;
   const T* fa;
-  const T* rbex;   // (3, r)
-  const M* ulift;  // (3, r, N)
-  const M* utac;   // (3, r, N)
-  const T* mutac;  // (3, r, r)
-  const T* uselT;  // (3, r, n_sel)
+  const T* rbex;   // (3, r), shared by the sims
+  const M* ulift;  // (3, r, N), shared
+  const M* utac;   // (3, r, N), shared
+  const T* mutac;  // (3, r, r), shared
+  const T* uselT;  // (3, r, n_sel), shared
   T* coef;         // ap (9), av (9), wp (3r), wv (3r)
   T* bu;           // bu0, bu1, bu_fa (3r each)
   T* sn;           // (3, N) contact tail: the clamped predictor
@@ -70,109 +89,203 @@ struct Affine {
   T* u;            // (3r)
   double* partial; // (nblk, 2, 3r)
   int* flags;      // F_* slots, then one clamped slot per step
-  int N, r, n_sel, nblk;
+  int N, r, n_sel, nblk, nb, flag_stride;
   T dt, eta, floor_h;
 
   __device__ T* ap() const { return coef; }
   __device__ T* av() const { return coef + 9; }
   __device__ T* wp() const { return coef + 18; }
   __device__ T* wv() const { return coef + 18 + 3 * r; }
+
+  // the same struct over sim b's buffers (the per-sim ones are laid out
+  // sim after sim).  The O(N) launches use it; the two single-block loop
+  // launches (free_step, contact_solve) offset only the pointers they use:
+  // a copy of the whole struct there made the solo free step 98 -> 138 us
+  // (tools/time_solo_kernels.py's profile on an H100)
+  __device__ Affine at(int b) const {
+    Affine s = *this;
+    const size_t x = (size_t)b * 3 * N;
+    s.b0 += x;
+    s.b1 += x;
+    s.fa += x;
+    s.sn += x;
+    s.Pm += x;
+    s.coef += (size_t)b * (18 + 6 * r);
+    s.bu += (size_t)b * 9 * r;
+    s.u += (size_t)b * 3 * r;
+    s.partial += (size_t)b * nblk * 2 * 3 * r;
+    s.flags += (size_t)b * flag_stride;
+    return s;
+  }
 };
 
-// Per-tile float64 partials of U^T A_c x0 (and x1), x rounded to the
-// storage type first.  `which` gates the launch on the flags of step i.
+// The O(N) launches run on blocks (tile, y) that serve the sims y,
+// y + gridDim.y, ...: of the 32 of them from `base` on, the bit mask of
+// those whose gate is open at step i, the same in every thread.  One
+// warp reads the 32 sims' flags at once (a sim-by-sim read paid a flag
+// load's latency per sim: a no-op refresh launch took 18 us per step at
+// 64 sims on an H100).
 template <typename T, typename M>
-__global__ void project_partials(Affine<T, M> a, const T* x0, const T* x1,
-                                 int which, int step) {
-  const int* fl = a.flags;
-  if (which == PROJ_REFRESH &&
-      (fl[F_DONE] || !fl[F_STALE] || fl[F_CLAMPED + step]))
-    return;
-  __shared__ T xs[2][3][TILE];
-  const int N = a.N, r = a.r;
-  const int n0 = blockIdx.x * TILE;
-  const int len = min(TILE, N - n0);
-  const int nx = x1 ? 2 : 1;
-  for (int i = threadIdx.x; i < nx * 3 * TILE; i += blockDim.x) {
-    const int s = i / (3 * TILE), rem = i - s * 3 * TILE;
-    const int d = rem / TILE, t = rem - d * TILE;
-    const T* x = s ? x1 : x0;
-    xs[s][d][t] = t < len ? Round<M, T>::apply(x[(size_t)d * N + n0 + t])
-                          : T(0);
+__device__ unsigned open_sims(const Affine<T, M>& a, int base, int gate,
+                              int step) {
+  __shared__ unsigned mask;
+  __syncthreads();  // every thread has read the previous round's mask
+  if (threadIdx.x < 32) {
+    const int b = base + threadIdx.x * gridDim.y;
+    bool open = b < a.nb;
+    if (open && gate != GATE_ALWAYS) {
+      const int* fl = a.flags + (size_t)b * a.flag_stride;
+      if (gate == GATE_REFRESH)
+        open = !fl[F_DONE] && fl[F_STALE] && !fl[F_CLAMPED + step];
+      else if (gate == GATE_CLAMPED)
+        open = fl[F_CLAMPED + step];
+      else
+        open = !fl[F_DONE];
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, open);
+    if (threadIdx.x == 0) mask = m;
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = warp; o < nx * 3 * r; o += nw) {
-    const int s = o / (3 * r), q = o - s * 3 * r, d = q / r;
-    const M* row = a.utac + (size_t)q * N + n0;
-    double acc = 0.0;
-    for (int t = lane; t < len; t += 32)
-      acc += (double)widen(row[t]) * (double)xs[s][d][t];
-    acc = warp_sum(acc);
-    if (lane == 0) a.partial[((size_t)blockIdx.x * 2 + s) * 3 * r + q] = acc;
+  return mask;
+}
+
+// the sim of bit j of a mask from `base`
+__device__ __forceinline__ int sim_of(int base, unsigned m) {
+  return base + (__ffs(m) - 1) * gridDim.y;
+}
+
+// Per-tile float64 partials of U^T A_c x0 (and x1), x rounded to the
+// storage type first: x0 = fa (SRC_FA) or x0, x1 = b0, b1 (SRC_ANCHORS),
+// for the sims whose `gate` is open at step i.
+template <typename T, typename M>
+__global__ void project_partials(Affine<T, M> all, int src, int gate,
+                                 int step) {
+  __shared__ T xs[2][3][TILE];
+  const int N = all.N, r = all.r;
+  const int n0 = blockIdx.x * TILE;
+  const int len = min(TILE, N - n0);
+  const int nx = src == SRC_ANCHORS ? 2 : 1;
+  for (int base = blockIdx.y; base < all.nb; base += 32 * gridDim.y)
+  for (unsigned m = open_sims(all, base, gate, step); m; m &= m - 1) {
+    const Affine<T, M> a = all.at(sim_of(base, m));
+    __syncthreads();
+    for (int i = threadIdx.x; i < nx * 3 * TILE; i += blockDim.x) {
+      const int s = i / (3 * TILE), rem = i - s * 3 * TILE;
+      const int d = rem / TILE, t = rem - d * TILE;
+      const T* x = src == SRC_FA ? a.fa : (s ? a.b1 : a.b0);
+      xs[s][d][t] = t < len ? Round<M, T>::apply(x[(size_t)d * N + n0 + t])
+                            : T(0);
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    for (int o = warp; o < nx * 3 * r; o += nw) {
+      const int s = o / (3 * r), q = o - s * 3 * r, d = q / r;
+      const M* row = a.utac + (size_t)q * N + n0;
+      double acc = 0.0;
+      for (int t = lane; t < len; t += 32)
+        acc += (double)widen(row[t]) * (double)xs[s][d][t];
+      acc = warp_sum(acc);
+      if (lane == 0)
+        a.partial[((size_t)blockIdx.x * 2 + s) * 3 * r + q] = acc;
+    }
   }
 }
 
-// out[i] = (T) sum over tiles of partial slot s, in tile order
-template <typename T, typename M>
-__device__ void sum_partials(const Affine<T, M>& a, int s, T* out) {
-  const int n = 3 * a.r;
+// out[i] = (T) sum over a sim's nblk tiles of partial slot s, in tile order
+template <typename T>
+__device__ void sum_partials(const double* partial, int nblk, int r, int s,
+                             T* out) {
+  const int n = 3 * r;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     double acc = 0.0;
-    for (int b = 0; b < a.nblk; ++b)
-      acc += a.partial[((size_t)b * 2 + s) * n + i];
+    for (int b = 0; b < nblk; ++b)
+      acc += partial[((size_t)b * 2 + s) * n + i];
     out[i] = (T)acc;
   }
 }
 
-// Start of a call: bu_fa = U^T A_c fa (once per call), unit coefficients
-// over the entry state, stale projections.
+// Start of a call, one block per sim: bu_fa = U^T A_c fa (once per call),
+// unit coefficients over the entry state, stale projections.
 template <typename T, typename M>
-__global__ void init_call(Affine<T, M> a) {
-  sum_partials(a, 0, a.bu + 6 * a.r);
+__global__ void init_call(Affine<T, M> all) {
+  const Affine<T, M> a = all.at(blockIdx.x);
+  sum_partials(a.partial, a.nblk, a.r, 0, a.bu + 6 * a.r);
   affine_reset(a.ap(), a.av(), a.wp(), a.wv(), a.r);
   if (threadIdx.x == 0) a.flags[F_STALE] = 1;
 }
 
 // The exact floor test of step i on the y row of the predictor, one vertex
-// per thread.
-template <typename T, typename M>
-__global__ void y_check(Affine<T, M> a, int step) {
-  if (a.flags[F_DONE]) return;
-  const int N = a.N, r = a.r;
-  T* asn = reinterpret_cast<T*>(affine_smem);  // 9
-  T* avd = asn + 9;                             // 9
-  T* wsn = avd + 9;                             // 3r
-  affine_predictor(a.ap(), a.av(), a.wp(), a.wv(), r, a.dt, a.eta, asn, avd,
-                   wsn);
+// per thread, for the sims y*SG .. y*SG + SG - 1 of blockIdx.y's group:
+// each element of the lift's y slice is read once for all of them.  Warp
+// s forms sim s's predictor (the whole block, for one sim).
+template <typename T, typename M, int SG>
+__global__ void y_check(Affine<T, M> all, int step) {
+  const int N = all.N, r = all.r;
+  const int b0 = blockIdx.y * SG;
+  const int ns = min(SG, all.nb - b0);
+  T* asn = reinterpret_cast<T*>(affine_smem);  // SG x 9
+  T* avd = asn + SG * 9;                        // SG x 9
+  T* wsn = avd + SG * 9;                        // SG x 3r
+  const int lanes = SG == 1 ? blockDim.x : 32;
+  const int tid = SG == 1 ? threadIdx.x : threadIdx.x & 31;
+  const int nw = SG == 1 ? 1 : blockDim.x >> 5;
+  for (int s = SG == 1 ? 0 : threadIdx.x >> 5; s < ns; s += nw) {
+    const T* coef = all.coef + (size_t)(b0 + s) * (18 + 6 * r);
+    affine_predictor_by(tid, lanes, coef, coef + 9, coef + 18,
+                        coef + 18 + 3 * r, r, all.dt, all.eta, asn + 9 * s,
+                        avd + 9 * s, wsn + 3 * r * s);
+  }
   __syncthreads();
-  for (int k = threadIdx.x; k < r; k += blockDim.x)
-    wsn[r + k] = Round<M, T>::apply(wsn[r + k]);
+  for (int i = threadIdx.x; i < SG * r; i += blockDim.x) {
+    const int s = i / r, k = i - s * r;
+    T* w = wsn + 3 * r * s + r + k;
+    *w = s < ns ? Round<M, T>::apply(*w) : T(0);
+  }
   __syncthreads();
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  int hit = 0;
+  T acc[SG];
+#pragma unroll
+  for (int s = 0; s < SG; ++s) acc[s] = T(0);
   if (v < N) {
-    const T y = affine_row(asn + 3, wsn + r, a.b0[N + v], a.b1[N + v],
-                           a.fa[N + v], a.ulift + (size_t)r * N, N, r, v);
-    hit = y < a.floor_h;
+    const M* U = all.ulift + (size_t)r * N + v;
+    for (int k = 0; k < r; ++k) {
+      const T c = widen(U[(size_t)k * N]);
+#pragma unroll
+      for (int s = 0; s < SG; ++s) acc[s] += wsn[3 * r * s + r + k] * c;
+    }
   }
-  if (__syncthreads_or(hit) && threadIdx.x == 0)
-    atomicOr(a.flags + F_CLAMPED + step, 1);
+#pragma unroll
+  for (int s = 0; s < SG; ++s) {
+    if (s >= ns) break;
+    const Affine<T, M> a = all.at(b0 + s);
+    int hit = 0;
+    if (v < N && !a.flags[F_DONE]) {
+      const T y = affine_base(asn + 9 * s + 3, a.b0[N + v], a.b1[N + v],
+                              a.fa[N + v], acc[s]);
+      hit = y < a.floor_h;
+    }
+    if (__syncthreads_or(hit) && threadIdx.x == 0)
+      atomicOr(a.flags + F_CLAMPED + step, 1);
+  }
 }
 
-// The free step of step i, one block: skipped when the step clamped (kernel
-// 4 then stops for good).
+// The free step of step i, one block per sim: skipped when the step
+// clamped (kernel 4 then stops for good).
 template <typename T, typename M>
 __global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
                           int num_iterations) {
-  int* fl = a.flags;
+  const int b = blockIdx.x;  // the sim
+  const int r = op.r, g = op.g, m = op.m, n_sel = a.n_sel, N = a.N;
+  int* fl = a.flags + (size_t)b * a.flag_stride;
   if (fl[F_DONE]) return;
   if (fl[F_CLAMPED + step]) {
     if (mode == EXIT && threadIdx.x == 0) fl[F_DONE] = 1;
     return;
   }
-  const int r = op.r, g = op.g, m = op.m, n_sel = a.n_sel, N = a.N;
+  T* coef = a.coef + (size_t)b * (18 + 6 * r);  // ap, av, wp, wv
+  const double* partial = a.partial + (size_t)b * a.nblk * 2 * 3 * r;
+  const size_t x = (size_t)b * 3 * N;
   T* rbc = reinterpret_cast<T*>(affine_smem);
   T* rb = rbc + 3 * r;
   T* vc = rb + 3 * r;
@@ -183,20 +296,21 @@ __global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
   T* wsn = avd + 9;          // 3r
   T* u = wsn + 3 * r;        // 3r
   T* snsel = u + 3 * r;      // 3 n_sel
-  T* bu0 = a.bu;
-  T* bu1 = a.bu + 3 * r;
+  T* bu0 = a.bu + (size_t)b * 9 * r;
+  T* bu1 = bu0 + 3 * r;
   const bool stale = fl[F_STALE];
   __syncthreads();
   if (stale) {
-    sum_partials(a, 0, bu0);
-    sum_partials(a, 1, bu1);
+    sum_partials(partial, a.nblk, r, 0, bu0);
+    sum_partials(partial, a.nblk, r, 1, bu1);
   }
-  affine_predictor(a.ap(), a.av(), a.wp(), a.wv(), r, a.dt, a.eta, asn, avd,
-                   wsn);
+  affine_predictor(coef, coef + 9, coef + 18, coef + 18 + 3 * r, r, a.dt,
+                   a.eta, asn, avd, wsn);
   __syncthreads();
   if (stale && threadIdx.x == 0) fl[F_STALE] = 0;
-  affine_rb_const(asn, wsn, bu0, bu1, a.bu + 6 * r, a.mutac, a.rbex, r, rbc);
-  affine_combine(asn, wsn, a.b0, a.b1, a.fa, N, a.uselT, r, n_sel, snsel);
+  affine_rb_const(asn, wsn, bu0, bu1, bu0 + 6 * r, a.mutac, a.rbex, r, rbc);
+  affine_combine(asn, wsn, a.b0 + x, a.b1 + x, a.fa + x, N, a.uselT, r, n_sel,
+                 snsel);
   __syncthreads();
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
@@ -206,144 +320,223 @@ __global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
   iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
   solve_block(op, rb, u);
   __syncthreads();
-  affine_update(a.ap(), a.av(), a.wp(), a.wv(), asn, avd, wsn, u, r, a.dt);
+  affine_update(coef, coef + 9, coef + 18, coef + 18 + 3 * r, asn, avd, wsn,
+                u, r, a.dt);
   if (mode == EXIT && threadIdx.x == 0) fl[F_K] += 1;
 }
 
-// Contact tail (kernel 3), part 1, on 128-vertex tiles: Pm = the
-// materialized P, sn = the materialized predictor with the y row clamped,
-// and the per-tile partials of U^T A_c sn.
+// Contact tail (kernel 3), part 1, on 128-vertex tiles, for each sim whose
+// step i clamped: Pm = the materialized P, sn = the materialized predictor
+// with the y row clamped, and the per-tile partials of U^T A_c sn.
 template <typename T, typename M>
-__global__ void contact_predict(Affine<T, M> a, int step) {
-  if (!a.flags[F_CLAMPED + step]) return;
-  const int N = a.N, r = a.r;
+__global__ void contact_predict(Affine<T, M> all, int step) {
+  const int N = all.N, r = all.r;
   T* asn = reinterpret_cast<T*>(affine_smem);  // 9
   T* avd = asn + 9;                             // 9
   T* wsn = avd + 9;                             // 3r, rounded below
   T* wpr = wsn + 3 * r;                         // 3r, rounded
   T* sns = wpr + 3 * r;                         // 3 x TILE, rounded
-  affine_predictor(a.ap(), a.av(), a.wp(), a.wv(), r, a.dt, a.eta, asn, avd,
-                   wsn);
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
-    wsn[i] = Round<M, T>::apply(wsn[i]);
-    wpr[i] = Round<M, T>::apply(a.wp()[i]);
-  }
-  __syncthreads();
   const int n0 = blockIdx.x * TILE;
   const int len = min(TILE, N - n0);
-  const T* ap = a.ap();
-  for (int i = threadIdx.x; i < 3 * TILE; i += blockDim.x) {
-    const int d = i / TILE, t = i - d * TILE;
-    T s = T(0);
-    if (t < len) {
-      const int v = n0 + t;
-      const size_t x = (size_t)d * N + v;
-      const M* U = a.ulift + (size_t)d * r * N;
-      a.Pm[x] = affine_row(ap + 3 * d, wpr + d * r, a.b0[x], a.b1[x],
-                           a.fa[x], U, N, r, v);
-      s = affine_row(asn + 3 * d, wsn + d * r, a.b0[x], a.b1[x], a.fa[x],
-                     U, N, r, v);
-      if (d == 1 && s < a.floor_h) s = a.floor_h;
-      a.sn[x] = s;
-      s = Round<M, T>::apply(s);
+  for (int base = blockIdx.y; base < all.nb; base += 32 * gridDim.y)
+  for (unsigned m = open_sims(all, base, GATE_CLAMPED, step); m;
+       m &= m - 1) {
+    const Affine<T, M> a = all.at(sim_of(base, m));
+    __syncthreads();
+    affine_predictor(a.ap(), a.av(), a.wp(), a.wv(), r, a.dt, a.eta, asn,
+                     avd, wsn);
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
+      wsn[i] = Round<M, T>::apply(wsn[i]);
+      wpr[i] = Round<M, T>::apply(a.wp()[i]);
     }
-    sns[i] = s;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = warp; o < 3 * r; o += nw) {
-    const int d = o / r;
-    const M* row = a.utac + (size_t)o * N + n0;
-    double acc = 0.0;
-    for (int t = lane; t < len; t += 32)
-      acc += (double)widen(row[t]) * (double)sns[d * TILE + t];
-    acc = warp_sum(acc);
-    if (lane == 0) a.partial[(size_t)blockIdx.x * 2 * 3 * r + o] = acc;
+    __syncthreads();
+    const T* ap = a.ap();
+    for (int i = threadIdx.x; i < 3 * TILE; i += blockDim.x) {
+      const int d = i / TILE, t = i - d * TILE;
+      T s = T(0);
+      if (t < len) {
+        const int v = n0 + t;
+        const size_t x = (size_t)d * N + v;
+        const M* U = a.ulift + (size_t)d * r * N;
+        a.Pm[x] = affine_row(ap + 3 * d, wpr + d * r, a.b0[x], a.b1[x],
+                             a.fa[x], U, N, r, v);
+        s = affine_row(asn + 3 * d, wsn + d * r, a.b0[x], a.b1[x], a.fa[x],
+                       U, N, r, v);
+        if (d == 1 && s < a.floor_h) s = a.floor_h;
+        a.sn[x] = s;
+        s = Round<M, T>::apply(s);
+      }
+      sns[i] = s;
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    for (int o = warp; o < 3 * r; o += nw) {
+      const int d = o / r;
+      const M* row = a.utac + (size_t)o * N + n0;
+      double acc = 0.0;
+      for (int t = lane; t < len; t += 32)
+        acc += (double)widen(row[t]) * (double)sns[d * TILE + t];
+      acc = warp_sum(acc);
+      if (lane == 0) a.partial[(size_t)blockIdx.x * 2 * 3 * r + o] = acc;
+    }
   }
 }
 
-// Contact tail, part 2, one block: rb_const from the partials, the loop on
-// the clamped predictor's selected columns, u; then unit coefficients over
-// the anchors the lift below writes, with stale projections.
+// Contact tail, part 2, one block per sim: rb_const from the partials, the
+// loop on the clamped predictor's selected columns, u; then unit
+// coefficients over the anchors the lift below writes, with stale
+// projections.
 template <typename T, typename M>
 __global__ void contact_solve(Affine<T, M> a, Iter<T> op, int step,
                               int num_iterations) {
-  if (!a.flags[F_CLAMPED + step]) return;
+  const int b = blockIdx.x;  // the sim
   const int r = op.r, g = op.g, N = a.N;
+  int* fl = a.flags + (size_t)b * a.flag_stride;
+  if (!fl[F_CLAMPED + step]) return;
+  T* coef = a.coef + (size_t)b * (18 + 6 * r);
+  const T* sn = a.sn + (size_t)b * 3 * N;
   T* rbc = reinterpret_cast<T*>(affine_smem);
   T* rb = rbc + 3 * r;
   T* vc = rb + 3 * r;
   T* vall = vc + 3 * g;
   T* pt = vall + 3 * g;
-  sum_partials(a, 0, rbc);
+  sum_partials(a.partial + (size_t)b * a.nblk * 2 * 3 * r, a.nblk, r, 0, rbc);
   __syncthreads();
   for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
     rbc[i] = a.rbex[i] - rbc[i];
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
-    vc[i] = a.sn[(size_t)d * N + op.gidx[c]];
+    vc[i] = sn[(size_t)d * N + op.gidx[c]];
   }
   __syncthreads();
   iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
-  solve_block(op, rb, a.u);
-  affine_reset(a.ap(), a.av(), a.wp(), a.wv(), r);
-  if (threadIdx.x == 0) a.flags[F_STALE] = 1;
+  solve_block(op, rb, a.u + (size_t)b * 3 * r);
+  affine_reset(coef, coef + 9, coef + 18, coef + 18 + 3 * r, r);
+  if (threadIdx.x == 0) fl[F_STALE] = 1;
 }
 
-// Contact tail, part 3, over the 3N entries: q = sn + U u; the new anchors
-// are b0 = q and b1 = (q - Pm)/dt.
+// Contact tail, part 3, over the 3N entries of each sim whose step i
+// clamped: q = sn + U u; the new anchors are b0 = q and b1 = (q - Pm)/dt.
 template <typename T, typename M>
-__global__ void contact_lift(Affine<T, M> a, int step) {
-  if (!a.flags[F_CLAMPED + step]) return;
-  const int N = a.N, r = a.r;
+__global__ void contact_lift(Affine<T, M> all, int step) {
+  const int N = all.N, r = all.r;
   T* us = reinterpret_cast<T*>(affine_smem);
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
-    us[i] = Round<M, T>::apply(a.u[i]);
-  __syncthreads();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)3 * N) return;
-  const int d = (int)(idx / N);
-  const int v = (int)(idx - (size_t)d * N);
-  const M* col = a.ulift + (size_t)d * r * N + v;
-  const T* ud = us + d * r;
-  T acc = T(0);
-  for (int k = 0; k < r; ++k) acc += ud[k] * widen(col[(size_t)k * N]);
-  const T q = a.sn[idx] + acc;
-  a.b1[idx] = (q - a.Pm[idx]) / a.dt;
-  a.b0[idx] = q;
+  for (int base = blockIdx.y; base < all.nb; base += 32 * gridDim.y)
+  for (unsigned m = open_sims(all, base, GATE_CLAMPED, step); m;
+       m &= m - 1) {
+    const Affine<T, M> a = all.at(sim_of(base, m));
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
+      us[i] = Round<M, T>::apply(a.u[i]);
+    __syncthreads();
+    if (idx < (size_t)3 * N) {
+      const int d = (int)(idx / N);
+      const int v = (int)(idx - (size_t)d * N);
+      const M* col = a.ulift + (size_t)d * r * N + v;
+      const T* ud = us + d * r;
+      T acc = T(0);
+      for (int k = 0; k < r; ++k) acc += ud[k] * widen(col[(size_t)k * N]);
+      const T q = a.sn[idx] + acc;
+      a.b1[idx] = (q - a.Pm[idx]) / a.dt;
+      a.b0[idx] = q;
+    }
+  }
 }
 
 // P and V materialized in place over the anchors (a rebase, or the
-// output).  With `skip_done` the launch is a no-op once kernel 4 stopped.
+// output), for every sim.  With `skip_done` a sim is skipped once kernel 4
+// stopped.
 template <typename T, typename M>
-__global__ void materialize(Affine<T, M> a, int skip_done) {
-  if (skip_done && a.flags[F_DONE]) return;
-  const int N = a.N, r = a.r;
+__global__ void materialize(Affine<T, M> all, int skip_done) {
+  const int N = all.N, r = all.r;
   T* c = reinterpret_cast<T*>(affine_smem);  // ap, av, round(wp), round(wv)
-  for (int i = threadIdx.x; i < 18 + 6 * r; i += blockDim.x)
-    c[i] = i < 18 ? a.coef[i] : Round<M, T>::apply(a.coef[i]);
-  __syncthreads();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)3 * N) return;
-  const int d = (int)(idx / N);
-  const int v = (int)(idx - (size_t)d * N);
-  const M* U = a.ulift + (size_t)d * r * N;
-  const T b0 = a.b0[idx], b1 = a.b1[idx], fa = a.fa[idx];
-  const T P = affine_row(c + 3 * d, c + 18 + d * r, b0, b1, fa, U, N, r, v);
-  const T V = affine_row(c + 9 + 3 * d, c + 18 + 3 * r + d * r, b0, b1, fa,
-                         U, N, r, v);
-  a.b0[idx] = P;
-  a.b1[idx] = V;
+  const int gate = skip_done ? GATE_NOT_DONE : GATE_ALWAYS;
+  for (int base = blockIdx.y; base < all.nb; base += 32 * gridDim.y)
+  for (unsigned m = open_sims(all, base, gate, 0); m; m &= m - 1) {
+    const Affine<T, M> a = all.at(sim_of(base, m));
+    __syncthreads();
+    for (int i = threadIdx.x; i < 18 + 6 * r; i += blockDim.x)
+      c[i] = i < 18 ? a.coef[i] : Round<M, T>::apply(a.coef[i]);
+    __syncthreads();
+    if (idx < (size_t)3 * N) {
+      const int d = (int)(idx / N);
+      const int v = (int)(idx - (size_t)d * N);
+      const M* U = a.ulift + (size_t)d * r * N;
+      const T b0 = a.b0[idx], b1 = a.b1[idx], fa = a.fa[idx];
+      const T P = affine_row(c + 3 * d, c + 18 + d * r, b0, b1, fa, U, N, r,
+                             v);
+      const T V = affine_row(c + 9 + 3 * d, c + 18 + 3 * r + d * r, b0, b1,
+                             fa, U, N, r, v);
+      a.b0[idx] = P;
+      a.b1[idx] = V;
+    }
+  }
 }
 
-// After a rebase's materialization: unit coefficients, stale projections.
+// After a rebase's materialization, one block per sim: unit coefficients,
+// stale projections.
 template <typename T, typename M>
-__global__ void rebase_reset(Affine<T, M> a) {
+__global__ void rebase_reset(Affine<T, M> all) {
+  const Affine<T, M> a = all.at(blockIdx.x);
   if (a.flags[F_DONE]) return;
   affine_reset(a.ap(), a.av(), a.wp(), a.wv(), a.r);
   if (threadIdx.x == 0) a.flags[F_STALE] = 1;
+}
+
+template <typename T, typename M, int SG>
+cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
+                           int num_iterations, int rebase_every, int mode,
+                           cudaStream_t s) {
+  const int N = a.N, r = a.r, nb = a.nb, g = op.g, m = op.m;
+  const int ys = min(nb, SIM_Y);
+  const dim3 grid_tiles(a.nblk, ys);
+  const dim3 grid_entries((3 * N + THREADS - 1) / THREADS, ys);
+  const dim3 grid_y((N + THREADS - 1) / THREADS, (nb + SG - 1) / SG);
+  const size_t smem_free =
+      sizeof(T) * (iter_smem_elems(r, g, m) + 18 + 6 * r + 3 * a.n_sel);
+  const size_t smem_solve = sizeof(T) * iter_smem_elems(r, g, m);
+  const size_t smem_pred = sizeof(T) * (18 + 6 * r + 3 * TILE);
+  const size_t smem_mat = sizeof(T) * (18 + 6 * r);
+  const size_t smem_y = sizeof(T) * SG * (18 + 3 * r);
+  cudaError_t e = allow_smem(free_step<T, M>, smem_free);
+  if (e == cudaSuccess) e = allow_smem(contact_solve<T, M>, smem_solve);
+  if (e == cudaSuccess) e = allow_smem(contact_predict<T, M>, smem_pred);
+  if (e == cudaSuccess) e = allow_smem(materialize<T, M>, smem_mat);
+  if (e == cudaSuccess) e = allow_smem(y_check<T, M, SG>, smem_y);
+  if (e != cudaSuccess) return e;
+  project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(a, SRC_FA,
+                                                        GATE_ALWAYS, 0);
+  init_call<T, M><<<nb, THREADS, 0, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const bool floor_test = mode != LEAN_NO_FLOOR;
+  for (int i = 0; i < num_steps; ++i) {
+    if (i > 0 && i % rebase_every == 0) {
+      materialize<T, M><<<grid_entries, THREADS, smem_mat, s>>>(a, 1);
+      rebase_reset<T, M><<<nb, THREADS, 0, s>>>(a);
+    }
+    if (floor_test)
+      y_check<T, M, SG><<<grid_y, THREADS, smem_y, s>>>(a, i);
+    project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(a, SRC_ANCHORS,
+                                                          GATE_REFRESH, i);
+    free_step<T, M><<<nb, THREADS, smem_free, s>>>(a, op, i, mode,
+                                                   num_iterations);
+    if (mode == LEAN) {
+      contact_predict<T, M><<<grid_tiles, THREADS, smem_pred, s>>>(a, i);
+      contact_solve<T, M><<<nb, THREADS, smem_solve, s>>>(a, op, i,
+                                                          num_iterations);
+      contact_lift<T, M><<<grid_entries, THREADS, sizeof(T) * 3 * r, s>>>(
+          a, i);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  materialize<T, M><<<grid_entries, THREADS, smem_mat, s>>>(a, 0);
+  return cudaGetLastError();
 }
 
 template <typename T, typename M>
@@ -354,8 +547,9 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
                   const void* eg, const void* ef, void* coef, void* bu,
                   void* sn, void* Pm, void* u, void* partial, void* flags,
                   int N, int r, int n_sel, int g, int m, int num_steps,
-                  int num_iterations, int rebase_every, int mode, double dt,
-                  double eta, double floor_h, void* stream) {
+                  int num_iterations, int rebase_every, int mode, int nb,
+                  int flag_stride, double dt, double eta, double floor_h,
+                  void* stream) {
   const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
   Affine<T, M> a;
   a.b0 = static_cast<T*>(b0);
@@ -377,55 +571,24 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
   a.r = r;
   a.n_sel = n_sel;
   a.nblk = (N + TILE - 1) / TILE;
+  a.nb = nb;
+  a.flag_stride = flag_stride;
   a.dt = (T)dt;
   a.eta = (T)eta;
   a.floor_h = (T)floor_h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblk = a.nblk;
-  const int grid3 = (3 * N + THREADS - 1) / THREADS;
-  const size_t smem_free =
-      sizeof(T) * (iter_smem_elems(r, g, m) + 18 + 6 * r + 3 * n_sel);
-  const size_t smem_solve = sizeof(T) * iter_smem_elems(r, g, m);
-  const size_t smem_pred = sizeof(T) * (18 + 6 * r + 3 * TILE);
-  const size_t smem_mat = sizeof(T) * (18 + 6 * r);
-  cudaError_t e = allow_smem(free_step<T, M>, smem_free);
-  if (e == cudaSuccess) e = allow_smem(contact_solve<T, M>, smem_solve);
-  if (e == cudaSuccess) e = allow_smem(contact_predict<T, M>, smem_pred);
-  if (e == cudaSuccess) e = allow_smem(materialize<T, M>, smem_mat);
-  if (e != cudaSuccess) return e;
-  project_partials<T, M><<<nblk, THREADS, 0, s>>>(
-      a, a.fa, nullptr, PROJ_ALWAYS, 0);
-  init_call<T, M><<<1, THREADS, 0, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const bool floor_test = mode != LEAN_NO_FLOOR;
-  const int grid1 = (N + THREADS - 1) / THREADS;
-  for (int i = 0; i < num_steps; ++i) {
-    if (i > 0 && i % rebase_every == 0) {
-      materialize<T, M><<<grid3, THREADS, smem_mat, s>>>(a, 1);
-      rebase_reset<T, M><<<1, THREADS, 0, s>>>(a);
-    }
-    if (floor_test)
-      y_check<T, M><<<grid1, THREADS, sizeof(T) * (18 + 3 * r), s>>>(a, i);
-    project_partials<T, M><<<nblk, THREADS, 0, s>>>(a, a.b0, a.b1,
-                                                    PROJ_REFRESH, i);
-    free_step<T, M><<<1, THREADS, smem_free, s>>>(a, op, i, mode,
-                                                 num_iterations);
-    if (mode == LEAN) {
-      contact_predict<T, M><<<nblk, THREADS, smem_pred, s>>>(a, i);
-      contact_solve<T, M><<<1, THREADS, smem_solve, s>>>(a, op, i,
-                                                        num_iterations);
-      contact_lift<T, M><<<grid3, THREADS, sizeof(T) * 3 * r, s>>>(a, i);
-    }
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  materialize<T, M><<<grid3, THREADS, smem_mat, s>>>(a, 0);
-  return cudaGetLastError();
+  return nb == 1 ? enqueue_affine<T, M, 1>(a, op, num_steps, num_iterations,
+                                          rebase_every, mode, s)
+                 : enqueue_affine<T, M, Y_GROUP>(a, op, num_steps,
+                                                 num_iterations,
+                                                 rebase_every, mode, s);
 }
 
 }  // namespace ksm
 
+// b0, b1, fa, sn, Pm: (nb, 3, N); coef (nb, 18 + 6r); bu (nb, 9r); u (nb, 3r);
+// partial (nb, nblk, 2, 3r) float64; flags (nb, flag_stride) int32; rbex
+// (3, r) shared by the sims; nb = 1 is the solo call
 #define AFFINE_ENTRY(NAME, T, M)                                             \
   extern "C" int NAME(                                                       \
       void* b0, void* b1, const void* fa, const void* rbex,                 \
@@ -434,13 +597,14 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
       const void* gidx, const void* kind, const void* eg, const void* ef,    \
       void* coef, void* bu, void* sn, void* Pm, void* u, void* partial,      \
       void* flags, int N, int r, int n_sel, int g, int m, int num_steps,     \
-      int num_iterations, int rebase_every, int mode, double dt, double eta, \
-      double floor_h, void* stream) {                                        \
+      int num_iterations, int rebase_every, int mode, int nb,                \
+      int flag_stride, double dt, double eta, double floor_h,                \
+      void* stream) {                                                        \
     return ksm::launch_affine<T, M>(                                         \
         b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gidx, kind, \
         eg, ef, coef, bu, sn, Pm, u, partial, flags, N, r, n_sel, g, m,      \
-        num_steps, num_iterations, rebase_every, mode, dt, eta, floor_h,     \
-        stream);                                                             \
+        num_steps, num_iterations, rebase_every, mode, nb, flag_stride, dt,  \
+        eta, floor_h, stream);                                               \
   }
 
 AFFINE_ENTRY(resident_affine_f32_f32, float, float)

@@ -17,21 +17,32 @@ namespace ksm {
 
 // The damped predictor: asn = ap + dt*avd + e2, avd = eta*av,
 // wsn = wp + dt*eta*wv, with round-to-nearest operations in the plain
-// version's order (ops/affine.py AffineContext.predictor).
+// version's order (ops/affine.py AffineContext.predictor).  Threads tid
+// of nt split the entries (each entry is one thread's, whichever).
 template <typename T>
-__device__ void affine_predictor(const T* ap, const T* av, const T* wp,
-                                 const T* wv, int r, T dt, T eta, T* asn,
-                                 T* avd, T* wsn) {
+__device__ void affine_predictor_by(int tid, int nt, const T* ap,
+                                    const T* av, const T* wp, const T* wv,
+                                    int r, T dt, T eta, T* asn, T* avd,
+                                    T* wsn) {
   const bool damp = eta != T(1);
-  for (int i = threadIdx.x; i < 9; i += blockDim.x) {
+  for (int i = tid; i < 9; i += nt) {
     const T a = damp ? mul_rn(eta, av[i]) : av[i];
     avd[i] = a;
     asn[i] = add_rn(add_rn(ap[i], mul_rn(dt, a)), (i % 3) == 2 ? T(1) : T(0));
   }
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
+  for (int i = tid; i < 3 * r; i += nt) {
     const T v = damp ? mul_rn(eta, wv[i]) : wv[i];
     wsn[i] = add_rn(wp[i], mul_rn(dt, v));
   }
+}
+
+// ... split over the threads of the block
+template <typename T>
+__device__ void affine_predictor(const T* ap, const T* av, const T* wp,
+                                 const T* wv, int r, T dt, T eta, T* asn,
+                                 T* avd, T* wsn) {
+  affine_predictor_by(threadIdx.x, blockDim.x, ap, av, wp, wv, r, dt, eta,
+                      asn, avd, wsn);
 }
 
 // rbc = rb_ex - rb_lin with
@@ -106,16 +117,25 @@ __device__ void affine_reset(T* ap, T* av, T* wp, T* wv, int r) {
   }
 }
 
+// a[0] b0 + a[1] b1 + a[2] fa + acc: the base part of a materialized entry
+// beside its lift sum acc
+template <typename T>
+__device__ __forceinline__ T affine_base(const T* a, T b0, T b1, T fa,
+                                         T acc) {
+  return a[0] * b0 + a[1] * b1 + a[2] * fa + acc;
+}
+
 // One dim-row of a materialization at column v:
 // a[0] b0[v] + a[1] b1[v] + a[2] fa[v] + sum_k w[k] U[k, v], with w
 // already rounded to the storage type and U the (r, N) slice of that dim.
+// (affine.cu's batched floor test runs the same sum for a group of sims.)
 template <typename T, typename M>
 __device__ __forceinline__ T affine_row(const T* a, const T* w, T b0, T b1,
                                         T fa, const M* U, int N, int r,
                                         int v) {
   T acc = T(0);
   for (int k = 0; k < r; ++k) acc += w[k] * widen(U[(size_t)k * N + v]);
-  return a[0] * b0 + a[1] * b1 + a[2] * fa + acc;
+  return affine_base(a, b0, b1, fa, acc);
 }
 
 }  // namespace ksm

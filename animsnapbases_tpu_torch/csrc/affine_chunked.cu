@@ -37,6 +37,19 @@
 // r-long dependent-load chains of rb_lin and the solve off L2.  The
 // branch of a step (bound clear, exact check, stop) is block-uniform:
 // one thread decides the bound, __syncthreads_or the exact check.
+//
+// The batched build (nb sims, the JAX kernel's nb = B; the tier 1 of
+// make_batched_run's large-model route) runs one block per sim on a grid of
+// nb blocks, each the solo chunk on sim b's buffers (sim-major: P, V, fa
+// (nb, 3, N); b0s, b1s, fas (nb, 3, g); bu0, bu1, bu_fa (nb, 3, r); ymm
+// (nb, 6); out (nb, 18 + 6r); k (nb,)), M_utac and inv3 staged per block.
+// At r = 64 a block's shared memory (~120 KB) allows one block per SM, so
+// up to 132 sims run in one wave and more in further waves.  Each block
+// records its own k_b; the whole-batch exit (stop before the first step at
+// which any sim clamps) is made by the caller (ops/affine_chunked.py),
+// which launches the chunk again for min k_b steps when the k_b differ.
+// No block waits for another: a grid-wide barrier hangs when blocks are
+// not co-resident.
 #include "affine.cuh"
 
 namespace ksm {
@@ -65,6 +78,7 @@ struct Chunk {
   T* out;             // ap (9), av (9), wp (3r), wv (3r)
   int* k;
   int N, steps, first, stage;
+  int r, g;           // for the per-sim offsets
   T dt, eta, floor_h, c2, eps;
 };
 
@@ -76,10 +90,31 @@ __host__ __device__ inline size_t chunk_smem_elems(int r, int g, int m,
          (stage ? 6 * (size_t)r * r : 0);
 }
 
+// the chunk of sim b: the per-sim buffers are laid out sim after sim
 template <typename T, typename M>
-__global__ void affine_chunk(Chunk<T, M> a, Iter<T> op,
+__device__ Chunk<T, M> chunk_of_sim(Chunk<T, M> a, int b) {
+  const size_t x = (size_t)b * 3 * a.N, gs = (size_t)b * 3 * a.g;
+  const size_t rs = (size_t)b * 3 * a.r;
+  a.P += x;
+  a.V += x;
+  a.fa += x;
+  a.ymm += (size_t)b * 6;
+  a.b0s += gs;
+  a.b1s += gs;
+  a.fas += gs;
+  a.bu0 += rs;
+  a.bu1 += rs;
+  a.bufa += rs;
+  a.out += (size_t)b * (18 + 6 * a.r);
+  a.k += b;
+  return a;
+}
+
+template <typename T, typename M>
+__global__ void affine_chunk(Chunk<T, M> all, Iter<T> op,
                              int num_iterations) {
   __shared__ int maybe;
+  const Chunk<T, M> a = chunk_of_sim(all, blockIdx.x);
   const int r = op.r, g = op.g, m = op.m, N = a.N;
   const int tid = threadIdx.x, nt = blockDim.x;
   T* rbc = reinterpret_cast<T*>(chunk_smem);
@@ -204,8 +239,8 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
                  const void* WT, const void* gidx, const void* kind,
                  const void* eg, const void* ef, void* out, void* k, int N,
                  int r, int g, int m, int steps, int num_iterations,
-                 int first, double dt, double eta, double floor_h, double c2,
-                 double eps, void* stream) {
+                 int first, int nb, double dt, double eta, double floor_h,
+                 double c2, double eps, void* stream) {
   const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
   Chunk<T, M> a;
   a.P = static_cast<const T*>(P);
@@ -225,6 +260,8 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
   a.out = static_cast<T*>(out);
   a.k = static_cast<int*>(k);
   a.N = N;
+  a.r = r;
+  a.g = g;
   a.steps = steps;
   a.first = first;
   a.dt = (T)dt;
@@ -237,13 +274,15 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
   const size_t smem = sizeof(T) * chunk_smem_elems(r, g, m, a.stage);
   cudaError_t e = allow_smem(affine_chunk<T, M>, smem);
   if (e != cudaSuccess) return e;
-  affine_chunk<T, M><<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, op, num_iterations);
+  affine_chunk<T, M><<<nb, THREADS, smem,
+                       static_cast<cudaStream_t>(stream)>>>(a, op,
+                                                            num_iterations);
   return cudaGetLastError();
 }
 
 }  // namespace ksm
 
+// nb sims (nb = 1: the solo chunk); rbex (3, r) is shared by the sims
 #define CHUNK_ENTRY(NAME, T, M)                                              \
   extern "C" int NAME(                                                       \
       const void* P, const void* V, const void* fa, void* ymm,               \
@@ -252,12 +291,13 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
       const void* ulift, const void* mutac, const void* UG, const void* C,   \
       const void* inv, const void* WT, const void* gidx, const void* kind,   \
       const void* eg, const void* ef, void* out, void* k, int N, int r,      \
-      int g, int m, int steps, int num_iterations, int first, double dt,     \
-      double eta, double floor_h, double c2, double eps, void* stream) {     \
+      int g, int m, int steps, int num_iterations, int first, int nb,        \
+      double dt, double eta, double floor_h, double c2, double eps,          \
+      void* stream) {                                                        \
     return ksm::launch_chunk<T, M>(                                          \
         P, V, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa, rbex, ulift, mutac,    \
         UG, C, inv, WT, gidx, kind, eg, ef, out, k, N, r, g, m, steps,       \
-        num_iterations, first, dt, eta, floor_h, c2, eps, stream);           \
+        num_iterations, first, nb, dt, eta, floor_h, c2, eps, stream);       \
   }
 
 CHUNK_ENTRY(affine_chunk_f32_f32, float, float)

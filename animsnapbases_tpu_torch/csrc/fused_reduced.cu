@@ -13,6 +13,14 @@
 // in the middle, so it is bound by latency: one SM, three barriers per
 // iteration, and the L2 reads of C_allT and WT_all each iteration.
 //
+// The batched build (the JAX kernel under `vmap`, which gives its grid a
+// batch axis; make_batched_step) runs the same block once per sim on a
+// grid of nb blocks: block b reads sim b's snT_sel and rb_const at its sim
+// stride and writes its u.  The operands are shared and stay in L2.  Each
+// block does exactly what the solo launch (nb = 1) does, in the same
+// order, so sim b of a batched call equals the solo call from sim b's
+// inputs bit for bit.
+//
 // What the design does about it: the whole loop runs in ONE thread block,
 // so no launch and no device-memory round trip separates the iterations.
 // The iteration state (rb, Vc, Vall, pT: a few KB) lives in shared memory;
@@ -31,9 +39,13 @@ extern __shared__ __align__(16) unsigned char fused_smem[];
 
 template <typename T>
 __global__ void fused_reduced_kernel(Iter<T> op, const T* snT, int ld_sn,
-                                     const T* rb_const, T* u,
-                                     int num_iterations) {
+                                     long long sim_sn, const T* rb_const,
+                                     T* u, int num_iterations) {
   const int r = op.r, g = op.g, m = op.m;
+  const int b = blockIdx.x;  // the sim
+  snT += b * sim_sn;
+  rb_const += (size_t)b * 3 * r;
+  u += (size_t)b * 3 * r;
   T* rbc = reinterpret_cast<T*>(fused_smem);
   T* rb = rbc + 3 * r;
   T* vc = rb + 3 * r;
@@ -51,32 +63,35 @@ __global__ void fused_reduced_kernel(Iter<T> op, const T* snT, int ld_sn,
 }
 
 template <typename T>
-int launch_fused(const void* snT, int ld_sn, const void* rb_const,
-                 const void* C, const void* inv, const void* WT,
-                 const void* gidx, const void* kind, const void* eg,
-                 const void* ef, void* u, int r, int g, int m,
-                 int num_iterations, void* stream) {
+int launch_fused(const void* snT, int ld_sn, long long sim_sn,
+                 const void* rb_const, const void* C, const void* inv,
+                 const void* WT, const void* gidx, const void* kind,
+                 const void* eg, const void* ef, void* u, int r, int g, int m,
+                 int num_iterations, int nb, void* stream) {
   const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
   const size_t smem = sizeof(T) * iter_smem_elems(r, g, m);
   cudaError_t e = allow_smem(fused_reduced_kernel<T>, smem);
   if (e != cudaSuccess) return e;
-  fused_reduced_kernel<T><<<1, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      op, static_cast<const T*>(snT), ld_sn, static_cast<const T*>(rb_const),
-      static_cast<T*>(u), num_iterations);
+  fused_reduced_kernel<T><<<nb, 256, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      op, static_cast<const T*>(snT), ld_sn, sim_sn,
+      static_cast<const T*>(rb_const), static_cast<T*>(u), num_iterations);
   return cudaGetLastError();
 }
 
 }  // namespace ksm
 
+// nb sims: snT_sel of sim b at snT + b * sim_sn (rows ld_sn apart),
+// rb_const and u (nb, 3, r) contiguous; nb = 1 is the solo launch
 #define FUSED_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const void* snT, int ld_sn, const void* rb_const,      \
-                      const void* C, const void* inv, const void* WT,        \
-                      const void* gidx, const void* kind, const void* eg,    \
-                      const void* ef, void* u, int r, int g, int m,          \
-                      int num_iterations, void* stream) {                    \
-    return ksm::launch_fused<T>(snT, ld_sn, rb_const, C, inv, WT, gidx,      \
-                                kind, eg, ef, u, r, g, m, num_iterations,    \
-                                stream);                                     \
+  extern "C" int NAME(const void* snT, int ld_sn, long long sim_sn,          \
+                      const void* rb_const, const void* C, const void* inv,  \
+                      const void* WT, const void* gidx, const void* kind,    \
+                      const void* eg, const void* ef, void* u, int r, int g, \
+                      int m, int num_iterations, int nb, void* stream) {     \
+    return ksm::launch_fused<T>(snT, ld_sn, sim_sn, rb_const, C, inv, WT,    \
+                                gidx, kind, eg, ef, u, r, g, m,              \
+                                num_iterations, nb, stream);                 \
   }
 
 FUSED_ENTRY(fused_reduced_iterations_f32, float)

@@ -41,6 +41,22 @@
 // The predictor uses round-to-nearest intrinsics that the compiler does
 // not contract into an FMA, so sn is bit-for-bit what the plain version
 // (ops/resident.py) computes and the storage-type rounding of sn agrees.
+//
+// The batched build (nb sims, the JAX kernel's nb = B; the contact windows
+// of make_batched_run's large-model route) keeps the states sim-major,
+// (nb, 3, N), and runs the same three launches per step:
+//   (a) on a grid of (tiles, sim groups): a block loads the sn tiles of up
+//       to SIM_GROUP sims and reads each element of ut_acT once for all of
+//       them, so the (3, r, N) matrix is read nb / SIM_GROUP times a step,
+//       not nb times;
+//   (b) on a grid of nb blocks, one sim each;
+//   (c) on a grid of (entry blocks, sim groups): each U_liftT element is
+//       read once for the group's sims.
+// Each sim's sums run in the same order as in the solo launch (nb = 1,
+// built with a group of one), so sim b of a batched call equals the solo
+// call from sim b's state bit for bit.
+#include <type_traits>
+
 #include "iteration.cuh"
 #include "storage.cuh"
 
@@ -48,50 +64,70 @@ namespace ksm {
 
 constexpr int TILE = 128;
 constexpr int THREADS = 256;
+constexpr int SIM_GROUP = 8;  // sims per block of launches (a) and (c)
 
 extern __shared__ __align__(16) unsigned char resident_smem[];
 
-// (a) predictor, floor clamp and the per-tile partial of ut_acT . sn
-template <typename T, typename M>
+// (a) predictor, floor clamp and the per-tile partial of ut_acT . sn, for
+// the sims b0 .. b0 + SG - 1 of blockIdx.y's group.  Sim b's partial of
+// tile t lands at partial[(b * nblk + t) * 3r].
+template <typename T, typename M, int SG>
 __global__ void predict_project(const T* P, const T* V, const T* fa, T* sn,
                                 double* partial, const M* utac, int N, int r,
-                                T dtv, int floor_on, T floor_h) {
-  __shared__ T sns[3][TILE];
+                                int nb, T dtv, int floor_on, T floor_h) {
+  __shared__ T sns[SG][3][TILE];
   const int n0 = blockIdx.x * TILE;
   const int len = min(TILE, N - n0);
-  for (int i = threadIdx.x; i < 3 * TILE; i += blockDim.x) {
-    const int d = i / TILE, t = i - d * TILE;
-    T s = T(0);
-    if (t < len) {
-      const size_t idx = (size_t)d * N + n0 + t;
-      s = add_rn(add_rn(P[idx], mul_rn(dtv, V[idx])), fa[idx]);
-      if (floor_on && d == 1 && s < floor_h) s = floor_h;
-      sn[idx] = s;
-      s = Round<M, T>::apply(s);
+  const int b0 = blockIdx.y * SG;
+  const int ns = min(SG, nb - b0);
+  for (int i = threadIdx.x; i < SG * 3 * TILE; i += blockDim.x) {
+    const int s = i / (3 * TILE), rem = i - s * 3 * TILE;
+    const int d = rem / TILE, t = rem - d * TILE;
+    T x = T(0);
+    if (s < ns && t < len) {
+      const size_t idx = (size_t)(b0 + s) * 3 * N + (size_t)d * N + n0 + t;
+      x = add_rn(add_rn(P[idx], mul_rn(dtv, V[idx])), fa[idx]);
+      if (floor_on && d == 1 && x < floor_h) x = floor_h;
+      sn[idx] = x;
+      x = Round<M, T>::apply(x);
     }
-    sns[d][t] = s;
+    sns[s][d][t] = x;
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
+  const int nblk = gridDim.x;
   for (int o = warp; o < 3 * r; o += nw) {
     const int d = o / r;
     const M* row = utac + (size_t)o * N + n0;  // (d, k) row of (3, r, N)
-    double acc = 0.0;
-    for (int t = lane; t < len; t += 32)
-      acc += (double)widen(row[t]) * (double)sns[d][t];
-    acc = warp_sum(acc);
-    if (lane == 0) partial[(size_t)blockIdx.x * 3 * r + o] = acc;
+    double acc[SG];
+#pragma unroll
+    for (int s = 0; s < SG; ++s) acc[s] = 0.0;
+    for (int t = lane; t < len; t += 32) {
+      const double w = (double)widen(row[t]);
+#pragma unroll
+      for (int s = 0; s < SG; ++s) acc[s] += w * (double)sns[s][d][t];
+    }
+#pragma unroll
+    for (int s = 0; s < SG; ++s) {
+      const double v = warp_sum(acc[s]);
+      if (lane == 0 && s < ns)
+        partial[((size_t)(b0 + s) * nblk + blockIdx.x) * 3 * r + o] = v;
+    }
   }
 }
 
-// (b) reduction of the partials and the iteration loop, one block
+// (b) reduction of the partials and the iteration loop, one block per sim
 template <typename T>
 __global__ void resident_iterate(Iter<T> op, const T* sn, int N,
                                  const double* partial, int nblk,
                                  const T* rb_extra, T* u,
                                  int num_iterations) {
   const int r = op.r, g = op.g;
+  const int b = blockIdx.x;  // the sim
+  sn += (size_t)b * 3 * N;
+  partial += (size_t)b * nblk * 3 * r;
+  u += (size_t)b * 3 * r;
   T* rbc = reinterpret_cast<T*>(resident_smem);
   T* rb = rbc + 3 * r;
   T* vc = rb + 3 * r;
@@ -111,25 +147,69 @@ __global__ void resident_iterate(Iter<T> op, const T* sn, int N,
   solve_block(op, rb, u);
 }
 
-// (c) lift q = sn + U u and the velocity update, in place
-template <typename T, typename M>
+// (c) lift q = sn + U u and the velocity update, in place, for the sims of
+// blockIdx.y's group: each U_liftT element is read once for all of them
+template <typename T, typename M, int SG>
 __global__ void lift_update(T* P, T* V, const T* sn, const T* u,
-                            const M* ulift, int N, int r, T dt) {
-  T* us = reinterpret_cast<T*>(resident_smem);
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
-    us[i] = Round<M, T>::apply(u[i]);
+                            const M* ulift, int N, int r, int nb, T dt) {
+  T* us = reinterpret_cast<T*>(resident_smem);  // SG x 3r
+  const int b0 = blockIdx.y * SG;
+  const int ns = min(SG, nb - b0);
+  for (int i = threadIdx.x; i < SG * 3 * r; i += blockDim.x)
+    us[i] = i < ns * 3 * r ? Round<M, T>::apply(u[(size_t)b0 * 3 * r + i])
+                           : T(0);
   __syncthreads();
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)3 * N) return;
   const int d = (int)(idx / N);
   const int n = (int)(idx - (size_t)d * N);
   const M* col = ulift + (size_t)d * r * N + n;
-  const T* ud = us + d * r;
-  T acc = T(0);
-  for (int k = 0; k < r; ++k) acc += ud[k] * widen(col[(size_t)k * N]);
-  const T q = sn[idx] + acc;
-  V[idx] = (q - P[idx]) / dt;
-  P[idx] = q;
+  T acc[SG];
+#pragma unroll
+  for (int s = 0; s < SG; ++s) acc[s] = T(0);
+  for (int k = 0; k < r; ++k) {
+    const T c = widen(col[(size_t)k * N]);
+#pragma unroll
+    for (int s = 0; s < SG; ++s) acc[s] += us[s * 3 * r + d * r + k] * c;
+  }
+#pragma unroll
+  for (int s = 0; s < SG; ++s) {
+    if (s < ns) {
+      const size_t x = (size_t)(b0 + s) * 3 * N + idx;
+      const T q = sn[x] + acc[s];
+      V[x] = (q - P[x]) / dt;
+      P[x] = q;
+    }
+  }
+}
+
+// The step's three launches for sim groups of SG (SG = 1: the solo call).
+template <typename T, typename M, int SG>
+cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
+                          const T* rb_extra, const M* ulift, const M* utac,
+                          T* sn, double* part, T* u, int N, int r, int nb,
+                          int num_steps, int num_iterations, T dt, T dtv,
+                          int floor_on, T floor_h, cudaStream_t s) {
+  const int nblk = (N + TILE - 1) / TILE;
+  const int groups = (nb + SG - 1) / SG;
+  const dim3 grid_a(nblk, groups);
+  const dim3 grid_c((3 * N + THREADS - 1) / THREADS, groups);
+  const size_t smem_it = sizeof(T) * iter_smem_elems(op.r, op.g, op.m);
+  const size_t smem_lift = sizeof(T) * SG * 3 * r;
+  cudaError_t e = allow_smem(resident_iterate<T>, smem_it);
+  if (e == cudaSuccess) e = allow_smem(lift_update<T, M, SG>, smem_lift);
+  if (e != cudaSuccess) return e;
+  for (int step = 0; step < num_steps; ++step) {
+    predict_project<T, M, SG><<<grid_a, THREADS, 0, s>>>(
+        P, V, fa, sn, part, utac, N, r, nb, dtv, floor_on, floor_h);
+    resident_iterate<T><<<nb, THREADS, smem_it, s>>>(
+        op, sn, N, part, nblk, rb_extra, u, num_iterations);
+    lift_update<T, M, SG><<<grid_c, THREADS, smem_lift, s>>>(
+        P, V, sn, u, ulift, N, r, nb, dt);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, typename M>
@@ -138,40 +218,29 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                     const void* inv, const void* WT, const void* gidx,
                     const void* kind, const void* eg, const void* ef,
                     void* sn, void* partial, void* u, int N, int r, int g,
-                    int m, int num_steps, int num_iterations, double dt,
-                    double dtv, int floor_on, double floor_h,
+                    int m, int num_steps, int num_iterations, int nb,
+                    double dt, double dtv, int floor_on, double floor_h,
                     void* stream) {
   const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblk = (N + TILE - 1) / TILE;
-  const int lift_blocks = (3 * N + THREADS - 1) / THREADS;
-  const size_t smem_it = sizeof(T) * iter_smem_elems(r, g, m);
-  const size_t smem_lift = sizeof(T) * 3 * r;
-  cudaError_t e = allow_smem(resident_iterate<T>, smem_it);
-  if (e == cudaSuccess) e = allow_smem(lift_update<T, M>, smem_lift);
-  if (e != cudaSuccess) return e;
-  T* Pt = static_cast<T*>(P);
-  T* Vt = static_cast<T*>(V);
-  T* snt = static_cast<T*>(sn);
-  double* part = static_cast<double*>(partial);
-  T* ut = static_cast<T*>(u);
-  for (int step = 0; step < num_steps; ++step) {
-    predict_project<T, M><<<nblk, THREADS, 0, s>>>(
-        Pt, Vt, static_cast<const T*>(fa), snt, part,
-        static_cast<const M*>(utac), N, r, (T)dtv, floor_on, (T)floor_h);
-    resident_iterate<T><<<1, THREADS, smem_it, s>>>(
-        op, snt, N, part, nblk, static_cast<const T*>(rb_extra), ut,
-        num_iterations);
-    lift_update<T, M><<<lift_blocks, THREADS, smem_lift, s>>>(
-        Pt, Vt, snt, ut, static_cast<const M*>(ulift), N, r, (T)dt);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
+  auto run = [&](auto group) {
+    constexpr int SG = decltype(group)::value;
+    return enqueue_steps<T, M, SG>(
+        op, static_cast<T*>(P), static_cast<T*>(V),
+        static_cast<const T*>(fa), static_cast<const T*>(rb_extra),
+        static_cast<const M*>(ulift), static_cast<const M*>(utac),
+        static_cast<T*>(sn), static_cast<double*>(partial),
+        static_cast<T*>(u), N, r, nb, num_steps, num_iterations, (T)dt,
+        (T)dtv, floor_on, (T)floor_h, s);
+  };
+  return nb == 1 ? run(std::integral_constant<int, 1>{})
+                 : run(std::integral_constant<int, SIM_GROUP>{});
 }
 
 }  // namespace ksm
 
+// P, V, fa, sn: (nb, 3, N); partial (nb, nblk, 3, r) float64; u (nb, 3, r);
+// rb_extra (3, r) shared by the sims; nb = 1 is the solo call
 #define RESIDENT_ENTRY(NAME, T, M)                                           \
   extern "C" int NAME(void* P, void* V, const void* fa,                      \
                       const void* rb_extra, const void* ulift,               \
@@ -179,12 +248,12 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                       const void* WT, const void* gidx, const void* kind,    \
                       const void* eg, const void* ef, void* sn,              \
                       void* partial, void* u, int N, int r, int g, int m,    \
-                      int num_steps, int num_iterations, double dt,          \
+                      int num_steps, int num_iterations, int nb, double dt,  \
                       double dtv, int floor_on, double floor_h,              \
                       void* stream) {                                        \
     return ksm::launch_resident<T, M>(                                       \
         P, V, fa, rb_extra, ulift, utac, C, inv, WT, gidx, kind, eg, ef, sn, \
-        partial, u, N, r, g, m, num_steps, num_iterations, dt, dtv,          \
+        partial, u, N, r, g, m, num_steps, num_iterations, nb, dt, dtv,      \
         floor_on, floor_h, stream);                                          \
   }
 

@@ -29,6 +29,13 @@ becomes the new anchors.
   ``csrc/affine.cu`` (one C loop enqueues every step's launches) and counts
   the call in its ``launches``; for CPU tensors it runs the plain version;
   it never falls back from the card to the plain version.
+* ``resident_affine_batched``: kernel 3's batched build (``nb = B`` in the
+  JAX package), the default route of ``make_batched_run``: B independent
+  sims in sim-major (B, 3, N) layout in one call, the contact branch per
+  sim (a clamping sim takes the contact tail, the others the free step;
+  the JAX kernel takes the tail for the whole batch when any sim clamps,
+  which the clamp's being the identity for airborne sims makes exact too).
+  Its plain version is ``resident_affine_plain`` on (B, 3, N) tensors.
 
 As in kernel 2, ``U^T A_c`` products (the anchors' ``bu0``/``bu1``/``bu_fa``
 and the contact tail's projection) accumulate in float64, in the kernel and
@@ -40,6 +47,7 @@ ROADMAP Queue C), and values are rounded to the storage dtype of the
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -141,12 +149,13 @@ class AffineContext:
         return v if self.ro.eta == 1.0 else self.ro.eta * v
 
     def materialize(self, st: AffineState, a, w):
-        """(3, N) state from base coefficients a and reduced coords w."""
-        return (a[:, 0:1] * st.b0 + a[:, 1:2] * st.b1 + a[:, 2:3] * self.fa
-                + lift_coords(self.ro, w))
+        """(..., 3, N) state from base coefficients a and reduced coords
+        w."""
+        return (a[..., 0:1] * st.b0 + a[..., 1:2] * st.b1
+                + a[..., 2:3] * self.fa + lift_coords(self.ro, w))
 
     def init_anchors(self, P, V) -> AffineState:
-        zw = torch.zeros((3, self.fo.r), dtype=P.dtype, device=P.device)
+        zw = P.new_zeros(P.shape[:-1] + (self.fo.r,))
         return AffineState(b0=P, b1=V, ap=self.e0, av=self.e1, wp=zw,
                            wv=zw)
 
@@ -164,11 +173,13 @@ class AffineContext:
         return st.ap, st.av, st.wp, st.wv, avd, asn, wsn
 
     def y_predictor(self, st: AffineState, asn, wsn):
-        """Only the y row of the predictor (N,): the exact floor test."""
+        """Only the y row of the predictor (..., N): the exact floor
+        test."""
         y = self.ro.U_liftT[1].to(wsn.dtype)
-        wy = storage_round(wsn[1], self.ro.U_liftT.dtype)
-        return (asn[1, 0] * st.b0[1] + asn[1, 1] * st.b1[1]
-                + asn[1, 2] * self.fa[1] + wy @ y)
+        wy = storage_round(wsn[..., 1, :], self.ro.U_liftT.dtype)
+        a = asn[..., 1, :]
+        return (a[..., 0:1] * st.b0[..., 1, :] + a[..., 1:2] * st.b1[..., 1, :]
+                + a[..., 2:3] * self.fa[..., 1, :] + wy @ y)
 
     def reset(self, st: AffineState, b0, b1):
         """New anchors, unit coefficients, stale projections."""
@@ -187,11 +198,11 @@ class AffineContext:
         """One contact-free step entirely in affine coordinates, the
         gathered values of the predictor taken through ``U_selT``."""
         n_sel = self.ro.n_sel
-        snT_sel = (asn[:, 0:1] * st.b0[:, :n_sel]
-                   + asn[:, 1:2] * st.b1[:, :n_sel]
-                   + asn[:, 2:3] * self.fa[:, :n_sel]
+        snT_sel = (asn[..., 0:1] * st.b0[..., :n_sel]
+                   + asn[..., 1:2] * st.b1[..., :n_sel]
+                   + asn[..., 2:3] * self.fa[..., :n_sel]
                    + rowvec_bmm(wsn, self.ao.U_selT))
-        self.gathered_step(st, asn, wsn, avd, wp, snT_sel[:, self.gidx],
+        self.gathered_step(st, asn, wsn, avd, wp, snT_sel[..., self.gidx],
                            rb_ex, num_iterations)
 
     def gathered_step(self, st: AffineState, asn, wsn, avd, wp, Vc, rb_ex,
@@ -201,8 +212,9 @@ class AffineContext:
         subtraction: ``(aq - ap)/dt == eta av + e2/dt`` exactly."""
         fo = self.fo
         self.refresh_bu(st)
-        rb_lin = (asn[:, 0:1] * st.bu0 + asn[:, 1:2] * st.bu1
-                  + asn[:, 2:3] * self.bu_fa + rowvec_bmm(wsn, self.ao.M_utac))
+        rb_lin = (asn[..., 0:1] * st.bu0 + asn[..., 1:2] * st.bu1
+                  + asn[..., 2:3] * self.bu_fa
+                  + rowvec_bmm(wsn, self.ao.M_utac))
         rb = iterate_plain(fo, Vc, rb_ex - rb_lin, num_iterations)
         wq = wsn + solve_plain(fo, rb)
         st.ap = asn
@@ -218,9 +230,10 @@ class AffineContext:
         ro, fo = self.ro, self.fo
         P = self.materialize(st, ap, wp)
         sn = self.materialize(st, asn, wsn)
-        sn[1] = torch.where(sn[1] < ro.floor_h,
-                            torch.full_like(sn[1], ro.floor_h), sn[1])
-        rb = iterate_plain(fo, sn[:, :ro.n_sel][:, self.gidx],
+        y = sn[..., 1, :]
+        sn[..., 1, :] = torch.where(y < ro.floor_h,
+                                    torch.full_like(y, ro.floor_h), y)
+        rb = iterate_plain(fo, sn[..., :ro.n_sel][..., self.gidx],
                            rb_ex - project(ro, sn), num_iterations)
         q = sn + lift_coords(ro, solve_plain(fo, rb))
         self.reset(st, q, (q - P) / ro.dt)
@@ -235,13 +248,23 @@ def _rebase_due(i: int, rebase_every: int) -> bool:
     return i > 0 and i % rebase_every == 0
 
 
+def _merge(mask, x, y):
+    """x where the sim's ``mask`` (B,) is set, else y: per-sim (·, ·)
+    values, each of x and y batched (B, ·, ·) or shared by the sims."""
+    return torch.where(mask[:, None, None], x, y)
+
+
 def resident_affine_plain(ao: AffineOperands, P, V, fext, rb_extra,
                           num_steps: int, num_iterations: int,
                           rebase_every: int = 256,
                           contact_mode: bool = False):
     """Plain version of kernel 3, the lean build: ``num_steps`` steps ->
     (P', V').  Each step tests the exact y row of the predictor against the
-    floor; a clamped step runs the re-anchoring contact tail."""
+    floor; a clamped step runs the re-anchoring contact tail.  With a
+    leading batch axis (B, 3, N) of independent sims (``rb_extra`` (3, r)
+    shared) it is the plain version of the batched build, whose branch is
+    per sim: the sims that clamp take the contact tail, the others the free
+    step."""
     if contact_mode:
         raise NotImplementedError(CONTACT_MODE_TODO)
     if P.is_cuda:
@@ -253,12 +276,24 @@ def resident_affine_plain(ao: AffineOperands, P, V, fext, rb_extra,
         if _rebase_due(i, rebase_every):
             ctx.rebase(st)
         ap, _, wp, _, avd, asn, wsn = ctx.predictor(st)
-        if ro.floor and bool(
-                (ctx.y_predictor(st, asn, wsn) < ro.floor_h).any()):
+        clamped = (ctx.y_predictor(st, asn, wsn) < ro.floor_h).any(-1) \
+            if ro.floor else torch.zeros(P.shape[:-2], dtype=torch.bool)
+        if not bool(clamped.any()):
+            ctx.free_step(st, asn, wsn, avd, wp, rb_extra, num_iterations)
+        elif bool(clamped.all()):
             ctx.contact_reanchor(st, ap, wp, asn, wsn, rb_extra,
                                  num_iterations)
         else:
-            ctx.free_step(st, asn, wsn, avd, wp, rb_extra, num_iterations)
+            # some sims of a batch clamp: both branches from the same
+            # state, each sim keeping its own
+            free = dataclasses.replace(st)
+            ctx.free_step(free, asn, wsn, avd, wp, rb_extra, num_iterations)
+            ctx.contact_reanchor(st, ap, wp, asn, wsn, rb_extra,
+                                 num_iterations)
+            for f in ("b0", "b1", "ap", "av", "wp", "wv"):
+                setattr(st, f, _merge(clamped, getattr(st, f),
+                                      getattr(free, f)))
+            st.bu0 = st.bu1 = None
     return ctx.output(st)
 
 
@@ -297,30 +332,39 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = (_P,) * 22 + (_I,) * 9 + (_D,) * 3 + (_P,)
-# int32 flag slots of one call (csrc/affine.cu): stale, done, steps done,
-# then one "clamped" slot per step
+_ARGTYPES = (_P,) * 22 + (_I,) * 11 + (_D,) * 3 + (_P,)
+# int32 flag slots of one sim of a call (csrc/affine.cu): stale, done,
+# steps done, then one "clamped" slot per step
 FLAG_SLOTS = 3
 
 
 def split_coef(coef, r: int):
     """(ap, av, wp, wv) as views of a flat coefficient buffer of
-    2 * 9 + 2 * 3 * r values, the layout of csrc/affine.cu and
-    csrc/affine_chunked.cu."""
-    return (coef[0:9].view(3, 3), coef[9:18].view(3, 3),
-            coef[18:18 + 3 * r].view(3, r), coef[18 + 3 * r:].view(3, r))
+    2 * 9 + 2 * 3 * r values (or (B, ·) of them, one row per sim), the
+    layout of csrc/affine.cu and csrc/affine_chunked.cu."""
+    lead = coef.shape[:-1]
+    return (coef[..., 0:9].view(*lead, 3, 3),
+            coef[..., 9:18].view(*lead, 3, 3),
+            coef[..., 18:18 + 3 * r].view(*lead, 3, r),
+            coef[..., 18 + 3 * r:].view(*lead, 3, r))
 
 
 def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
                    num_steps: int, num_iterations: int, rebase_every: int,
                    exit_variant: bool):
-    """Enqueue one call of csrc/affine.cu -> (P', V', flags, coef): coef
-    holds the coefficients (:func:`split_coef`) over the last anchors, which
-    are the inputs P, V when no rebase fell in the call."""
+    """Enqueue one call of csrc/affine.cu on the (3, N) state, or the
+    (B, 3, N) states of B sims -> (P', V', flags, coef): coef holds the
+    coefficients (:func:`split_coef`) over the last anchors, which are the
+    inputs P, V when no rebase fell in the call; flags and coef have a
+    leading sim axis when the state has."""
     ro, fo = ao.res, ao.fused
     check_state(ro, P, V, fext, rb_extra)
     if rebase_every < 1:
         raise ValueError("rebase_every must be >= 1")
+    batched = P.dim() == 3
+    nb = P.shape[0] if batched else 1
+    if exit_variant and batched:
+        raise ValueError("kernel 4 has no batched build")
     fn = _build.function("affine", _SYMBOLS[(P.dtype, ro.U_liftT.dtype)],
                          _ARGTYPES)
     dev = P.device
@@ -335,14 +379,15 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    coef = f32(2 * 9 + 2 * 3 * r)        # ap, av, wp, wv
-    bu = f32(3 * 3 * r)                  # bu0, bu1, bu_fa
-    sn, Pm = f32(3, n), f32(3, n)
-    u = f32(3 * r)
+    coef = f32(nb, 2 * 9 + 2 * 3 * r)    # ap, av, wp, wv
+    bu = f32(nb, 3 * 3 * r)              # bu0, bu1, bu_fa
+    sn, Pm = torch.empty_like(b0), torch.empty_like(b0)
+    u = f32(nb, 3 * r)
     # float64 per-tile partials of U^T A_c: two (3, r) sums per tile
-    partial = torch.empty((nblk, 2, 3 * r), dtype=torch.float64, device=dev)
-    flags = torch.zeros(FLAG_SLOTS + max(num_steps, 1), dtype=torch.int32,
-                        device=dev)
+    partial = torch.empty((nb, nblk, 2, 3 * r), dtype=torch.float64,
+                          device=dev)
+    stride = FLAG_SLOTS + max(num_steps, 1)
+    flags = torch.zeros((nb, stride), dtype=torch.int32, device=dev)
     p = _build.ptr
     code = fn(p(b0), p(b1), p(fa), p(rb_extra), p(ro.U_liftT), p(ro.ut_acT),
               p(ao.M_utac), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
@@ -350,9 +395,11 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
               p(fo.elem_f), p(coef), p(bu), p(sn), p(Pm), p(u), p(partial),
               p(flags), n, r, ro.n_sel, fo.g_total, fo.m_total, int(num_steps),
               int(num_iterations), int(rebase_every),
-              (1 if exit_variant else (2 if ro.floor else 0)),
+              (1 if exit_variant else (2 if ro.floor else 0)), nb, stride,
               ro.dt, ro.eta, ao.floor_level, _build.stream_of(dev))
     _build.check("affine", code, "resident_affine")
+    if not batched:
+        flags, coef = flags[0], coef[0]
     return b0, b1, flags, coef
 
 
@@ -370,6 +417,9 @@ def resident_affine(ao: AffineOperands, P, V, fext, rb_extra,
                                      num_iterations, rebase_every)
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
+    if P.dim() != 2:
+        raise ValueError("P must be (3, N): a batch of sims takes "
+                         "resident_affine_batched")
     P_out, V_out = _launch_affine(ao, P, V, fext, rb_extra, num_steps,
                                   num_iterations, rebase_every, False)[:2]
     resident_affine.launches += 1
@@ -377,6 +427,34 @@ def resident_affine(ao: AffineOperands, P, V, fext, rb_extra,
 
 
 resident_affine.launches = 0
+
+
+def resident_affine_batched(ao: AffineOperands, P, V, fext, rb_extra,
+                            num_steps: int, num_iterations: int,
+                            rebase_every: int = 256,
+                            contact_mode: bool = False):
+    """The batched build of kernel 3 (lean): (P', V') (B, 3, N) of B
+    independent sims after ``num_steps`` steps from their permuted
+    (B, 3, N) states and forces, the static target term ``rb_extra``
+    (3, r) shared.  The contact branch is per sim.  CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/affine.cu`` with B sims, or
+    raise.  The inputs are not modified."""
+    if contact_mode:
+        raise NotImplementedError(CONTACT_MODE_TODO)
+    if P.dim() != 3:
+        raise ValueError("P must be (B, 3, N)")
+    if P.device.type == "cpu":
+        return resident_affine_plain(ao, P, V, fext, rb_extra, num_steps,
+                                     num_iterations, rebase_every)
+    if P.device.type != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    P_out, V_out = _launch_affine(ao, P, V, fext, rb_extra, num_steps,
+                                  num_iterations, rebase_every, False)[:2]
+    resident_affine_batched.launches += 1
+    return P_out, V_out
+
+
+resident_affine_batched.launches = 0
 
 
 def resident_affine_exit(ao: AffineOperands, P, V, fext, rb_extra,
@@ -393,6 +471,8 @@ def resident_affine_exit(ao: AffineOperands, P, V, fext, rb_extra,
                                           rebase_every)
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
+    if P.dim() != 2:
+        raise ValueError("P must be (3, N): kernel 4 has no batched build")
     P_out, V_out, flags, _ = _launch_affine(ao, P, V, fext, rb_extra,
                                             num_steps, num_iterations,
                                             rebase_every, True)

@@ -12,8 +12,13 @@ and the loop itself three ways:
   launch in ``fused_reduced_iterations.launches``; for a CPU tensor it
   runs the plain version; it never falls back from the card to the plain
   version.
+* ``fused_reduced_iterations_batched``: the batched build (the JAX kernel
+  under ``vmap``, ``make_batched_step``): the same kernel on a grid of one
+  block per sim, counted in its own ``launches``.
 * ``fused_reduced_iterations_plain``: the plain PyTorch version, a
-  transcription of the JAX loop (``build_fused_reduced_iterations``).
+  transcription of the JAX loop (``build_fused_reduced_iterations``); a
+  leading batch axis of sims (B, 3, ·) makes it the batched build's plain
+  version.
 * ``iterate_plain``: the loop body, shared with ``ops/resident.py``.
 
 The kernel does not read the JAX package's per-group layout.  It reads an
@@ -236,8 +241,9 @@ def fused_operands(ops: dict, device, dtype) -> FusedOperands:
 # ---------------------------------------------------------------------------
 
 def _sum_dims(x, y):
-    """sum_d x[d] * y[d] for (3, m) rows."""
-    return x[0:1] * y[0:1] + x[1:2] * y[1:2] + x[2:3] * y[2:3]
+    """sum_d x[d] * y[d] for (..., 3, m) rows."""
+    return (x[..., 0:1, :] * y[..., 0:1, :] + x[..., 1:2, :] * y[..., 1:2, :]
+            + x[..., 2:3, :] * y[..., 2:3, :])
 
 
 def _tri_p(gathered, arrays, smin, smax):
@@ -264,9 +270,9 @@ def _spring_p(gathered, arrays):
     """(pallas_reduced.py ``_spring_p``)."""
     V0, V1 = gathered
     (rest,) = arrays
-    spring = V1 - V0                                   # (3, m)
-    length = torch.sqrt(spring[0:1] ** 2 + spring[1:2] ** 2
-                        + spring[2:3] ** 2)            # (1, m)
+    spring = V1 - V0                                   # (..., 3, m)
+    length = torch.sqrt(spring[..., 0:1, :] ** 2 + spring[..., 1:2, :] ** 2
+                        + spring[..., 2:3, :] ** 2)    # (..., 1, m)
     keep = length > 0
     inv_len = torch.where(keep, 1.0 / torch.clamp(length, min=1e-30),
                           torch.zeros_like(length))
@@ -276,7 +282,7 @@ def _spring_p(gathered, arrays):
 
 
 def _projection_rows(fo: FusedOperands, Vall):
-    """pT (3, m_total): every element's projection row, read from the
+    """pT (..., 3, m_total): every element's projection row, read from the
     element table."""
     eg = fo.elem_g.long()
     ef = fo.elem_f
@@ -284,23 +290,26 @@ def _projection_rows(fo: FusedOperands, Vall):
     for name, c0, m, smin, smax in fo.segments:
         cols = slice(c0, c0 + m)
         if name == "tris_strain":
-            gathered = [Vall[:, eg[s, cols]] for s in range(3)]
+            gathered = [Vall[..., eg[s, cols]] for s in range(3)]
             arrays = [ef[0:3, cols], ef[3:6, cols], ef[6:10, cols],
                       ef[10:11, cols]]
             parts.append(_tri_p(gathered, arrays, smin, smax))
         else:
-            gathered = [Vall[:, eg[s, cols]] for s in range(2)]
+            gathered = [Vall[..., eg[s, cols]] for s in range(2)]
             parts.append(_spring_p(gathered, [ef[0:1, cols]]))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 def rowvec_bmm(x, mats):
-    """Per dim d: x[d] (k,) @ mats[d] (k, n) -> (3, n)."""
-    return torch.bmm(x[:, None, :], mats)[:, 0, :]
+    """Per dim d: x[..., d, :] (k,) @ mats[d] (k, n) -> (..., 3, n).  A
+    batch of sims (B, 3, k) contracts as one product per dim over the B
+    rows, without copying ``mats`` per sim."""
+    return torch.einsum("...dk,dkn->...dn", x, mats).contiguous()
 
 
 def iterate_plain(fo: FusedOperands, Vc, rb_const, num_iterations: int):
-    """The loop carried in rb (3, r) from the hoisted Vc (3, g_total):
+    """The loop carried in rb (..., 3, r) from the hoisted Vc
+    (..., 3, g_total), a leading batch axis being independent sims:
     ``Vall = Vc + rb C_allT``, projection rows, ``rb = rb_const + pT WT``.
     Returns the last rb."""
     rb = torch.zeros_like(rb_const)
@@ -318,12 +327,13 @@ def solve_plain(fo: FusedOperands, rb):
 
 def fused_reduced_iterations_plain(fo: FusedOperands, snT_sel, rb_const,
                                    num_iterations: int):
-    """Plain version of kernel 1: u (3, r) from snT_sel (3, n_sel) and
-    rb_const (3, r).  ``Vc = snT_sel G_allT`` is the index gather that the
-    one-hot product equals exactly."""
+    """Plain version of kernel 1: u (..., 3, r) from snT_sel (..., 3, n_sel)
+    and rb_const (..., 3, r); a leading axis is a batch of sims (the plain
+    version of the batched build).  ``Vc = snT_sel G_allT`` is the index
+    gather that the one-hot product equals exactly."""
     if snT_sel.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
-    Vc = snT_sel[:, fo.gidx.long()]
+    Vc = snT_sel[..., fo.gidx.long()]
     return solve_plain(fo, iterate_plain(fo, Vc, rb_const, num_iterations))
 
 
@@ -333,7 +343,9 @@ def fused_reduced_iterations_plain(fo: FusedOperands, snT_sel, rb_const,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_L = ctypes.c_longlong
+_ARGTYPES = (_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             _I, _P)
 
 
 def _check_cuda_operands(fo: FusedOperands, tensors: dict):
@@ -346,6 +358,40 @@ def _check_cuda_operands(fo: FusedOperands, tensors: dict):
                             f"{fo.C_allT.dtype}")
 
 
+def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int):
+    """One launch of csrc/fused_reduced.cu over the sims of the leading
+    axis of snT_sel (..., 3, n_sel) and rb_const (..., 3, r) -> u."""
+    if snT_sel.device.type != "cuda":
+        raise ValueError(f"unsupported device {snT_sel.device}")
+    r, g, m = fo.r, fo.g_total, fo.m_total
+    if fo.C_allT.dtype != torch.float32:
+        raise TypeError("the kernel runs float32 state only, got "
+                        f"{fo.C_allT.dtype}")
+    _check_cuda_operands(fo, {"snT_sel": snT_sel, "rb_const": rb_const})
+    lead = tuple(snT_sel.shape[:-2])
+    if (snT_sel.dim() not in (2, 3) or snT_sel.shape[-2] != 3
+            or snT_sel.stride(-1) != 1):
+        raise ValueError("snT_sel must be (3, n_sel) or (B, 3, n_sel) with "
+                         "unit column stride")
+    if tuple(rb_const.shape) != lead + (3, r) or not rb_const.is_contiguous():
+        raise ValueError(f"rb_const must be contiguous {lead + (3, r)}")
+    nb = lead[0] if lead else 1
+    sim_sn = int(snT_sel.stride(0)) if lead else 0
+    u = torch.empty(lead + (3, r), dtype=rb_const.dtype,
+                    device=rb_const.device)
+    fn = _build.function("fused_reduced", "fused_reduced_iterations_f32",
+                         _ARGTYPES)
+    code = fn(_build.ptr(snT_sel), int(snT_sel.stride(-2)), sim_sn,
+              _build.ptr(rb_const), _build.ptr(fo.C_allT),
+              _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
+              _build.ptr(fo.gidx), _build.ptr(fo.elem_kind),
+              _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(u),
+              r, g, m, int(num_iterations), nb,
+              _build.stream_of(rb_const.device))
+    _build.check("fused_reduced", code, "fused_reduced_iterations")
+    return u
+
+
 def fused_reduced_iterations(fo: FusedOperands, snT_sel, rb_const,
                              num_iterations: int):
     """u (3, r) after ``num_iterations`` of the loop.  A CPU tensor runs the
@@ -354,30 +400,31 @@ def fused_reduced_iterations(fo: FusedOperands, snT_sel, rb_const,
     if snT_sel.device.type == "cpu":
         return fused_reduced_iterations_plain(fo, snT_sel, rb_const,
                                               num_iterations)
-    if snT_sel.device.type != "cuda":
-        raise ValueError(f"unsupported device {snT_sel.device}")
-    r, g, m = fo.r, fo.g_total, fo.m_total
-    if fo.C_allT.dtype != torch.float32:
-        raise TypeError("the kernel runs float32 state only, got "
-                        f"{fo.C_allT.dtype}")
-    _check_cuda_operands(fo, {"snT_sel": snT_sel, "rb_const": rb_const})
-    if snT_sel.dim() != 2 or snT_sel.shape[0] != 3 or snT_sel.stride(1) != 1:
-        raise ValueError("snT_sel must be (3, n_sel) with unit column stride")
-    if tuple(rb_const.shape) != (3, r) or not rb_const.is_contiguous():
-        raise ValueError(f"rb_const must be contiguous (3, {r})")
-    u = torch.empty((3, r), dtype=rb_const.dtype, device=rb_const.device)
-    fn = _build.function("fused_reduced", "fused_reduced_iterations_f32",
-                         _ARGTYPES)
-    code = fn(_build.ptr(snT_sel), int(snT_sel.stride(0)),
-              _build.ptr(rb_const), _build.ptr(fo.C_allT),
-              _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
-              _build.ptr(fo.gidx), _build.ptr(fo.elem_kind),
-              _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(u),
-              r, g, m, int(num_iterations),
-              _build.stream_of(rb_const.device))
-    _build.check("fused_reduced", code, "fused_reduced_iterations")
+    if snT_sel.dim() != 2:
+        raise ValueError("snT_sel must be (3, n_sel): a batch of sims takes "
+                         "fused_reduced_iterations_batched")
+    u = _launch_fused(fo, snT_sel, rb_const, num_iterations)
     fused_reduced_iterations.launches += 1
     return u
 
 
 fused_reduced_iterations.launches = 0
+
+
+def fused_reduced_iterations_batched(fo: FusedOperands, snT_sel, rb_const,
+                                     num_iterations: int):
+    """The batched build of kernel 1: u (B, 3, r) of B independent sims from
+    snT_sel (B, 3, n_sel) and rb_const (B, 3, r).  CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/fused_reduced.cu`` on a grid
+    of B blocks, one sim each, or raise."""
+    if snT_sel.dim() != 3:
+        raise ValueError("snT_sel must be (B, 3, n_sel)")
+    if snT_sel.device.type == "cpu":
+        return fused_reduced_iterations_plain(fo, snT_sel, rb_const,
+                                              num_iterations)
+    u = _launch_fused(fo, snT_sel, rb_const, num_iterations)
+    fused_reduced_iterations_batched.launches += 1
+    return u
+
+
+fused_reduced_iterations_batched.launches = 0

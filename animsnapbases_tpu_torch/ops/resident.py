@@ -11,8 +11,17 @@ permuted so that the selected-element union is a prefix of the vertex axis
   enqueued by one C loop) and counts the call in
   ``resident_multistep.launches``; for CPU tensors it runs the plain
   version; it never falls back from the card to the plain version.
+* ``resident_multistep_batched``: the batched build (``nb = B`` in the JAX
+  package): B independent sims in one call of the same C loop, counted in
+  its own ``launches``.  It serves the contact windows of
+  ``make_batched_run``'s large-model route.
 * ``resident_multistep_plain``: the plain PyTorch version, a
-  transcription of the JAX kernel's step.
+  transcription of the JAX kernel's step; with a leading batch axis it is
+  the batched build's plain version.
+
+The batched layout is sim-major: the states of B sims are (B, 3, N), sim b's
+(3, N) block contiguous, where the JAX package keeps dim-major (3B, N) rows
+d*B + b.  Sim-major gives each sim's kernel work one base offset.
 * ``step_once`` (``predict``, the loop, ``lift``): one step of that
   transcription with the iteration loop passed in, which
   ``AnimSnapBasesSolver.step`` runs on kernel 1.
@@ -38,6 +47,7 @@ from animsnapbases_tpu_torch.ops import _build
 from animsnapbases_tpu_torch.ops.fused_reduced import (
     FusedOperands,
     fused_reduced_iterations_plain,
+    rowvec_bmm,
 )
 
 
@@ -86,7 +96,7 @@ def resident_operands(fused: FusedOperands, U_liftT, ut_acT, mass_inv,
 
 
 def force_term(ro: ResidentOperands, fext):
-    """fa = dt^2 fext / m, constant over a call: (3, N)."""
+    """fa = dt^2 fext / m, constant over a call: (..., 3, N)."""
     return ro.dt * ro.dt * fext * ro.mass_inv
 
 
@@ -95,20 +105,21 @@ def storage_round(x, mm):
 
 
 def project(ro: ResidentOperands, X):
-    """``U^T A_c X`` (3, r) of a (3, N) state (NT contraction over N), with
-    X rounded to the storage dtype first.  Accumulated in float64 and
-    rounded back, as csrc/resident.cu does: the N terms cancel to ~4e-4 of
-    their absolute sum."""
-    Xm = storage_round(X, ro.ut_acT.dtype)
-    proj = torch.bmm(ro.ut_acT.double(), Xm.double()[:, :, None])[:, :, 0]
-    return proj.to(X.dtype)
+    """``U^T A_c X`` (..., 3, r) of a (..., 3, N) state (NT contraction over
+    N), with X rounded to the storage dtype first.  Accumulated in float64
+    and rounded back, as csrc/resident.cu does: the N terms cancel to ~4e-4
+    of their absolute sum.  A batch (B, 3, N) is one product per dim with
+    the B states as columns."""
+    Xm = storage_round(X, ro.ut_acT.dtype).double()
+    proj = torch.einsum("dkn,...dn->...dk", ro.ut_acT.double(), Xm)
+    return proj.to(X.dtype).contiguous()
 
 
 def lift_coords(ro: ResidentOperands, w):
-    """``U w`` (3, N) of reduced coordinates w (3, r), with w rounded to the
-    storage dtype first; accumulated in the working dtype."""
+    """``U w`` (..., 3, N) of reduced coordinates w (..., 3, r), with w
+    rounded to the storage dtype first; accumulated in the working dtype."""
     wm = storage_round(w, ro.U_liftT.dtype)
-    return torch.bmm(wm[:, None, :], ro.U_liftT.to(w.dtype))[:, 0, :]
+    return rowvec_bmm(wm, ro.U_liftT.to(w.dtype))
 
 
 def predict(ro: ResidentOperands, P, V, fa, rb_extra):
@@ -117,8 +128,9 @@ def predict(ro: ResidentOperands, P, V, fa, rb_extra):
     sn = P + ro.dt * ro.eta * V + fa
     if ro.floor:
         sn = sn.clone()
-        sn[1] = torch.where(sn[1] < ro.floor_h,
-                            torch.full_like(sn[1], ro.floor_h), sn[1])
+        y = sn[..., 1, :]
+        sn[..., 1, :] = torch.where(y < ro.floor_h,
+                                    torch.full_like(y, ro.floor_h), y)
     return sn, rb_extra - project(ro, sn)
 
 
@@ -130,16 +142,18 @@ def lift(ro: ResidentOperands, P, sn, u):
 
 def step_once(ro: ResidentOperands, P, V, fa, rb_extra, num_iterations,
               iterate=fused_reduced_iterations_plain):
-    """One full step on the permuted (3, N) state -> (q, V_new), with the
-    iteration loop ``iterate`` (the plain version by default)."""
+    """One full step on the permuted (..., 3, N) state -> (q, V_new), with
+    the iteration loop ``iterate`` (the plain version by default)."""
     sn, rb_const = predict(ro, P, V, fa, rb_extra)
-    u = iterate(ro.fused, sn[:, :ro.n_sel], rb_const, num_iterations)
+    u = iterate(ro.fused, sn[..., :ro.n_sel], rb_const, num_iterations)
     return lift(ro, P, sn, u)
 
 
 def resident_multistep_plain(ro: ResidentOperands, P, V, fext, rb_extra,
                              num_steps: int, num_iterations: int):
-    """Plain version of kernel 2: ``num_steps`` steps -> (P', V')."""
+    """Plain version of kernel 2: ``num_steps`` steps -> (P', V').  With a
+    leading batch axis (B, 3, N) of independent sims (``rb_extra`` (3, r)
+    shared) it is the plain version of the batched build."""
     if P.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     fa = force_term(ro, fext)
@@ -155,18 +169,24 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = ((_P,) * 16 + (_I,) * 6 + (_D, _D, _I, _D, _P))
+_ARGTYPES = ((_P,) * 16 + (_I,) * 7 + (_D, _D, _I, _D, _P))
 
 
 def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
-    """Raise unless P, V, fext (3, N) and rb_extra (3, r) lie on the
-    operands' device in their working dtype, and a kernel takes that state
-    dtype beside the operands' storage dtype (float32 state; float32 or
-    bfloat16 storage)."""
+    """Raise unless P, V, fext (3, N), or (B, 3, N) for a batch of B sims,
+    and rb_extra (3, r), shared by the sims, lie on the operands' device in
+    their working dtype, and a kernel takes that state dtype beside the
+    operands' storage dtype (float32 state; float32 or bfloat16 storage).
+    Returns (state dtype, storage dtype)."""
     fo = ro.fused
     dev, dtype = fo.C_allT.device, fo.C_allT.dtype
-    for name, t, shape in (("P", P, (3, ro.n)), ("V", V, (3, ro.n)),
-                           ("fext", fext, (3, ro.n)),
+    lead = tuple(P.shape[:-2])
+    if len(lead) > 1 or (lead and lead[0] < 1):
+        raise ValueError(f"P must be (3, N) or (B, 3, N), got "
+                         f"{tuple(P.shape)}")
+    state = lead + (3, ro.n)
+    for name, t, shape in (("P", P, state), ("V", V, state),
+                           ("fext", fext, state),
                            ("rb_extra", rb_extra, (3, fo.r))):
         if t.device != dev or t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype} on {dev}")
@@ -178,6 +198,43 @@ def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
     return key
 
 
+def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
+                     num_steps: int, num_iterations: int):
+    """One call of csrc/resident.cu over the (3, N) state or the (B, 3, N)
+    states of B sims -> (P', V')."""
+    if P.device.type != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    key = check_state(ro, P, V, fext, rb_extra)
+    fo = ro.fused
+    dtype = fo.C_allT.dtype
+    n, r = ro.n, fo.r
+    nb = P.shape[0] if P.dim() == 3 else 1
+    fn = _build.function("resident", _SYMBOLS[key], _ARGTYPES)
+    tile = resident_tile()
+    P_out = P.contiguous().clone()
+    V_out = V.contiguous().clone()
+    fa = force_term(ro, fext).contiguous()
+    rb_extra = rb_extra.contiguous()
+    sn = torch.empty_like(P_out)
+    # per-sim, per-tile partials of U^T A_c sn, accumulated in float64
+    # (resident.cu)
+    partial = torch.empty((nb, (n + tile - 1) // tile, 3, r),
+                          dtype=torch.float64, device=P.device)
+    u = torch.empty((nb, 3, r), dtype=dtype, device=P.device)
+    code = fn(_build.ptr(P_out), _build.ptr(V_out), _build.ptr(fa),
+              _build.ptr(rb_extra), _build.ptr(ro.U_liftT),
+              _build.ptr(ro.ut_acT), _build.ptr(fo.C_allT),
+              _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
+              _build.ptr(fo.gidx), _build.ptr(fo.elem_kind),
+              _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(sn),
+              _build.ptr(partial), _build.ptr(u),
+              n, r, fo.g_total, fo.m_total, int(num_steps),
+              int(num_iterations), nb, ro.dt, ro.dt * ro.eta, int(ro.floor),
+              ro.floor_h, _build.stream_of(P.device))
+    _build.check("resident", code, "resident_multistep")
+    return P_out, V_out
+
+
 def resident_multistep(ro: ResidentOperands, P, V, fext, rb_extra,
                        num_steps: int, num_iterations: int):
     """(P', V') after ``num_steps`` steps of ``num_iterations`` iterations
@@ -187,39 +244,38 @@ def resident_multistep(ro: ResidentOperands, P, V, fext, rb_extra,
     if P.device.type == "cpu":
         return resident_multistep_plain(ro, P, V, fext, rb_extra, num_steps,
                                         num_iterations)
-    if P.device.type != "cuda":
-        raise ValueError(f"unsupported device {P.device}")
-    key = check_state(ro, P, V, fext, rb_extra)
-    fo = ro.fused
-    dtype = fo.C_allT.dtype
-    n, r = ro.n, fo.r
-    fn = _build.function("resident", _SYMBOLS[key], _ARGTYPES)
-    tile = resident_tile()
-    P_out = P.contiguous().clone()
-    V_out = V.contiguous().clone()
-    fa = force_term(ro, fext).contiguous()
-    rb_extra = rb_extra.contiguous()
-    sn = torch.empty_like(P_out)
-    # per-tile partials of U^T A_c sn, accumulated in float64 (resident.cu)
-    partial = torch.empty(((n + tile - 1) // tile, 3, r),
-                          dtype=torch.float64, device=P.device)
-    u = torch.empty((3, r), dtype=dtype, device=P.device)
-    code = fn(_build.ptr(P_out), _build.ptr(V_out), _build.ptr(fa),
-              _build.ptr(rb_extra), _build.ptr(ro.U_liftT),
-              _build.ptr(ro.ut_acT), _build.ptr(fo.C_allT),
-              _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
-              _build.ptr(fo.gidx), _build.ptr(fo.elem_kind),
-              _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(sn),
-              _build.ptr(partial), _build.ptr(u),
-              n, r, fo.g_total, fo.m_total, int(num_steps),
-              int(num_iterations), ro.dt, ro.dt * ro.eta, int(ro.floor),
-              ro.floor_h, _build.stream_of(P.device))
-    _build.check("resident", code, "resident_multistep")
+    if P.dim() != 2:
+        raise ValueError("P must be (3, N): a batch of sims takes "
+                         "resident_multistep_batched")
+    out = _launch_resident(ro, P, V, fext, rb_extra, num_steps,
+                           num_iterations)
     resident_multistep.launches += 1
-    return P_out, V_out
+    return out
 
 
 resident_multistep.launches = 0
+
+
+def resident_multistep_batched(ro: ResidentOperands, P, V, fext, rb_extra,
+                               num_steps: int, num_iterations: int):
+    """The batched build of kernel 2: (P', V') (B, 3, N) of B independent
+    sims after ``num_steps`` steps, from their permuted (B, 3, N) states and
+    forces, the static target term ``rb_extra`` (3, r) shared.  CPU tensors
+    run the plain version; CUDA tensors launch ``csrc/resident.cu`` with B
+    sims (each (3, r, N) matrix read once per tile for a group of sims), or
+    raise.  The inputs are not modified."""
+    if P.dim() != 3:
+        raise ValueError("P must be (B, 3, N)")
+    if P.device.type == "cpu":
+        return resident_multistep_plain(ro, P, V, fext, rb_extra, num_steps,
+                                        num_iterations)
+    out = _launch_resident(ro, P, V, fext, rb_extra, num_steps,
+                           num_iterations)
+    resident_multistep_batched.launches += 1
+    return out
+
+
+resident_multistep_batched.launches = 0
 
 
 def resident_tile() -> int:

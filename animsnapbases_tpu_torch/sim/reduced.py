@@ -28,8 +28,28 @@ tiers, as the JAX solver does (``sim/reduced.py:678-771``, ``:2914-3112``):
 The vertex permutation that makes the selected union a prefix is applied
 at entry and exit; every kernel runs on the permuted layout.
 
+Ensemble serving, B independent sims of one prepared model on one card
+(``sim/reduced.py:1369-1872`` of the JAX package):
+
+* ``make_batched_run()`` serves a window of static-target steps for the
+  whole batch: below ``CHUNKED_TIER1_MIN_VERTS`` vertices on the batched
+  lean affine kernel 3 (per-sim contact branch); at or above it on the
+  batched kernel 5, whose whole-batch exit hands a window of steps to the
+  batched kernel 2 before stepping returns to kernel 5 (the JAX package's
+  vmapped per-step window).  ``_last_batched_path`` records
+  ``batched-resident``, ``batched-chunked`` or
+  ``batched-chunked+perstep[{w}w]``.  One sim (B = 1) serves on the solo
+  kernels.
+* ``make_batched_step()`` runs one step for the whole batch, its iteration
+  loop on the batched kernel 1, with per-call static ``targets``.
+
+The batched layout on the device is sim-major, (B, 3, N) with sim b's
+permuted (3, N) state contiguous (the JAX package keeps dim-major (3B, N)
+rows d*B + b): ``_pack`` and ``_unpack`` move (B, N, 3) host arrays across.
+There is no fallback: a kernel that fails to build or launch raises.
+
 Not ported yet, and raising ``NotImplementedError`` in ``step`` /
-``run_steps``:
+``run_steps`` and the batched runners:
 
 * groups that are not fully reduced, or no position reduction
   (ROADMAP Queue A items 4 and 7);
@@ -39,7 +59,10 @@ Not ported yet, and raising ``NotImplementedError`` in ``step`` /
 * self-collision (Queue A item 12);
 * ``run_steps(record=True)`` (Queue A item 5);
 * ``resident_contact_mode = True``, the contact-mode build of the affine
-  kernel (ROADMAP Queue B item 1).
+  kernel (ROADMAP Queue B item 1);
+* batched serving over a mesh (``mesh=``, Queue A item 18) and per-sim or
+  animated target timelines in ``make_batched_run`` (``targets_seq``, Queue
+  A item 10).
 """
 
 from __future__ import annotations
@@ -60,20 +83,28 @@ from animsnapbases_tpu_torch.ops.affine import (
     CONTACT_MODE_TODO,
     affine_operands,
     resident_affine,
+    resident_affine_batched,
     resident_affine_exit,
 )
-from animsnapbases_tpu_torch.ops.affine_chunked import affine_chunked
+from animsnapbases_tpu_torch.ops.affine_chunked import (
+    affine_chunked,
+    affine_chunked_batched,
+)
 from animsnapbases_tpu_torch.ops.fused_reduced import (
     PORTED_KINDS,
     fused_operands,
     fused_reduced_iterations,
+    fused_reduced_iterations_batched,
     pack_edge_spring,
     pack_tris_strain,
     prepare_fused_operands,
 )
 from animsnapbases_tpu_torch.ops.resident import (
     force_term,
+    lift,
+    predict,
     resident_multistep,
+    resident_multistep_batched,
     resident_operands,
     step_once,
 )
@@ -257,6 +288,8 @@ class AnimSnapBasesSolver:
         self._resident_kind = None         # "affine" or "standard"
         self._resident_fast_kind = None    # "chunked", "exit" or None
         self._last_fast_steps = None
+        self._last_batched_path = None
+        self._chunk_every = 1024     # kernel 5's chunk (its rebase cadence)
         self._contact_mode = False
         self._unsupported = "prepare() has not run"
         self._ut_st_cache = None
@@ -451,9 +484,10 @@ class AnimSnapBasesSolver:
         chunked_tier1 = getattr(self, "resident_chunked_tier1", None)
         if chunked_tier1 is None:
             chunked_tier1 = True
+        self._chunk_every = int(every or 1024)
         if chunked_tier1:
             self._resident_fast = partial(affine_chunked, ao,
-                                          rebase_every=int(every or 1024))
+                                          rebase_every=self._chunk_every)
             self._resident_fast_kind = "chunked"
             if n >= self.CHUNKED_TIER1_MIN_VERTS:
                 self._resident_run = partial(resident_multistep, ao.res)
@@ -490,23 +524,27 @@ class AnimSnapBasesSolver:
         """Permuted (3, N) tensor -> (N, 3) float64 host array."""
         return x.detach().cpu().numpy().astype(float).T[self._resident.iperm]
 
-    def _rb_extra(self):
-        """The positional-target term U^T S^T targets (3, r) of the current
-        frame (zero without a positional group)."""
+    def _rb_extra(self, frame=None, targets=None):
+        """The positional-target term U^T S^T targets (3, r) of ``targets``
+        or of the model's targets at ``frame`` (default: the current frame);
+        zero without a positional group."""
         r = self.U.shape[1]
         uts = self._ut_st_np()
         if uts is None:
             rb = np.zeros((3, r))
         else:
-            targets = np.asarray(self.model.positional_targets(self.frame))
-            rb = np.einsum("dre,ed->dr", uts, targets)
+            if targets is None:
+                targets = self.model.positional_targets(
+                    self.frame if frame is None else frame)
+            rb = np.einsum("dre,ed->dr", uts, np.asarray(targets))
         return torch.as_tensor(rb, dtype=self.dtype, device=self.device)
 
-    def _animated(self) -> bool:
+    def _animated(self, frame=None) -> bool:
+        frame = self.frame if frame is None else frame
         for c in getattr(self.model, "_positional", []):
             if (c["motion_type"] == "user_defined"
                     and c["frame_shift"] is not None
-                    and len(c["frame_shift"]) > self.frame):
+                    and len(c["frame_shift"]) > frame):
                 return True
         return False
 
@@ -589,3 +627,192 @@ class AnimSnapBasesSolver:
         model.positions = self._to_host(P)
         model.velocities = self._to_host(V)
         self.frame += num_steps
+
+    # ------------------------------------------------------------------
+    # ensemble serving
+    # ------------------------------------------------------------------
+
+    def _pack(self, x):
+        """(B, N, 3) host array -> permuted sim-major (B, 3, N) tensor on
+        the device.  The permutation is a gather on the device: the host
+        only copies the array across."""
+        x = torch.as_tensor(np.asarray(x), device=self.device)
+        perm = torch.as_tensor(self._resident.perm, device=self.device)
+        return x[:, perm].to(self.dtype).permute(0, 2, 1).contiguous()
+
+    def _unpack(self, x):
+        """Permuted (B, 3, N) tensor -> (B, N, 3) float64 host array."""
+        iperm = torch.as_tensor(self._resident.iperm, device=x.device)
+        return x.detach()[:, :, iperm].permute(0, 2, 1).double().cpu() \
+            .numpy()
+
+    def _check_batch(self, positions, velocities, fext):
+        """Raise ``ValueError`` unless the three arrays are (B, N, 3) of one
+        B for this model: the caller's mistakes raise here, before any
+        kernel runs.  Returns B."""
+        B = int(np.shape(positions)[0])
+        if (int(np.shape(velocities)[0]) != B
+                or int(np.shape(fext)[0]) != B):
+            raise ValueError(
+                f"batch mismatch: positions {B}, velocities "
+                f"{np.shape(velocities)[0]}, fext {np.shape(fext)[0]}")
+        nv = self.model.n_verts
+        for name, arr in (("positions", positions),
+                          ("velocities", velocities), ("fext", fext)):
+            if tuple(np.shape(arr)[1:]) != (nv, 3):
+                raise ValueError(f"{name} must be (B, {nv}, 3) for this "
+                                 f"model; got {np.shape(arr)}")
+        return B
+
+    @staticmethod
+    def _refuse_mesh(mesh):
+        if mesh is not None:
+            raise NotImplementedError(
+                "batched serving over a mesh is not ported yet (ROADMAP "
+                "Queue A item 18)")
+
+    def _refuse_self_collision(self):
+        if self.enable_self_collision:
+            raise RuntimeError("batched serving does not support "
+                               "self-collision resolvers")
+
+    def make_batched_step(self, mesh=None):
+        """Ensemble stepping: ``step(positions (B, N, 3), velocities,
+        fext (B, N, 3), num_iterations=10, targets=None) -> (positions',
+        velocities')`` as (B, N, 3) float64 arrays, one step of B
+        independent sims, their iteration loops on the batched kernel 1 (one
+        block per sim; B = 1 on the solo kernel 1).  ``targets`` (e, 3), the
+        positional targets of this call shared by the sims, default to the
+        model's targets at a serving frame that starts at the solver's
+        frame and advances by one per call.  The prepared state is read at
+        call time, so a ``set_dirty()`` + ``prepare()`` rebuild is
+        served."""
+        self._refuse_mesh(mesh)
+        serving_frame = [self.frame]
+
+        def step(positions, velocities, fext, num_iterations=10,
+                 targets=None):
+            self._refuse_self_collision()
+            B = self._check_batch(positions, velocities, fext)
+            self._require()
+            ro = self._resident
+            P, V = self._pack(positions), self._pack(velocities)
+            fa = force_term(ro, self._pack(fext))
+            rb = self._rb_extra(frame=serving_frame[0], targets=targets)
+            sn, rb_const = predict(ro, P, V, fa, rb)
+            if B == 1:
+                u = fused_reduced_iterations(
+                    ro.fused, sn[0, :, :ro.n_sel], rb_const[0].contiguous(),
+                    num_iterations)[None]
+            else:
+                u = fused_reduced_iterations_batched(
+                    ro.fused, sn[..., :ro.n_sel], rb_const.contiguous(),
+                    num_iterations)
+            q, v = lift(ro, P, sn, u)
+            serving_frame[0] += 1
+            return self._unpack(q), self._unpack(v)
+
+        return step
+
+    def make_batched_run(self, mesh=None):
+        """Ensemble serving: ``run(positions (B, N, 3), velocities,
+        fext (B, N, 3), num_steps, num_iterations=10, targets_seq=None) ->
+        (positions', velocities')`` as (B, N, 3) float64 arrays, B
+        independent sims advanced ``num_steps`` steps with static targets.
+        The targets are the model's at a serving frame that starts at the
+        solver's frame and advances by ``num_steps`` per call.  The
+        prepared state is read at call time, so a ``set_dirty()`` +
+        ``prepare()`` rebuild is served by a runner made before it.
+
+        Below ``CHUNKED_TIER1_MIN_VERTS`` vertices one call of the batched
+        kernel 3 serves the window; at or above it the batched kernel 5
+        serves contact-free stretches and the batched kernel 2 the windows
+        after a whole-batch exit (:meth:`_run_batched_chunked`)."""
+        self._refuse_mesh(mesh)
+        self._refuse_self_collision()
+        serving_frame = [self.frame]
+
+        def run(positions, velocities, fext, num_steps, num_iterations=10,
+                targets_seq=None):
+            self._refuse_self_collision()
+            self._check_batch(positions, velocities, fext)
+            if targets_seq is not None:
+                raise NotImplementedError(
+                    "target timelines in batched serving are not ported yet "
+                    "(ROADMAP Queue A item 10)")
+            self._require()
+            if self._animated(serving_frame[0]):
+                raise NotImplementedError(
+                    "animated positional targets are not ported yet "
+                    "(ROADMAP Queue A item 10)")
+            if self._contact_mode:
+                raise NotImplementedError(CONTACT_MODE_TODO)
+            P, V = self._pack(positions), self._pack(velocities)
+            Fx = self._pack(fext)
+            rb = self._rb_extra(frame=serving_frame[0])
+            if self._resident_kind == "standard":
+                P, V = self._run_batched_chunked(P, V, Fx, rb, int(num_steps),
+                                                 num_iterations)
+            else:
+                P, V = self._run_batched_resident(P, V, Fx, rb,
+                                                  int(num_steps),
+                                                  num_iterations)
+            serving_frame[0] += int(num_steps)
+            return self._unpack(P), self._unpack(V)
+
+        return run
+
+    def _run_batched_resident(self, P, V, Fx, rb, num_steps, num_iterations):
+        """The window on the batched lean kernel 3 (B = 1: the solo
+        kernel 3), one call for the whole batch."""
+        every = int(getattr(self, "resident_rebase_every", None) or 256)
+        self._last_batched_path = "batched-resident"
+        if P.shape[0] == 1:
+            out = resident_affine(self._affine, P[0], V[0], Fx[0], rb,
+                                  num_steps, num_iterations,
+                                  rebase_every=every)
+            return out[0][None], out[1][None]
+        return resident_affine_batched(self._affine, P, V, Fx, rb, num_steps,
+                                       num_iterations, rebase_every=every)
+
+    def _run_batched_chunked(self, P, V, Fx, rb, num_steps, num_iterations):
+        """The large-model route (JAX ``_run_batched_resident_chunked``):
+        the batched kernel 5 commits the steps before the first one at
+        which any sim would clamp; a window of
+        ``max(resident_rebase_every or 1024, ceil(num_steps / 64))`` steps
+        then runs on the batched kernel 2, and stepping hands back to
+        kernel 5.  B = 1 runs the solo kernels 5 and 2."""
+        ao = self._affine
+        solo = P.shape[0] == 1
+        window = max(int(getattr(self, "resident_rebase_every", None)
+                         or 1024), -(-num_steps // 64))
+        remaining, windows = num_steps, 0
+        self._last_batched_path = "batched-chunked"
+        while remaining > 0:
+            if solo:
+                Pf, Vf, k = affine_chunked(ao, P[0], V[0], Fx[0], rb,
+                                           remaining, num_iterations,
+                                           rebase_every=self._chunk_every)
+                Pf, Vf = Pf[None], Vf[None]
+            else:
+                Pf, Vf, k = affine_chunked_batched(
+                    ao, P, V, Fx, rb, remaining, num_iterations,
+                    rebase_every=self._chunk_every)
+            if k > 0:
+                P, V = Pf, Vf
+                remaining -= k
+            if remaining <= 0:
+                break
+            # whole-batch contact: a bounded window on kernel 2, then back
+            w = min(remaining, window)
+            if solo:
+                P, V = (x[None] for x in resident_multistep(
+                    ao.res, P[0], V[0], Fx[0], rb, w, num_iterations))
+            else:
+                P, V = resident_multistep_batched(ao.res, P, V, Fx, rb, w,
+                                                  num_iterations)
+            remaining -= w
+            windows += 1
+        if windows:
+            self._last_batched_path = f"batched-chunked+perstep[{windows}w]"
+        return P, V

@@ -29,8 +29,18 @@ version.  Phases, each of which fails the run when it fails:
    to 64);
 4. times (CUDA events, median of the repetitions after warm-up) beside each
    kernel's bound from its bytes and operations;
-5. the ``kernels`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+2-4 for ensemble serving (:func:`ensemble`): ``make_batched_run`` on a
+   ring-down ensemble of 64 sims over 2,000 steps (batched kernel 3), on a
+   mixed batch of 16, half of it falling onto the floor (batched kernel 3,
+   then with ``CHUNKED_TIER1_MIN_VERTS = 0`` batched kernels 5 and 2), and
+   ``make_batched_step`` on 64 sims (batched kernel 1), each a counted
+   path; every sim of each batched kernel against the solo kernel from its
+   state, bit for bit (kernels 2 and 3 on the mixed batch and on 64 sims),
+   batched kernel 5's whole-batch k against the sims' solo k, one step of
+   kernels 2, 3 and 5 against the plain versions on both batches; times at
+   1 to 128 sims, with a torch.profiler breakdown of one batched call;
+5. the ``kernels`` line (nine entries: five solo kernels, four batched
+   builds), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -102,6 +112,29 @@ CONTACT_GAP = 0.05
 CONTACT_SPEED = 2.0
 # repetitions of the plain versions' 64-step calls (~1 s each)
 PLAIN_REPS = 3
+# ensemble serving (make_batched_run / make_batched_step): the ring-down
+# ensemble's size, the sizes its per-step time is taken at, and the
+# spread of its excitations (sim b: (1 - SPREAD b) x a tenth of the main
+# path's end velocity, which the 1.0 x window of phase 4 holds floor-clear
+# over WINDOW_STEPS steps: at (1 + 0.02 b) the faster of 64 sims reached
+# the floor); the mixed batch's size, half
+# of it in the contact scene (contact sim j: CONTACT_RISE + CONTACT_STEP j
+# above the contact scene's gap), and the resident_rebase_every of its
+# large-model route (kernel 5's chunks, kernel 2's windows).  SIM_ROWS is
+# the batched kernels' grouping of sims: a block of kernel 3's O(N)
+# launches serves the sims b, b + SIM_ROWS, ... (affine.cu SIM_Y), and
+# kernel 2's projection and lift and kernel 3's floor test serve groups of
+# SIM_ROWS sims (resident.cu SIM_GROUP, affine.cu Y_GROUP).  The mixed
+# batch spans two groups and puts its contact sims at b % SIM_ROWS >=
+# SIM_ROWS / 2, so that clamping sims share blocks.
+ENSEMBLE = 64
+ENSEMBLE_SIZES = (1, 8, 64, 128)
+SPREAD = 0.004
+MIXED = 16
+SIM_ROWS = 8
+CONTACT_RISE = 0.15
+CONTACT_STEP = 0.1
+MIXED_EVERY = 16
 
 
 def log(*a):
@@ -176,6 +209,21 @@ def scene_solver(synthetic_reduced_solver, model, K, r, damping, **kw):
             extra_args={"damping": damping, "position_basis_file": pos}, **kw)
 
 
+def bench_solver(torch, dev):
+    """(model, solver) of the bench scene at the bench's widths: r = 64,
+    40 DEIM rows per group, float32 state, bfloat16 matrices."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+
+    model = bench_scene(DeformableModel, cloth_model)
+    return model, scene_solver(synthetic_reduced_solver, model, K=40, r=64,
+                               damping=2e-3, device=dev, dtype=torch.float32,
+                               matmul_dtype=torch.bfloat16)
+
+
 def gravity(model):
     f = np.zeros_like(model.positions)
     f[:, 1] = -9.81 * 10.0
@@ -224,108 +272,115 @@ def as_f64(fo):
         UG_allT=fo.UG_allT.double())
 
 
-def k1_cost(fo, n_sel, iters):
-    """(bytes, {dtype: ops}) of one kernel-1 call: every input read once,
-    the output written once."""
+def k1_cost(fo, n_sel, iters, nb=1):
+    """(bytes, {dtype: ops}) of one kernel-1 call for ``nb`` sims: every
+    input read once, the output written once; the loop's operands are
+    shared by the sims, the gathered state, rb_const and u are each sim's."""
     it = fo.C_allT.element_size()
     r, g, m = fo.r, fo.g_total, fo.m_total
-    nbytes = (it * (3 * n_sel + 3 * r + fo.C_allT.numel() + fo.inv3.numel()
-                    + fo.WT_all.numel() + fo.elem_f.numel() + 3 * r)
+    nbytes = (it * (nb * (3 * n_sel + 3 * r + 3 * r) + fo.C_allT.numel()
+                    + fo.inv3.numel() + fo.WT_all.numel()
+                    + fo.elem_f.numel())
               + 4 * (fo.gidx.numel() + fo.elem_kind.numel()
                      + fo.elem_g.numel()))
     elem = sum(m_ * (TRI_FLOPS if k == "tris_strain" else SPRING_FLOPS)
                for k, _, m_, _, _ in fo.segments)
     ops = iters * (2 * 3 * r * g + 2 * 3 * m * r + elem) + 2 * 3 * r * r
-    return nbytes, {"float32": ops}
+    return nbytes, {"float32": nb * ops}
 
 
-def k2_cost(ro, steps, iters):
-    """(bytes, {dtype: ops}) of one kernel-2 call of ``steps`` steps.  Each
-    step reads the two (3, r, N) matrices, the state P, V and the force
-    term, writes P and V, and reads the loop's operands; the projection
-    U^T A_c sn accumulates in float64 and the lift in float32
-    (csrc/resident.cu).  A contact step of kernel 3 costs the same."""
+def k2_cost(ro, steps, iters, nb=1):
+    """(bytes, {dtype: ops}) of one kernel-2 call of ``steps`` steps for
+    ``nb`` sims.  Each step reads the two (3, r, N) matrices once for all
+    sims, each sim's state P, V and force term, writes P and V, and reads
+    the loop's operands; the projection U^T A_c sn accumulates in float64
+    and the lift in float32 (csrc/resident.cu).  A contact step of kernel 3
+    costs what one sim's step costs."""
     fo = ro.fused
     n, r = ro.n, fo.r
     it = fo.C_allT.element_size()
-    k1_bytes, k1_ops = k1_cost(fo, 0, iters)
+    k1_bytes, k1_ops = k1_cost(fo, 0, iters, nb)
     step_bytes = (ro.U_liftT.element_size() * (ro.U_liftT.numel()
                                                + ro.ut_acT.numel())
-                  + it * 3 * n * 5 + k1_bytes)
-    ops = {"float64": steps * 2 * 3 * r * n,
-           "float32": steps * (2 * 3 * r * n + k1_ops["float32"] + 3 * n * 8)}
+                  + nb * it * 3 * n * 5 + k1_bytes)
+    ops = {"float64": steps * nb * 2 * 3 * r * n,
+           "float32": steps * (nb * (2 * 3 * r * n + 3 * n * 8)
+                               + k1_ops["float32"])}
     return steps * step_bytes, ops
 
 
 
 
-def small_cost(ao, iters, cols):
-    """(bytes per call, float32 ops per step) of the contact-free affine
-    steps' small operands.  Bytes, once per call (they stay on the chip
-    between steps): the loop's operands, M_utac, the map to the gathered
-    values (``cols`` wide: UG_allT over g_total for kernel 5, U_selT over
-    n_sel for kernels 3 and 4), the force term's projection and gathered
-    columns.  Operations, each step: the loop with its solve, rb_lin and
-    the gathered values."""
+def small_cost(ao, iters, cols, nb=1):
+    """(bytes per call, float32 ops per sim-step) of the contact-free affine
+    steps' small operands for ``nb`` sims.  Bytes, once per call (they stay
+    on the chip between steps): the loop's operands, M_utac, the map to the
+    gathered values (``cols`` wide: UG_allT over g_total for kernel 5,
+    U_selT over n_sel for kernels 3 and 4), shared by the sims; each sim's
+    force-term projection and gathered columns.  Operations, each step of
+    each sim: the loop with its solve, rb_lin and the gathered values."""
     fo = ao.fused
     r = fo.r
-    loop_bytes, loop_ops = k1_cost(fo, 0, iters)
-    nbytes = loop_bytes + 4 * (3 * r * r + 3 * r * cols + 3 * r + 3 * cols)
-    ops = (loop_ops["float32"] + 2 * 3 * r * r + 2 * 3 * r * cols
+    loop_bytes, loop_ops = k1_cost(fo, 0, iters, nb)
+    nbytes = (loop_bytes + 4 * (3 * r * r + 3 * r * cols)
+              + nb * 4 * (3 * r + 3 * cols))
+    ops = (loop_ops["float32"] / nb + 2 * 3 * r * r + 2 * 3 * r * cols
            + 6 * 3 * cols)
     return nbytes, ops
 
 
-def big_pass(ao):
-    """(bytes, ops) of one pass over a (3, r, N) matrix with a (3, N)
-    state read or written beside it: a projection or a lift."""
+def big_pass(ao, nb=1):
+    """(bytes, ops) of one pass over a (3, r, N) matrix, read once, with
+    the (3, N) states of ``nb`` sims read or written beside it: a
+    projection or a lift."""
     ro = ao.res
-    return (ro.U_liftT.element_size() * ro.U_liftT.numel() + 4 * 3 * ro.n,
-            2 * 3 * ao.fused.r * ro.n)
+    return (ro.U_liftT.element_size() * ro.U_liftT.numel()
+            + nb * 4 * 3 * ro.n, nb * 2 * 3 * ao.fused.r * ro.n)
 
 
-def k5_cost(ao, steps, iters, every):
+def k5_cost(ao, steps, iters, every, nb=1):
     """(bytes, {dtype: ops}) of one kernel-5 call of ``steps`` contact-free
-    steps whose floor bound never trips (the exact check then reads
-    nothing): per call the small operands (:func:`small_cost`), the force
-    term, its projection and its y-row extremes; per step the small
-    operands' operations; per chunk the outer loop's two projections
-    (float64) and two lifts of the anchors, the combinations reading P, V,
-    fa, the y-row minima and maxima, and the anchors' (3, r) projections
-    and (3, g) columns."""
+    steps for ``nb`` sims whose floor bound never trips (the exact check
+    then reads nothing): per call the small operands (:func:`small_cost`),
+    the force terms, their projection and their y-row extremes; per step
+    the small operands' operations; per chunk the outer loop's two
+    projections (float64) and two lifts of the anchors, the combinations
+    reading P, V, fa, the y-row minima and maxima, and the anchors' (3, r)
+    projections and (3, g) columns."""
     n, r, g = ao.res.n, ao.fused.r, ao.fused.g_total
     chunks = -(-steps // every)
-    sb, so = small_cost(ao, iters, g)
-    pb, po = big_pass(ao)
-    nbytes = (sb + chunks * (4 * pb + 4 * 9 * n + 4 * 2 * n
-                             + 4 * (2 * 3 * r + 2 * 3 * g))
-              + 4 * 3 * n * 2 + pb + 4 * n)
-    ops = {"float32": steps * so + chunks * (2 * po + 6 * 3 * n),
+    sb, so = small_cost(ao, iters, g, nb)
+    pb, po = big_pass(ao, nb)
+    nbytes = (sb + chunks * (4 * pb + nb * 4 * (9 * n + 2 * n + 2 * 3 * r
+                                                 + 2 * 3 * g))
+              + nb * 4 * (3 * n * 2 + n) + pb)
+    ops = {"float32": nb * steps * so + chunks * (2 * po + nb * 6 * 3 * n),
            "float64": (2 * chunks + 1) * po}
     return nbytes, ops
 
 
-def k3_cost(ao, steps, iters, every, contact):
+def k3_cost(ao, steps, iters, every, contact, nb=1):
     """(bytes, {dtype: ops}) of one kernel-3 (or, with ``contact = 0``,
-    kernel-4) call of ``steps`` steps of which ``contact`` clamp: per call,
-    when a step is free, the small operands (:func:`small_cost`) and the
-    floor test's (r, N) y slice of the lift and the y rows of b0, b1, fa,
-    and per free step their operations; per contact step what a step of
-    kernel 2 costs; per rebase a materialization of P and V and the
-    refresh of their projections (float64); per call the force term, its
-    projection and the output's materialization."""
+    kernel-4) call of ``steps`` steps for ``nb`` sims, ``contact`` of
+    whose sim-steps clamp: per call, when a step is free, the small
+    operands (:func:`small_cost`) and the floor test's (r, N) y slice of
+    the lift and each sim's y rows of b0, b1, fa, and per free sim-step
+    their operations; per contact sim-step what a step of kernel 2 costs;
+    per rebase a materialization of P and V and the refresh of their
+    projections (float64); per call the force terms, their projection and
+    the output's materialization."""
     ro = ao.res
     n, r = ro.n, ao.fused.r
-    free = steps - contact
+    free = nb * steps - contact
     rebases = (steps - 1) // every if steps else 0
-    sb, so = small_cost(ao, iters, ro.n_sel)
-    yb = ro.U_liftT.element_size() * r * n + 4 * 3 * n
+    sb, so = small_cost(ao, iters, ro.n_sel, nb)
+    yb = ro.U_liftT.element_size() * r * n + nb * 4 * 3 * n
     cb, co = k2_cost(ro, contact, iters)
-    pb, po = big_pass(ao)
-    mat_bytes = pb + 4 * 15 * n               # read b0, b1, fa; write b0, b1
+    pb, po = big_pass(ao, nb)
+    mat_bytes = pb + nb * 4 * 15 * n   # read b0, b1, fa; write b0, b1
     nbytes = ((sb + yb if free else 0) + cb
-              + rebases * (mat_bytes + pb + 4 * 3 * n)
-              + 4 * 3 * n * 2 + pb + mat_bytes)
+              + rebases * (mat_bytes + pb + nb * 4 * 3 * n)
+              + nb * 4 * 3 * n * 2 + pb + mat_bytes)
     ops = {"float32": free * (so + 2 * r * n) + co["float32"]
            + (rebases + 1) * 2 * po,
            "float64": co["float64"] + (rebases + 1) * (po + 2 * po)}
@@ -649,6 +704,519 @@ def reprepare(solver, **switches):
     solver.prepare(solver.args)
 
 
+def ensemble_state(main_state, B):
+    """The ring-down ensemble (bench_ensemble.py's design): B copies of the
+    main path's end positions, sim b moving at (1 - SPREAD b) x a tenth of
+    its end velocity, no external force."""
+    P0, V0 = main_state
+    pos = np.repeat(P0[None], B, axis=0)
+    vel = np.stack([(1.0 - SPREAD * b) * 0.1 * V0 for b in range(B)])
+    return pos, vel, np.zeros_like(pos)
+
+
+def contact_sims():
+    """The mixed batch's sims in the contact scene: b % SIM_ROWS >=
+    SIM_ROWS / 2 (the others ring down)."""
+    return [b for b in range(MIXED) if b % SIM_ROWS >= SIM_ROWS // 2]
+
+
+def mixed_state(model, main_state, f):
+    """The mixed batch: MIXED / 2 sims of the ring-down ensemble, and as
+    many in the contact scene under gravity (:func:`contact_sims`), sim j
+    of them lifted CONTACT_RISE + CONTACT_STEP j more, so that each reaches
+    the floor at its own step."""
+    pos, vel, fs = ensemble_state(main_state, MIXED)
+    for j, b in enumerate(contact_sims()):
+        pos[b], vel[b] = contact_state(model)
+        pos[b][:, 1] += CONTACT_RISE + CONTACT_STEP * j
+        fs[b] = f
+    return pos, vel, fs
+
+
+def same_per_sim(torch, label, batched, solo, B):
+    """Each sim of a batched call (``batched``: a tuple of tensors with a
+    leading sim axis) equals the solo call from that sim's inputs
+    (``solo(b)``: the same tuple without it) bit for bit."""
+    diff = []
+    for b in range(B):
+        one = solo(b)
+        diff.append(max(max_abs(x[b], y) for x, y in zip(batched, one)))
+    torch.cuda.synchronize()
+    log(f"[3] {label}: each of {B} sims against the solo kernel from its "
+        f"state: largest difference {max(diff):.3e} (held bit for bit)")
+    require(max(diff) == 0.0, f"{label}: a sim differs from the solo kernel "
+            f"(differences {diff})")
+
+
+def device_breakdown(torch, fn):
+    """(seconds of host time, {kernel name: device seconds}) of one call of
+    ``fn`` under torch.profiler, the names cut at their template
+    arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spent = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            name = ev.key.split("<")[0].replace("void ", "")
+            spent[name] = spent.get(name, 0.0) + us * 1e-6
+    return wall, spent
+
+
+def ensemble(torch, counted, solver, model, f, main_state, paths):
+    """The ensemble-serving section: the paths (2), holds (3) and times (4)
+    of make_batched_run / make_batched_step and the batched builds of
+    kernels 1, 2, 3 and 5.  Returns the four batched entries of the kernels
+    line."""
+    from animsnapbases_tpu_torch.ops.affine import (
+        FLAG_SLOTS,
+        _launch_affine,
+        resident_affine,
+        resident_affine_batched,
+        resident_affine_plain,
+    )
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        _chunk_launch,
+        affine_chunked,
+        affine_chunked_batched,
+        affine_chunked_plain,
+        chunk_anchors,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+        fused_reduced_iterations_batched,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        predict,
+        project,
+        resident_multistep,
+        resident_multistep_batched,
+        resident_multistep_plain,
+    )
+
+    ro, ao = solver._resident, solver._affine
+    fo = ro.fused
+    default_min = type(solver).CHUNKED_TIER1_MIN_VERTS
+
+    # ---- 2. the ensemble paths through the entry points ----------------
+    run = solver.make_batched_run()
+    step = solver.make_batched_step()
+    ens = ensemble_state(main_state, ENSEMBLE)
+    mixed = mixed_state(model, main_state, f)
+    out = {}
+
+    def drive(key, fn):
+        def go():
+            t0 = time.perf_counter()
+            out[key] = fn()
+            torch.cuda.synchronize()
+            out[key + " s"] = time.perf_counter() - t0
+        return go
+
+    label_a = f"make_batched_run, B={ENSEMBLE} ring-down"
+    paths[label_a] = counted_path(
+        torch, counted, f"{label_a} ({WINDOW_STEPS} steps)",
+        {"resident_affine_batched"},
+        drive("a", lambda: run(*ens, WINDOW_STEPS,
+                               num_iterations=ITERATIONS)))
+    require(solver._last_batched_path == "batched-resident",
+            f"{label_a} took {solver._last_batched_path}")
+    p, v = out["a"]
+    require(p.shape == ens[0].shape and np.isfinite(p).all()
+            and np.isfinite(v).all(), f"{label_a}: end state not finite")
+    require(float(p[..., 1].min()) > model.floor_height,
+            f"{label_a}: a sim reached the floor")
+    entry_a = ENSEMBLE * WINDOW_STEPS / out["a s"]
+    log(f"[2] {label_a}: {WINDOW_STEPS} steps in {out['a s']:.3f} s "
+        f"({entry_a:.0f} aggregate steps/s, {entry_a / ENSEMBLE:.0f} per "
+        f"sim, host transfers included); end state finite and floor-clear, "
+        f"min y {float(p[..., 1].min()):.4f}, first and last sim "
+        f"{float(np.abs(p[-1] - p[0]).max()):.3e} apart")
+
+    label_b = f"make_batched_run, mixed batch of {MIXED}"
+    paths[label_b] = counted_path(
+        torch, counted, label_b, {"resident_affine_batched"},
+        drive("b", lambda: run(*mixed, SCENE_STEPS,
+                               num_iterations=ITERATIONS)))
+    require(solver._last_batched_path == "batched-resident",
+            f"{label_b} took {solver._last_batched_path}")
+    p, _ = out["b"]
+    contact = contact_sims()
+    ring = [b for b in range(MIXED) if b not in contact]
+    require(np.isfinite(p).all() and float(p[ring, :, 1].min())
+            > model.floor_height and float(p[contact, :, 1].min()) > -0.5,
+            f"{label_b}: not finite, or a ring-down sim at the floor, or a "
+            "contact sim through it")
+    log(f"[2] {label_b}: {SCENE_STEPS} steps; ring-down sims {ring} min y "
+        f"{float(p[ring, :, 1].min()):.4f}, contact sims {contact} min y "
+        f"{float(p[contact, :, 1].min()):.4f}")
+
+    reprepare(solver, CHUNKED_TIER1_MIN_VERTS=0,
+              resident_rebase_every=MIXED_EVERY)
+    label_c = (f"make_batched_run, mixed batch of {MIXED}, "
+               "CHUNKED_TIER1_MIN_VERTS=0")
+    paths[label_c] = counted_path(
+        torch, counted, label_c,
+        {"affine_chunked_batched", "resident_multistep_batched"},
+        drive("c", lambda: run(*mixed, SCENE_STEPS,
+                               num_iterations=ITERATIONS)))
+    route_c = solver._last_batched_path
+    require(route_c.startswith("batched-chunked+perstep[")
+            and int(route_c.split("[")[1].rstrip("w]")) >= 2,
+            f"{label_c}: took {route_c}, not kernel 5 -> kernel 2 windows "
+            "-> kernel 5")
+    p, _ = out["c"]
+    require(np.isfinite(p).all() and float(p[contact, :, 1].min()) > -0.5,
+            f"{label_c}: end state not finite or through the floor")
+    d_bc = float(np.abs(out["b"][0] - p).max())
+    log(f"[2] {label_c}: {route_c}; against the default route (not held: "
+        f"other kernels in float32) max |dP| {d_bc:.3e}")
+
+    label_d = f"make_batched_step, B={ENSEMBLE}"
+    paths[label_d] = counted_path(
+        torch, counted, label_d, {"fused_reduced_iterations_batched"},
+        drive("d", lambda: step(*ens, num_iterations=ITERATIONS)))
+    require(np.isfinite(out["d"][0]).all(), f"{label_d}: not finite")
+    log(f"[2] {label_d}: one step in {1e3 * out['d s']:.1f} ms (host "
+        "transfers included)")
+    launch_path = {"fused_reduced_iterations_batched": label_d,
+                   "resident_affine_batched": label_a,
+                   "resident_multistep_batched": label_c,
+                   "affine_chunked_batched": label_c}
+
+    # ---- 3. holds --------------------------------------------------------
+    rb = solver._rb_extra()
+    P64, V64, F64 = (solver._pack(x) for x in ens)
+    Pm, Vm, Fm = (solver._pack(x) for x in mixed)
+    fo64 = as_f64(fo)
+
+    # kernel 1 at B = 64 from the ring-down ensemble's predictor
+    sn, rbc = predict(ro, P64, V64, force_term(ro, F64), rb)
+    snT = sn[..., :ro.n_sel]
+    u_k = fused_reduced_iterations_batched(fo, snT, rbc, ITERATIONS)
+    same_per_sim(torch, f"batched kernel 1 (B={ENSEMBLE})", (u_k,),
+                 lambda b: (fused_reduced_iterations(
+                     fo, snT[b], rbc[b].contiguous(), ITERATIONS),),
+                 ENSEMBLE)
+    u_p = fused_reduced_iterations_plain(fo, snT, rbc, ITERATIONS)
+    u_ps = torch.stack([fused_reduced_iterations_plain(
+        fo, snT[b], rbc[b], ITERATIONS) for b in range(ENSEMBLE)])
+    u_64 = fused_reduced_iterations_plain(fo64, snT.double(), rbc.double(),
+                                          ITERATIONS)
+    k1_err = max_abs(u_k, u_p)
+    ok_k, e_k, e_p = as_accurate(u_k, u_p, u_64)
+    ok_p, e_pb, e_ps = as_accurate(u_p, u_ps, u_64)
+    log(f"[3] batched kernel 1: vs its plain version max abs {k1_err:.3e}; "
+        f"vs float64: kernel {e_k:.3e}, batched plain {e_p:.3e}, solo plain "
+        f"{e_ps:.3e} (limit {ACC_RATIO}x)")
+    require(ok_k, "batched kernel 1 is less accurate than its plain version")
+    require(ok_p, "the batched plain kernel 1 is less accurate than the "
+            "solo plain version")
+
+    # kernels 2 and 3: a SCENE_STEPS call on the mixed batch and on the
+    # ring-down ensemble, against the solo kernel per sim
+    batches = (("mixed batch", Pm, Vm, Fm, MIXED),
+               (f"ring-down B={ENSEMBLE}", P64, V64, F64, ENSEMBLE))
+    for label, P_, V_, F_, B in batches:
+        same_per_sim(
+            torch, f"batched kernel 2, {label}, {SCENE_STEPS} steps",
+            resident_multistep_batched(ro, P_, V_, F_, rb, SCENE_STEPS,
+                                       ITERATIONS),
+            lambda b: resident_multistep(ro, P_[b], V_[b], F_[b], rb,
+                                         SCENE_STEPS, ITERATIONS), B)
+        for every in (REBASE_EVERY, 3):
+            Pb, Vb, flb, _ = _launch_affine(ao, P_, V_, F_, rb, SCENE_STEPS,
+                                            ITERATIONS, every, False)
+            same_per_sim(
+                torch, f"batched kernel 3, {label}, {SCENE_STEPS} steps, "
+                f"rebase_every={every}", (Pb, Vb, flb),
+                lambda b: _launch_affine(ao, P_[b], V_[b], F_[b], rb,
+                                         SCENE_STEPS, ITERATIONS, every,
+                                         False)[:3], B)
+        steps_clamped = flb[:, FLAG_SLOTS:FLAG_SLOTS + SCENE_STEPS].bool()
+        clamped = steps_clamped.sum(1).tolist()
+        log(f"[3]   {label}: clamped steps per sim {clamped}")
+        if P_ is Pm:
+            require(max(clamped[b] for b in ring) == 0
+                    and min(clamped[b] for b in contact) > 0,
+                    "the mixed batch's contact sims did not clamp, or its "
+                    "ring-down sims did")
+            # steps at which two clamping sims share a block of kernel 3's
+            # O(N) contact launches
+            shared = sum(int((steps_clamped[b]
+                              & steps_clamped[b + SIM_ROWS]).sum())
+                         for b in contact if b + SIM_ROWS < MIXED)
+            log(f"[3]   {label}: {shared} (sim, step) pairs with two "
+                f"clamping sims on one block (sims b and b + {SIM_ROWS})")
+            require(shared > 0, "no two clamping sims of the mixed batch "
+                    "shared a block of batched kernel 3")
+    # one step of each batched kernel against its batched plain version,
+    # and of the batched plain version against the solo plain version,
+    # per sim (STEP_TOL of the step's size, as the solo holds), on both
+    # batches
+    err = {}
+    for name, kernel, plain in (
+            ("kernel 2", lambda *a: resident_multistep_batched(ro, *a),
+             lambda *a: resident_multistep_plain(ro, *a)),
+            ("kernel 3", lambda *a: resident_affine_batched(ao, *a),
+             lambda *a: resident_affine_plain(ao, *a)),
+            ("kernel 5", lambda *a: affine_chunked_batched(ao, *a)[:2],
+             lambda *a: affine_chunked_plain(ao, *a)[:2])):
+        err[name] = 0.0
+        for label, P_, V_, F_, B in batches:
+            fam = force_term(ro, F_)
+            Pk, Vk = kernel(P_, V_, F_, rb, 1, ITERATIONS)
+            Pp, Vp = plain(P_, V_, F_, rb, 1, ITERATIONS)
+            for b in range(B):
+                Ps, Vs = plain(P_[b], V_[b], F_[b], rb, 1, ITERATIONS)
+                shares = step_share(ro, fam[b], rb, P_[b], V_[b], Pk[b],
+                                    Vk[b], Pp[b], Vp[b])
+                hold_step(f"batched {name}, {label}, sim {b}", shares)
+                hold_step(f"batched plain {name}, {label}, sim {b}",
+                          step_share(ro, fam[b], rb, P_[b], V_[b], Pp[b],
+                                     Vp[b], Ps, Vs))
+                err[name] = max(err[name], *(d for d, _ in shares.values()))
+        log(f"[3] batched {name}, one step of the mixed batch and of the "
+            f"ring-down ensemble: kernel vs batched plain and batched plain "
+            f"vs solo plain within {STEP_TOL} of each sim's step size; "
+            f"kernel vs plain max abs {err[name]:.3e}")
+
+    # kernel 5: the chunk launch against the solo chunk per sim, the
+    # whole-batch k against the sims' solo tier-1 k, each sim committed to
+    # exactly k steps
+    gidx = fo.gidx.long()
+    fa = force_term(ro, Fm)
+    bu0, bu1, b0s, b1s = chunk_anchors(ao, Pm, Vm)
+    fas, bufa = fa[..., gidx], project(ro, fa)
+    ymm = torch.empty(MIXED, 6, device=Pm.device)
+    ymm1 = torch.empty(MIXED, 6, device=Pm.device)
+    chunk_in = (Pm, Vm, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa)
+
+    def launch(P_, V_, fa_, ymm_, *anchors):
+        return _chunk_launch(ao, P_, V_, fa_, ymm_, True, *anchors, rb,
+                             SCENE_STEPS, ITERATIONS, ao.floor_level)
+
+    def solo_chunk(b):
+        one = [x[b] for x in chunk_in]
+        one[3] = ymm1[b]
+        return (*launch(*one), ymm1[b])
+
+    coef, kb = launch(*chunk_in)
+    same_per_sim(torch, f"batched kernel 5 chunk, mixed batch, "
+                 f"{SCENE_STEPS} steps", (coef, kb, ymm), solo_chunk, MIXED)
+    ks = [affine_chunked(ao, Pm[b], Vm[b], Fm[b], rb, SCENE_STEPS,
+                         ITERATIONS)[2] for b in range(MIXED)]
+    Pk, Vk, k = affine_chunked_batched(ao, Pm, Vm, Fm, rb, SCENE_STEPS,
+                                       ITERATIONS)
+    Pp, Vp, kp = affine_chunked_plain(ao, Pm, Vm, Fm, rb, SCENE_STEPS,
+                                      ITERATIONS)
+    kps = [affine_chunked_plain(ao, Pm[b], Vm[b], Fm[b], rb, SCENE_STEPS,
+                                ITERATIONS)[2] for b in range(MIXED)]
+    log(f"[3] batched kernel 5, mixed batch: whole-batch k {k} (plain "
+        f"{kp}); the sims' solo tier-1 k {ks} (plain {kps}); chunk k_b "
+        f"{kb.tolist()}")
+    require(k == min(ks) and 0 < k < max(ks),
+            f"batched kernel 5's k {k} is not the least of the solo k {ks}")
+    require(kp == min(kps), f"the batched plain kernel 5's k {kp} is not "
+            f"the least of the solo plain k {kps}")
+    k5_err = 0.0
+    for b in range(MIXED):
+        Ps, Vs, kk = affine_chunked(ao, Pm[b], Vm[b], Fm[b], rb, k,
+                                    ITERATIONS)
+        require(kk == k, f"sim {b} does not do {k} solo steps")
+        for key, got, want, start in (("P", Pk[b], Ps, Pm[b]),
+                                      ("V", Vk[b], Vs, Vm[b])):
+            d, size = max_abs(got, want), max_abs(want, start)
+            k5_err = max(k5_err, d)
+            require(d <= STEP_TOL * size,
+                    f"batched kernel 5, sim {b} {key}: {d:.3e} from its "
+                    f"solo {k}-step run (change {size:.3e})")
+    # (one step against the batched plain version is held above; the
+    # k-step calls part as any two float32 orders do: printed, not held)
+    log(f"[3] batched kernel 5: every sim committed to exactly {k} steps "
+        f"(each within {STEP_TOL} of its change from its solo {k}-step run; "
+        f"max abs {k5_err:.3e}); the {k}-step calls against the batched "
+        f"plain version (not held) P {max_abs(Pk, Pp):.3e}, V "
+        f"{max_abs(Vk, Vp):.3e}")
+
+    # ---- 4. times --------------------------------------------------------
+    F0 = torch.zeros_like(P64)
+    per_step, bounds = {}, {}
+    for B in ENSEMBLE_SIZES:
+        Pe, Ve = (solver._pack(x) for x in ensemble_state(main_state, B)[:2])
+        Fe = torch.zeros_like(Pe)
+        flags = _launch_affine(ao, Pe, Ve, Fe, rb, WINDOW_STEPS, ITERATIONS,
+                               REBASE_EVERY, False)[2]
+        require(int(flags[:, FLAG_SLOTS:].sum()) == 0,
+                f"the timed ring-down window of {B} sims is not "
+                "contact-free")
+        if B == 1:      # one sim serves on the solo kernel
+            Pe, Ve, Fe = Pe[0], Ve[0], Fe[0]
+            call = resident_affine
+        else:
+            call = resident_affine_batched
+        per_step[B] = 1e3 * cuda_ms(torch, lambda: call(
+            ao, Pe, Ve, Fe, rb, WINDOW_STEPS, ITERATIONS), reps=3,
+            warmup=0) / WINDOW_STEPS
+        bounds[B] = 1e3 * bound_ms(*k3_cost(
+            ao, WINDOW_STEPS, ITERATIONS, REBASE_EVERY, 0, nb=B))[0] \
+            / WINDOW_STEPS
+        log(f"[4] batched kernel 3, B={B}, ring-down over {WINDOW_STEPS} "
+            f"steps: {per_step[B]:.2f} us/step, {B / per_step[B] * 1e6:.0f} "
+            f"aggregate steps/s, {1e6 / per_step[B]:.0f} per sim; bound "
+            f"{bounds[B]:.4f} us/step")
+    k3_ms = cuda_ms(torch, lambda: resident_affine_batched(
+        ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS))
+    # where a batched step's time goes: device time per kernel of one
+    # SCENE_STEPS call, and the share of the call the device is busy
+    wall, spent = device_breakdown(torch, lambda: resident_affine_batched(
+        ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS))
+    busy = sum(spent.values())
+    log(f"[4] batched kernel 3, B={ENSEMBLE}, one {SCENE_STEPS}-step call "
+        f"under torch.profiler: {1e6 * wall / SCENE_STEPS:.2f} us/step host "
+        f"time, device busy {100 * busy / wall:.1f} %; device us/step: "
+        + ", ".join(f"{k} {1e6 * v / SCENE_STEPS:.2f}" for k, v in sorted(
+            spent.items(), key=lambda kv: -kv[1])[:8]))
+    k3_plain_ms = cuda_ms(torch, lambda: resident_affine_plain(
+        ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+        warmup=1)
+    k3_bound, k3_by = bound_ms(*k3_cost(ao, SCENE_STEPS, ITERATIONS,
+                                        REBASE_EVERY, 0, nb=ENSEMBLE))
+
+    k2_ms = cuda_ms(torch, lambda: resident_multistep_batched(
+        ro, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS))
+    k2_plain_ms = cuda_ms(torch, lambda: resident_multistep_plain(
+        ro, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+        warmup=1)
+    k2_bound, k2_by = bound_ms(*k2_cost(ro, SCENE_STEPS, ITERATIONS,
+                                        nb=ENSEMBLE))
+    k2_by_B = {B: 1e3 * cuda_ms(torch, lambda B=B: resident_multistep_batched(
+        ro, P64[:B], V64[:B], F0[:B], rb, SCENE_STEPS, ITERATIONS), reps=10)
+        / SCENE_STEPS for B in (8, ENSEMBLE)}
+    # the one part a library call computes: the batch's projection and
+    # lift, two torch.matmul on the stored bfloat16 matrices (the port never
+    # calls them on the kernel path)
+    snm = sn.to(ro.ut_acT.dtype).permute(1, 2, 0)              # (3, N, B)
+    um = u_k.to(ro.U_liftT.dtype).permute(1, 0, 2)             # (3, B, r)
+    part_ms = cuda_ms(torch, lambda: (torch.matmul(ro.ut_acT, snm),
+                                      torch.matmul(um, ro.U_liftT)))
+
+    k5_win = affine_chunked_batched(ao, P64, V64, F0, rb, WINDOW_STEPS,
+                                    ITERATIONS)[2]
+    require(k5_win == WINDOW_STEPS, f"batched kernel 5 stopped after "
+            f"{k5_win} of the ring-down window's {WINDOW_STEPS} steps")
+    k5_ms = cuda_ms(torch, lambda: affine_chunked_batched(
+        ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS))
+    k5_window_ms = cuda_ms(torch, lambda: affine_chunked_batched(
+        ao, P64, V64, F0, rb, WINDOW_STEPS, ITERATIONS), reps=3, warmup=1)
+    k5_plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
+        ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+        warmup=1)
+    k5_bound, k5_by = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
+                                        CHUNK_EVERY, nb=ENSEMBLE))
+
+    k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
+        fo, snT, rbc, ITERATIONS), reps=100)
+    k1_plain_ms = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+        fo, snT, rbc, ITERATIONS))
+    k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS,
+                                        nb=ENSEMBLE))
+    # the large-model route through the entry point (the solver is still
+    # prepared with CHUNKED_TIER1_MIN_VERTS = 0): the ring-down window is
+    # contact-free, so kernel 5 serves all of it
+    t0 = time.perf_counter()
+    run(*ens, WINDOW_STEPS, num_iterations=ITERATIONS)
+    entry_c = ENSEMBLE * WINDOW_STEPS / (time.perf_counter() - t0)
+    require(solver._last_batched_path == "batched-chunked",
+            f"the large-model route took {solver._last_batched_path} on the "
+            "ring-down window")
+    step_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(*ens, num_iterations=ITERATIONS)
+        step_s.append(time.perf_counter() - t0)
+    log(f"[4] batched kernel 3, B={ENSEMBLE}: {1e3 * k3_ms / SCENE_STEPS:.2f}"
+        f" us/step ({SCENE_STEPS}-step calls); plain "
+        f"{1e3 * k3_plain_ms / SCENE_STEPS:.1f} us/step; bound "
+        f"{1e3 * k3_bound / SCENE_STEPS:.4f} us/step ({k3_by})")
+    log(f"[4] batched kernel 2: " + ", ".join(
+        f"B={B} {us:.2f} us/step" for B, us in k2_by_B.items())
+        + f"; plain at B={ENSEMBLE} {1e3 * k2_plain_ms / SCENE_STEPS:.1f} "
+        f"us/step; bound {1e3 * k2_bound / SCENE_STEPS:.4f} us/step "
+        f"({k2_by}); library part (torch.matmul projection + lift of the "
+        f"batch, one step) {1e3 * part_ms:.2f} us")
+    log(f"[4] batched kernel 5, B={ENSEMBLE}: {1e3 * k5_ms / SCENE_STEPS:.2f}"
+        f" us/step ({SCENE_STEPS}-step calls), over {WINDOW_STEPS} steps "
+        f"{1e3 * k5_window_ms / WINDOW_STEPS:.2f} us/step = "
+        f"{ENSEMBLE * WINDOW_STEPS / (k5_window_ms / 1e3):.0f} aggregate "
+        f"steps/s; plain {1e3 * k5_plain_ms / SCENE_STEPS:.1f} us/step; "
+        f"bound {1e3 * k5_bound / SCENE_STEPS:.4f} us/step ({k5_by}); "
+        f"make_batched_run on the large-model route over {WINDOW_STEPS} "
+        f"steps {entry_c:.0f} aggregate steps/s, host transfers included")
+    log(f"[4] batched kernel 1, B={ENSEMBLE}: {1e3 * k1_ms:.2f} us/call; "
+        f"plain {1e3 * k1_plain_ms:.1f} us; bound {1e3 * k1_bound:.4f} us "
+        f"({k1_by}); make_batched_step entry point "
+        f"{1e3 * statistics.median(step_s):.1f} ms/step, host transfers "
+        "included")
+    reprepare(solver, CHUNKED_TIER1_MIN_VERTS=default_min,
+              resident_rebase_every=None)
+
+    # equals_solo_bitwise: each sim's output of a call was held bit for bit
+    # against the solo kernel's (kernel 5: its chunk launch; the state it
+    # commits is held at STEP_TOL against each sim's solo k-step run)
+    def entry(name, source, replaces, err, ms, plain_ms, bound, by,
+              bitwise=True, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"animsnapbases_tpu_torch/csrc/{source}",
+                "replaces": f"animsnapbases_tpu/ops/{replaces}",
+                "launches": paths[launch_path[name]][name],
+                "launches_path": launch_path[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "sims": ENSEMBLE, "equals_solo_bitwise": bitwise, **extra}
+
+    return [
+        entry("fused_reduced_iterations_batched", "fused_reduced.cu",
+              "pallas_reduced.py:393", k1_err, k1_ms, k1_plain_ms, k1_bound,
+              k1_by, entry_step_ms=1e3 * statistics.median(step_s)),
+        entry("resident_multistep_batched", "resident.cu",
+              "pallas_resident.py:415", err["kernel 2"], k2_ms, k2_plain_ms,
+              k2_bound, k2_by, steps_per_call=SCENE_STEPS,
+              us_per_step_by_sims=k2_by_B,
+              library_part_ms_per_step=part_ms),
+        entry("resident_affine_batched", "affine.cu",
+              "pallas_resident.py:558", err["kernel 3"], k3_ms, k3_plain_ms,
+              k3_bound, k3_by, steps_per_call=SCENE_STEPS,
+              window_us_per_step_by_sims=per_step,
+              window_bound_us_per_step_by_sims=bounds,
+              entry_aggregate_steps_per_s=entry_a,
+              device_busy_share=busy / wall,
+              device_us_per_step_by_launch={
+                  k: 1e6 * v / SCENE_STEPS for k, v in spent.items()}),
+        entry("affine_chunked_batched", "affine_chunked.cu",
+              "pallas_resident.py:1145", err["kernel 5"], k5_ms, k5_plain_ms,
+              k5_bound, k5_by, bitwise=False, chunk_equals_solo_bitwise=True,
+              steps_per_call=SCENE_STEPS,
+              window_aggregate_steps_per_s=(
+                  ENSEMBLE * WINDOW_STEPS / (k5_window_ms / 1e3)),
+              entry_aggregate_steps_per_s=entry_c,
+              whole_batch_k=k, solo_k=ks,
+              committed_vs_solo_max_abs=k5_err),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -664,6 +1232,7 @@ def main() -> int:
         FLAG_SLOTS,
         _launch_affine,
         resident_affine,
+        resident_affine_batched,
         resident_affine_exit,
         resident_affine_exit_plain,
         resident_affine_plain,
@@ -671,17 +1240,20 @@ def main() -> int:
     from animsnapbases_tpu_torch.ops.affine_chunked import (
         advance,
         affine_chunked,
+        affine_chunked_batched,
         affine_chunked_plain,
         chunk_anchors,
     )
     from animsnapbases_tpu_torch.ops.fused_reduced import (
         fused_reduced_iterations,
+        fused_reduced_iterations_batched,
         fused_reduced_iterations_plain,
     )
     from animsnapbases_tpu_torch.ops.resident import (
         force_term,
         predict,
         resident_multistep,
+        resident_multistep_batched,
         resident_multistep_plain,
     )
     from animsnapbases_tpu_torch.sim.model import DeformableModel
@@ -692,7 +1264,9 @@ def main() -> int:
     dev = resolve_device("cuda")
     torch.manual_seed(0)
     counted = (fused_reduced_iterations, resident_multistep, resident_affine,
-               resident_affine_exit, affine_chunked)
+               resident_affine_exit, affine_chunked,
+               fused_reduced_iterations_batched, resident_multistep_batched,
+               resident_affine_batched, affine_chunked_batched)
 
     # ---- 1. device and build -------------------------------------------
     smi = subprocess.run(
@@ -715,11 +1289,8 @@ def main() -> int:
 
     # ---- 2. the bench scene through the entry points -------------------
     t0 = time.perf_counter()
-    model = bench_scene(DeformableModel, cloth_model)
+    model, solver = bench_solver(torch, dev)
     rest = (model.positions.copy(), model.velocities.copy())
-    solver = scene_solver(synthetic_reduced_solver, model, K=40, r=64,
-                          damping=2e-3, device=dev, dtype=torch.float32,
-                          matmul_dtype=torch.bfloat16)
     ro = solver._resident
     ao = solver._affine
     fo = ro.fused
@@ -1218,6 +1789,10 @@ def main() -> int:
               exact_check_us=exact_us,
               entry_steps_per_s=WINDOW_STEPS / entry_s),
     ]
+    # ---- ensemble serving: paths, holds and times ----------------------
+    t0 = time.perf_counter()
+    kernels += ensemble(torch, counted, solver, model, f, main_state, paths)
+    log(f"[2-4] ensemble serving {time.perf_counter() - t0:.1f} s")
     log(f"[5] launches per path: {json.dumps(paths)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
