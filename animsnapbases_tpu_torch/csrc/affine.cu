@@ -1,8 +1,9 @@
 // Kernels 3 and 4: the affine-coordinate resident loops.
 //
 // Replaces: animsnapbases_tpu/ops/pallas_resident.py
-//   build_resident_affine, contact_mode=False (:558-977, pallas_call :948),
-//   the lean build: kernel 3 (mode LEAN, or LEAN_NO_FLOOR);
+//   build_resident_affine (:558-977, pallas_call :948), kernel 3, in its two
+//   builds: contact_mode=False, the lean build (mode LEAN, or LEAN_NO_FLOOR),
+//   and contact_mode=True (mode CONTACT, :710-715, :732-871, :928-936);
 //   build_resident_affine_exit (:980-1142, pallas_call :1122): kernel 4
 //   (mode EXIT).
 // Both carry the state as base coefficients over the anchors b0, b1 and
@@ -15,46 +16,74 @@
 //     (when stale), rb_const from bu* and M_utac, snT_sel from the anchors'
 //     selected prefix and U_selT, the iteration loop, the coefficient update;
 //   on a clamped step, kernel 4 stops (that step is not applied; the call
-//     reports the steps done) and kernel 3 runs the re-anchoring contact
-//     tail: the standard step on the materialized predictor, whose result
-//     becomes the new anchors.
+//     reports the steps done) and kernel 3's lean build runs the
+//     re-anchoring contact tail: the standard step on the materialized
+//     predictor, whose result becomes the new anchors.
 // At the end, P and V are materialized into the anchor buffers.
+//
+// Contact mode (mode CONTACT): a sim whose floor test clamps enters it at
+// that step and keeps it until the next rebase.  Its x/z rows stay in
+// affine coordinates; its y row is carried materialized (Py, Vy) with its
+// projections buPy, buVy (U^T A_c of the y row through the y slice), kept by
+// the recursion buPy' = buPy + dt eta buVy + bu_fa_y + pc + u_y M_utac_y,
+// where pc projects the clamp's correction corr_y of the y predictor.  A
+// contact step so reads the (r, N) y slices of U^T A_c and of the lift once
+// each, for pc and for the lift of u_y, in place of the lean tail's full
+// predictor, projection and lift.  Its launches:
+//   mode_predict (128-vertex tiles): on entry Py, Vy materialized from the
+//     coefficients; sn_y = Py + dt eta Vy + fa_y, clamped at the floor, into
+//     the y row of sn; per-tile float64 partials of pc;
+//   mode_solve (one block per sim): on entry buPy, buVy from bu0, bu1, bu_fa
+//     and M_utac; rb_const and snT_sel with their y rows from the recursion
+//     and the clamped sn_y; the loop; the coefficient update; the buPy/buVy
+//     recursion; mode on;
+//   mode_lift (vertices): q_y = sn_y + U_y u_y, Vy = (q_y - Py)/dt, Py = q_y.
+// The entry rides in the first two (the JAX kernel's _enter_contact is a
+// branch of its own): one launch fewer per step, and a launch that does
+// nothing still costs 2-15 us on an H100 (PERF.md).  A rebase in contact
+// mode materializes x/z from the coefficients and y from Py/Vy and leaves
+// contact mode; the output does the same.
 //
 // What bounds it on this card: a free step reads the (r, N) y slice of the
 // lift for the floor test (1.8 MB in bfloat16 at the bench scene) and a few
 // r x r and r x n_sel operands, ~0.6 us at the HBM rate; its iteration loop
-// is kernel 1's single-block latency chain, which sets the time.  A contact
-// step costs what a step of kernel 2 costs.
+// is kernel 1's single-block latency chain, which sets the time.  A lean
+// contact step costs what a step of kernel 2 costs; a contact-mode step
+// reads the two y slices (3.7 MB) and the y state, ~1.2 us, and still runs
+// the loop.
 //
 // What the design does about it: as kernel 2 does, one C loop in this file
 // enqueues every step's launches on the caller's stream, and nothing
 // returns to the host between steps.  Which branch a step takes is known
 // only on the device, so each launch reads a device-resident flag block
-// (stale projections, done, steps done, and one "clamped" slot per step)
-// and returns at once when its branch is not taken: 6 launches per step
-// for kernel 3 with the floor on, 3 for kernel 4, 2 more on rebase steps.
-// (A cooperative launch with grid.sync() would need every block resident
-// at once and hangs the card if one is not; the per-launch flags need
-// neither and reuse what kernel 2 proved.)  O(N) work (the floor test,
-// projections, materializations) runs on grids of 128-vertex tiles; the
-// step's serial part runs in one block (iteration.cuh).  Projections
+// (stale projections, done, steps done, contact mode, and one slot per
+// step: bit 0 the floor test clamped, bit 1 a contact-mode step) and
+// returns at once when its branch is not taken: 6 launches per step for
+// kernel 3 with the floor on (either build), 3 for kernel 4, 2 more on
+// rebase steps.  (A cooperative launch with grid.sync() would need every
+// block resident at once and hangs the card if one is not; the per-launch
+// flags need neither and reuse what kernel 2 proved.)  O(N) work (the floor
+// test, projections, materializations) runs on grids of 128-vertex tiles;
+// the step's serial part runs in one block (iteration.cuh).  Projections
 // through U^T A_c accumulate in float64, in per-tile partials summed in a
 // fixed order (no atomics), as in kernel 2.
 //
-// The batched build of kernel 3 (nb sims, the JAX kernel's nb = B; the
-// default route of make_batched_run) keeps sim-major (nb, 3, N) states and
-// per-sim coefficients, projections, partials and flags.  The contact
-// branch is PER SIM: a sim whose predictor the floor clamps takes the
-// re-anchoring tail, the others take the free step (the JAX kernel sends
-// the whole batch through the exact tail when any sim clamps; the clamp is
-// the identity for the airborne sims, so both are exact, and per sim does
-// not pay a full-space step for each of them).  The single-block launches
-// run on a grid of nb blocks, one sim each; the O(N) launches on a grid of
-// (tiles, up to SIM_Y) blocks that loop over the sims; the floor test on
-// (vertex blocks, sim groups of Y_GROUP), each lift element read once for
-// the group.  Every sim's arithmetic runs in the order of the solo call (nb
-// = 1), so sim b of a batched call equals the solo call from sim b's state
-// bit for bit.
+// The batched builds of kernel 3 (nb sims, the JAX kernel's nb = B; the
+// routes of make_batched_run below CHUNKED_TIER1_MIN_VERTS) keep sim-major
+// (nb, 3, N) states and per-sim coefficients, projections, partials, y
+// states and flags.  The contact branch is PER SIM: in the lean build a sim
+// whose predictor the floor clamps takes the re-anchoring tail, the others
+// take the free step; in the contact-mode build each sim has its own mode
+// slot, entered when its own predictor clamps.  (The JAX kernel sends the
+// whole batch through the exact tail, or into contact mode with one mode
+// flag, when any sim clamps; the clamp is the identity for the airborne
+// sims, so both are exact, and per sim does not pay a contact step for
+// each of them.)  The single-block launches run on a grid of nb blocks,
+// one sim each; the O(N) launches on a grid of (tiles, up to SIM_Y) blocks
+// that loop over the sims; the floor test on (vertex blocks, sim groups of
+// Y_GROUP), each lift element read once for the group.  Every sim's
+// arithmetic runs in the order of the solo call (nb = 1), so sim b of a
+// batched call equals the solo call from sim b's state bit for bit.
 #include "affine.cuh"
 
 namespace ksm {
@@ -63,12 +92,17 @@ constexpr int TILE = 128;
 constexpr int THREADS = 256;
 constexpr int SIM_Y = 8;    // sim rows of the O(N) grids
 constexpr int Y_GROUP = 8;  // sims per block of the batched floor test
-enum : int { LEAN_NO_FLOOR = 0, EXIT = 1, LEAN = 2 };
-enum : int { F_STALE = 0, F_DONE = 1, F_K = 2, F_CLAMPED = 3 };
+enum : int { LEAN_NO_FLOOR = 0, EXIT = 1, LEAN = 2, CONTACT = 3 };
+// flag slots of a sim; the slot of step i (F_STEP + i) holds S_CLAMPED
+// when the floor test clamped and S_CONTACT when the step ran in contact
+// mode
+enum : int { F_STALE = 0, F_DONE = 1, F_K = 2, F_MODE = 3, F_STEP = 4 };
+enum : int { S_CLAMPED = 1, S_CONTACT = 2 };
 // what a projection reads; which sims an O(N) launch serves at a step
 enum : int { SRC_FA = 0, SRC_ANCHORS = 1 };
 enum : int { GATE_ALWAYS = 0, GATE_REFRESH = 1, GATE_CLAMPED = 2,
-             GATE_NOT_DONE = 3 };
+             GATE_NOT_DONE = 3, GATE_STALE = 4, GATE_CONTACT = 5,
+             GATE_MODE = 6 };
 
 extern __shared__ __align__(16) unsigned char affine_smem[];
 
@@ -88,7 +122,10 @@ struct Affine {
   T* Pm;           // (3, N) contact tail: the materialized P
   T* u;            // (3r)
   double* partial; // (nblk, 2, 3r)
-  int* flags;      // F_* slots, then one clamped slot per step
+  T* ys;           // (2, N) contact mode: Py, Vy
+  T* ybu;          // (2r) contact mode: buPy, buVy
+  double* pcpart;  // (nblk, r) contact mode: partials of pc
+  int* flags;      // F_* slots, then one slot per step
   int N, r, n_sel, nblk, nb, flag_stride;
   T dt, eta, floor_h;
 
@@ -114,6 +151,9 @@ struct Affine {
     s.bu += (size_t)b * 9 * r;
     s.u += (size_t)b * 3 * r;
     s.partial += (size_t)b * nblk * 2 * 3 * r;
+    s.ys += (size_t)b * 2 * N;
+    s.ybu += (size_t)b * 2 * r;
+    s.pcpart += (size_t)b * nblk * r;
     s.flags += (size_t)b * flag_stride;
     return s;
   }
@@ -136,9 +176,15 @@ __device__ unsigned open_sims(const Affine<T, M>& a, int base, int gate,
     if (open && gate != GATE_ALWAYS) {
       const int* fl = a.flags + (size_t)b * a.flag_stride;
       if (gate == GATE_REFRESH)
-        open = !fl[F_DONE] && fl[F_STALE] && !fl[F_CLAMPED + step];
+        open = !fl[F_DONE] && fl[F_STALE] && !fl[F_STEP + step];
       else if (gate == GATE_CLAMPED)
-        open = fl[F_CLAMPED + step];
+        open = fl[F_STEP + step];
+      else if (gate == GATE_STALE)
+        open = !fl[F_DONE] && fl[F_STALE];
+      else if (gate == GATE_CONTACT)
+        open = fl[F_MODE] || (fl[F_STEP + step] & S_CLAMPED);
+      else if (gate == GATE_MODE)
+        open = fl[F_MODE];
       else
         open = !fl[F_DONE];
     }
@@ -218,7 +264,8 @@ __global__ void init_call(Affine<T, M> all) {
 // The exact floor test of step i on the y row of the predictor, one vertex
 // per thread, for the sims y*SG .. y*SG + SG - 1 of blockIdx.y's group:
 // each element of the lift's y slice is read once for all of them.  Warp
-// s forms sim s's predictor (the whole block, for one sim).
+// s forms sim s's predictor (the whole block, for one sim).  A sim in
+// contact mode is not tested.
 template <typename T, typename M, int SG>
 __global__ void y_check(Affine<T, M> all, int step) {
   const int N = all.N, r = all.r;
@@ -260,26 +307,26 @@ __global__ void y_check(Affine<T, M> all, int step) {
     if (s >= ns) break;
     const Affine<T, M> a = all.at(b0 + s);
     int hit = 0;
-    if (v < N && !a.flags[F_DONE]) {
+    if (v < N && !a.flags[F_DONE] && !a.flags[F_MODE]) {
       const T y = affine_base(asn + 9 * s + 3, a.b0[N + v], a.b1[N + v],
                               a.fa[N + v], acc[s]);
       hit = y < a.floor_h;
     }
     if (__syncthreads_or(hit) && threadIdx.x == 0)
-      atomicOr(a.flags + F_CLAMPED + step, 1);
+      atomicOr(a.flags + F_STEP + step, S_CLAMPED);
   }
 }
 
 // The free step of step i, one block per sim: skipped when the step
-// clamped (kernel 4 then stops for good).
+// clamped (kernel 4 then stops for good) or the sim is in contact mode.
 template <typename T, typename M>
 __global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
                           int num_iterations) {
   const int b = blockIdx.x;  // the sim
   const int r = op.r, g = op.g, m = op.m, n_sel = a.n_sel, N = a.N;
   int* fl = a.flags + (size_t)b * a.flag_stride;
-  if (fl[F_DONE]) return;
-  if (fl[F_CLAMPED + step]) {
+  if (fl[F_DONE] || fl[F_MODE]) return;
+  if (fl[F_STEP + step]) {
     if (mode == EXIT && threadIdx.x == 0) fl[F_DONE] = 1;
     return;
   }
@@ -394,7 +441,7 @@ __global__ void contact_solve(Affine<T, M> a, Iter<T> op, int step,
   const int b = blockIdx.x;  // the sim
   const int r = op.r, g = op.g, N = a.N;
   int* fl = a.flags + (size_t)b * a.flag_stride;
-  if (!fl[F_CLAMPED + step]) return;
+  if (!fl[F_STEP + step]) return;
   T* coef = a.coef + (size_t)b * (18 + 6 * r);
   const T* sn = a.sn + (size_t)b * 3 * N;
   T* rbc = reinterpret_cast<T*>(affine_smem);
@@ -446,9 +493,201 @@ __global__ void contact_lift(Affine<T, M> all, int step) {
   }
 }
 
+// Contact mode, part 1, on 128-vertex tiles, for each sim in contact mode
+// at step i (already, or entering now because its floor test clamped): on
+// entry Py, Vy materialized from the coefficients (pallas_resident.py:
+// 842-853); the y predictor sn_y = Py + dt eta Vy + fa_y clamped at the
+// floor into the y row of sn; the per-tile float64 partials of
+// pc = U_y^T A_c corr_y, corr_y = clamped - sn_y rounded to the storage
+// type.
+template <typename T, typename M>
+__global__ void mode_predict(Affine<T, M> all, int step) {
+  const int N = all.N, r = all.r;
+  T* c = reinterpret_cast<T*>(affine_smem);  // y rows: ap, av (3 each)
+  T* wy = c + 6;                              // round(wp_y), round(wv_y)
+  T* cs = wy + 2 * r;                         // TILE: rounded corr_y
+  const int n0 = blockIdx.x * TILE;
+  const int len = min(TILE, N - n0);
+  for (int base = blockIdx.y; base < all.nb; base += 32 * gridDim.y)
+  for (unsigned m = open_sims(all, base, GATE_CONTACT, step); m;
+       m &= m - 1) {
+    const Affine<T, M> a = all.at(sim_of(base, m));
+    const bool enter = a.flags[F_STEP + step] & S_CLAMPED;
+    __syncthreads();
+    if (enter) {
+      for (int i = threadIdx.x; i < 6 + 2 * r; i += blockDim.x) {
+        if (i < 6)
+          c[i] = a.coef[9 * (i / 3) + 3 + i % 3];
+        else {
+          const int s = (i - 6) / r, k = i - 6 - s * r;
+          wy[i - 6] = Round<M, T>::apply(a.coef[18 + 3 * r * s + r + k]);
+        }
+      }
+      __syncthreads();
+    }
+    const bool damp = a.eta != T(1);
+    for (int t = threadIdx.x; t < TILE; t += blockDim.x) {
+      T corr = T(0);
+      if (t < len) {
+        const int v = n0 + t;
+        T py, vy;
+        if (enter) {
+          const M* U = a.ulift + (size_t)r * N;
+          const T b0 = a.b0[N + v], b1 = a.b1[N + v], fa = a.fa[N + v];
+          py = affine_row(c, wy, b0, b1, fa, U, N, r, v);
+          vy = affine_row(c + 3, wy + r, b0, b1, fa, U, N, r, v);
+          a.ys[v] = py;
+          a.ys[N + v] = vy;
+        } else {
+          py = a.ys[v];
+          vy = a.ys[N + v];
+        }
+        const T vd = damp ? mul_rn(a.eta, vy) : vy;
+        const T sn = add_rn(add_rn(py, mul_rn(a.dt, vd)), a.fa[N + v]);
+        const T cl = sn < a.floor_h ? a.floor_h : sn;
+        a.sn[N + v] = cl;
+        corr = Round<M, T>::apply(cl - sn);
+      }
+      cs[t] = corr;
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    for (int o = warp; o < r; o += nw) {
+      const M* row = a.utac + (size_t)(r + o) * N + n0;
+      double acc = 0.0;
+      for (int t = lane; t < len; t += 32)
+        acc += (double)widen(row[t]) * (double)cs[t];
+      acc = warp_sum(acc);
+      if (lane == 0) a.pcpart[(size_t)blockIdx.x * r + o] = acc;
+    }
+  }
+}
+
+// Contact mode, part 2, one block per sim in contact mode at step i
+// (pallas_resident.py:762-819): on entry the projections buPy, buVy of the
+// y rows of P and V (:854-863); rb_const with its y row rb_ex_y - s,
+// s = buPy + dt eta buVy + bu_fa_y + pc; snT_sel with the clamped y row;
+// the loop and its solve u; the coefficient update (its y rows unused in
+// contact mode); buPy' = s + u_y M_utac_y, buVy' = (buPy' - buPy)/dt; the
+// step's slot and the mode set.
+template <typename T, typename M>
+__global__ void mode_solve(Affine<T, M> a, Iter<T> op, int step,
+                           int num_iterations) {
+  const int b = blockIdx.x;  // the sim
+  const int r = op.r, g = op.g, m = op.m, n_sel = a.n_sel, N = a.N;
+  int* fl = a.flags + (size_t)b * a.flag_stride;
+  const bool enter = fl[F_STEP + step] & S_CLAMPED;
+  if (!fl[F_MODE] && !enter) return;
+  T* coef = a.coef + (size_t)b * (18 + 6 * r);  // ap, av, wp, wv
+  const double* partial = a.partial + (size_t)b * a.nblk * 2 * 3 * r;
+  const double* pcpart = a.pcpart + (size_t)b * a.nblk * r;
+  const size_t x = (size_t)b * 3 * N;
+  T* ybu = a.ybu + (size_t)b * 2 * r;  // buPy, buVy
+  T* rbc = reinterpret_cast<T*>(affine_smem);
+  T* rb = rbc + 3 * r;
+  T* vc = rb + 3 * r;
+  T* vall = vc + 3 * g;
+  T* pt = vall + 3 * g;
+  T* asn = pt + 3 * m;       // 9
+  T* avd = asn + 9;          // 9
+  T* wsn = avd + 9;          // 3r
+  T* u = wsn + 3 * r;        // 3r
+  T* snsel = u + 3 * r;      // 3 n_sel
+  T* sy = snsel + 3 * n_sel; // r: s
+  T* bu0 = a.bu + (size_t)b * 9 * r;
+  T* bu1 = bu0 + 3 * r;
+  const T* bufa = bu0 + 6 * r;
+  const T* M1 = a.mutac + (size_t)r * r;  // M_utac's y block
+  const bool stale = fl[F_STALE];
+  __syncthreads();
+  if (stale) {  // only a sim entering at a step whose anchors are new
+    sum_partials(partial, a.nblk, r, 0, bu0);
+    sum_partials(partial, a.nblk, r, 1, bu1);
+  }
+  affine_predictor(coef, coef + 9, coef + 18, coef + 18 + 3 * r, r, a.dt,
+                   a.eta, asn, avd, wsn);
+  __syncthreads();
+  if (stale && threadIdx.x == 0) fl[F_STALE] = 0;
+  if (enter) {
+    for (int i = threadIdx.x; i < 2 * r; i += blockDim.x) {
+      const int s = i / r, k = i - s * r;  // s = 0: P (ap, wp); 1: V
+      const T* ac = coef + 9 * s + 3;
+      const T* w = coef + 18 + 3 * r * s + r;
+      T acc = T(0);
+      for (int j = 0; j < r; ++j) acc += w[j] * M1[(size_t)j * r + k];
+      ybu[i] = ac[0] * bu0[r + k] + ac[1] * bu1[r + k] + ac[2] * bufa[r + k] +
+               acc;
+    }
+    __syncthreads();
+  }
+  const bool damp = a.eta != T(1);
+  for (int k = threadIdx.x; k < r; k += blockDim.x) {
+    double acc = 0.0;
+    for (int t = 0; t < a.nblk; ++t) acc += pcpart[(size_t)t * r + k];
+    const T bv = damp ? mul_rn(a.eta, ybu[r + k]) : ybu[r + k];
+    const T bupsn = add_rn(add_rn(ybu[k], mul_rn(a.dt, bv)), bufa[r + k]);
+    sy[k] = add_rn(bupsn, (T)acc);
+  }
+  affine_rb_const(asn, wsn, bu0, bu1, bufa, a.mutac, a.rbex, r, rbc);
+  affine_combine(asn, wsn, a.b0 + x, a.b1 + x, a.fa + x, N, a.uselT, r, n_sel,
+                 snsel);
+  __syncthreads();
+  for (int k = threadIdx.x; k < r; k += blockDim.x)
+    rbc[r + k] = a.rbex[r + k] - sy[k];
+  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
+    const int d = i / g, c = i - d * g;
+    vc[i] = d == 1 ? a.sn[x + N + op.gidx[c]] : snsel[d * n_sel + op.gidx[c]];
+  }
+  __syncthreads();
+  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
+  solve_block(op, rb, u);
+  __syncthreads();
+  for (int k = threadIdx.x; k < r; k += blockDim.x) {
+    T acc = T(0);
+    for (int j = 0; j < r; ++j) acc += u[r + j] * M1[(size_t)j * r + k];
+    const T bup = sy[k] + acc;
+    ybu[r + k] = (bup - ybu[k]) / a.dt;
+    ybu[k] = bup;
+    a.u[(size_t)b * 3 * r + r + k] = u[r + k];
+  }
+  affine_update(coef, coef + 9, coef + 18, coef + 18 + 3 * r, asn, avd, wsn,
+                u, r, a.dt);
+  if (threadIdx.x == 0) {
+    fl[F_MODE] = 1;
+    fl[F_STEP + step] |= S_CONTACT;
+  }
+}
+
+// Contact mode, part 3, one vertex per thread, for each sim in contact
+// mode: q_y = sn_y + U_y round(u_y); Vy = (q_y - Py)/dt, Py = q_y.
+template <typename T, typename M>
+__global__ void mode_lift(Affine<T, M> all, int step) {
+  const int N = all.N, r = all.r;
+  T* us = reinterpret_cast<T*>(affine_smem);
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int base = blockIdx.y; base < all.nb; base += 32 * gridDim.y)
+  for (unsigned m = open_sims(all, base, GATE_MODE, step); m; m &= m - 1) {
+    const Affine<T, M> a = all.at(sim_of(base, m));
+    __syncthreads();
+    for (int i = threadIdx.x; i < r; i += blockDim.x)
+      us[i] = Round<M, T>::apply(a.u[r + i]);
+    __syncthreads();
+    if (v < N) {
+      const M* col = a.ulift + (size_t)r * N + v;
+      T acc = T(0);
+      for (int k = 0; k < r; ++k) acc += us[k] * widen(col[(size_t)k * N]);
+      const T q = a.sn[N + v] + acc;
+      a.ys[N + v] = (q - a.ys[v]) / a.dt;
+      a.ys[v] = q;
+    }
+  }
+}
+
 // P and V materialized in place over the anchors (a rebase, or the
-// output), for every sim.  With `skip_done` a sim is skipped once kernel 4
-// stopped.
+// output), for every sim; for a sim in contact mode the y row is Py, Vy
+// (pallas_resident.py:739-742, :931-934).  With `skip_done` a sim is
+// skipped once kernel 4 stopped.
 template <typename T, typename M>
 __global__ void materialize(Affine<T, M> all, int skip_done) {
   const int N = all.N, r = all.r;
@@ -462,29 +701,38 @@ __global__ void materialize(Affine<T, M> all, int skip_done) {
     for (int i = threadIdx.x; i < 18 + 6 * r; i += blockDim.x)
       c[i] = i < 18 ? a.coef[i] : Round<M, T>::apply(a.coef[i]);
     __syncthreads();
+    const bool ymode = a.flags[F_MODE];
     if (idx < (size_t)3 * N) {
       const int d = (int)(idx / N);
       const int v = (int)(idx - (size_t)d * N);
-      const M* U = a.ulift + (size_t)d * r * N;
-      const T b0 = a.b0[idx], b1 = a.b1[idx], fa = a.fa[idx];
-      const T P = affine_row(c + 3 * d, c + 18 + d * r, b0, b1, fa, U, N, r,
-                             v);
-      const T V = affine_row(c + 9 + 3 * d, c + 18 + 3 * r + d * r, b0, b1,
-                             fa, U, N, r, v);
-      a.b0[idx] = P;
-      a.b1[idx] = V;
+      if (ymode && d == 1) {
+        a.b0[idx] = a.ys[v];
+        a.b1[idx] = a.ys[N + v];
+      } else {
+        const M* U = a.ulift + (size_t)d * r * N;
+        const T b0 = a.b0[idx], b1 = a.b1[idx], fa = a.fa[idx];
+        const T P = affine_row(c + 3 * d, c + 18 + d * r, b0, b1, fa, U, N,
+                               r, v);
+        const T V = affine_row(c + 9 + 3 * d, c + 18 + 3 * r + d * r, b0,
+                               b1, fa, U, N, r, v);
+        a.b0[idx] = P;
+        a.b1[idx] = V;
+      }
     }
   }
 }
 
 // After a rebase's materialization, one block per sim: unit coefficients,
-// stale projections.
+// stale projections, contact mode left.
 template <typename T, typename M>
 __global__ void rebase_reset(Affine<T, M> all) {
   const Affine<T, M> a = all.at(blockIdx.x);
   if (a.flags[F_DONE]) return;
   affine_reset(a.ap(), a.av(), a.wp(), a.wv(), a.r);
-  if (threadIdx.x == 0) a.flags[F_STALE] = 1;
+  if (threadIdx.x == 0) {
+    a.flags[F_STALE] = 1;
+    a.flags[F_MODE] = 0;
+  }
 }
 
 template <typename T, typename M, int SG>
@@ -502,11 +750,16 @@ cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
   const size_t smem_pred = sizeof(T) * (18 + 6 * r + 3 * TILE);
   const size_t smem_mat = sizeof(T) * (18 + 6 * r);
   const size_t smem_y = sizeof(T) * SG * (18 + 3 * r);
+  const size_t smem_mpred = sizeof(T) * (6 + 2 * r + TILE);
+  const size_t smem_msolve = smem_free + sizeof(T) * r;
+  const dim3 grid_verts((N + THREADS - 1) / THREADS, ys);
   cudaError_t e = allow_smem(free_step<T, M>, smem_free);
   if (e == cudaSuccess) e = allow_smem(contact_solve<T, M>, smem_solve);
   if (e == cudaSuccess) e = allow_smem(contact_predict<T, M>, smem_pred);
   if (e == cudaSuccess) e = allow_smem(materialize<T, M>, smem_mat);
   if (e == cudaSuccess) e = allow_smem(y_check<T, M, SG>, smem_y);
+  if (e == cudaSuccess) e = allow_smem(mode_predict<T, M>, smem_mpred);
+  if (e == cudaSuccess) e = allow_smem(mode_solve<T, M>, smem_msolve);
   if (e != cudaSuccess) return e;
   project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(a, SRC_FA,
                                                         GATE_ALWAYS, 0);
@@ -521,10 +774,17 @@ cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
     }
     if (floor_test)
       y_check<T, M, SG><<<grid_y, THREADS, smem_y, s>>>(a, i);
-    project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(a, SRC_ANCHORS,
-                                                          GATE_REFRESH, i);
+    // contact mode needs the anchors' projections on its entry too
+    project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(
+        a, SRC_ANCHORS, mode == CONTACT ? GATE_STALE : GATE_REFRESH, i);
     free_step<T, M><<<nb, THREADS, smem_free, s>>>(a, op, i, mode,
                                                    num_iterations);
+    if (mode == CONTACT) {
+      mode_predict<T, M><<<grid_tiles, THREADS, smem_mpred, s>>>(a, i);
+      mode_solve<T, M><<<nb, THREADS, smem_msolve, s>>>(a, op, i,
+                                                        num_iterations);
+      mode_lift<T, M><<<grid_verts, THREADS, sizeof(T) * r, s>>>(a, i);
+    }
     if (mode == LEAN) {
       contact_predict<T, M><<<grid_tiles, THREADS, smem_pred, s>>>(a, i);
       contact_solve<T, M><<<nb, THREADS, smem_solve, s>>>(a, op, i,
@@ -545,7 +805,8 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
                   const void* uselT, const void* C, const void* inv,
                   const void* WT, const void* gidx, const void* kind,
                   const void* eg, const void* ef, void* coef, void* bu,
-                  void* sn, void* Pm, void* u, void* partial, void* flags,
+                  void* sn, void* Pm, void* u, void* partial, void* ys,
+                  void* ybu, void* pcpart, void* flags,
                   int N, int r, int n_sel, int g, int m, int num_steps,
                   int num_iterations, int rebase_every, int mode, int nb,
                   int flag_stride, double dt, double eta, double floor_h,
@@ -566,6 +827,9 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
   a.Pm = static_cast<T*>(Pm);
   a.u = static_cast<T*>(u);
   a.partial = static_cast<double*>(partial);
+  a.ys = static_cast<T*>(ys);
+  a.ybu = static_cast<T*>(ybu);
+  a.pcpart = static_cast<double*>(pcpart);
   a.flags = static_cast<int*>(flags);
   a.N = N;
   a.r = r;
@@ -587,8 +851,10 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
 }  // namespace ksm
 
 // b0, b1, fa, sn, Pm: (nb, 3, N); coef (nb, 18 + 6r); bu (nb, 9r); u (nb, 3r);
-// partial (nb, nblk, 2, 3r) float64; flags (nb, flag_stride) int32; rbex
-// (3, r) shared by the sims; nb = 1 is the solo call
+// partial (nb, nblk, 2, 3r) float64; in mode CONTACT ys (nb, 2, N), ybu
+// (nb, 2r) and pcpart (nb, nblk, r) float64 (unused, and may be null, in
+// the other modes); flags (nb, flag_stride) int32; rbex (3, r) shared by
+// the sims; nb = 1 is the solo call
 #define AFFINE_ENTRY(NAME, T, M)                                             \
   extern "C" int NAME(                                                       \
       void* b0, void* b1, const void* fa, const void* rbex,                 \
@@ -596,15 +862,15 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
       const void* uselT, const void* C, const void* inv, const void* WT,     \
       const void* gidx, const void* kind, const void* eg, const void* ef,    \
       void* coef, void* bu, void* sn, void* Pm, void* u, void* partial,      \
-      void* flags, int N, int r, int n_sel, int g, int m, int num_steps,     \
-      int num_iterations, int rebase_every, int mode, int nb,                \
-      int flag_stride, double dt, double eta, double floor_h,                \
-      void* stream) {                                                        \
+      void* ys, void* ybu, void* pcpart, void* flags, int N, int r,          \
+      int n_sel, int g, int m, int num_steps, int num_iterations,            \
+      int rebase_every, int mode, int nb, int flag_stride, double dt,        \
+      double eta, double floor_h, void* stream) {                            \
     return ksm::launch_affine<T, M>(                                         \
         b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gidx, kind, \
-        eg, ef, coef, bu, sn, Pm, u, partial, flags, N, r, n_sel, g, m,      \
-        num_steps, num_iterations, rebase_every, mode, nb, flag_stride, dt,  \
-        eta, floor_h, stream);                                               \
+        eg, ef, coef, bu, sn, Pm, u, partial, ys, ybu, pcpart, flags, N, r,  \
+        n_sel, g, m, num_steps, num_iterations, rebase_every, mode, nb,      \
+        flag_stride, dt, eta, floor_h, stream);                              \
   }
 
 AFFINE_ENTRY(resident_affine_f32_f32, float, float)

@@ -2,9 +2,10 @@
 
 Counterpart of ``animsnapbases_tpu/ops/pallas_resident.py``
 ``_make_affine_ctx`` (the shared affine expressions), ``build_resident_affine``
-with ``contact_mode=False`` (kernel 3, the lean build: the contact tier of
-``run_steps``) and ``build_resident_affine_exit`` (kernel 4: tier 1 when
-``resident_chunked_tier1`` is False), ``nb=1``, static targets.
+(kernel 3: the contact tier of ``run_steps``) in its two builds, the lean one
+(``contact_mode=False``) and the contact-mode one (``contact_mode=True``),
+and ``build_resident_affine_exit`` (kernel 4: tier 1 when
+``resident_chunked_tier1`` is False), static targets.
 
 Between anchors the state is carried in affine coordinates: positions and
 velocities are (3, 3) base coefficients over the anchors ``b0``, ``b1`` and
@@ -21,21 +22,46 @@ becomes the new anchors.
 * ``AffineContext``: the plain transcription of ``_make_affine_ctx``
   (``project_base``, ``materialize``, ``init_anchors``, ``predictor``,
   ``y_predictor``, ``rebase``, ``free_step`` and ``gathered_step``, which
-  kernel 5's plain chunk shares), and the lean build's re-anchoring
-  contact tail.
-* ``resident_affine_plain`` / ``resident_affine`` (kernel 3) and
-  ``resident_affine_exit_plain`` / ``resident_affine_exit`` (kernel 4):
-  plain versions and the wrappers.  For CUDA tensors a wrapper launches
-  ``csrc/affine.cu`` (one C loop enqueues every step's launches) and counts
-  the call in its ``launches``; for CPU tensors it runs the plain version;
-  it never falls back from the card to the plain version.
-* ``resident_affine_batched``: kernel 3's batched build (``nb = B`` in the
-  JAX package), the default route of ``make_batched_run``: B independent
-  sims in sim-major (B, 3, N) layout in one call, the contact branch per
-  sim (a clamping sim takes the contact tail, the others the free step;
-  the JAX kernel takes the tail for the whole batch when any sim clamps,
-  which the clamp's being the identity for airborne sims makes exact too).
-  Its plain version is ``resident_affine_plain`` on (B, 3, N) tensors.
+  kernel 5's plain chunk shares), the lean build's re-anchoring contact
+  tail, and the contact-mode build's pieces (``enter_contact``,
+  ``contact_step``, the mixed rebase and output); ``step`` is one step of
+  kernel 3's loop in either build.
+* ``affine_run_plain`` / ``resident_affine_plain`` (kernel 3, either build;
+  ``resident_affine_contact_plain`` names the contact-mode one) and
+  ``resident_affine_exit_plain`` (kernel 4): the plain versions.
+* The wrappers ``resident_affine`` (kernel 3, lean), ``resident_affine_contact``
+  (kernel 3, contact mode) and ``resident_affine_exit`` (kernel 4).  For CUDA
+  tensors a wrapper launches ``csrc/affine.cu`` (one C loop enqueues every
+  step's launches) and counts the call in its ``launches``; for CPU tensors
+  it runs the plain version; it never falls back from the card to the plain
+  version.
+* ``resident_affine_batched`` and ``resident_affine_contact_batched``: kernel
+  3's batched builds (``nb = B`` in the JAX package), the routes of
+  ``make_batched_run`` below ``CHUNKED_TIER1_MIN_VERTS``: B independent sims
+  in sim-major (B, 3, N) layout in one call, each with its own launch
+  counter.  Their plain version is ``resident_affine_plain`` on (B, 3, N)
+  tensors.  The contact branch is per sim: in the lean build a clamping sim
+  takes the contact tail and the others the free step; in the contact-mode
+  build each sim has its own mode, entered when its own predictor clamps.
+  The JAX kernel keeps one branch (lean) or one mode flag (contact mode) for
+  the whole batch and sends every sim through the exact contact path when
+  any sim clamps; the clamp is the identity for airborne sims, so both are
+  exact (ROADMAP Queue C), and per sim keeps sim b of a batched call equal
+  to its solo call.
+
+Contact mode (``pallas_resident.py:732-870``, ``:928-936``): a sim whose
+predictor clamps enters it.  Its x and z rows stay in affine coordinates;
+its y row is carried materialized (``Py``, ``Vy``, (..., N)) with its
+projections ``buPy``, ``buVy`` (..., r) kept by the recursion
+``buPy' = buPy + dt eta buVy + bu_fa_y + pc + u_y M_utac_y``, where ``pc``
+projects the clamp's correction of the y predictor.  A contact step then
+reads two (r, N) slices (``pc`` and the lift of ``u_y``) in place of the
+lean tail's full predictor, projection and lift.  The mode is left at the
+next rebase, whose materialization takes the y row from ``Py``/``Vy``.  As in
+the JAX kernel, ``corr_y`` and ``u_y`` are rounded to the storage dtype
+before they meet the (r, N) slices, the entry lift rounds ``wp_y``/``wv_y``
+as every lift does, and the ``buPy``/``buVy`` recursions stay in the working
+dtype; ``pc`` accumulates in float64 like the other ``U^T A_c`` products.
 
 As in kernel 2, ``U^T A_c`` products (the anchors' ``bu0``/``bu1``/``bu_fa``
 and the contact tail's projection) accumulate in float64, in the kernel and
@@ -72,8 +98,6 @@ from animsnapbases_tpu_torch.ops.resident import (
 # floor level of a model with the floor off: no predictor ever falls below
 # it, so the tier-1 kernels never exit (sim/reduced.py:701-702)
 NO_FLOOR = -3.0e38
-CONTACT_MODE_TODO = ("the contact_mode=True build of the affine kernel is "
-                     "not ported yet (ROADMAP Queue B item 1)")
 
 
 @dataclass(frozen=True)
@@ -120,7 +144,10 @@ def basis(dtype, device):
 @dataclass
 class AffineState:
     """The coefficient state of one run; ``bu0``/``bu1`` are None while the
-    anchors' projections are stale."""
+    anchors' projections are stale.  In the contact-mode build ``mode``
+    (per sim, bool) says which sims carry their y row materialized in
+    ``Py``, ``Vy`` (..., N) with projections ``buPy``, ``buVy`` (..., r); it
+    is None in the other builds."""
     b0: torch.Tensor         # (3, N) anchors
     b1: torch.Tensor
     ap: torch.Tensor         # (3, 3) base coefficients of P and V
@@ -129,6 +156,15 @@ class AffineState:
     wv: torch.Tensor
     bu0: torch.Tensor | None = None
     bu1: torch.Tensor | None = None
+    mode: torch.Tensor | None = None
+    Py: torch.Tensor | None = None
+    Vy: torch.Tensor | None = None
+    buPy: torch.Tensor | None = None
+    buVy: torch.Tensor | None = None
+
+
+_COEFS = ("ap", "av", "wp", "wv")
+_Y_STATE = ("Py", "Vy", "buPy", "buVy")
 
 
 class AffineContext:
@@ -173,54 +209,189 @@ class AffineContext:
         return st.ap, st.av, st.wp, st.wv, avd, asn, wsn
 
     def y_predictor(self, st: AffineState, asn, wsn):
-        """Only the y row of the predictor (..., N): the exact floor
-        test."""
+        """Only the y row (..., N) of the state with coefficients asn, wsn:
+        of the predictor, the exact floor test; of P or V, contact mode's
+        entry."""
         y = self.ro.U_liftT[1].to(wsn.dtype)
         wy = storage_round(wsn[..., 1, :], self.ro.U_liftT.dtype)
         a = asn[..., 1, :]
         return (a[..., 0:1] * st.b0[..., 1, :] + a[..., 1:2] * st.b1[..., 1, :]
                 + a[..., 2:3] * self.fa[..., 1, :] + wy @ y)
 
+    def project_y(self, y):
+        """``U^T A_c`` of y rows (..., N) through the y slice -> (..., r):
+        y rounded to the storage dtype, accumulated in float64."""
+        ut = self.ro.ut_acT
+        ym = storage_round(y, ut.dtype).double()
+        return torch.einsum("kn,...n->...k", ut[1].double(), ym).to(y.dtype)
+
     def reset(self, st: AffineState, b0, b1):
-        """New anchors, unit coefficients, stale projections."""
+        """New anchors, unit coefficients, stale projections; contact mode
+        left."""
         zw = torch.zeros_like(st.wp)
         st.b0, st.b1 = b0, b1
         st.ap, st.av, st.wp, st.wv = self.e0, self.e1, zw, zw
         st.bu0 = st.bu1 = None
+        if st.mode is not None:
+            st.mode = torch.zeros_like(st.mode)
 
     def rebase(self, st: AffineState):
-        """Re-anchor at the current materialized state."""
-        self.reset(st, self.materialize(st, st.ap, st.wp),
-                   self.materialize(st, st.av, st.wv))
+        """Re-anchor at the current materialized state (in contact mode the
+        mixed one, :meth:`output`), which leaves contact mode."""
+        self.reset(st, *self.output(st))
+
+    def rb_lin(self, st: AffineState, asn, wsn):
+        """``U^T A_c`` of the predictor (..., 3, r) from the anchors'
+        projections and ``M_utac``."""
+        self.refresh_bu(st)
+        return (asn[..., 0:1] * st.bu0 + asn[..., 1:2] * st.bu1
+                + asn[..., 2:3] * self.bu_fa
+                + rowvec_bmm(wsn, self.ao.M_utac))
+
+    def selected(self, st: AffineState, asn, wsn):
+        """The predictor at the selected prefix (..., 3, n_sel), through
+        ``U_selT``."""
+        n_sel = self.ro.n_sel
+        return (asn[..., 0:1] * st.b0[..., :n_sel]
+                + asn[..., 1:2] * st.b1[..., :n_sel]
+                + asn[..., 2:3] * self.fa[..., :n_sel]
+                + rowvec_bmm(wsn, self.ao.U_selT))
 
     def free_step(self, st: AffineState, asn, wsn, avd, wp, rb_ex,
                   num_iterations):
         """One contact-free step entirely in affine coordinates, the
         gathered values of the predictor taken through ``U_selT``."""
-        n_sel = self.ro.n_sel
-        snT_sel = (asn[..., 0:1] * st.b0[..., :n_sel]
-                   + asn[..., 1:2] * st.b1[..., :n_sel]
-                   + asn[..., 2:3] * self.fa[..., :n_sel]
-                   + rowvec_bmm(wsn, self.ao.U_selT))
-        self.gathered_step(st, asn, wsn, avd, wp, snT_sel[..., self.gidx],
+        self.gathered_step(st, asn, wsn, avd, wp,
+                           self.selected(st, asn, wsn)[..., self.gidx],
                            rb_ex, num_iterations)
 
     def gathered_step(self, st: AffineState, asn, wsn, avd, wp, Vc, rb_ex,
                       num_iterations):
         """The contact-free step from the predictor's gathered values ``Vc``
-        (3, g_total).  The coefficient updates avoid the cancelling
-        subtraction: ``(aq - ap)/dt == eta av + e2/dt`` exactly."""
+        (3, g_total)."""
+        self.solve_update(st, asn, wsn, avd, wp, Vc,
+                          rb_ex - self.rb_lin(st, asn, wsn), num_iterations)
+
+    def solve(self, Vc, rb_const, num_iterations):
+        """The iteration loop from the gathered values ``Vc`` and
+        ``rb_const``, and its reduced solve -> u (..., 3, r)."""
         fo = self.fo
-        self.refresh_bu(st)
-        rb_lin = (asn[..., 0:1] * st.bu0 + asn[..., 1:2] * st.bu1
-                  + asn[..., 2:3] * self.bu_fa
-                  + rowvec_bmm(wsn, self.ao.M_utac))
-        rb = iterate_plain(fo, Vc, rb_ex - rb_lin, num_iterations)
-        wq = wsn + solve_plain(fo, rb)
+        return solve_plain(fo, iterate_plain(fo, Vc, rb_const,
+                                             num_iterations))
+
+    def solve_update(self, st: AffineState, asn, wsn, avd, wp, Vc, rb_const,
+                     num_iterations):
+        """The loop from ``Vc`` and ``rb_const``, its solve u, and the
+        coefficient update -> u.  The update avoids the cancelling
+        subtraction: ``(aq - ap)/dt == eta av + e2/dt`` exactly."""
+        u = self.solve(Vc, rb_const, num_iterations)
+        wq = wsn + u
         st.ap = asn
         st.av = avd + self.e2 / self.ro.dt
         st.wp = wq
         st.wv = (wq - wp) / self.ro.dt
+        return u
+
+    def init_contact(self, st: AffineState):
+        """The contact-mode build's per-sim state: mode off, y state 0."""
+        lead = st.b0.shape[:-2]
+        st.mode = torch.zeros(lead, dtype=torch.bool, device=st.b0.device)
+        st.Py = st.Vy = st.b0.new_zeros(lead + (self.ro.n,))
+        st.buPy = st.buVy = st.b0.new_zeros(lead + (self.fo.r,))
+
+    def enter_contact(self, st: AffineState, ap, av, wp, wv, enter):
+        """Contact mode's entry (pallas_resident.py:831-864) for the sims
+        of ``enter``: their y rows of P and V materialized from the
+        coefficients, and their projections formed from the anchors'
+        (``bu0``, ``bu1``, ``bu_fa``) and ``M_utac``."""
+        self.refresh_bu(st)
+        M = self.ao.M_utac[1]
+
+        def proj(a, w):
+            a = a[..., 1, :]
+            return (a[..., 0:1] * st.bu0[..., 1, :]
+                    + a[..., 1:2] * st.bu1[..., 1, :]
+                    + a[..., 2:3] * self.bu_fa[..., 1, :] + w[..., 1, :] @ M)
+
+        for name, new in zip(_Y_STATE, (
+                self.y_predictor(st, ap, wp), self.y_predictor(st, av, wv),
+                proj(ap, wp), proj(av, wv))):
+            setattr(st, name, _merge(enter, new, getattr(st, name), 1))
+        st.mode = st.mode | enter
+
+    def contact_step(self, st: AffineState, asn, wsn, avd, wp, rb_ex,
+                     num_iterations):
+        """One exact step in contact mode (pallas_resident.py:762-819): x/z
+        in affine coordinates, y from ``Py``/``Vy``; its projection from the
+        recursions and ``pc``, the projection of the clamp's correction."""
+        ro = self.ro
+        dt = ro.dt
+        sn_y = st.Py + dt * self.damp(st.Vy) + self.fa[..., 1, :]
+        sn_cl = torch.clamp(sn_y, min=ro.floor_h)
+        pc = self.project_y(sn_cl - sn_y)
+        bupsn = st.buPy + dt * self.damp(st.buVy) + self.bu_fa[..., 1, :]
+        s = bupsn + pc
+        rb_lin = _with_y(self.rb_lin(st, asn, wsn), s)
+        Vc = _with_y(self.selected(st, asn, wsn), sn_cl[..., :ro.n_sel])
+        u = self.solve_update(st, asn, wsn, avd, wp, Vc[..., self.gidx],
+                              rb_ex - rb_lin, num_iterations)
+        u_y = u[..., 1, :]
+        q_y = sn_cl + (storage_round(u_y, ro.U_liftT.dtype)
+                       @ ro.U_liftT[1].to(u_y.dtype))
+        st.Vy = (q_y - st.Py) / dt
+        st.Py = q_y
+        bup = s + u_y @ self.ao.M_utac[1]
+        st.buVy = (bup - st.buPy) / dt
+        st.buPy = bup
+
+    def step(self, st: AffineState, rb_ex, num_iterations):
+        """One step of kernel 3's loop (no rebase), in the lean build or,
+        when ``st.mode`` is set, the contact-mode build -> per sim what
+        csrc/affine.cu records of the step: 1 when the floor test clamped
+        (the lean contact tail, contact mode's entry), plus 2 when it ran
+        in contact mode."""
+        ro = self.ro
+        ap, av, wp, wv, avd, asn, wsn = self.predictor(st)
+        lead = st.b0.shape[:-2]
+        clamped = ((self.y_predictor(st, asn, wsn) < ro.floor_h).any(-1)
+                   if ro.floor else torch.zeros(lead, dtype=torch.bool,
+                                                device=st.b0.device))
+
+        def free(s):
+            self.free_step(s, asn, wsn, avd, wp, rb_ex, num_iterations)
+
+        if st.mode is None:
+            self._branch(st, clamped, free, lambda s: self.contact_reanchor(
+                s, ap, wp, asn, wsn, rb_ex, num_iterations),
+                _COEFS + ("b0", "b1"))
+            return clamped.int()
+        clamped = clamped & ~st.mode
+        if bool(clamped.any()):
+            self.enter_contact(st, ap, av, wp, wv, clamped)
+        mode = st.mode
+        self._branch(st, mode, free, lambda s: self.contact_step(
+            s, asn, wsn, avd, wp, rb_ex, num_iterations), _COEFS + _Y_STATE)
+        return clamped.int() + 2 * mode.int()
+
+    @staticmethod
+    def _branch(st: AffineState, mask, free, contact, fields):
+        """``contact(st)`` for the sims of ``mask``, ``free(st)`` for the
+        others: on a batch whose sims part, both from the same state, each
+        sim keeping its own ``fields``."""
+        if not bool(mask.any()):
+            free(st)
+        elif bool(mask.all()):
+            contact(st)
+        else:
+            other = dataclasses.replace(st)
+            free(other)
+            contact(st)
+            for f in fields:
+                dims = 1 if f in _Y_STATE else 2
+                setattr(st, f, _merge(mask, getattr(st, f),
+                                      getattr(other, f), dims))
+            if "b0" in fields:
+                st.bu0 = st.bu1 = None
 
     def contact_reanchor(self, st: AffineState, ap, wp, asn, wsn, rb_ex,
                          num_iterations):
@@ -239,61 +410,72 @@ class AffineContext:
         self.reset(st, q, (q - P) / ro.dt)
 
     def output(self, st: AffineState):
-        """The final materialization -> (P', V')."""
-        return (self.materialize(st, st.ap, st.wp),
-                self.materialize(st, st.av, st.wv))
+        """The materialization -> (P', V'); in contact mode the mixed one
+        (pallas_resident.py:739-742, :928-936): x/z from the coefficients, y
+        from ``Py``/``Vy``."""
+        P = self.materialize(st, st.ap, st.wp)
+        V = self.materialize(st, st.av, st.wv)
+        if st.mode is not None and bool(st.mode.any()):
+            P = _with_y(P, _merge(st.mode, st.Py, P[..., 1, :], 1))
+            V = _with_y(V, _merge(st.mode, st.Vy, V[..., 1, :], 1))
+        return P, V
 
 
 def _rebase_due(i: int, rebase_every: int) -> bool:
     return i > 0 and i % rebase_every == 0
 
 
-def _merge(mask, x, y):
-    """x where the sim's ``mask`` (B,) is set, else y: per-sim (·, ·)
-    values, each of x and y batched (B, ·, ·) or shared by the sims."""
-    return torch.where(mask[:, None, None], x, y)
+def _merge(mask, x, y, dims=2):
+    """x where the sim's ``mask`` (per sim, bool) is set, else y: per-sim
+    values of ``dims`` axes, each of x and y batched or shared by the
+    sims."""
+    return torch.where(mask.view(mask.shape + (1,) * dims), x, y)
+
+
+def _with_y(x, y):
+    """x (..., 3, ·) with its y row replaced by y (..., ·)."""
+    return torch.cat([x[..., 0:1, :], y[..., None, :], x[..., 2:3, :]],
+                     dim=-2)
+
+
+def affine_run_plain(ao: AffineOperands, P, V, fext, rb_extra,
+                     num_steps: int, num_iterations: int,
+                     rebase_every: int = 256, contact_mode: bool = False):
+    """The loop of kernel 3's plain version -> (context, state, flags):
+    ``flags`` (..., num_steps) int32 holds what csrc/affine.cu records of
+    each step (:meth:`AffineContext.step`).  ``contact_mode`` selects the
+    contact-mode build; with the floor off it is the lean build, as in the
+    JAX kernel."""
+    if P.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ro = ao.res
+    ctx = AffineContext(ao, force_term(ro, fext))
+    st = ctx.init_anchors(P, V)
+    if contact_mode and ro.floor:
+        ctx.init_contact(st)
+    flags = torch.zeros(P.shape[:-2] + (num_steps,), dtype=torch.int32,
+                        device=P.device)
+    for i in range(num_steps):
+        if _rebase_due(i, rebase_every):
+            ctx.rebase(st)
+        flags[..., i] = ctx.step(st, rb_extra, num_iterations)
+    return ctx, st, flags
 
 
 def resident_affine_plain(ao: AffineOperands, P, V, fext, rb_extra,
                           num_steps: int, num_iterations: int,
                           rebase_every: int = 256,
                           contact_mode: bool = False):
-    """Plain version of kernel 3, the lean build: ``num_steps`` steps ->
-    (P', V').  Each step tests the exact y row of the predictor against the
-    floor; a clamped step runs the re-anchoring contact tail.  With a
-    leading batch axis (B, 3, N) of independent sims (``rb_extra`` (3, r)
-    shared) it is the plain version of the batched build, whose branch is
-    per sim: the sims that clamp take the contact tail, the others the free
-    step."""
-    if contact_mode:
-        raise NotImplementedError(CONTACT_MODE_TODO)
-    if P.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    ro = ao.res
-    ctx = AffineContext(ao, force_term(ro, fext))
-    st = ctx.init_anchors(P, V)
-    for i in range(num_steps):
-        if _rebase_due(i, rebase_every):
-            ctx.rebase(st)
-        ap, _, wp, _, avd, asn, wsn = ctx.predictor(st)
-        clamped = (ctx.y_predictor(st, asn, wsn) < ro.floor_h).any(-1) \
-            if ro.floor else torch.zeros(P.shape[:-2], dtype=torch.bool)
-        if not bool(clamped.any()):
-            ctx.free_step(st, asn, wsn, avd, wp, rb_extra, num_iterations)
-        elif bool(clamped.all()):
-            ctx.contact_reanchor(st, ap, wp, asn, wsn, rb_extra,
-                                 num_iterations)
-        else:
-            # some sims of a batch clamp: both branches from the same
-            # state, each sim keeping its own
-            free = dataclasses.replace(st)
-            ctx.free_step(free, asn, wsn, avd, wp, rb_extra, num_iterations)
-            ctx.contact_reanchor(st, ap, wp, asn, wsn, rb_extra,
-                                 num_iterations)
-            for f in ("b0", "b1", "ap", "av", "wp", "wv"):
-                setattr(st, f, _merge(clamped, getattr(st, f),
-                                      getattr(free, f)))
-            st.bu0 = st.bu1 = None
+    """Plain version of kernel 3: ``num_steps`` steps -> (P', V').  Each
+    step tests the exact y row of the predictor against the floor.  In the
+    lean build a clamped step runs the re-anchoring contact tail; in the
+    contact-mode build (``contact_mode``) it enters contact mode, which
+    serves every step until the next rebase.  With a leading batch axis
+    (B, 3, N) of independent sims (``rb_extra`` (3, r) shared) it is the
+    plain version of the batched build, whose branch and mode are per
+    sim."""
+    ctx, st, _ = affine_run_plain(ao, P, V, fext, rb_extra, num_steps,
+                                  num_iterations, rebase_every, contact_mode)
     return ctx.output(st)
 
 
@@ -321,6 +503,16 @@ def resident_affine_exit_plain(ao: AffineOperands, P, V, fext, rb_extra,
     return P_out, V_out, done
 
 
+def resident_affine_contact_plain(ao: AffineOperands, P, V, fext, rb_extra,
+                                  num_steps: int, num_iterations: int,
+                                  rebase_every: int = 256):
+    """Plain version of kernel 3's contact-mode build
+    (:func:`resident_affine_plain` with ``contact_mode``)."""
+    return resident_affine_plain(ao, P, V, fext, rb_extra, num_steps,
+                                 num_iterations, rebase_every,
+                                 contact_mode=True)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
@@ -332,10 +524,15 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = (_P,) * 22 + (_I,) * 11 + (_D,) * 3 + (_P,)
+_ARGTYPES = (_P,) * 25 + (_I,) * 11 + (_D,) * 3 + (_P,)
 # int32 flag slots of one sim of a call (csrc/affine.cu): stale, done,
-# steps done, then one "clamped" slot per step
-FLAG_SLOTS = 3
+# steps done, contact mode, then one slot per step (what
+# AffineContext.step returns: 1 the floor test clamped, 2 contact mode)
+FLAG_SLOTS = 4
+MODE_SLOT = 3
+# the kernel's mode of each variant, with the floor on (csrc/affine.cu);
+# every variant without the floor runs free steps only (LEAN_NO_FLOOR)
+_VARIANTS = {"lean": 2, "exit": 1, "contact": 3}
 
 
 def split_coef(coef, r: int):
@@ -351,19 +548,21 @@ def split_coef(coef, r: int):
 
 def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
                    num_steps: int, num_iterations: int, rebase_every: int,
-                   exit_variant: bool):
-    """Enqueue one call of csrc/affine.cu on the (3, N) state, or the
-    (B, 3, N) states of B sims -> (P', V', flags, coef): coef holds the
+                   variant: str):
+    """Enqueue one call of csrc/affine.cu, ``variant`` "lean" or "contact"
+    (kernel 3's builds) or "exit" (kernel 4), on the (3, N) state, or the
+    (B, 3, N) states of B sims -> (P', V', flags, coef, y): coef holds the
     coefficients (:func:`split_coef`) over the last anchors, which are the
-    inputs P, V when no rebase fell in the call; flags and coef have a
-    leading sim axis when the state has."""
+    inputs P, V when no rebase fell in the call; y is contact mode's
+    (Py, Vy, buPy, buVy) of the contact variant with the floor on, else
+    None; flags, coef and y have a leading sim axis when the state has."""
     ro, fo = ao.res, ao.fused
     check_state(ro, P, V, fext, rb_extra)
     if rebase_every < 1:
         raise ValueError("rebase_every must be >= 1")
     batched = P.dim() == 3
     nb = P.shape[0] if batched else 1
-    if exit_variant and batched:
+    if variant == "exit" and batched:
         raise ValueError("kernel 4 has no batched build")
     fn = _build.function("affine", _SYMBOLS[(P.dtype, ro.U_liftT.dtype)],
                          _ARGTYPES)
@@ -371,6 +570,7 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     n, r = ro.n, fo.r
     tile = affine_tile()
     nblk = (n + tile - 1) // tile
+    contact = variant == "contact" and ro.floor
     b0 = P.contiguous().clone()          # the anchors, then the outputs
     b1 = V.contiguous().clone()
     fa = force_term(ro, fext).contiguous()
@@ -383,47 +583,67 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     bu = f32(nb, 3 * 3 * r)              # bu0, bu1, bu_fa
     sn, Pm = torch.empty_like(b0), torch.empty_like(b0)
     u = f32(nb, 3 * r)
-    # float64 per-tile partials of U^T A_c: two (3, r) sums per tile
+    # float64 per-tile partials of U^T A_c: two (3, r) sums per tile, and
+    # in contact mode one (r,) sum of the y slice per tile (pc)
     partial = torch.empty((nb, nblk, 2, 3 * r), dtype=torch.float64,
                           device=dev)
+    # contact mode's per-sim y state: Py, Vy and buPy, buVy, 0 until a sim
+    # enters the mode (as in the plain version)
+    ny = nb if contact else 0
+    ys = torch.zeros((ny, 2, n), dtype=torch.float32, device=dev)
+    ybu = torch.zeros((ny, 2 * r), dtype=torch.float32, device=dev)
+    pcpart = torch.empty((ny, nblk, r), dtype=torch.float64, device=dev)
     stride = FLAG_SLOTS + max(num_steps, 1)
     flags = torch.zeros((nb, stride), dtype=torch.int32, device=dev)
+    mode = _VARIANTS[variant] if ro.floor else 0
     p = _build.ptr
     code = fn(p(b0), p(b1), p(fa), p(rb_extra), p(ro.U_liftT), p(ro.ut_acT),
               p(ao.M_utac), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
               p(fo.WT_all), p(fo.gidx), p(fo.elem_kind), p(fo.elem_g),
               p(fo.elem_f), p(coef), p(bu), p(sn), p(Pm), p(u), p(partial),
-              p(flags), n, r, ro.n_sel, fo.g_total, fo.m_total, int(num_steps),
-              int(num_iterations), int(rebase_every),
-              (1 if exit_variant else (2 if ro.floor else 0)), nb, stride,
-              ro.dt, ro.eta, ao.floor_level, _build.stream_of(dev))
+              p(ys), p(ybu), p(pcpart), p(flags), n, r, ro.n_sel, fo.g_total,
+              fo.m_total, int(num_steps), int(num_iterations),
+              int(rebase_every), mode, nb, stride, ro.dt, ro.eta,
+              ao.floor_level, _build.stream_of(dev))
     _build.check("affine", code, "resident_affine")
+    y = (ys[:, 0], ys[:, 1], ybu[:, :r], ybu[:, r:]) if contact else None
     if not batched:
         flags, coef = flags[0], coef[0]
-    return b0, b1, flags, coef
+        y = tuple(x[0] for x in y) if contact else None
+    return b0, b1, flags, coef, y
+
+
+def _kernel3(wrapper, variant: str, batched: bool, ao: AffineOperands, P, V,
+             fext, rb_extra, num_steps: int, num_iterations: int,
+             rebase_every: int):
+    """Kernel 3's wrappers: the plain version on CPU tensors; on CUDA
+    tensors one call of csrc/affine.cu, counted in ``wrapper.launches``."""
+    if batched and P.dim() != 3:
+        raise ValueError("P must be (B, 3, N)")
+    if P.device.type == "cpu":
+        return resident_affine_plain(ao, P, V, fext, rb_extra, num_steps,
+                                     num_iterations, rebase_every,
+                                     contact_mode=variant == "contact")
+    if P.device.type != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    if not batched and P.dim() != 2:
+        raise ValueError("P must be (3, N): a batch of sims takes "
+                         f"{wrapper.__name__}_batched")
+    out = _launch_affine(ao, P, V, fext, rb_extra, num_steps, num_iterations,
+                         rebase_every, variant)[:2]
+    wrapper.launches += 1
+    return out
 
 
 def resident_affine(ao: AffineOperands, P, V, fext, rb_extra,
                     num_steps: int, num_iterations: int,
-                    rebase_every: int = 256, contact_mode: bool = False):
+                    rebase_every: int = 256):
     """Kernel 3, the lean build: (P', V') after ``num_steps`` steps from the
     permuted (3, N) state.  CPU tensors run the plain version; CUDA tensors
     launch ``csrc/affine.cu`` on the current stream, or raise.  The inputs
     are not modified."""
-    if contact_mode:
-        raise NotImplementedError(CONTACT_MODE_TODO)
-    if P.device.type == "cpu":
-        return resident_affine_plain(ao, P, V, fext, rb_extra, num_steps,
-                                     num_iterations, rebase_every)
-    if P.device.type != "cuda":
-        raise ValueError(f"unsupported device {P.device}")
-    if P.dim() != 2:
-        raise ValueError("P must be (3, N): a batch of sims takes "
-                         "resident_affine_batched")
-    P_out, V_out = _launch_affine(ao, P, V, fext, rb_extra, num_steps,
-                                  num_iterations, rebase_every, False)[:2]
-    resident_affine.launches += 1
-    return P_out, V_out
+    return _kernel3(resident_affine, "lean", False, ao, P, V, fext, rb_extra,
+                    num_steps, num_iterations, rebase_every)
 
 
 resident_affine.launches = 0
@@ -431,30 +651,50 @@ resident_affine.launches = 0
 
 def resident_affine_batched(ao: AffineOperands, P, V, fext, rb_extra,
                             num_steps: int, num_iterations: int,
-                            rebase_every: int = 256,
-                            contact_mode: bool = False):
+                            rebase_every: int = 256):
     """The batched build of kernel 3 (lean): (P', V') (B, 3, N) of B
     independent sims after ``num_steps`` steps from their permuted
     (B, 3, N) states and forces, the static target term ``rb_extra``
     (3, r) shared.  The contact branch is per sim.  CPU tensors run the
     plain version; CUDA tensors launch ``csrc/affine.cu`` with B sims, or
     raise.  The inputs are not modified."""
-    if contact_mode:
-        raise NotImplementedError(CONTACT_MODE_TODO)
-    if P.dim() != 3:
-        raise ValueError("P must be (B, 3, N)")
-    if P.device.type == "cpu":
-        return resident_affine_plain(ao, P, V, fext, rb_extra, num_steps,
-                                     num_iterations, rebase_every)
-    if P.device.type != "cuda":
-        raise ValueError(f"unsupported device {P.device}")
-    P_out, V_out = _launch_affine(ao, P, V, fext, rb_extra, num_steps,
-                                  num_iterations, rebase_every, False)[:2]
-    resident_affine_batched.launches += 1
-    return P_out, V_out
+    return _kernel3(resident_affine_batched, "lean", True, ao, P, V, fext,
+                    rb_extra, num_steps, num_iterations, rebase_every)
 
 
 resident_affine_batched.launches = 0
+
+
+def resident_affine_contact(ao: AffineOperands, P, V, fext, rb_extra,
+                            num_steps: int, num_iterations: int,
+                            rebase_every: int = 256):
+    """Kernel 3, the contact-mode build: (P', V') after ``num_steps`` steps
+    from the permuted (3, N) state; a clamped step enters contact mode,
+    which the next rebase leaves.  CPU tensors run the plain version; CUDA
+    tensors launch the contact variant of ``csrc/affine.cu`` on the current
+    stream, or raise.  The inputs are not modified."""
+    return _kernel3(resident_affine_contact, "contact", False, ao, P, V,
+                    fext, rb_extra, num_steps, num_iterations, rebase_every)
+
+
+resident_affine_contact.launches = 0
+
+
+def resident_affine_contact_batched(ao: AffineOperands, P, V, fext,
+                                    rb_extra, num_steps: int,
+                                    num_iterations: int,
+                                    rebase_every: int = 256):
+    """The batched build of kernel 3 in contact mode: (P', V') (B, 3, N) of
+    B independent sims, each with its own mode (:func:`resident_affine_
+    contact` per sim, ``rb_extra`` (3, r) shared).  CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/affine.cu`` with B sims, or
+    raise.  The inputs are not modified."""
+    return _kernel3(resident_affine_contact_batched, "contact", True, ao, P,
+                    V, fext, rb_extra, num_steps, num_iterations,
+                    rebase_every)
+
+
+resident_affine_contact_batched.launches = 0
 
 
 def resident_affine_exit(ao: AffineOperands, P, V, fext, rb_extra,
@@ -473,9 +713,9 @@ def resident_affine_exit(ao: AffineOperands, P, V, fext, rb_extra,
         raise ValueError(f"unsupported device {P.device}")
     if P.dim() != 2:
         raise ValueError("P must be (3, N): kernel 4 has no batched build")
-    P_out, V_out, flags, _ = _launch_affine(ao, P, V, fext, rb_extra,
-                                            num_steps, num_iterations,
-                                            rebase_every, True)
+    P_out, V_out, flags, _, _ = _launch_affine(ao, P, V, fext, rb_extra,
+                                               num_steps, num_iterations,
+                                               rebase_every, "exit")
     resident_affine_exit.launches += 1
     return P_out, V_out, int(flags[2])
 

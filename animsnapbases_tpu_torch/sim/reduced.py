@@ -20,10 +20,15 @@ tiers, as the JAX solver does (``sim/reduced.py:678-771``, ``:2914-3112``):
   would clamp: the chunked affine kernel 5 (``ops/affine_chunked.py``), or
   with ``resident_chunked_tier1 = False`` the in-kernel early-exit affine
   kernel 4 (``ops/affine.py``);
-* the contact tier, which serves the rest of the window: the lean affine
-  kernel 3 (``ops/affine.py``), or kernel 2 (``ops/resident.py``, the
+* the contact tier, which serves the rest of the window: the affine kernel
+  3 (``ops/affine.py``), in its contact-mode build (the default, as the JAX
+  solver's up to 32,768 vertices) or, with ``resident_contact_mode =
+  False``, its lean build, or kernel 2 (``ops/resident.py``, the
   "standard" resident kernel) for models of ``CHUNKED_TIER1_MIN_VERTS``
-  vertices and more.
+  vertices and more.  With contact mode on and ``resident_chunked_tier1 =
+  False`` there is no tier 1, as in the JAX solver
+  (``sim/reduced.py:791``): the contact-mode kernel 3 serves the whole
+  window.
 
 The vertex permutation that makes the selected union a prefix is applied
 at entry and exit; every kernel runs on the permuted layout.
@@ -33,7 +38,8 @@ Ensemble serving, B independent sims of one prepared model on one card
 
 * ``make_batched_run()`` serves a window of static-target steps for the
   whole batch: below ``CHUNKED_TIER1_MIN_VERTS`` vertices on the batched
-  lean affine kernel 3 (per-sim contact branch); at or above it on the
+  affine kernel 3 (contact mode: a mode per sim; lean: a contact branch
+  per sim); at or above it on the
   batched kernel 5, whose whole-batch exit hands a window of steps to the
   batched kernel 2 before stepping returns to kernel 5 (the JAX package's
   vmapped per-step window).  ``_last_batched_path`` records
@@ -58,8 +64,6 @@ Not ported yet, and raising ``NotImplementedError`` in ``step`` /
 * animated positional targets (Queue A item 10);
 * self-collision (Queue A item 12);
 * ``run_steps(record=True)`` (Queue A item 5);
-* ``resident_contact_mode = True``, the contact-mode build of the affine
-  kernel (ROADMAP Queue B item 1);
 * batched serving over a mesh (``mesh=``, Queue A item 18) and per-sim or
   animated target timelines in ``make_batched_run`` (``targets_seq``, Queue
   A item 10).
@@ -80,10 +84,11 @@ from animsnapbases_tpu_torch.device import (
     working_dtype,
 )
 from animsnapbases_tpu_torch.ops.affine import (
-    CONTACT_MODE_TODO,
     affine_operands,
     resident_affine,
     resident_affine_batched,
+    resident_affine_contact,
+    resident_affine_contact_batched,
     resident_affine_exit,
 )
 from animsnapbases_tpu_torch.ops.affine_chunked import (
@@ -237,10 +242,12 @@ class AnimSnapBasesSolver:
 
     ``run_steps``' tiers follow the JAX solver's instance switches, read at
     ``prepare``: ``resident_chunked_tier1`` (default True: kernel 5 is tier
-    1; False: kernel 4), ``resident_contact_mode`` (default False; True
-    raises, not ported) and ``resident_rebase_every`` (default 1024 steps
-    for kernel 5's chunks and 256 for the in-kernel rebase of kernels 3
-    and 4: windows of float32 coefficient drift)."""
+    1; False: kernel 4, or no tier 1 in contact mode),
+    ``resident_contact_mode`` (default None: kernel 3's contact-mode build;
+    False: its lean build, :meth:`_build_tiers`) and
+    ``resident_rebase_every`` (default 1024 steps for kernel 5's chunks and
+    256 for the in-kernel rebase of kernels 3 and 4: windows of float32
+    coefficient drift)."""
 
     # models of this many vertices or more take kernel 2 as the contact
     # tier instead of kernel 3: the JAX package's value, which keeps its
@@ -475,12 +482,19 @@ class AnimSnapBasesSolver:
         self._build_tiers(n)
 
     def _build_tiers(self, n: int):
-        """The tiers of run_steps, as sim/reduced.py:678-812 of the JAX
-        package builds them (without its TPU admission gates)."""
+        """The tiers of run_steps, as sim/reduced.py:662-824 of the JAX
+        package builds them (without its TPU admission gates).
+
+        ``resident_contact_mode=None`` resolves to contact mode wherever
+        kernel 3 is the contact tier.  The JAX package turns it on up to
+        32,768 vertices for what it gains on a TPU; the port follows what an
+        NVIDIA H100 measured at the bench scene (PERF.md, Findings):
+        contact steps ~11 % faster than the lean build's, free steps within
+        0.2 %, a crumpling 64-sim ensemble 2.4x faster."""
         ao = self._affine
         every = getattr(self, "resident_rebase_every", None)
-        self._contact_mode = bool(getattr(self, "resident_contact_mode",
-                                          None))
+        contact_mode = getattr(self, "resident_contact_mode", None)
+        self._contact_mode = contact_mode is None or bool(contact_mode)
         chunked_tier1 = getattr(self, "resident_chunked_tier1", None)
         if chunked_tier1 is None:
             chunked_tier1 = True
@@ -493,12 +507,13 @@ class AnimSnapBasesSolver:
                 self._resident_run = partial(resident_multistep, ao.res)
                 self._resident_kind = "standard"
                 return
-        elif self.model.floor_collision:
+        elif self.model.floor_collision and not self._contact_mode:
             self._resident_fast = partial(resident_affine_exit, ao,
                                           rebase_every=int(every or 256))
             self._resident_fast_kind = "exit"
-        self._resident_run = partial(resident_affine, ao,
-                                     rebase_every=int(every or 256))
+        self._resident_run = partial(
+            resident_affine_contact if self._contact_mode else resident_affine,
+            ao, rebase_every=int(every or 256))
         self._resident_kind = "affine"
 
     # ------------------------------------------------------------------
@@ -589,8 +604,6 @@ class AnimSnapBasesSolver:
             raise NotImplementedError(
                 "animated positional targets are not ported yet (ROADMAP "
                 "Queue A item 10)")
-        if self._contact_mode:
-            raise NotImplementedError(CONTACT_MODE_TODO)
         model = self.model
         P = self._to_device(model.positions)
         V = self._to_device(model.velocities)
@@ -725,7 +738,8 @@ class AnimSnapBasesSolver:
         ``prepare()`` rebuild is served by a runner made before it.
 
         Below ``CHUNKED_TIER1_MIN_VERTS`` vertices one call of the batched
-        kernel 3 serves the window; at or above it the batched kernel 5
+        kernel 3 (its contact-mode build unless ``resident_contact_mode``
+        is False) serves the window; at or above it the batched kernel 5
         serves contact-free stretches and the batched kernel 2 the windows
         after a whole-batch exit (:meth:`_run_batched_chunked`)."""
         self._refuse_mesh(mesh)
@@ -745,8 +759,6 @@ class AnimSnapBasesSolver:
                 raise NotImplementedError(
                     "animated positional targets are not ported yet "
                     "(ROADMAP Queue A item 10)")
-            if self._contact_mode:
-                raise NotImplementedError(CONTACT_MODE_TODO)
             P, V = self._pack(positions), self._pack(velocities)
             Fx = self._pack(fext)
             rb = self._rb_extra(frame=serving_frame[0])
@@ -763,17 +775,21 @@ class AnimSnapBasesSolver:
         return run
 
     def _run_batched_resident(self, P, V, Fx, rb, num_steps, num_iterations):
-        """The window on the batched lean kernel 3 (B = 1: the solo
-        kernel 3), one call for the whole batch."""
+        """The window on the batched kernel 3, lean or in contact mode as
+        the solver's contact tier is (B = 1: the solo kernel 3), one call
+        for the whole batch."""
         every = int(getattr(self, "resident_rebase_every", None) or 256)
         self._last_batched_path = "batched-resident"
+        solo, batched = ((resident_affine_contact,
+                          resident_affine_contact_batched)
+                         if self._contact_mode else
+                         (resident_affine, resident_affine_batched))
         if P.shape[0] == 1:
-            out = resident_affine(self._affine, P[0], V[0], Fx[0], rb,
-                                  num_steps, num_iterations,
-                                  rebase_every=every)
+            out = solo(self._affine, P[0], V[0], Fx[0], rb, num_steps,
+                       num_iterations, rebase_every=every)
             return out[0][None], out[1][None]
-        return resident_affine_batched(self._affine, P, V, Fx, rb, num_steps,
-                                       num_iterations, rebase_every=every)
+        return batched(self._affine, P, V, Fx, rb, num_steps, num_iterations,
+                       rebase_every=every)
 
     def _run_batched_chunked(self, P, V, Fx, rb, num_steps, num_iterations):
         """The large-model route (JAX ``_run_batched_resident_chunked``):

@@ -16,30 +16,39 @@ version.  Phases, each of which fails the run when it fails:
    whole window), then a contact scene (the cloth 0.05 above the floor,
    falling at 2 units/s) whose tier 1 exits early and whose contact tier
    (kernel 3) finishes the window; the same with
-   ``resident_chunked_tier1 = False`` (kernel 4, then kernel 3) and with
+   ``resident_chunked_tier1 = False`` (kernel 4, then kernel 3), with
+   ``resident_contact_mode = True`` (kernel 5, then kernel 3's contact-mode
+   build), with contact mode and ``resident_chunked_tier1 = False`` (no
+   tier 1: the contact-mode build alone) and with
    ``CHUNKED_TIER1_MIN_VERTS`` forcing kernel 2 as the contact tier.  Each
-   of these runs is a path of its own: the launch counters of all five
-   kernels are set to 0 just before it and read just after, and the
+   of these runs is a path of its own: the launch counters of all eleven
+   wrappers are set to 0 just before it and read just after, and the
    path's own kernels must have launched and no other.  A small scene is
    held against the float64 plain version on the CPU;
 3. each kernel against its plain version on the card, from the same state,
    step by step: in one-step calls, and in the steps that one call carries
    inside it (step s of a call of s steps against one plain step from the
-   coefficients that the kernel's call of s - 1 steps left, for every s up
-   to 64);
+   state that the kernel's call of s - 1 steps left, for every s up to
+   64; for the contact-mode build also on the contact scene with rebases
+   every 3 and 16 steps, so that the mode is entered, carried and left on
+   the card, with the y state it carries), and the drift of contact mode's
+   incremental projections after 16, 64 and 256 steps;
 4. times (CUDA events, median of the repetitions after warm-up) beside each
    kernel's bound from its bytes and operations;
 2-4 for ensemble serving (:func:`ensemble`): ``make_batched_run`` on a
-   ring-down ensemble of 64 sims over 2,000 steps (batched kernel 3), on a
-   mixed batch of 16, half of it falling onto the floor (batched kernel 3,
-   then with ``CHUNKED_TIER1_MIN_VERTS = 0`` batched kernels 5 and 2), and
-   ``make_batched_step`` on 64 sims (batched kernel 1), each a counted
-   path; every sim of each batched kernel against the solo kernel from its
-   state, bit for bit (kernels 2 and 3 on the mixed batch and on 64 sims),
-   batched kernel 5's whole-batch k against the sims' solo k, one step of
-   kernels 2, 3 and 5 against the plain versions on both batches; times at
-   1 to 128 sims, with a torch.profiler breakdown of one batched call;
-5. the ``kernels`` line (nine entries: five solo kernels, four batched
+   ring-down ensemble of 64 sims over 2,000 steps and on a mixed batch of
+   16, half of it falling onto the floor, on the default route (batched
+   kernel 3's contact-mode build) and with ``resident_contact_mode =
+   False`` (its lean build), on a crumpling ensemble of 64 sims on the
+   default route, on the mixed batch with ``CHUNKED_TIER1_MIN_VERTS = 0``
+   (batched kernels 5 and 2), and ``make_batched_step`` on 64 sims
+   (batched kernel 1), each a counted path; every sim of each batched
+   kernel against the solo kernel from its state, bit for bit (kernels 2
+   and 3, both builds, on the mixed batch and on 64 sims), batched kernel
+   5's whole-batch k against the sims' solo k, one step of kernels 2, 3
+   (both builds) and 5 against the plain versions on both batches; times at
+   1 to 128 sims, with torch.profiler breakdowns;
+5. the ``kernels`` line (eleven entries: six solo kernels, five batched
    builds), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
@@ -88,6 +97,10 @@ REPS = 50
 # the plain version's.
 ACC_RATIO = 4.0
 F32_EPS = 2.0 ** -23
+# contact mode's branch steps (:func:`carried_steps`): the float64 step
+# from the kernel's input moved at random by one float32 unit, this many
+# draws in one batched step, is printed beside each
+WITNESS_DRAWS = 64
 # kernel 2 vs its plain version, step by step from the same state: both
 # round sn to the storage type bit for bit, so they differ only by the
 # order of their float32 sums, which the nonlinear loop amplifies at some
@@ -135,6 +148,16 @@ SIM_ROWS = 8
 CONTACT_RISE = 0.15
 CONTACT_STEP = 0.1
 MIXED_EVERY = 16
+# contact mode (kernel 3's contact-mode build): the rebase cadences of its
+# carried holds on the contact scene (256: none in 64 steps; 3 and 16: the
+# mode entered, carried and left), the last also that of its first drift
+# reading; the steps of its last drift reading (the last step before the
+# default cadence's rebase); and the crumpling ensemble: CRUMPLE sims of
+# the contact scene under gravity, sim b lifted CRUMPLE_STEP b more
+CONTACT_EVERY = (REBASE_EVERY, 3, 16)
+DRIFT_STEPS = REBASE_EVERY
+CRUMPLE = 64
+CRUMPLE_STEP = 0.01
 
 
 def log(*a):
@@ -387,6 +410,37 @@ def k3_cost(ao, steps, iters, every, contact, nb=1):
     return nbytes, ops
 
 
+def k3m_cost(ao, steps, iters, every, contact, any_contact, entries, nb=1):
+    """(bytes, {dtype: ops}) of one call of kernel 3's contact-mode build of
+    ``steps`` steps for ``nb`` sims, ``contact`` of whose sim-steps run in
+    contact mode, on ``any_contact`` steps at least one sim's, with
+    ``entries`` entries.  As :func:`k3_cost` for the free sim-steps, the
+    small operands (every step runs the loop), the rebases and the call;
+    per step in contact mode the (r, N) y slices of U^T A_c and of the lift
+    read once for the sims in it; per contact sim-step its y state (Py,
+    Vy, fa_y read; Py, Vy written), the loop's operations, the float64
+    projection of the clamp's correction and the float32 lift of u_y; per
+    entry the y rows of b0, b1 and fa read and two lifts of the y row."""
+    ro = ao.res
+    n, r = ro.n, ao.fused.r
+    item = ro.U_liftT.element_size()
+    free = nb * steps - contact
+    rebases = (steps - 1) // every if steps else 0
+    sb, so = small_cost(ao, iters, ro.n_sel, nb)
+    yb = item * r * n + nb * 4 * 3 * n
+    pb, po = big_pass(ao, nb)
+    mat_bytes = pb + nb * 4 * 15 * n
+    nbytes = (sb + (yb if free else 0) + any_contact * 2 * item * r * n
+              + contact * 4 * 5 * n + entries * 4 * 3 * n
+              + rebases * (mat_bytes + pb + nb * 4 * 3 * n)
+              + nb * 4 * 3 * n * 2 + pb + mat_bytes)
+    ops = {"float32": (nb * steps * so + free * 2 * r * n
+                       + contact * (2 * r * n + 10 * n)
+                       + entries * 2 * 2 * r * n + (rebases + 1) * 2 * po),
+           "float64": contact * 2 * r * n + (rebases + 1) * (po + 2 * po)}
+    return nbytes, ops
+
+
 def bound_ms(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = sum(v / PEAK_OPS[k] for k, v in ops.items())
@@ -459,34 +513,59 @@ def step_by_step(torch, label, ro, run_k, run_p, P, V, Fx, rb_extra, steps,
 
 
 def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
-                  steps):
-    """The steps one call of kernel 3, 4 or 5 (``kernel``) carries inside
-    it, in its coefficients over the call's anchors (P, V): for each
-    s <= ``steps``, one kernel call of s steps against one plain affine
-    step (``AffineContext``; through the gathered values for kernel 5) from
-    the coefficients that the kernel's call of s - 1 steps left, over the
-    same anchors, held at STEP_TOL of that step's size (:func:`step_share`).
-    The plain step starts from the kernel's own coefficients, so what it is
-    held to does not drift as s grows; and over the same anchors, so the
-    bfloat16 rounding of the anchors is the same on both sides (a step from
-    the materialized state would round other anchors).  Every call must
-    do all its steps without a rebase or a contact step.
+                  steps, every=REBASE_EVERY):
+    """The steps one call of kernel 3, 4 or 5 (``kernel``; "3c" for kernel
+    3's contact-mode build) carries inside it, in its coefficients over the
+    call's anchors (P, V): for each s <= ``steps``, one kernel call of s
+    steps against one plain step (``AffineContext``; through the gathered
+    values for kernel 5) from the state that the kernel's call of s - 1
+    steps left, over the same anchors, held at STEP_TOL of that step's size
+    (:func:`step_share`).  The plain step starts from the kernel's own
+    coefficients (and, for "3c", its contact mode and y state: Py, Vy,
+    buPy, buVy), so what it is held to does not drift as s grows; and over
+    the same anchors, so the bfloat16 rounding of the anchors is the same
+    on both sides (a step from the materialized state would round other
+    anchors).  Calls of kernels 3, 4 and 5 must do all their steps without
+    a rebase or a contact step.  Kernel "3c" may enter contact mode, and
+    rebases every ``every`` steps: a rebase before step s re-anchors at the
+    state the call of s - 1 steps returned (the same materialization,
+    bit for bit), so the plain step then starts from those anchors.
 
     At a branch step, where the loop's clamps take another branch in the
-    two float32 orders and the step parts by more than STEP_TOL, the
-    kernel must be as near to the float64 plain step from the same
-    coefficients as the float32 plain step is, within ACC_RATIO (as
-    kernel 1 is held); a kernel that carried wrong coefficients is far
-    from both.
+    two float32 orders and the step parts by more than STEP_TOL, kernels
+    3, 4 and 5 must be as near to the float64 plain step from the same
+    state as the float32 plain step is, within ACC_RATIO (as kernel 1 is
+    held); a kernel that carried a wrong state is far from both.
+
+    In contact mode the loop branches on a third of the contact scene's
+    steps, and which of two float32 orders lands nearer the float64 step
+    is a coin's toss (either is the farther by more than ACC_RATIO on
+    some steps).  There every step is held in two parts.  Everything but
+    the loop: the kernel's step against the plain step given the kernel's
+    own loop answer u (recovered from its coefficients), at STEP_TOL of
+    that step's size, the carried y state with it (buPy, buVy within
+    STEP_TOL of their change in the step; the contact mode equal): the
+    predictor, the clamp, pc, the recursions, the lift, the coefficient
+    update and the mixed output.  The loop (iteration.cuh, kernel 1's,
+    held against float64 on its own): over the window's branch steps the
+    kernel's distance from the float64 step, in the median and at most,
+    within ACC_RATIO of the plain version's.  Printed at each branch
+    step: the farthest float64 step from the same state with its
+    coefficients and y state moved at random by one float32 unit
+    (WITNESS_DRAWS draws), and on how many steps each float32 order lies
+    beyond ACC_RATIO of it.
 
     Printed, not held: the kernel's call of s steps against the plain
     version's call (``plain``) of as many steps from (P, V), for a few s,
-    which the dynamics of this scene part within a few steps."""
+    which the dynamics of this scene part within a few steps.  Returns the
+    largest difference and the flags of the call of ``steps`` steps."""
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
+        MODE_SLOT,
         AffineContext,
         AffineState,
         _launch_affine,
+        _rebase_due,
         basis,
         split_coef,
     )
@@ -497,10 +576,18 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
     )
     from animsnapbases_tpu_torch.ops.resident import force_term, project
 
-    require(steps < REBASE_EVERY, "a carried window must not rebase")
+    class GivenU(AffineContext):
+        """The plain step with the loop's answer given (``self.u``)."""
+
+        def solve(self, Vc, rb_const, num_iterations):
+            return self.u
+
+    contact = kernel == "3c"
+    require(contact or steps < every, "a carried window must not rebase")
     ro = ao.res
     fa = force_term(ro, F_)
     ctx = AffineContext(ao, fa)
+    given = GivenU(ao, fa, ctx.bu_fa)
     gidx = ao.fused.gidx.long()
     b0s, b1s, fas = P[:, gidx], V[:, gidx], fa[:, gidx]
     bu0, bu1 = project(ro, P), project(ro, V)
@@ -511,25 +598,39 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
                                U_selT=ao.U_selT.double())
     ctx64 = AffineContext(ao64, fa.double())
 
-    def plain_step(cx, coefs, rb):
-        """One plain affine step from ``coefs`` over the anchors (P, V) in
-        the context ``cx`` -> (state before, state after), materialized."""
+    def plain_step(cx, state, rb):
+        """One plain step from ``state`` (anchors, coefficients, contact
+        mode and y state; each may carry a leading axis of draws) in the
+        context ``cx`` -> (state before, state after), materialized, and
+        in contact mode the y state after (Py, Vy, buPy, buVy) when the
+        step ends in the mode, else None."""
+        (b0, b1), coefs, mode, y = state
         dt = cx.fa.dtype
-        b0, b1 = P.to(dt), V.to(dt)
-        st = AffineState(b0, b1, *(c.to(dt) for c in coefs))
+        st = AffineState(b0.to(dt), b1.to(dt), *(c.to(dt) for c in coefs))
         before = cx.output(st)
+        if contact:
+            cx.init_contact(st)
+            if mode:
+                st.mode = torch.ones_like(st.mode)
+                st.Py, st.Vy, st.buPy, st.buVy = (t.to(dt) for t in y)
+            cx.step(st, rb, ITERATIONS)
+            return before, cx.output(st), (
+                (st.Py, st.Vy, st.buPy, st.buVy) if bool(st.mode.all())
+                else None)
         _, _, wp, _, avd, asn, wsn = cx.predictor(st)
         if kernel == 5:
-            cols = (b0[:, gidx], b1[:, gidx], cx.fa[:, gidx])
+            cols = (st.b0[:, gidx], st.b1[:, gidx], cx.fa[:, gidx])
             cx.gathered_step(st, asn, wsn, avd, wp,
                              gathered_values(cx.ao, asn, wsn, *cols), rb,
                              ITERATIONS)
         else:
             cx.free_step(st, asn, wsn, avd, wp, rb, ITERATIONS)
-        return before, cx.output(st)
+        return before, cx.output(st), None
 
     def run_k(s):
-        """The kernel's call of s steps -> (P', V', its coefficients)."""
+        """The kernel's call of s steps -> (P', V', its coefficients,
+        contact mode, y state, flags)."""
+        mode, y, flags = False, None, None
         if kernel == 5:
             ymm = torch.empty(6, dtype=P.dtype, device=P.device)
             *coefs, done = _chunk_cuda(
@@ -537,42 +638,97 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
                 rb_extra, s, ITERATIONS, ao.floor_level)
             Pk, Vk = advance(ao, P, V, fa, *coefs)
         else:
-            Pk, Vk, flags, coef = _launch_affine(
-                ao, P, V, F_, rb_extra, s, ITERATIONS, REBASE_EVERY,
-                kernel == 4)
+            variant = {3: "lean", 4: "exit", "3c": "contact"}[kernel]
+            Pk, Vk, flags, coef, y = _launch_affine(
+                ao, P, V, F_, rb_extra, s, ITERATIONS, every, variant)
             coefs = split_coef(coef, ao.fused.r)
-            done = (int(flags[2]) if kernel == 4 else
+            mode = bool(int(flags[MODE_SLOT]))
+            done = (int(flags[2]) if kernel == 4 else s if contact else
                     s - int(flags[FLAG_SLOTS:FLAG_SLOTS + s].sum()))
         require(done == s, f"{label}: the kernel did {done} of {s} "
                 "contact-free steps")
-        return Pk, Vk, tuple(coefs)
+        return Pk, Vk, (tuple(coefs), mode, y), flags
+
+    def given_u(s, state, after, Pk, Vk):
+        """The kernel's step against the plain step from ``state`` given
+        the kernel's u (its wp after the step less the predictor's), the
+        y state with it -> the largest share of a step's size."""
+        anchors, coefs, mode, y = state
+        wsn = ctx.predictor(AffineState(*anchors, *coefs))[-1]
+        given.u = after[0][2] - wsn
+        (Pi, Vi), (Pf, Vf), y_f = plain_step(given, state, rb_extra)
+        shares = step_share(ro, fa, rb_extra, Pi, Vi, Pk, Vk, Pf, Vf)
+        require(after[1] == (y_f is not None),
+                f"{label}, step {s}: the kernel's contact mode "
+                f"{after[1]} differs from the plain step's")
+        if y_f is not None:
+            zr = torch.zeros_like(y_f[2])
+            for key, i in (("buPy", 2), ("buVy", 3)):
+                shares[key] = (max_abs(after[2][i], y_f[i]),
+                               max_abs(y_f[i], y[i] if mode else zr))
+        hold_step(f"{label}, step {s}, against the plain step given the "
+                  "kernel's u", shares)
+        return max(d / sz if sz > 0 else 0.0 for d, sz in shares.values())
+
+    def witness(s, state, P64, V64):
+        """{"P": d, "V": d}: the farthest from (P64, V64) of the float64
+        plain steps from ``state`` with its coefficients and y state moved
+        at random by one float32 unit, WITNESS_DRAWS draws in one batched
+        step."""
+        gen = torch.Generator(device=P.device).manual_seed(s)
+        draws = WITNESS_DRAWS
+
+        def many(x):
+            return x.double().expand(draws, *x.shape)
+
+        def nudge(x):
+            x = many(x)
+            return x * (1.0 + F32_EPS * torch.randn(
+                x.shape, generator=gen, device=x.device, dtype=x.dtype))
+
+        anchors, coefs, mode, y = state
+        _, (Pq, Vq), _ = plain_step(ctx64, (
+            tuple(many(b) for b in anchors), tuple(nudge(c) for c in coefs),
+            mode, None if y is None else tuple(nudge(t) for t in y)),
+            rb_extra.double())
+        return {"P": max_abs(Pq, P64), "V": max_abs(Vq, V64)}
 
     e0, e1, _ = basis(P.dtype, P.device)
     zw = torch.zeros((3, ao.fused.r), dtype=P.dtype, device=P.device)
-    coefs = (e0, e1, zw, zw)
+    unit = ((e0, e1, zw, zw), False, None)
+    state, prev = ((P, V), *unit), (P, V)
     diff = {"P": 0.0, "V": 0.0}
     share = {"P": (0.0, 0), "V": (0.0, 0)}
     apart, branches = {}, []
+    given_worst = (0.0, 0)
     for s in range(1, steps + 1):
-        Pk, Vk, after = run_k(s)
-        (Pi, Vi), (Pp, Vp) = plain_step(ctx, coefs, rb_extra)
+        if contact and _rebase_due(s - 1, every):
+            state = (prev, *unit)
+        Pk, Vk, after, flags = run_k(s)
+        (Pi, Vi), (Pp, Vp), _ = plain_step(ctx, state, rb_extra)
         shares = step_share(ro, fa, rb_extra, Pi, Vi, Pk, Vk, Pp, Vp)
+        if contact:
+            given_worst = max(given_worst, (given_u(s, state, after, Pk, Vk),
+                                            s))
         if all(d <= STEP_TOL * sz for d, sz in shares.values()):
             for key, (d, sz) in shares.items():
                 diff[key] = max(diff[key], d)
                 share[key] = max(share[key], (d / sz if sz > 0 else 0.0, s))
         else:
-            _, (P64, V64) = plain_step(ctx64, coefs, rb_extra.double())
+            _, (P64, V64), _ = plain_step(ctx64, state, rb_extra.double())
+            seen = witness(s, state, P64, V64) if contact else None
             near = {}
             for key, got, pl, ref in (("P", Pk, Pp, P64), ("V", Vk, Vp, V64)):
                 e_k, e_p = max_abs(got, ref), max_abs(pl, ref)
                 floor = F32_EPS * float(ref.abs().max())
-                require(e_k <= ACC_RATIO * max(e_p, floor),
+                require(contact or e_k <= ACC_RATIO * max(e_p, floor),
                         f"{label}, step {s} {key}: differs from the plain "
                         f"version by {shares[key][0]:.3e} (step size "
                         f"{shares[key][1]:.3e}) and is {e_k:.3e} from the "
                         f"float64 step, the plain version {e_p:.3e}")
-                near[key] = (shares[key][0] / shares[key][1], e_k, e_p)
+                near[key] = (shares[key][0] / shares[key][1],
+                             max(e_k, floor), max(e_p, floor),
+                             seen[key] if seen else None)
             branches.append((s, near))
         if s in (1, 2, 3, 4, steps):
             out = plain(ao, P, V, F_, rb_extra, s, ITERATIONS)
@@ -580,24 +736,58 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
             require(done == s, f"{label}: the plain version stopped after "
                     f"{done} of {s} steps")
             apart[s] = (max_abs(Pk, out[0]), max_abs(Vk, out[1]))
-        coefs = after
+        # the kernel's state after s steps is over the anchors of step s
+        state, prev = (state[0], *after), (Pk, Vk)
     torch.cuda.synchronize()
+    window = ""
+    if contact and branches:
+        parts = []
+        for key in ("P", "V"):
+            e_k, e_p, w = zip(*(near[key][1:] for _, near in branches))
+            med = (statistics.median(e_k), statistics.median(e_p))
+            top = (max(e_k), max(e_p))
+            require(med[0] <= ACC_RATIO * med[1]
+                    and top[0] <= ACC_RATIO * top[1],
+                    f"{label}, {key}: over {len(branches)} branch steps the "
+                    f"kernel lies {med[0]:.3e} (median), {top[0]:.3e} (at "
+                    f"most) from the float64 step, the plain version "
+                    f"{med[1]:.3e}, {top[1]:.3e}")
+
+            def beyond(a, b):
+                return sum(x > ACC_RATIO * y for x, y in zip(a, b))
+
+            parts.append(
+                f"{key} median {med[0]:.3e} / {med[1]:.3e}, at most "
+                f"{top[0]:.3e} / {top[1]:.3e}; beyond {ACC_RATIO}x of the "
+                f"other on {beyond(e_k, e_p)} / {beyond(e_p, e_k)} steps, of "
+                f"the witness on {beyond(e_k, w)} / {beyond(e_p, w)}")
+        window = (f"; over the branch steps, the kernel / the plain version "
+                  f"from the float64 step (limit {ACC_RATIO}x): "
+                  + "; ".join(parts))
     log(f"[3] {label}: calls of 1..{steps} steps, each step against a plain "
-        f"step from the kernel's coefficients: " + "; ".join(
+        f"step from the kernel's state: " + "; ".join(
             f"{key} max abs {diff[key]:.3e}, at most {share[key][0]:.3e} of "
             f"the step's size (tol {STEP_TOL}, at step {share[key][1]})"
             for key in ("P", "V"))
-        + f" on {steps - len(branches)} of {steps} steps; branch steps "
-        "(share of the step's size, kernel's and plain version's distance "
-        "from the float64 step, limit " + f"{ACC_RATIO}x): " + (", ".join(
+        + f" on {steps - len(branches)} of {steps} steps"
+        + (f"; every step against the plain step given the kernel's u, the "
+           f"y state included: at most {given_worst[0]:.3e} of the step's "
+           f"size (tol {STEP_TOL}, at step {given_worst[1]})"
+           if contact else "")
+        + "; branch steps (share of the step's size, the kernel's and the "
+        "plain version's distance from the float64 step"
+        + (", the farthest float64 step from inputs one float32 unit away"
+           if contact else f"; limit {ACC_RATIO}x") + "): " + (", ".join(
             f"step {s}: " + " ".join(
                 f"{key} {x:.3e} {e_k:.3e} {e_p:.3e}"
-                for key, (x, e_k, e_p) in near.items())
+                + ("" if w is None else f" witness {w:.3e}")
+                for key, (x, e_k, e_p, w) in near.items())
             for s, near in branches) or "none")
+        + window
         + "; the call of s steps against the plain version's call of s "
         "steps (not held): " + ", ".join(
             f"s={s}: P {p:.3e} V {v:.3e}" for s, (p, v) in apart.items()))
-    return max(diff.values())
+    return max(diff.values()), flags
 
 
 def same_as_steps(torch, label, call, P, V, Pi, Vi, steps):
@@ -661,37 +851,44 @@ def tiered_runs(torch, counted, solver, model, f, rest, label, tier1,
     """The bench scene's rest state (``rest``) through run_steps(64): tier 1
     (the kernel named ``tier1``) must serve and certify the whole window;
     then the contact scene: tier 1 must exit at 0 < k < 64 and the contact
-    tier (``contact``) finish the window.  Each run is a path of its own
+    tier (``contact``) finish the window.  With ``tier1`` None (contact
+    mode without tier 1) no tier 1 may be built, and the contact tier must
+    serve both windows alone, uncertified.  Each run is a path of its own
     for the launch counters.  Returns {run: counts}."""
-    calls = spy_tier1(solver)
+    calls = spy_tier1(solver) if tier1 else None
+    require(tier1 or solver._resident_fast is None,
+            f"{label}: a tier 1 was built")
     model.positions, model.velocities = (x.copy() for x in rest)
     frame = solver.frame
     counts = {}
     counts["bench window"] = counted_path(
-        torch, counted, f"{label}, bench window", {tier1},
+        torch, counted, f"{label}, bench window", {tier1 or contact},
         lambda: solver.run_steps(f, SCENE_STEPS, num_iterations=ITERATIONS))
-    require(calls == [SCENE_STEPS]
-            and solver._last_fast_steps == SCENE_STEPS,
-            f"{label}: tier 1 did not serve the whole bench window "
-            f"(calls {calls}, certificate {solver._last_fast_steps})")
+    require(solver._last_fast_steps == (SCENE_STEPS if tier1 else None)
+            and (not tier1 or calls == [SCENE_STEPS]),
+            f"{label}: tier 1 did not serve the whole bench window, or a "
+            f"window without it was certified (calls {calls}, certificate "
+            f"{solver._last_fast_steps})")
     model.positions, model.velocities = contact_state(model)
     counts["contact scene"] = counted_path(
-        torch, counted, f"{label}, contact scene", {tier1, contact},
+        torch, counted, f"{label}, contact scene", {tier1 or contact, contact},
         lambda: solver.run_steps(f, SCENE_STEPS, num_iterations=ITERATIONS))
-    require(len(calls) == 2 and 0 < calls[1] < SCENE_STEPS
+    k = calls[1] if tier1 and len(calls) == 2 else 0
+    require((k > 0 or not tier1) and k < SCENE_STEPS
             and solver._last_fast_steps is None
             and solver.frame == frame + 2 * SCENE_STEPS,
             f"{label}: the contact scene did not go tier 1 -> contact tier "
-            f"(tier-1 steps {calls[1:]})")
+            f"(tier-1 calls {calls})")
     require(np.isfinite(model.positions).all()
             and model.positions[:, 1].min() > -0.5,
             f"{label}: the contact scene's state is not finite and held at "
             "the floor")
-    log(f"[2] {label} ({solver._resident_fast_kind} tier 1, "
-        f"{solver._resident_kind} contact tier): bench window certified "
-        f"({SCENE_STEPS} steps); contact scene: tier 1 exited after "
-        f"{calls[1]} steps, contact tier served {SCENE_STEPS - calls[1]}, "
-        f"end y in [{model.positions[:, 1].min():.4f}, "
+    log(f"[2] {label} ({solver._resident_fast_kind or 'no'} tier 1, "
+        f"{solver._resident_kind} contact tier): bench window "
+        f"{'certified' if tier1 else 'served by the contact tier'} "
+        f"({SCENE_STEPS} steps); contact scene: tier 1 served {k} steps, "
+        f"the contact tier {SCENE_STEPS - k}, end y in "
+        f"[{model.positions[:, 1].min():.4f}, "
         f"{model.positions[:, 1].max():.4f}]")
     return counts
 
@@ -731,6 +928,16 @@ def mixed_state(model, main_state, f):
         pos[b][:, 1] += CONTACT_RISE + CONTACT_STEP * j
         fs[b] = f
     return pos, vel, fs
+
+
+def crumple_state(model, f):
+    """The crumpling ensemble: CRUMPLE copies of the contact scene under
+    gravity (``f``), sim b lifted CRUMPLE_STEP b more."""
+    P, V = contact_state(model)
+    pos = np.repeat(P[None], CRUMPLE, axis=0)
+    pos[:, :, 1] += CRUMPLE_STEP * np.arange(CRUMPLE)[:, None]
+    vel = np.repeat(V[None], CRUMPLE, axis=0)
+    return pos, vel, np.repeat(f[None], CRUMPLE, axis=0)
 
 
 def same_per_sim(torch, label, batched, solo, B):
@@ -776,13 +983,15 @@ def device_breakdown(torch, fn):
 def ensemble(torch, counted, solver, model, f, main_state, paths):
     """The ensemble-serving section: the paths (2), holds (3) and times (4)
     of make_batched_run / make_batched_step and the batched builds of
-    kernels 1, 2, 3 and 5.  Returns the four batched entries of the kernels
-    line."""
+    kernels 1, 2, 3 (both builds) and 5.  Returns the five batched entries
+    of the kernels line."""
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
         _launch_affine,
         resident_affine,
         resident_affine_batched,
+        resident_affine_contact_batched,
+        resident_affine_contact_plain,
         resident_affine_plain,
     )
     from animsnapbases_tpu_torch.ops.affine_chunked import (
@@ -809,12 +1018,17 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     ro, ao = solver._resident, solver._affine
     fo = ro.fused
     default_min = type(solver).CHUNKED_TIER1_MIN_VERTS
+    # the solver's default route: the batched contact-mode build of kernel 3
+    reprepare(solver, resident_contact_mode=None)
 
     # ---- 2. the ensemble paths through the entry points ----------------
     run = solver.make_batched_run()
     step = solver.make_batched_step()
     ens = ensemble_state(main_state, ENSEMBLE)
     mixed = mixed_state(model, main_state, f)
+    crumple = crumple_state(model, f)
+    contact = contact_sims()
+    ring = [b for b in range(MIXED) if b not in contact]
     out = {}
 
     def drive(key, fn):
@@ -825,44 +1039,65 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
             out[key + " s"] = time.perf_counter() - t0
         return go
 
-    label_a = f"make_batched_run, B={ENSEMBLE} ring-down"
-    paths[label_a] = counted_path(
-        torch, counted, f"{label_a} ({WINDOW_STEPS} steps)",
-        {"resident_affine_batched"},
-        drive("a", lambda: run(*ens, WINDOW_STEPS,
-                               num_iterations=ITERATIONS)))
-    require(solver._last_batched_path == "batched-resident",
-            f"{label_a} took {solver._last_batched_path}")
-    p, v = out["a"]
-    require(p.shape == ens[0].shape and np.isfinite(p).all()
-            and np.isfinite(v).all(), f"{label_a}: end state not finite")
-    require(float(p[..., 1].min()) > model.floor_height,
-            f"{label_a}: a sim reached the floor")
-    entry_a = ENSEMBLE * WINDOW_STEPS / out["a s"]
-    log(f"[2] {label_a}: {WINDOW_STEPS} steps in {out['a s']:.3f} s "
-        f"({entry_a:.0f} aggregate steps/s, {entry_a / ENSEMBLE:.0f} per "
-        f"sim, host transfers included); end state finite and floor-clear, "
-        f"min y {float(p[..., 1].min()):.4f}, first and last sim "
-        f"{float(np.abs(p[-1] - p[0]).max()):.3e} apart")
+    def batched_paths(build, own):
+        """The ring-down ensemble and the mixed batch through
+        make_batched_run on kernel 3's ``build``, each a counted path ->
+        (their labels, the ring-down's aggregate steps/s)."""
+        label_r = f"make_batched_run, B={ENSEMBLE} ring-down, {build}"
+        paths[label_r] = counted_path(
+            torch, counted, f"{label_r} ({WINDOW_STEPS} steps)", {own},
+            drive(label_r, lambda: run(*ens, WINDOW_STEPS,
+                                       num_iterations=ITERATIONS)))
+        require(solver._last_batched_path == "batched-resident",
+                f"{label_r} took {solver._last_batched_path}")
+        p, v = out[label_r]
+        require(p.shape == ens[0].shape and np.isfinite(p).all()
+                and np.isfinite(v).all(), f"{label_r}: end state not finite")
+        require(float(p[..., 1].min()) > model.floor_height,
+                f"{label_r}: a sim reached the floor")
+        rate = ENSEMBLE * WINDOW_STEPS / out[label_r + " s"]
+        log(f"[2] {label_r}: {WINDOW_STEPS} steps in "
+            f"{out[label_r + ' s']:.3f} s ({rate:.0f} aggregate steps/s, "
+            f"{rate / ENSEMBLE:.0f} per sim, host transfers included); end "
+            f"state finite and floor-clear, min y "
+            f"{float(p[..., 1].min()):.4f}, first and last sim "
+            f"{float(np.abs(p[-1] - p[0]).max()):.3e} apart")
+        label_m = f"make_batched_run, mixed batch of {MIXED}, {build}"
+        paths[label_m] = counted_path(
+            torch, counted, label_m, {own},
+            drive(label_m, lambda: run(*mixed, SCENE_STEPS,
+                                       num_iterations=ITERATIONS)))
+        require(solver._last_batched_path == "batched-resident",
+                f"{label_m} took {solver._last_batched_path}")
+        p, _ = out[label_m]
+        require(np.isfinite(p).all() and float(p[ring, :, 1].min())
+                > model.floor_height and float(p[contact, :, 1].min()) > -0.5,
+                f"{label_m}: not finite, or a ring-down sim at the floor, or "
+                "a contact sim through it")
+        log(f"[2] {label_m}: {SCENE_STEPS} steps; ring-down sims {ring} min "
+            f"y {float(p[ring, :, 1].min()):.4f}, contact sims {contact} min "
+            f"y {float(p[contact, :, 1].min()):.4f}")
+        return label_r, label_m, rate
 
-    label_b = f"make_batched_run, mixed batch of {MIXED}"
-    paths[label_b] = counted_path(
-        torch, counted, label_b, {"resident_affine_batched"},
-        drive("b", lambda: run(*mixed, SCENE_STEPS,
+    label_a, label_b, entry_a = batched_paths(
+        "default (contact mode)", "resident_affine_contact_batched")
+    # the crumpling ensemble, on the default route too
+    label_e = f"make_batched_run, crumpling ensemble of {CRUMPLE}, default"
+    paths[label_e] = counted_path(
+        torch, counted, label_e, {"resident_affine_contact_batched"},
+        drive("e", lambda: run(*crumple, SCENE_STEPS,
                                num_iterations=ITERATIONS)))
-    require(solver._last_batched_path == "batched-resident",
-            f"{label_b} took {solver._last_batched_path}")
-    p, _ = out["b"]
-    contact = contact_sims()
-    ring = [b for b in range(MIXED) if b not in contact]
-    require(np.isfinite(p).all() and float(p[ring, :, 1].min())
-            > model.floor_height and float(p[contact, :, 1].min()) > -0.5,
-            f"{label_b}: not finite, or a ring-down sim at the floor, or a "
-            "contact sim through it")
-    log(f"[2] {label_b}: {SCENE_STEPS} steps; ring-down sims {ring} min y "
-        f"{float(p[ring, :, 1].min()):.4f}, contact sims {contact} min y "
-        f"{float(p[contact, :, 1].min()):.4f}")
-
+    p, _ = out["e"]
+    require(solver._last_batched_path == "batched-resident"
+            and np.isfinite(p).all() and float(p[..., 1].min()) > -0.5,
+            f"{label_e}: took {solver._last_batched_path}, or its end state "
+            "is not finite and held at the floor")
+    log(f"[2] {label_e}: {SCENE_STEPS} steps in {out['e s']:.3f} s (host "
+        f"transfers included); end y in [{float(p[..., 1].min()):.4f}, "
+        f"{float(p[..., 1].max()):.4f}]")
+    reprepare(solver, resident_contact_mode=False)
+    label_a_lean, _, entry_a_lean = batched_paths(
+        "resident_contact_mode=False (lean)", "resident_affine_batched")
     reprepare(solver, CHUNKED_TIER1_MIN_VERTS=0,
               resident_rebase_every=MIXED_EVERY)
     label_c = (f"make_batched_run, mixed batch of {MIXED}, "
@@ -880,7 +1115,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     p, _ = out["c"]
     require(np.isfinite(p).all() and float(p[contact, :, 1].min()) > -0.5,
             f"{label_c}: end state not finite or through the floor")
-    d_bc = float(np.abs(out["b"][0] - p).max())
+    d_bc = float(np.abs(out[label_b][0] - p).max())
     log(f"[2] {label_c}: {route_c}; against the default route (not held: "
         f"other kernels in float32) max |dP| {d_bc:.3e}")
 
@@ -892,9 +1127,10 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     log(f"[2] {label_d}: one step in {1e3 * out['d s']:.1f} ms (host "
         "transfers included)")
     launch_path = {"fused_reduced_iterations_batched": label_d,
-                   "resident_affine_batched": label_a,
+                   "resident_affine_batched": label_a_lean,
                    "resident_multistep_batched": label_c,
-                   "affine_chunked_batched": label_c}
+                   "affine_chunked_batched": label_c,
+                   "resident_affine_contact_batched": label_a}
 
     # ---- 3. holds --------------------------------------------------------
     rb = solver._rb_extra()
@@ -936,32 +1172,40 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
                                        ITERATIONS),
             lambda b: resident_multistep(ro, P_[b], V_[b], F_[b], rb,
                                          SCENE_STEPS, ITERATIONS), B)
-        for every in (REBASE_EVERY, 3):
-            Pb, Vb, flb, _ = _launch_affine(ao, P_, V_, F_, rb, SCENE_STEPS,
-                                            ITERATIONS, every, False)
-            same_per_sim(
-                torch, f"batched kernel 3, {label}, {SCENE_STEPS} steps, "
-                f"rebase_every={every}", (Pb, Vb, flb),
-                lambda b: _launch_affine(ao, P_[b], V_[b], F_[b], rb,
-                                         SCENE_STEPS, ITERATIONS, every,
-                                         False)[:3], B)
-        steps_clamped = flb[:, FLAG_SLOTS:FLAG_SLOTS + SCENE_STEPS].bool()
-        clamped = steps_clamped.sum(1).tolist()
-        log(f"[3]   {label}: clamped steps per sim {clamped}")
-        if P_ is Pm:
-            require(max(clamped[b] for b in ring) == 0
-                    and min(clamped[b] for b in contact) > 0,
-                    "the mixed batch's contact sims did not clamp, or its "
-                    "ring-down sims did")
-            # steps at which two clamping sims share a block of kernel 3's
-            # O(N) contact launches
-            shared = sum(int((steps_clamped[b]
-                              & steps_clamped[b + SIM_ROWS]).sum())
+        # kernel 3, lean and in contact mode (with its y state)
+        for variant, bit, name in (("lean", 1, "clamped steps"),
+                                   ("contact", 2, "contact-mode steps")):
+            for every in (REBASE_EVERY, 3):
+                def call(P1, V1, F1):
+                    out = _launch_affine(ao, P1, V1, F1, rb, SCENE_STEPS,
+                                         ITERATIONS, every, variant)
+                    return out[:3] + (out[4] or ())
+                outs = call(P_, V_, F_)
+                same_per_sim(
+                    torch, f"batched kernel 3 ({variant}), {label}, "
+                    f"{SCENE_STEPS} steps, rebase_every={every}", outs,
+                    lambda b: call(P_[b], V_[b], F_[b]), B)
+            # the last call's steps per sim (rebase_every=3)
+            steps_in = (outs[2][:, FLAG_SLOTS:FLAG_SLOTS + SCENE_STEPS]
+                        & bit) > 0
+            counts = steps_in.sum(1).tolist()
+            log(f"[3]   {label}, kernel 3 ({variant}): {name} per sim "
+                f"{counts}")
+            if P_ is not Pm:
+                continue
+            require(max(counts[b] for b in ring) == 0
+                    and min(counts[b] for b in contact) > 0,
+                    f"the mixed batch's contact sims had no {name}, or its "
+                    "ring-down sims had some")
+            # steps at which two sims in the contact branch share a block
+            # of kernel 3's O(N) contact launches
+            shared = sum(int((steps_in[b] & steps_in[b + SIM_ROWS]).sum())
                          for b in contact if b + SIM_ROWS < MIXED)
-            log(f"[3]   {label}: {shared} (sim, step) pairs with two "
-                f"clamping sims on one block (sims b and b + {SIM_ROWS})")
-            require(shared > 0, "no two clamping sims of the mixed batch "
-                    "shared a block of batched kernel 3")
+            log(f"[3]   {label}, kernel 3 ({variant}): {shared} (sim, step) "
+                f"pairs with two sims of the contact branch on one block "
+                f"(sims b and b + {SIM_ROWS})")
+            require(shared > 0, f"no two sims of the mixed batch shared a "
+                    f"block of batched kernel 3 ({variant})")
     # one step of each batched kernel against its batched plain version,
     # and of the batched plain version against the solo plain version,
     # per sim (STEP_TOL of the step's size, as the solo holds), on both
@@ -972,6 +1216,9 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
              lambda *a: resident_multistep_plain(ro, *a)),
             ("kernel 3", lambda *a: resident_affine_batched(ao, *a),
              lambda *a: resident_affine_plain(ao, *a)),
+            ("kernel 3 (contact mode)",
+             lambda *a: resident_affine_contact_batched(ao, *a),
+             lambda *a: resident_affine_contact_plain(ao, *a)),
             ("kernel 5", lambda *a: affine_chunked_batched(ao, *a)[:2],
              lambda *a: affine_chunked_plain(ao, *a)[:2])):
         err[name] = 0.0
@@ -1058,7 +1305,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         Pe, Ve = (solver._pack(x) for x in ensemble_state(main_state, B)[:2])
         Fe = torch.zeros_like(Pe)
         flags = _launch_affine(ao, Pe, Ve, Fe, rb, WINDOW_STEPS, ITERATIONS,
-                               REBASE_EVERY, False)[2]
+                               REBASE_EVERY, "lean")[2]
         require(int(flags[:, FLAG_SLOTS:].sum()) == 0,
                 f"the timed ring-down window of {B} sims is not "
                 "contact-free")
@@ -1170,8 +1417,47 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         f"({k1_by}); make_batched_step entry point "
         f"{1e3 * statistics.median(step_s):.1f} ms/step, host transfers "
         "included")
+
+    # the batched contact-mode build on the crumpling ensemble, which clamps
+    # on most steps, with the profiler's breakdown, and on the ring-down
+    # ensemble's free steps over WINDOW_STEPS (its comparison with the lean
+    # build is tools/ab_contact_mode.py)
+    Pcr, Vcr, Fcr = (solver._pack(x) for x in crumple)
+    fl_mode = _launch_affine(ao, Pcr, Vcr, Fcr, rb, SCENE_STEPS, ITERATIONS,
+                             REBASE_EVERY, "contact")[2][:, FLAG_SLOTS:]
+    in_mode = (fl_mode & 2) > 0
+
+    def crumple_call():
+        return resident_affine_contact_batched(ao, Pcr, Vcr, Fcr, rb,
+                                               SCENE_STEPS, ITERATIONS)
+
+    k3m_ms = cuda_ms(torch, crumple_call, reps=10)
+    wall_m, spent_m = device_breakdown(torch, crumple_call)
+    k3m_ring_ms = cuda_ms(torch, lambda: resident_affine_contact_batched(
+        ao, P64, V64, F0, rb, WINDOW_STEPS, ITERATIONS), reps=3, warmup=1)
+    k3m_plain_ms = cuda_ms(torch, lambda: resident_affine_contact_plain(
+        ao, Pcr, Vcr, Fcr, rb, SCENE_STEPS, ITERATIONS), reps=1, warmup=0)
+    k3m_bound, k3m_by = bound_ms(*k3m_cost(
+        ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, int(in_mode.sum()),
+        int(in_mode.any(0).sum()), int((fl_mode & 1).sum()), nb=CRUMPLE))
+    log(f"[4] batched kernel 3 (contact mode), crumpling ensemble of "
+        f"{CRUMPLE} sims ({int(in_mode.sum())} of {CRUMPLE * SCENE_STEPS} "
+        f"sim-steps in contact mode, on {int(in_mode.any(0).sum())} of "
+        f"{SCENE_STEPS} steps): {1e3 * k3m_ms / SCENE_STEPS:.2f} us/step; "
+        f"plain {1e3 * k3m_plain_ms / SCENE_STEPS:.1f} us/step; bound "
+        f"{1e3 * k3m_bound / SCENE_STEPS:.4f} us/step ({k3m_by}); under "
+        f"torch.profiler {1e6 * wall_m / SCENE_STEPS:.2f} us/step host "
+        f"time, device busy {100 * sum(spent_m.values()) / wall_m:.1f} %; "
+        "device us/step: " + ", ".join(
+            f"{k} {1e6 * v / SCENE_STEPS:.2f}" for k, v in sorted(
+                spent_m.items(), key=lambda kv: -kv[1])[:9]))
+    log(f"[4] batched kernel 3 (contact mode), ring-down ensemble of "
+        f"{ENSEMBLE} sims over {WINDOW_STEPS} steps: "
+        f"{1e3 * k3m_ring_ms / WINDOW_STEPS:.2f} us/step, "
+        f"{ENSEMBLE * WINDOW_STEPS / (k3m_ring_ms / 1e3):.0f} aggregate "
+        "steps/s")
     reprepare(solver, CHUNKED_TIER1_MIN_VERTS=default_min,
-              resident_rebase_every=None)
+              resident_rebase_every=None, resident_contact_mode=None)
 
     # equals_solo_bitwise: each sim's output of a call was held bit for bit
     # against the solo kernel's (kernel 5: its chunk launch; the state it
@@ -1201,7 +1487,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
               k3_bound, k3_by, steps_per_call=SCENE_STEPS,
               window_us_per_step_by_sims=per_step,
               window_bound_us_per_step_by_sims=bounds,
-              entry_aggregate_steps_per_s=entry_a,
+              entry_aggregate_steps_per_s=entry_a_lean,
               device_busy_share=busy / wall,
               device_us_per_step_by_launch={
                   k: 1e6 * v / SCENE_STEPS for k, v in spent.items()}),
@@ -1214,6 +1500,17 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
               entry_aggregate_steps_per_s=entry_c,
               whole_batch_k=k, solo_k=ks,
               committed_vs_solo_max_abs=k5_err),
+        entry("resident_affine_contact_batched", "affine.cu",
+              "pallas_resident.py:558", err["kernel 3 (contact mode)"],
+              k3m_ms, k3m_plain_ms, k3m_bound, k3m_by, sims=CRUMPLE,
+              steps_per_call=SCENE_STEPS, scene="crumpling ensemble",
+              contact_mode_sim_steps=int(in_mode.sum()),
+              ringdown_window_us_per_step=1e3 * k3m_ring_ms / WINDOW_STEPS,
+              entry_aggregate_steps_per_s=entry_a,
+              crumple_entry_s=out["e s"],
+              device_busy_share=sum(spent_m.values()) / wall_m,
+              device_us_per_step_by_launch={
+                  k: 1e6 * v / SCENE_STEPS for k, v in spent_m.items()}),
     ]
 
 
@@ -1230,9 +1527,14 @@ def main() -> int:
     from animsnapbases_tpu_torch.ops import _build
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
+        MODE_SLOT,
         _launch_affine,
+        affine_run_plain,
         resident_affine,
         resident_affine_batched,
+        resident_affine_contact,
+        resident_affine_contact_batched,
+        resident_affine_contact_plain,
         resident_affine_exit,
         resident_affine_exit_plain,
         resident_affine_plain,
@@ -1264,9 +1566,10 @@ def main() -> int:
     dev = resolve_device("cuda")
     torch.manual_seed(0)
     counted = (fused_reduced_iterations, resident_multistep, resident_affine,
-               resident_affine_exit, affine_chunked,
+               resident_affine_exit, affine_chunked, resident_affine_contact,
                fused_reduced_iterations_batched, resident_multistep_batched,
-               resident_affine_batched, affine_chunked_batched)
+               resident_affine_batched, affine_chunked_batched,
+               resident_affine_contact_batched)
 
     # ---- 1. device and build -------------------------------------------
     smi = subprocess.run(
@@ -1323,29 +1626,40 @@ def main() -> int:
         f"|v|max {np.abs(model.velocities).max():.4f}")
     main_state = (model.positions.copy(), model.velocities.copy())
     t0 = time.perf_counter()
+    # every configuration sets resident_contact_mode itself, so that the
+    # paths do not depend on its default
     for label, switches, tier1, contact in (
-            ("default tiers", {}, "affine_chunked", "resident_affine"),
+            ("lean contact tier", {"resident_contact_mode": False},
+             "affine_chunked", "resident_affine"),
             ("resident_chunked_tier1=False",
              {"resident_chunked_tier1": False}, "resident_affine_exit",
              "resident_affine"),
+            ("resident_contact_mode=True",
+             {"resident_chunked_tier1": True, "resident_contact_mode": True},
+             "affine_chunked", "resident_affine_contact"),
+            ("resident_contact_mode=True, resident_chunked_tier1=False",
+             {"resident_chunked_tier1": False}, None,
+             "resident_affine_contact"),
             ("CHUNKED_TIER1_MIN_VERTS=0",
-             {"resident_chunked_tier1": True, "CHUNKED_TIER1_MIN_VERTS": 0},
+             {"resident_chunked_tier1": True, "resident_contact_mode": False,
+              "CHUNKED_TIER1_MIN_VERTS": 0},
              "affine_chunked", "resident_multistep")):
-        if switches:
-            reprepare(solver, **switches)
+        reprepare(solver, **switches)
         for run, counts in tiered_runs(torch, counted, solver, model, f,
                                        rest, label, tier1, contact).items():
             paths[f"{label}, {run}"] = counts
     log(f"[2] tiered runs {time.perf_counter() - t0:.1f} s")
     # the launches of each kernel in the kernels line: those of the path
-    # that serves it (kernels 1 and 5: the main path; 3: the default
-    # tiers' contact tier; 4: tier 1 with resident_chunked_tier1=False; 2:
-    # the contact tier at >= CHUNKED_TIER1_MIN_VERTS)
+    # that serves it (kernels 1 and 5: the main path; 3: the lean contact
+    # tier; 4: tier 1 with resident_chunked_tier1=False; 3 in contact mode:
+    # the contact tier with resident_contact_mode=True; 2: the contact tier
+    # at >= CHUNKED_TIER1_MIN_VERTS)
     launch_path = {
         "fused_reduced_iterations": "main path",
         "affine_chunked": "main path",
-        "resident_affine": "default tiers, contact scene",
+        "resident_affine": "lean contact tier, contact scene",
         "resident_affine_exit": "resident_chunked_tier1=False, bench window",
+        "resident_affine_contact": "resident_contact_mode=True, contact scene",
         "resident_multistep": "CHUNKED_TIER1_MIN_VERTS=0, contact scene"}
     reprepare(solver, CHUNKED_TIER1_MIN_VERTS=type(
         solver).CHUNKED_TIER1_MIN_VERTS)
@@ -1453,6 +1767,9 @@ def main() -> int:
             ("kernel 4", resident_affine_exit, resident_affine_exit_plain,
              ((Pw, Vw, F0, "window"),)),
             ("kernel 3", resident_affine, resident_affine_plain,
+             ((Pw, Vw, F0, "window"), (P, V, Fx, "falling"))),
+            ("kernel 3 (contact mode)", resident_affine_contact,
+             resident_affine_contact_plain,
              ((Pw, Vw, F0, "window"), (P, V, Fx, "falling")))):
         errs = []
         for P0, V0, F_, scene in scenes:
@@ -1468,29 +1785,105 @@ def main() -> int:
             errs.append(err)
         affine_err[label] = max(errs)
     # the steps one call carries inside it (kernel 5's coefficients within
-    # a chunk, kernels 3 and 4 between rebases), each held against a plain
-    # step from the kernel's own coefficients (:func:`carried_steps`): over
-    # the main path's own run_steps window (kernel 5 as the main path ran
-    # it: one chunk of 64 steps under gravity) and over the tier-1 window.
-    # A rebase or a chunk's end re-anchors at the materialized state; that
-    # is held by the one-step calls and the rebase_every=1 calls above.
+    # a chunk, kernels 3 and 4 between rebases, and in contact mode its y
+    # state), each held against a plain step from the kernel's own state
+    # (:func:`carried_steps`): over the main path's own run_steps window
+    # (kernel 5 as the main path ran it: one chunk of 64 steps under
+    # gravity), over the tier-1 window and, in contact mode, over the
+    # contact scene with rebases every 256 (none), 3 and 16 steps: contact
+    # mode entered, carried and left at a rebase on the card.  A rebase or
+    # a chunk's end re-anchors at the materialized state; that is held by
+    # the one-step calls and the rebase_every=1 calls above.
     Pm, Vm = (solver._to_device(x) for x in main_in)
-    for kernel, plain, P0, V0, F_, scene in (
-            (5, affine_chunked_plain, Pm, Vm, Fx,
-             "main path's run_steps window"),
-            (5, affine_chunked_plain, Pw, Vw, F0, "window scene"),
-            (4, resident_affine_exit_plain, Pw, Vw, F0, "window scene"),
-            (3, resident_affine_plain, Pw, Vw, F0, "window scene")):
-        label = f"kernel {kernel}"
-        err = carried_steps(torch, f"{label} ({scene}), carried steps",
-                            kernel, ao, plain, P0, V0, F_, rb_extra,
-                            SCENE_STEPS)
+    contact_flags = {}
+    for kernel, every, P0, V0, F_, scene in (
+            (5, CHUNK_EVERY, Pm, Vm, Fx, "main path's run_steps window"),
+            (5, CHUNK_EVERY, Pw, Vw, F0, "window scene"),
+            (4, REBASE_EVERY, Pw, Vw, F0, "window scene"),
+            (3, REBASE_EVERY, Pw, Vw, F0, "window scene"),
+            ("3c", REBASE_EVERY, Pw, Vw, F0, "window scene"),
+            *(("3c", every, Pc, Vc, Fx, f"contact scene, rebase_every="
+               f"{every}") for every in CONTACT_EVERY)):
+        label = ("kernel 3 (contact mode)" if kernel == "3c"
+                 else f"kernel {kernel}")
+        plain = {5: affine_chunked_plain, 4: resident_affine_exit_plain,
+                 3: resident_affine_plain,
+                 "3c": resident_affine_contact_plain}[kernel]
+        err, flags = carried_steps(
+            torch, f"{label} ({scene}), carried steps", kernel, ao,
+            lambda *a, plain=plain, every=every: plain(
+                *a, rebase_every=every), P0, V0, F_, rb_extra, SCENE_STEPS,
+            every)
         affine_err[label] = max(affine_err[label], err)
+        if F_ is Fx and kernel == "3c":
+            contact_flags[every] = flags[FLAG_SLOTS:]
+    # contact mode on the card: the steps it served, its entries (after a
+    # rebase left it), and the drift of the recursions buPy/buVy at the last
+    # contact step before a rebase, against U^T A_c of the carried Py/Vy
+    # taken afresh (as a rebase takes it: Py rounded to the storage type,
+    # float64 sums) and unrounded in float64, beside the plain version's
+    for every, fl in contact_flags.items():
+        log(f"[3] kernel 3 (contact mode), contact scene, rebase_every="
+            f"{every}: {int(((fl & 2) > 0).sum())} of {SCENE_STEPS} steps in "
+            f"contact mode, entered {int((fl & 1).sum())} times")
+        require(int((fl & 1).sum()) >= (2 if every < SCENE_STEPS else 1),
+                f"contact mode was not entered (again after a rebase) with "
+                f"rebase_every={every}")
+    drift, off64 = {}, {}
+    ro64 = dataclasses.replace(ro, fused=fo64, mass_inv=ro.mass_inv.double())
+    # the float64 step with the matrices unrounded (float64, as prepared on
+    # the host), beside the one with them in their storage type
+    rox = dataclasses.replace(ro64, **{
+        k: torch.as_tensor(np.ascontiguousarray(x[:, :, ro.perm]),
+                           device=dev) for k, x in (
+            ("U_liftT", solver.U.transpose(2, 1, 0)),
+            ("ut_acT", solver._ut_ac_np))})
+    for every, steps in ((CONTACT_EVERY[-1], CONTACT_EVERY[-1]),
+                         (REBASE_EVERY, SCENE_STEPS),
+                         (REBASE_EVERY, DRIFT_STEPS)):
+        Pk, Vk, flags, _, y = _launch_affine(ao, Pc, Vc, Fx, rb_extra, steps,
+                                             ITERATIONS, every, "contact")
+        # what the drift does to the next step: the contact-mode step
+        # carried on against the lean step from the same materialized
+        # state, each beside the float64 step from it (printed, not held)
+        P1 = resident_affine_contact(ao, Pc, Vc, Fx, rb_extra, steps + 1,
+                                     ITERATIONS, rebase_every=steps + 1)[0]
+        Pl = resident_affine(ao, Pk, Vk, Fx, rb_extra, 1, ITERATIONS)[0]
+        P64, Px = (resident_multistep_plain(
+            o, Pk.double(), Vk.double(), Fx.double(), rb_extra.double(), 1,
+            ITERATIONS)[0] for o in (ro64, rox))
+        off64[steps] = (max_abs(P1, P64), max_abs(Pl, P64),
+                        max_abs(P64, Pk), max_abs(P1, Px), max_abs(Pl, Px))
+        ctx_p, st_p, _ = affine_run_plain(ao, Pc, Vc, Fx, rb_extra, steps,
+                                          ITERATIONS, every, True)
+        require(bool(int(flags[MODE_SLOT])) and bool(st_p.mode),
+                f"contact mode is off after {steps} steps")
+        for who, (Py, Vy, buPy, buVy) in (
+                ("kernel", y), ("plain", (st_p.Py, st_p.Vy, st_p.buPy,
+                                          st_p.buVy))):
+            for key, yrow, bu in (("buPy", Py, buPy), ("buVy", Vy, buVy)):
+                fresh = ctx_p.project_y(yrow).double()
+                exact = ro.ut_acT[1].double() @ yrow.double()
+                drift[(steps, who, key)] = tuple(
+                    float(torch.linalg.vector_norm(bu.double() - ref)
+                          / torch.linalg.vector_norm(ref))
+                    for ref in (fresh, exact))
+        log(f"[3] kernel 3 (contact mode), contact scene, drift of the "
+            f"recursions after {steps} steps (rebase_every={every}), |bu - "
+            f"U^T A_c y| / |U^T A_c y| against the rounded / the float64 "
+            f"projection: " + ", ".join(
+                f"{who} {key} {a:.3e} / {b:.3e}"
+                for (n_, who, key), (a, b) in drift.items() if n_ == steps)
+            + "; the next step's P from the float64 step with the matrices "
+            "stored / unrounded (not held): contact mode carried on "
+            f"{off64[steps][0]:.3e} / {off64[steps][3]:.3e}, lean from the "
+            f"materialized state {off64[steps][1]:.3e} / "
+            f"{off64[steps][4]:.3e} (step size {off64[steps][2]:.3e})")
     # how many of the falling scene's steps clamped
     Pi, Vi, n_fall = P, V, 0
     for _ in range(SCENE_STEPS):
-        Pi, Vi, flags, _ = _launch_affine(ao, Pi, Vi, Fx, rb_extra, 1,
-                                          ITERATIONS, REBASE_EVERY, False)
+        Pi, Vi, flags, _, _ = _launch_affine(ao, Pi, Vi, Fx, rb_extra, 1,
+                                             ITERATIONS, REBASE_EVERY, "lean")
         n_fall += int(flags[FLAG_SLOTS])
     log(f"[3] kernel 3 (falling scene): {n_fall} of its "
         f"{SCENE_STEPS} steps clamped")
@@ -1504,15 +1897,14 @@ def main() -> int:
     # (kernel 2 against its plain version parts there by the same
     # amounts); both are printed beside their distance from the float64
     # step.
-    ro64 = dataclasses.replace(ro, fused=fo64, mass_inv=ro.mass_inv.double())
     fa = force_term(ro, Fx)
 
     def held_contact_step(label, Pi, Vi):
         """One kernel-3 step from (Pi, Vi), held as above -> (P', V',
         clamped, its share of the plain version's step size, the plain
         version's P')."""
-        P3, V3, flags, _ = _launch_affine(ao, Pi, Vi, Fx, rb_extra, 1,
-                                          ITERATIONS, REBASE_EVERY, False)
+        P3, V3, flags, _, _ = _launch_affine(ao, Pi, Vi, Fx, rb_extra, 1,
+                                             ITERATIONS, REBASE_EVERY, "lean")
         Pp, Vp = resident_affine_plain(ao, Pi, Vi, Fx, rb_extra, 1,
                                        ITERATIONS)
         shares = step_share(ro, fa, rb_extra, Pi, Vi, P3, V3, Pp, Vp)
@@ -1712,7 +2104,7 @@ def main() -> int:
     # the contact scene's window: how many of its steps clamp, kernel 3's
     # time on it beside kernel 2's on the same steps
     flags = _launch_affine(ao, Pc, Vc, Fx, rb_extra, SCENE_STEPS, ITERATIONS,
-                           REBASE_EVERY, False)[2]
+                           REBASE_EVERY, "lean")[2]
     n_contact = int(flags[FLAG_SLOTS:].sum())   # in one call, as timed
     k3c_ms = cuda_ms(torch, affine_call(resident_affine, Pc, Vc, Fx))
     k2c_ms = cuda_ms(torch, lambda: resident_multistep(
@@ -1731,6 +2123,27 @@ def main() -> int:
         f"({k4_ms:.3f} ms per {SCENE_STEPS}-step call); plain "
         f"{1e3 * k4_plain_ms / SCENE_STEPS:.1f} us/step; bound "
         f"{1e3 * k3_bound / SCENE_STEPS:.4f} us/step ({k3_by})")
+    # kernel 3's contact-mode build on the contact scene, whose steps clamp,
+    # and on the free steps of the tier-1 window (its comparison with the
+    # lean build, on which resident_contact_mode's default rests, is
+    # tools/ab_contact_mode.py)
+    mflags = _launch_affine(ao, Pc, Vc, Fx, rb_extra, SCENE_STEPS, ITERATIONS,
+                            REBASE_EVERY, "contact")[2][FLAG_SLOTS:]
+    m_contact = int(((mflags & 2) > 0).sum())
+    k3m_ms = cuda_ms(torch, affine_call(resident_affine_contact, Pc, Vc, Fx))
+    k3m_free_ms = cuda_ms(torch, affine_call(resident_affine_contact, Pw,
+                                             Vw, F0))
+    k3m_plain_ms = cuda_ms(torch, affine_call(resident_affine_contact_plain,
+                                              Pc, Vc, Fx), reps=PLAIN_REPS,
+                           warmup=1)
+    k3m_bound, k3m_by = bound_ms(*k3m_cost(
+        ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, m_contact, m_contact,
+        int((mflags & 1).sum())))
+    log(f"[4] kernel 3 (contact mode), contact scene ({m_contact} of "
+        f"{SCENE_STEPS} steps in contact mode): {1e3 * k3m_ms / SCENE_STEPS:.2f}"
+        f" us/step; plain {1e3 * k3m_plain_ms / SCENE_STEPS:.1f} us/step; "
+        f"bound {1e3 * k3m_bound / SCENE_STEPS:.4f} us/step ({k3m_by}); free "
+        f"steps {1e3 * k3m_free_ms / SCENE_STEPS:.2f} us/step")
 
     # the entry point over the same window, host transfers included
     model.positions = solver._to_host(Pw)
@@ -1788,6 +2201,13 @@ def main() -> int:
               outer_loop_ms_per_chunk=outer_ms,
               exact_check_us=exact_us,
               entry_steps_per_s=WINDOW_STEPS / entry_s),
+        entry("resident_affine_contact", "affine.cu",
+              "pallas_resident.py:558", affine_err["kernel 3 (contact mode)"],
+              k3m_ms, k3m_plain_ms, k3m_bound, k3m_by,
+              steps_per_call=SCENE_STEPS, scene="contact scene",
+              contact_mode_steps=m_contact, free_steps_ms=k3m_free_ms,
+              recursion_drift={f"{n} steps, {who} {key}": v for (
+                  n, who, key), v in drift.items()}),
     ]
     # ---- ensemble serving: paths, holds and times ----------------------
     t0 = time.perf_counter()

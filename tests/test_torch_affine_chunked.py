@@ -4,7 +4,8 @@ against the JAX package's ``build_resident_affine_chunked`` in interpret mode
 operands carried across by ``convert.operands_from_numpy``.
 
 Also home of the helpers the affine tests share: the JAX solver of the small
-scene with ``resident_contact_mode=False`` and its operands on both sides.
+scene with ``resident_contact_mode=False`` and its operands on both sides,
+in float64 and, for the bfloat16-storage cases, in float32.
 """
 
 import numpy as np
@@ -66,6 +67,22 @@ def packed_state(s, model, lift, force_scale=1.0, dtype=np.float64):
     F = gravity(model) * force_scale
     return tuple(np.ascontiguousarray(x[perm].T).astype(dtype)
                  for x in (P, np.zeros_like(P), F))
+
+
+def f32_jax_operands(s):
+    """The JAX solver's prepared operands for a float32 kernel with
+    bfloat16 storage -> (float32 ops, U_liftT, ut_acT), the two matrices
+    rounded to bfloat16."""
+    import jax.numpy as jnp
+
+    st = s._resident_state
+    ops = st["ops"]
+    f32 = {k: (np.asarray(v, np.float32) if isinstance(v, np.ndarray)
+               and v.dtype == np.float64 else v) for k, v in ops.items()}
+    f32["flat_arrays"] = [np.asarray(a, np.float32)
+                          for a in ops["flat_arrays"]]
+    return (f32, np.asarray(jnp.asarray(st["U_liftT"], jnp.bfloat16)),
+            np.asarray(jnp.asarray(st["ut_acT"], jnp.bfloat16)))
 
 
 def run_both(tmp_path, lift, force_scale, steps, floor=True):
@@ -145,8 +162,6 @@ def test_bfloat16_storage_rounds_like_the_jax_kernel(tmp_path):
     scene's random bases amplify float32 rounding ~1e3x in one step
     (the sixth step parts the two packages by 3e-4 with or without a
     rebase), so the window stops there."""
-    import jax.numpy as jnp
-
     from animsnapbases_tpu.ops.pallas_resident import (
         build_resident_affine_chunked,
     )
@@ -154,12 +169,7 @@ def test_bfloat16_storage_rounds_like_the_jax_kernel(tmp_path):
     s, model = lean_jax_solver(tmp_path)
     st = s._resident_state
     ops = st["ops"]
-    f32 = {k: (np.asarray(v, np.float32) if isinstance(v, np.ndarray)
-               and v.dtype == np.float64 else v) for k, v in ops.items()}
-    f32["flat_arrays"] = [np.asarray(a, np.float32)
-                          for a in ops["flat_arrays"]]
-    Ul = np.asarray(jnp.asarray(st["U_liftT"], jnp.bfloat16))
-    Ua = np.asarray(jnp.asarray(st["ut_acT"], jnp.bfloat16))
+    f32, Ul, Ua = f32_jax_operands(s)
     run = build_resident_affine_chunked(
         f32, ops["gather_slices"], ops["layout"], f32["G_allT"],
         f32["WT_all"], f32["inv3"], Ul, Ua,

@@ -17,7 +17,10 @@ import torch
 
 from animsnapbases_tpu.geometry.procedural import cloth_model as jax_cloth
 from animsnapbases_tpu.sim.model import DeformableModel as JaxModel
-from animsnapbases_tpu_torch.ops.affine import resident_affine_plain
+from animsnapbases_tpu_torch.ops.affine import (
+    affine_run_plain,
+    resident_affine_plain,
+)
 from animsnapbases_tpu_torch.ops.affine_chunked import affine_chunked_plain
 from animsnapbases_tpu_torch.ops.fused_reduced import (
     fused_reduced_iterations_batched,
@@ -117,7 +120,7 @@ def test_batched_run_matches_jax_interpret_kernel(tmp_path):
     p_j, v_j = (np.asarray(x) for x in s_j.make_batched_run()(
         pos, vel, fs, STEPS, num_iterations=ITERS))
     assert s_j._last_batched_path == "batched-resident"
-    s, _ = port_tiers(s_j.args)
+    s, _ = port_tiers(s_j.args, resident_contact_mode=False)
     p, v = s.make_batched_run()(pos, vel, fs, STEPS, num_iterations=ITERS)
     assert s._last_batched_path == "batched-resident"
     _close(p, v, (p_j, v_j))
@@ -156,6 +159,85 @@ def test_batched_run_large_model_route(tmp_path):
     assert s._last_batched_path.startswith("batched-chunked+perstep")
     _close(p, v, jax_step_loop(s_j, m_j, pos, vel, fs, SLAM_STEPS),
            atol_p=1e-5, atol_v=1e-3)
+
+
+def test_batched_contact_mode_matches_jax_interpret_kernel(tmp_path):
+    """The batched plain contact-mode build (``resident_affine_plain`` on
+    (3, 3, N), ``rebase_every = 4``) over 12 steps of a mixed batch (sim 1
+    under 4x gravity from 0.1 above the floor enters contact mode three
+    times; sims 0 and 2 stay airborne) against ``build_resident_affine(
+    nb=3, contact_mode=True, interpret=True)`` and against the solo plain
+    version per sim.  The JAX kernel carries one mode flag for the batch,
+    so its airborne sims take contact steps while sim 1 clamps; the port's
+    never enter the mode.  P and V to 1e-9 against JAX (measured max |dP|
+    5.0e-14, |dV| 8.8e-13 at |V| ~ 8; the JAX kernel at nb = 3 against its
+    own nb = 1 runs 1.2e-12) and against the solo version.  (Sim 1 thrown
+    down at 10x gravity, as in ``_mixed_batch``, crumples: there the JAX
+    kernel at nb = 3 parts from its nb = 1 runs by 3e-9 in V.)"""
+    from animsnapbases_tpu.ops.pallas_resident import build_resident_affine
+    from test_torch_affine_chunked import jax_common
+
+    s_j, _ = jax_solver(tmp_path, "interpret")
+    st = s_j._resident_state
+    B, steps, every = 3, 12, 4
+    s, m = port_tiers(s_j.args)
+    ao = s._affine
+    pos, vel, fs = ensemble(m, [1.0, 4.0, 2.0])
+    pos[1, :, 1] -= 2.9               # sim 1 starts 0.1 above the floor
+    P, V, F, rb = _device_state(s, pos, vel, fs)
+    run = build_resident_affine(
+        *jax_common(s_j)[:-1], s_j.dt, True, m.floor_height, st["n_sel"],
+        rebase_every=every, interpret=True, nb=B, contact_mode=True,
+        eta=s_j.eta)
+
+    def dim_major(x):                 # (B, 3, N) -> rows d * B + b
+        return x.numpy().transpose(1, 0, 2).reshape(3 * B, -1)
+
+    out_j = run(dim_major(P), dim_major(V), dim_major(F),
+                np.zeros((1, 3 * B, rb.shape[1])), steps, ITERS)
+    P_j, V_j = (np.asarray(x).reshape(3, B, -1).transpose(1, 0, 2)
+                for x in out_j)
+    ctx, state, flags = affine_run_plain(ao, P, V, F, rb, steps, ITERS,
+                                         rebase_every=every,
+                                         contact_mode=True)
+    P_b, V_b = ctx.output(state)
+    entries = (flags == 3).sum(1).tolist()
+    assert entries[0] == entries[2] == 0 and entries[1] == 3
+    np.testing.assert_allclose(P_b.numpy(), P_j, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(V_b.numpy(), V_j, rtol=0, atol=1e-9)
+    for b in range(B):
+        P_s, V_s = resident_affine_plain(ao, P[b], V[b], F[b], rb, steps,
+                                         ITERS, rebase_every=every,
+                                         contact_mode=True)
+        np.testing.assert_allclose(P_b[b].numpy(), P_s.numpy(), rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(V_b[b].numpy(), V_s.numpy(), rtol=0,
+                                   atol=1e-9)
+
+
+def test_batched_run_contact_mode_matches_jax(tmp_path):
+    """``make_batched_run`` with ``resident_contact_mode=True`` (the batched
+    contact-mode kernel 3's plain version) against the JAX solver's with
+    contact mode on in interpret mode (its batched contact-mode kernel),
+    both with ``resident_rebase_every = 4``: B = 3 over the slam window,
+    sim 1 at 10x gravity reaching the floor.  P and V to 1e-9 (measured
+    max |dP| 2.5e-14, |dV| 8.2e-13 at |V| ~ 22)."""
+    s_j, m_j = jax_solver(tmp_path, "interpret")
+    s_j.resident_contact_mode = True
+    s_j.resident_rebase_every = 4
+    _lifted(m_j)
+    s_j.set_dirty()
+    s_j.prepare(s_j.args)
+    pos, vel, fs = ensemble(m_j, [1.0, 10.0, 1.3])
+    p_j, v_j = (np.asarray(x) for x in s_j.make_batched_run()(
+        pos, vel, fs, SLAM_STEPS, num_iterations=ITERS))
+    assert s_j._last_batched_path == "batched-resident"
+    s, _ = port_tiers(s_j.args, resident_contact_mode=True)
+    p, v = s.make_batched_run()(pos, vel, fs, SLAM_STEPS,
+                                num_iterations=ITERS)
+    assert s._last_batched_path == "batched-resident"
+    assert p[1, :, 1].min() < 0.05 < p[0, :, 1].min()   # sim 1 at the floor
+    _close(p, v, (p_j, v_j), atol_p=1e-9, atol_v=1e-9)
 
 
 def _device_state(s, pos, vel, fs):
@@ -203,7 +285,7 @@ def test_batched_plain_matches_solo_plain(tmp_path, kernel):
     sim, on a mixed batch (one sim reaching the floor, the others free).
     Kernel 3 branches per sim; kernel 5 exits for the whole batch, and each
     sim equals its own run of the batch's k steps."""
-    s, m = port_tiers(_args(tmp_path))
+    s, m = port_tiers(_args(tmp_path), resident_contact_mode=False)
     ao, ro = s._affine, s._resident
     pos, vel, fs = ensemble(m, [1.0, 10.0, 2.0])
     pos[1, :, 1] -= 2.85                  # sim 1 starts just above the floor
@@ -267,8 +349,9 @@ def test_batched_step_matches_jax_with_targets(tmp_path):
 
 
 def test_one_sim_serves_on_the_solo_kernels(tmp_path, monkeypatch):
-    """B = 1 serves on the solo wrappers on both routes and in
-    ``make_batched_step``; no batched wrapper is called."""
+    """B = 1 serves on the solo wrappers on both routes (the default one in
+    both builds of kernel 3) and in ``make_batched_step``; no batched
+    wrapper is called."""
     def refuse(*a, **kw):
         raise AssertionError("a batched build served one sim")
 
@@ -282,18 +365,24 @@ def test_one_sim_serves_on_the_solo_kernels(tmp_path, monkeypatch):
 
     for name in ("resident_affine_batched", "affine_chunked_batched",
                  "resident_multistep_batched",
-                 "fused_reduced_iterations_batched"):
+                 "fused_reduced_iterations_batched",
+                 "resident_affine_contact_batched"):
         monkeypatch.setattr(reduced, name, refuse)
     for name in ("resident_affine", "affine_chunked", "resident_multistep",
-                 "fused_reduced_iterations"):
+                 "fused_reduced_iterations", "resident_affine_contact"):
         monkeypatch.setattr(reduced, name, spy(getattr(reduced, name)))
     args = _args(tmp_path)
     s_j, m_j = jax_lifted(args)
     pos, vel, fs = ensemble(m_j, [10.0])
     ref = jax_step_loop(s_j, m_j, pos, vel, fs, SLAM_STEPS)
-    s, _ = port_tiers(args)
+    s, _ = port_tiers(args, resident_contact_mode=False)
     _close(*s.make_batched_run()(pos, vel, fs, SLAM_STEPS, ITERS), ref)
     assert set(calls) == {"resident_affine"}
+    s.resident_contact_mode = True
+    s.prepare(args)
+    calls.clear()
+    _close(*s.make_batched_run()(pos, vel, fs, SLAM_STEPS, ITERS), ref)
+    assert set(calls) == {"resident_affine_contact"}
     s.CHUNKED_TIER1_MIN_VERTS = 4
     s.resident_rebase_every = 2
     s.prepare(args)
@@ -351,11 +440,6 @@ def test_batched_serving_refuses(tmp_path):
     with pytest.raises(RuntimeError, match="self-collision"):
         s.make_batched_run()
     s.enable_self_collision = False
-    s.resident_contact_mode = True
-    s.prepare(args)
-    with pytest.raises(NotImplementedError, match="Queue B item 1"):
-        run(pos, vel, fs, 2)
-    s.resident_contact_mode = False
     m.add_positional_constraint(5, frame_shift=np.zeros((10, 3)),
                                 motion_type="user_defined")
     s.set_dirty()

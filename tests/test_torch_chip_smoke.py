@@ -33,33 +33,30 @@ class _Event:
 
 
 def _solo_launch_plain(ao, P, V, fext, rb_extra, num_steps, num_iterations,
-                       rebase_every, exit_variant):
-    """csrc/affine.cu's launch for one sim on the plain version, with the
-    flags of its steps (whether each clamped, from one-step calls; every
-    step done) and the coefficients of a contact-free call without a
-    rebase."""
-    P_out, V_out = affine.resident_affine_plain(
-        ao, P, V, fext, rb_extra, num_steps, num_iterations, rebase_every)
+                       rebase_every, variant):
+    """csrc/affine.cu's launch for one sim on the plain version: the flags
+    the plain loop records of each step (steps done, contact mode), the
+    coefficients over the last anchors and, in contact mode, the y
+    state."""
+    done = num_steps
+    if variant == "exit":
+        P_out, V_out, done = affine.resident_affine_exit_plain(
+            ao, P, V, fext, rb_extra, num_steps, num_iterations, rebase_every)
+    ctx, st, steps = affine.affine_run_plain(
+        ao, P, V, fext, rb_extra, done, num_iterations, rebase_every,
+        contact_mode=variant == "contact")
+    if variant != "exit":
+        P_out, V_out = ctx.output(st)
     flags = torch.zeros(affine.FLAG_SLOTS + max(num_steps, 1),
                         dtype=torch.int32)
-    flags[2] = num_steps
-    fa = affine.force_term(ao.res, fext)
-    Pi, Vi = P, V
-    for i in range(num_steps):
-        ctx = affine.AffineContext(ao, fa)
-        st = ctx.init_anchors(Pi, Vi)
-        asn, wsn = ctx.predictor(st)[5:]
-        flags[affine.FLAG_SLOTS + i] = int(bool(
-            (ctx.y_predictor(st, asn, wsn) < ao.floor_level).any()))
-        Pi, Vi = affine.resident_affine_plain(ao, Pi, Vi, fext, rb_extra, 1,
-                                              num_iterations)
-    ctx = affine.AffineContext(ao, fa)
-    st = ctx.init_anchors(P, V)
-    for _ in range(num_steps):
-        _, _, wp, _, avd, asn, wsn = ctx.predictor(st)
-        ctx.free_step(st, asn, wsn, avd, wp, rb_extra, num_iterations)
+    flags[2] = done
+    flags[affine.FLAG_SLOTS:affine.FLAG_SLOTS + done] = steps
     coef = torch.cat([x.flatten() for x in (st.ap, st.av, st.wp, st.wv)])
-    return P_out, V_out, flags, coef
+    y = None
+    if st.mode is not None:
+        flags[affine.MODE_SLOT] = int(st.mode)
+        y = (st.Py, st.Vy, st.buPy, st.buVy)
+    return P_out, V_out, flags, coef, y
 
 
 def _launch_plain(ao, P, V, fext, *args):
@@ -68,7 +65,10 @@ def _launch_plain(ao, P, V, fext, *args):
         return _solo_launch_plain(ao, P, V, fext, *args)
     outs = [_solo_launch_plain(ao, P[b], V[b], fext[b], *args)
             for b in range(P.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    *state, ys = zip(*outs)
+    return (*(torch.stack(x) for x in state),
+            None if ys[0] is None else tuple(torch.stack(t)
+                                             for t in zip(*ys)))
 
 
 def _chunk_launch_plain(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
@@ -88,7 +88,9 @@ def _chunk_launch_plain(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
-def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
+def _fake_card(monkeypatch):
+    """The card faked as the module docstring says, the scene cut to
+    size; returns the script's own ``require``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
@@ -117,7 +119,9 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     monkeypatch.setattr(cs, "PLAIN_REPS", 1)
     for name, value in (("ENSEMBLE", 4), ("ENSEMBLE_SIZES", (1, 2, 4)),
                         ("MIXED", 4), ("SIM_ROWS", 2), ("MIXED_EVERY", 2),
-                        ("CONTACT_RISE", 0.0)):
+                        ("CONTACT_RISE", 0.0), ("CRUMPLE", 3),
+                        ("CONTACT_EVERY", (256, 3, 6)), ("DRIFT_STEPS", 12),
+                        ("WITNESS_DRAWS", 4)):
         monkeypatch.setattr(cs, name, value)
     bench = cs.bench_scene
     monkeypatch.setattr(cs, "bench_scene", lambda cls, cloth: bench(
@@ -127,7 +131,11 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
                         lambda syn, model, K, r, damping, **kw: solver(
                             syn, model, min(K, 12), min(r, 16), damping,
                             **kw))
-    held = cs.require
+    return cs.require
+
+
+def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
+    held = _fake_card(monkeypatch)
 
     def require(ok, what):
         # the plain versions count no launches, and a batched plain version
@@ -144,11 +152,57 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
         "fused_reduced_iterations", "resident_multistep", "resident_affine",
-        "resident_affine_exit", "affine_chunked",
+        "resident_affine_exit", "affine_chunked", "resident_affine_contact",
         "fused_reduced_iterations_batched", "resident_multistep_batched",
-        "resident_affine_batched", "affine_chunked_batched"]
+        "resident_affine_batched", "affine_chunked_batched",
+        "resident_affine_contact_batched"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
         assert keys <= set(k)
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
+    assert kernels[5]["recursion_drift"]
+    assert kernels[10]["launches_path"].startswith(
+        "make_batched_run, B=4 ring-down, default")
+
+
+def test_chip_smoke_branch_step_rules_run(monkeypatch, capsys):
+    """Contact mode's rules of ``carried_steps`` (each step against the
+    plain step given the kernel's u, the y state included; the branch
+    steps' distances from the float64 step over the window, with the
+    float64 witness from inputs one float32 unit away) on the contact
+    scene, every step made a branch step (STEP_TOL < 0) and the window's
+    limit made tighter than equal (ACC_RATIO < 1), so that each rule is
+    computed and fails; its verdicts are collected, not held."""
+    _fake_card(monkeypatch)
+    verdicts = []
+    monkeypatch.setattr(cs, "require", lambda ok, what: verdicts.append(
+        (ok, what)))
+    monkeypatch.setattr(cs, "STEP_TOL", -1.0)
+    monkeypatch.setattr(cs, "ACC_RATIO", 0.5)
+    from animsnapbases_tpu_torch.ops.affine import (
+        resident_affine_contact_plain)
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver)
+
+    model = cs.bench_scene(DeformableModel, cloth_model)
+    solver = cs.scene_solver(synthetic_reduced_solver, model, K=40, r=64,
+                             damping=2e-3, device="cpu", dtype=torch.float32,
+                             matmul_dtype=torch.bfloat16)
+    ao = solver._affine
+    P, V = (solver._to_device(x) for x in cs.contact_state(model))
+    F = solver._to_device(cs.gravity(model))
+    rb = solver._rb_extra()
+    _, flags = cs.carried_steps(
+        torch, "rehearsal", "3c", ao,
+        lambda *a: resident_affine_contact_plain(*a, rebase_every=3), P, V,
+        F, rb, 6, 3)
+    out = capsys.readouterr().out
+    assert "witness" in out and "over the branch steps" in out
+    assert "given the kernel's u, the y state included" in out
+    failed = [what for ok, what in verdicts if not ok]
+    assert any("given the kernel's u buPy" in what for what in failed)
+    assert any("branch steps the kernel lies" in what for what in failed)
+    assert flags.shape[-1] == affine.FLAG_SLOTS + 6

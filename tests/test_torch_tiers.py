@@ -15,6 +15,7 @@ from animsnapbases_tpu.geometry.procedural import cloth_model as jax_cloth
 from animsnapbases_tpu.sim.model import DeformableModel as JaxModel
 from animsnapbases_tpu_torch.ops.affine import (
     resident_affine,
+    resident_affine_contact,
     resident_affine_exit,
 )
 from animsnapbases_tpu_torch.ops.affine_chunked import affine_chunked
@@ -82,39 +83,62 @@ def _close(model, ref):
     np.testing.assert_allclose(model.velocities, ref[1], atol=1e-4)
 
 
-@pytest.mark.parametrize("config", ["chunked", "exit", "standard"])
+# the tier switches of each configuration, and its (tier 1, contact tier)
+CONFIGS = {
+    "chunked": ({"resident_contact_mode": False},
+                (affine_chunked, resident_affine)),
+    "exit": ({"resident_chunked_tier1": False,
+              "resident_contact_mode": False},
+             (resident_affine_exit, resident_affine)),
+    "standard": ({"CHUNKED_TIER1_MIN_VERTS": 4},
+                 (affine_chunked, resident_multistep)),
+    "contact_mode": ({"resident_contact_mode": True},
+                     (affine_chunked, resident_affine_contact)),
+    "contact_mode_no_tier1": ({"resident_contact_mode": True,
+                               "resident_chunked_tier1": False},
+                              (None, resident_affine_contact)),
+}
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
 def test_tiers_match_jax_step_loop(tmp_path, config):
-    """Default (kernel 5, then kernel 3), ``resident_chunked_tier1=False``
-    (kernel 4, then kernel 3) and ``CHUNKED_TIER1_MIN_VERTS`` overridden
-    (kernel 5, then kernel 2): the contact-free window is served whole by
-    tier 1 and certified; in the slam window tier 1 exits early, the
-    contact tier finishes and the certificate is withheld.  Measured max
-    |dP| 1.9e-13 and |dV| 1.4e-12 after both windows (|V| ~ 25), the same
-    in the three configurations."""
-    switches = {"chunked": {},
-                "exit": {"resident_chunked_tier1": False},
-                "standard": {"CHUNKED_TIER1_MIN_VERTS": 4}}[config]
+    """The lean build (kernel 5, then kernel 3), with
+    ``resident_chunked_tier1=False`` (kernel 4, then kernel 3),
+    ``CHUNKED_TIER1_MIN_VERTS`` overridden (kernel 5, then kernel 2),
+    ``resident_contact_mode=True`` (kernel 5, then kernel 3's contact-mode
+    build) and contact mode without tier 1 (``resident_chunked_tier1=False``
+    as well: no tier 1, as in the JAX solver, and the contact-mode kernel 3
+    serves both windows): with a
+    tier 1, the contact-free window is served whole by it and certified,
+    and in the slam window tier 1 exits early, the contact tier finishes
+    and the certificate is withheld.  Measured max |dP| 1.9e-13 and |dV|
+    1.4e-12 after both windows (|V| ~ 25), the same in the five
+    configurations."""
+    switches, (tier1, contact) = CONFIGS[config]
     args = jax_solver(tmp_path, "off")[0].args
     ref = jax_reference(args, [FREE, SLAM])
     s, m = port_tiers(args, **switches)
-    tier1, contact = {
-        "chunked": (affine_chunked, resident_affine),
-        "exit": (resident_affine_exit, resident_affine),
-        "standard": (affine_chunked, resident_multistep)}[config]
-    assert s._resident_fast.func is tier1
     assert s._resident_run.func is contact
     assert s._resident_kind == ("standard" if config == "standard"
                                 else "affine")
-    assert s._resident_fast_kind == ("exit" if config == "exit"
-                                     else "chunked")
-    calls = spy_tier1(s)
     f = gravity(m)
-    s.run_steps(f * FREE[0], FREE[1], num_iterations=ITERS)
-    assert calls == [FREE[1]] and s._last_fast_steps == FREE[1]
-    assert s.frame == FREE[1]
-    _close(m, ref[0])
-    s.run_steps(f * SLAM[0], SLAM[1], num_iterations=ITERS)
-    assert 0 < calls[1] < SLAM[1]        # tier 1 exited at the contact
+    if tier1 is None:
+        assert s._resident_fast is None and s._resident_fast_kind is None
+        s.run_steps(f * FREE[0], FREE[1], num_iterations=ITERS)
+        assert s._last_fast_steps is None and s.frame == FREE[1]
+        _close(m, ref[0])
+        s.run_steps(f * SLAM[0], SLAM[1], num_iterations=ITERS)
+    else:
+        assert s._resident_fast.func is tier1
+        assert s._resident_fast_kind == ("exit" if config == "exit"
+                                         else "chunked")
+        calls = spy_tier1(s)
+        s.run_steps(f * FREE[0], FREE[1], num_iterations=ITERS)
+        assert calls == [FREE[1]] and s._last_fast_steps == FREE[1]
+        assert s.frame == FREE[1]
+        _close(m, ref[0])
+        s.run_steps(f * SLAM[0], SLAM[1], num_iterations=ITERS)
+        assert 0 < calls[1] < SLAM[1]        # tier 1 exited at the contact
     assert s._last_fast_steps is None
     assert s.frame == FREE[1] + SLAM[1]
     assert m.positions[:, 1].min() > -0.5      # held at the floor
@@ -154,10 +178,17 @@ def test_floor_off_tier1_never_exits(tmp_path):
     _close(m, ref[0])
 
 
-def test_contact_mode_raises(tmp_path):
-    """``resident_contact_mode=True`` names its ROADMAP item instead of
-    serving on another build."""
+def test_contact_mode_default(tmp_path):
+    """``resident_contact_mode=None`` resolves to the build that the H100's
+    measurements chose for kernel 3 as the contact tier (PERF.md):
+    contact mode, after kernel 5, and without tier 1 when
+    ``resident_chunked_tier1`` is False."""
     args = jax_solver(tmp_path, "off")[0].args
-    s, m = port_tiers(args, resident_contact_mode=True)
-    with pytest.raises(NotImplementedError, match="Queue B item 1"):
-        s.run_steps(gravity(m), 2)
+    s, _ = port_tiers(args)
+    assert getattr(s, "resident_contact_mode", None) is None
+    assert s._resident_run.func is resident_affine_contact
+    assert s._resident_fast.func is affine_chunked
+    s.resident_chunked_tier1 = False
+    s.prepare(args)
+    assert s._resident_run.func is resident_affine_contact
+    assert s._resident_fast is None
