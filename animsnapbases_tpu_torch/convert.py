@@ -3,8 +3,11 @@
 ``operands_from_numpy`` takes the numpy arrays the JAX package prepares
 (``prepare_fused_operands``' dict, ``UG_allT`` included, and, for the
 resident and affine kernels, ``AnimSnapBasesSolver._resident_state``) and
-returns the port's kernel operands on a given device and dtype.  A test can then feed both packages
-the same operands, independent of the port's own ``prepare``.  Nothing
+returns the port's kernel operands on a given device and dtype: every
+group kind of the JAX package, in DEIM row form and block form, the
+weighted star rows of ``verts_bending`` included (``fused_operands`` keeps
+``G_allT`` as sparse columns).  A test can then feed both packages the
+same operands, independent of the port's own ``prepare``.  Nothing
 here imports the JAX package: the inputs are plain numpy arrays, lists
 and tuples.
 """

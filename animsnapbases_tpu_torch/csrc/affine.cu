@@ -361,7 +361,7 @@ __global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
   __syncthreads();
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
-    vc[i] = snsel[d * n_sel + op.gidx[c]];
+    vc[i] = gather_col(op, snsel + d * n_sel, c);
   }
   __syncthreads();
   iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
@@ -455,7 +455,7 @@ __global__ void contact_solve(Affine<T, M> a, Iter<T> op, int step,
     rbc[i] = a.rbex[i] - rbc[i];
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
-    vc[i] = sn[(size_t)d * N + op.gidx[c]];
+    vc[i] = gather_col(op, sn + (size_t)d * N, c);
   }
   __syncthreads();
   iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
@@ -637,7 +637,7 @@ __global__ void mode_solve(Affine<T, M> a, Iter<T> op, int step,
     rbc[r + k] = a.rbex[r + k] - sy[k];
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
-    vc[i] = d == 1 ? a.sn[x + N + op.gidx[c]] : snsel[d * n_sel + op.gidx[c]];
+    vc[i] = gather_col(op, d == 1 ? a.sn + x + N : snsel + d * n_sel, c);
   }
   __syncthreads();
   iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
@@ -803,15 +803,17 @@ template <typename T, typename M>
 int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
                   const void* ulift, const void* utac, const void* mutac,
                   const void* uselT, const void* C, const void* inv,
-                  const void* WT, const void* gidx, const void* kind,
-                  const void* eg, const void* ef, void* coef, void* bu,
+                  const void* WT, const void* gptr, const void* gcol,
+                  const void* gw, const void* kind, const void* eg,
+                  const void* ef, void* coef, void* bu,
                   void* sn, void* Pm, void* u, void* partial, void* ys,
                   void* ybu, void* pcpart, void* flags,
                   int N, int r, int n_sel, int g, int m, int num_steps,
                   int num_iterations, int rebase_every, int mode, int nb,
                   int flag_stride, double dt, double eta, double floor_h,
                   void* stream) {
-  const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
+  const Iter<T> op =
+      make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Affine<T, M> a;
   a.b0 = static_cast<T*>(b0);
   a.b1 = static_cast<T*>(b1);
@@ -860,17 +862,18 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
       void* b0, void* b1, const void* fa, const void* rbex,                 \
       const void* ulift, const void* utac, const void* mutac,                \
       const void* uselT, const void* C, const void* inv, const void* WT,     \
-      const void* gidx, const void* kind, const void* eg, const void* ef,    \
+      const void* gptr, const void* gcol, const void* gw, const void* kind,  \
+      const void* eg, const void* ef,                                        \
       void* coef, void* bu, void* sn, void* Pm, void* u, void* partial,      \
       void* ys, void* ybu, void* pcpart, void* flags, int N, int r,          \
       int n_sel, int g, int m, int num_steps, int num_iterations,            \
       int rebase_every, int mode, int nb, int flag_stride, double dt,        \
       double eta, double floor_h, void* stream) {                            \
     return ksm::launch_affine<T, M>(                                         \
-        b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gidx, kind, \
-        eg, ef, coef, bu, sn, Pm, u, partial, ys, ybu, pcpart, flags, N, r,  \
-        n_sel, g, m, num_steps, num_iterations, rebase_every, mode, nb,      \
-        flag_stride, dt, eta, floor_h, stream);                              \
+        b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gptr, gcol, \
+        gw, kind, eg, ef, coef, bu, sn, Pm, u, partial, ys, ybu, pcpart,     \
+        flags, N, r, n_sel, g, m, num_steps, num_iterations, rebase_every,   \
+        mode, nb, flag_stride, dt, eta, floor_h, stream);                    \
   }
 
 AFFINE_ENTRY(resident_affine_f32_f32, float, float)

@@ -236,12 +236,14 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
                  const void* bu0, const void* bu1, const void* bufa,
                  const void* rbex, const void* ulift, const void* mutac,
                  const void* UG, const void* C, const void* inv,
-                 const void* WT, const void* gidx, const void* kind,
-                 const void* eg, const void* ef, void* out, void* k, int N,
+                 const void* WT, const void* gptr, const void* gcol,
+                 const void* gw, const void* kind, const void* eg,
+                 const void* ef, void* out, void* k, int N,
                  int r, int g, int m, int steps, int num_iterations,
                  int first, int nb, double dt, double eta, double floor_h,
                  double c2, double eps, void* stream) {
-  const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
+  const Iter<T> op =
+      make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Chunk<T, M> a;
   a.P = static_cast<const T*>(P);
   a.V = static_cast<const T*>(V);
@@ -289,15 +291,17 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
       const void* b0s, const void* b1s, const void* fas, const void* bu0,    \
       const void* bu1, const void* bufa, const void* rbex,                   \
       const void* ulift, const void* mutac, const void* UG, const void* C,   \
-      const void* inv, const void* WT, const void* gidx, const void* kind,   \
-      const void* eg, const void* ef, void* out, void* k, int N, int r,      \
-      int g, int m, int steps, int num_iterations, int first, int nb,        \
+      const void* inv, const void* WT, const void* gptr, const void* gcol,   \
+      const void* gw, const void* kind, const void* eg, const void* ef,      \
+      void* out, void* k, int N, int r, int g, int m, int steps,             \
+      int num_iterations, int first, int nb,                                 \
       double dt, double eta, double floor_h, double c2, double eps,          \
       void* stream) {                                                        \
     return ksm::launch_chunk<T, M>(                                          \
         P, V, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa, rbex, ulift, mutac,    \
-        UG, C, inv, WT, gidx, kind, eg, ef, out, k, N, r, g, m, steps,       \
-        num_iterations, first, nb, dt, eta, floor_h, c2, eps, stream);       \
+        UG, C, inv, WT, gptr, gcol, gw, kind, eg, ef, out, k, N, r, g, m,    \
+        steps, num_iterations, first, nb, dt, eta, floor_h, c2, eps,         \
+        stream);                                                             \
   }
 
 CHUNK_ENTRY(affine_chunk_f32_f32, float, float)

@@ -28,8 +28,10 @@
 // float32 at r = 64, more than one SM's 227 KB) stay in device memory and
 // are read from L2, where they stay resident across iterations.  Reads
 // are coalesced: consecutive threads take consecutive columns of C_allT
-// and consecutive k of WT_all.  Vc is an index gather, exact because
-// G_allT is one-hot for these group kinds; C_allT and inv3 are taken as
+// and consecutive k of WT_all.  Vc is gathered by the sparse columns of
+// G_allT (iteration.cuh gather_col: one entry for the one-hot tris, spring
+// and tet columns, the weighted star of a bending column, summed in
+// float64), once per launch before the loop; C_allT and inv3 are taken as
 // the host precomposed them in float64 (usel_inv is never folded into WT).
 #include "iteration.cuh"
 
@@ -55,7 +57,7 @@ __global__ void fused_reduced_kernel(Iter<T> op, const T* snT, int ld_sn,
   for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) rbc[i] = rb_const[i];
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
-    vc[i] = snT[(size_t)d * ld_sn + op.gidx[c]];
+    vc[i] = gather_col(op, snT + (size_t)d * ld_sn, c);
   }
   __syncthreads();
   iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
@@ -65,10 +67,12 @@ __global__ void fused_reduced_kernel(Iter<T> op, const T* snT, int ld_sn,
 template <typename T>
 int launch_fused(const void* snT, int ld_sn, long long sim_sn,
                  const void* rb_const, const void* C, const void* inv,
-                 const void* WT, const void* gidx, const void* kind,
-                 const void* eg, const void* ef, void* u, int r, int g, int m,
+                 const void* WT, const void* gptr, const void* gcol,
+                 const void* gw, const void* kind, const void* eg,
+                 const void* ef, void* u, int r, int g, int m,
                  int num_iterations, int nb, void* stream) {
-  const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
+  const Iter<T> op =
+      make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   const size_t smem = sizeof(T) * iter_smem_elems(r, g, m);
   cudaError_t e = allow_smem(fused_reduced_kernel<T>, smem);
   if (e != cudaSuccess) return e;
@@ -86,11 +90,12 @@ int launch_fused(const void* snT, int ld_sn, long long sim_sn,
 #define FUSED_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const void* snT, int ld_sn, long long sim_sn,          \
                       const void* rb_const, const void* C, const void* inv,  \
-                      const void* WT, const void* gidx, const void* kind,    \
+                      const void* WT, const void* gptr,                      \
+                      const void* gcol, const void* gw, const void* kind,    \
                       const void* eg, const void* ef, void* u, int r, int g, \
                       int m, int num_iterations, int nb, void* stream) {     \
     return ksm::launch_fused<T>(snT, ld_sn, sim_sn, rb_const, C, inv, WT,    \
-                                gidx, kind, eg, ef, u, r, g, m,              \
+                                gptr, gcol, gw, kind, eg, ef, u, r, g, m,  \
                                 num_iterations, nb, stream);                 \
   }
 

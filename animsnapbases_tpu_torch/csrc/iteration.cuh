@@ -1,39 +1,65 @@
 // The hyper-reduced local-global iteration loop, run by ONE thread block.
 //
 // Shared by fused_reduced.cu (kernel 1, the per-step `step()` path) and
-// resident.cu (kernel 2, whose middle launch runs this loop every step).
-// It is the body of animsnapbases_tpu/ops/pallas_resident.py
-// `_make_iteration_loop` and of pallas_reduced.py
+// resident.cu, affine.cu and affine_chunked.cu (kernels 2-5, which run this
+// loop every step).  It is the body of animsnapbases_tpu/ops/
+// pallas_resident.py `_make_iteration_loop` and of pallas_reduced.py
 // `build_fused_reduced_iterations`: it carries rb (3, r), forms the
 // gathered vertex values as Vall = Vc + rb C_allT (C_allT = usel_inv G_allT
 // precomposed in float64 on the host), evaluates one projection row per
-// selected element (tris_strain 2x2 clamp, edge_spring), and forms
+// column of the element table (the five kinds of pallas_reduced.py
+// TERM_DISPATCH: tris_strain 2x2 clamp, edge_spring, tets_strain and
+// tets_deformation_gradient 3x3 Jacobi, verts_bending), and forms
 // rb = rb_const + pT WT.  At the end u = rb inv3.
 //
 // Element table (built by ops/fused_reduced.py `fused_operands`): column j
-// of pT belongs to element j, of kind `kind[j]`, whose vertex slots read
-// Vall columns eg[s][j]; its rest data lies in rows of ef (13, m):
+// of pT is one projection row, of kind `kind[j]`, whose vertex slots read
+// Vall columns eg[s][j] (s < 4); its rest data lies in rows of ef (13, m):
 //   tris_strain: P0T 0-2, P1T 3-5, DmInv 6-9, row_is0 10, smin 11, smax 12
 //   edge_spring: rest length 0
+//   tets_*:      DmInv 0-8 (row-major), r0 9, r1 10, smin 11, smax 12
+//   verts_bending: rest curvature 0, tri normal 1-3, dot with normal 4,
+//                prevent_flips 5
+// Block form (all p rows of each selected element, pallas_reduced.py
+// `_block_major`) needs no emitter of its own: its row k of an element is
+// a column with a fixed row (tris row_is0 1 then 0; tets (r0, r1) = (1, 0),
+// (0, 1), (0, 0)), the columns in WT_all's row-major block order.
+//
+// The gather Vc = snT_sel G_allT is sparse by columns (CSR: gptr, gcol,
+// gw): a one-hot column of tris, springs and tets has one entry of weight
+// 1, a bending column the weighted star Laplacian of its vertex.  The sum
+// accumulates in float64: a star of absolute positions ~20 units high
+// cancels to its curvature (ROADMAP Queue C), and a one-hot column is
+// then its vertex value bit for bit.
 // Layout is dims-leading as in the JAX package: positions (3, n), per
-// element values (·, m), matrices (3, r, ·).
+// element values (., m), matrices (3, r, .).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "strain3d.cuh"
+
 namespace ksm {
 
-enum : int { KIND_TRI = 0, KIND_SPRING = 1 };
+enum : int {
+  KIND_TRI = 0,
+  KIND_SPRING = 1,
+  KIND_TET_STRAIN = 2,
+  KIND_TET_DEFGRAD = 3,
+  KIND_BENDING = 4
+};
 
 template <typename T>
 struct Iter {
   const T* C;      // (3, r, g)  C_allT
   const T* inv;    // (3, r, r)  inv(U^T A U), symmetric
   const T* WT;     // (3, m, r)  WT_all
-  const int* gidx; // (g,)       Vc column c reads snT_sel column gidx[c]
-  const int* kind; // (m,)
-  const int* eg;   // (3, m)
+  const int* gptr;    // (g + 1,) Vc column c: entries gptr[c] .. gptr[c+1]
+  const int* gcol;    // (nnz,)   their snT_sel columns
+  const double* gw;   // (nnz,)   and weights
+  const int* kind;    // (m,)
+  const int* eg;      // (4, m)
   const T* ef;     // (13, m)
   int r, g, m;
 };
@@ -107,15 +133,64 @@ __device__ __forceinline__ void clamped_fhat_2x2(T a, T b, T c, T d, T smin,
   f11 = shx * sp * st + shy * cp * ct;
 }
 
-// the selected projection row of element j (pallas_reduced.py _tri_p /
-// _spring_p, row form) from the gathered values Vall (3, g)
+template <typename T>
+struct Row3 {
+  T x[3];
+};
+
+// A tet column's projection row (pallas_reduced.py _tet_p :250-278): F from
+// the edge vectors to the fourth vertex and DmInv, the clamp (tets_strain)
+// or the polar rotation (tets_deformation_gradient), then the blend
+// r0 row0 + r1 row1 + r2 row2 with r2 = 1 - r0 - r1, as the JAX emitter
+// takes it (a block column's (r0, r1) is one of (1, 0), (0, 1), (0, 0),
+// whose blend is that row exactly).  Out of line, its arguments by value:
+// the Jacobi's registers then do not weigh on the loop around it.
+template <typename T>
+__device__ __noinline__ Row3<T> project_tet(const int* eg, const T* ef,
+                                            const T* vall, int m, int g,
+                                            int j, bool polar) {
+  const int g4 = eg[3 * m + j];
+  T ds[3][3];  // ds[k][i]: Ds column k, entry i
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int gk = eg[k * m + j];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ds[k][i] = vall[i * g + gk] - vall[i * g + g4];
+  }
+  T f[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      f[3 * i + c] = ds[0][i] * ef[c * m + j] +
+                     ds[1][i] * ef[(3 + c) * m + j] +
+                     ds[2][i] * ef[(6 + c) * m + j];
+  T p[9];
+  tet_projection(f, polar, ef[11 * m + j], ef[12 * m + j], p);
+  const T r0 = ef[9 * m + j], r1 = ef[10 * m + j];
+  const T r2 = T(1) - r0 - r1;
+  Row3<T> out;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    // row k, entry d: Fhat[k][d] for the strain, R[d][k] for the rotation
+    const T p0 = polar ? p[3 * d] : p[d];
+    const T p1 = polar ? p[3 * d + 1] : p[3 + d];
+    const T p2 = polar ? p[3 * d + 2] : p[6 + d];
+    out.x[d] = r0 * p0 + r1 * p1 + r2 * p2;
+  }
+  return out;
+}
+
+// the projection row of table column j (pallas_reduced.py _tri_p,
+// _spring_p, _tet_p, _bending_p) from the gathered values Vall (3, g)
 template <typename T>
 __device__ __forceinline__ void project_element(const Iter<T>& op,
                                                 const T* vall, int j,
                                                 T out[3]) {
   const int m = op.m, g = op.g;
   const T* ef = op.ef;
-  if (op.kind[j] == KIND_TRI) {
+  const int kind = op.kind[j];
+  if (kind == KIND_TRI) {
     const int g1 = op.eg[j], g2 = op.eg[m + j], g3 = op.eg[2 * m + j];
     T e1[3], e2[3], P0[3], P1[3];
 #pragma unroll
@@ -141,7 +216,7 @@ __device__ __forceinline__ void project_element(const Iter<T>& op,
     const T fh1 = row0 ? f10 : f11;
 #pragma unroll
     for (int d = 0; d < 3; ++d) out[d] = P0[d] * fh0 + P1[d] * fh1;
-  } else {  // KIND_SPRING
+  } else if (kind == KIND_SPRING) {
     const int g0 = op.eg[j], g1 = op.eg[m + j];
     T s[3];
 #pragma unroll
@@ -153,7 +228,46 @@ __device__ __forceinline__ void project_element(const Iter<T>& op,
 #pragma unroll
     for (int d = 0; d < 3; ++d)
       out[d] = keep ? T(0.5) * s[d] - delta * inv_len * s[d] : T(0);
+  } else if (kind == KIND_BENDING) {
+    // the star Laplacian of the vertex is its one gathered column
+    const int g0 = op.eg[j];
+    T s[3], n[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      s[d] = vall[d * g + g0];
+      n[d] = ef[(1 + d) * m + j];
+    }
+    const T rest = ef[j];
+    const T norm = tsqrt(s[0] * s[0] + s[1] * s[1] + s[2] * s[2]);
+    const T scale = rest / tmax(norm, T(1e-30));
+    const bool flat = norm < T(1e-10);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) out[d] = flat ? n[d] * rest : s[d] * scale;
+    if (ef[5 * m + j] > T(0)) {
+      const T dots = n[0] * out[0] + n[1] * out[1] + n[2] * out[2];
+      if (norm > T(1e-5) && dots * ef[4 * m + j] < T(0)) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) out[d] = -out[d];
+      }
+    }
+  } else {  // KIND_TET_STRAIN, KIND_TET_DEFGRAD
+    const Row3<T> p = project_tet(op.eg, ef, vall, m, g, j,
+                                  kind == KIND_TET_DEFGRAD);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) out[d] = p.x[d];
   }
+}
+
+// Vc column c of one dim's row x (its snT_sel values): the weighted sum of
+// the column's entries, in float64 (one entry of weight 1 for a one-hot
+// column: then x at its vertex, bit for bit)
+template <typename T>
+__device__ __forceinline__ T gather_col(const Iter<T>& op, const T* x,
+                                        int c) {
+  double acc = 0.0;
+  for (int e = op.gptr[c]; e < op.gptr[c + 1]; ++e)
+    acc += op.gw[e] * (double)x[op.gcol[e]];
+  return (T)acc;
 }
 
 // Shared memory the loop needs, in elements of T: rbc, rb (3r each),
@@ -220,14 +334,17 @@ __device__ void solve_block(const Iter<T>& op, const T* rb, T* u) {
 
 template <typename T>
 __host__ inline Iter<T> make_iter(const void* C, const void* inv,
-                                  const void* WT, const void* gidx,
+                                  const void* WT, const void* gptr,
+                                  const void* gcol, const void* gw,
                                   const void* kind, const void* eg,
                                   const void* ef, int r, int g, int m) {
   Iter<T> op;
   op.C = static_cast<const T*>(C);
   op.inv = static_cast<const T*>(inv);
   op.WT = static_cast<const T*>(WT);
-  op.gidx = static_cast<const int*>(gidx);
+  op.gptr = static_cast<const int*>(gptr);
+  op.gcol = static_cast<const int*>(gcol);
+  op.gw = static_cast<const double*>(gw);
   op.kind = static_cast<const int*>(kind);
   op.eg = static_cast<const int*>(eg);
   op.ef = static_cast<const T*>(ef);

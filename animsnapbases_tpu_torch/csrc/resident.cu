@@ -140,7 +140,7 @@ __global__ void resident_iterate(Iter<T> op, const T* sn, int N,
   }
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
-    vc[i] = sn[(size_t)d * N + op.gidx[c]];
+    vc[i] = gather_col(op, sn + (size_t)d * N, c);
   }
   __syncthreads();
   iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
@@ -215,13 +215,15 @@ cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
 template <typename T, typename M>
 int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                     const void* ulift, const void* utac, const void* C,
-                    const void* inv, const void* WT, const void* gidx,
-                    const void* kind, const void* eg, const void* ef,
-                    void* sn, void* partial, void* u, int N, int r, int g,
+                    const void* inv, const void* WT, const void* gptr,
+                    const void* gcol, const void* gw, const void* kind,
+                    const void* eg, const void* ef, void* sn,
+                    void* partial, void* u, int N, int r, int g,
                     int m, int num_steps, int num_iterations, int nb,
                     double dt, double dtv, int floor_on, double floor_h,
                     void* stream) {
-  const Iter<T> op = make_iter<T>(C, inv, WT, gidx, kind, eg, ef, r, g, m);
+  const Iter<T> op =
+      make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto group) {
     constexpr int SG = decltype(group)::value;
@@ -245,16 +247,17 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
   extern "C" int NAME(void* P, void* V, const void* fa,                      \
                       const void* rb_extra, const void* ulift,               \
                       const void* utac, const void* C, const void* inv,      \
-                      const void* WT, const void* gidx, const void* kind,    \
+                      const void* WT, const void* gptr,                      \
+                      const void* gcol, const void* gw, const void* kind,    \
                       const void* eg, const void* ef, void* sn,              \
                       void* partial, void* u, int N, int r, int g, int m,    \
                       int num_steps, int num_iterations, int nb, double dt,  \
                       double dtv, int floor_on, double floor_h,              \
                       void* stream) {                                        \
     return ksm::launch_resident<T, M>(                                       \
-        P, V, fa, rb_extra, ulift, utac, C, inv, WT, gidx, kind, eg, ef, sn, \
-        partial, u, N, r, g, m, num_steps, num_iterations, nb, dt, dtv,      \
-        floor_on, floor_h, stream);                                          \
+        P, V, fa, rb_extra, ulift, utac, C, inv, WT, gptr, gcol, gw, kind,   \
+        eg, ef, sn, partial, u, N, r, g, m, num_steps, num_iterations, nb,   \
+        dt, dtv, floor_on, floor_h, stream);                                 \
   }
 
 RESIDENT_ENTRY(resident_multistep_f32_f32, float, float)

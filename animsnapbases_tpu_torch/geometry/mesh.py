@@ -1,9 +1,9 @@
 """Mesh topology queries the constraint groups need.
 
 Counterpart of ``animsnapbases_tpu/geometry/mesh.py``: only
-``unique_edges``, ``tet_edges`` and ``build_vertex_stars`` (with its
-``StarEdge`` record), copied so the port imports nothing of the JAX
-package.
+``unique_edges``, ``tet_edges``, ``boundary_facets`` and
+``build_vertex_stars`` (with its ``StarEdge`` record), copied so the port
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +29,23 @@ def tet_edges(tets: np.ndarray) -> np.ndarray:
     e = np.concatenate([tets[:, list(p)] for p in pairs])
     e = np.sort(e, axis=1)
     return np.unique(e, axis=0)
+
+
+def boundary_facets(tets: np.ndarray) -> np.ndarray:
+    """Boundary triangles of a tet mesh: the faces that appear exactly
+    once, each wound outward for a positively oriented tet (v0, v1, v2,
+    v3): the face opposite each vertex, its normal pointing away from it."""
+    tets = np.asarray(tets, dtype=np.int64)
+    faces = np.concatenate([
+        tets[:, [1, 2, 3]],
+        tets[:, [0, 3, 2]],
+        tets[:, [0, 1, 3]],
+        tets[:, [0, 2, 1]],
+    ])
+    key = np.sort(faces, axis=1)
+    _, inv, counts = np.unique(key, axis=0, return_inverse=True,
+                               return_counts=True)
+    return faces[counts[inv.reshape(-1)] == 1]
 
 
 @dataclass

@@ -82,6 +82,7 @@ import torch
 from animsnapbases_tpu_torch.ops import _build
 from animsnapbases_tpu_torch.ops.fused_reduced import (
     FusedOperands,
+    gather_vc,
     iterate_plain,
     rowvec_bmm,
     solve_plain,
@@ -179,7 +180,6 @@ class AffineContext:
         self.fa = fa                              # constant per call
         self.bu_fa = project(ro, fa) if bu_fa is None else bu_fa
         self.e0, self.e1, self.e2 = basis(fa.dtype, fa.device)
-        self.gidx = self.fo.gidx.long()
 
     def damp(self, v):
         return v if self.ro.eta == 1.0 else self.ro.eta * v
@@ -262,7 +262,7 @@ class AffineContext:
         """One contact-free step entirely in affine coordinates, the
         gathered values of the predictor taken through ``U_selT``."""
         self.gathered_step(st, asn, wsn, avd, wp,
-                           self.selected(st, asn, wsn)[..., self.gidx],
+                           gather_vc(self.fo, self.selected(st, asn, wsn)),
                            rb_ex, num_iterations)
 
     def gathered_step(self, st: AffineState, asn, wsn, avd, wp, Vc, rb_ex,
@@ -333,7 +333,7 @@ class AffineContext:
         s = bupsn + pc
         rb_lin = _with_y(self.rb_lin(st, asn, wsn), s)
         Vc = _with_y(self.selected(st, asn, wsn), sn_cl[..., :ro.n_sel])
-        u = self.solve_update(st, asn, wsn, avd, wp, Vc[..., self.gidx],
+        u = self.solve_update(st, asn, wsn, avd, wp, gather_vc(self.fo, Vc),
                               rb_ex - rb_lin, num_iterations)
         u_y = u[..., 1, :]
         q_y = sn_cl + (storage_round(u_y, ro.U_liftT.dtype)
@@ -404,7 +404,7 @@ class AffineContext:
         y = sn[..., 1, :]
         sn[..., 1, :] = torch.where(y < ro.floor_h,
                                     torch.full_like(y, ro.floor_h), y)
-        rb = iterate_plain(fo, sn[..., :ro.n_sel][..., self.gidx],
+        rb = iterate_plain(fo, gather_vc(fo, sn),
                            rb_ex - project(ro, sn), num_iterations)
         q = sn + lift_coords(ro, solve_plain(fo, rb))
         self.reset(st, q, (q - P) / ro.dt)
@@ -524,7 +524,7 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = (_P,) * 25 + (_I,) * 11 + (_D,) * 3 + (_P,)
+_ARGTYPES = (_P,) * 27 + (_I,) * 11 + (_D,) * 3 + (_P,)
 # int32 flag slots of one sim of a call (csrc/affine.cu): stale, done,
 # steps done, contact mode, then one slot per step (what
 # AffineContext.step returns: 1 the floor test clamped, 2 contact mode)
@@ -599,7 +599,8 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     p = _build.ptr
     code = fn(p(b0), p(b1), p(fa), p(rb_extra), p(ro.U_liftT), p(ro.ut_acT),
               p(ao.M_utac), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
-              p(fo.WT_all), p(fo.gidx), p(fo.elem_kind), p(fo.elem_g),
+              p(fo.WT_all), p(fo.gptr), p(fo.gcol), p(fo.gw),
+              p(fo.elem_kind), p(fo.elem_g),
               p(fo.elem_f), p(coef), p(bu), p(sn), p(Pm), p(u), p(partial),
               p(ys), p(ybu), p(pcpart), p(flags), n, r, ro.n_sel, fo.g_total,
               fo.m_total, int(num_steps), int(num_iterations),

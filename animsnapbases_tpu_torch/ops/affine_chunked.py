@@ -54,7 +54,7 @@ from animsnapbases_tpu_torch.ops.affine import (
     AffineOperands,
     split_coef,
 )
-from animsnapbases_tpu_torch.ops.fused_reduced import rowvec_bmm
+from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc, rowvec_bmm
 from animsnapbases_tpu_torch.ops.resident import (
     check_state,
     force_term,
@@ -131,8 +131,8 @@ def y_minmax(x):
 def chunk_anchors(ao: AffineOperands, P, V):
     """What the outer loop prepares for one chunk from its anchors: their
     projections (bu0, bu1) and their gathered columns (b0s, b1s)."""
-    ro, gidx = ao.res, ao.fused.gidx.long()
-    return project(ro, P), project(ro, V), P[..., gidx], V[..., gidx]
+    ro, fo = ao.res, ao.fused
+    return project(ro, P), project(ro, V), gather_vc(fo, P), gather_vc(fo, V)
 
 
 def advance(ao: AffineOperands, P, V, fa, ap, av, wp, wv):
@@ -152,7 +152,7 @@ def _drive(chunk, ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
         raise ValueError("rebase_every must be >= 1")
     ro = ao.res
     fa = force_term(ro, fext)
-    fas = fa[..., ao.fused.gidx.long()]   # fa_sel G_allT: a column gather
+    fas = gather_vc(ao.fused, fa)          # fa_sel G_allT
     bu_fa = project(ro, fa)
     ymm = P.new_empty(P.shape[:-2] + (6,))
     done = 0
@@ -191,7 +191,7 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = (_P,) * 23 + (_I,) * 8 + (_D,) * 5 + (_P,)
+_ARGTYPES = (_P,) * 25 + (_I,) * 8 + (_D,) * 5 + (_P,)
 
 
 def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
@@ -218,7 +218,8 @@ def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     code = fn(p(P), p(V), p(fa), p(ymm), p(b0s), p(b1s), p(fas), p(bu0),
               p(bu1), p(bu_fa), p(rb_ex), p(ro.U_liftT), p(ao.M_utac),
               p(fo.UG_allT), p(fo.C_allT), p(fo.inv3), p(fo.WT_all),
-              p(fo.gidx), p(fo.elem_kind), p(fo.elem_g), p(fo.elem_f),
+              p(fo.gptr), p(fo.gcol), p(fo.gw), p(fo.elem_kind),
+              p(fo.elem_g), p(fo.elem_f),
               p(out), p(k), ro.n, r, fo.g_total, fo.m_total, int(steps),
               int(num_iterations), int(first), nb, ro.dt, ro.eta,
               float(floor_h), (BOUND_SLACK * ao.umax) ** 2, BOUND_EPS,

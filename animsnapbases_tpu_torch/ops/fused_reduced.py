@@ -2,10 +2,11 @@
 
 Counterpart of ``animsnapbases_tpu/ops/pallas_reduced.py``.  It holds
 the host-side packing (``pack_tris_strain``, ``pack_edge_spring``,
-``prepare_fused_operands``, the same arrays the JAX package builds, with
-the same float64 precomposition of ``C_allT = usel_inv G_allT`` and
-``inv3``), the row-form projection emitters (``_tri_p``, ``_spring_p``),
-and the loop itself three ways:
+``pack_tets``, ``pack_verts_bending``, ``prepare_fused_operands``: the same
+arrays the JAX package builds, with the same float64 precomposition of
+``C_allT = usel_inv G_allT`` and ``inv3``), the projection emitters of
+the five kinds (``_tri_p``, ``_spring_p``, ``_tet_p``, ``_bending_p``), and
+the loop itself three ways:
 
 * ``fused_reduced_iterations``: the wrapper.  For a CUDA tensor it
   launches the hand-written kernel ``csrc/fused_reduced.cu`` and counts the
@@ -24,12 +25,14 @@ and the loop itself three ways:
 The kernel does not read the JAX package's per-group layout.  It reads an
 element table built here by ``fused_operands`` from that layout: one
 column per projection row, with its kind, the Vall columns of its vertex
-slots and its rest data.  The plain version reads the same table, so the
-CPU tests check the table the kernel reads.
-
-Only the ``tris_strain`` and ``edge_spring`` kinds in DEIM row form are
-ported; the tet and bending kinds and block form raise
-``NotImplementedError`` (ROADMAP Queue A item 9).
+slots and its rest data.  Block form (all p rows of each selected element,
+``deim_pca_blocks`` / geom) is the same table: row k of an element is a
+column with a fixed row, in the row-major block order of ``WT_all``
+(``_block_major``).  The gather ``Vc = snT_sel G_allT`` is a sparse column
+form of ``G_allT`` (``gather_vc``): one entry per one-hot column (tris,
+springs, tets), the weighted star Laplacian of a bending column, summed in
+float64.  The plain version reads the same table and the same sparse
+columns, so the CPU tests check what the kernel reads.
 """
 
 from __future__ import annotations
@@ -42,10 +45,18 @@ import torch
 
 from animsnapbases_tpu_torch.ops import _build
 from animsnapbases_tpu_torch.ops.strain2d import clamped_fhat_2x2
+from animsnapbases_tpu_torch.ops.strain3d import (
+    polar_rotation,
+    tet_strain_fhat,
+)
 
-PORTED_KINDS = ("tris_strain", "edge_spring")
-KIND_CODES = {"tris_strain": 0, "edge_spring": 1}   # csrc/iteration.cuh
+PORTED_KINDS = ("tris_strain", "edge_spring", "tets_strain",
+                "tets_deformation_gradient", "verts_bending")
+# the kind codes of csrc/iteration.cuh (KIND_TRI, ..., KIND_BENDING)
+KIND_CODES = {name: code for code, name in enumerate(PORTED_KINDS)}
+TET_KINDS = ("tets_strain", "tets_deformation_gradient")
 ELEM_ROWS = 13
+ELEM_SLOTS = 4
 
 
 def _onehot(rows: np.ndarray, n_cols: int, dtype) -> np.ndarray:
@@ -55,33 +66,48 @@ def _onehot(rows: np.ndarray, n_cols: int, dtype) -> np.ndarray:
     return g
 
 
+def _block_major(W: np.ndarray, p: int) -> np.ndarray:
+    """Permute W (d, out, m*p) from element-major to row-major blocks (all
+    elements' row 0, then row 1, ...), the order of the block emitters'
+    columns."""
+    d, out, mp = W.shape
+    m = mp // p
+    return np.ascontiguousarray(
+        W.reshape(d, out, m, p).transpose(0, 1, 3, 2).reshape(d, out, mp))
+
+
+def _wt(W: np.ndarray, dtype) -> np.ndarray:
+    return np.ascontiguousarray(W.transpose(0, 2, 1)).astype(dtype)
+
+
 def pack_tris_strain(subset_data: dict, lookup: np.ndarray, W: np.ndarray,
-                     row_select: np.ndarray, dtype) -> dict:
-    """Host-side packing of a selected tri-strain group in row form:
-    ``row_select`` (m,) picks one of the 2 projection rows per element,
-    W (3, r, m).  ``lookup`` maps global vertex id -> selected-union
-    index."""
-    if row_select is None:
-        raise NotImplementedError(
-            "block-form tris_strain groups are not ported yet "
-            "(ROADMAP Queue A item 9)")
+                     row_select: np.ndarray | None, dtype) -> dict:
+    """Host-side packing of a selected tri-strain group: row form
+    (``row_select`` (m,) picks one of the 2 projection rows per element, W
+    (3, r, m)) or block form (``row_select`` None, W (3, r, 2m)
+    element-major, permuted here to row-major blocks).  ``lookup`` maps
+    global vertex id -> selected-union index."""
     faces = lookup[np.asarray(subset_data["faces"])]
     n_sel = int(lookup.max()) + 1 if len(lookup) else 0
     P = np.asarray(subset_data["P"])          # (m, 3, 2)
     D = np.asarray(subset_data["DmInv"])      # (m, 2, 2)
+    block = row_select is None
     arrays = [
         P[:, :, 0].T.astype(dtype),                    # P0T (3, m)
         P[:, :, 1].T.astype(dtype),                    # P1T (3, m)
         np.stack([D[:, 0, 0], D[:, 0, 1],
                   D[:, 1, 0], D[:, 1, 1]]).astype(dtype),   # (4, m)
-        (row_select % 2 == 0).astype(dtype)[None, :],  # row_is0 (1, m)
     ]
+    if block:
+        W = _block_major(W, 2)
+    else:
+        arrays.append((row_select % 2 == 0).astype(dtype)[None, :])
     return {
         "kind": "tris_strain",
-        "block": False,
+        "block": block,
         "gathers": [_onehot(faces[:, k], n_sel, dtype) for k in range(3)],
         "arrays": arrays,
-        "WT": np.ascontiguousarray(W.transpose(0, 2, 1)).astype(dtype),
+        "WT": _wt(W, dtype),
         "smin": float(subset_data["sigma_min"]),
         "smax": float(subset_data["sigma_max"]),
     }
@@ -96,7 +122,69 @@ def pack_edge_spring(subset_data: dict, lookup: np.ndarray, W: np.ndarray,
         "kind": "edge_spring",
         "gathers": [_onehot(edges[:, k], n_sel, dtype) for k in range(2)],
         "arrays": [rest[None, :]],                         # (1, m)
-        "WT": np.ascontiguousarray(W.transpose(0, 2, 1)).astype(dtype),
+        "WT": _wt(W, dtype),
+    }
+
+
+def pack_tets(kind: str, subset_data: dict, lookup: np.ndarray,
+              W: np.ndarray, row_select: np.ndarray | None, dtype) -> dict:
+    """tets_strain / tets_deformation_gradient packing: 4 one-hot gathers,
+    DmInv as 9 entry rows.  Row form carries the selected projection row
+    (0..2) of each element as the indicators r0, r1; block form
+    (``row_select`` None) emits all 3 rows, W permuted to row-major
+    blocks."""
+    el = lookup[np.asarray(subset_data["elements"])]
+    n_sel = int(lookup.max()) + 1 if len(lookup) else 0
+    D = np.asarray(subset_data["DmInv"])       # (m, 3, 3)
+    block = row_select is None
+    arrays = [np.stack([D[:, i, j] for i in range(3)
+                        for j in range(3)]).astype(dtype)]   # (9, m)
+    if block:
+        W = _block_major(W, 3)
+    else:
+        rsel = (row_select % 3).astype(np.int64)
+        arrays.append((rsel == 0).astype(dtype)[None, :])     # (1, m)
+        arrays.append((rsel == 1).astype(dtype)[None, :])
+    out = {
+        "kind": kind,
+        "block": block,
+        "gathers": [_onehot(el[:, k], n_sel, dtype) for k in range(4)],
+        "arrays": arrays,
+        "WT": _wt(W, dtype),
+    }
+    if kind == "tets_strain":
+        out["smin"] = float(subset_data["sigma_min"])
+        out["smax"] = float(subset_data["sigma_max"])
+    return out
+
+
+def pack_verts_bending(subset_data: dict, lookup: np.ndarray,
+                       W: np.ndarray, dtype) -> dict:
+    """Bending packing: the weighted star Laplacian row of each constraint
+    as a dense (m, n_sel) gather matrix (``fused_operands`` keeps it as
+    sparse columns)."""
+    centers = lookup[np.asarray(subset_data["indices"])]
+    nbrs = lookup[np.asarray(subset_data["neighbors"])]
+    cots = np.asarray(subset_data["cotans"])
+    mask = np.asarray(subset_data["mask"])
+    n_sel = int(lookup.max()) + 1 if len(lookup) else 0
+    m = len(centers)
+    Wb = np.zeros((m, n_sel), dtype=dtype)
+    for i in range(m):
+        Wb[i, centers[i]] += cots[i, mask[i]].sum()
+        for j in np.nonzero(mask[i])[0]:
+            Wb[i, nbrs[i, j]] -= cots[i, j]
+    return {
+        "kind": "verts_bending",
+        "prevent_flips": bool(subset_data.get("prevent_bending_flips", True)),
+        "gathers": [Wb],
+        "arrays": [
+            np.asarray(subset_data["rest_curvature"]).astype(dtype)[None, :],
+            np.asarray(subset_data["tri_normal"]).T.astype(dtype),  # (3, m)
+            np.asarray(subset_data["dot_with_normal"]).astype(
+                dtype)[None, :],
+        ],
+        "WT": _wt(W, dtype),
     }
 
 
@@ -156,12 +244,19 @@ class FusedOperands:
     C_allT: torch.Tensor     # (3, r, g_total)
     inv3: torch.Tensor       # (3, r, r)
     WT_all: torch.Tensor     # (3, m_total, r)
-    gidx: torch.Tensor       # (g_total,) int32: Vc[:, c] = snT_sel[:, gidx[c]]
+    gptr: torch.Tensor       # (g_total + 1,) int32: Vc column c sums the
+    gcol: torch.Tensor       # (nnz,) int32     entries gptr[c]..gptr[c+1]
+    gw: torch.Tensor         # (nnz,) float64   (snT_sel column, weight)
     elem_kind: torch.Tensor  # (m_total,) int32
-    elem_g: torch.Tensor     # (3, m_total) int32 Vall column per vertex slot
+    elem_g: torch.Tensor     # (ELEM_SLOTS, m_total) int32 Vall column per slot
     elem_f: torch.Tensor     # (ELEM_ROWS, m_total) rest data
-    segments: tuple          # ((kind, first column, m, smin, smax), ...)
+    segments: tuple          # ((kind, first column, columns, smin, smax), ...)
     UG_allT: torch.Tensor    # (3, r, g_total) U_selT G_allT
+    # the sparse columns padded to their longest (the plain version's
+    # gather): (kmax, g_total) snT_sel columns and float64 weights, 0 past
+    # a column's end
+    gpad_col: torch.Tensor
+    gpad_w: torch.Tensor
 
     @property
     def r(self) -> int:
@@ -176,51 +271,104 @@ class FusedOperands:
         return self.WT_all.shape[1]
 
 
+def sparse_columns(G: np.ndarray):
+    """The columns of a gather matrix G (n_sel, g) as CSR -> (gptr (g + 1,),
+    gcol (nnz,), gw (nnz,) float64): per column its nonzero rows in
+    ascending order and their weights."""
+    cols, rows = np.nonzero(np.asarray(G).T)
+    gptr = np.searchsorted(cols, np.arange(G.shape[1] + 1)).astype(np.int32)
+    gw = np.asarray(G, dtype=np.float64)[rows, cols]
+    return gptr, rows.astype(np.int32), gw
+
+
+def _pad_columns(gptr, gcol, gw):
+    """The CSR columns padded to (kmax, g): column index 0 and weight 0 past
+    a column's end."""
+    counts = np.diff(gptr)
+    kmax = max(int(counts.max(initial=0)), 1)
+    g = len(counts)
+    pc = np.zeros((kmax, g), np.int64)
+    pw = np.zeros((kmax, g))
+    for k in range(kmax):
+        has = counts > k
+        pc[k, has] = gcol[gptr[:-1][has] + k]
+        pw[k, has] = gw[gptr[:-1][has] + k]
+    return pc, pw
+
+
+def _block_rows(name: str, block: bool, arrs: list):
+    """The fixed rows of a group's columns -> list over its row blocks of
+    {table row: value} (one block in row form): tris ``row_is0``, tets
+    (r0, r1), as the JAX emitters read them."""
+    if name == "tris_strain":
+        if block:
+            return [{10: 1.0}, {10: 0.0}]
+        return [{10: arrs[3][0]}]
+    if name in TET_KINDS:
+        if block:
+            return [{9: 1.0, 10: 0.0}, {9: 0.0, 10: 1.0}, {9: 0.0, 10: 0.0}]
+        return [{9: arrs[1][0], 10: arrs[2][0]}]
+    return [{}]
+
+
 def fused_operands(ops: dict, device, dtype) -> FusedOperands:
     """Cast ``prepare_fused_operands``' arrays (the port's or the JAX
     package's) once to ``dtype`` on ``device`` and build the element
-    table the kernel reads."""
+    table and the sparse gather columns the kernel reads.  Raises
+    ``NotImplementedError`` for a kind that has no emitter."""
     G = np.asarray(ops["G_allT"], dtype=np.float64)      # (n_sel, g_total)
-    if not (((G == 0) | (G == 1)).all() and ((G == 1).sum(0) == 1).all()):
-        raise ValueError("G_allT is not one-hot: only gather groups "
-                         "(tris_strain, edge_spring) are ported")
-    gidx = G.argmax(axis=0)
+    gptr, gcol, gw = sparse_columns(G)
     m_total = np.asarray(ops["WT_all"]).shape[1]
     kind = np.zeros(m_total, np.int32)
-    eg = np.zeros((3, m_total), np.int32)
+    eg = np.zeros((ELEM_SLOTS, m_total), np.int32)
     ef = np.zeros((ELEM_ROWS, m_total))
     segments = []
     col = 0
     off = 0
-    for (name, cnt, smin, smax, _pflips, block), slices in zip(
+    for (name, cnt, smin, smax, pflips, block), slices in zip(
             ops["layout"], ops["gather_slices"]):
         arrs = [np.asarray(a, dtype=np.float64)
                 for a in ops["flat_arrays"][off:off + cnt]]
         off += cnt
-        if name not in PORTED_KINDS or block:
-            raise NotImplementedError(
-                f"{name} ({'block' if block else 'row'} form) is not "
-                "ported yet (ROADMAP Queue A item 9)")
+        if name not in PORTED_KINDS:
+            raise NotImplementedError(f"no emitter for group kind {name}")
         m = slices[0][1]
-        cols = slice(col, col + m)
-        kind[cols] = KIND_CODES[name]
-        for s, (start, length) in enumerate(slices):
-            assert length == m
-            eg[s, cols] = start + np.arange(m)
-        if name == "tris_strain":
-            P0T, P1T, Dm, row_is0 = arrs
-            ef[0:3, cols] = P0T
-            ef[3:6, cols] = P1T
-            ef[6:10, cols] = Dm
-            ef[10, cols] = row_is0[0]
-            ef[11, cols] = smin
-            ef[12, cols] = smax
-        else:
-            ef[0, cols] = arrs[0][0]
-        segments.append((name, col, m, smin, smax))
-        col += m
+        rows = _block_rows(name, block, arrs)
+        start = col
+        for fixed in rows:
+            if col + m > m_total:
+                raise ValueError(f"layout covers more than the {m_total} "
+                                 "rhs columns")
+            cols = slice(col, col + m)
+            kind[cols] = KIND_CODES[name]
+            for s_, (first, length) in enumerate(slices):
+                assert length == m
+                eg[s_, cols] = first + np.arange(m)
+            if name == "tris_strain":
+                P0T, P1T, Dm = arrs[:3]
+                ef[0:3, cols] = P0T
+                ef[3:6, cols] = P1T
+                ef[6:10, cols] = Dm
+            elif name == "edge_spring":
+                ef[0, cols] = arrs[0][0]
+            elif name in TET_KINDS:
+                ef[0:9, cols] = arrs[0]
+            else:   # verts_bending
+                rest, tri_n, dot_n = arrs
+                ef[0, cols] = rest[0]
+                ef[1:4, cols] = tri_n
+                ef[4, cols] = dot_n[0]
+                ef[5, cols] = float(bool(pflips))
+            for row, v in fixed.items():
+                ef[row, cols] = v
+            if smin is not None:
+                ef[11, cols] = smin
+                ef[12, cols] = smax
+            col += m
+        segments.append((name, start, col - start, smin, smax))
     if col != m_total:
         raise ValueError(f"layout covers {col} of {m_total} rhs columns")
+    pc, pw = _pad_columns(gptr, gcol, gw)
 
     def t(x, dt=dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dt,
@@ -230,25 +378,45 @@ def fused_operands(ops: dict, device, dtype) -> FusedOperands:
         C_allT=t(np.asarray(ops["C_allT"], np.float64)),
         inv3=t(np.asarray(ops["inv3"], np.float64)),
         WT_all=t(np.asarray(ops["WT_all"], np.float64)),
-        gidx=t(gidx, torch.int32), elem_kind=t(kind, torch.int32),
+        gptr=t(gptr, torch.int32), gcol=t(gcol, torch.int32),
+        gw=t(gw, torch.float64), elem_kind=t(kind, torch.int32),
         elem_g=t(eg, torch.int32), elem_f=t(ef),
         segments=tuple(segments),
-        UG_allT=t(np.asarray(ops["UG_allT"], np.float64)))
+        UG_allT=t(np.asarray(ops["UG_allT"], np.float64)),
+        gpad_col=t(pc, torch.long), gpad_w=t(pw, torch.float64))
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
+def gather_vc(fo: FusedOperands, x):
+    """``x_sel G_allT`` (..., 3, g_total) of x (..., 3, n), n >= n_sel, the
+    plain version of the kernels' ``gather_col``: each column the weighted
+    sum of its entries in float64, in the kernel's order, rounded to x's
+    dtype (a one-hot column: x at its vertex, bit for bit)."""
+    x64 = x.double()
+    acc = fo.gpad_w[0] * x64[..., fo.gpad_col[0]]
+    for k in range(1, fo.gpad_col.shape[0]):
+        acc = acc + fo.gpad_w[k] * x64[..., fo.gpad_col[k]]
+    return acc.to(x.dtype)
+
+
+def _row(x, i):
+    """Row i of (..., 3, m) values as (..., 1, m)."""
+    return x[..., i:i + 1, :]
+
+
 def _sum_dims(x, y):
     """sum_d x[d] * y[d] for (..., 3, m) rows."""
-    return (x[..., 0:1, :] * y[..., 0:1, :] + x[..., 1:2, :] * y[..., 1:2, :]
-            + x[..., 2:3, :] * y[..., 2:3, :])
+    return (_row(x, 0) * _row(y, 0) + _row(x, 1) * _row(y, 1)
+            + _row(x, 2) * _row(y, 2))
 
 
 def _tri_p(gathered, arrays, smin, smax):
-    """Pre-gathered vertex slices -> one projection row per element,
-    (3, m) (pallas_reduced.py ``_tri_p``, row form)."""
+    """Pre-gathered vertex slices -> one projection row per column, (3, m)
+    (pallas_reduced.py ``_tri_p``; a block column is a row-form column with
+    a fixed ``row_is0``)."""
     V1, V2, V3 = gathered
     P0T, P1T, Dm, row_is0 = arrays
     e1 = V2 - V1
@@ -271,8 +439,8 @@ def _spring_p(gathered, arrays):
     V0, V1 = gathered
     (rest,) = arrays
     spring = V1 - V0                                   # (..., 3, m)
-    length = torch.sqrt(spring[..., 0:1, :] ** 2 + spring[..., 1:2, :] ** 2
-                        + spring[..., 2:3, :] ** 2)    # (..., 1, m)
+    length = torch.sqrt(_row(spring, 0) ** 2 + _row(spring, 1) ** 2
+                        + _row(spring, 2) ** 2)        # (..., 1, m)
     keep = length > 0
     inv_len = torch.where(keep, 1.0 / torch.clamp(length, min=1e-30),
                           torch.zeros_like(length))
@@ -281,22 +449,69 @@ def _spring_p(gathered, arrays):
                        torch.zeros_like(spring))
 
 
+def _tet_p(gathered, arrays, kind, smin, smax):
+    """tets_strain / tets_deformation_gradient rows (pallas_reduced.py
+    ``_tet_p``): the rows blended as r0 row0 + r1 row1 + r2 row2,
+    r2 = 1 - r0 - r1 (a block column's (r0, r1) selects one row exactly)."""
+    V1, V2, V3, V4 = gathered
+    Dm, r0, r1 = arrays
+    ds = [V1 - V4, V2 - V4, V3 - V4]
+    D = [Dm[k:k + 1] for k in range(9)]
+    F = tuple(_row(ds[0], i) * D[0 + j] + _row(ds[1], i) * D[3 + j]
+              + _row(ds[2], i) * D[6 + j]
+              for i in range(3) for j in range(3))
+    if kind == "tets_strain":
+        P9 = tet_strain_fhat(F, smin, smax)
+        rows = [P9[0:3], P9[3:6], P9[6:9]]
+    else:
+        R9 = polar_rotation(F)
+        rows = [(R9[0], R9[3], R9[6]), (R9[1], R9[4], R9[7]),
+                (R9[2], R9[5], R9[8])]
+    r2 = 1.0 - r0 - r1
+    return torch.cat([r0 * rows[0][d] + r1 * rows[1][d] + r2 * rows[2][d]
+                      for d in range(3)], dim=-2)
+
+
+def _bending_p(gathered, arrays):
+    """verts_bending rows (pallas_reduced.py ``_bending_p``), the flip
+    prevention per column."""
+    (star,) = gathered
+    rest, tri_n, dot_n, pflips = arrays
+    norm = torch.sqrt(_row(star, 0) ** 2 + _row(star, 1) ** 2
+                      + _row(star, 2) ** 2)
+    scale = rest / torch.clamp(norm, min=1e-30)
+    corr = torch.where(norm < 1e-10, tri_n * rest, star * scale)
+    dots = _sum_dims(tri_n, corr)
+    flip = (pflips > 0) & (norm > 1e-5) & (dots * dot_n < 0)
+    return torch.where(flip, -corr, corr)
+
+
 def _projection_rows(fo: FusedOperands, Vall):
-    """pT (..., 3, m_total): every element's projection row, read from the
+    """pT (..., 3, m_total): every column's projection row, read from the
     element table."""
     eg = fo.elem_g.long()
     ef = fo.elem_f
     parts = []
     for name, c0, m, smin, smax in fo.segments:
         cols = slice(c0, c0 + m)
+
+        def slots(n):
+            return [Vall[..., eg[s, cols]] for s in range(n)]
+
         if name == "tris_strain":
-            gathered = [Vall[..., eg[s, cols]] for s in range(3)]
-            arrays = [ef[0:3, cols], ef[3:6, cols], ef[6:10, cols],
-                      ef[10:11, cols]]
-            parts.append(_tri_p(gathered, arrays, smin, smax))
+            parts.append(_tri_p(slots(3), [ef[0:3, cols], ef[3:6, cols],
+                                           ef[6:10, cols], ef[10:11, cols]],
+                                smin, smax))
+        elif name == "edge_spring":
+            parts.append(_spring_p(slots(2), [ef[0:1, cols]]))
+        elif name in TET_KINDS:
+            parts.append(_tet_p(slots(4), [ef[0:9, cols], ef[9:10, cols],
+                                           ef[10:11, cols]], name, smin,
+                                smax))
         else:
-            gathered = [Vall[..., eg[s, cols]] for s in range(2)]
-            parts.append(_spring_p(gathered, [ef[0:1, cols]]))
+            parts.append(_bending_p(slots(1), [ef[0:1, cols], ef[1:4, cols],
+                                               ef[4:5, cols],
+                                               ef[5:6, cols]]))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
@@ -329,11 +544,11 @@ def fused_reduced_iterations_plain(fo: FusedOperands, snT_sel, rb_const,
                                    num_iterations: int):
     """Plain version of kernel 1: u (..., 3, r) from snT_sel (..., 3, n_sel)
     and rb_const (..., 3, r); a leading axis is a batch of sims (the plain
-    version of the batched build).  ``Vc = snT_sel G_allT`` is the index
-    gather that the one-hot product equals exactly."""
+    version of the batched build).  ``Vc = snT_sel G_allT`` is taken by
+    the sparse columns (:func:`gather_vc`)."""
     if snT_sel.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
-    Vc = snT_sel[..., fo.gidx.long()]
+    Vc = gather_vc(fo, snT_sel)
     return solve_plain(fo, iterate_plain(fo, Vc, rb_const, num_iterations))
 
 
@@ -344,8 +559,7 @@ def fused_reduced_iterations_plain(fo: FusedOperands, snT_sel, rb_const,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = (_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             _I, _P)
+_ARGTYPES = (_P, _I, _L) + (_P,) * 11 + (_I,) * 5 + (_P,)
 
 
 def _check_cuda_operands(fo: FusedOperands, tensors: dict):
@@ -384,7 +598,8 @@ def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int):
     code = fn(_build.ptr(snT_sel), int(snT_sel.stride(-2)), sim_sn,
               _build.ptr(rb_const), _build.ptr(fo.C_allT),
               _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
-              _build.ptr(fo.gidx), _build.ptr(fo.elem_kind),
+              _build.ptr(fo.gptr), _build.ptr(fo.gcol), _build.ptr(fo.gw),
+              _build.ptr(fo.elem_kind),
               _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(u),
               r, g, m, int(num_iterations), nb,
               _build.stream_of(rb_const.device))

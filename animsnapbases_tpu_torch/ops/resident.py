@@ -169,7 +169,7 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = ((_P,) * 16 + (_I,) * 7 + (_D, _D, _I, _D, _P))
+_ARGTYPES = ((_P,) * 18 + (_I,) * 7 + (_D, _D, _I, _D, _P))
 
 
 def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
@@ -225,7 +225,8 @@ def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
               _build.ptr(rb_extra), _build.ptr(ro.U_liftT),
               _build.ptr(ro.ut_acT), _build.ptr(fo.C_allT),
               _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
-              _build.ptr(fo.gidx), _build.ptr(fo.elem_kind),
+              _build.ptr(fo.gptr), _build.ptr(fo.gcol), _build.ptr(fo.gw),
+              _build.ptr(fo.elem_kind),
               _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(sn),
               _build.ptr(partial), _build.ptr(u),
               n, r, fo.g_total, fo.m_total, int(num_steps),

@@ -1,10 +1,12 @@
 """Deformable model: simulation state + constraint-group management.
 
 Counterpart of ``animsnapbases_tpu/sim/model.py`` for what the reduced
-serving path needs: pinning (``fix``, mass 1e10), positional targets, and
-the ``tris_strain`` / ``edge_spring`` group constructors.  The state stays
-host numpy in float64, as in the JAX package; the solver casts it once
-per call to the working dtype on its device.
+serving path needs: pinning (``fix``, mass 1e10) with the side and corner
+fixers, positional targets, and the constructors of the five constraint
+group kinds (``tris_strain``, ``edge_spring``, ``tets_strain``,
+``tets_deformation_gradient``, ``verts_bending`` with its area masses).
+The state stays host numpy in float64, as in the JAX package; the solver
+casts it once per call to the working dtype on its device.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class DeformableModel:
         self.velocities = np.zeros_like(self.positions)
 
         self.fixed_flags = np.zeros(n, dtype=bool)
+        self.threshold_fixing_ratio = 0.01
         self.groups: dict[str, G.ConstraintGroup] = {}
         # dynamic positional constraints kept as host lists
         self._positional: list[dict] = []
@@ -49,6 +52,51 @@ class DeformableModel:
     def fix(self, i):
         self.fixed_flags[i] = True
         self.mass[i] = 1e10
+
+    # ------------------------------------------------------------------
+    # side / corner fixers
+    # ------------------------------------------------------------------
+
+    def compute_cloth_corner_indices(self):
+        """The surface vertices within ``threshold_fixing_ratio`` of the
+        x and y extents, per side (left, right, bottom, top)."""
+        x, y = self.positions[:, 0], self.positions[:, 1]
+        x_thresh = self.threshold_fixing_ratio * (x.max() - x.min())
+        y_thresh = self.threshold_fixing_ratio * (y.max() - y.min())
+        surface = (np.unique(self.faces.flatten()) if self.faces.size
+                   else np.arange(len(x)))
+        self._side_surface_verts = {}
+        for side, mask in (
+                ("left", x <= x.min() + x_thresh),
+                ("right", x >= x.max() - x_thresh),
+                ("bottom", y <= y.min() + y_thresh),
+                ("top", y >= y.max() - y_thresh)):
+            self._side_surface_verts[side] = np.intersect1d(
+                np.where(mask)[0], surface)
+
+    def fix_side_vertices(self, threshold=None, side="left", axis=0):
+        """Pin the vertices below (``side="left"``) or above ``threshold``
+        along ``axis`` (default: the mean)."""
+        V = self.positions
+        if threshold is None:
+            threshold = V[:, axis].mean()
+        if side == "left":
+            sel = np.where(V[:, axis] < threshold)[0]
+        else:
+            sel = np.where(V[:, axis] > threshold)[0]
+        for i in sel:
+            self.fix(i)
+
+    def fix_surface_side_vertices(self, side="left", return_target=False):
+        """Pin the surface vertices of one side
+        (:meth:`compute_cloth_corner_indices`)."""
+        if not hasattr(self, "_side_surface_verts"):
+            self.compute_cloth_corner_indices()
+        targets = self._side_surface_verts.get(side, [])
+        for vi in targets:
+            self.fix(vi)
+        if return_target:
+            return targets
 
     # ------------------------------------------------------------------
     # constraint constructors
@@ -102,3 +150,33 @@ class DeformableModel:
     def add_tri_constrain_strain(self, sigma_min, sigma_max, wi=1e6):
         self.groups["tris_strain"] = G.build_tris_strain(
             self.faces, wi, self.positions, sigma_min, sigma_max)
+
+    def add_tet_constrain_strain(self, sigma_min, sigma_max, wi=1e6):
+        self.groups["tets_strain"] = G.build_tets_strain(
+            self.elements, wi, self.positions, sigma_min, sigma_max)
+
+    def add_tet_constrain_deformation_gradient(self, wi=1e6):
+        self.groups["tets_deformation_gradient"] = (
+            G.build_tets_deformation_gradient(self.elements, wi,
+                                              self.positions))
+
+    def add_vertex_bending_constraint(self, wi=1e6, prevent_bending_flips=True,
+                                      flat_bending=False):
+        voronoi = self.vertex_masses(self.faces, self.positions)
+        self.groups["verts_bending"] = G.build_verts_bending(
+            self.positions, self.faces, wi, voronoi, prevent_bending_flips,
+            flat_bending)
+
+    def vertex_masses(self, triangles, positions):
+        """Per-vertex area masses (a third of each incident triangle),
+        floored at 1e-7."""
+        v = np.zeros(len(positions))
+        p = positions
+        f = np.asarray(triangles, dtype=np.int64)
+        areas = 0.5 * np.linalg.norm(
+            np.cross(p[f[:, 1]] - p[f[:, 0]], p[f[:, 2]] - p[f[:, 0]]),
+            axis=1) / 3.0
+        for k in range(3):
+            np.add.at(v, f[:, k], areas)
+        v[v < 1e-7] = 1e-7
+        return v

@@ -1,8 +1,10 @@
 """Reduced projective-dynamics solver: the serving path.
 
 Counterpart of ``animsnapbases_tpu/sim/reduced.py`` for the fully-reduced
-configuration (every constraint group hyper-reduced in DEIM row form,
-positions reduced to r modes per dim):
+configuration (every constraint group hyper-reduced, in DEIM row form or
+in block form, positions reduced to r modes per dim; the five group kinds
+``tris_strain``, ``edge_spring``, ``tets_strain``,
+``tets_deformation_gradient`` and ``verts_bending``):
 
     DeformableModel -> AnimSnapBasesSolver(args).set_model(model)
         -> prepare(args) -> step() / run_steps()
@@ -59,8 +61,6 @@ Not ported yet, and raising ``NotImplementedError`` in ``step`` /
 
 * groups that are not fully reduced, or no position reduction
   (ROADMAP Queue A items 4 and 7);
-* group kinds other than ``tris_strain`` / ``edge_spring``, and block-form
-  groups (Queue A item 9);
 * animated positional targets (Queue A item 10);
 * self-collision (Queue A item 12);
 * ``run_steps(record=True)`` (Queue A item 5);
@@ -96,12 +96,14 @@ from animsnapbases_tpu_torch.ops.affine_chunked import (
     affine_chunked_batched,
 )
 from animsnapbases_tpu_torch.ops.fused_reduced import (
-    PORTED_KINDS,
+    TET_KINDS,
     fused_operands,
     fused_reduced_iterations,
     fused_reduced_iterations_batched,
     pack_edge_spring,
+    pack_tets,
     pack_tris_strain,
+    pack_verts_bending,
     prepare_fused_operands,
 )
 from animsnapbases_tpu_torch.ops.resident import (
@@ -434,13 +436,6 @@ class AnimSnapBasesSolver:
                     "fully-reduced path is ported (ROADMAP Queue A item 4)")
         if not self._reduced_groups:
             return "no hyper-reduced group (ROADMAP Queue A item 4)"
-        for name, rg in self._reduced_groups.items():
-            if name not in PORTED_KINDS:
-                return (f"group kind {name} is not ported yet (ROADMAP "
-                        "Queue A item 9)")
-            if rg.row_select is None:
-                return (f"block-form {name} is not ported yet (ROADMAP "
-                        "Queue A item 9)")
         return None
 
     def _build_step(self):
@@ -459,8 +454,14 @@ class AnimSnapBasesSolver:
             if name == "tris_strain":
                 packed.append(pack_tris_strain(sub, ident, rg.W,
                                                rg.row_select, np.float64))
-            else:
+            elif name == "edge_spring":
                 packed.append(pack_edge_spring(sub, ident, rg.W, np.float64))
+            elif name in TET_KINDS:
+                packed.append(pack_tets(name, sub, ident, rg.W,
+                                        rg.row_select, np.float64))
+            else:
+                packed.append(pack_verts_bending(sub, ident, rg.W,
+                                                 np.float64))
         U_selT = np.ascontiguousarray(
             self.U[union].transpose(2, 1, 0)).astype(np.float64)
         ops = prepare_fused_operands(packed, U_selT, self._inv_np)

@@ -48,8 +48,23 @@ version.  Phases, each of which fails the run when it fails:
    5's whole-batch k against the sims' solo k, one step of kernels 2, 3
    (both builds) and 5 against the plain versions on both batches; times at
    1 to 128 sims, with torch.profiler breakdowns;
+2-4 for the tet, bending and block-form kinds (:func:`tet_bending`): five
+   scenes at full width, from the reference's JSON configs (the tet bar of
+   ``bar_automated_deformationgradient.json`` with tets_deformation_gradient
+   in DEIM row form and in block form, the same bar with tets_strain and
+   verts_bending, and the bench cloth with the bending group of
+   ``cloth_automated_bend_spring_strain.json`` in row form and in block
+   form), each through ``prepare -> step -> run_steps(64)`` (kernels 1 and
+   5), a contact window (kernels 5 and 3's contact-mode build),
+   ``make_batched_step`` and ``make_batched_run`` at 8 sims, each a counted
+   path, the bar with tets_strain and verts_bending also through every tier
+   switch (kernels 4, 3 lean and 2) and the batched routes of kernels 3
+   lean, 5 and 2; kernel 1 held against float64, kernels 2-5 against their
+   plain versions step by step, every batched sim bit for bit against its
+   solo call; times and bounds per scene;
 5. the ``kernels`` line (eleven entries: six solo kernels, five batched
-   builds), then the last line ``{"ok": true, "device": {...}}``.
+   builds, each with its times on the new scenes under ``scenes``), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -80,11 +95,22 @@ import numpy as np
 # the HBM rate: NVIDIA publishes no L2 rate.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
-# floating-point operations of one projection row, counted from
-# csrc/iteration.cuh (the 2x2 clamp with its two half-angle steps, and the
-# spring row)
+# floating-point operations of one projection row (one column of the
+# element table; a block-form element has p of them), counted from
+# csrc/iteration.cuh and csrc/strain3d.cuh: the 2x2 clamp with its two
+# half-angle steps; the spring row; the tet row: F from the edge vectors
+# (54), F^T F (30), 5 sweeps of 3 Jacobi rotations at ~57 each (the
+# rotation's 2 divisions and 2 square roots, the 2x2 update, the two
+# off-diagonal entries and the 3x2 column update of V: 855), the 3-sort
+# (24), the 3 singular values, F V (30), Gram-Schmidt and the cross
+# product (36), U diag(d) V^T (72) and the row blend (15); the bending row
 TRI_FLOPS = 110
 SPRING_FLOPS = 20
+TET_FLOPS = 1120
+BENDING_FLOPS = 25
+KIND_FLOPS = {"tris_strain": TRI_FLOPS, "edge_spring": SPRING_FLOPS,
+              "tets_strain": TET_FLOPS, "tets_deformation_gradient":
+              TET_FLOPS, "verts_bending": BENDING_FLOPS}
 
 SCENE_STEPS = 64
 ITERATIONS = 10
@@ -160,6 +186,25 @@ CRUMPLE = 64
 CRUMPLE_STEP = 0.01
 
 
+# the scenes of the tet, bending and block-form kinds
+# (:func:`tet_bending_scenes`):
+# the reference's sim configs they take their settings from, the bar's
+# size, the bench's widths (bench.py: 30 modes per group, 4/3
+# oversampled to 40 rows; damping), the depth of their step-by-step holds,
+# the size of their batches (make_batched_run) and the scene that takes
+# every tier switch
+BAR_DEMO = "configs/demos/bar_automated_deformationgradient.json"
+CLOTH_DEMO = "configs/demos/cloth_automated_bend_spring_strain.json"
+BAR_SIZE = (40, 5, 5)
+BAR_LIFT = 6.0
+BENCH_MODES = 30
+OVERSAMPLE = 4.0 / 3.0
+BENCH_DAMPING = 2e-3
+NEW_DEPTH = 16
+NEW_BATCH = 8
+SWITCH_SCENE = "bar, strain and bending"
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -189,6 +234,100 @@ def bench_scene(DeformableModel, cloth_model):
     for vi in top:
         model.fix(vi)
     return model
+
+
+def rescale(V):
+    """Into the unit box around the origin, as the reference's scenarios
+    normalize a mesh (animsnapbases_tpu/demos/scenarios.py ``rescale``)."""
+    V = V - V.min(axis=0)
+    scale = (V.max(axis=0) - V.min(axis=0)).max()
+    return V / scale - 0.5 if scale > 0 else V
+
+
+def bar_scene(args, kinds):
+    """The reference's bar (``bar_model`` at the demo's 40 x 5 x 5, 1,000
+    vertices, 3,120 tets, 1,312 surface triangles), normalized into the
+    unit box and lifted 1 unit as the demo lifts it, and BAR_LIFT more (with
+    random bases its free vertices fall almost freely, 5.3 units in the
+    main path's 65 steps, which tier 1 must certify), masses from the
+    demo, both side surfaces pinned (the demo's setup frames, before its
+    releases at frames 40 and 80), floor on; ``kinds`` maps each group to
+    add to its weight: tets_deformation_gradient, tets_strain (the demo's
+    sigma range) or verts_bending (on the surface triangles, flips
+    prevented)."""
+    from animsnapbases_tpu_torch.geometry.procedural import bar_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    V, T, F, _ = bar_model(*BAR_SIZE)
+    model = DeformableModel(rescale(V), F, elements=T,
+                            masses=np.full(len(V), args.mass_per_particle),
+                            floor_collision=True,
+                            init_height_shift=1.0 + BAR_LIFT)
+    model.fix_surface_side_vertices(side="left")
+    model.fix_surface_side_vertices(side="right")
+    for name, wi in kinds.items():
+        if name == "tets_deformation_gradient":
+            model.add_tet_constrain_deformation_gradient(wi)
+        elif name == "tets_strain":
+            model.add_tet_constrain_strain(args.sigma_min, args.sigma_max, wi)
+        else:
+            model.add_vertex_bending_constraint(wi)
+    return model
+
+
+def bending_cloth(args):
+    """The bench cloth (:func:`bench_scene`) with the bending group of the
+    reference's bend-spring-strain cloth demo beside its tris_strain and
+    edge_spring (flips prevented).  Flat at rest: its rest curvature is 0,
+    so every bending row projects to 0."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    model = bench_scene(DeformableModel, cloth_model)
+    model.add_vertex_bending_constraint(args.vert_bending_constraint_wi)
+    return model
+
+
+def tet_bending_scenes():
+    """The scenes of the tet, bending and block-form kinds: (label, sim
+    args, model builder, {group: components}, block form, damping).  The
+    weights, sigma range, masses, dt and component counts are the
+    reference's JSON files' own: the bar demo
+    (``bar_automated_deformationgradient.json``: tets_deformation_gradient
+    at wi = 1e8, 70 components; its strain_limit wi = 1e6 and sigma
+    0.99-1.01 for tets_strain), the bar's geom example (block form, p = 3
+    rows per selected tet) and the bend-spring-strain cloth demo
+    (verts_bending at wi = 0.1, 25 components).  Cuts: random bases from
+    fixed seeds (r = 64, zero at the pinned vertices), every group
+    oversampled OVERSAMPLE x (square DEIM on tets is chaotic at such
+    settings; the JAX package's own tet tests oversample), the bench's
+    tris_strain and edge_spring at BENCH_MODES modes beside the bending."""
+    from animsnapbases_tpu_torch.config.sim_config import SimConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    bar = SimConfig(os.path.join(root, BAR_DEMO)).build_args("Bar")
+    cloth = SimConfig(os.path.join(root, CLOTH_DEMO)).build_args("Cloth")
+    defgrad = {"tets_deformation_gradient":
+               bar.deformation_gradient_constraint_wi}
+    holding = {"tets_strain": bar.strain_limit_constraint_wi,
+               "verts_bending": bar.vert_bending_constraint_wi}
+    tet_modes = bar.tet_deformation_num_components
+    bend_modes = cloth.vert_bending_num_components
+    cloth_modes = {"tris_strain": BENCH_MODES, "edge_spring": BENCH_MODES,
+                   "verts_bending": bend_modes}
+    return [
+        ("bar, row form", bar, lambda: bar_scene(bar, defgrad),
+         {"tets_deformation_gradient": tet_modes}, False, bar.damping),
+        ("bar, block form", bar, lambda: bar_scene(bar, defgrad),
+         {"tets_deformation_gradient": tet_modes}, True, bar.damping),
+        ("bar, strain and bending", bar, lambda: bar_scene(bar, holding),
+         {"tets_strain": tet_modes, "verts_bending": bend_modes}, False,
+         bar.damping),
+        ("bending cloth", cloth, lambda: bending_cloth(cloth), cloth_modes,
+         False, BENCH_DAMPING),
+        ("bending cloth, block form", cloth, lambda: bending_cloth(cloth),
+         cloth_modes, True, BENCH_DAMPING),
+    ]
 
 
 def small_scene(DeformableModel, cloth_model):
@@ -297,19 +436,23 @@ def as_f64(fo):
 
 def k1_cost(fo, n_sel, iters, nb=1):
     """(bytes, {dtype: ops}) of one kernel-1 call for ``nb`` sims: every
-    input read once, the output written once; the loop's operands are
-    shared by the sims, the gathered state, rb_const and u are each sim's."""
+    input read once, the output written once; the loop's operands (the
+    element table and the sparse gather columns among them) are shared by
+    the sims, the gathered state, rb_const and u are each sim's.  The
+    float64 ops are the star gather Vc = snT_sel G_allT (a multiply-add per
+    entry and dim)."""
     it = fo.C_allT.element_size()
     r, g, m = fo.r, fo.g_total, fo.m_total
     nbytes = (it * (nb * (3 * n_sel + 3 * r + 3 * r) + fo.C_allT.numel()
                     + fo.inv3.numel() + fo.WT_all.numel()
                     + fo.elem_f.numel())
-              + 4 * (fo.gidx.numel() + fo.elem_kind.numel()
-                     + fo.elem_g.numel()))
-    elem = sum(m_ * (TRI_FLOPS if k == "tris_strain" else SPRING_FLOPS)
-               for k, _, m_, _, _ in fo.segments)
+              + 4 * (fo.gptr.numel() + fo.gcol.numel()
+                     + fo.elem_kind.numel() + fo.elem_g.numel())
+              + 8 * fo.gw.numel())
+    elem = sum(m_ * KIND_FLOPS[k] for k, _, m_, _, _ in fo.segments)
     ops = iters * (2 * 3 * r * g + 2 * 3 * m * r + elem) + 2 * 3 * r * r
-    return nbytes, {"float32": nb * ops}
+    return nbytes, {"float32": nb * ops,
+                    "float64": nb * 2 * 3 * fo.gw.numel()}
 
 
 def k2_cost(ro, steps, iters, nb=1):
@@ -326,7 +469,7 @@ def k2_cost(ro, steps, iters, nb=1):
     step_bytes = (ro.U_liftT.element_size() * (ro.U_liftT.numel()
                                                + ro.ut_acT.numel())
                   + nb * it * 3 * n * 5 + k1_bytes)
-    ops = {"float64": steps * nb * 2 * 3 * r * n,
+    ops = {"float64": steps * (nb * 2 * 3 * r * n + k1_ops["float64"]),
            "float32": steps * (nb * (2 * 3 * r * n + 3 * n * 8)
                                + k1_ops["float32"])}
     return steps * step_bytes, ops
@@ -574,6 +717,7 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
         advance,
         gathered_values,
     )
+    from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc
     from animsnapbases_tpu_torch.ops.resident import force_term, project
 
     class GivenU(AffineContext):
@@ -588,8 +732,7 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
     fa = force_term(ro, F_)
     ctx = AffineContext(ao, fa)
     given = GivenU(ao, fa, ctx.bu_fa)
-    gidx = ao.fused.gidx.long()
-    b0s, b1s, fas = P[:, gidx], V[:, gidx], fa[:, gidx]
+    b0s, b1s, fas = (gather_vc(ao.fused, x) for x in (P, V, fa))
     bu0, bu1 = project(ro, P), project(ro, V)
     # the float64 plain step, the matrices kept in their storage type
     ro64 = dataclasses.replace(ro, fused=as_f64(ro.fused),
@@ -619,7 +762,8 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
                 else None)
         _, _, wp, _, avd, asn, wsn = cx.predictor(st)
         if kernel == 5:
-            cols = (st.b0[:, gidx], st.b1[:, gidx], cx.fa[:, gidx])
+            cols = (gather_vc(cx.fo, st.b0), gather_vc(cx.fo, st.b1),
+                    gather_vc(cx.fo, cx.fa))
             cx.gathered_step(st, asn, wsn, avd, wp,
                              gathered_values(cx.ao, asn, wsn, *cols), rb,
                              ITERATIONS)
@@ -1005,6 +1149,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         fused_reduced_iterations,
         fused_reduced_iterations_batched,
         fused_reduced_iterations_plain,
+        gather_vc,
     )
     from animsnapbases_tpu_torch.ops.resident import (
         force_term,
@@ -1243,10 +1388,9 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     # kernel 5: the chunk launch against the solo chunk per sim, the
     # whole-batch k against the sims' solo tier-1 k, each sim committed to
     # exactly k steps
-    gidx = fo.gidx.long()
     fa = force_term(ro, Fm)
     bu0, bu1, b0s, b1s = chunk_anchors(ao, Pm, Vm)
-    fas, bufa = fa[..., gidx], project(ro, fa)
+    fas, bufa = gather_vc(fo, fa), project(ro, fa)
     ymm = torch.empty(MIXED, 6, device=Pm.device)
     ymm1 = torch.empty(MIXED, 6, device=Pm.device)
     chunk_in = (Pm, Vm, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa)
@@ -1514,6 +1658,494 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     ]
 
 
+# the tier switches every run of the bench scene takes, and the switch scene
+# of the new kinds: (label, switches, tier-1 kernel, contact-tier kernel)
+TIER_SWITCHES = (
+    ("lean contact tier", {"resident_contact_mode": False},
+     "affine_chunked", "resident_affine"),
+    ("resident_chunked_tier1=False",
+     {"resident_chunked_tier1": False}, "resident_affine_exit",
+     "resident_affine"),
+    ("resident_contact_mode=True",
+     {"resident_chunked_tier1": True, "resident_contact_mode": True},
+     "affine_chunked", "resident_affine_contact"),
+    ("resident_contact_mode=True, resident_chunked_tier1=False",
+     {"resident_chunked_tier1": False}, None, "resident_affine_contact"),
+    ("CHUNKED_TIER1_MIN_VERTS=0",
+     {"resident_chunked_tier1": True, "resident_contact_mode": False,
+      "CHUNKED_TIER1_MIN_VERTS": 0},
+     "affine_chunked", "resident_multistep"))
+
+
+def scene_batch(main_end, contact_in, f):
+    """A batch of NEW_BATCH sims of one scene: the first half ring down from
+    the main path's end state (sim b at (1 - SPREAD b) x a tenth of its
+    velocity, no force), the second half in the contact window under
+    gravity (``f``), sim j of them lifted CONTACT_STEP j more."""
+    half = NEW_BATCH // 2
+    P0, V0 = main_end
+    Pc, Vc = contact_in
+    pos = np.stack([P0] * half + [Pc] * (NEW_BATCH - half))
+    vel = np.stack([(1.0 - SPREAD * b) * 0.1 * V0 for b in range(half)]
+                   + [Vc] * (NEW_BATCH - half))
+    fs = np.zeros_like(pos)
+    for j, b in enumerate(range(half, NEW_BATCH)):
+        pos[b][:, 1] += CONTACT_STEP * j
+        fs[b] = f
+    return pos, vel, fs
+
+
+def kind_columns(fo):
+    """{kind: table columns} of the fused operands, block form included."""
+    out = {}
+    for name, _, cols, _, _ in fo.segments:
+        out[name] = out.get(name, 0) + cols
+    return out
+
+
+def star_sum_f32(fo, x):
+    """``x_sel G_allT`` with every column's sum taken in float32, in the
+    kernel's order (the JAX kernel's precision), beside :func:`gather_vc`'s
+    float64 sum."""
+    acc = fo.gpad_w[0].float() * x[..., fo.gpad_col[0]]
+    for k in range(1, fo.gpad_col.shape[0]):
+        acc = acc + fo.gpad_w[k].float() * x[..., fo.gpad_col[k]]
+    return acc
+
+
+def tet_bending(torch, counted, paths):
+    """The scenes of the tet, bending and block-form kinds
+    (:func:`tet_bending_scenes`) on the card.  Each scene goes through
+    ``prepare -> step -> run_steps(SCENE_STEPS)`` on the default tiers
+    (kernel 1, then kernel 5, which must certify the window), then a
+    contact window (kernel 5 exits, kernel 3's contact-mode build finishes
+    it), then ``make_batched_step`` and ``make_batched_run`` at NEW_BATCH
+    sims (batched kernels 1 and 3'), each a counted path; the switch scene
+    also takes every tier switch (kernels 4, 3 lean and 2) and their
+    batched routes (batched kernels 3 lean, 5 and 2).  Holds: kernel 1
+    against a float64 step (ACC_RATIO); kernels 5 and 3' (and on the switch
+    scene 3 lean and 4) in the steps one call carries, and kernel 2 step by
+    step, against their plain versions at STEP_TOL of each step's size with
+    the branch-step rule (:func:`carried_steps`, :func:`step_by_step`),
+    NEW_DEPTH steps; every batched sim bit for bit against its solo call.
+    Times and bounds of each kernel on each scene.  Returns {kernel name:
+    {scene: entry}} for the kernels line."""
+    from animsnapbases_tpu_torch.device import resolve_device
+    from animsnapbases_tpu_torch.ops.affine import (
+        FLAG_SLOTS,
+        _launch_affine,
+        resident_affine,
+        resident_affine_batched,
+        resident_affine_contact,
+        resident_affine_contact_batched,
+        resident_affine_contact_plain,
+        resident_affine_exit,
+        resident_affine_exit_plain,
+        resident_affine_plain,
+    )
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        _chunk_launch,
+        affine_chunked,
+        affine_chunked_batched,
+        affine_chunked_plain,
+        chunk_anchors,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+        fused_reduced_iterations_batched,
+        fused_reduced_iterations_plain,
+        gather_vc,
+    )
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        predict,
+        project,
+        resident_multistep,
+        resident_multistep_batched,
+        resident_multistep_plain,
+    )
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+
+    per = {}
+
+    def note(name, scene, err, ms, plain_ms, bound, by, **extra):
+        per.setdefault(name, {})[scene] = {
+            "launches": paths[launch_of[name]][name],
+            "launches_path": launch_of[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, **extra}
+
+    dev = resolve_device("cuda")
+    for label, args, build, comps, block, damping in tet_bending_scenes():
+        t0 = time.perf_counter()
+        model = build()
+        solver = scene_solver(
+            synthetic_reduced_solver, model, K=BENCH_MODES, r=64,
+            damping=damping, device=dev, dtype=torch.float32,
+            matmul_dtype=torch.bfloat16, block=block, oversample=OVERSAMPLE,
+            components=comps)
+        ro, ao = solver._resident, solver._affine
+        fo = ro.fused
+        cols = kind_columns(fo)
+        log(f"[2] {label}: prepare {time.perf_counter() - t0:.1f} s: "
+            f"N={ro.n} r={fo.r} n_sel={ro.n_sel} g_total={fo.g_total} "
+            f"m_total={fo.m_total} gather entries {fo.gw.numel()} "
+            f"(longest column {fo.gpad_col.shape[0]}); table columns {cols}"
+            f"{' (block form)' if block else ''}; tiers: "
+            f"{solver._resident_fast_kind} tier 1, {solver._resident_kind} "
+            f"contact tier")
+        launch_of = {}
+        rest = (model.positions.copy(), model.velocities.copy())
+        f = gravity(model)
+        start = []
+
+        def main_path():
+            solver.step(f, num_iterations=ITERATIONS)
+            start.extend((model.positions.copy(), model.velocities.copy()))
+            solver.run_steps(f, SCENE_STEPS, num_iterations=ITERATIONS)
+
+        key = f"{label}: main path"
+        paths[key] = counted_path(
+            torch, counted, f"{label}, step + run_steps({SCENE_STEPS})",
+            {"fused_reduced_iterations", "affine_chunked"}, main_path)
+        launch_of.update(fused_reduced_iterations=key, affine_chunked=key)
+        require(solver._last_fast_steps == SCENE_STEPS
+                and np.isfinite(model.positions).all(),
+                f"{label}: tier 1 did not certify the {SCENE_STEPS}-step "
+                f"window ({solver._last_fast_steps})")
+        main_end = (model.positions.copy(), model.velocities.copy())
+        model.positions, model.velocities = contact_state(model)
+        contact_in = (model.positions.copy(), model.velocities.copy())
+        real = solver._resident_fast
+        calls = spy_tier1(solver)
+        key = f"{label}: contact window"
+        paths[key] = counted_path(
+            torch, counted, f"{label}, contact window",
+            {"affine_chunked", "resident_affine_contact"},
+            lambda: solver.run_steps(f, SCENE_STEPS,
+                                     num_iterations=ITERATIONS))
+        launch_of["resident_affine_contact"] = key
+        require(len(calls) == 1 and 0 < calls[0] < SCENE_STEPS
+                and np.isfinite(model.positions).all()
+                and model.positions[:, 1].min() > -0.5,
+                f"{label}: the contact window did not go tier 1 -> contact "
+                f"tier, or ended off the floor (tier-1 calls {calls})")
+        solver._resident_fast = real
+        log(f"[2] {label}: main path certified; contact window: tier 1 "
+            f"{calls[0]} steps, kernel 3 (contact mode) "
+            f"{SCENE_STEPS - calls[0]}, end y in "
+            f"[{model.positions[:, 1].min():.4f}, "
+            f"{model.positions[:, 1].max():.4f}]")
+        batch = scene_batch(main_end, contact_in, f)
+        served = []
+        key = f"{label}: make_batched_step, B={NEW_BATCH}"
+        step = solver.make_batched_step()
+        paths[key] = counted_path(
+            torch, counted, f"{label}, make_batched_step at {NEW_BATCH} "
+            "sims", {"fused_reduced_iterations_batched"},
+            lambda: served.append(step(*batch, num_iterations=ITERATIONS)))
+        launch_of["fused_reduced_iterations_batched"] = key
+        key = f"{label}: make_batched_run, B={NEW_BATCH}"
+        run = solver.make_batched_run()
+        paths[key] = counted_path(
+            torch, counted, f"{label}, make_batched_run at {NEW_BATCH} sims",
+            {"resident_affine_contact_batched"},
+            lambda: served.append(run(*batch, SCENE_STEPS, ITERATIONS)))
+        launch_of["resident_affine_contact_batched"] = key
+        require(all(np.isfinite(x).all() for o in served for x in o)
+                and served[1][0][:, :, 1].min() > -0.5,
+                f"{label}: batched serving ended non-finite or off the floor")
+
+        # ---- 3. holds ----------------------------------------------------
+        P, V = (solver._to_device(x) for x in rest)
+        Fx = solver._to_device(f)
+        rb = solver._rb_extra()
+        sn, rb_const = predict(ro, P, V, force_term(ro, Fx), rb)
+        snT_sel = sn[:, :ro.n_sel]
+        u_k = fused_reduced_iterations(fo, snT_sel, rb_const, ITERATIONS)
+        u_p = fused_reduced_iterations_plain(fo, snT_sel, rb_const,
+                                             ITERATIONS)
+        u_64 = fused_reduced_iterations_plain(
+            as_f64(fo), snT_sel.double(), rb_const.double(), ITERATIONS)
+        ok, e_k, e_p = as_accurate(u_k, u_p, u_64)
+        k1_err = max_abs(u_k, u_p)
+        log(f"[3] {label}, kernel 1: vs plain max abs {k1_err:.3e} (max|u| "
+            f"{float(u_p.abs().max()):.3e}); vs float64: kernel {e_k:.3e}, "
+            f"plain {e_p:.3e} (limit {ACC_RATIO}x)")
+        require(bool(torch.isfinite(u_k).all()) and ok,
+                f"{label}: kernel 1 is less accurate than its plain version")
+        # the star sums of the predictor's gathered values: the float64 sum
+        # that the kernels and plain versions take, against a float32 sum
+        # (printed, not held)
+        if "verts_bending" in cols:
+            bend = fo.elem_g[0, fo.elem_kind == 4].long()
+            v64, v32 = gather_vc(fo, snT_sel), star_sum_f32(fo, snT_sel)
+            log(f"[3] {label}: bending star sums of the predictor, float32 "
+                f"against float64: max abs "
+                f"{max_abs(v32[:, bend], v64[:, bend]):.3e} of max "
+                f"{float(v64[:, bend].abs().max()):.3e}")
+        Pb, Vb, Fb = (solver._pack(x) for x in batch)
+        snb, rbcb = predict(ro, Pb, Vb, force_term(ro, Fb), rb)
+        ub = fused_reduced_iterations_batched(
+            fo, snb[..., :ro.n_sel], rbcb.contiguous(), ITERATIONS)
+        same_per_sim(torch, f"{label}, batched kernel 1", (ub,),
+                     lambda b: (fused_reduced_iterations(
+                         fo, snb[b, :, :ro.n_sel], rbcb[b].contiguous(),
+                         ITERATIONS),), NEW_BATCH)
+        Pm, Vm = (solver._to_device(x) for x in start)
+        Pc, Vc = (solver._to_device(x) for x in contact_in)
+        err = {}
+        for kernel, P0, V0, plain, every in (
+                (5, Pm, Vm, affine_chunked_plain, CHUNK_EVERY),
+                ("3c", Pc, Vc, resident_affine_contact_plain,
+                 NEW_DEPTH // 2)):
+            name = "kernel 3 (contact mode)" if kernel == "3c" else "kernel 5"
+            err[kernel], flags = carried_steps(
+                torch, f"{label}, {name}, carried steps", kernel, ao,
+                lambda *a, plain=plain, every=every: plain(
+                    *a, rebase_every=every), P0, V0, Fx, rb, NEW_DEPTH, every)
+            if kernel == "3c":
+                require(int((flags[FLAG_SLOTS:] & 1).sum()) >= 2,
+                        f"{label}: contact mode was not entered again after "
+                        "a rebase")
+        out = resident_affine_contact_batched(ao, Pb, Vb, Fb, rb, NEW_DEPTH,
+                                              ITERATIONS)
+        same_per_sim(torch, f"{label}, batched kernel 3 (contact mode), "
+                     f"{NEW_DEPTH} steps", out,
+                     lambda b: resident_affine_contact(
+                         ao, Pb[b], Vb[b], Fb[b], rb, NEW_DEPTH, ITERATIONS),
+                     NEW_BATCH)
+
+        # ---- 4. times and bounds -----------------------------------------
+        k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+            fo, snT_sel, rb_const, ITERATIONS), reps=100)
+        k1_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+            fo, snT_sel, rb_const, ITERATIONS), reps=1, warmup=0)
+        note("fused_reduced_iterations", label, k1_err, k1_ms, k1_plain,
+             *bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS)),
+             table_columns=cols)
+        kb_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
+            fo, snb[..., :ro.n_sel], rbcb, ITERATIONS))
+        kb_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+            fo, snb[..., :ro.n_sel], rbcb, ITERATIONS), reps=1, warmup=0)
+        note("fused_reduced_iterations_batched", label, 0.0, kb_ms, kb_plain,
+             *bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS, NEW_BATCH)),
+             sims=NEW_BATCH)
+        require(affine_chunked(ao, Pm, Vm, Fx, rb, SCENE_STEPS,
+                               ITERATIONS)[2] == SCENE_STEPS,
+                f"{label}: kernel 5 stopped in the main window")
+        k5_ms = cuda_ms(torch, lambda: affine_chunked(
+            ao, Pm, Vm, Fx, rb, SCENE_STEPS, ITERATIONS))
+        k5_plain = cuda_ms(torch, lambda: affine_chunked_plain(
+            ao, Pm, Vm, Fx, rb, NEW_DEPTH, ITERATIONS), reps=1, warmup=0)
+        note("affine_chunked", label, err[5], k5_ms, k5_plain,
+             *bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS, CHUNK_EVERY)),
+             steps_per_call=SCENE_STEPS, plain_steps_per_call=NEW_DEPTH)
+        fl = _launch_affine(ao, Pc, Vc, Fx, rb, SCENE_STEPS, ITERATIONS,
+                            REBASE_EVERY, "contact")[2][FLAG_SLOTS:]
+        in_mode = int(((fl & 2) > 0).sum())
+        k3m_ms = cuda_ms(torch, lambda: resident_affine_contact(
+            ao, Pc, Vc, Fx, rb, SCENE_STEPS, ITERATIONS))
+        k3m_plain = cuda_ms(torch, lambda: resident_affine_contact_plain(
+            ao, Pc, Vc, Fx, rb, NEW_DEPTH, ITERATIONS), reps=1, warmup=0)
+        note("resident_affine_contact", label, err["3c"], k3m_ms, k3m_plain,
+             *bound_ms(*k3m_cost(ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY,
+                                 in_mode, in_mode, int((fl & 1).sum()))),
+             steps_per_call=SCENE_STEPS, contact_mode_steps=in_mode,
+             plain_steps_per_call=NEW_DEPTH)
+        flb = _launch_affine(ao, Pb, Vb, Fb, rb, SCENE_STEPS, ITERATIONS,
+                             REBASE_EVERY, "contact")[2][:, FLAG_SLOTS:]
+        kbm_ms = cuda_ms(torch, lambda: resident_affine_contact_batched(
+            ao, Pb, Vb, Fb, rb, SCENE_STEPS, ITERATIONS))
+        kbm_plain = cuda_ms(torch, lambda: resident_affine_contact_plain(
+            ao, Pb, Vb, Fb, rb, NEW_DEPTH, ITERATIONS), reps=1, warmup=0)
+        note("resident_affine_contact_batched", label, 0.0, kbm_ms,
+             kbm_plain, *bound_ms(*k3m_cost(
+                 ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY,
+                 int(((flb & 2) > 0).sum()),
+                 int(((flb & 2) > 0).any(0).sum()), int((flb & 1).sum()),
+                 NEW_BATCH)), sims=NEW_BATCH, steps_per_call=SCENE_STEPS,
+             plain_steps_per_call=NEW_DEPTH)
+        log(f"[2-4] {label}: paths, holds and times "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(f"[4] {label}: kernel 1 {1e3 * k1_ms:.2f} us/call (batched, "
+            f"{NEW_BATCH} sims, {1e3 * kb_ms:.2f}); kernel 5 "
+            f"{1e3 * k5_ms / SCENE_STEPS:.2f} us/step; kernel 3 (contact "
+            f"mode), contact window ({in_mode} of {SCENE_STEPS} steps in "
+            f"the mode) {1e3 * k3m_ms / SCENE_STEPS:.2f} us/step (batched, "
+            f"{NEW_BATCH} sims, {1e3 * kbm_ms / SCENE_STEPS:.2f})")
+        if label != SWITCH_SCENE:
+            continue
+
+        # ---- the switch scene: every tier switch and batched route -------
+        for sw_label, switches, tier1, contact in TIER_SWITCHES:
+            reprepare(solver, **switches)
+            for run_name, counts in tiered_runs(
+                    torch, counted, solver, model, f, rest,
+                    f"{label}, {sw_label}", tier1, contact).items():
+                paths[f"{label}, {sw_label}, {run_name}"] = counts
+        launch_of.update(
+            resident_affine=f"{label}, lean contact tier, contact scene",
+            resident_affine_exit=f"{label}, resident_chunked_tier1=False, "
+            "bench window",
+            resident_multistep=f"{label}, CHUNKED_TIER1_MIN_VERTS=0, "
+            "contact scene")
+        for sw_label, switches, own in (
+                ("lean", {"resident_contact_mode": False,
+                          "CHUNKED_TIER1_MIN_VERTS": type(
+                              solver).CHUNKED_TIER1_MIN_VERTS},
+                 {"resident_affine_batched"}),
+                ("CHUNKED_TIER1_MIN_VERTS=0",
+                 {"CHUNKED_TIER1_MIN_VERTS": 0},
+                 {"affine_chunked_batched", "resident_multistep_batched"})):
+            reprepare(solver, **switches)
+            run = solver.make_batched_run()
+            key = f"{label}: make_batched_run, B={NEW_BATCH}, {sw_label}"
+            paths[key] = counted_path(
+                torch, counted, f"{label}, make_batched_run at {NEW_BATCH} "
+                f"sims, {sw_label}", own,
+                lambda: served.append(run(*batch, SCENE_STEPS, ITERATIONS)))
+            launch_of.update({name: key for name in own})
+            require(np.isfinite(served[-1][0]).all(),
+                    f"{label}, {sw_label}: batched serving not finite")
+        reprepare(solver, CHUNKED_TIER1_MIN_VERTS=type(
+            solver).CHUNKED_TIER1_MIN_VERTS)
+        ro, ao = solver._resident, solver._affine
+        # kernel 2 step by step; kernels 3 (lean) and 4 in the steps one
+        # call carries, on the main path's window
+        k2_err, _ = step_by_step(
+            torch, f"{label}, kernel 2", ro,
+            lambda P_, V_: resident_multistep(ro, P_, V_, Fx, rb, 1,
+                                              ITERATIONS),
+            lambda P_, V_: resident_multistep_plain(ro, P_, V_, Fx, rb, 1,
+                                                    ITERATIONS),
+            Pm, Vm, Fx, rb, NEW_DEPTH)
+        for kernel, plain in ((3, resident_affine_plain),
+                              (4, resident_affine_exit_plain)):
+            err[kernel], _ = carried_steps(
+                torch, f"{label}, kernel {kernel}, carried steps", kernel,
+                ao, lambda *a, plain=plain: plain(
+                    *a, rebase_every=REBASE_EVERY), Pm, Vm, Fx, rb,
+                NEW_DEPTH)
+        # the batched builds against their solo calls, bit for bit
+        for name, batched, solo in (
+                ("kernel 2", resident_multistep_batched,
+                 lambda b: resident_multistep(ro, Pb[b], Vb[b], Fb[b], rb,
+                                              NEW_DEPTH, ITERATIONS)),
+                ("kernel 3 (lean)", resident_affine_batched,
+                 lambda b: resident_affine(ao, Pb[b], Vb[b], Fb[b], rb,
+                                           NEW_DEPTH, ITERATIONS))):
+            same_per_sim(torch, f"{label}, batched {name}, {NEW_DEPTH} "
+                         "steps", batched(ao.res if name == "kernel 2" else
+                                          ao, Pb, Vb, Fb, rb, NEW_DEPTH,
+                                          ITERATIONS), solo, NEW_BATCH)
+        fa = force_term(ro, Fb)
+        bu0, bu1, b0s, b1s = chunk_anchors(ao, Pb, Vb)
+        ymm = torch.empty(NEW_BATCH, 6, device=dev)
+        ymm1 = torch.empty(NEW_BATCH, 6, device=dev)
+        chunk_in = (Pb, Vb, fa, ymm, b0s, b1s, gather_vc(fo, fa), bu0, bu1,
+                    project(ro, fa))
+
+        def launch(P_, V_, fa_, ymm_, *anchors):
+            return _chunk_launch(ao, P_, V_, fa_, ymm_, True, *anchors, rb,
+                                 SCENE_STEPS, ITERATIONS, ao.floor_level)
+
+        def solo_chunk(b):
+            one = [x[b] for x in chunk_in]
+            one[3] = ymm1[b]
+            return (*launch(*one), ymm1[b])
+
+        same_per_sim(torch, f"{label}, batched kernel 5 chunk, "
+                     f"{SCENE_STEPS} steps", (*launch(*chunk_in), ymm),
+                     solo_chunk, NEW_BATCH)
+        ks = [affine_chunked(ao, Pb[b], Vb[b], Fb[b], rb, SCENE_STEPS,
+                             ITERATIONS)[2] for b in range(NEW_BATCH)]
+        k = affine_chunked_batched(ao, Pb, Vb, Fb, rb, SCENE_STEPS,
+                                   ITERATIONS)[2]
+        log(f"[3] {label}, batched kernel 5: whole-batch k {k}, the sims' "
+            f"solo k {ks}")
+        require(k == min(ks), f"{label}: batched kernel 5's k {k} is not "
+                f"the least of the solo k {ks}")
+
+        def timed(fn, plain_fn, P_, V_, F_):
+            """(ms of the kernel's call, ms of the plain version's call);
+            the plain calls run NEW_DEPTH steps (``plain_steps_per_call``
+            in the kernels line)."""
+            return (cuda_ms(torch, lambda: fn(P_, V_, F_)),
+                    cuda_ms(torch, lambda: plain_fn(P_, V_, F_),
+                            reps=1, warmup=0))
+
+        k2 = timed(lambda *x: resident_multistep(ro, *x, rb, SCENE_STEPS,
+                                                 ITERATIONS),
+                   lambda *x: resident_multistep_plain(
+                       ro, *x, rb, NEW_DEPTH, ITERATIONS), Pc, Vc, Fx)
+        note("resident_multistep", label, k2_err, *k2,
+             *bound_ms(*k2_cost(ro, SCENE_STEPS, ITERATIONS)),
+             steps_per_call=SCENE_STEPS, window="contact window",
+             plain_steps_per_call=NEW_DEPTH)
+        fl = _launch_affine(ao, Pc, Vc, Fx, rb, SCENE_STEPS, ITERATIONS,
+                            REBASE_EVERY, "lean")[2][FLAG_SLOTS:]
+        k3 = timed(lambda *x: resident_affine(ao, *x, rb, SCENE_STEPS,
+                                              ITERATIONS),
+                   lambda *x: resident_affine_plain(ao, *x, rb, NEW_DEPTH,
+                                                    ITERATIONS), Pc, Vc, Fx)
+        note("resident_affine", label, err[3], *k3, *bound_ms(*k3_cost(
+            ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, int(fl.sum()))),
+            steps_per_call=SCENE_STEPS, window="contact window",
+            clamped_steps=int(fl.sum()), plain_steps_per_call=NEW_DEPTH)
+        k4 = timed(lambda *x: resident_affine_exit(ao, *x, rb, SCENE_STEPS,
+                                                   ITERATIONS),
+                   lambda *x: resident_affine_exit_plain(
+                       ao, *x, rb, NEW_DEPTH, ITERATIONS), Pm, Vm, Fx)
+        note("resident_affine_exit", label, err[4], *k4, *bound_ms(*k3_cost(
+            ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, 0)),
+            steps_per_call=SCENE_STEPS, plain_steps_per_call=NEW_DEPTH)
+        flb = _launch_affine(ao, Pb, Vb, Fb, rb, SCENE_STEPS, ITERATIONS,
+                             REBASE_EVERY, "lean")[2][:, FLAG_SLOTS:]
+        k3b = timed(lambda *x: resident_affine_batched(
+            ao, *x, rb, SCENE_STEPS, ITERATIONS), lambda *x:
+            resident_affine_plain(ao, *x, rb, NEW_DEPTH, ITERATIONS),
+            Pb, Vb, Fb)
+        note("resident_affine_batched", label, 0.0, *k3b, *bound_ms(*k3_cost(
+            ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, int(flb.sum()),
+            NEW_BATCH)), sims=NEW_BATCH, steps_per_call=SCENE_STEPS,
+            plain_steps_per_call=NEW_DEPTH)
+        k2b = timed(lambda *x: resident_multistep_batched(
+            ro, *x, rb, NEW_DEPTH, ITERATIONS), lambda *x:
+            resident_multistep_plain(ro, *x, rb, NEW_DEPTH, ITERATIONS),
+            Pb, Vb, Fb)
+        note("resident_multistep_batched", label, 0.0, *k2b, *bound_ms(
+            *k2_cost(ro, NEW_DEPTH, ITERATIONS, NEW_BATCH)), sims=NEW_BATCH,
+            steps_per_call=NEW_DEPTH)
+        # batched kernel 5 timed on NEW_BATCH ring-down sims (the batch's
+        # first half twice) over NEW_DEPTH steps, which they must certify
+        # (the bar's ring-down reaches the floor within SCENE_STEPS)
+        half = NEW_BATCH // 2
+        ring = [torch.cat([x[:half]] * (NEW_BATCH // half)) for x in
+                (Pb, Vb, Fb)]
+        require(affine_chunked_batched(ao, *ring, rb, NEW_DEPTH,
+                                       ITERATIONS)[2] == NEW_DEPTH,
+                f"{label}: batched kernel 5 stopped on ring-down sims")
+        k5b = timed(lambda *x: affine_chunked_batched(
+            ao, *x, rb, NEW_DEPTH, ITERATIONS), lambda *x:
+            affine_chunked_plain(ao, *x, rb, NEW_DEPTH, ITERATIONS),
+            *ring)
+        note("affine_chunked_batched", label, 0.0, *k5b, *bound_ms(*k5_cost(
+            ao, NEW_DEPTH, ITERATIONS, CHUNK_EVERY, NEW_BATCH)),
+            sims=NEW_BATCH, steps_per_call=NEW_DEPTH, batch="ring-down")
+        log(f"[4] {label}: kernel 2 {1e3 * k2[0] / SCENE_STEPS:.2f} us/step, "
+            f"kernel 3 (lean) {1e3 * k3[0] / SCENE_STEPS:.2f} on the contact "
+            f"window; kernel 4 {1e3 * k4[0] / SCENE_STEPS:.2f} on the main "
+            f"window; batched ({NEW_BATCH} sims): kernel 3 (lean) "
+            f"{1e3 * k3b[0] / SCENE_STEPS:.2f}, kernel 2 "
+            f"{1e3 * k2b[0] / NEW_DEPTH:.2f}, kernel 5 "
+            f"{1e3 * k5b[0] / NEW_DEPTH:.2f} us/step (ring-down sims)")
+        log(f"[2-4] {label}: the switches {time.perf_counter() - t0:.1f} s "
+            "from the scene's start")
+    return per
+
+
 def main() -> int:
     import torch
 
@@ -1628,22 +2260,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # every configuration sets resident_contact_mode itself, so that the
     # paths do not depend on its default
-    for label, switches, tier1, contact in (
-            ("lean contact tier", {"resident_contact_mode": False},
-             "affine_chunked", "resident_affine"),
-            ("resident_chunked_tier1=False",
-             {"resident_chunked_tier1": False}, "resident_affine_exit",
-             "resident_affine"),
-            ("resident_contact_mode=True",
-             {"resident_chunked_tier1": True, "resident_contact_mode": True},
-             "affine_chunked", "resident_affine_contact"),
-            ("resident_contact_mode=True, resident_chunked_tier1=False",
-             {"resident_chunked_tier1": False}, None,
-             "resident_affine_contact"),
-            ("CHUNKED_TIER1_MIN_VERTS=0",
-             {"resident_chunked_tier1": True, "resident_contact_mode": False,
-              "CHUNKED_TIER1_MIN_VERTS": 0},
-             "affine_chunked", "resident_multistep")):
+    for label, switches, tier1, contact in TIER_SWITCHES:
         reprepare(solver, **switches)
         for run, counts in tiered_runs(torch, counted, solver, model, f,
                                        rest, label, tier1, contact).items():
@@ -2213,6 +2830,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += ensemble(torch, counted, solver, model, f, main_state, paths)
     log(f"[2-4] ensemble serving {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    per_scene = tet_bending(torch, counted, paths)
+    for k in kernels:
+        k["scenes"] = per_scene.get(k["name"], {})
+    log(f"[2-4] tet, bending and block-form scenes "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"[5] launches per path: {json.dumps(paths)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 card faked (``torch.cuda`` answers as if a card were there, CUDA events
 time nothing, ``nvcc``, ``nvidia-smi`` and the profiler are not called),
 the kernel wrappers on their plain versions (the tensors lie on the CPU),
-a 14x14 cloth in place of the bench scene, short windows and ensembles of
-a few sims.  It checks the script's own logic (phases, tiered runs,
+a 14x14 cloth in place of the bench scene and a 6x3x3 bar in place of the
+reference's, short windows, ensembles of a few sims and at most 8 modes
+per group.  It checks the script's own logic (phases, tiered runs,
 step-by-step holds, bounds, the two JSON lines), which otherwise runs only
 on the card; it checks no kernel."""
 
@@ -121,16 +122,19 @@ def _fake_card(monkeypatch):
                         ("MIXED", 4), ("SIM_ROWS", 2), ("MIXED_EVERY", 2),
                         ("CONTACT_RISE", 0.0), ("CRUMPLE", 3),
                         ("CONTACT_EVERY", (256, 3, 6)), ("DRIFT_STEPS", 12),
-                        ("WITNESS_DRAWS", 4)):
+                        ("WITNESS_DRAWS", 4), ("BAR_SIZE", (6, 3, 3)),
+                        ("NEW_DEPTH", 4), ("NEW_BATCH", 4)):
         monkeypatch.setattr(cs, name, value)
     bench = cs.bench_scene
     monkeypatch.setattr(cs, "bench_scene", lambda cls, cloth: bench(
         cls, lambda rows, cols: cloth(14, 14)))
     solver = cs.scene_solver
-    monkeypatch.setattr(cs, "scene_solver",
-                        lambda syn, model, K, r, damping, **kw: solver(
-                            syn, model, min(K, 12), min(r, 16), damping,
-                            **kw))
+    def small_solver(syn, model, K, r, damping, components=None, **kw):
+        if components is not None:
+            kw["components"] = {k: min(v, 8) for k, v in components.items()}
+        return solver(syn, model, min(K, 12), min(r, 16), damping, **kw)
+
+    monkeypatch.setattr(cs, "scene_solver", small_solver)
     return cs.require
 
 
@@ -164,6 +168,21 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     assert kernels[5]["recursion_drift"]
     assert kernels[10]["launches_path"].startswith(
         "make_batched_run, B=4 ring-down, default")
+    # the tet, bending and block-form scenes: every kernel timed and
+    # bounded on the scenes that drive it, kernels 1, 5 and 3' (solo and
+    # batched) on all five
+    scenes = [label for label, *_ in cs.tet_bending_scenes()]
+    for k in kernels:
+        assert k["scenes"], k["name"]
+        for entry in k["scenes"].values():
+            assert keys - {"name", "route", "source", "replaces",
+                           "library_ms"} <= set(entry)
+            assert entry["bound_ms"] > 0
+    for i in (0, 4, 5, 6, 10):
+        assert sorted(kernels[i]["scenes"]) == sorted(scenes)
+    assert kernels[0]["scenes"]["bar, block form"]["table_columns"] == {
+        "tets_deformation_gradient": 3 * kernels[0]["scenes"][
+            "bar, row form"]["table_columns"]["tets_deformation_gradient"]}
 
 
 def test_chip_smoke_branch_step_rules_run(monkeypatch, capsys):

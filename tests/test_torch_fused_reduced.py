@@ -164,8 +164,9 @@ def test_port_packing_reproduces_jax(tmp_path):
 
 def test_element_table_matches_layout(tmp_path):
     """The element table the kernel reads (kinds, Vall columns, rest data)
-    is the JAX layout re-indexed: every column of G_allT is one gather row,
-    and each element's slots point at its group's gather slices."""
+    is the JAX layout re-indexed: every column of G_allT is one gather row
+    (one sparse entry of weight 1 at its argmax), and each element's slots
+    point at its group's gather slices."""
     from animsnapbases_tpu.ops.pallas_reduced import (
         prepare_fused_operands as jax_prepare,
     )
@@ -174,7 +175,9 @@ def test_element_table_matches_layout(tmp_path):
     ops = jax_prepare(*s_jax._fused_pack[:3])
     fo, _ = operands_from_numpy(ops, "cpu", torch.float64)
     G = ops["G_allT"]
-    np.testing.assert_array_equal(fo.gidx.numpy(), G.argmax(axis=0))
+    np.testing.assert_array_equal(np.diff(fo.gptr.numpy()), 1)
+    np.testing.assert_array_equal(fo.gcol.numpy(), G.argmax(axis=0))
+    np.testing.assert_array_equal(fo.gw.numpy(), 1.0)
     col = 0
     for (kind, _, smin, smax, _, _), slices in zip(ops["layout"],
                                                    ops["gather_slices"]):
@@ -192,7 +195,11 @@ def test_element_table_matches_layout(tmp_path):
 
 
 def test_wrapper_rejects_unported_layouts(tmp_path):
-    """Block-form and non-gather groups raise instead of running."""
+    """A group kind without an emitter, and a layout whose columns do not
+    cover WT_all (a row-form group declared block form, which would take
+    twice its columns), raise instead of running.  (Every kind of the JAX
+    package in both forms, and non-one-hot gathers, are ported:
+    tests/test_torch_emitters.py.)"""
     from animsnapbases_tpu.ops.pallas_reduced import (
         prepare_fused_operands as jax_prepare,
     )
@@ -201,11 +208,12 @@ def test_wrapper_rejects_unported_layouts(tmp_path):
     ops = dict(jax_prepare(*s_jax._fused_pack[:3]))
     layout = list(ops["layout"])
     kind, cnt, smin, smax, pflips, _ = layout[0]
-    ops["layout"] = [(kind, cnt, smin, smax, pflips, True)] + layout[1:]
+    ops["layout"] = [("tris_bending", cnt, smin, smax, pflips, False)
+                     ] + layout[1:]
     with pytest.raises(NotImplementedError):
         operands_from_numpy(ops, "cpu", torch.float64)
     ops = dict(jax_prepare(*s_jax._fused_pack[:3]))
-    ops["G_allT"] = 0.5 * ops["G_allT"]
+    ops["layout"] = [(kind, cnt, smin, smax, pflips, True)] + layout[1:]
     with pytest.raises(ValueError):
         operands_from_numpy(ops, "cpu", torch.float64)
 

@@ -192,3 +192,42 @@ def test_contact_mode_default(tmp_path):
     s.prepare(args)
     assert s._resident_run.func is resident_affine_contact
     assert s._resident_fast is None
+
+
+@pytest.mark.parametrize("case", ["bar_all", "bar_all_block"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_tiers_match_jax_step_loop_on_the_bar(tmp_path, config, case):
+    """The five tier configurations on the tet bar of
+    ``tests/test_torch_emitters.py`` (tets_strain, tets_deformation_gradient
+    and verts_bending on its curved surface, DEIM row form and block form):
+    a contact-free window that tier 1 serves whole and certifies, then a
+    10x gravity slam into the floor that the contact tier finishes, against
+    the JAX package's ``pallas_mode="off"`` step loop on the same bases.
+    Tolerances as above (P 1e-6, V 1e-4); measured at most 6.5e-14 in P
+    and 2.3e-12 in V over the ten cases."""
+    from test_torch_emitters import solvers
+
+    switches, (tier1, contact) = CONFIGS[config]
+    s, m, sj, mj = solvers(tmp_path, case, pallas_mode="off")
+    s.resident_rebase_every = 4
+    for k, v in switches.items():
+        setattr(s, k, v)
+    s.prepare(s.args)
+    assert s._resident_run.func is contact
+    f = gravity(m)
+    ref = []
+    for scale, steps in (FREE, SLAM):
+        for _ in range(steps):
+            sj.step(f * scale, num_iterations=ITERS)
+        ref.append((mj.positions.copy(), mj.velocities.copy()))
+    calls = spy_tier1(s) if tier1 is not None else None
+    s.run_steps(f * FREE[0], FREE[1], num_iterations=ITERS)
+    if tier1 is not None:
+        assert calls == [FREE[1]] and s._last_fast_steps == FREE[1]
+    _close(m, ref[0])
+    s.run_steps(f * SLAM[0], SLAM[1], num_iterations=ITERS)
+    assert s._last_fast_steps is None
+    assert s.frame == FREE[1] + SLAM[1]
+    assert m.positions[:, 1].min() > -0.5      # held at the floor
+    assert m.positions[:, 1].min() < 0.05      # it reached the floor
+    _close(m, ref[1])
