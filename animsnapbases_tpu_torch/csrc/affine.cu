@@ -15,6 +15,10 @@
 //   a free step in affine coordinates: bu0/bu1 = U^T A_c of the anchors
 //     (when stale), rb_const from bu* and M_utac, snT_sel from the anchors'
 //     selected prefix and U_selT, the iteration loop, the coefficient update;
+//     rb_const takes row min(i, T - 1) of the sim's target-term schedule
+//     (the JAX kernels' rb_seq, :686, :754-755, :1051, :1083-1084), as the
+//     lean contact tail and a contact-mode step do; the host loop hands
+//     each step's launches that row (the buPy/buVy recursion reads none);
 //   on a clamped step, kernel 4 stops (that step is not applied; the call
 //     reports the steps done) and kernel 3's lean build runs the
 //     re-anchoring contact tail: the standard step on the materialized
@@ -111,7 +115,7 @@ struct Affine {
   T* b0;  // (3, N) anchors, then the outputs
   T* b1;
   const T* fa;
-  const T* rbex;   // (3, r), shared by the sims
+  const T* rbex;   // this step's (3, r) row of sim 0's target schedule
   const M* ulift;  // (3, r, N), shared
   const M* utac;   // (3, r, N), shared
   const T* mutac;  // (3, r, r), shared
@@ -126,6 +130,7 @@ struct Affine {
   T* ybu;          // (2r) contact mode: buPy, buVy
   double* pcpart;  // (nblk, r) contact mode: partials of pc
   int* flags;      // F_* slots, then one slot per step
+  long long rb_sim;  // elements from a sim's schedule to the next (0: shared)
   int N, r, n_sel, nblk, nb, flag_stride;
   T dt, eta, floor_h;
 
@@ -355,7 +360,8 @@ __global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
                    a.eta, asn, avd, wsn);
   __syncthreads();
   if (stale && threadIdx.x == 0) fl[F_STALE] = 0;
-  affine_rb_const(asn, wsn, bu0, bu1, bu0 + 6 * r, a.mutac, a.rbex, r, rbc);
+  affine_rb_const(asn, wsn, bu0, bu1, bu0 + 6 * r, a.mutac,
+                  a.rbex + (size_t)b * a.rb_sim, r, rbc);
   affine_combine(asn, wsn, a.b0 + x, a.b1 + x, a.fa + x, N, a.uselT, r, n_sel,
                  snsel);
   __syncthreads();
@@ -451,8 +457,9 @@ __global__ void contact_solve(Affine<T, M> a, Iter<T> op, int step,
   T* pt = vall + 3 * g;
   sum_partials(a.partial + (size_t)b * a.nblk * 2 * 3 * r, a.nblk, r, 0, rbc);
   __syncthreads();
+  const T* rbex = a.rbex + (size_t)b * a.rb_sim;
   for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
-    rbc[i] = a.rbex[i] - rbc[i];
+    rbc[i] = rbex[i] - rbc[i];
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
     vc[i] = gather_col(op, sn + (size_t)d * N, c);
@@ -629,12 +636,13 @@ __global__ void mode_solve(Affine<T, M> a, Iter<T> op, int step,
     const T bupsn = add_rn(add_rn(ybu[k], mul_rn(a.dt, bv)), bufa[r + k]);
     sy[k] = add_rn(bupsn, (T)acc);
   }
-  affine_rb_const(asn, wsn, bu0, bu1, bufa, a.mutac, a.rbex, r, rbc);
+  const T* rbex = a.rbex + (size_t)b * a.rb_sim;
+  affine_rb_const(asn, wsn, bu0, bu1, bufa, a.mutac, rbex, r, rbc);
   affine_combine(asn, wsn, a.b0 + x, a.b1 + x, a.fa + x, N, a.uselT, r, n_sel,
                  snsel);
   __syncthreads();
   for (int k = threadIdx.x; k < r; k += blockDim.x)
-    rbc[r + k] = a.rbex[r + k] - sy[k];
+    rbc[r + k] = rbex[r + k] - sy[k];
   for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
     const int d = i / g, c = i - d * g;
     vc[i] = gather_col(op, d == 1 ? a.sn + x + N : snsel + d * n_sel, c);
@@ -738,7 +746,7 @@ __global__ void rebase_reset(Affine<T, M> all) {
 template <typename T, typename M, int SG>
 cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
                            int num_iterations, int rebase_every, int mode,
-                           cudaStream_t s) {
+                           int rb_rows, cudaStream_t s) {
   const int N = a.N, r = a.r, nb = a.nb, g = op.g, m = op.m;
   const int ys = min(nb, SIM_Y);
   const dim3 grid_tiles(a.nblk, ys);
@@ -767,7 +775,10 @@ cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const bool floor_test = mode != LEAN_NO_FLOOR;
+  const T* rb0 = a.rbex;
   for (int i = 0; i < num_steps; ++i) {
+    // step i's row of the schedule (each launch copies the struct)
+    a.rbex = rb0 + (size_t)min(i, rb_rows - 1) * 3 * r;
     if (i > 0 && i % rebase_every == 0) {
       materialize<T, M><<<grid_entries, THREADS, smem_mat, s>>>(a, 1);
       rebase_reset<T, M><<<nb, THREADS, 0, s>>>(a);
@@ -811,7 +822,7 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
                   int N, int r, int n_sel, int g, int m, int num_steps,
                   int num_iterations, int rebase_every, int mode, int nb,
                   int flag_stride, double dt, double eta, double floor_h,
-                  void* stream) {
+                  int rb_rows, long long rb_sim, void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Affine<T, M> a;
@@ -833,6 +844,7 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
   a.ybu = static_cast<T*>(ybu);
   a.pcpart = static_cast<double*>(pcpart);
   a.flags = static_cast<int*>(flags);
+  a.rb_sim = rb_sim;
   a.N = N;
   a.r = r;
   a.n_sel = n_sel;
@@ -844,10 +856,11 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
   a.floor_h = (T)floor_h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return nb == 1 ? enqueue_affine<T, M, 1>(a, op, num_steps, num_iterations,
-                                          rebase_every, mode, s)
+                                          rebase_every, mode, rb_rows, s)
                  : enqueue_affine<T, M, Y_GROUP>(a, op, num_steps,
                                                  num_iterations,
-                                                 rebase_every, mode, s);
+                                                 rebase_every, mode, rb_rows,
+                                                 s);
 }
 
 }  // namespace ksm
@@ -855,8 +868,9 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
 // b0, b1, fa, sn, Pm: (nb, 3, N); coef (nb, 18 + 6r); bu (nb, 9r); u (nb, 3r);
 // partial (nb, nblk, 2, 3r) float64; in mode CONTACT ys (nb, 2, N), ybu
 // (nb, 2r) and pcpart (nb, nblk, r) float64 (unused, and may be null, in
-// the other modes); flags (nb, flag_stride) int32; rbex (3, r) shared by
-// the sims; nb = 1 is the solo call
+// the other modes); flags (nb, flag_stride) int32; rbex: rb_rows rows of
+// (3, r) per sim, sim b's at b * rb_sim (0: one schedule shared by the
+// sims), step i reading row min(i, rb_rows - 1); nb = 1 is the solo call
 #define AFFINE_ENTRY(NAME, T, M)                                             \
   extern "C" int NAME(                                                       \
       void* b0, void* b1, const void* fa, const void* rbex,                 \
@@ -868,12 +882,13 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
       void* ys, void* ybu, void* pcpart, void* flags, int N, int r,          \
       int n_sel, int g, int m, int num_steps, int num_iterations,            \
       int rebase_every, int mode, int nb, int flag_stride, double dt,        \
-      double eta, double floor_h, void* stream) {                            \
+      double eta, double floor_h, int rb_rows, long long rb_sim,             \
+      void* stream) {                                                        \
     return ksm::launch_affine<T, M>(                                         \
         b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gptr, gcol, \
         gw, kind, eg, ef, coef, bu, sn, Pm, u, partial, ys, ybu, pcpart,     \
         flags, N, r, n_sel, g, m, num_steps, num_iterations, rebase_every,   \
-        mode, nb, flag_stride, dt, eta, floor_h, stream);                    \
+        mode, nb, flag_stride, dt, eta, floor_h, rb_rows, rb_sim, stream);   \
   }
 
 AFFINE_ENTRY(resident_affine_f32_f32, float, float)

@@ -3,7 +3,8 @@
 // Replaces: animsnapbases_tpu/ops/pallas_resident.py
 //   build_resident_affine_chunked, the chunk kernel _make_chunk_kernel
 //   (:1309-1496, pallas_call :1539), with floor_bound_skip, floor_exact,
-//   fold_vc, static_rb and sqrt_free_bound on.  Its outer loop (_body,
+//   fold_vc and sqrt_free_bound on, and static_rb on or off as the target
+//   term's schedule has one row or more (below).  Its outer loop (_body,
 //   :1498-1634) is Python in ops/affine_chunked.py.
 // From unit coefficients over the chunk's anchors P, V, each of up to
 // `steps` steps:
@@ -13,7 +14,10 @@
 //     step may clamp when m < 0 or m^2 < (1.25 umax)^2 ||wsn_y||^2;
 //   only then the exact y row a0 P_y + a1 V_y + a2 fa_y + wsn_y U_y, and
 //     the chunk stops before the first step it clamps;
-//   rb_const = rb_ex - (a0 bu0 + a1 bu1 + a2 bu_fa + wsn M_utac),
+//   rb_const = rb_i - (a0 bu0 + a1 bu1 + a2 bu_fa + wsn M_utac), rb_i the
+//     row min(i, T - 1) of the target-term schedule from the chunk's first
+//     step (the JAX kernel's rb_seq rows, :1363-1369, :1463-1465; the outer
+//     loop hands each chunk the schedule from its first step on),
 //   Vc = a0 b0s + a1 b1s + a2 fas + wsn UG_allT (the gathered columns),
 //   the iteration loop and solve (iteration.cuh), the coefficient update.
 // It writes ap, av, wp, wv and k, the steps done.  It also takes the y-row
@@ -31,10 +35,14 @@
 // What the design does about it: ONE thread block runs the whole chunk,
 // as kernel 1 runs its loop, so no launch or device-memory round trip
 // separates the steps.  The coefficient state (ap, av, wp, wv), the
-// per-chunk operands (bu0, bu1, bu_fa, rb_ex, b0s, b1s, fas) and, when they
+// per-chunk operands (bu0, bu1, bu_fa, b0s, b1s, fas) and, when they
 // fit beside the loop's buffers, M_utac and inv3 (2 x 49 KB at r = 64 in
 // float32) live in shared memory for the whole chunk, which takes the
-// r-long dependent-load chains of rb_lin and the solve off L2.  The
+// r-long dependent-load chains of rb_lin and the solve off L2.  A static
+// target term (T = 1, the JAX static_rb) is staged there once too; an
+// animated schedule's rows do not fit (a 1,024-step chunk's are 786 KB at
+// r = 64), so each step reads its own row, 768 B, from L2 where rb_const
+// is formed (one load per entry, no dependent chain).  The
 // branch of a step (bound clear, exact check, stop) is block-uniform:
 // one thread decides the bound, __syncthreads_or the exact check.
 //
@@ -71,13 +79,14 @@ struct Chunk {
   const T* bu0;       // (3, r) U^T A_c of P, V, fa
   const T* bu1;
   const T* bufa;
-  const T* rbex;      // (3, r)
+  const T* rbex;      // rb_T rows of (3, r) from the chunk's first step
   const M* ulift;     // (3, r, N)
   const T* mutac;     // (3, r, r)
   const T* UG;        // (3, r, g)
   T* out;             // ap (9), av (9), wp (3r), wv (3r)
   int* k;
-  int N, steps, first, stage;
+  long long rb_sim;   // elements from a sim's schedule to the next
+  int N, steps, first, stage, rb_T;
   int r, g;           // for the per-sim offsets
   T dt, eta, floor_h, c2, eps;
 };
@@ -105,6 +114,7 @@ __device__ Chunk<T, M> chunk_of_sim(Chunk<T, M> a, int b) {
   a.bu0 += rs;
   a.bu1 += rs;
   a.bufa += rs;
+  a.rbex += (size_t)b * a.rb_sim;
   a.out += (size_t)b * (18 + 6 * a.r);
   a.k += b;
   return a;
@@ -143,11 +153,12 @@ __global__ void affine_chunk(Chunk<T, M> all, Iter<T> op,
   T* mutac_s = ymm + 8;    // 3 r r, when staged
   T* inv_s = mutac_s + 3 * r * r;
 
+  const bool static_rb = a.rb_T == 1;
   for (int i = tid; i < 3 * r; i += nt) {
     bu0[i] = a.bu0[i];
     bu1[i] = a.bu1[i];
     bufa[i] = a.bufa[i];
-    rbex[i] = a.rbex[i];
+    if (static_rb) rbex[i] = a.rbex[i];
   }
   for (int i = tid; i < 3 * g; i += nt) {
     b0s[i] = a.b0s[i];
@@ -214,7 +225,10 @@ __global__ void affine_chunk(Chunk<T, M> all, Iter<T> op,
                           Uy, N, r, v) < a.floor_h;
       if (__syncthreads_or(hit)) break;
     }
-    affine_rb_const(asn, wsn, bu0, bu1, bufa, mutac, rbex, r, rbc);
+    affine_rb_const(asn, wsn, bu0, bu1, bufa, mutac,
+                    static_rb ? rbex
+                              : a.rbex + (size_t)min(i, a.rb_T - 1) * 3 * r,
+                    r, rbc);
     affine_combine(asn, wsn, b0s, b1s, fas, g, a.UG, r, g, vc);
     __syncthreads();
     iterate_block(ops, rbc, rb, vc, vall, pt, num_iterations);
@@ -241,7 +255,8 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
                  const void* ef, void* out, void* k, int N,
                  int r, int g, int m, int steps, int num_iterations,
                  int first, int nb, double dt, double eta, double floor_h,
-                 double c2, double eps, void* stream) {
+                 double c2, double eps, int rb_T, long long rb_sim,
+                 void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Chunk<T, M> a;
@@ -256,6 +271,8 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
   a.bu1 = static_cast<const T*>(bu1);
   a.bufa = static_cast<const T*>(bufa);
   a.rbex = static_cast<const T*>(rbex);
+  a.rb_T = rb_T;
+  a.rb_sim = rb_sim;
   a.ulift = static_cast<const M*>(ulift);
   a.mutac = static_cast<const T*>(mutac);
   a.UG = static_cast<const T*>(UG);
@@ -284,7 +301,8 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
 
 }  // namespace ksm
 
-// nb sims (nb = 1: the solo chunk); rbex (3, r) is shared by the sims
+// nb sims (nb = 1: the solo chunk); rbex: rb_T rows of (3, r) per sim from
+// the chunk's first step, sim b's at b * rb_sim (0: shared by the sims)
 #define CHUNK_ENTRY(NAME, T, M)                                              \
   extern "C" int NAME(                                                       \
       const void* P, const void* V, const void* fa, void* ymm,               \
@@ -296,12 +314,12 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
       void* out, void* k, int N, int r, int g, int m, int steps,             \
       int num_iterations, int first, int nb,                                 \
       double dt, double eta, double floor_h, double c2, double eps,          \
-      void* stream) {                                                        \
+      int rb_T, long long rb_sim, void* stream) {                            \
     return ksm::launch_chunk<T, M>(                                          \
         P, V, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa, rbex, ulift, mutac,    \
         UG, C, inv, WT, gptr, gcol, gw, kind, eg, ef, out, k, N, r, g, m,    \
-        steps, num_iterations, first, nb, dt, eta, floor_h, c2, eps,         \
-        stream);                                                             \
+        steps, num_iterations, first, nb, dt, eta, floor_h, c2, eps, rb_T,   \
+        rb_sim, stream);                                                     \
   }
 
 CHUNK_ENTRY(affine_chunk_f32_f32, float, float)

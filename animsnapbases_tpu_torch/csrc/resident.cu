@@ -2,10 +2,13 @@
 //
 // Replaces: animsnapbases_tpu/ops/pallas_resident.py
 //   build_resident_multistep (:415-555, pallas_call :544).
-// Each of num_steps steps on the permuted state P, V (3, N):
+// Each step i of num_steps on the permuted state P, V (3, N):
 //   sn = P + dt*eta*V + fa            (fa = dt^2 fext / m, per call)
 //   sn_y = max(sn_y, floor_h)         (floor on: y row only)
-//   rb_const = rb_extra - ut_acT . sn (NT contraction over N)
+//   rb_const = rb_i - ut_acT . sn     (NT contraction over N)
+//     rb_i the row min(i, T - 1) of the target-term schedule (the JAX
+//     kernel's rb_seq, :482, :504-505): T rows of (3, r), sim b's at
+//     rb_sim elements after sim b - 1's (0: one schedule for every sim)
 //   the iteration loop on snT_sel = sn[:, :n_sel], u = rb inv3
 //   q = sn + U_liftT^T u,  V = (q - P)/dt,  P = q
 // As in the JAX kernel, sn and u are rounded to the storage type of the
@@ -17,11 +20,12 @@
 // scene, L2-resident on the 50 MB L2) and does ~11 MFLOP of matrix-vector
 // work on them, spread over the SMs; the iteration loop in the middle is
 // the same single-block latency chain as kernel 1.  At the bench scene the
-// latency of that chain, not bytes or FLOPs, sets the step time.
+// latency of that chain, not bytes or FLOPs, sets the step time.  An
+// animated schedule adds one (3, r) row per sim and step (768 B at r = 64).
 //
 // What the design does about it: three launches per step on the caller's
 // stream, enqueued by one host loop in this file (no host read-back and no
-// Python between steps):
+// Python between steps; the loop hands launch (b) its step's schedule row):
 //   (a) predict_project: a grid over 128-vertex tiles forms sn, writes it,
 //       and writes one partial (3, r) of ut_acT . sn per tile (one warp
 //       per output row, coalesced reads of ut_acT along N);
@@ -121,10 +125,11 @@ __global__ void predict_project(const T* P, const T* V, const T* fa, T* sn,
 template <typename T>
 __global__ void resident_iterate(Iter<T> op, const T* sn, int N,
                                  const double* partial, int nblk,
-                                 const T* rb_extra, T* u,
+                                 const T* rb_extra, long long rb_sim, T* u,
                                  int num_iterations) {
   const int r = op.r, g = op.g;
   const int b = blockIdx.x;  // the sim
+  rb_extra += (size_t)b * rb_sim;  // this step's row of sim b's schedule
   sn += (size_t)b * 3 * N;
   partial += (size_t)b * nblk * 3 * r;
   u += (size_t)b * 3 * r;
@@ -189,7 +194,8 @@ cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
                           const T* rb_extra, const M* ulift, const M* utac,
                           T* sn, double* part, T* u, int N, int r, int nb,
                           int num_steps, int num_iterations, T dt, T dtv,
-                          int floor_on, T floor_h, cudaStream_t s) {
+                          int floor_on, T floor_h, int rb_rows,
+                          long long rb_sim, cudaStream_t s) {
   const int nblk = (N + TILE - 1) / TILE;
   const int groups = (nb + SG - 1) / SG;
   const dim3 grid_a(nblk, groups);
@@ -203,7 +209,9 @@ cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
     predict_project<T, M, SG><<<grid_a, THREADS, 0, s>>>(
         P, V, fa, sn, part, utac, N, r, nb, dtv, floor_on, floor_h);
     resident_iterate<T><<<nb, THREADS, smem_it, s>>>(
-        op, sn, N, part, nblk, rb_extra, u, num_iterations);
+        op, sn, N, part, nblk,
+        rb_extra + (size_t)min(step, rb_rows - 1) * 3 * r, rb_sim, u,
+        num_iterations);
     lift_update<T, M, SG><<<grid_c, THREADS, smem_lift, s>>>(
         P, V, sn, u, ulift, N, r, nb, dt);
     e = cudaGetLastError();
@@ -221,7 +229,7 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                     void* partial, void* u, int N, int r, int g,
                     int m, int num_steps, int num_iterations, int nb,
                     double dt, double dtv, int floor_on, double floor_h,
-                    void* stream) {
+                    int rb_rows, long long rb_sim, void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -233,7 +241,7 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
         static_cast<const M*>(ulift), static_cast<const M*>(utac),
         static_cast<T*>(sn), static_cast<double*>(partial),
         static_cast<T*>(u), N, r, nb, num_steps, num_iterations, (T)dt,
-        (T)dtv, floor_on, (T)floor_h, s);
+        (T)dtv, floor_on, (T)floor_h, rb_rows, rb_sim, s);
   };
   return nb == 1 ? run(std::integral_constant<int, 1>{})
                  : run(std::integral_constant<int, SIM_GROUP>{});
@@ -242,7 +250,8 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
 }  // namespace ksm
 
 // P, V, fa, sn: (nb, 3, N); partial (nb, nblk, 3, r) float64; u (nb, 3, r);
-// rb_extra (3, r) shared by the sims; nb = 1 is the solo call
+// rb_extra: rb_rows rows of (3, r) per sim, sim b's at b * rb_sim (0: one
+// schedule shared by the sims); nb = 1 is the solo call
 #define RESIDENT_ENTRY(NAME, T, M)                                           \
   extern "C" int NAME(void* P, void* V, const void* fa,                      \
                       const void* rb_extra, const void* ulift,               \
@@ -252,12 +261,12 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                       const void* eg, const void* ef, void* sn,              \
                       void* partial, void* u, int N, int r, int g, int m,    \
                       int num_steps, int num_iterations, int nb, double dt,  \
-                      double dtv, int floor_on, double floor_h,              \
-                      void* stream) {                                        \
+                      double dtv, int floor_on, double floor_h, int rb_rows, \
+                      long long rb_sim, void* stream) {                      \
     return ksm::launch_resident<T, M>(                                       \
         P, V, fa, rb_extra, ulift, utac, C, inv, WT, gptr, gcol, gw, kind,   \
         eg, ef, sn, partial, u, N, r, g, m, num_steps, num_iterations, nb,   \
-        dt, dtv, floor_on, floor_h, stream);                                 \
+        dt, dtv, floor_on, floor_h, rb_rows, rb_sim, stream);                \
   }
 
 RESIDENT_ENTRY(resident_multistep_f32_f32, float, float)

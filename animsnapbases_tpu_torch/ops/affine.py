@@ -5,7 +5,10 @@ Counterpart of ``animsnapbases_tpu/ops/pallas_resident.py``
 (kernel 3: the contact tier of ``run_steps``) in its two builds, the lean one
 (``contact_mode=False``) and the contact-mode one (``contact_mode=True``),
 and ``build_resident_affine_exit`` (kernel 4: tier 1 when
-``resident_chunked_tier1`` is False), static targets.
+``resident_chunked_tier1`` is False).  Step i of a call reads row
+min(i, T - 1) of the target-term schedule ``rb_extra`` (``ops/resident.py``
+:func:`rb_at`), in its free step, the lean contact tail and a contact-mode
+step alike.
 
 Between anchors the state is carried in affine coordinates: positions and
 velocities are (3, 3) base coefficients over the anchors ``b0``, ``b1`` and
@@ -93,6 +96,8 @@ from animsnapbases_tpu_torch.ops.resident import (
     force_term,
     lift_coords,
     project,
+    rb_at,
+    rb_layout,
     storage_round,
 )
 
@@ -443,7 +448,8 @@ def affine_run_plain(ao: AffineOperands, P, V, fext, rb_extra,
                      rebase_every: int = 256, contact_mode: bool = False):
     """The loop of kernel 3's plain version -> (context, state, flags):
     ``flags`` (..., num_steps) int32 holds what csrc/affine.cu records of
-    each step (:meth:`AffineContext.step`).  ``contact_mode`` selects the
+    each step (:meth:`AffineContext.step`); step i takes the target term
+    ``rb_at(rb_extra, i)``.  ``contact_mode`` selects the
     contact-mode build; with the floor off it is the lean build, as in the
     JAX kernel."""
     if P.is_cuda:
@@ -458,7 +464,7 @@ def affine_run_plain(ao: AffineOperands, P, V, fext, rb_extra,
     for i in range(num_steps):
         if _rebase_due(i, rebase_every):
             ctx.rebase(st)
-        flags[..., i] = ctx.step(st, rb_extra, num_iterations)
+        flags[..., i] = ctx.step(st, rb_at(rb_extra, i), num_iterations)
     return ctx, st, flags
 
 
@@ -471,8 +477,8 @@ def resident_affine_plain(ao: AffineOperands, P, V, fext, rb_extra,
     lean build a clamped step runs the re-anchoring contact tail; in the
     contact-mode build (``contact_mode``) it enters contact mode, which
     serves every step until the next rebase.  With a leading batch axis
-    (B, 3, N) of independent sims (``rb_extra`` (3, r) shared) it is the
-    plain version of the batched build, whose branch and mode are per
+    (B, 3, N) of independent sims (``rb_extra`` shared or per sim) it is
+    the plain version of the batched build, whose branch and mode are per
     sim."""
     ctx, st, _ = affine_run_plain(ao, P, V, fext, rb_extra, num_steps,
                                   num_iterations, rebase_every, contact_mode)
@@ -497,7 +503,8 @@ def resident_affine_exit_plain(ao: AffineOperands, P, V, fext, rb_extra,
         _, _, wp, _, avd, asn, wsn = ctx.predictor(st)
         if bool((ctx.y_predictor(st, asn, wsn) < floor_h).any()):
             break
-        ctx.free_step(st, asn, wsn, avd, wp, rb_extra, num_iterations)
+        ctx.free_step(st, asn, wsn, avd, wp, rb_at(rb_extra, i),
+                      num_iterations)
         done += 1
     P_out, V_out = ctx.output(st)
     return P_out, V_out, done
@@ -524,7 +531,8 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = (_P,) * 27 + (_I,) * 11 + (_D,) * 3 + (_P,)
+_L = ctypes.c_longlong
+_ARGTYPES = (_P,) * 27 + (_I,) * 11 + (_D,) * 3 + (_I, _L, _P)
 # int32 flag slots of one sim of a call (csrc/affine.cu): stale, done,
 # steps done, contact mode, then one slot per step (what
 # AffineContext.step returns: 1 the floor test clamped, 2 contact mode)
@@ -574,7 +582,7 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     b0 = P.contiguous().clone()          # the anchors, then the outputs
     b1 = V.contiguous().clone()
     fa = force_term(ro, fext).contiguous()
-    rb_extra = rb_extra.contiguous()
+    rb_rows, rb_sim = rb_layout(rb_extra)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -605,7 +613,7 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
               p(ys), p(ybu), p(pcpart), p(flags), n, r, ro.n_sel, fo.g_total,
               fo.m_total, int(num_steps), int(num_iterations),
               int(rebase_every), mode, nb, stride, ro.dt, ro.eta,
-              ao.floor_level, _build.stream_of(dev))
+              ao.floor_level, rb_rows, rb_sim, _build.stream_of(dev))
     _build.check("affine", code, "resident_affine")
     y = (ys[:, 0], ys[:, 1], ybu[:, :r], ybu[:, r:]) if contact else None
     if not batched:
@@ -655,8 +663,8 @@ def resident_affine_batched(ao: AffineOperands, P, V, fext, rb_extra,
                             rebase_every: int = 256):
     """The batched build of kernel 3 (lean): (P', V') (B, 3, N) of B
     independent sims after ``num_steps`` steps from their permuted
-    (B, 3, N) states and forces, the static target term ``rb_extra``
-    (3, r) shared.  The contact branch is per sim.  CPU tensors run the
+    (B, 3, N) states and forces, the target-term schedule ``rb_extra``
+    shared or per sim.  The contact branch is per sim.  CPU tensors run the
     plain version; CUDA tensors launch ``csrc/affine.cu`` with B sims, or
     raise.  The inputs are not modified."""
     return _kernel3(resident_affine_batched, "lean", True, ao, P, V, fext,
@@ -687,7 +695,7 @@ def resident_affine_contact_batched(ao: AffineOperands, P, V, fext,
                                     rebase_every: int = 256):
     """The batched build of kernel 3 in contact mode: (P', V') (B, 3, N) of
     B independent sims, each with its own mode (:func:`resident_affine_
-    contact` per sim, ``rb_extra`` (3, r) shared).  CPU tensors run the
+    contact` per sim, ``rb_extra`` shared or per sim).  CPU tensors run the
     plain version; CUDA tensors launch ``csrc/affine.cu`` with B sims, or
     raise.  The inputs are not modified."""
     return _kernel3(resident_affine_contact_batched, "contact", True, ao, P,

@@ -2,9 +2,13 @@
 
 Counterpart of ``animsnapbases_tpu/ops/pallas_resident.py``
 ``build_resident_affine_chunked`` (the chunk kernel ``_make_chunk_kernel``
-and its outer loop ``_body``), ``nb=1``, static targets, with the JAX
-defaults ``floor_bound_skip``, ``floor_exact``, ``fold_vc``, ``static_rb``
-and ``sqrt_free_bound`` on (the port takes no switch for the others).
+and its outer loop ``_body``), with the JAX defaults ``floor_bound_skip``,
+``floor_exact``, ``fold_vc`` and ``sqrt_free_bound`` on (the port takes no
+switch for them: ROADMAP B5).  The target term is a schedule
+(``ops/resident.py`` :func:`rb_at`): the outer loop hands each chunk the
+schedule from the chunk's first step on, so step j of a chunk that starts
+at step ``done`` of the call reads row min(done + j, T - 1).  A static term
+(T = 1) is the JAX ``static_rb``.
 
 The chunk kernel carries only coefficient state: up to ``rebase_every``
 contact-free affine steps on (3, 3) base coefficients and (3, r) reduced
@@ -60,6 +64,9 @@ from animsnapbases_tpu_torch.ops.resident import (
     force_term,
     lift_coords,
     project,
+    rb_at,
+    rb_from,
+    rb_layout,
 )
 
 # the bound's slack: 25 % of the lift term, and a relative epsilon
@@ -74,7 +81,9 @@ def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
     coefficients over the anchors P, V -> (ap, av, wp, wv, k).
 
     ``b0s``, ``b1s``, ``fas`` (3, g_total): P, V, fa at the gathered
-    columns; ``bu0``, ``bu1``, ``bu_fa`` (3, r): their projections.  ``ymm``
+    columns; ``bu0``, ``bu1``, ``bu_fa`` (3, r): their projections;
+    ``rb_ex`` the target-term schedule from the chunk's first step (step i
+    takes ``rb_at(rb_ex, i)``).  ``ymm``
     (6,) holds the minima, then the maxima, of the y rows of P, V and fa:
     the chunk writes those of P and V, and those of fa when ``first``.
     The step itself is ``AffineContext``'s (ops/affine.py); what is the
@@ -109,8 +118,8 @@ def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
             if bool((hit & maybe).any()):
                 break
         ctx.gathered_step(st, asn, wsn, avd, wp,
-                          gathered_values(ao, asn, wsn, b0s, b1s, fas), rb_ex,
-                          num_iterations)
+                          gathered_values(ao, asn, wsn, b0s, b1s, fas),
+                          rb_at(rb_ex, i), num_iterations)
         k = i + 1
     return st.ap, st.av, st.wp, st.wv, k
 
@@ -160,7 +169,8 @@ def _drive(chunk, ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
         bu0, bu1, b0s, b1s = chunk_anchors(ao, P, V)
         steps = min(rebase_every, num_steps - done)
         ap, av, wp, wv, k = chunk(ao, P, V, fa, ymm, done == 0, b0s, b1s,
-                                  fas, bu0, bu1, bu_fa, rb_extra, steps,
+                                  fas, bu0, bu1, bu_fa,
+                                  rb_from(rb_extra, done), steps,
                                   num_iterations, ao.floor_level)
         P, V = advance(ao, P, V, fa, ap, av, wp, wv)
         done += k
@@ -191,7 +201,8 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = (_P,) * 25 + (_I,) * 8 + (_D,) * 5 + (_P,)
+_L = ctypes.c_longlong
+_ARGTYPES = (_P,) * 25 + (_I,) * 8 + (_D,) * 5 + (_I, _L, _P)
 
 
 def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
@@ -207,9 +218,11 @@ def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     lead = tuple(P.shape[:-2])
     for name, t in (("P", P), ("V", V), ("fa", fa), ("ymm", ymm),
                     ("b0s", b0s), ("b1s", b1s), ("fas", fas), ("bu0", bu0),
-                    ("bu1", bu1), ("bu_fa", bu_fa), ("rb_ex", rb_ex)):
+                    ("bu1", bu1), ("bu_fa", bu_fa)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    check_state(ro, P, V, fa, rb_ex)
+    rb_rows, rb_sim = rb_layout(rb_ex)
     nb = lead[0] if lead else 1
     out = torch.empty(lead + (2 * 9 + 2 * 3 * r,), dtype=P.dtype,
                       device=P.device)
@@ -223,7 +236,7 @@ def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
               p(out), p(k), ro.n, r, fo.g_total, fo.m_total, int(steps),
               int(num_iterations), int(first), nb, ro.dt, ro.eta,
               float(floor_h), (BOUND_SLACK * ao.umax) ** 2, BOUND_EPS,
-              _build.stream_of(P.device))
+              rb_rows, rb_sim, _build.stream_of(P.device))
     _build.check("affine_chunked", code, "affine_chunked")
     return out, k
 
@@ -276,8 +289,7 @@ def affine_chunked(ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
                          "affine_chunked_batched")
     check_state(ao.res, P, V, fext, rb_extra)
     return _drive(_chunk_cuda, ao, P.contiguous(), V.contiguous(), fext,
-                  rb_extra.contiguous(), num_steps, num_iterations,
-                  rebase_every)
+                  rb_extra, num_steps, num_iterations, rebase_every)
 
 
 affine_chunked.launches = 0
@@ -287,7 +299,7 @@ def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
                            num_steps: int, num_iterations: int,
                            rebase_every: int = 1024):
     """The batched build of kernel 5: (P', V', k) of B independent sims
-    (B, 3, N), the static target term ``rb_extra`` (3, r) shared, with
+    (B, 3, N), the target-term schedule ``rb_extra`` shared or per sim, with
     whole-batch early exit: every sim is committed to the same k steps, the
     steps before the first one at which any sim would clamp.  CPU tensors
     run the plain version; CUDA tensors run the outer loop (one batched
@@ -303,8 +315,8 @@ def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
         raise ValueError(f"unsupported device {P.device}")
     check_state(ao.res, P, V, fext, rb_extra)
     return _drive(_chunk_cuda_batched, ao, P.contiguous(), V.contiguous(),
-                  fext.contiguous(), rb_extra.contiguous(), num_steps,
-                  num_iterations, rebase_every)
+                  fext.contiguous(), rb_extra, num_steps, num_iterations,
+                  rebase_every)
 
 
 affine_chunked_batched.launches = 0

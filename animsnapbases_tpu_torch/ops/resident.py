@@ -1,7 +1,7 @@
 """Kernel 2: the standard resident multi-step loop.
 
 Counterpart of ``animsnapbases_tpu/ops/pallas_resident.py``
-``build_resident_multistep`` (``nb=1``, static targets).  Vertices are
+``build_resident_multistep``.  Vertices are
 permuted so that the selected-element union is a prefix of the vertex axis
 (the solver applies ``perm`` at entry and ``iperm`` at exit of
 ``run_steps``), so the iteration loop reads ``snT_sel`` as ``sn[:, :n_sel]``.
@@ -25,6 +25,15 @@ d*B + b.  Sim-major gives each sim's kernel work one base offset.
 * ``step_once`` (``predict``, the loop, ``lift``): one step of that
   transcription with the iteration loop passed in, which
   ``AnimSnapBasesSolver.step`` runs on kernel 1.
+
+The positional-target term ``rb_extra = U^T S^T targets`` of every kernel
+here and in ``ops/affine.py`` and ``ops/affine_chunked.py`` is a schedule
+(the JAX kernels' (T*3nb, r) ``rb_seq``): a static (3, r) row, a (T, 3, r)
+schedule that the sims share, or a (B, T, 3, r) schedule per sim.  Step i
+of a call reads row min(i, T - 1) (:func:`rb_at`); a schedule that has
+ended repeats its last row.  The kernels read it as one pointer with T rows
+and a sim stride (0 when shared: no B-fold copy), row t of sim b at
+``b * stride + t * 3r`` (:func:`rb_layout`).
 
 As in the JAX kernel, sn and u are rounded to the storage dtype of the big
 (3, r, N) matrices before they meet them, and products accumulate in the
@@ -149,16 +158,44 @@ def step_once(ro: ResidentOperands, P, V, fa, rb_extra, num_iterations,
     return lift(ro, P, sn, u)
 
 
+def rb_at(rb_extra, i: int):
+    """The target term of step ``i`` of a schedule -> (..., 3, r): a static
+    (3, r) term itself, else row min(i, T - 1) of a (T, 3, r) schedule, or
+    of each sim's (B, T, 3, r) schedule ((B, 3, r))."""
+    if rb_extra.dim() == 2:
+        return rb_extra
+    return rb_extra[..., min(i, rb_extra.shape[-3] - 1), :, :]
+
+
+def rb_from(rb_extra, start: int):
+    """The schedule as a call that starts at its step ``start`` reads it:
+    its row min(start, T - 1) first (a view)."""
+    if rb_extra.dim() == 2 or start == 0:
+        return rb_extra
+    return rb_extra[..., min(start, rb_extra.shape[-3] - 1):, :, :]
+
+
+def rb_layout(rb_extra):
+    """(rows T, sim stride in elements) of a schedule as the kernels read
+    it: row t of sim b at ``b * stride + t * 3r`` from its first element."""
+    if rb_extra.dim() == 2:
+        return 1, 0
+    if rb_extra.dim() == 3:
+        return rb_extra.shape[0], 0
+    return rb_extra.shape[1], rb_extra.stride(0)
+
+
 def resident_multistep_plain(ro: ResidentOperands, P, V, fext, rb_extra,
                              num_steps: int, num_iterations: int):
-    """Plain version of kernel 2: ``num_steps`` steps -> (P', V').  With a
-    leading batch axis (B, 3, N) of independent sims (``rb_extra`` (3, r)
-    shared) it is the plain version of the batched build."""
+    """Plain version of kernel 2: ``num_steps`` steps -> (P', V'), step i
+    with the target term ``rb_at(rb_extra, i)``.  With a leading batch axis
+    (B, 3, N) of independent sims (``rb_extra`` shared or per sim) it is the
+    plain version of the batched build."""
     if P.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     fa = force_term(ro, fext)
-    for _ in range(num_steps):
-        P, V = step_once(ro, P, V, fa, rb_extra, num_iterations)
+    for i in range(num_steps):
+        P, V = step_once(ro, P, V, fa, rb_at(rb_extra, i), num_iterations)
     return P, V
 
 
@@ -169,15 +206,17 @@ _SYMBOLS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = ((_P,) * 18 + (_I,) * 7 + (_D, _D, _I, _D, _P))
+_L = ctypes.c_longlong
+_ARGTYPES = ((_P,) * 18 + (_I,) * 7 + (_D, _D, _I, _D, _I, _L, _P))
 
 
 def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
     """Raise unless P, V, fext (3, N), or (B, 3, N) for a batch of B sims,
-    and rb_extra (3, r), shared by the sims, lie on the operands' device in
-    their working dtype, and a kernel takes that state dtype beside the
-    operands' storage dtype (float32 state; float32 or bfloat16 storage).
-    Returns (state dtype, storage dtype)."""
+    and the target-term schedule rb_extra ((3, r), (T, 3, r) or, for a
+    batch, (B, T, 3, r), each (3, r) row contiguous) lie on the operands'
+    device in their working dtype, and a kernel takes that state dtype
+    beside the operands' storage dtype (float32 state; float32 or bfloat16
+    storage).  Returns (state dtype, storage dtype)."""
     fo = ro.fused
     dev, dtype = fo.C_allT.device, fo.C_allT.dtype
     lead = tuple(P.shape[:-2])
@@ -187,11 +226,21 @@ def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
     state = lead + (3, ro.n)
     for name, t, shape in (("P", P, state), ("V", V, state),
                            ("fext", fext, state),
-                           ("rb_extra", rb_extra, (3, fo.r))):
+                           ("rb_extra", rb_extra, tuple(rb_extra.shape))):
         if t.device != dev or t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype} on {dev}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    T = rb_extra.shape[-3] if rb_extra.dim() > 2 else 1
+    if T < 1 or tuple(rb_extra.shape) not in {
+            (3, fo.r), (T, 3, fo.r), lead + (T, 3, fo.r)}:
+        raise ValueError(f"rb_extra must be (3, r), (T, 3, r) or, for a "
+                         f"batch of B sims, (B, T, 3, r); got "
+                         f"{tuple(rb_extra.shape)} beside P "
+                         f"{tuple(P.shape)}")
+    if (rb_extra.stride(-1) != 1 or rb_extra.stride(-2) != fo.r
+            or (rb_extra.dim() > 2 and rb_extra.stride(-3) != 3 * fo.r)):
+        raise ValueError("each (3, r) row of rb_extra must be contiguous")
     key = (dtype, ro.ut_acT.dtype)
     if key not in _SYMBOLS:
         raise TypeError(f"no kernel for state/storage {key}")
@@ -214,7 +263,7 @@ def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
     P_out = P.contiguous().clone()
     V_out = V.contiguous().clone()
     fa = force_term(ro, fext).contiguous()
-    rb_extra = rb_extra.contiguous()
+    rb_rows, rb_sim = rb_layout(rb_extra)
     sn = torch.empty_like(P_out)
     # per-sim, per-tile partials of U^T A_c sn, accumulated in float64
     # (resident.cu)
@@ -231,7 +280,7 @@ def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
               _build.ptr(partial), _build.ptr(u),
               n, r, fo.g_total, fo.m_total, int(num_steps),
               int(num_iterations), nb, ro.dt, ro.dt * ro.eta, int(ro.floor),
-              ro.floor_h, _build.stream_of(P.device))
+              ro.floor_h, rb_rows, rb_sim, _build.stream_of(P.device))
     _build.check("resident", code, "resident_multistep")
     return P_out, V_out
 
@@ -239,7 +288,8 @@ def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
 def resident_multistep(ro: ResidentOperands, P, V, fext, rb_extra,
                        num_steps: int, num_iterations: int):
     """(P', V') after ``num_steps`` steps of ``num_iterations`` iterations
-    from the permuted (3, N) state.  CPU tensors run the plain version;
+    from the permuted (3, N) state, step i with the target term row
+    ``rb_at(rb_extra, i)``.  CPU tensors run the plain version;
     CUDA tensors launch ``csrc/resident.cu`` on the current stream, or
     raise.  The inputs are not modified."""
     if P.device.type == "cpu":
@@ -261,7 +311,8 @@ def resident_multistep_batched(ro: ResidentOperands, P, V, fext, rb_extra,
                                num_steps: int, num_iterations: int):
     """The batched build of kernel 2: (P', V') (B, 3, N) of B independent
     sims after ``num_steps`` steps, from their permuted (B, 3, N) states and
-    forces, the static target term ``rb_extra`` (3, r) shared.  CPU tensors
+    forces, with the target-term schedule ``rb_extra`` shared ((3, r) or
+    (T, 3, r)) or per sim ((B, T, 3, r)).  CPU tensors
     run the plain version; CUDA tensors launch ``csrc/resident.cu`` with B
     sims (each (3, r, N) matrix read once per tile for a group of sims), or
     raise.  The inputs are not modified."""

@@ -15,8 +15,8 @@ preparation stays numpy/scipy in float64 (the global matrix, ``inv(Ar)``,
 is cast once to the working dtype on the solver's device.
 
 ``step()`` runs one step with the iteration loop on kernel 1
-(``ops/fused_reduced.py``).  ``run_steps()`` serves static targets on two
-tiers, as the JAX solver does (``sim/reduced.py:678-771``, ``:2914-3112``):
+(``ops/fused_reduced.py``).  ``run_steps()`` serves on two tiers, as the
+JAX solver does (``sim/reduced.py:678-771``, ``:2764-3112``):
 
 * tier 1, contact-free stepping that stops before the first step the floor
   would clamp: the chunked affine kernel 5 (``ops/affine_chunked.py``), or
@@ -35,11 +35,25 @@ tiers, as the JAX solver does (``sim/reduced.py:678-771``, ``:2914-3112``):
 The vertex permutation that makes the selected union a prefix is applied
 at entry and exit; every kernel runs on the permuted layout.
 
+Positional targets enter every kernel as the target term ``U^T S^T
+targets`` (3, r) per step.  Animated targets (``user_defined`` frame
+shifts, the poke scenes) make it a schedule: ``prepare()`` builds the
+model's whole (T, 3, r) schedule on the host in float64 (a static term plus
+one rank-1 term per animated constraint, ``_rb_window_host``), casts it
+once and keeps it on the device; a call that starts at frame f hands the
+kernels its rows from f on, and step i of the call reads row
+min(f + i, T - 1).  Once every shift has ended a call is static (one row).
+``run_steps(record=True)`` steps on kernel 1, one schedule row per step,
+into a (num_steps, 3, N) buffer on the device that crosses to the host
+once.
+
 Ensemble serving, B independent sims of one prepared model on one card
 (``sim/reduced.py:1369-1872`` of the JAX package):
 
-* ``make_batched_run()`` serves a window of static-target steps for the
-  whole batch: below ``CHUNKED_TIER1_MIN_VERTS`` vertices on the batched
+* ``make_batched_run()`` serves a window of steps for the whole batch, on
+  the model's own target schedule from a serving frame or on a timeline
+  ``targets_seq`` shared by the sims (T, e, 3) or per sim (B, T, e, 3):
+  below ``CHUNKED_TIER1_MIN_VERTS`` vertices on the batched
   affine kernel 3 (contact mode: a mode per sim; lean: a contact branch
   per sim); at or above it on the
   batched kernel 5, whose whole-batch exit hands a window of steps to the
@@ -61,12 +75,11 @@ Not ported yet, and raising ``NotImplementedError`` in ``step`` /
 
 * groups that are not fully reduced, or no position reduction
   (ROADMAP Queue A items 4 and 7);
-* animated positional targets (Queue A item 10);
 * self-collision (Queue A item 12);
-* ``run_steps(record=True)`` (Queue A item 5);
-* batched serving over a mesh (``mesh=``, Queue A item 18) and per-sim or
-  animated target timelines in ``make_batched_run`` (``targets_seq``, Queue
-  A item 10).
+* batched serving over a mesh (``mesh=``, Queue A item 18);
+* kernel 5's build options ``resident_floor_bound_skip``,
+  ``resident_floor_exact`` and ``resident_chunked_opts`` (ROADMAP Queue B
+  item B5), which ``prepare()`` refuses.
 """
 
 from __future__ import annotations
@@ -110,6 +123,8 @@ from animsnapbases_tpu_torch.ops.resident import (
     force_term,
     lift,
     predict,
+    rb_at,
+    rb_from,
     resident_multistep,
     resident_multistep_batched,
     resident_operands,
@@ -302,6 +317,7 @@ class AnimSnapBasesSolver:
         self._contact_mode = False
         self._unsupported = "prepare() has not run"
         self._ut_st_cache = None
+        self._rb_sched = None        # (T, 3, r) on the device when animated
 
     # ------------------------------------------------------------------
     def set_model(self, model):
@@ -442,6 +458,7 @@ class AnimSnapBasesSolver:
         self._resident = self._affine = None
         self._resident_fast = self._resident_run = None
         self._resident_kind = self._resident_fast_kind = None
+        self._rb_sched = None
         self._unsupported = self._unsupported_reason()
         if self._unsupported is not None:
             return
@@ -481,6 +498,11 @@ class AnimSnapBasesSolver:
                            for d in range(3)])             # (3, r, r)
         self._affine = affine_operands(self._resident, M_utac, U_selT)
         self._build_tiers(n)
+        total = self._rb_schedule_length()
+        if total:
+            self._rb_sched = torch.as_tensor(
+                self._rb_window_host(0, total), dtype=self.dtype,
+                device=self.device)
 
     def _build_tiers(self, n: int):
         """The tiers of run_steps, as sim/reduced.py:662-824 of the JAX
@@ -491,7 +513,25 @@ class AnimSnapBasesSolver:
         32,768 vertices for what it gains on a TPU; the port follows what an
         NVIDIA H100 measured at the bench scene (PERF.md, Findings):
         contact steps ~11 % faster than the lean build's, free steps within
-        0.2 %, a crumpling 64-sim ensemble 2.4x faster."""
+        0.2 %, a crumpling 64-sim ensemble 2.4x faster.
+
+        Kernel 5's build options are not ported (ROADMAP Queue B item B5):
+        ``resident_floor_bound_skip = False``, a ``resident_floor_exact``
+        that is set and a non-empty ``resident_chunked_opts`` raise
+        ``NotImplementedError`` rather than serve the default kernel 5."""
+        set_opts = [
+            name for name, is_set in (
+                ("resident_floor_bound_skip",
+                 not getattr(self, "resident_floor_bound_skip", True)),
+                ("resident_floor_exact",
+                 getattr(self, "resident_floor_exact", None) is not None),
+                ("resident_chunked_opts",
+                 bool(getattr(self, "resident_chunked_opts", None))))
+            if is_set]
+        if set_opts:
+            raise NotImplementedError(
+                f"{', '.join(set_opts)}: kernel 5's build options are not "
+                "ported yet (ROADMAP Queue B item B5)")
         ao = self._affine
         every = getattr(self, "resident_rebase_every", None)
         contact_mode = getattr(self, "resident_contact_mode", None)
@@ -555,17 +595,73 @@ class AnimSnapBasesSolver:
             rb = np.einsum("dre,ed->dr", uts, np.asarray(targets))
         return torch.as_tensor(rb, dtype=self.dtype, device=self.device)
 
-    def _animated(self, frame=None) -> bool:
-        frame = self.frame if frame is None else frame
-        for c in getattr(self.model, "_positional", []):
+    def _rb_window_host(self, start, length):
+        """(length, 3, r) float64 target-term rows of the absolute frames
+        [start, start + length).  ``rb[t, d] = (U^T S^T)_d targets(t)[:, d]``
+        is a static term plus, per ``user_defined`` constraint i, the rank-1
+        term ``shift_i[t, d] * (U^T S^T)[d, :, i]``: O(length r) per
+        constraint, from its (T_i, 3) shifts."""
+        utst = self._ut_st_np()                          # (3, r, e)
+        model = self.model
+        p0 = np.asarray(model.groups["positional"].data["p0"], dtype=float)
+        rb_static = np.einsum("dre,ed->dr", utst, p0)    # (3, r)
+        rb = np.repeat(rb_static[None], length, axis=0)  # (length, 3, r)
+        t_idx = start + np.arange(length)
+        for i, c in enumerate(model._positional):
             if (c["motion_type"] == "user_defined"
-                    and c["frame_shift"] is not None
-                    and len(c["frame_shift"]) > frame):
-                return True
-        return False
+                    and c["frame_shift"] is not None):
+                sh = np.asarray(c["frame_shift"], dtype=float)
+                shf = sh[np.minimum(t_idx, len(sh) - 1)]  # (length, 3)
+                rb += shf[:, :, None] * utst[None, :, :, i]
+        return rb
+
+    def _rb_schedule_length(self):
+        """Frames of the longest ``user_defined`` shift (0: nothing is
+        animated)."""
+        return max((len(c["frame_shift"]) for c in self.model._positional
+                    if c["motion_type"] == "user_defined"
+                    and c["frame_shift"] is not None), default=0)
+
+    def _rb_schedule_from(self, frame):
+        """The target-term schedule of a call that starts at ``frame``:
+        while the targets are animated, the rows of the prepared schedule
+        from ``frame`` on (a (T, 3, r) view on the device); after every
+        shift has ended, its last row, the static (3, r) term of the
+        targets from then on (without animation: that of the targets at
+        ``frame``).  step(), run_steps and the recorded run all read their
+        rows here, so each sees the same values."""
+        sched = self._rb_sched
+        if sched is None:
+            return self._rb_extra(frame=frame)
+        if frame < sched.shape[0]:
+            return sched[frame:]
+        return sched[-1]
+
+    def _rb_timeline(self, targets_seq, B):
+        """The target-term schedule of a caller's timeline: (T, 3, r) of a
+        (T, e, 3) timeline that the sims share, (B, T, 3, r) of a per-sim
+        (B, T, e, 3) one, contracted in float64 on the host and cast once;
+        the static zero term without a positional group.  Raises
+        ``ValueError`` on a shape that does not fit."""
+        tl = np.asarray(targets_seq, dtype=np.float64)
+        uts = self._ut_st_np()
+        e = 0 if uts is None else uts.shape[2]
+        if (tl.ndim not in (3, 4) or tuple(tl.shape[-2:]) != (e, 3)
+                or tl.shape[-3] < 1):
+            raise ValueError(f"targets_seq must be (T, {e}, 3) or (B, T, "
+                             f"{e}, 3) for this model; got {tl.shape}")
+        if tl.ndim == 4 and tl.shape[0] != B:
+            raise ValueError(f"per-sim targets_seq has batch {tl.shape[0]}, "
+                             f"expected {B}")
+        if uts is None:
+            return self._rb_extra()
+        return torch.as_tensor(np.einsum("dre,...ted->...tdr", uts, tl),
+                               dtype=self.dtype, device=self.device)
 
     def step(self, fext, num_iterations=10):
-        """One step; the iteration loop runs on kernel 1."""
+        """One step; the iteration loop runs on kernel 1, with the target
+        term of the current frame as ``run_steps`` reads it (the prepared
+        schedule's row while the targets are animated)."""
         self._require()
         model = self.model
         if model.floor_collision:
@@ -581,35 +677,36 @@ class AnimSnapBasesSolver:
         P = self._to_device(model.positions)
         V = self._to_device(model.velocities)
         fa = force_term(ro, self._to_device(fext))
-        q, v = step_once(ro, P, V, fa, self._rb_extra(), num_iterations,
+        rb = rb_at(self._rb_schedule_from(self.frame), 0)
+        q, v = step_once(ro, P, V, fa, rb, num_iterations,
                          iterate=fused_reduced_iterations)
         model.positions = self._to_host(q)
         model.velocities = self._to_host(v)
         self.frame += 1
 
     def run_steps(self, fext, num_steps, num_iterations=10, record=False):
-        """Advance ``num_steps`` steps with static targets on the tiers:
-        tier 1 commits the steps before the first one the floor would
-        clamp, and the contact tier serves the rest of the window.  The
+        """Advance ``num_steps`` steps on the tiers: tier 1 commits the
+        steps before the first one the floor would clamp, and the contact
+        tier serves the rest of the window; step i takes the target-term
+        row of frame ``self.frame + i`` (:meth:`_rb_schedule_from`), so
+        the contact tier continues the schedule where tier 1 stopped.  The
         state crosses to the device at the entry of each tier's call and
         back at its exit.  ``_last_fast_steps == num_steps`` afterwards
         certifies that tier 1, which tests the floor every step, served
-        the whole window contact-free."""
+        the whole window contact-free.
+
+        With ``record=True`` the steps run on kernel 1 instead and the
+        (num_steps, N, 3) trajectory of positions is returned
+        (:meth:`_run_steps_recorded`)."""
         self._last_fast_steps = None
         self._require()
         if record:
-            raise NotImplementedError(
-                "run_steps(record=True) is not ported yet (ROADMAP Queue A "
-                "item 5)")
-        if self._animated():
-            raise NotImplementedError(
-                "animated positional targets are not ported yet (ROADMAP "
-                "Queue A item 10)")
+            return self._run_steps_recorded(fext, num_steps, num_iterations)
         model = self.model
         P = self._to_device(model.positions)
         V = self._to_device(model.velocities)
         Fx = self._to_device(fext)
-        rb_extra = self._rb_extra()
+        rb_extra = self._rb_schedule_from(self.frame)
         fast = self._resident_fast
         if fast is not None and model.floor_collision:
             # float64 host check of the step-0 predictor: skip tier 1 when
@@ -641,6 +738,39 @@ class AnimSnapBasesSolver:
         model.positions = self._to_host(P)
         model.velocities = self._to_host(V)
         self.frame += num_steps
+
+    def _run_steps_recorded(self, fext, num_steps, num_iterations):
+        """``run_steps(record=True)`` (the JAX ``_run_steps_recorded``):
+        ``num_steps`` steps on kernel 1, step i with the target-term row of
+        frame ``self.frame + i``, each step's positions written into a
+        (num_steps, 3, N) buffer on the device, which crosses to the host
+        once -> the (num_steps, N, 3) float64 trajectory.  With the floor
+        on, ``positions_corrections`` is the last step's, as ``step()``
+        leaves it (y: the raw predictor less the floor where it is below,
+        else 0)."""
+        model, ro = self.model, self._resident
+        P = self._to_device(model.positions)
+        V = self._to_device(model.velocities)
+        fa = force_term(ro, self._to_device(fext))
+        rb = self._rb_schedule_from(self.frame)
+        buf = P.new_empty((num_steps,) + tuple(P.shape))
+        corr_y = torch.zeros_like(P[1])
+        for i in range(num_steps):
+            if model.floor_collision:
+                sn_y = P[1] + ro.dt * ro.eta * V[1] + fa[1]
+                corr_y = torch.clamp(sn_y - ro.floor_h, max=0.0)
+            P, V = step_once(ro, P, V, fa, rb_at(rb, i), num_iterations,
+                             iterate=fused_reduced_iterations)
+            buf[i] = P
+        traj = buf.cpu().numpy().astype(float).transpose(0, 2, 1)[:, ro.iperm]
+        model.positions = self._to_host(P)
+        model.velocities = self._to_host(V)
+        if model.floor_collision:
+            corr = np.zeros_like(model.positions)
+            corr[:, 1] = corr_y.cpu().numpy().astype(float)[ro.iperm]
+            model.positions_corrections = corr
+        self.frame += num_steps
+        return traj
 
     # ------------------------------------------------------------------
     # ensemble serving
@@ -732,11 +862,15 @@ class AnimSnapBasesSolver:
         """Ensemble serving: ``run(positions (B, N, 3), velocities,
         fext (B, N, 3), num_steps, num_iterations=10, targets_seq=None) ->
         (positions', velocities')`` as (B, N, 3) float64 arrays, B
-        independent sims advanced ``num_steps`` steps with static targets.
-        The targets are the model's at a serving frame that starts at the
-        solver's frame and advances by ``num_steps`` per call.  The
-        prepared state is read at call time, so a ``set_dirty()`` +
-        ``prepare()`` rebuild is served by a runner made before it.
+        independent sims advanced ``num_steps`` steps.  ``targets_seq`` is
+        the positional-target timeline of the call's steps, step i taking
+        row min(i, T - 1): (T, e, 3) shared by the sims or (B, T, e, 3)
+        per sim (:meth:`_rb_timeline`).  Without it the sims follow the
+        model's own target schedule from a serving frame that starts at
+        the solver's frame and advances by ``num_steps`` per call, so
+        consecutive calls continue an animation.  The prepared state is
+        read at call time, so a ``set_dirty()`` + ``prepare()`` rebuild is
+        served by a runner made before it.
 
         Below ``CHUNKED_TIER1_MIN_VERTS`` vertices one call of the batched
         kernel 3 (its contact-mode build unless ``resident_contact_mode``
@@ -750,19 +884,13 @@ class AnimSnapBasesSolver:
         def run(positions, velocities, fext, num_steps, num_iterations=10,
                 targets_seq=None):
             self._refuse_self_collision()
-            self._check_batch(positions, velocities, fext)
-            if targets_seq is not None:
-                raise NotImplementedError(
-                    "target timelines in batched serving are not ported yet "
-                    "(ROADMAP Queue A item 10)")
+            B = self._check_batch(positions, velocities, fext)
             self._require()
-            if self._animated(serving_frame[0]):
-                raise NotImplementedError(
-                    "animated positional targets are not ported yet "
-                    "(ROADMAP Queue A item 10)")
+            rb = (self._rb_schedule_from(serving_frame[0])
+                  if targets_seq is None
+                  else self._rb_timeline(targets_seq, B))
             P, V = self._pack(positions), self._pack(velocities)
             Fx = self._pack(fext)
-            rb = self._rb_extra(frame=serving_frame[0])
             if self._resident_kind == "standard":
                 P, V = self._run_batched_chunked(P, V, Fx, rb, int(num_steps),
                                                  num_iterations)
@@ -778,7 +906,8 @@ class AnimSnapBasesSolver:
     def _run_batched_resident(self, P, V, Fx, rb, num_steps, num_iterations):
         """The window on the batched kernel 3, lean or in contact mode as
         the solver's contact tier is (B = 1: the solo kernel 3), one call
-        for the whole batch."""
+        for the whole batch; ``rb`` the target-term schedule, shared or
+        per sim."""
         every = int(getattr(self, "resident_rebase_every", None) or 256)
         self._last_batched_path = "batched-resident"
         solo, batched = ((resident_affine_contact,
@@ -786,7 +915,7 @@ class AnimSnapBasesSolver:
                          if self._contact_mode else
                          (resident_affine, resident_affine_batched))
         if P.shape[0] == 1:
-            out = solo(self._affine, P[0], V[0], Fx[0], rb, num_steps,
+            out = solo(self._affine, P[0], V[0], Fx[0], _sim0(rb), num_steps,
                        num_iterations, rebase_every=every)
             return out[0][None], out[1][None]
         return batched(self._affine, P, V, Fx, rb, num_steps, num_iterations,
@@ -798,22 +927,26 @@ class AnimSnapBasesSolver:
         which any sim would clamp; a window of
         ``max(resident_rebase_every or 1024, ceil(num_steps / 64))`` steps
         then runs on the batched kernel 2, and stepping hands back to
-        kernel 5.  B = 1 runs the solo kernels 5 and 2."""
+        kernel 5.  B = 1 runs the solo kernels 5 and 2.  Each call takes
+        the target-term schedule ``rb`` from its own first step on."""
         ao = self._affine
         solo = P.shape[0] == 1
+        if solo:
+            rb = _sim0(rb)
         window = max(int(getattr(self, "resident_rebase_every", None)
                          or 1024), -(-num_steps // 64))
         remaining, windows = num_steps, 0
         self._last_batched_path = "batched-chunked"
         while remaining > 0:
+            rb_now = rb_from(rb, num_steps - remaining)
             if solo:
-                Pf, Vf, k = affine_chunked(ao, P[0], V[0], Fx[0], rb,
+                Pf, Vf, k = affine_chunked(ao, P[0], V[0], Fx[0], rb_now,
                                            remaining, num_iterations,
                                            rebase_every=self._chunk_every)
                 Pf, Vf = Pf[None], Vf[None]
             else:
                 Pf, Vf, k = affine_chunked_batched(
-                    ao, P, V, Fx, rb, remaining, num_iterations,
+                    ao, P, V, Fx, rb_now, remaining, num_iterations,
                     rebase_every=self._chunk_every)
             if k > 0:
                 P, V = Pf, Vf
@@ -822,14 +955,21 @@ class AnimSnapBasesSolver:
                 break
             # whole-batch contact: a bounded window on kernel 2, then back
             w = min(remaining, window)
+            rb_now = rb_from(rb, num_steps - remaining)
             if solo:
                 P, V = (x[None] for x in resident_multistep(
-                    ao.res, P[0], V[0], Fx[0], rb, w, num_iterations))
+                    ao.res, P[0], V[0], Fx[0], rb_now, w, num_iterations))
             else:
-                P, V = resident_multistep_batched(ao.res, P, V, Fx, rb, w,
+                P, V = resident_multistep_batched(ao.res, P, V, Fx, rb_now, w,
                                                   num_iterations)
             remaining -= w
             windows += 1
         if windows:
             self._last_batched_path = f"batched-chunked+perstep[{windows}w]"
         return P, V
+
+
+def _sim0(rb):
+    """A batch's target-term schedule as its one sim's: a per-sim
+    (1, T, 3, r) schedule loses its sim axis."""
+    return rb[0] if rb.dim() == 4 else rb

@@ -62,9 +62,26 @@ version.  Phases, each of which fails the run when it fails:
    lean, 5 and 2; kernel 1 held against float64, kernels 2-5 against their
    plain versions step by step, every batched sim bit for bit against its
    solo call; times and bounds per scene;
+2-4 for animated positional targets (:func:`animated`): the bench cloth
+   with the poke of ``scripts/bench_poke.py`` (a 1,536-frame z-motion of
+   its vertex nearest the centroid, wi = 1e5, damping doubled), through
+   ``run_steps`` on the default tiers (a 2,048-step poke window on kernel 5
+   across a chunk and past the schedule's end; the contact scene, kernel 5
+   then kernel 3', across the schedule's end), with
+   ``resident_chunked_tier1 = False`` and ``resident_contact_mode = False``
+   (kernels 4 and 3) and with ``CHUNKED_TIER1_MIN_VERTS = 0`` (kernels 5
+   and 2), ``make_batched_run`` with per-sim timelines at 16 sims (batched
+   3', 3 lean, and 5 with windows on 2) and a shared one at 64 sims, and
+   ``run_steps(record=True)``, each a counted path; every kernel against
+   its plain version step by step with a schedule that ends inside the
+   window, each batched sim bit for bit against the solo kernel from its
+   own schedule, the recorded trajectory bit for bit against a ``step()``
+   loop; each kernel timed with the schedule and with a static term in
+   turns, beside its bound with the schedule's bytes;
 5. the ``kernels`` line (eleven entries: six solo kernels, five batched
-   builds, each with its times on the new scenes under ``scenes``), then the
-   last line ``{"ok": true, "device": {...}}``.
+   builds, each with its times on the new scenes under ``scenes`` and with
+   a target schedule under ``animated``), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -203,6 +220,27 @@ BENCH_DAMPING = 2e-3
 NEW_DEPTH = 16
 NEW_BATCH = 8
 SWITCH_SCENE = "bar, strain and bending"
+# animated targets (:func:`animated`): the poke of scripts/bench_poke.py on
+# the bench cloth, z-motion cycles of POKE_CYCLE (f_l, f_j) frames, POKE_Z
+# deep, POKE_CYCLES of them (1,536 frames), at wi = POKE_WI; the window of
+# its run_steps path (across a kernel-5 chunk and past the schedule's end);
+# the frames before the schedule's end at which its tiered runs' contact
+# scene and the recorded run start; the rows of make_batched_run's
+# timelines (a call of SCENE_STEPS steps runs past them) and the size of
+# its shared-timeline ensemble; the depth of the step-by-step holds, whose
+# schedule is POKE_DEPTH / 2 rows of the poke's first ramp from frame
+# POKE_RAMP; the rounds of the timings in turns
+POKE_CYCLE = (40, 8)
+POKE_CYCLES = 32
+POKE_Z = 0.05
+POKE_WI = 1e5
+POKE_WINDOW = 2048
+POKE_TAIL = 32
+POKE_ROWS = 48
+POKE_SHARED = 64
+POKE_DEPTH = 16
+POKE_RAMP = 0
+POKE_ROUNDS = 20
 
 
 def log(*a):
@@ -700,8 +738,11 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
 
     Printed, not held: the kernel's call of s steps against the plain
     version's call (``plain``) of as many steps from (P, V), for a few s,
-    which the dynamics of this scene part within a few steps.  Returns the
-    largest difference and the flags of the call of ``steps`` steps."""
+    which the dynamics of this scene part within a few steps.  With a
+    target-term schedule ``rb_extra`` ((T, 3, r), animated targets) step s
+    of the plain side takes the schedule's row min(s - 1, T - 1), as the
+    kernel's step s does.  Returns the largest difference and the flags of
+    the call of ``steps`` steps."""
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
         MODE_SLOT,
@@ -718,7 +759,11 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
         gathered_values,
     )
     from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc
-    from animsnapbases_tpu_torch.ops.resident import force_term, project
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        project,
+        rb_at,
+    )
 
     class GivenU(AffineContext):
         """The plain step with the loop's answer given (``self.u``)."""
@@ -793,15 +838,15 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
                 "contact-free steps")
         return Pk, Vk, (tuple(coefs), mode, y), flags
 
-    def given_u(s, state, after, Pk, Vk):
+    def given_u(s, state, after, Pk, Vk, rb):
         """The kernel's step against the plain step from ``state`` given
         the kernel's u (its wp after the step less the predictor's), the
         y state with it -> the largest share of a step's size."""
         anchors, coefs, mode, y = state
         wsn = ctx.predictor(AffineState(*anchors, *coefs))[-1]
         given.u = after[0][2] - wsn
-        (Pi, Vi), (Pf, Vf), y_f = plain_step(given, state, rb_extra)
-        shares = step_share(ro, fa, rb_extra, Pi, Vi, Pk, Vk, Pf, Vf)
+        (Pi, Vi), (Pf, Vf), y_f = plain_step(given, state, rb)
+        shares = step_share(ro, fa, rb, Pi, Vi, Pk, Vk, Pf, Vf)
         require(after[1] == (y_f is not None),
                 f"{label}, step {s}: the kernel's contact mode "
                 f"{after[1]} differs from the plain step's")
@@ -814,7 +859,7 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
                   "kernel's u", shares)
         return max(d / sz if sz > 0 else 0.0 for d, sz in shares.values())
 
-    def witness(s, state, P64, V64):
+    def witness(s, state, P64, V64, rb):
         """{"P": d, "V": d}: the farthest from (P64, V64) of the float64
         plain steps from ``state`` with its coefficients and y state moved
         at random by one float32 unit, WITNESS_DRAWS draws in one batched
@@ -834,7 +879,7 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
         _, (Pq, Vq), _ = plain_step(ctx64, (
             tuple(many(b) for b in anchors), tuple(nudge(c) for c in coefs),
             mode, None if y is None else tuple(nudge(t) for t in y)),
-            rb_extra.double())
+            rb.double())
         return {"P": max_abs(Pq, P64), "V": max_abs(Vq, V64)}
 
     e0, e1, _ = basis(P.dtype, P.device)
@@ -849,18 +894,19 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
         if contact and _rebase_due(s - 1, every):
             state = (prev, *unit)
         Pk, Vk, after, flags = run_k(s)
-        (Pi, Vi), (Pp, Vp), _ = plain_step(ctx, state, rb_extra)
-        shares = step_share(ro, fa, rb_extra, Pi, Vi, Pk, Vk, Pp, Vp)
+        rb_s = rb_at(rb_extra, s - 1)
+        (Pi, Vi), (Pp, Vp), _ = plain_step(ctx, state, rb_s)
+        shares = step_share(ro, fa, rb_s, Pi, Vi, Pk, Vk, Pp, Vp)
         if contact:
-            given_worst = max(given_worst, (given_u(s, state, after, Pk, Vk),
-                                            s))
+            given_worst = max(given_worst, (given_u(s, state, after, Pk, Vk,
+                                                    rb_s), s))
         if all(d <= STEP_TOL * sz for d, sz in shares.values()):
             for key, (d, sz) in shares.items():
                 diff[key] = max(diff[key], d)
                 share[key] = max(share[key], (d / sz if sz > 0 else 0.0, s))
         else:
-            _, (P64, V64), _ = plain_step(ctx64, state, rb_extra.double())
-            seen = witness(s, state, P64, V64) if contact else None
+            _, (P64, V64), _ = plain_step(ctx64, state, rb_s.double())
+            seen = witness(s, state, P64, V64, rb_s) if contact else None
             near = {}
             for key, got, pl, ref in (("P", Pk, Pp, P64), ("V", Vk, Vp, V64)):
                 e_k, e_p = max_abs(got, ref), max_abs(pl, ref)
@@ -2146,6 +2192,614 @@ def tet_bending(torch, counted, paths):
     return per
 
 
+def poke_scene(torch, dev):
+    """The animated-target scene: the bench cloth (:func:`bench_scene`) with
+    the poke of scripts/bench_poke.py on its vertex nearest the centroid
+    (POKE_CYCLES z-motion cycles of POKE_CYCLE frames, POKE_Z deep, wi =
+    POKE_WI), the bench damping doubled, at the bench's widths -> (model,
+    solver, the poke's shift)."""
+    from animsnapbases_tpu_torch.demos.poke import (
+        create_poke_z_motion_with_jumps,
+    )
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+
+    model = bench_scene(DeformableModel, cloth_model)
+    shift = create_poke_z_motion_with_jumps(*POKE_CYCLE, POKE_CYCLES,
+                                            z_range=POKE_Z)
+    vi = int(np.argmin(np.linalg.norm(
+        model.positions - model.positions.mean(axis=0), axis=1)))
+    require(not model.fixed_flags[vi], "the poked vertex is pinned")
+    model.add_positional_constraint(vi, wi=POKE_WI,
+                                    motion_type="user_defined",
+                                    frame_shift=shift)
+    solver = scene_solver(synthetic_reduced_solver, model, K=40, r=64,
+                          damping=2 * BENCH_DAMPING, device=dev,
+                          dtype=torch.float32, matmul_dtype=torch.bfloat16)
+    return model, solver, shift
+
+
+def aim_poke(solver, model, positions):
+    """Move the poke's rest target to the poked vertex of ``positions``
+    (the model's state becomes ``positions``, at rest) and prepare again,
+    so that the prepared schedule pokes around where the vertex is, as a
+    scene that moves its cloth moves its targets.  The vertex and its
+    weight stay, so the matrices do too: prepare() rebuilds the schedule
+    only."""
+    model.positions = positions.copy()
+    model.velocities = np.zeros_like(positions)
+    model._rebuild_positional()
+    solver.prepare(solver.args)
+
+
+def per_sim_timelines(base, shift, rows, amp_step, phase_step):
+    """(B, rows, e, 3) targets of B sims from their rest targets ``base``
+    (B, e, 3), sim b's poke shift scaled by (1 - amp_step b) and delayed by
+    phase_step b frames, from frame 0."""
+    frames = np.arange(rows)
+    out = np.repeat(np.asarray(base, dtype=float)[:, None], rows, axis=1)
+    for b in range(len(out)):
+        sh = np.roll(shift, phase_step * b, axis=0) * (1.0 - amp_step * b)
+        out[b, :, 0] += sh[np.minimum(frames, len(sh) - 1)]
+    return out
+
+
+def in_turns(torch, calls, rounds):
+    """{name: median ms} of each call of ``calls`` ({name: fn}), timed in
+    turns (every call once per round, between two CUDA events), so that
+    the card's state is shared by all of them."""
+    for fn in calls.values():
+        fn()
+    times = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times[name].append(a.elapsed_time(b))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def animated(torch, counted, paths, main_state, dev):
+    """Animated positional targets (the target-term schedule, T > 1) on the
+    poke scene (:func:`poke_scene`): the paths (2) of run_steps on the
+    default tiers (a poke window across a kernel-5 chunk and past the
+    schedule's end; the cloth from rest under gravity, tier 1 certifying
+    the window; the contact scene, the poke aimed at it, where kernel 5
+    hands over to kernel 3' across the schedule's end), the same with
+    resident_chunked_tier1=False and resident_contact_mode=False (kernels
+    4 and 3) and with CHUNKED_TIER1_MIN_VERTS=0 (kernels 5 and 2);
+    make_batched_run at MIXED sims with per-sim timelines (each sim poked
+    around its own start) on batched 3', batched 3 lean and batched 5 and
+    2; a shared timeline at POKE_SHARED sims; and run_steps(record=True).  Holds (3): each kernel against its plain
+    version step by step with a schedule that ends inside the window
+    (one-step calls, the steps one call carries, and one call equal to the
+    one-step calls bit for bit, which holds the row each step reads); each
+    batched sim against the solo kernel from its own schedule bit for bit;
+    the recorded trajectory against a step() loop bit for bit.  Times (4):
+    each kernel per step with the schedule and with a static term, in
+    turns, beside its bound counting the schedule's bytes.  Returns
+    {kernel name: its animated entry}."""
+    from animsnapbases_tpu_torch.ops.affine import (
+        FLAG_SLOTS,
+        _launch_affine,
+        resident_affine,
+        resident_affine_batched,
+        resident_affine_contact,
+        resident_affine_contact_batched,
+        resident_affine_contact_plain,
+        resident_affine_exit,
+        resident_affine_exit_plain,
+        resident_affine_plain,
+    )
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        _chunk_launch,
+        affine_chunked,
+        affine_chunked_batched,
+        affine_chunked_plain,
+        chunk_anchors,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        project,
+        rb_from,
+        resident_multistep,
+        resident_multistep_batched,
+        resident_multistep_plain,
+    )
+
+    t_start = time.perf_counter()
+    model, solver, shift = poke_scene(torch, dev)
+    T = len(shift)
+    vi = model._positional[0]["vi"]
+    ro, ao = solver._resident, solver._affine
+    r = ro.fused.r
+    sched = solver._rb_sched
+    require(sched is not None and tuple(sched.shape) == (T, 3, r),
+            "the poke scene's schedule was not prepared")
+    log(f"[2] animated targets: the bench cloth with a poke of {T} frames "
+        f"(wi {POKE_WI:g}, z {POKE_Z}), schedule {tuple(sched.shape)} "
+        f"{sched.dtype} on the card, prepared in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    rest = (model.positions.copy(), np.zeros_like(model.positions))
+    f = gravity(model)
+    f0 = np.zeros_like(f)
+
+    # ---- 2. the paths --------------------------------------------------
+    model.positions, model.velocities = (x.copy() for x in rest)
+    solver.frame = 0
+    label = (f"animated targets, run_steps({POKE_WINDOW}) poke window, "
+             "default tiers")
+    paths[label] = counted_path(
+        torch, counted, label, {"affine_chunked"},
+        lambda: solver.run_steps(f0, POKE_WINDOW, num_iterations=ITERATIONS))
+    dz = float(np.abs(model.positions - rest[0]).max())
+    require(solver._last_fast_steps == POKE_WINDOW
+            and solver.frame == POKE_WINDOW and np.isfinite(
+                model.positions).all() and dz > 0,
+            f"{label}: tier 1 did not certify the window, or the poke moved "
+            f"nothing (max |dP| {dz:.3e})")
+    log(f"[2] {label}: certified across {POKE_WINDOW // CHUNK_EVERY} "
+        f"chunks, {POKE_WINDOW - T} steps past the schedule's end; max |dP| "
+        f"from rest {dz:.4e}")
+    # the tiers on the poke scene, from POKE_TAIL + SCENE_STEPS frames
+    # before the schedule's end: from rest under gravity (tier 1 serves and
+    # certifies the window), then the contact scene with the poke aimed at
+    # it (tier 1 exits and the contact tier finishes, across the end)
+    default_min = type(solver).CHUNKED_TIER1_MIN_VERTS
+    tiers = (("default tiers", {"resident_chunked_tier1": None,
+                                "resident_contact_mode": None,
+                                "CHUNKED_TIER1_MIN_VERTS": default_min},
+              "affine_chunked", "resident_affine_contact"),
+             ("resident_chunked_tier1=False, resident_contact_mode=False",
+              {"resident_chunked_tier1": False,
+               "resident_contact_mode": False,
+               "CHUNKED_TIER1_MIN_VERTS": default_min},
+              "resident_affine_exit", "resident_affine"),
+             ("CHUNKED_TIER1_MIN_VERTS=0",
+              {"resident_chunked_tier1": True, "resident_contact_mode": False,
+               "CHUNKED_TIER1_MIN_VERTS": 0},
+              "affine_chunked", "resident_multistep"))
+    contact_in = contact_state(model)
+    for aim, state, scene in ((rest[0], rest, "window"),
+                              (contact_in[0], contact_in, "contact scene")):
+        aim_poke(solver, model, aim)
+        for tier_label, switches, tier1, tier2 in tiers:
+            reprepare(solver, **switches)
+            calls = spy_tier1(solver)
+            model.positions, model.velocities = (x.copy() for x in state)
+            solver.frame = T - POKE_TAIL - (SCENE_STEPS if scene == "window"
+                                            else 0)
+            frame = solver.frame
+            lbl = f"animated targets, {tier_label}, {scene}"
+            paths[lbl] = counted_path(
+                torch, counted, lbl,
+                {tier1} if scene == "window" else {tier1, tier2},
+                lambda: solver.run_steps(f, SCENE_STEPS,
+                                         num_iterations=ITERATIONS))
+            k = calls[0] if calls else 0
+            ok = (calls == [SCENE_STEPS] and solver._last_fast_steps
+                  == SCENE_STEPS) if scene == "window" else (
+                0 < k < SCENE_STEPS and solver._last_fast_steps is None)
+            require(ok and solver.frame == frame + SCENE_STEPS
+                    and np.isfinite(model.positions).all()
+                    and model.positions[:, 1].min() > -0.5,
+                    f"{lbl}: tier-1 calls {calls}, certificate "
+                    f"{solver._last_fast_steps}, or the state is not finite "
+                    "and held at the floor")
+            log(f"[2] {lbl}: frames {frame}..{solver.frame - 1} (the "
+                f"schedule ends at {T}): tier 1 served {sum(calls)} steps "
+                f"(calls {calls}), the contact tier "
+                f"{SCENE_STEPS - sum(calls)}; end y in "
+                f"[{model.positions[:, 1].min():.4f}, "
+                f"{model.positions[:, 1].max():.4f}]")
+    sched_contact = solver._rb_sched.clone()
+    aim_poke(solver, model, rest[0])
+    reprepare(solver, CHUNKED_TIER1_MIN_VERTS=default_min,
+              resident_contact_mode=None, resident_chunked_tier1=None)
+    sched = solver._rb_sched
+
+    # make_batched_run with per-sim timelines on the mixed batch
+    mixed = mixed_state(model, main_state, f)
+    contact = contact_sims()
+    ring = [b for b in range(MIXED) if b not in contact]
+    # each sim poked around its own start (per-sim targets), the shared
+    # timeline around the main path's end
+    tl_sims = per_sim_timelines(mixed[0][:, [vi]], shift, POKE_ROWS, 0.04,
+                                5)
+    shared = ensemble_state(main_state, POKE_SHARED)
+    tl_shared = per_sim_timelines(shared[0][:1, [vi]], shift, POKE_ROWS,
+                                  0.0, 0)[0]
+    out = {}
+
+    def batched_path(route, own, batch, tl, expect):
+        lbl = (f"animated targets, make_batched_run, B={len(batch[0])}, "
+               f"{'per-sim' if tl.ndim == 4 else 'shared'} timeline, "
+               f"{route}")
+        run = solver.make_batched_run()
+        paths[lbl] = counted_path(torch, counted, lbl, own, lambda: out.update(
+            {lbl: run(*batch, SCENE_STEPS, num_iterations=ITERATIONS,
+                      targets_seq=tl)}))
+        p, v = out[lbl]
+        route_taken = solver._last_batched_path
+        require(route_taken.startswith(expect) and np.isfinite(p).all()
+                and np.isfinite(v).all() and float(p[..., 1].min()) > -0.5,
+                f"{lbl}: took {route_taken}, or its end state is not finite "
+                "and held at the floor")
+        log(f"[2] {lbl}: {route_taken}, {SCENE_STEPS} steps over a "
+            f"{tl.shape[-3]}-row timeline; end y in "
+            f"[{float(p[..., 1].min()):.4f}, {float(p[..., 1].max()):.4f}]")
+        return lbl, p
+
+    lbl_3c, p_3c = batched_path("default (contact mode)",
+                                {"resident_affine_contact_batched"}, mixed,
+                                tl_sims, "batched-resident")
+    require(float(p_3c[ring, :, 1].min()) > model.floor_height,
+            "a ring-down sim of the poked mixed batch reached the floor")
+    batched_path("default (contact mode)",
+                 {"resident_affine_contact_batched"}, shared, tl_shared,
+                 "batched-resident")
+    reprepare(solver, resident_contact_mode=False)
+    lbl_3, _ = batched_path("resident_contact_mode=False (lean)",
+                            {"resident_affine_batched"}, mixed, tl_sims,
+                            "batched-resident")
+    reprepare(solver, CHUNKED_TIER1_MIN_VERTS=0,
+              resident_rebase_every=MIXED_EVERY)
+    lbl_52, _ = batched_path(
+        "CHUNKED_TIER1_MIN_VERTS=0",
+        {"affine_chunked_batched", "resident_multistep_batched"}, mixed,
+        tl_sims, "batched-chunked+perstep[")
+    windows = int(solver._last_batched_path.split("[")[1].rstrip("w]"))
+    require(windows >= 2, f"{lbl_52}: {windows} kernel-2 window(s), not "
+            "kernel 5 -> kernel 2 -> kernel 5 -> kernel 2")
+    reprepare(solver, CHUNKED_TIER1_MIN_VERTS=default_min,
+              resident_rebase_every=None, resident_contact_mode=None)
+
+    # run_steps(record=True) from the rest state under gravity, across the
+    # schedule's end, then the same steps as a step() loop
+    model.positions, model.velocities = (x.copy() for x in rest)
+    start = T - POKE_TAIL
+    solver.frame = start
+    lbl_rec = f"animated targets, run_steps({SCENE_STEPS}, record=True)"
+
+    def record():
+        t0 = time.perf_counter()
+        out[lbl_rec] = solver.run_steps(f, SCENE_STEPS,
+                                        num_iterations=ITERATIONS,
+                                        record=True)
+        out[lbl_rec + " s"] = time.perf_counter() - t0
+
+    paths[lbl_rec] = counted_path(torch, counted, lbl_rec,
+                                  {"fused_reduced_iterations"}, record)
+    traj = out[lbl_rec]
+    end = (model.positions.copy(), model.velocities.copy())
+    require(traj.shape == (SCENE_STEPS, ro.n, 3) and np.isfinite(traj).all()
+            and np.array_equal(traj[-1], end[0])
+            and solver.frame == start + SCENE_STEPS,
+            f"{lbl_rec}: trajectory {traj.shape} not finite or not ending at "
+            "the state")
+    model.positions, model.velocities = (x.copy() for x in rest)
+    solver.frame = start
+    loop_diff = 0.0
+    for i in range(SCENE_STEPS):
+        solver.step(f, num_iterations=ITERATIONS)
+        loop_diff = max(loop_diff, float(np.abs(model.positions
+                                                - traj[i]).max()))
+    require(loop_diff == 0.0 and np.array_equal(model.velocities, end[1]),
+            f"{lbl_rec}: the trajectory differs from a step() loop by "
+            f"{loop_diff:.3e}")
+    log(f"[3] {lbl_rec}: frames {start}..{start + SCENE_STEPS - 1} "
+        f"(the schedule ends at {T}) in {out[lbl_rec + ' s']:.3f} s (host "
+        "transfers included), the trajectory equals a step() loop bit for "
+        "bit")
+
+    # ---- 3. holds ------------------------------------------------------
+    # a schedule that ends inside the windows: POKE_DEPTH / 2 rows of the
+    # poke's first ramp (every row differs), the window POKE_DEPTH steps;
+    # on the contact scene the rows of the poke aimed at it.  As on the
+    # static scenes, kernels 4, 5 and both builds of 3 are held step by
+    # step on contact-free steps (the poke window) and kernel 2 on the
+    # cloth falling under gravity; on the contact scene, where two float32
+    # orders of the loop's clamps part, by the rows they read (a call
+    # equal to its one-step calls) and contact mode's carried steps
+    rows = POKE_DEPTH // 2
+    rb_h = sched[POKE_RAMP:POKE_RAMP + rows].clone()
+    rb_hc = sched_contact[POKE_RAMP:POKE_RAMP + rows].clone()
+    Pw, Vw = (solver._to_device(x) for x in rest)
+    F0 = torch.zeros_like(Pw)
+    Fx = solver._to_device(f)
+    Pc, Vc = (solver._to_device(x) for x in contact_state(model))
+    anim_err = {}
+
+    def onestep(fn, F_, rb):
+        """One-step calls of ``fn``, the n-th with the schedule ``rb`` from
+        its step n on; a tier-1 call must do its step."""
+        n = [0]
+
+        def run(P_, V_):
+            out_ = fn(ao, P_, V_, F_, rb_from(rb, n[0]), 1, ITERATIONS)
+            require(len(out_) == 2 or out_[2] == 1,
+                    f"{fn.__name__} stopped on a contact-free step")
+            n[0] += 1
+            return out_[:2]
+        return run
+
+    def on_res(fn):
+        def call(a, *x, **kw):
+            return fn(a.res, *x, **kw)
+        call.__name__ = fn.__name__
+        return call
+
+    for name, fn, plain, P0, V0, F_, rb in (
+            ("kernel 2", on_res(resident_multistep),
+             on_res(resident_multistep_plain), Pw, Vw, Fx, rb_h),
+            ("kernel 5", affine_chunked, affine_chunked_plain, Pw, Vw, F0,
+             rb_h),
+            ("kernel 4", resident_affine_exit, resident_affine_exit_plain,
+             Pw, Vw, F0, rb_h),
+            ("kernel 3", resident_affine, resident_affine_plain, Pw, Vw, F0,
+             rb_h),
+            ("kernel 3 (contact mode)", resident_affine_contact,
+             resident_affine_contact_plain, Pw, Vw, F0, rb_h)):
+        err, (Pi, Vi) = step_by_step(
+            torch, f"animated {name}, schedule of {rows} rows", ro,
+            onestep(fn, F_, rb), onestep(plain, F_, rb), P0, V0, F_, rb[0],
+            POKE_DEPTH)
+        kw = {} if name == "kernel 2" else {"rebase_every": 1}
+        same_as_steps(torch, f"animated {name} ({POKE_DEPTH}-step call"
+                      f"{'' if name == 'kernel 2' else ', rebase_every=1'})",
+                      lambda P_, V_: fn(ao, P_, V_, F_, rb, POKE_DEPTH,
+                                        ITERATIONS, **kw),
+                      P0, V0, Pi, Vi, POKE_DEPTH)
+        anim_err[name] = err
+    # kernels 2 and 3 (both builds) on the contact scene: the lean contact
+    # tail and a contact-mode step (entered at every step here) read their
+    # rows too
+    for name, fn in (("kernel 2", on_res(resident_multistep)),
+                     ("kernel 3", resident_affine),
+                     ("kernel 3 (contact mode)", resident_affine_contact)):
+        Pi, Vi = Pc, Vc
+        for i in range(POKE_DEPTH):
+            Pi, Vi = fn(ao, Pi, Vi, Fx, rb_from(rb_hc, i), 1, ITERATIONS)
+        kw = {} if name == "kernel 2" else {"rebase_every": 1}
+        same_as_steps(torch, f"animated {name} (contact scene, "
+                      f"{POKE_DEPTH}-step call"
+                      f"{'' if name == 'kernel 2' else ', rebase_every=1'})",
+                      lambda P_, V_, fn=fn, kw=kw: fn(ao, P_, V_, Fx, rb_hc,
+                                                      POKE_DEPTH, ITERATIONS,
+                                                      **kw),
+                      Pc, Vc, Pi, Vi, POKE_DEPTH)
+    # the steps one call carries, each step with its own row: on the poke
+    # window, and in contact mode on the contact scene over SCENE_STEPS
+    # steps with the rows of the poke's first SCENE_STEPS / 2 frames (its
+    # branch steps are held by their median, as on the static contact
+    # scene)
+    rb_c = sched_contact[:SCENE_STEPS // 2].clone()
+    for kernel, every, P0, V0, F_, rb, depth, scene in (
+            (5, CHUNK_EVERY, Pw, Vw, F0, rb_h, POKE_DEPTH, "poke window"),
+            (4, REBASE_EVERY, Pw, Vw, F0, rb_h, POKE_DEPTH, "poke window"),
+            (3, REBASE_EVERY, Pw, Vw, F0, rb_h, POKE_DEPTH, "poke window"),
+            ("3c", REBASE_EVERY, Pw, Vw, F0, rb_h, POKE_DEPTH,
+             "poke window"),
+            ("3c", 3, Pc, Vc, Fx, rb_c, SCENE_STEPS,
+             "contact scene, rebase_every=3")):
+        name = ("kernel 3 (contact mode)" if kernel == "3c"
+                else f"kernel {kernel}")
+        plain = {5: affine_chunked_plain, 4: resident_affine_exit_plain,
+                 3: resident_affine_plain,
+                 "3c": resident_affine_contact_plain}[kernel]
+        err, _ = carried_steps(
+            torch, f"animated {name} ({scene}, schedule of "
+            f"{rb.shape[0]} rows), carried steps", kernel, ao,
+            lambda *a, plain=plain, every=every: plain(
+                *a, rebase_every=every), P0, V0, F_, rb, depth, every)
+        anim_err[name] = max(anim_err[name], err)
+
+    # batched kernels on the mixed batch, a schedule per sim (its rows of
+    # the per-sim timelines' first ramp): each sim against the solo kernel
+    # from its own schedule, bit for bit; one step against the plain
+    # version
+    Pm, Vm, Fm = (solver._pack(x) for x in mixed)
+    rb_b = solver._rb_timeline(
+        tl_sims[:, POKE_RAMP:POKE_RAMP + rows], MIXED)
+    require(tuple(rb_b.shape) == (MIXED, rows, 3, r),
+            f"per-sim schedule {tuple(rb_b.shape)}")
+    same_per_sim(torch, f"animated batched kernel 2, {POKE_DEPTH} steps",
+                 resident_multistep_batched(ro, Pm, Vm, Fm, rb_b, POKE_DEPTH,
+                                            ITERATIONS),
+                 lambda b: resident_multistep(ro, Pm[b], Vm[b], Fm[b],
+                                              rb_b[b], POKE_DEPTH,
+                                              ITERATIONS), MIXED)
+    for variant in ("lean", "contact"):
+        def call(P1, V1, F1, rb1, variant=variant):
+            o = _launch_affine(ao, P1, V1, F1, rb1, POKE_DEPTH, ITERATIONS,
+                               3, variant)
+            return o[:3] + (o[4] or ())
+        same_per_sim(torch, f"animated batched kernel 3 ({variant}), "
+                     f"{POKE_DEPTH} steps, rebase_every=3",
+                     call(Pm, Vm, Fm, rb_b),
+                     lambda b: call(Pm[b], Vm[b], Fm[b], rb_b[b]), MIXED)
+    fa = force_term(ro, Fm)
+    bu0, bu1, b0s, b1s = chunk_anchors(ao, Pm, Vm)
+    fas, bufa = gather_vc(ro.fused, fa), project(ro, fa)
+    ymm, ymm1 = (torch.empty(MIXED, 6, device=dev) for _ in range(2))
+    chunk_in = (Pm, Vm, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa)
+
+    def launch(P_, V_, fa_, ymm_, *anchors, rb):
+        return _chunk_launch(ao, P_, V_, fa_, ymm_, True, *anchors, rb,
+                             POKE_DEPTH, ITERATIONS, ao.floor_level)
+
+    def solo_chunk(b):
+        one = [x[b] for x in chunk_in]
+        one[3] = ymm1[b]
+        return (*launch(*one, rb=rb_b[b]), ymm1[b])
+
+    coef, kb = launch(*chunk_in, rb=rb_b)
+    same_per_sim(torch, f"animated batched kernel 5 chunk, {POKE_DEPTH} "
+                 "steps", (coef, kb, ymm), solo_chunk, MIXED)
+    ks = [affine_chunked(ao, Pm[b], Vm[b], Fm[b], rb_b[b], POKE_DEPTH,
+                         ITERATIONS)[2] for b in range(MIXED)]
+    k = affine_chunked_batched(ao, Pm, Vm, Fm, rb_b, POKE_DEPTH,
+                               ITERATIONS)[2]
+    require(k == min(ks), f"animated batched kernel 5's k {k} is not the "
+            f"least of the solo k {ks}")
+    for name, kernel, plain in (
+            ("kernel 2", lambda *a: resident_multistep_batched(ro, *a),
+             lambda *a: resident_multistep_plain(ro, *a)),
+            ("kernel 3", lambda *a: resident_affine_batched(ao, *a),
+             lambda *a: resident_affine_plain(ao, *a)),
+            ("kernel 3 (contact mode)",
+             lambda *a: resident_affine_contact_batched(ao, *a),
+             lambda *a: resident_affine_contact_plain(ao, *a)),
+            ("kernel 5", lambda *a: affine_chunked_batched(ao, *a)[:2],
+             lambda *a: affine_chunked_plain(ao, *a)[:2])):
+        rb1 = rb_from(rb_b, rows // 2)
+        Pk, Vk = kernel(Pm, Vm, Fm, rb1, 1, ITERATIONS)
+        Pp, Vp = plain(Pm, Vm, Fm, rb1, 1, ITERATIONS)
+        for b in range(MIXED):
+            hold_step(f"animated batched {name}, sim {b}", step_share(
+                ro, fa[b], rb1[b, 0], Pm[b], Vm[b], Pk[b], Vk[b], Pp[b],
+                Vp[b]))
+        anim_err[f"batched {name}"] = max_abs(Pk, Pp)
+    log(f"[3] animated batched kernels 2, 3, 3' and 5: one step from row "
+        f"{rows // 2} of each sim's schedule against the batched plain "
+        f"version within {STEP_TOL} of each sim's step size; batched "
+        f"kernel 5's whole-batch k {k} = min of the solo k {ks}")
+
+    # ---- 4. times: with the schedule and with a static term, in turns --
+    # static: the schedule's first row (per sim: a one-row schedule each)
+    rb_w = sched[:SCENE_STEPS].contiguous()        # a row per step
+    rb_s = rb_w[0]
+    rb_wc = sched_contact[:SCENE_STEPS].contiguous()
+    Pe, Ve, Fe = (solver._pack(x) for x in ensemble_state(main_state,
+                                                           MIXED))
+    rb_e = solver._rb_timeline(tl_sims[:, :SCENE_STEPS], MIXED)
+    rb_es = rb_e[:, :1]
+    sched_bytes = 4 * 3 * r * SCENE_STEPS
+
+    def count_flags(variant):
+        fl = _launch_affine(ao, Pm, Vm, Fm, rb_e, SCENE_STEPS, ITERATIONS,
+                            REBASE_EVERY, variant)[2][:, FLAG_SLOTS:]
+        return fl
+
+    fl_lean, fl_mode = count_flags("lean"), count_flags("contact")
+    in_mode = (fl_mode & 2) > 0
+    jobs = {
+        "affine_chunked": (lambda rb: affine_chunked(
+            ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS), rb_w, rb_s, 1,
+            k5_cost(ao, SCENE_STEPS, ITERATIONS, CHUNK_EVERY),
+            "poke window"),
+        "resident_affine_exit": (lambda rb: resident_affine_exit(
+            ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS), rb_w, rb_s, 1,
+            k3_cost(ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, 0),
+            "poke window"),
+        "resident_affine": (lambda rb: resident_affine(
+            ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS), rb_w, rb_s, 1,
+            k3_cost(ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, 0),
+            "poke window"),
+        "resident_affine_contact": (lambda rb: resident_affine_contact(
+            ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS), rb_w, rb_s, 1,
+            k3m_cost(ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, 0, 0, 0),
+            "poke window"),
+        "resident_multistep": (lambda rb: resident_multistep(
+            ro, Pc, Vc, Fx, rb, SCENE_STEPS, ITERATIONS), rb_wc, rb_wc[0], 1,
+            k2_cost(ro, SCENE_STEPS, ITERATIONS), "contact scene"),
+        "resident_affine_batched": (lambda rb: resident_affine_batched(
+            ao, Pm, Vm, Fm, rb, SCENE_STEPS, ITERATIONS), rb_e, rb_es, MIXED,
+            k3_cost(ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY,
+                    int((fl_lean & 1).sum()), nb=MIXED), "mixed batch"),
+        "resident_affine_contact_batched": (
+            lambda rb: resident_affine_contact_batched(
+                ao, Pm, Vm, Fm, rb, SCENE_STEPS, ITERATIONS), rb_e, rb_es,
+            MIXED, k3m_cost(ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY,
+                            int(in_mode.sum()), int(in_mode.any(0).sum()),
+                            int((fl_mode & 1).sum()), nb=MIXED),
+            "mixed batch"),
+        "resident_multistep_batched": (
+            lambda rb: resident_multistep_batched(
+                ro, Pm, Vm, Fm, rb, SCENE_STEPS, ITERATIONS), rb_e, rb_es,
+            MIXED, k2_cost(ro, SCENE_STEPS, ITERATIONS, MIXED),
+            "mixed batch"),
+        "affine_chunked_batched": (lambda rb: affine_chunked_batched(
+            ao, Pe, Ve, torch.zeros_like(Pe), rb, SCENE_STEPS, ITERATIONS),
+            rb_e, rb_es, MIXED, k5_cost(ao, SCENE_STEPS, ITERATIONS,
+                                       CHUNK_EVERY, MIXED),
+            f"ring-down ensemble of {MIXED}"),
+    }
+    require(affine_chunked(ao, Pw, Vw, F0, rb_w, SCENE_STEPS,
+                           ITERATIONS)[2] == SCENE_STEPS
+            and affine_chunked_batched(ao, Pe, Ve, torch.zeros_like(Pe),
+                                       rb_e, SCENE_STEPS,
+                                       ITERATIONS)[2] == SCENE_STEPS,
+            "the timed tier-1 windows of the poke scene are not "
+            "contact-free")
+    result = {}
+    launch_of = {
+        "affine_chunked": paths[label],
+        "resident_affine_contact": paths[
+            "animated targets, default tiers, contact scene"],
+        "resident_affine_exit": paths[
+            "animated targets, resident_chunked_tier1=False, "
+            "resident_contact_mode=False, contact scene"],
+        "resident_affine": paths[
+            "animated targets, resident_chunked_tier1=False, "
+            "resident_contact_mode=False, contact scene"],
+        "resident_multistep": paths[
+            "animated targets, CHUNKED_TIER1_MIN_VERTS=0, contact scene"],
+        "resident_affine_contact_batched": paths[lbl_3c],
+        "resident_affine_batched": paths[lbl_3],
+        "resident_multistep_batched": paths[lbl_52],
+        "affine_chunked_batched": paths[lbl_52],
+        "fused_reduced_iterations": paths[lbl_rec],
+    }
+    errs = {"affine_chunked": "kernel 5", "resident_affine_exit": "kernel 4",
+            "resident_affine": "kernel 3",
+            "resident_affine_contact": "kernel 3 (contact mode)",
+            "resident_multistep": "kernel 2",
+            "resident_affine_batched": "batched kernel 3",
+            "resident_affine_contact_batched":
+                "batched kernel 3 (contact mode)",
+            "resident_multistep_batched": "batched kernel 2",
+            "affine_chunked_batched": "batched kernel 5"}
+    for name, (fn, rb_a, rb_0, nb, cost, scene) in jobs.items():
+        ms = in_turns(torch, {"animated": lambda fn=fn, rb=rb_a: fn(rb),
+                              "static": lambda fn=fn, rb=rb_0: fn(rb)},
+                      POKE_ROUNDS)
+        nbytes, ops = cost
+        b_anim, by_anim = bound_ms(nbytes + nb * sched_bytes, ops)
+        b_stat, by_stat = bound_ms(nbytes + nb * 4 * 3 * r, ops)
+        result[name] = {
+            "scene": scene, "sims": nb, "steps_per_call": SCENE_STEPS,
+            "schedule_rows": int(rb_a.shape[-3]),
+            "launches": launch_of[name][name],
+            "max_abs_err": anim_err[errs[name]],
+            "ms": ms["animated"], "static_ms": ms["static"],
+            "bound_ms": b_anim, "bound_by": by_anim,
+            "static_bound_ms": b_stat, "static_bound_by": by_stat}
+        log(f"[4] animated {name} ({scene}, {nb} sim(s), {SCENE_STEPS} "
+            f"steps, a schedule row per step): "
+            f"{1e3 * ms['animated'] / SCENE_STEPS:.2f} us/step, static "
+            f"{1e3 * ms['static'] / SCENE_STEPS:.2f} us/step (in turns, "
+            f"median of {POKE_ROUNDS}); bound "
+            f"{1e3 * b_anim / SCENE_STEPS:.4f} us/step ({by_anim}), static "
+            f"{1e3 * b_stat / SCENE_STEPS:.4f}")
+    result["fused_reduced_iterations"] = {
+        "scene": "run_steps(record=True)", "steps_per_call": SCENE_STEPS,
+        "launches": launch_of["fused_reduced_iterations"][
+            "fused_reduced_iterations"],
+        "entry_steps_per_s": SCENE_STEPS / out[lbl_rec + " s"]}
+    log(f"[2-4] animated targets {time.perf_counter() - t_start:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2830,6 +3484,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += ensemble(torch, counted, solver, model, f, main_state, paths)
     log(f"[2-4] ensemble serving {time.perf_counter() - t0:.1f} s")
+    anim = animated(torch, counted, paths, main_state, dev)
+    for k in kernels:
+        k["animated"] = anim.get(k["name"], {})
     t0 = time.perf_counter()
     per_scene = tet_bending(torch, counted, paths)
     for k in kernels:

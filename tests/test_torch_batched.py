@@ -416,8 +416,9 @@ def test_runner_serves_a_rebuild(tmp_path):
 
 
 def test_batched_serving_refuses(tmp_path):
-    """Caller mistakes raise ``ValueError`` before any kernel runs;
-    self-collision raises ``RuntimeError``; what this slice does not port
+    """Caller mistakes raise ``ValueError`` before any kernel runs (a
+    ``targets_seq`` of the wrong shape or batch among them);
+    self-collision raises ``RuntimeError``; what the port does not port yet
     raises ``NotImplementedError`` naming its ROADMAP item."""
     args = _args(tmp_path)
     s, m = port_tiers(args)
@@ -429,8 +430,10 @@ def test_batched_serving_refuses(tmp_path):
         run(pos[:, :-1], vel[:, :-1], fs[:, :-1], 2)
     with pytest.raises(ValueError, match="must be"):
         s.make_batched_step()(pos, vel, fs[:, :, :2])
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        run(pos, vel, fs, 2, targets_seq=np.zeros((2, 0, 3)))
+    with pytest.raises(ValueError, match="targets_seq must be"):
+        run(pos, vel, fs, 2, targets_seq=np.zeros((2, 1, 3)))
+    with pytest.raises(ValueError, match="per-sim targets_seq has batch 3"):
+        run(pos, vel, fs, 2, targets_seq=np.zeros((3, 2, 0, 3)))
     for make in (s.make_batched_run, s.make_batched_step):
         with pytest.raises(NotImplementedError, match="Queue A item 18"):
             make(mesh=object())
@@ -440,12 +443,6 @@ def test_batched_serving_refuses(tmp_path):
     with pytest.raises(RuntimeError, match="self-collision"):
         s.make_batched_run()
     s.enable_self_collision = False
-    m.add_positional_constraint(5, frame_shift=np.zeros((10, 3)),
-                                motion_type="user_defined")
-    s.set_dirty()
-    s.prepare(args)
-    with pytest.raises(NotImplementedError, match="animated"):
-        s.make_batched_run()(pos, vel, fs, 2)
     args.edge_spring_reduced = False           # a full (unreduced) group
     s2, m2 = port_tiers(args)
     with pytest.raises(NotImplementedError, match="not hyper-reduced"):

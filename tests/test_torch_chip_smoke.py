@@ -60,11 +60,17 @@ def _solo_launch_plain(ao, P, V, fext, rb_extra, num_steps, num_iterations,
     return P_out, V_out, flags, coef, y
 
 
-def _launch_plain(ao, P, V, fext, *args):
+def _sim(rb, b):
+    """Sim b's target-term schedule of a batch's (shared or per sim)."""
+    return rb[b] if rb.dim() == 4 else rb
+
+
+def _launch_plain(ao, P, V, fext, rb_extra, *args):
     """The same for one sim (3, N) or, sim by sim, for a batch."""
     if P.dim() == 2:
-        return _solo_launch_plain(ao, P, V, fext, *args)
-    outs = [_solo_launch_plain(ao, P[b], V[b], fext[b], *args)
+        return _solo_launch_plain(ao, P, V, fext, rb_extra, *args)
+    outs = [_solo_launch_plain(ao, P[b], V[b], fext[b], _sim(rb_extra, b),
+                               *args)
             for b in range(P.shape[0])]
     *state, ys = zip(*outs)
     return (*(torch.stack(x) for x in state),
@@ -84,7 +90,7 @@ def _chunk_launch_plain(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
                 torch.tensor(k, dtype=torch.int32))
     outs = [_chunk_launch_plain(
         ao, P[b], V[b], fa[b], ymm[b], first, b0s[b], b1s[b], fas[b], bu0[b],
-        bu1[b], bu_fa[b], rb_ex, steps, num_iterations, floor_h)
+        bu1[b], bu_fa[b], _sim(rb_ex, b), steps, num_iterations, floor_h)
         for b in range(P.shape[0])]
     return tuple(torch.stack(x) for x in zip(*outs))
 
@@ -123,7 +129,11 @@ def _fake_card(monkeypatch):
                         ("CONTACT_RISE", 0.0), ("CRUMPLE", 3),
                         ("CONTACT_EVERY", (256, 3, 6)), ("DRIFT_STEPS", 12),
                         ("WITNESS_DRAWS", 4), ("BAR_SIZE", (6, 3, 3)),
-                        ("NEW_DEPTH", 4), ("NEW_BATCH", 4)):
+                        ("NEW_DEPTH", 4), ("NEW_BATCH", 4),
+                        ("POKE_CYCLES", 1), ("POKE_WINDOW", 16),
+                        ("POKE_TAIL", 4), ("POKE_ROWS", 6),
+                        ("POKE_SHARED", 4), ("POKE_DEPTH", 4),
+                        ("POKE_ROUNDS", 1)):
         monkeypatch.setattr(cs, name, value)
     bench = cs.bench_scene
     monkeypatch.setattr(cs, "bench_scene", lambda cls, cloth: bench(
@@ -180,6 +190,18 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
             assert entry["bound_ms"] > 0
     for i in (0, 4, 5, 6, 10):
         assert sorted(kernels[i]["scenes"]) == sorted(scenes)
+    # animated targets: every kernel with a schedule timed with it and
+    # with a static term, each beside its bound; kernel 1 on the recorded
+    # run
+    for k in kernels:
+        anim = k["animated"]
+        if k["name"] == "fused_reduced_iterations_batched":
+            continue
+        assert anim["launches"] >= 0, k["name"]
+        if k["name"] != "fused_reduced_iterations":
+            assert {"ms", "static_ms", "bound_ms", "static_bound_ms",
+                    "max_abs_err"} <= set(anim), k["name"]
+            assert anim["bound_ms"] > anim["static_bound_ms"] > 0
     assert kernels[0]["scenes"]["bar, block form"]["table_columns"] == {
         "tets_deformation_gradient": 3 * kernels[0]["scenes"][
             "bar, row form"]["table_columns"]["tets_deformation_gradient"]}

@@ -42,6 +42,7 @@ def test_port_imports_no_jax():
     res = json.loads(out.strip().splitlines()[-1])
     loaded = res["loaded"]
     assert "animsnapbases_tpu_torch.sim.reduced" in res["modules"]
+    assert "animsnapbases_tpu_torch.demos.poke" in res["modules"]
     assert "animsnapbases_tpu_torch.ops.resident" in loaded
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
     assert not [m for m in loaded if m == "animsnapbases_tpu"

@@ -116,23 +116,30 @@ def test_serving_path_matches_jax(tmp_path, bases):
 
 
 def test_unported_configurations_raise(tmp_path):
-    """What this slice does not port raises NotImplementedError from
-    step/run_steps instead of running something else."""
+    """What the port does not port yet raises NotImplementedError from
+    prepare/step/run_steps instead of running something else: self-collision,
+    full (unreduced) groups, and kernel 5's build options (ROADMAP B5), which
+    prepare() refuses rather than serve the default kernel 5."""
     s_jax, _ = jax_solver(tmp_path, "off")
     s, m = port_solver(s_jax.args)
     f = gravity(m)
-    with pytest.raises(NotImplementedError, match="record"):
-        s.run_steps(f, 2, record=True)
     s.enable_self_collision = True
     with pytest.raises(NotImplementedError, match="self-collision"):
         s.run_steps(f, 2)
     s.enable_self_collision = False
-    m.add_positional_constraint(5, frame_shift=np.zeros((10, 3)),
-                                motion_type="user_defined")
-    s.set_dirty()
-    s.prepare(s_jax.args)
-    with pytest.raises(NotImplementedError, match="animated"):
-        s.run_steps(f, 2)
+    for name, value in (("resident_floor_bound_skip", False),
+                        ("resident_floor_exact", True),
+                        ("resident_floor_exact", False),
+                        ("resident_chunked_opts", {"fold_vc": False})):
+        s2, _ = port_solver(s_jax.args)
+        setattr(s2, name, value)
+        s2.set_dirty()
+        with pytest.raises(NotImplementedError, match=f"{name}.*B5"):
+            s2.prepare(s_jax.args)
+    s2, _ = port_solver(s_jax.args)
+    s2.resident_floor_bound_skip = True          # the default: served
+    s2.resident_chunked_opts = {}
+    s2.prepare(s_jax.args)
 
     args = s_jax.args
     args.edge_spring_reduced = False           # a full (unreduced) group
