@@ -1,14 +1,14 @@
-"""Kernel 5: the chunked affine tier 1.
+"""Kernel 5: the chunked affine tier 1, in every build.
 
 Counterpart of ``animsnapbases_tpu/ops/pallas_resident.py``
 ``build_resident_affine_chunked`` (the chunk kernel ``_make_chunk_kernel``
-and its outer loop ``_body``), with the JAX defaults ``floor_bound_skip``,
-``floor_exact``, ``fold_vc`` and ``sqrt_free_bound`` on (the port takes no
-switch for them: ROADMAP B5).  The target term is a schedule
-(``ops/resident.py`` :func:`rb_at`): the outer loop hands each chunk the
-schedule from the chunk's first step on, so step j of a chunk that starts
-at step ``done`` of the call reads row min(done + j, T - 1).  A static term
-(T = 1) is the JAX ``static_rb``.
+and its outer loop ``_body``) with its five build options
+(:class:`ChunkOptions`, the JAX keywords ``floor_bound_skip``,
+``floor_exact``, ``fold_vc``, ``static_rb`` and ``sqrt_free_bound``, each
+on by default).  The target term is a schedule (``ops/resident.py``
+:func:`rb_at`): the outer loop hands each chunk the schedule from the
+chunk's first step on, so step j of a chunk that starts at step ``done`` of
+the call reads row min(done + j, T - 1).
 
 The chunk kernel carries only coefficient state: up to ``rebase_every``
 contact-free affine steps on (3, 3) base coefficients and (3, r) reduced
@@ -18,11 +18,27 @@ first with an O(r) Cauchy-Schwarz bound on the y row of the predictor,
     min_v sn_y[v] >= lb_aff - ||wsn_y|| umax,
 
 ``lb_aff`` from the min/max of the anchors' and the force term's y rows,
-with 25 % slack on the lift term (tested on squared magnitudes); only when
-the bound cannot clear the floor does it materialize the exact y row.  The
-first step the floor would clamp stops the chunk without being applied.
-The gathered vertex values come straight from the coefficients through the
-G-composed operands (``Vc = a0 b0s + a1 b1s + a2 fas + wsn UG``).
+with 25 % slack on the lift term (tested on squared magnitudes; with
+``sqrt_free_bound=False`` on ||wsn_y|| itself); only when the bound cannot
+clear the floor does it materialize the exact y row.  The first step the
+floor would clamp stops the chunk without being applied.  The options:
+
+* ``floor_exact=False`` (the exact-free build): a bound trip *is* the stop,
+  the kernel never reads the (r, N) y slice of the lift, and the outer loop
+  takes the y rows' minima and maxima itself (exact in any order).  The
+  caller rebases and re-enters, where the bound is as tight as it gets
+  (``run_steps``' recursion), or serves the window on the contact tier.
+  It requires the bound: ``floor_bound_skip=False`` with it raises.
+* ``floor_bound_skip=False``: the exact y-row check every step.
+* ``fold_vc=False``: the gathered values come from the predictor at the
+  selected prefix (``U_selT``) through the sparse gather, as in kernels 3
+  and 4; on (the default) straight from the coefficients through the
+  G-composed operands (``Vc = a0 b0s + a1 b1s + a2 fas + wsn UG``).
+* ``static_rb=False``: a one-row schedule is read per step like a longer
+  one instead of being staged once (bit-identical values).
+* ``sqrt_free_bound=False``: the bound with ``wn = sqrt(||wsn_y||^2)`` and
+  slack 0.25 wn umax + eps (1 + |lb_aff|); it moves only when a check or a
+  stop happens, by the last unit of rounding.
 
 Between chunks the outer loop (Python, here) materializes the chunk's end
 state with two lifts, makes it the next chunk's anchors and projects them
@@ -30,25 +46,31 @@ through ``U^T A_c`` (float64 accumulation, as in ``ops/resident.py``).  It
 reads ``k`` back once per chunk and stops after a chunk that exited early.
 
 * ``affine_chunked``: the wrapper.  For CUDA tensors it runs the outer
-  loop with the chunk kernel ``csrc/affine_chunked.cu``, counting each chunk
-  launch in ``affine_chunked.launches``; for CPU tensors it runs the plain
-  version; it never falls back from the card to the plain version.
+  loop with the chunk kernel of the options' build (``csrc/affine_chunked
+  .cuh``, instantiated per option set in ``csrc/affine_chunked*.cu``),
+  counting each chunk launch in the build's counter (:func:`counter`: the
+  default build's is ``affine_chunked.launches``); for CPU tensors it runs
+  the plain version; it never falls back from the card to the plain version
+  or to another build.
 * ``affine_chunked_batched``: the batched build (``nb = B`` in the JAX
   package), the tier 1 of ``make_batched_run``'s large-model route: B
   independent sims, sim-major (B, 3, N), one block per sim's chunk, with
-  whole-batch early exit (counted in its own ``launches``).
+  whole-batch early exit (counted in its own counters).
 * ``affine_chunked_plain``: the outer loop with ``affine_chunk_plain``, the
   plain transcription of the chunk kernel; on (B, 3, N) tensors the plain
   version of the batched build.
 
-ADVICE r5 (``pallas_resident.py:1600-1608``): the chunk takes the y-row
-minima and maxima of the bound once per chunk for the anchors and, in the
-first chunk of a call only, for the force term.
+ADVICE r5 (``pallas_resident.py:1600-1608``): the exact builds take the
+y-row minima and maxima of the bound in the chunk, once per chunk for the
+anchors and in the first chunk of a call only for the force term.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import itertools
+from dataclasses import dataclass
 
 import torch
 
@@ -74,52 +96,134 @@ BOUND_SLACK = 1.25
 BOUND_EPS = 1e-6
 
 
-def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
-                       b0s, b1s, fas, bu0, bu1, bu_fa, rb_ex, steps: int,
-                       num_iterations: int, floor_h: float):
-    """Plain version of the chunk kernel: up to ``steps`` steps from unit
-    coefficients over the anchors P, V -> (ap, av, wp, wv, k).
+@dataclass(frozen=True)
+class ChunkOptions:
+    """Kernel 5's build options, the JAX keywords of
+    ``build_resident_affine_chunked`` with their defaults.  ``floor_exact``
+    False requires ``floor_bound_skip`` (ValueError otherwise, as the JAX
+    assert)."""
+    floor_bound_skip: bool = True
+    floor_exact: bool = True
+    fold_vc: bool = True
+    static_rb: bool = True
+    sqrt_free_bound: bool = True
 
-    ``b0s``, ``b1s``, ``fas`` (3, g_total): P, V, fa at the gathered
-    columns; ``bu0``, ``bu1``, ``bu_fa`` (3, r): their projections;
-    ``rb_ex`` the target-term schedule from the chunk's first step (step i
-    takes ``rb_at(rb_ex, i)``).  ``ymm``
-    (6,) holds the minima, then the maxima, of the y rows of P, V and fa:
-    the chunk writes those of P and V, and those of fa when ``first``.
-    The step itself is ``AffineContext``'s (ops/affine.py); what is the
-    chunk's own is the O(r) bound, the exact y-row check on a trip and the
-    gathered values through ``UG_allT``.
+    def __post_init__(self):
+        if not (self.floor_exact or self.floor_bound_skip):
+            raise ValueError("floor_exact=False requires the certified floor "
+                             "bound (floor_bound_skip=True)")
 
-    With a leading batch axis (B, ·) on every per-sim argument (``ymm``
-    (B, 6)) it is the plain version of the batched build: each sim tests its
-    own bound and y row, and the chunk stops for the whole batch before the
-    first step at which any sim would clamp, so every sim is committed to
-    the same k (the minimum of the sims' own k)."""
+    def build(self) -> "ChunkOptions":
+        """The kernel build that serves these options: without the bound
+        ``sqrt_free_bound`` has nothing to choose and takes its default."""
+        if self.floor_bound_skip:
+            return self
+        return dataclasses.replace(self, sqrt_free_bound=True)
+
+    @property
+    def code(self) -> int:
+        """The build's template argument in csrc/affine_chunked.cuh
+        (bits: bound 1, exact 2, fold 4, static 8, sqrt-free 16)."""
+        b = self.build()
+        return sum(bit for bit, on in (
+            (1, b.floor_bound_skip), (2, b.floor_exact), (4, b.fold_vc),
+            (8, b.static_rb), (16, b.sqrt_free_bound)) if on)
+
+    @property
+    def label(self) -> str:
+        """The options that differ from the default, e.g.
+        ``floor_exact=False`` ("" for the default build)."""
+        b = self.build()
+        return ",".join(f"{f.name}=False" for f in dataclasses.fields(b)
+                        if not getattr(b, f.name))
+
+
+DEFAULT_OPTIONS = ChunkOptions()
+# every build a caller can reach: 8 exact, 8 exact-free, 4 without the bound
+BUILDS = tuple(sorted({ChunkOptions(*bits).build()
+                       for bits in itertools.product((True, False), repeat=5)
+                       if bits[0] or bits[1]}, key=lambda o: -o.code))
+
+
+def fill_ymm(ymm, P, V, fa, first: bool):
+    """The bound's y-row minima (``ymm[..., :3]``) and maxima (``[3:]``) of
+    P, V and, when ``first``, fa (..., 3, N); exact in any order."""
     ymm[..., 0::3] = y_minmax(P[..., 1, :])
     ymm[..., 1::3] = y_minmax(V[..., 1, :])
     if first:
         ymm[..., 2::3] = y_minmax(fa[..., 1, :])
+
+
+def floor_bound(ao: AffineOperands, asn, wsn, ymm, floor_h: float,
+                sqrt_free: bool):
+    """Per sim, whether the O(r) bound cannot clear the floor for the
+    predictor (asn, wsn): ``lb_aff`` from the y rows' minima and maxima
+    ``ymm`` against the lift term ``||wsn_y|| umax`` with its slack."""
+    a = asn[..., 1, :]
+    lb_aff = torch.where(a >= 0, a * ymm[..., :3], a * ymm[..., 3:]).sum(-1)
+    wn2 = (wsn[..., 1, :] * wsn[..., 1, :]).sum(-1)
+    if sqrt_free:
+        c2 = (BOUND_SLACK * ao.umax) * (BOUND_SLACK * ao.umax)
+        m = lb_aff - floor_h - BOUND_EPS * (1.0 + lb_aff.abs())
+        return (m < 0) | (m * m < c2 * wn2)
+    wn = torch.sqrt(wn2)
+    slack = ((BOUND_SLACK - 1.0) * wn * ao.umax
+             + BOUND_EPS * (1.0 + lb_aff.abs()))
+    return lb_aff - wn * ao.umax - slack < floor_h
+
+
+def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
+                       b0s, b1s, fas, bu0, bu1, bu_fa, rb_ex, steps: int,
+                       num_iterations: int, floor_h: float,
+                       options: ChunkOptions = DEFAULT_OPTIONS):
+    """Plain version of the chunk kernel: up to ``steps`` steps from unit
+    coefficients over the anchors P, V -> (ap, av, wp, wv, k).
+
+    ``b0s``, ``b1s``, ``fas`` (3, g_total): P, V, fa at the gathered
+    columns (None without ``fold_vc``); ``bu0``, ``bu1``, ``bu_fa`` (3, r):
+    their projections; ``rb_ex`` the target-term schedule from the chunk's
+    first step (step i takes ``rb_at(rb_ex, i)``).  ``ymm`` (6,) holds the
+    minima, then the maxima, of the y rows of P, V and fa: the exact build
+    with the bound writes those of P and V, and those of fa when ``first``;
+    the exact-free build reads all six (the outer loop wrote them).
+    The step itself is ``AffineContext``'s (ops/affine.py); what is the
+    chunk's own is the O(r) bound, the exact y-row check on a trip (every
+    step without the bound) and the gathered values through ``UG_allT``
+    (through ``U_selT`` and the gather without ``fold_vc``).
+
+    With a leading batch axis (B, ·) on every per-sim argument (``ymm``
+    (B, 6)) it is the plain version of the batched build: each sim tests its
+    own bound and y row, and the chunk stops for the whole batch before the
+    first step at which any sim would clamp (or trips its bound, in the
+    exact-free build), so every sim is committed to the same k (the minimum
+    of the sims' own k)."""
+    bound, exact = options.floor_bound_skip, options.floor_exact
+    if bound and exact:
+        fill_ymm(ymm, P, V, fa, first)
     ctx = AffineContext(ao, fa, bu_fa)
     st = ctx.init_anchors(P, V)
     st.bu0, st.bu1 = bu0, bu1
-    c2 = (BOUND_SLACK * ao.umax) * (BOUND_SLACK * ao.umax)
-    ymn, ymx = ymm[..., :3], ymm[..., 3:]
     k = 0
     for i in range(steps):
         _, _, wp, _, avd, asn, wsn = ctx.predictor(st)
-        a = asn[..., 1, :]
-        lb_aff = torch.where(a >= 0, a * ymn, a * ymx).sum(-1)
-        wn2 = (wsn[..., 1, :] * wsn[..., 1, :]).sum(-1)
-        m = lb_aff - floor_h - BOUND_EPS * (1.0 + lb_aff.abs())
-        maybe = (m < 0) | (m * m < c2 * wn2)
-        if bool(maybe.any()):
-            # the bound cannot clear the floor: the exact y row
-            hit = (ctx.y_predictor(st, asn, wsn) < floor_h).any(-1)
-            if bool((hit & maybe).any()):
-                break
-        ctx.gathered_step(st, asn, wsn, avd, wp,
-                          gathered_values(ao, asn, wsn, b0s, b1s, fas),
-                          rb_at(rb_ex, i), num_iterations)
+        if bound:
+            stop = floor_bound(ao, asn, wsn, ymm, floor_h,
+                               options.sqrt_free_bound)
+            if exact and bool(stop.any()):
+                # the bound cannot clear the floor: the exact y row
+                stop = stop & (ctx.y_predictor(st, asn, wsn)
+                               < floor_h).any(-1)
+        else:
+            stop = (ctx.y_predictor(st, asn, wsn) < floor_h).any(-1)
+        if bool(stop.any()):
+            break
+        if options.fold_vc:
+            ctx.gathered_step(st, asn, wsn, avd, wp,
+                              gathered_values(ao, asn, wsn, b0s, b1s, fas),
+                              rb_at(rb_ex, i), num_iterations)
+        else:
+            ctx.free_step(st, asn, wsn, avd, wp, rb_at(rb_ex, i),
+                          num_iterations)
         k = i + 1
     return st.ap, st.av, st.wp, st.wv, k
 
@@ -137,10 +241,13 @@ def y_minmax(x):
     return torch.stack([mn, mx], dim=-1)
 
 
-def chunk_anchors(ao: AffineOperands, P, V):
+def chunk_anchors(ao: AffineOperands, P, V, fold_vc: bool = True):
     """What the outer loop prepares for one chunk from its anchors: their
-    projections (bu0, bu1) and their gathered columns (b0s, b1s)."""
+    projections (bu0, bu1) and, with ``fold_vc``, their gathered columns
+    (b0s, b1s; else None)."""
     ro, fo = ao.res, ao.fused
+    if not fold_vc:
+        return project(ro, P), project(ro, V), None, None
     return project(ro, P), project(ro, V), gather_vc(fo, P), gather_vc(fo, V)
 
 
@@ -154,24 +261,31 @@ def advance(ao: AffineOperands, P, V, fa, ap, av, wp, wv):
 
 
 def _drive(chunk, ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
-           num_iterations: int, rebase_every: int):
+           num_iterations: int, rebase_every: int,
+           options: ChunkOptions = DEFAULT_OPTIONS):
     """The outer loop around ``chunk`` -> (P', V', steps_done), for one sim
     (3, N) or a batch (B, 3, N) whose chunks stop together."""
     if rebase_every < 1:
         raise ValueError("rebase_every must be >= 1")
     ro = ao.res
+    fold = options.fold_vc
     fa = force_term(ro, fext)
-    fas = gather_vc(ao.fused, fa)          # fa_sel G_allT
+    fas = gather_vc(ao.fused, fa) if fold else None    # fa_sel G_allT
     bu_fa = project(ro, fa)
     ymm = P.new_empty(P.shape[:-2] + (6,))
     done = 0
     while done < num_steps:
-        bu0, bu1, b0s, b1s = chunk_anchors(ao, P, V)
+        bu0, bu1, b0s, b1s = chunk_anchors(ao, P, V, fold)
+        if not options.floor_exact:
+            # the exact-free chunk has no O(N) operand: its bound's minima
+            # and maxima are taken here
+            fill_ymm(ymm, P, V, fa, done == 0)
         steps = min(rebase_every, num_steps - done)
         ap, av, wp, wv, k = chunk(ao, P, V, fa, ymm, done == 0, b0s, b1s,
                                   fas, bu0, bu1, bu_fa,
                                   rb_from(rb_extra, done), steps,
-                                  num_iterations, ao.floor_level)
+                                  num_iterations, ao.floor_level,
+                                  options=options)
         P, V = advance(ao, P, V, fa, ap, av, wp, wv)
         done += k
         if k < steps:
@@ -181,46 +295,86 @@ def _drive(chunk, ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
 
 def affine_chunked_plain(ao: AffineOperands, P, V, fext, rb_extra,
                          num_steps: int, num_iterations: int,
-                         rebase_every: int = 1024):
-    """Plain version of kernel 5: the outer loop with the plain chunk ->
-    (P', V', steps_done)."""
+                         rebase_every: int = 1024,
+                         options: ChunkOptions = DEFAULT_OPTIONS):
+    """Plain version of kernel 5 in the build of ``options``: the outer
+    loop with the plain chunk -> (P', V', steps_done)."""
     if P.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     return _drive(affine_chunk_plain, ao, P, V, fext, rb_extra, num_steps,
-                  num_iterations, rebase_every)
+                  num_iterations, rebase_every, options)
 
 
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
 
-_SYMBOLS = {
-    (torch.float32, torch.float32): "affine_chunk_f32_f32",
-    (torch.float32, torch.bfloat16): "affine_chunk_f32_bf16",
+_DTYPES = {
+    (torch.float32, torch.float32): "f32_f32",
+    (torch.float32, torch.bfloat16): "f32_bf16",
 }
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
-_ARGTYPES = (_P,) * 25 + (_I,) * 8 + (_D,) * 5 + (_I, _L, _P)
+_ARGTYPES = (_P,) * 26 + (_I,) * 9 + (_D,) * 6 + (_I, _L, _P)
+
+
+def library(options: ChunkOptions) -> str:
+    """The source (csrc/<name>.cu) whose library holds the build of
+    ``options``: the default build, the exact-free builds, the others."""
+    b = options.build()
+    if b == DEFAULT_OPTIONS:
+        return "affine_chunked"
+    return "affine_chunked_free" if not b.floor_exact else "affine_chunked_opts"
+
+
+def symbol(P_dtype, M_dtype, options: ChunkOptions) -> str:
+    """The C entry point of the build of ``options`` for float ``P_dtype``
+    state and ``M_dtype`` storage."""
+    return f"affine_chunk_{_DTYPES[(P_dtype, M_dtype)]}_o{options.code}"
+
+
+class LaunchCount:
+    """A launch counter of one non-default build of kernel 5, beside the
+    wrappers' own (``launches``; ``__name__`` names the build)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+def counter(options: ChunkOptions, batched: bool):
+    """The launch counter of the build of ``options``: the wrapper itself
+    (``affine_chunked`` / ``affine_chunked_batched``) for the default
+    build, else the build's :class:`LaunchCount`."""
+    b = options.build()
+    if b == DEFAULT_OPTIONS:
+        return affine_chunked_batched if batched else affine_chunked
+    return _COUNTERS[(b, batched)]
 
 
 def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
                   fas, bu0, bu1, bu_fa, rb_ex, steps: int,
-                  num_iterations: int, floor_h: float):
-    """One launch of csrc/affine_chunked.cu over the sims of the leading
+                  num_iterations: int, floor_h: float,
+                  options: ChunkOptions = DEFAULT_OPTIONS):
+    """One launch of the build of ``options`` over the sims of the leading
     axis (none: one sim) -> (coefficients (..., 18 + 6r), k per sim as an
-    int32 tensor (...,))."""
+    int32 tensor (...,)).  The exact-free build gets no lift (its y slice
+    is never read)."""
     ro, fo = ao.res, ao.fused
-    fn = _build.function("affine_chunked",
-                         _SYMBOLS[(P.dtype, ro.U_liftT.dtype)], _ARGTYPES)
+    fn = _build.function(library(options),
+                         symbol(P.dtype, ro.U_liftT.dtype, options),
+                         _ARGTYPES)
     r = fo.r
     lead = tuple(P.shape[:-2])
     for name, t in (("P", P), ("V", V), ("fa", fa), ("ymm", ymm),
                     ("b0s", b0s), ("b1s", b1s), ("fas", fas), ("bu0", bu0),
                     ("bu1", bu1), ("bu_fa", bu_fa)):
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if options.fold_vc and b0s is None:
+        raise ValueError("the fold_vc build takes the gathered columns")
     check_state(ro, P, V, fa, rb_ex)
     rb_rows, rb_sim = rb_layout(rb_ex)
     nb = lead[0] if lead else 1
@@ -228,33 +382,40 @@ def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
                       device=P.device)
     k = torch.zeros(lead, dtype=torch.int32, device=P.device)
     p = _build.ptr
-    code = fn(p(P), p(V), p(fa), p(ymm), p(b0s), p(b1s), p(fas), p(bu0),
-              p(bu1), p(bu_fa), p(rb_ex), p(ro.U_liftT), p(ao.M_utac),
-              p(fo.UG_allT), p(fo.C_allT), p(fo.inv3), p(fo.WT_all),
-              p(fo.gptr), p(fo.gcol), p(fo.gw), p(fo.elem_kind),
-              p(fo.elem_g), p(fo.elem_f),
-              p(out), p(k), ro.n, r, fo.g_total, fo.m_total, int(steps),
-              int(num_iterations), int(first), nb, ro.dt, ro.eta,
-              float(floor_h), (BOUND_SLACK * ao.umax) ** 2, BOUND_EPS,
-              rb_rows, rb_sim, _build.stream_of(P.device))
-    _build.check("affine_chunked", code, "affine_chunked")
+
+    def opt(t):
+        return None if t is None else p(t)
+
+    code = fn(p(P), p(V), p(fa), p(ymm), opt(b0s), opt(b1s), opt(fas),
+              p(bu0), p(bu1), p(bu_fa), p(rb_ex),
+              p(ro.U_liftT) if options.floor_exact else None, p(ao.M_utac),
+              p(fo.UG_allT), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
+              p(fo.WT_all), p(fo.gptr), p(fo.gcol), p(fo.gw),
+              p(fo.elem_kind), p(fo.elem_g), p(fo.elem_f),
+              p(out), p(k), ro.n, r, fo.g_total, fo.m_total, ro.n_sel,
+              int(steps), int(num_iterations), int(first), nb, ro.dt,
+              ro.eta, float(floor_h), (BOUND_SLACK * ao.umax) ** 2,
+              BOUND_EPS, ao.umax, rb_rows, rb_sim, _build.stream_of(P.device))
+    _build.check(library(options), code, "affine_chunked")
     return out, k
 
 
 def _chunk_cuda(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
                 fas, bu0, bu1, bu_fa, rb_ex, steps: int, num_iterations: int,
-                floor_h: float):
-    """One launch of csrc/affine_chunked.cu for one sim; reads k back (4
+                floor_h: float, options: ChunkOptions = DEFAULT_OPTIONS):
+    """One launch of the chunk kernel for one sim; reads k back (4
     bytes)."""
     out, k = _chunk_launch(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
-                           bu_fa, rb_ex, steps, num_iterations, floor_h)
-    affine_chunked.launches += 1
+                           bu_fa, rb_ex, steps, num_iterations, floor_h,
+                           options)
+    counter(options, False).launches += 1
     return (*split_coef(out, ao.fused.r), int(k.item()))
 
 
 def _chunk_cuda_batched(ao: AffineOperands, P, V, fa, ymm, first: bool,
                         b0s, b1s, fas, bu0, bu1, bu_fa, rb_ex, steps: int,
-                        num_iterations: int, floor_h: float):
+                        num_iterations: int, floor_h: float,
+                        options: ChunkOptions = DEFAULT_OPTIONS):
     """The batched chunk, whole-batch exit: one launch runs every sim's
     chunk in its own block and records its own k_b (B int32 read back).
     When they differ, the chunk is launched again for k = min k_b steps
@@ -263,25 +424,27 @@ def _chunk_cuda_batched(ao: AffineOperands, P, V, fa, ymm, first: bool,
     waits for another: a grid-wide barrier would hang when the blocks are
     not all resident.)"""
     launch = (ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1, bu_fa, rb_ex)
-    out, kb = _chunk_launch(*launch, steps, num_iterations, floor_h)
-    affine_chunked_batched.launches += 1
+    out, kb = _chunk_launch(*launch, steps, num_iterations, floor_h, options)
+    count = counter(options, True)
+    count.launches += 1
     kb = kb.tolist()
     k = min(kb)
     if k < max(kb):
-        out, _ = _chunk_launch(*launch, k, num_iterations, floor_h)
-        affine_chunked_batched.launches += 1
+        out, _ = _chunk_launch(*launch, k, num_iterations, floor_h, options)
+        count.launches += 1
     return (*split_coef(out, ao.fused.r), k)
 
 
 def affine_chunked(ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
-                   num_iterations: int, rebase_every: int = 1024):
-    """Kernel 5: (P', V', steps_done) after up to ``num_steps`` contact-free
-    steps from the permuted (3, N) state.  CPU tensors run the plain
-    version; CUDA tensors run the outer loop with
-    ``csrc/affine_chunked.cu``, or raise.  The inputs are not modified."""
+                   num_iterations: int, rebase_every: int = 1024,
+                   options: ChunkOptions = DEFAULT_OPTIONS):
+    """Kernel 5 in the build of ``options``: (P', V', steps_done) after up
+    to ``num_steps`` contact-free steps from the permuted (3, N) state.  CPU
+    tensors run the plain version; CUDA tensors run the outer loop with the
+    build's chunk kernel, or raise.  The inputs are not modified."""
     if P.device.type == "cpu":
         return affine_chunked_plain(ao, P, V, fext, rb_extra, num_steps,
-                                    num_iterations, rebase_every)
+                                    num_iterations, rebase_every, options)
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
     if P.dim() != 2:
@@ -289,7 +452,7 @@ def affine_chunked(ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
                          "affine_chunked_batched")
     check_state(ao.res, P, V, fext, rb_extra)
     return _drive(_chunk_cuda, ao, P.contiguous(), V.contiguous(), fext,
-                  rb_extra, num_steps, num_iterations, rebase_every)
+                  rb_extra, num_steps, num_iterations, rebase_every, options)
 
 
 affine_chunked.launches = 0
@@ -297,26 +460,35 @@ affine_chunked.launches = 0
 
 def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
                            num_steps: int, num_iterations: int,
-                           rebase_every: int = 1024):
+                           rebase_every: int = 1024,
+                           options: ChunkOptions = DEFAULT_OPTIONS):
     """The batched build of kernel 5: (P', V', k) of B independent sims
     (B, 3, N), the target-term schedule ``rb_extra`` shared or per sim, with
     whole-batch early exit: every sim is committed to the same k steps, the
-    steps before the first one at which any sim would clamp.  CPU tensors
-    run the plain version; CUDA tensors run the outer loop (one batched
-    projection and lift of the anchors per chunk) with
-    ``csrc/affine_chunked.cu`` on one block per sim, or raise.  The inputs
-    are not modified."""
+    steps before the first one at which any sim would clamp (trips its
+    bound, in the exact-free build).  CPU tensors run the plain version;
+    CUDA tensors run the outer loop (one batched projection and lift of the
+    anchors per chunk) with the build's chunk kernel on one block per sim,
+    or raise.  The inputs are not modified."""
     if P.dim() != 3:
         raise ValueError("P must be (B, 3, N)")
     if P.device.type == "cpu":
         return affine_chunked_plain(ao, P, V, fext, rb_extra, num_steps,
-                                    num_iterations, rebase_every)
+                                    num_iterations, rebase_every, options)
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
     check_state(ao.res, P, V, fext, rb_extra)
     return _drive(_chunk_cuda_batched, ao, P.contiguous(), V.contiguous(),
                   fext.contiguous(), rb_extra, num_steps, num_iterations,
-                  rebase_every)
+                  rebase_every, options)
 
 
 affine_chunked_batched.launches = 0
+
+# the launch counters of the non-default builds, solo and batched
+_COUNTERS = {
+    (b, batched): LaunchCount(
+        f"{'affine_chunked_batched' if batched else 'affine_chunked'}"
+        f"[{b.label}]")
+    for b in BUILDS if b != DEFAULT_OPTIONS for batched in (False, True)}
+COUNTERS = tuple(_COUNTERS.values())

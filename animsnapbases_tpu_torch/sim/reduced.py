@@ -76,10 +76,13 @@ Not ported yet, and raising ``NotImplementedError`` in ``step`` /
 * groups that are not fully reduced, or no position reduction
   (ROADMAP Queue A items 4 and 7);
 * self-collision (Queue A item 12);
-* batched serving over a mesh (``mesh=``, Queue A item 18);
-* kernel 5's build options ``resident_floor_bound_skip``,
-  ``resident_floor_exact`` and ``resident_chunked_opts`` (ROADMAP Queue B
-  item B5), which ``prepare()`` refuses.
+* batched serving over a mesh (``mesh=``, Queue A item 18).
+
+Kernel 5's build options follow the JAX solver's switches
+(``resident_floor_bound_skip``, ``resident_floor_exact`` and
+``resident_chunked_opts``, :meth:`AnimSnapBasesSolver._chunk_options`);
+``resident_floor_exact = None`` resolves from the port's own H100 readings
+(``CHUNKED_EXACT_FREE_MIN_VERTS``), not from the JAX package's TPU gate.
 """
 
 from __future__ import annotations
@@ -105,6 +108,7 @@ from animsnapbases_tpu_torch.ops.affine import (
     resident_affine_exit,
 )
 from animsnapbases_tpu_torch.ops.affine_chunked import (
+    ChunkOptions,
     affine_chunked,
     affine_chunked_batched,
 )
@@ -264,7 +268,9 @@ class AnimSnapBasesSolver:
     False: its lean build, :meth:`_build_tiers`) and
     ``resident_rebase_every`` (default 1024 steps for kernel 5's chunks and
     256 for the in-kernel rebase of kernels 3 and 4: windows of float32
-    coefficient drift)."""
+    coefficient drift), and kernel 5's build: ``resident_floor_bound_skip``,
+    ``resident_floor_exact`` and ``resident_chunked_opts``
+    (:meth:`_chunk_options`)."""
 
     # models of this many vertices or more take kernel 2 as the contact
     # tier instead of kernel 3: the JAX package's value, which keeps its
@@ -273,6 +279,19 @@ class AnimSnapBasesSolver:
     # ~111 us against kernel 3's ~141 us, and a free step in ~110 us against
     # ~114-117 us: there kernel 2 would be the faster contact tier too.
     CHUNKED_TIER1_MIN_VERTS = 64000
+    # models of this many vertices or more take kernel 5's exact-free build
+    # when resident_floor_exact is None (None here: the exact build at every
+    # size).  Set between the two sizes an NVIDIA H100 80GB HBM3 (700 W)
+    # timed the builds at in turns (chip_smoke.py, two calls; PERF.md,
+    # "Findings"), not from the JAX package's TPU gate (128,000 vertices
+    # there).  At 14,400 vertices the exact-free build did not win: +3.1 %
+    # and +4.4 % per step on floor-clear 64-step calls, +2.1 % and +3.0 %
+    # at 8 sims.  At 250,000 it did: -3.2 % and -2.5 % per step on
+    # floor-clear 2,000-step calls, -4.1 % and -4.3 % at 8 sims.  Windows
+    # that trip moved either way between the calls (run_steps on the
+    # contact scene -2.9 % and -4.7 %; over the megacloth's near-floor
+    # window, mostly kernel 2's steps, -6.6 % and +9.2 %).
+    CHUNKED_EXACT_FREE_MIN_VERTS = 64000
 
     def __init__(self, args, device=None, dtype=None, matmul_dtype=None):
         self.args = args
@@ -314,6 +333,7 @@ class AnimSnapBasesSolver:
         self._last_fast_steps = None
         self._last_batched_path = None
         self._chunk_every = 1024     # kernel 5's chunk (its rebase cadence)
+        self._chunk_opts = None      # kernel 5's build (ChunkOptions)
         self._contact_mode = False
         self._unsupported = "prepare() has not run"
         self._ut_st_cache = None
@@ -515,23 +535,9 @@ class AnimSnapBasesSolver:
         contact steps ~11 % faster than the lean build's, free steps within
         0.2 %, a crumpling 64-sim ensemble 2.4x faster.
 
-        Kernel 5's build options are not ported (ROADMAP Queue B item B5):
-        ``resident_floor_bound_skip = False``, a ``resident_floor_exact``
-        that is set and a non-empty ``resident_chunked_opts`` raise
-        ``NotImplementedError`` rather than serve the default kernel 5."""
-        set_opts = [
-            name for name, is_set in (
-                ("resident_floor_bound_skip",
-                 not getattr(self, "resident_floor_bound_skip", True)),
-                ("resident_floor_exact",
-                 getattr(self, "resident_floor_exact", None) is not None),
-                ("resident_chunked_opts",
-                 bool(getattr(self, "resident_chunked_opts", None))))
-            if is_set]
-        if set_opts:
-            raise NotImplementedError(
-                f"{', '.join(set_opts)}: kernel 5's build options are not "
-                "ported yet (ROADMAP Queue B item B5)")
+        Kernel 5, solo and batched, is built with
+        :meth:`_chunk_options`."""
+        self._chunk_opts = self._chunk_options(n)
         ao = self._affine
         every = getattr(self, "resident_rebase_every", None)
         contact_mode = getattr(self, "resident_contact_mode", None)
@@ -542,7 +548,8 @@ class AnimSnapBasesSolver:
         self._chunk_every = int(every or 1024)
         if chunked_tier1:
             self._resident_fast = partial(affine_chunked, ao,
-                                          rebase_every=self._chunk_every)
+                                          rebase_every=self._chunk_every,
+                                          options=self._chunk_opts)
             self._resident_fast_kind = "chunked"
             if n >= self.CHUNKED_TIER1_MIN_VERTS:
                 self._resident_run = partial(resident_multistep, ao.res)
@@ -556,6 +563,33 @@ class AnimSnapBasesSolver:
             resident_affine_contact if self._contact_mode else resident_affine,
             ao, rebase_every=int(every or 256))
         self._resident_kind = "affine"
+
+    def _chunked_floor_exact(self, n: int) -> bool:
+        """Whether kernel 5 keeps its exact floor check (the JAX
+        ``_chunked_floor_exact``): ``resident_floor_exact`` when set, else
+        below ``CHUNKED_EXACT_FREE_MIN_VERTS`` vertices (every size when it
+        is None).  The exact-free build needs the bound, so
+        ``resident_floor_bound_skip = False`` makes it exact."""
+        fe = getattr(self, "resident_floor_exact", None)
+        if fe is None:
+            gate = self.CHUNKED_EXACT_FREE_MIN_VERTS
+            fe = gate is None or n < gate
+        if not getattr(self, "resident_floor_bound_skip", True):
+            fe = True
+        return bool(fe)
+
+    def _chunk_options(self, n: int) -> ChunkOptions:
+        """Kernel 5's build for a model of ``n`` vertices, from the JAX
+        solver's switches: ``resident_floor_bound_skip`` (default True),
+        :meth:`_chunked_floor_exact` and the keywords of
+        ``resident_chunked_opts`` (``fold_vc``, ``static_rb``,
+        ``sqrt_free_bound``; any other key raises ``TypeError``, as the JAX
+        function's keywords do, here at ``prepare()``)."""
+        return ChunkOptions(
+            floor_bound_skip=bool(getattr(self, "resident_floor_bound_skip",
+                                          True)),
+            floor_exact=self._chunked_floor_exact(n),
+            **dict(getattr(self, "resident_chunked_opts", None) or {}))
 
     # ------------------------------------------------------------------
     # stepping
@@ -942,12 +976,13 @@ class AnimSnapBasesSolver:
             if solo:
                 Pf, Vf, k = affine_chunked(ao, P[0], V[0], Fx[0], rb_now,
                                            remaining, num_iterations,
-                                           rebase_every=self._chunk_every)
+                                           rebase_every=self._chunk_every,
+                                           options=self._chunk_opts)
                 Pf, Vf = Pf[None], Vf[None]
             else:
                 Pf, Vf, k = affine_chunked_batched(
                     ao, P, V, Fx, rb_now, remaining, num_iterations,
-                    rebase_every=self._chunk_every)
+                    rebase_every=self._chunk_every, options=self._chunk_opts)
             if k > 0:
                 P, V = Pf, Vf
                 remaining -= k

@@ -78,10 +78,28 @@ version.  Phases, each of which fails the run when it fails:
    own schedule, the recorded trajectory bit for bit against a ``step()``
    loop; each kernel timed with the schedule and with a static term in
    turns, beside its bound with the schedule's bytes;
-5. the ``kernels`` line (eleven entries: six solo kernels, five batched
-   builds, each with its times on the new scenes under ``scenes`` and with
-   a target schedule under ``animated``), then the last line
-   ``{"ok": true, "device": {...}}``.
+2-4 for kernel 5's build options (:func:`chunk_options`): every option set
+   a caller can reach held on the bench scene's tier-1 window and contact
+   scene, then the exact-free build and the bound, fold_vc,
+   sqrt_free_bound and static_rb off, each through run_steps on the tiers
+   and make_batched_run at 8 sims (counted paths), held against its plain
+   version, its batched chunk bit for bit against the solo one, timed in
+   turns with the default build;
+2-4 ``scale`` (:func:`scale_phase`): the 250,000-vertex megacloth of
+   ``scripts/bench_megacloth.py`` on the large-model route (kernel 5, then
+   kernel 2): run_steps over a 20,000-step rest window on the default,
+   exact and exact-free builds (certified, the two builds' end states bit
+   for bit equal), a near-floor window on both builds (tier 1, then kernel
+   2; the exact-free exit at or before the exact one), make_batched_run
+   at 8 sims on the exact-free build, each a counted path; the carried
+   steps, the near-floor window and kernel 2 against the plain versions,
+   the batched chunk bit for bit against the solo one; the builds timed in
+   turns;
+5. the ``kernels`` line (21 entries: six solo kernels, five batched
+   builds, each with its times on the new scenes under ``scenes``, with a
+   target schedule under ``animated`` and at 250,000 vertices under
+   ``megacloth``, then kernel 5's five option builds, solo and batched),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -241,6 +259,40 @@ POKE_SHARED = 64
 POKE_DEPTH = 16
 POKE_RAMP = 0
 POKE_ROUNDS = 20
+# kernel 5's other builds (:func:`chunk_options`): each option of
+# ops/affine_chunked.py ChunkOptions set off alone on the bench scene (the
+# exact-free build: floor_exact=False), with the lines of
+# pallas_resident.py that each changes; the rounds of their timings in
+# turns against the default build
+OPTION_BUILDS = (
+    ("exact-free", {"floor_exact": False},
+     ":1212-1233, :1334-1344, :1443-1452, :1511-1515, :1602-1608"),
+    ("bound off", {"floor_bound_skip": False}, ":1200-1210, :1453-1458"),
+    ("fold_vc off", {"fold_vc": False},
+     ":1235-1248, :1283-1295, :1474-1482, :1507-1511, :1609-1622"),
+    ("sqrt_free_bound off", {"sqrt_free_bound": False},
+     ":1259-1266, :1419-1435"),
+    ("static_rb off", {"static_rb": False}, ":1254-1258, :1365-1369"))
+OPTION_ROUNDS = 20
+# the megacloth (:func:`megacloth_scene`, scripts/bench_megacloth.py): its
+# rows and the synthetic solver's r and K (the script's defaults); the rest
+# window (the script times 120,000 steps) and the near-floor window (the
+# lowest vertex MEGA_GAP above the floor under MEGA_GRAVITY x gravity);
+# make_batched_run's batch and window (sims drifting at MEGA_DRIFT units/s
+# along z, sim b at (1 - SPREAD b) of it); the depth of the carried and
+# step-by-step holds; the rounds of the timings in turns
+MEGA_ROWS = 500
+MEGA_R = 48
+MEGA_K = 6
+MEGA_REST = 20000
+MEGA_NEAR = 64
+MEGA_GAP = 0.05
+MEGA_GRAVITY = 4.0
+MEGA_BATCH = 8
+MEGA_BATCH_STEPS = 2000
+MEGA_DRIFT = 0.1
+MEGA_DEPTH = 16
+MEGA_ROUNDS = 9
 
 
 def log(*a):
@@ -366,6 +418,41 @@ def tet_bending_scenes():
         ("bending cloth, block form", cloth, lambda: bending_cloth(cloth),
          cloth_modes, True, BENCH_DAMPING),
     ]
+
+
+def megacloth_scene(rows):
+    """The cloth of scripts/bench_megacloth.py (:60-70): ``cloth_model(rows,
+    rows)`` with z += 0.1 x, masses 10, floor on, hung 10 up, tris_strain
+    (0.95-1.05) and edge_spring at wi = 1e4, its left side pinned.  At 500
+    rows: 250,000 vertices."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    V, F = cloth_model(rows, rows)
+    V = V.copy()
+    V[:, 2] += 0.1 * V[:, 0]
+    model = DeformableModel(V, F, masses=np.full(len(V), 10.0),
+                            floor_collision=True, init_height_shift=10.0)
+    model.add_tri_constrain_strain(0.95, 1.05, wi=1e4)
+    model.add_edge_spring_constraint(wi=1e4)
+    model.compute_cloth_corner_indices()
+    model.fix_surface_side_vertices("left")
+    return model
+
+
+def megacloth_solver(torch, dev):
+    """(model, solver) of the megacloth (:func:`megacloth_scene` at
+    MEGA_ROWS rows) with scripts/bench_megacloth.py's synthetic bases (r =
+    MEGA_R, K = MEGA_K, the position basis as drawn), damping
+    BENCH_DAMPING, float32 state, bfloat16 matrices."""
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+
+    model = megacloth_scene(MEGA_ROWS)
+    return model, synthetic_reduced_solver(
+        model, K=MEGA_K, r=MEGA_R, extra_args={"damping": BENCH_DAMPING},
+        device=dev, dtype=torch.float32, matmul_dtype=torch.bfloat16)
 
 
 def small_scene(DeformableModel, cloth_model):
@@ -542,7 +629,7 @@ def big_pass(ao, nb=1):
             + nb * 4 * 3 * ro.n, nb * 2 * 3 * ao.fused.r * ro.n)
 
 
-def k5_cost(ao, steps, iters, every, nb=1):
+def k5_cost(ao, steps, iters, every, nb=1, options=None):
     """(bytes, {dtype: ops}) of one kernel-5 call of ``steps`` contact-free
     steps for ``nb`` sims whose floor bound never trips (the exact check
     then reads nothing): per call the small operands (:func:`small_cost`),
@@ -550,16 +637,36 @@ def k5_cost(ao, steps, iters, every, nb=1):
     the small operands' operations; per chunk the outer loop's two
     projections (float64) and two lifts of the anchors, the combinations
     reading P, V, fa, the y-row minima and maxima, and the anchors' (3, r)
-    projections and (3, g) columns."""
-    n, r, g = ao.res.n, ao.fused.r, ao.fused.g_total
+    projections and (3, g) columns.  ``options`` (ops/affine_chunked.py
+    ChunkOptions; None: the default build): the exact-free build costs the
+    same (its outer loop takes the minima and maxima; neither reads the y
+    slice while the bound clears); without the bound every step reads the
+    (r, N) y slice of the lift and each sim's y rows of P, V and fa (the
+    exact check: 2 r N operations), and no minima are taken; without
+    ``fold_vc`` the map to the gathered values is U_selT over the n_sel
+    selected columns, each sim's prefixes of P, V and fa (3 x 3 n_sel) are
+    read once per call, no gathered columns are formed, and every step
+    sums the star gather in float64."""
+    ro, fo = ao.res, ao.fused
+    n, r, g = ro.n, fo.r, fo.g_total
+    bound = options is None or options.floor_bound_skip
+    fold = options is None or options.fold_vc
     chunks = -(-steps // every)
-    sb, so = small_cost(ao, iters, g, nb)
+    sb, so = small_cost(ao, iters, g if fold else ro.n_sel, nb)
     pb, po = big_pass(ao, nb)
-    nbytes = (sb + chunks * (4 * pb + nb * 4 * (9 * n + 2 * n + 2 * 3 * r
-                                                 + 2 * 3 * g))
-              + nb * 4 * (3 * n * 2 + n) + pb)
+    per_chunk = 9 * n + (2 * n if bound else 0) + 2 * 3 * r + (
+        2 * 3 * g if fold else 0)
+    nbytes = (sb + chunks * (4 * pb + nb * 4 * per_chunk)
+              + nb * 4 * (3 * n * 2 + (n if bound else 0)) + pb)
     ops = {"float32": nb * steps * so + chunks * (2 * po + nb * 6 * 3 * n),
            "float64": (2 * chunks + 1) * po}
+    if not bound:
+        nbytes += steps * (ro.U_liftT.element_size() * r * n
+                           + nb * 4 * 3 * n)
+        ops["float32"] += steps * nb * 2 * r * n
+    if not fold:
+        nbytes += nb * 4 * 9 * ro.n_sel
+        ops["float64"] += steps * nb * 2 * 3 * fo.gw.numel()
     return nbytes, ops
 
 
@@ -694,7 +801,7 @@ def step_by_step(torch, label, ro, run_k, run_p, P, V, Fx, rb_extra, steps,
 
 
 def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
-                  steps, every=REBASE_EVERY):
+                  steps, every=REBASE_EVERY, options=None):
     """The steps one call of kernel 3, 4 or 5 (``kernel``; "3c" for kernel
     3's contact-mode build) carries inside it, in its coefficients over the
     call's anchors (P, V): for each s <= ``steps``, one kernel call of s
@@ -738,7 +845,10 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
 
     Printed, not held: the kernel's call of s steps against the plain
     version's call (``plain``) of as many steps from (P, V), for a few s,
-    which the dynamics of this scene part within a few steps.  With a
+    which the dynamics of this scene part within a few steps.  ``options``
+    (kernel 5 only) selects its build (ops/affine_chunked.py ChunkOptions;
+    None: the default): without ``fold_vc`` its plain step takes the
+    gathered values through ``U_selT`` as kernels 3 and 4 do.  With a
     target-term schedule ``rb_extra`` ((T, 3, r), animated targets) step s
     of the plain side takes the schedule's row min(s - 1, T - 1), as the
     kernel's step s does.  Returns the largest difference and the flags of
@@ -754,8 +864,10 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
         split_coef,
     )
     from animsnapbases_tpu_torch.ops.affine_chunked import (
+        DEFAULT_OPTIONS,
         _chunk_cuda,
         advance,
+        fill_ymm,
         gathered_values,
     )
     from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc
@@ -777,7 +889,10 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
     fa = force_term(ro, F_)
     ctx = AffineContext(ao, fa)
     given = GivenU(ao, fa, ctx.bu_fa)
-    b0s, b1s, fas = (gather_vc(ao.fused, x) for x in (P, V, fa))
+    options = options or DEFAULT_OPTIONS
+    fold = kernel == 5 and options.fold_vc
+    b0s, b1s, fas = ((gather_vc(ao.fused, x) for x in (P, V, fa)) if fold
+                     else (None, None, None))
     bu0, bu1 = project(ro, P), project(ro, V)
     # the float64 plain step, the matrices kept in their storage type
     ro64 = dataclasses.replace(ro, fused=as_f64(ro.fused),
@@ -806,7 +921,7 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
                 (st.Py, st.Vy, st.buPy, st.buVy) if bool(st.mode.all())
                 else None)
         _, _, wp, _, avd, asn, wsn = cx.predictor(st)
-        if kernel == 5:
+        if fold:
             cols = (gather_vc(cx.fo, st.b0), gather_vc(cx.fo, st.b1),
                     gather_vc(cx.fo, cx.fa))
             cx.gathered_step(st, asn, wsn, avd, wp,
@@ -822,9 +937,11 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
         mode, y, flags = False, None, None
         if kernel == 5:
             ymm = torch.empty(6, dtype=P.dtype, device=P.device)
+            if not options.floor_exact:
+                fill_ymm(ymm, P, V, fa, True)
             *coefs, done = _chunk_cuda(
                 ao, P, V, fa, ymm, True, b0s, b1s, fas, bu0, bu1, ctx.bu_fa,
-                rb_extra, s, ITERATIONS, ao.floor_level)
+                rb_extra, s, ITERATIONS, ao.floor_level, options)
             Pk, Vk = advance(ao, P, V, fa, *coefs)
         else:
             variant = {3: "lean", 4: "exit", "3c": "contact"}[kernel]
@@ -1026,7 +1143,9 @@ def counted_path(torch, counted, label, own, run):
     run()
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in counted}
-    log(f"[2] launches on {label}: {counts}")
+    log(f"[2] launches on {label}: "
+        f"{ {k: v for k, v in counts.items() if v} } (every other of the "
+        f"{len(counts)} counters 0)")
     for name, count in counts.items():
         if name in own:
             require(count > 0, f"{name} was never launched on {label}")
@@ -1037,14 +1156,17 @@ def counted_path(torch, counted, label, own, run):
 
 
 def tiered_runs(torch, counted, solver, model, f, rest, label, tier1,
-                contact):
+                contact, recursions=False):
     """The bench scene's rest state (``rest``) through run_steps(64): tier 1
     (the kernel named ``tier1``) must serve and certify the whole window;
     then the contact scene: tier 1 must exit at 0 < k < 64 and the contact
-    tier (``contact``) finish the window.  With ``tier1`` None (contact
-    mode without tier 1) no tier 1 may be built, and the contact tier must
-    serve both windows alone, uncertified.  Each run is a path of its own
-    for the launch counters.  Returns {run: counts}."""
+    tier (``contact``) finish the window.  With ``recursions`` (kernel 5's
+    exact-free build) tier 1 may be entered again after its exit, as
+    run_steps' recursion rebases and re-enters; its first call must still
+    commit a step.  With ``tier1`` None (contact mode without tier 1) no
+    tier 1 may be built, and the contact tier must serve both windows
+    alone, uncertified.  Each run is a path of its own for the launch
+    counters.  Returns {run: counts}."""
     calls = spy_tier1(solver) if tier1 else None
     require(tier1 or solver._resident_fast is None,
             f"{label}: a tier 1 was built")
@@ -1063,7 +1185,8 @@ def tiered_runs(torch, counted, solver, model, f, rest, label, tier1,
     counts["contact scene"] = counted_path(
         torch, counted, f"{label}, contact scene", {tier1 or contact, contact},
         lambda: solver.run_steps(f, SCENE_STEPS, num_iterations=ITERATIONS))
-    k = calls[1] if tier1 and len(calls) == 2 else 0
+    k = (sum(calls[1:]) if recursions and len(calls) > 1 and calls[1] > 0
+         else calls[1] if tier1 and len(calls) == 2 else 0)
     require((k > 0 or not tier1) and k < SCENE_STEPS
             and solver._last_fast_steps is None
             and solver.frame == frame + 2 * SCENE_STEPS,
@@ -1076,11 +1199,37 @@ def tiered_runs(torch, counted, solver, model, f, rest, label, tier1,
     log(f"[2] {label} ({solver._resident_fast_kind or 'no'} tier 1, "
         f"{solver._resident_kind} contact tier): bench window "
         f"{'certified' if tier1 else 'served by the contact tier'} "
-        f"({SCENE_STEPS} steps); contact scene: tier 1 served {k} steps, "
+        f"({SCENE_STEPS} steps); contact scene: tier 1 served {k} steps"
+        f"{f' in calls {calls[1:]}' if recursions else ''}, "
         f"the contact tier {SCENE_STEPS - k}, end y in "
         f"[{model.positions[:, 1].min():.4f}, "
         f"{model.positions[:, 1].max():.4f}]")
     return counts
+
+
+def retier(solver, **switches):
+    """Set the solver's tier switches and rebuild its tiers alone
+    (``_build_tiers``): the prepared operands are kept, which at 250,000
+    vertices spares the host a repacking of the (3, r, N) matrices."""
+    for k, v in switches.items():
+        setattr(solver, k, v)
+    solver._build_tiers(solver.model.n_verts)
+
+
+def build_switches(opts):
+    """The solver switches that select kernel 5's build of ``opts`` (keywords
+    of ops/affine_chunked.py ChunkOptions), the exact check kept unless
+    ``opts`` turns it off."""
+    return {"resident_floor_bound_skip": opts.get("floor_bound_skip", True),
+            "resident_floor_exact": opts.get("floor_exact", True),
+            "resident_chunked_opts": {
+                k: v for k, v in opts.items()
+                if k not in ("floor_bound_skip", "floor_exact")}}
+
+
+DEFAULT_SWITCHES = {"resident_floor_bound_skip": True,
+                    "resident_floor_exact": None,
+                    "resident_chunked_opts": None}
 
 
 def reprepare(solver, **switches):
@@ -2800,6 +2949,595 @@ def animated(torch, counted, paths, main_state, dev):
     return result
 
 
+def near_in_turns(torch, solver, model, state, f, steps):
+    """{build: median ms} of ``run_steps(f, steps)`` from ``state`` on kernel
+    5's exact and exact-free builds as tier 1, in turns (MEGA_ROUNDS rounds;
+    the builds' tiers made once, swapped between the calls).  Leaves the
+    solver's tiers as it found them."""
+    before = getattr(solver, "resident_floor_exact", None)
+    fast = {}
+    for key, fe in (("exact", True), ("exact-free", False)):
+        retier(solver, resident_floor_exact=fe)
+        fast[key] = solver._resident_fast
+
+    def run(key):
+        def go():
+            solver._resident_fast = fast[key]
+            model.positions, model.velocities = (x.copy() for x in state)
+            solver.run_steps(f, steps, num_iterations=ITERATIONS)
+        return go
+
+    t = in_turns(torch, {k: run(k) for k in fast}, MEGA_ROUNDS)
+    retier(solver, resident_floor_exact=before)
+    return t
+
+
+def chunk_entry(paths, launch_path, name, options, lines, err, ms,
+                plain_ms, bound, by, **extra):
+    """A kernels-line entry of one build of kernel 5 (``name`` its launch
+    counter's name)."""
+    from animsnapbases_tpu_torch.ops.affine_chunked import library
+
+    return {"name": name, "route": "cuda",
+            "source": f"animsnapbases_tpu_torch/csrc/{library(options)}.cu",
+            "replaces": "animsnapbases_tpu/ops/pallas_resident.py:1145",
+            "replaces_lines": lines,
+            "launches": paths[launch_path[name]][name],
+            "launches_path": launch_path[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, **extra}
+
+
+def chunk_options(torch, counted, paths, solver, model, f, rest, main_state):
+    """Kernel 5's other builds on the bench scene.  First every build a
+    caller can reach (20 option sets): on the floor-clear tier-1 window a
+    64-step call equal bit for bit to the build of its fold_vc with the
+    other options on; on the contact scene the plain version's k and its
+    committed state within STEP_TOL of its change.  Then each build of
+    OPTION_BUILDS (the exact-free build; the bound, fold_vc, sqrt_free_bound
+    or static_rb off), solo and batched at NEW_BATCH sims.  Paths (2):
+    run_steps on the tiers with the build's switches (the bench window,
+    which tier 1 certifies, and the contact scene, where it exits to kernel
+    3's contact-mode build; the exact-free build may re-enter after a
+    rebase), and make_batched_run on NEW_BATCH ring-down sims with
+    CHUNKED_TIER1_MIN_VERTS = 0, each a counted path.  Holds (3): the
+    carried steps over the tier-1 window against the plain version
+    (:func:`carried_steps`), the contact scene as above, the batched chunk
+    launch equal bit for bit per sim to the solo launch, one batched step
+    within STEP_TOL of the batched plain version's per sim.  Times (4):
+    64-step calls of the build and of the default build in turns, solo and
+    batched (the bound off gives the exact check's cost per step), and for
+    the exact-free build run_steps on the contact scene in turns with the
+    exact build.  Returns the kernels line's entries, solo and batched per
+    build, and the exact check's us per step."""
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        BUILDS,
+        ChunkOptions,
+        _chunk_launch,
+        affine_chunked,
+        affine_chunked_batched,
+        affine_chunked_plain,
+        chunk_anchors,
+        counter,
+        fill_ymm,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc
+    from animsnapbases_tpu_torch.ops.resident import force_term, project
+
+    ro, ao = solver._resident, solver._affine
+    rb = solver._rb_extra()
+    default_min = type(solver).CHUNKED_TIER1_MIN_VERTS
+    P0, V0 = main_state
+    Pw, Vw = solver._to_device(P0), 0.1 * solver._to_device(V0)
+    F0 = torch.zeros_like(Pw)
+    Pc, Vc = (solver._to_device(x) for x in contact_state(model))
+    Fx = solver._to_device(f)
+    ens = ensemble_state(main_state, NEW_BATCH)
+    Pe, Ve, Fe = (solver._pack(x) for x in ens)
+    fa_e = force_term(ro, Fe)
+    base = affine_chunked(ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS)
+    require(base[2] == SCENE_STEPS, "the default build stopped in the "
+            "tier-1 window")
+    # every build a caller can reach (ops/affine_chunked.py BUILDS): on the
+    # floor-clear tier-1 window equal bit for bit to the build of its
+    # fold_vc with the other options on; on the contact scene the plain
+    # version's k and its committed state within STEP_TOL
+    nofold = affine_chunked(ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS,
+                            options=ChunkOptions(fold_vc=False))
+    for o in BUILDS:
+        Pk, Vk, kk = affine_chunked(ao, Pw, Vw, F0, rb, SCENE_STEPS,
+                                    ITERATIONS, options=o)
+        ref = base if o.fold_vc else nofold
+        require(kk == SCENE_STEPS and torch.equal(Pk, ref[0])
+                and torch.equal(Vk, ref[1]),
+                f"kernel 5 ({o.label or 'default'}) differs on the tier-1 "
+                f"window from the build of its fold_vc ({kk} steps)")
+        Pk, Vk, kk = affine_chunked(ao, Pc, Vc, Fx, rb, SCENE_STEPS,
+                                    ITERATIONS, rebase_every=16, options=o)
+        Pp, Vp, kp = affine_chunked_plain(ao, Pc, Vc, Fx, rb, SCENE_STEPS,
+                                          ITERATIONS, rebase_every=16,
+                                          options=o)
+        require(kk == kp and max_abs(Pk, Pp) <= STEP_TOL * max_abs(Pp, Pc)
+                and max_abs(Vk, Vp) <= STEP_TOL * max_abs(Vp, Vc),
+                f"kernel 5 ({o.label or 'default'}) on the contact scene: "
+                f"k {kk} against the plain {kp}, or its state differs")
+    log(f"[3] kernel 5, all {len(BUILDS)} builds (bfloat16 storage): each "
+        f"equal bit for bit on the tier-1 window's {SCENE_STEPS}-step call "
+        f"to the build of its fold_vc with the other options on; on the "
+        f"contact scene the plain version's k and its committed state within "
+        f"{STEP_TOL} of its change")
+    entries, launch_path, exact_us = [], {}, None
+    for name, opts, lines in OPTION_BUILDS:
+        o = ChunkOptions(**opts)
+        solo, batched = counter(o, False).__name__, counter(o, True).__name__
+        label = f"kernel 5, {name} ({o.label})"
+        # ---- 2. paths ----------------------------------------------------
+        reprepare(solver, CHUNKED_TIER1_MIN_VERTS=default_min,
+                  resident_contact_mode=None, **build_switches(opts))
+        require(solver._chunk_opts == o, f"{label}: the solver built "
+                f"{solver._chunk_opts}")
+        for run, counts in tiered_runs(
+                torch, counted, solver, model, f, rest, o.label, solo,
+                "resident_affine_contact",
+                recursions=not o.floor_exact).items():
+            paths[f"{o.label}, {run}"] = counts
+        launch_path[solo] = f"{o.label}, bench window"
+        if not o.floor_exact:
+            # the contact scene through run_steps on the two builds in
+            # turns: tier 1, its exit, the contact tier
+            t_near = near_in_turns(torch, solver, model, contact_state(model),
+                                   f, SCENE_STEPS)
+            log(f"[4] {label}: run_steps({SCENE_STEPS}) on the contact scene "
+                f"in turns ({MEGA_ROUNDS} rounds, median): " + ", ".join(
+                    f"{k} {v:.2f} ms" for k, v in t_near.items()))
+        reprepare(solver, CHUNKED_TIER1_MIN_VERTS=0)
+        runner = solver.make_batched_run()
+        lbl_b = (f"make_batched_run, B={NEW_BATCH} ring-down, {o.label}, "
+                 "CHUNKED_TIER1_MIN_VERTS=0")
+        paths[lbl_b] = counted_path(
+            torch, counted, lbl_b, {batched},
+            lambda: runner(*ens, SCENE_STEPS, num_iterations=ITERATIONS))
+        require(solver._last_batched_path == "batched-chunked",
+                f"{lbl_b}: took {solver._last_batched_path}")
+        launch_path[batched] = lbl_b
+
+        # ---- 3. holds ----------------------------------------------------
+        err, _ = carried_steps(
+            torch, f"{label} (window scene), carried steps", 5, ao,
+            lambda *a: affine_chunked_plain(*a, rebase_every=CHUNK_EVERY,
+                                            options=o),
+            Pw, Vw, F0, rb, SCENE_STEPS, CHUNK_EVERY, options=o)
+        Pk, Vk, kk = affine_chunked(ao, Pw, Vw, F0, rb, SCENE_STEPS,
+                                    ITERATIONS, options=o)
+        require(kk == SCENE_STEPS, f"{label}: stopped in the tier-1 window "
+                f"after {kk} steps")
+        same = bool(torch.equal(Pk, base[0]) and torch.equal(Vk, base[1]))
+        if o.fold_vc:
+            require(same, f"{label}: differs from the default build on the "
+                    "floor-clear tier-1 window")
+        Pk, Vk, kk = affine_chunked(ao, Pc, Vc, Fx, rb, SCENE_STEPS,
+                                    ITERATIONS, rebase_every=16, options=o)
+        Pp, Vp, kp = affine_chunked_plain(ao, Pc, Vc, Fx, rb, SCENE_STEPS,
+                                          ITERATIONS, rebase_every=16,
+                                          options=o)
+        dP, dV = max_abs(Pk, Pp), max_abs(Vk, Vp)
+        sP, sV = max_abs(Pp, Pc), max_abs(Vp, Vc)
+        require(kk == kp and 0 < kk < SCENE_STEPS,
+                f"{label}: steps done on the contact scene, kernel {kk}, "
+                f"plain {kp}")
+        require(dP <= STEP_TOL * sP and dV <= STEP_TOL * sV,
+                f"{label}: committed contact-scene state differs (P {dP:.3e} "
+                f"of {sP:.3e}, V {dV:.3e} of {sV:.3e})")
+        err = max(err, dP, dV)
+        # the batched chunk launch against the solo launch per sim
+        bu0, bu1, b0s, b1s = chunk_anchors(ao, Pe, Ve, o.fold_vc)
+        fas = gather_vc(ro.fused, fa_e) if o.fold_vc else None
+        ymm = torch.empty(NEW_BATCH, 6, device=Pe.device)
+        if not o.floor_exact:
+            fill_ymm(ymm, Pe, Ve, fa_e, True)
+        ymm1 = ymm.clone()
+        chunk_in = (Pe, Ve, fa_e, ymm, b0s, b1s, fas, bu0, bu1,
+                    project(ro, fa_e))
+
+        def launch(P_, V_, fa_, ymm_, *anchors):
+            return _chunk_launch(ao, P_, V_, fa_, ymm_, True, *anchors, rb,
+                                 SCENE_STEPS, ITERATIONS, ao.floor_level, o)
+
+        def solo_chunk(b):
+            one = [None if x is None else x[b] for x in chunk_in]
+            one[3] = ymm1[b]
+            return (*launch(*one), ymm1[b])
+
+        coef, kb = launch(*chunk_in)
+        same_per_sim(torch, f"batched {label} chunk, ring-down B={NEW_BATCH}"
+                     f", {SCENE_STEPS} steps", (coef, kb, ymm), solo_chunk,
+                     NEW_BATCH)
+        require(min(kb.tolist()) == SCENE_STEPS, f"batched {label} stopped "
+                f"in the ring-down window (k_b {kb.tolist()})")
+        Pk, Vk, _ = affine_chunked_batched(ao, Pe, Ve, Fe, rb, 1, ITERATIONS,
+                                           options=o)
+        Pp, Vp, _ = affine_chunked_plain(ao, Pe, Ve, Fe, rb, 1, ITERATIONS,
+                                         options=o)
+        err_b = 0.0
+        for b in range(NEW_BATCH):
+            shares = step_share(ro, fa_e[b], rb, Pe[b], Ve[b], Pk[b], Vk[b],
+                                Pp[b], Vp[b])
+            hold_step(f"batched {label}, sim {b}", shares)
+            err_b = max(err_b, *(d for d, _ in shares.values()))
+        log(f"[3] {label}: the tier-1 window's {SCENE_STEPS}-step call "
+            f"{'equals' if same else 'differs from'} the default build's "
+            f"(bit for bit); contact scene: steps done {kk}, as the plain "
+            f"version; committed state vs plain P {dP:.3e} of a change "
+            f"{sP:.3e}, V {dV:.3e} of {sV:.3e}; batched, one step vs the "
+            f"batched plain version max abs {err_b:.3e}")
+
+        # ---- 4. times ----------------------------------------------------
+        t = in_turns(torch, {
+            "default": lambda: affine_chunked(ao, Pw, Vw, F0, rb, SCENE_STEPS,
+                                              ITERATIONS),
+            "build": lambda: affine_chunked(ao, Pw, Vw, F0, rb, SCENE_STEPS,
+                                            ITERATIONS, options=o),
+            "default batched": lambda: affine_chunked_batched(
+                ao, Pe, Ve, Fe, rb, SCENE_STEPS, ITERATIONS),
+            "build batched": lambda: affine_chunked_batched(
+                ao, Pe, Ve, Fe, rb, SCENE_STEPS, ITERATIONS, options=o)},
+            OPTION_ROUNDS)
+        plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
+            ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS, options=o),
+            reps=PLAIN_REPS, warmup=1)
+        plain_b_ms = cuda_ms(torch, lambda: affine_chunked_plain(
+            ao, Pe, Ve, Fe, rb, SCENE_STEPS, ITERATIONS, options=o),
+            reps=PLAIN_REPS, warmup=1)
+        bound, by = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
+                                      CHUNK_EVERY, options=o))
+        bound_b, by_b = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
+                                          CHUNK_EVERY, nb=NEW_BATCH,
+                                          options=o))
+        if not o.floor_bound_skip:
+            exact_us = 1e3 * (t["build"] - t["default"]) / SCENE_STEPS
+        log(f"[4] {label}, {SCENE_STEPS}-step calls in turns with the default "
+            f"build ({OPTION_ROUNDS} rounds, median): solo "
+            f"{1e3 * t['build'] / SCENE_STEPS:.2f} us/step against "
+            f"{1e3 * t['default'] / SCENE_STEPS:.2f}; batched at {NEW_BATCH} "
+            f"sims {1e3 * t['build batched'] / SCENE_STEPS:.2f} against "
+            f"{1e3 * t['default batched'] / SCENE_STEPS:.2f}; plain "
+            f"{1e3 * plain_ms / SCENE_STEPS:.1f} / "
+            f"{1e3 * plain_b_ms / SCENE_STEPS:.1f} us/step; bound "
+            f"{1e3 * bound / SCENE_STEPS:.4f} ({by}) / "
+            f"{1e3 * bound_b / SCENE_STEPS:.4f} us/step ({by_b})"
+            + (f"; the exact check costs {exact_us:.2f} us per step"
+               if not o.floor_bound_skip else ""))
+        near = ({"contact_scene_run_steps_ms": t_near}
+                if not o.floor_exact else {})
+        entries += [
+            chunk_entry(paths, launch_path, solo, o, lines, err, t["build"],
+                        plain_ms, bound, by, steps_per_call=SCENE_STEPS,
+                        default_ms=t["default"],
+                        equals_default_bitwise=same, **near),
+            chunk_entry(paths, launch_path, batched, o, lines, err_b,
+                        t["build batched"], plain_b_ms, bound_b, by_b,
+                        steps_per_call=SCENE_STEPS, sims=NEW_BATCH,
+                        default_ms=t["default batched"],
+                        chunk_equals_solo_bitwise=True)]
+    reprepare(solver, CHUNKED_TIER1_MIN_VERTS=default_min,
+              **DEFAULT_SWITCHES)
+    return entries, exact_us
+
+
+def scale_phase(torch, counted, paths, dev):
+    """The megacloth (:func:`megacloth_scene`, MEGA_ROWS x MEGA_ROWS
+    vertices, r = MEGA_R, K = MEGA_K; random bases from fixed seeds,
+    float32 state, bfloat16 matrices) through the large-model route: tier 1
+    kernel 5, contact tier kernel 2.  Paths (2): run_steps over the rest
+    window (no force, MEGA_REST steps) on the default build and with
+    resident_floor_exact True and False, each certified, the exact and the
+    exact-free end states equal bit for bit; the near-floor window (the
+    lowest vertex MEGA_GAP above the floor, MEGA_GRAVITY x gravity,
+    MEGA_NEAR steps) on both builds, tier 1 then kernel 2, the exact-free
+    build's exit at or before the exact build's; make_batched_run on
+    MEGA_BATCH drifting sims over MEGA_BATCH_STEPS steps on the exact-free
+    build.  Holds (3): the carried steps of both builds from rest under
+    MEGA_GRAVITY x gravity, the near-floor window's committed state against
+    the plain version, kernel 2's steps one by one near the floor, the
+    batched chunk launch per sim bit for bit against the solo launch, the
+    batched window per sim against the solo one.  Times (4): the builds in
+    turns (kernel 5's 2,000-step calls at rest, with the bound off too;
+    run_steps over the near-floor window; batched).  Returns {kernel name:
+    the numbers the kernels line carries under "megacloth"}."""
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        DEFAULT_OPTIONS,
+        ChunkOptions,
+        _chunk_launch,
+        affine_chunked,
+        affine_chunked_batched,
+        affine_chunked_plain,
+        chunk_anchors,
+        counter,
+        fill_ymm,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        project,
+        resident_multistep,
+        resident_multistep_plain,
+    )
+
+    t0 = time.perf_counter()
+    model, solver = megacloth_solver(torch, dev)
+    prep_s = time.perf_counter() - t0
+    ro, ao = solver._resident, solver._affine
+    log(f"[2] megacloth: N={ro.n} r={ao.fused.r} n_sel={ro.n_sel} g_total="
+        f"{ao.fused.g_total} m_total={ao.fused.m_total}, built and prepared "
+        f"in {prep_s:.1f} s (host); tiers: {solver._resident_fast_kind} tier "
+        f"1, {solver._resident_kind} contact tier; default build "
+        f"{solver._chunk_opts.label or 'exact'}")
+    require(solver._resident_fast_kind == "chunked"
+            and solver._resident_kind == "standard",
+            "the megacloth is not on the large-model route")
+    exact, free = DEFAULT_OPTIONS, ChunkOptions(floor_exact=False)
+    bound_off = ChunkOptions(floor_bound_skip=False)
+    rb = solver._rb_extra()
+    rest = (model.positions.copy(), model.velocities.copy())
+    f0 = np.zeros_like(rest[0])
+    out = {}
+
+    # ---- 2. the rest window ----------------------------------------------
+    ends, rest_s = {}, {}
+    for key, fe in (("default", None), ("exact", True), ("exact-free", False)):
+        retier(solver, resident_floor_exact=fe)
+        o = solver._chunk_opts
+        name = counter(o, False).__name__
+        model.positions, model.velocities = (x.copy() for x in rest)
+        label = (f"megacloth rest window, {key} ({o.label or 'exact'}), "
+                 f"run_steps({MEGA_REST})")
+
+        def go(key=key):
+            t1 = time.perf_counter()
+            solver.run_steps(f0, MEGA_REST, num_iterations=ITERATIONS)
+            torch.cuda.synchronize()
+            rest_s[key] = time.perf_counter() - t1
+
+        paths[label] = counted_path(torch, counted, label, {name}, go)
+        require(solver._last_fast_steps == MEGA_REST,
+                f"{label}: not certified ({solver._last_fast_steps})")
+        require(np.isfinite(model.positions).all()
+                and model.positions[:, 1].min() > model.floor_height,
+                f"{label}: the end state is not finite and floor-clear")
+        ends[key] = (model.positions.copy(), model.velocities.copy())
+        out.setdefault(name, {})["rest_path"] = label
+        out[name]["rest_launches"] = paths[label][name]
+        out[name]["rest_entry_steps_per_s"] = MEGA_REST / rest_s[key]
+    same = all(np.array_equal(a, b) for a, b in zip(ends["exact"],
+                                                    ends["exact-free"]))
+    log(f"[2] megacloth rest window, {MEGA_REST} steps at the entry point: "
+        + ", ".join(f"{k} {MEGA_REST / v:.0f} steps/s"
+                    for k, v in rest_s.items())
+        + f"; the exact and the exact-free end states equal bit for bit: "
+        f"{same}; moved at most "
+        f"{np.abs(ends['exact'][0] - rest[0]).max():.3e}")
+    require(same, "the exact-free build's rest window differs from the "
+            "exact build's")
+
+    # ---- 2. the near-floor window -----------------------------------------
+    near_P = rest[0].copy()
+    near_P[:, 1] += model.floor_height + MEGA_GAP - near_P[:, 1].min()
+    near = (near_P, np.zeros_like(near_P))
+    fg = MEGA_GRAVITY * gravity(model)
+    exits = {}
+    for key, o in (("exact", exact), ("exact-free", free)):
+        retier(solver, resident_floor_exact=o.floor_exact)
+        calls = spy_tier1(solver)
+        model.positions, model.velocities = (x.copy() for x in near)
+        label = (f"megacloth near-floor window, {key}, "
+                 f"run_steps({MEGA_NEAR})")
+        name = counter(o, False).__name__
+        paths[label] = counted_path(
+            torch, counted, label, {name, "resident_multistep"},
+            lambda: solver.run_steps(fg, MEGA_NEAR,
+                                     num_iterations=ITERATIONS))
+        require(calls and calls[0] > 0 and sum(calls) < MEGA_NEAR
+                and solver._last_fast_steps is None,
+                f"{label}: did not go tier 1 -> kernel 2 (tier-1 calls "
+                f"{calls})")
+        require(np.isfinite(model.positions).all()
+                and model.positions[:, 1].min() > -0.5,
+                f"{label}: the end state is not finite and held at the floor")
+        exits[key] = calls
+        out.setdefault(name, {})["near_floor_tier1_calls"] = calls
+        out[name]["near_floor_path"] = label
+        log(f"[2] {label}: tier-1 calls {calls} (a call after the first: a "
+            f"rebase and re-entry; 0: the fall-through), kernel 2 served "
+            f"{MEGA_NEAR - sum(calls)} steps; end y in "
+            f"[{model.positions[:, 1].min():.4f}, "
+            f"{model.positions[:, 1].max():.4f}]")
+    require(exits["exact-free"][0] <= exits["exact"][0],
+            f"the exact-free build exited after the exact build "
+            f"({exits['exact-free'][0]} > {exits['exact'][0]})")
+
+    # ---- 3. holds -----------------------------------------------------------
+    Pr, Vr = (solver._to_device(x) for x in rest)
+    Pn, Vn = (solver._to_device(x) for x in near)
+    Fg, F0 = solver._to_device(fg), torch.zeros_like(Pr)
+    for key, o in (("exact", exact), ("exact-free", free)):
+        name = counter(o, False).__name__
+        err, _ = carried_steps(
+            torch, f"kernel 5 {key}, megacloth from rest under "
+            f"{MEGA_GRAVITY:g}x gravity, carried steps", 5, ao,
+            lambda *a, o=o: affine_chunked_plain(
+                *a, rebase_every=CHUNK_EVERY, options=o),
+            Pr, Vr, Fg, rb, MEGA_DEPTH, CHUNK_EVERY, options=o)
+        Pk, Vk, kk = affine_chunked(ao, Pn, Vn, Fg, rb, MEGA_NEAR,
+                                    ITERATIONS, rebase_every=16, options=o)
+        Pp, Vp, kp = affine_chunked_plain(ao, Pn, Vn, Fg, rb, MEGA_NEAR,
+                                          ITERATIONS, rebase_every=16,
+                                          options=o)
+        dP, dV = max_abs(Pk, Pp), max_abs(Vk, Vp)
+        sP, sV = max_abs(Pp, Pn), max_abs(Vp, Vn)
+        log(f"[3] kernel 5 {key}, megacloth near-floor window "
+            f"(rebase_every=16): steps done kernel {kk}, plain {kp}; "
+            f"committed state vs plain P {dP:.3e} of a change {sP:.3e}, V "
+            f"{dV:.3e} of {sV:.3e}")
+        require(kk == kp and 0 < kk < MEGA_NEAR,
+                f"kernel 5 {key}: steps done differ near the floor")
+        require(dP <= STEP_TOL * sP and dV <= STEP_TOL * sV,
+                f"kernel 5 {key}: committed near-floor state differs")
+        out[name]["max_abs_err"] = max(err, dP, dV)
+        out[name]["near_floor_k"] = kk
+    k2_err, _ = step_by_step(
+        torch, "kernel 2 (megacloth near-floor window)", ro,
+        lambda P_, V_: resident_multistep(ro, P_, V_, Fg, rb, 1, ITERATIONS),
+        lambda P_, V_: resident_multistep_plain(ro, P_, V_, Fg, rb, 1,
+                                                ITERATIONS),
+        Pn, Vn, Fg, rb, MEGA_DEPTH)
+    out["resident_multistep"] = {"max_abs_err": k2_err}
+
+    # ---- 4. times in turns --------------------------------------------------
+    # the two builds over WINDOW_STEPS; the exact check (the build without
+    # the bound against the default) over SCENE_STEPS, ~1.4 ms a step here
+    t = in_turns(torch, {
+        key: lambda o=o: affine_chunked(ao, Pr, Vr, F0, rb, WINDOW_STEPS,
+                                        ITERATIONS, options=o)
+        for key, o in (("exact", exact), ("exact-free", free))}, MEGA_ROUNDS)
+    t_check = in_turns(torch, {
+        key: lambda o=o: affine_chunked(ao, Pr, Vr, F0, rb, SCENE_STEPS,
+                                        ITERATIONS, options=o)
+        for key, o in (("exact", exact), ("bound off", bound_off))},
+        MEGA_ROUNDS)
+    require(affine_chunked(ao, Pr, Vr, F0, rb, SCENE_STEPS, ITERATIONS,
+                           options=bound_off)[2] == SCENE_STEPS,
+            "the bound-off build stopped in the rest window")
+    exact_us = 1e3 * (t_check["bound off"] - t_check["exact"]) / SCENE_STEPS
+    # a chunk launch of 0 steps: what each build does once per chunk (the
+    # exact build's one-block minima and maxima of the anchors' y rows;
+    # the exact-free build has them from the outer loop)
+    fa0 = force_term(ro, F0)
+    bu0, bu1, b0s, b1s = chunk_anchors(ao, Pr, Vr)
+    chunk0 = (fa0, torch.empty(6, device=Pr.device), False, b0s, b1s,
+              gather_vc(ro.fused, fa0), bu0, bu1, project(ro, fa0))
+    fill_ymm(chunk0[1], Pr, Vr, fa0, True)
+    t_chunk = in_turns(torch, {
+        key: lambda o=o: _chunk_launch(ao, Pr, Vr, *chunk0, rb, 0,
+                                       ITERATIONS, ao.floor_level, o)
+        for key, o in (("exact", exact), ("exact-free", free))}, MEGA_ROUNDS)
+    t_near = near_in_turns(torch, solver, model, near, fg, MEGA_NEAR)
+    plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
+        ao, Pr, Vr, F0, rb, SCENE_STEPS, ITERATIONS, options=free), reps=1,
+        warmup=1)
+    for key, o in (("exact", exact), ("exact-free", free)):
+        name = counter(o, False).__name__
+        bound, by = bound_ms(*k5_cost(ao, WINDOW_STEPS, ITERATIONS,
+                                      CHUNK_EVERY, options=o))
+        out[name].update(us_per_step=1e3 * t[key] / WINDOW_STEPS,
+                         bound_us_per_step=1e3 * bound / WINDOW_STEPS,
+                         bound_by=by,
+                         near_floor_run_steps_ms=t_near[key])
+    out[counter(free, False).__name__]["plain_us_per_step"] = (
+        1e3 * plain_ms / SCENE_STEPS)
+    log(f"[4] megacloth, kernel 5's {WINDOW_STEPS}-step calls at rest in "
+        f"turns ({MEGA_ROUNDS} rounds, median): " + ", ".join(
+            f"{k} {1e3 * v / WINDOW_STEPS:.2f} us/step" for k, v in t.items())
+        + f"; {SCENE_STEPS}-step calls: " + ", ".join(
+            f"{k} {1e3 * v / SCENE_STEPS:.2f} us/step"
+            for k, v in t_check.items())
+        + f", so the exact check costs {exact_us:.2f} us per step; a chunk "
+        f"launch of 0 steps: " + ", ".join(
+            f"{k} {1e3 * v:.1f} us" for k, v in t_chunk.items())
+        + f"; run_steps "
+        f"over the near-floor window in turns: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in t_near.items())
+        + f"; the exact-free build's plain version "
+        f"{1e3 * plain_ms / SCENE_STEPS:.1f} us/step")
+
+    # ---- batched: make_batched_run on the exact-free build ------------------
+    retier(solver, resident_floor_exact=False)
+    pos = np.repeat(rest[0][None], MEGA_BATCH, axis=0)
+    vel = np.zeros_like(pos)
+    for b in range(MEGA_BATCH):
+        vel[b, :, 2] = (1.0 - SPREAD * b) * MEGA_DRIFT
+    fs = np.zeros_like(pos)
+    run = solver.make_batched_run()
+    label = (f"megacloth make_batched_run, B={MEGA_BATCH} drifting sims, "
+             f"exact-free, {MEGA_BATCH_STEPS} steps")
+    got = {}
+
+    def go():
+        t1 = time.perf_counter()
+        got["out"] = run(pos, vel, fs, MEGA_BATCH_STEPS,
+                         num_iterations=ITERATIONS)
+        torch.cuda.synchronize()
+        got["s"] = time.perf_counter() - t1
+
+    name_b = counter(free, True).__name__
+    paths[label] = counted_path(torch, counted, label, {name_b}, go)
+    require(solver._last_batched_path == "batched-chunked",
+            f"{label}: took {solver._last_batched_path}")
+    p_b = got["out"][0]
+    require(np.isfinite(p_b).all() and p_b[:, :, 1].min() > 0,
+            f"{label}: the end state is not finite and floor-clear")
+    Pb, Vb, Fb = (solver._pack(x) for x in (pos, vel, fs))
+    fa_b = force_term(ro, Fb)
+    bu0, bu1, b0s, b1s = chunk_anchors(ao, Pb, Vb)
+    ymm = torch.empty(MEGA_BATCH, 6, device=Pb.device)
+    fill_ymm(ymm, Pb, Vb, fa_b, True)
+    chunk_in = (Pb, Vb, fa_b, ymm, b0s, b1s, gather_vc(ro.fused, fa_b), bu0,
+                bu1, project(ro, fa_b))
+
+    chunk = min(CHUNK_EVERY, MEGA_BATCH_STEPS)
+
+    def launch(P_, V_, fa_, ymm_, *anchors):
+        return _chunk_launch(ao, P_, V_, fa_, ymm_, True, *anchors, rb,
+                             chunk, ITERATIONS, ao.floor_level, free)
+
+    coef, kb = launch(*chunk_in)
+    same_per_sim(torch, f"megacloth batched kernel 5 exact-free chunk, "
+                 f"{MEGA_BATCH} sims, {chunk} steps", (coef, kb),
+                 lambda b: launch(*(x[b] for x in chunk_in)), MEGA_BATCH)
+    Pk, Vk, k = affine_chunked_batched(ao, Pb, Vb, Fb, rb, MEGA_BATCH_STEPS,
+                                       ITERATIONS, options=free)
+    err_b = 0.0
+    for b in range(MEGA_BATCH):
+        Ps, Vs, ks = affine_chunked(ao, Pb[b], Vb[b], Fb[b], rb,
+                                    MEGA_BATCH_STEPS, ITERATIONS,
+                                    options=free)
+        require(k == ks == MEGA_BATCH_STEPS, f"megacloth sim {b}: steps "
+                f"done batched {k}, solo {ks}")
+        for key, x, y, start in (("P", Pk[b], Ps, Pb[b]),
+                                 ("V", Vk[b], Vs, Vb[b])):
+            d, size = max_abs(x, y), max_abs(y, start)
+            err_b = max(err_b, d)
+            require(d <= STEP_TOL * size, f"megacloth batched sim {b} {key}: "
+                    f"{d:.3e} from its solo run (change {size:.3e})")
+    t_b = in_turns(torch, {
+        key: lambda o=o: affine_chunked_batched(ao, Pb, Vb, Fb, rb,
+                                                WINDOW_STEPS, ITERATIONS,
+                                                options=o)
+        for key, o in (("exact", exact), ("exact-free", free))}, MEGA_ROUNDS)
+    bound_b, by_b = bound_ms(*k5_cost(ao, WINDOW_STEPS, ITERATIONS,
+                                      CHUNK_EVERY, nb=MEGA_BATCH,
+                                      options=free))
+    out[name_b] = {
+        "path": label, "launches": paths[label][name_b],
+        "entry_aggregate_steps_per_s": MEGA_BATCH * MEGA_BATCH_STEPS
+        / got["s"], "max_abs_err": err_b,
+        "us_per_step": 1e3 * t_b["exact-free"] / WINDOW_STEPS,
+        "exact_build_us_per_step": 1e3 * t_b["exact"] / WINDOW_STEPS,
+        "bound_us_per_step": 1e3 * bound_b / WINDOW_STEPS, "bound_by": by_b}
+    log(f"[4] {label}: {out[name_b]['entry_aggregate_steps_per_s']:.0f} "
+        f"aggregate steps/s at the entry point; {WINDOW_STEPS}-step batched "
+        f"calls in turns: " + ", ".join(
+            f"{k} {1e3 * v / WINDOW_STEPS:.2f} us/step, "
+            f"{MEGA_BATCH * WINDOW_STEPS / (v / 1e3):.0f} aggregate steps/s"
+            for k, v in t_b.items())
+        + f"; each sim within {STEP_TOL} of its change from its solo run, "
+        f"max abs {err_b:.3e}")
+    out["exact_check_us"] = exact_us
+    out["empty_chunk_us"] = {k: 1e3 * v for k, v in t_chunk.items()}
+    out["prepare_s"] = prep_s
+    retier(solver, **DEFAULT_SWITCHES)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2826,6 +3564,7 @@ def main() -> int:
         resident_affine_plain,
     )
     from animsnapbases_tpu_torch.ops.affine_chunked import (
+        COUNTERS,
         advance,
         affine_chunked,
         affine_chunked_batched,
@@ -2855,7 +3594,7 @@ def main() -> int:
                resident_affine_exit, affine_chunked, resident_affine_contact,
                fused_reduced_iterations_batched, resident_multistep_batched,
                resident_affine_batched, affine_chunked_batched,
-               resident_affine_contact_batched)
+               resident_affine_contact_batched, *COUNTERS)
 
     # ---- 1. device and build -------------------------------------------
     smi = subprocess.run(
@@ -3484,6 +4223,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += ensemble(torch, counted, solver, model, f, main_state, paths)
     log(f"[2-4] ensemble serving {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    options, exact_us_bench = chunk_options(torch, counted, paths, solver,
+                                            model, f, rest, main_state)
+    log(f"[2-4] kernel 5's other builds {time.perf_counter() - t0:.1f} s")
     anim = animated(torch, counted, paths, main_state, dev)
     for k in kernels:
         k["animated"] = anim.get(k["name"], {})
@@ -3493,7 +4236,20 @@ def main() -> int:
         k["scenes"] = per_scene.get(k["name"], {})
     log(f"[2-4] tet, bending and block-form scenes "
         f"{time.perf_counter() - t0:.1f} s")
-    log(f"[5] launches per path: {json.dumps(paths)}")
+    t0 = time.perf_counter()
+    mega = scale_phase(torch, counted, paths, dev)
+    log(f"[2-4] scale: the megacloth {time.perf_counter() - t0:.1f} s")
+    kernels += options
+    for k in kernels:
+        if k["name"] in mega:
+            k["megacloth"] = mega[k["name"]]
+    k5 = next(k for k in kernels if k["name"] == "affine_chunked")
+    k5.update(exact_check_us_bound_off=exact_us_bench,
+              megacloth_exact_check_us=mega["exact_check_us"],
+              megacloth_empty_chunk_us=mega["empty_chunk_us"],
+              megacloth_prepare_s=mega["prepare_s"])
+    log(f"[5] launches per path (the kernels that launched): " + json.dumps(
+        {p_: {k: v for k, v in c.items() if v} for p_, c in paths.items()}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -79,18 +79,25 @@ def _launch_plain(ao, P, V, fext, rb_extra, *args):
 
 
 def _chunk_launch_plain(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
-                        bu_fa, rb_ex, steps, num_iterations, floor_h):
-    """csrc/affine_chunked.cu's launch on the plain chunk, sim by sim ->
-    (coefficients, k per sim)."""
+                        bu_fa, rb_ex, steps, num_iterations, floor_h,
+                        options=affine_chunked.DEFAULT_OPTIONS):
+    """The chunk launch (csrc/affine_chunked.cuh) of the build of
+    ``options`` on the plain chunk, sim by sim -> (coefficients, k per
+    sim)."""
     if P.dim() == 2:
         *coefs, k = affine_chunked.affine_chunk_plain(
             ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1, bu_fa, rb_ex,
-            steps, num_iterations, floor_h)
+            steps, num_iterations, floor_h, options)
         return (torch.cat([x.flatten() for x in coefs]),
                 torch.tensor(k, dtype=torch.int32))
+
+    def sim(x, b):
+        return None if x is None else x[b]
+
     outs = [_chunk_launch_plain(
-        ao, P[b], V[b], fa[b], ymm[b], first, b0s[b], b1s[b], fas[b], bu0[b],
-        bu1[b], bu_fa[b], _sim(rb_ex, b), steps, num_iterations, floor_h)
+        ao, P[b], V[b], fa[b], ymm[b], first, sim(b0s, b), sim(b1s, b),
+        sim(fas, b), bu0[b], bu1[b], bu_fa[b], _sim(rb_ex, b), steps,
+        num_iterations, floor_h, options)
         for b in range(P.shape[0])]
     return tuple(torch.stack(x) for x in zip(*outs))
 
@@ -133,8 +140,22 @@ def _fake_card(monkeypatch):
                         ("POKE_CYCLES", 1), ("POKE_WINDOW", 16),
                         ("POKE_TAIL", 4), ("POKE_ROWS", 6),
                         ("POKE_SHARED", 4), ("POKE_DEPTH", 4),
-                        ("POKE_ROUNDS", 1)):
+                        ("POKE_ROUNDS", 1), ("OPTION_ROUNDS", 1),
+                        ("MEGA_ROWS", 12), ("MEGA_R", 8), ("MEGA_REST", 24),
+                        ("MEGA_NEAR", 12), ("MEGA_BATCH", 2),
+                        ("MEGA_BATCH_STEPS", 8), ("MEGA_DEPTH", 3),
+                        ("MEGA_ROUNDS", 1)):
         monkeypatch.setattr(cs, name, value)
+    mega = cs.megacloth_solver
+
+    def small_mega(torch_, dev):
+        # the large-model route at the rehearsal's 144 vertices
+        model, solver = mega(torch_, dev)
+        solver.CHUNKED_TIER1_MIN_VERTS = 0
+        solver.prepare(solver.args)
+        return model, solver
+
+    monkeypatch.setattr(cs, "megacloth_solver", small_mega)
     bench = cs.bench_scene
     monkeypatch.setattr(cs, "bench_scene", lambda cls, cloth: bench(
         cls, lambda rows, cols: cloth(14, 14)))
@@ -164,17 +185,34 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 0}}
     kernels = json.loads(lines[-2])["kernels"]
+    builds = [f"affine_chunked{b}[{label}]"
+              for label in ("floor_exact=False", "floor_bound_skip=False",
+                            "fold_vc=False", "sqrt_free_bound=False",
+                            "static_rb=False") for b in ("", "_batched")]
     assert [k["name"] for k in kernels] == [
         "fused_reduced_iterations", "resident_multistep", "resident_affine",
         "resident_affine_exit", "affine_chunked", "resident_affine_contact",
         "fused_reduced_iterations_batched", "resident_multistep_batched",
         "resident_affine_batched", "affine_chunked_batched",
-        "resident_affine_contact_batched"]
+        "resident_affine_contact_batched", *builds]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
         assert keys <= set(k)
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
+    # kernel 5's builds: each on its own path (no launches counted here: the
+    # plain versions run), timed beside the default
+    # build; the scale phase's megacloth numbers on kernel 5 (both builds),
+    # batched kernel 5's exact-free build and kernel 2
+    for k in kernels[11:]:
+        assert k["launches"] >= 0 and k["default_ms"] > 0, k["name"]
+    assert kernels[11]["source"].endswith("affine_chunked_free.cu")
+    assert kernels[13]["source"].endswith("affine_chunked_opts.cu")
+    for i in (1, 4, 11, 12):
+        assert kernels[i]["megacloth"], kernels[i]["name"]
+    assert kernels[11]["megacloth"]["near_floor_tier1_calls"][0] > 0
+    assert kernels[4]["exact_check_us_bound_off"] is not None
+    kernels = kernels[:11]
     assert kernels[5]["recursion_drift"]
     assert kernels[10]["launches_path"].startswith(
         "make_batched_run, B=4 ring-down, default")
@@ -247,3 +285,43 @@ def test_chip_smoke_branch_step_rules_run(monkeypatch, capsys):
     assert any("given the kernel's u buPy" in what for what in failed)
     assert any("branch steps the kernel lies" in what for what in failed)
     assert flags.shape[-1] == affine.FLAG_SLOTS + 6
+
+
+def test_megacloth_scene_is_the_bench_script_model():
+    """``chip_smoke.megacloth_scene(rows)`` builds the model of
+    scripts/bench_megacloth.py:60-70 (the JAX package's lines, at 12 rows
+    here): the same positions, pinned vertices, masses and constraint
+    groups with the same data."""
+    import numpy as np
+
+    from animsnapbases_tpu.geometry.procedural import cloth_model
+    from animsnapbases_tpu.sim.model import DeformableModel
+
+    rows = 12
+    V, F = cloth_model(rows, rows)
+    V = V.copy()
+    V[:, 2] += 0.1 * V[:, 0]
+    ref = DeformableModel(V, F, masses=np.full(len(V), 10.0),
+                          floor_collision=True, init_height_shift=10.0)
+    ref.add_tri_constrain_strain(0.95, 1.05, wi=1e4)
+    ref.add_edge_spring_constraint(wi=1e4)
+    ref.compute_cloth_corner_indices()
+    ref.fix_surface_side_vertices("left")
+
+    model = cs.megacloth_scene(rows)
+    assert model.n_verts == rows * rows
+    np.testing.assert_array_equal(model.positions, ref.positions)
+    np.testing.assert_array_equal(model.faces, ref.faces)
+    np.testing.assert_array_equal(model.mass, ref.mass)
+    np.testing.assert_array_equal(np.where(model.fixed_flags)[0],
+                                  np.where(np.asarray(ref.fixed_flags))[0])
+    assert 0 < model.fixed_flags.sum() < rows * rows
+    assert model.floor_collision and model.floor_height == ref.floor_height
+    assert sorted(model.groups) == sorted(ref.groups)
+    for name, g in model.groups.items():
+        want = ref.groups[name].data
+        assert sorted(g.data) == sorted(want), name
+        for key, value in g.data.items():
+            np.testing.assert_allclose(np.asarray(value, dtype=float),
+                                       np.asarray(want[key], dtype=float),
+                                       rtol=1e-12, atol=0, err_msg=key)

@@ -117,9 +117,12 @@ def test_serving_path_matches_jax(tmp_path, bases):
 
 def test_unported_configurations_raise(tmp_path):
     """What the port does not port yet raises NotImplementedError from
-    prepare/step/run_steps instead of running something else: self-collision,
-    full (unreduced) groups, and kernel 5's build options (ROADMAP B5), which
-    prepare() refuses rather than serve the default kernel 5."""
+    prepare/step/run_steps instead of running something else: self-collision
+    and full (unreduced) groups.  Kernel 5's build options are served:
+    each switch reaches the build that tier 1 runs (ops/affine_chunked.py
+    ChunkOptions), and prepare() no longer refuses them."""
+    from animsnapbases_tpu_torch.ops.affine_chunked import ChunkOptions
+
     s_jax, _ = jax_solver(tmp_path, "off")
     s, m = port_solver(s_jax.args)
     f = gravity(m)
@@ -127,19 +130,25 @@ def test_unported_configurations_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="self-collision"):
         s.run_steps(f, 2)
     s.enable_self_collision = False
-    for name, value in (("resident_floor_bound_skip", False),
-                        ("resident_floor_exact", True),
-                        ("resident_floor_exact", False),
-                        ("resident_chunked_opts", {"fold_vc": False})):
+    for name, value, build in (
+            ("resident_floor_bound_skip", False,
+             ChunkOptions(floor_bound_skip=False)),
+            ("resident_floor_exact", True, ChunkOptions()),
+            ("resident_floor_exact", False, ChunkOptions(floor_exact=False)),
+            ("resident_chunked_opts", {"fold_vc": False},
+             ChunkOptions(fold_vc=False))):
         s2, _ = port_solver(s_jax.args)
         setattr(s2, name, value)
         s2.set_dirty()
-        with pytest.raises(NotImplementedError, match=f"{name}.*B5"):
-            s2.prepare(s_jax.args)
+        s2.prepare(s_jax.args)
+        assert s2._resident_fast.keywords["options"] == build, name
+        s2.run_steps(f, 2)
+        assert s2.frame == 2
     s2, _ = port_solver(s_jax.args)
-    s2.resident_floor_bound_skip = True          # the default: served
+    s2.resident_floor_bound_skip = True          # the default
     s2.resident_chunked_opts = {}
     s2.prepare(s_jax.args)
+    assert s2._resident_fast.keywords["options"] == ChunkOptions()
 
     args = s_jax.args
     args.edge_spring_reduced = False           # a full (unreduced) group

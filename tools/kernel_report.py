@@ -1,5 +1,7 @@
-"""Registers and spills of every CUDA kernel of one source tree, and the
-bench scene's kernel-1 call and kernel-5 window times.
+"""Registers and spills of every CUDA kernel of one source tree (each
+build of kernel 5 in a tree that has them: ``affine_chunk<T, M, O>`` with
+O the build's option bits, ops/affine_chunked.py ChunkOptions.code), and
+the bench scene's kernel-1 call and kernel-5 window times.
 
     python3 tools/kernel_report.py <tree>
 
@@ -11,8 +13,10 @@ out-of-line device function, what ptxas reports (registers, stack frame,
 spill stores and loads), then kernel 1's time per call (10 iterations, the
 predictor of the bench scene's rest state; CUDA events, median of 200) and
 kernel 5's time per step over the 2,000-step tier-1 window of
-``chip_smoke.py`` (median of 10).  To compare two commits on one card, in
-one call::
+``chip_smoke.py`` (median of 10), and in a tree with kernel 5's builds the
+same window on its exact-free build and on the build without the bound
+(whose difference from the default is the exact floor check's cost per
+step).  To compare two commits on one card, in one call::
 
     git archive <parent> | tar -x -C build/parent
     for t in build/parent . . build/parent; do
@@ -102,3 +106,16 @@ k5 = cs.cuda_ms(torch, lambda: affine_chunked(
 print(f"{tree} bench scene: kernel 1 {1e3 * k1:.2f} us/call; kernel 5 "
       f"{1e3 * k5 / cs.WINDOW_STEPS:.2f} us/step over {cs.WINDOW_STEPS} "
       f"steps", flush=True)
+try:
+    from animsnapbases_tpu_torch.ops.affine_chunked import ChunkOptions
+    builds = (("exact-free", ChunkOptions(floor_exact=False)),
+              ("bound off", ChunkOptions(floor_bound_skip=False)))
+except ImportError:          # a tree without kernel 5's builds
+    builds = ()
+for label, o in builds:
+    ms = cs.cuda_ms(torch, lambda: affine_chunked(
+        ao, Pw, Vw, F0, rb, cs.WINDOW_STEPS, cs.ITERATIONS, options=o),
+        reps=10, warmup=1)
+    print(f"{tree} bench scene: kernel 5 {label} "
+          f"{1e3 * ms / cs.WINDOW_STEPS:.2f} us/step over {cs.WINDOW_STEPS} "
+          f"steps", flush=True)
