@@ -1,7 +1,8 @@
-// The affine-coordinate step pieces kernels 3, 4 (affine.cu) and 5
-// (affine_chunked.cu) share: the block-level counterparts of
-// animsnapbases_tpu/ops/pallas_resident.py `_make_affine_ctx` (predictor,
-// free_step) and of the chunk kernel's step.
+// The affine-coordinate step pieces of kernels 3 and 4 (affine.cu): the
+// block-level counterparts of animsnapbases_tpu/ops/pallas_resident.py
+// `_make_affine_ctx` (predictor, free_step).  Kernel 5
+// (affine_chunked.cuh) runs one dimension's row of each in each block of
+// its cluster, in the same arithmetic, and shares `affine_row`.
 //
 // Coefficient state, dims-leading as everywhere in the port:
 //   ap, av (3, 3): row d holds dim d's coefficients over [b0, b1, fa];

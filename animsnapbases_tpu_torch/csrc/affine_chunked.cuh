@@ -33,7 +33,8 @@
 //     selected prefix, a0 P_sel + a1 V_sel + a2 fa_sel + wsn U_selT, into
 //     shared memory and through the star gather (gather_col), as kernels 3
 //     and 4 form it;
-//   the iteration loop and solve (iteration.cuh), the coefficient update.
+//   the iteration loop and solve (iteration_cluster.cuh), the coefficient
+//   update.
 // It writes ap, av, wp, wv and k, the steps done.  The exact builds with
 // the bound take the y-row minima and maxima, of P and V once per chunk and
 // of fa in the first chunk of a call (ADVICE r5), into `ymm`; the
@@ -44,45 +45,51 @@
 // loop's operands, ~0.3 MB in float32 at the bench scene) unless the exact
 // check runs; that reads the (r, N) y slice of the lift (1.8 MB in bfloat16
 // at 14,400 vertices, 24 MB at 250,000).  By bytes that is well under a
-// microsecond per step; as for kernel 1, the latency of the single block's
-// dependent chains sets the time.
+// microsecond per step; as for kernel 1, the latency of the dependent
+// chains sets the time.
 //
-// What the design does about it: ONE thread block runs the whole chunk,
-// as kernel 1 runs its loop, so no launch or device-memory round trip
-// separates the steps.  The coefficient state (ap, av, wp, wv), the
-// per-chunk operands (bu0, bu1, bu_fa, and b0s, b1s, fas with CHUNK_FOLD)
-// and, when they fit beside the loop's buffers, M_utac and inv3 (2 x 49 KB
-// at r = 64 in float32) live in shared memory for the whole chunk, which
-// takes the r-long dependent-load chains of rb_lin and the solve off L2.  A
-// static target term (T = 1, CHUNK_STATIC) is staged there once too; an
-// animated schedule's rows do not fit (a 1,024-step chunk's are 786 KB at
-// r = 64), so each step reads its own row, 768 B, from L2 where rb_const
-// is formed (one load per entry, no dependent chain), as every step does
-// without CHUNK_STATIC.  The branch of a step (bound clear, exact check,
-// stop) is block-uniform: one thread decides the bound, __syncthreads_or
-// the exact check.  The options are template arguments, so a build carries
-// no code (and no registers) of the branches it does not take.
+// What the design does about it: ONE cluster of three thread blocks runs
+// the whole chunk, block d owning dimension d, so no launch or
+// device-memory round trip separates the steps.  Every piece of a step but
+// the loop's projections and the floor test is separable by dimension
+// (the predictor, rb_const, the gathered values, the solve, the update:
+// affine.cuh's pieces, here one row each), so block d keeps dimension d's
+// coefficient state (ap, av, wp, wv rows), its per-chunk operands (bu0,
+// bu1, bu_fa, and b0s, b1s, fas with CHUNK_FOLD) and, as the staging plan
+// says (ops/cluster.py: the loop's C_d and WT_d, then inv3_d, then M_utac_d
+// and UG_d or U_selT_d; ~156 KB at the bench widths), the operands it
+// reads every step in its shared memory for the whole chunk; the loop
+// (iteration_cluster.cuh) exchanges Vall through distributed shared
+// memory.  A static target term (T = 1, CHUNK_STATIC) is staged once too;
+// an animated schedule's rows do not fit, so each step reads its own row
+// from L2 where rb_const is formed.  The y block (d = 1) holds what the
+// floor test reads: it decides the bound (one thread) and the exact check
+// (__syncthreads_or) and writes the step's verdict into every block's
+// shared memory before the loop's first cluster barrier; all three read it
+// after that barrier and stop together, so no block leaves the step loop
+// while a peer waits at a barrier.  The exact builds with the bound take
+// the three y rows' minima and maxima one row a block at the chunk's
+// start.  The options are template arguments, so a build carries no code
+// (and no registers) of the branches it does not take.
 //
 // The batched build (nb sims, the JAX kernel's nb = B; the tier 1 of
-// make_batched_run's large-model route) runs one block per sim on a grid of
-// nb blocks, each the solo chunk on sim b's buffers (sim-major: P, V, fa
-// (nb, 3, N); b0s, b1s, fas (nb, 3, g); bu0, bu1, bu_fa (nb, 3, r); ymm
-// (nb, 6); out (nb, 18 + 6r); k (nb,)), M_utac and inv3 staged per block.
-// At r = 64 a block's shared memory (~120 KB) allows one block per SM, so
-// up to 132 sims run in one wave and more in further waves.  Each block
-// records its own k_b; the whole-batch exit (stop before the first step at
-// which any sim clamps, or trips its bound in the exact-free build) is made
-// by the caller (ops/affine_chunked.py), which launches the chunk again for
-// min k_b steps when the k_b differ.  No block waits for another: a
-// grid-wide barrier hangs when blocks are not co-resident.
+// make_batched_run's large-model route) runs one cluster per sim on a grid
+// of (3, nb) blocks, each cluster the solo chunk on sim b's buffers
+// (sim-major: P, V, fa (nb, 3, N); b0s, b1s, fas (nb, 3, g); bu0, bu1,
+// bu_fa (nb, 3, r); ymm (nb, 6); out (nb, 18 + 6r); k (nb,)).  At ~167 KB a
+// block, one block fits on an SM, so a wave holds 44 sims and more run in
+// further waves.  Each cluster records its own k_b; the whole-batch exit
+// (stop before the first step at which any sim clamps, or trips its bound
+// in the exact-free build) is made by the caller (ops/affine_chunked.py),
+// which launches the chunk again for min k_b steps when the k_b differ.
+// No cluster waits for another: a grid-wide barrier hangs when clusters
+// are not co-resident.
 #pragma once
 
 #include "affine.cuh"
+#include "iteration_cluster.cuh"
 
 namespace ksm {
-
-constexpr int THREADS = 256;
-constexpr size_t SMEM_MAX = 232448;  // 227 KB a block can use
 
 // the build options (ops/affine_chunked.py ChunkOptions.code)
 enum : int {
@@ -94,7 +101,8 @@ enum : int {
   CHUNK_DEFAULT = 31
 };
 
-extern __shared__ __align__(16) unsigned char chunk_smem[];
+// the loop's variant in every build (iteration_cluster.cuh LOOP_*)
+constexpr int CHUNK_LOOP = LOOP_MBAR;
 
 template <typename T, typename M>
 struct Chunk {
@@ -115,7 +123,7 @@ struct Chunk {
   T* out;             // ap (9), av (9), wp (3r), wv (3r)
   int* k;
   long long rb_sim;   // elements from a sim's schedule to the next
-  int N, steps, first, stage, rb_T;
+  int N, steps, first, rb_T;
   int r, g;           // for the per-sim offsets
   T dt, eta, floor_h, c2, eps;
   // what only some builds read: the selected prefix's map and width
@@ -126,15 +134,40 @@ struct Chunk {
   T umax;
 };
 
+// Offsets of a block's buffers beside the loop's (-1: read from L2)
+struct ChunkLayout {
+  LoopLayout loop;
+  int coef;                                  // ap, av, asn, avd: 4 each
+  int wp, wv, wsn, u, bu0, bu1, bufa, rbex;  // r each
+  int wy;                                    // r: wsn_y in the storage type
+  int cols;   // CHUNK_FOLD: b0s, b1s, fas (3 rows of pad4(g)); else snT_sel
+  int red, ymm;                              // 16: reductions; 8: bound
+  int mutac, map;                            // staged, or -1
+};
+
 template <int O>
-__host__ __device__ inline size_t chunk_smem_elems(int r, int g, int m,
-                                                   int n_sel, bool stage) {
-  // the loop's buffers; ap, av, asn, avd; wp, wv, wsn, u, bu0, bu1, bu_fa,
-  // rb_ex; wy; b0s, b1s, fas (CHUNK_FOLD) or snT_sel; red, ymm; M_utac and
-  // inv3 when staged
-  const size_t cols = (O & CHUNK_FOLD) ? 9 * (size_t)g : 3 * (size_t)n_sel;
-  return iter_smem_elems(r, g, m) + 36 + 8 * 3 * r + r + cols + 16 + 8 +
-         (stage ? 6 * (size_t)r * r : 0);
+__host__ __device__ inline ChunkLayout chunk_layout(Carve& cv, int r, int g,
+                                                    int m, int n_sel,
+                                                    int plan) {
+  constexpr bool fold = (O & CHUNK_FOLD) != 0;
+  ChunkLayout L;
+  L.loop = loop_layout(cv, r, g, m, plan);
+  L.coef = cv.take(16);
+  L.wp = cv.take(r);
+  L.wv = cv.take(r);
+  L.wsn = cv.take(r);
+  L.u = cv.take(r);
+  L.bu0 = cv.take(r);
+  L.bu1 = cv.take(r);
+  L.bufa = cv.take(r);
+  L.rbex = cv.take(r);
+  L.wy = cv.take(r);
+  L.cols = cv.take(fold ? 3 * pad4(g) : n_sel);
+  L.red = cv.take(16);
+  L.ymm = cv.take(8);
+  L.mutac = cv.take_if(plan & STAGE_MUTAC, r * pad4(r));
+  L.map = cv.take_if(plan & STAGE_MAP, r * pad4(fold ? g : n_sel));
+  return L;
 }
 
 // the chunk of sim b: the per-sim buffers are laid out sim after sim
@@ -161,163 +194,225 @@ __device__ Chunk<T, M> chunk_of_sim(Chunk<T, M> a, int b) {
 }
 
 template <typename T, typename M, int O>
-__global__ void affine_chunk(Chunk<T, M> all, Iter<T> op,
-                             int num_iterations) {
+__global__ void __cluster_dims__(3, 1, 1)
+    __launch_bounds__(CLUSTER_THREADS, 1)
+        affine_chunk(Chunk<T, M> all, Iter<T> op, int num_iterations,
+                     const int* lane_cols, int ms, int plan) {
   constexpr bool bound = (O & CHUNK_BOUND) != 0;
   constexpr bool exact = (O & CHUNK_EXACT) != 0;
   constexpr bool fold = (O & CHUNK_FOLD) != 0;
   constexpr bool sqrt_free = (O & CHUNK_SQRT_FREE) != 0;
   static_assert(bound || exact, "the exact-free build needs the bound");
-  __shared__ int maybe;
-  const Chunk<T, M> a = chunk_of_sim<O>(all, blockIdx.x);
+  cg::cluster_group cl = cg::this_cluster();
+  const int d = (int)cl.block_rank();  // the dimension; 1: the y block
+  const Chunk<T, M> a = chunk_of_sim<O>(all, blockIdx.y);
   const int r = op.r, g = op.g, m = op.m, N = a.N, n_sel = a.n_sel;
   const int tid = threadIdx.x, nt = blockDim.x;
-  T* rbc = reinterpret_cast<T*>(chunk_smem);
-  T* rb = rbc + 3 * r;
-  T* vc = rb + 3 * r;
-  T* vall = vc + 3 * g;
-  T* pt = vall + 3 * g;
-  T* ap = pt + 3 * m;
-  T* av = ap + 9;
-  T* asn = av + 9;
-  T* avd = asn + 9;
-  T* wp = avd + 9;
-  T* wv = wp + 3 * r;
-  T* wsn = wv + 3 * r;
-  T* u = wsn + 3 * r;
-  T* bu0 = u + 3 * r;
-  T* bu1 = bu0 + 3 * r;
-  T* bufa = bu1 + 3 * r;
-  T* rbex = bufa + 3 * r;
-  T* wy = rbex + 3 * r;    // r: wsn_y rounded to the storage type
-  T* b0s = wy + r;         // CHUNK_FOLD: b0s, b1s, fas (3g each)
-  T* b1s = b0s + 3 * g;
-  T* fas = b1s + 3 * g;
-  T* snsel = wy + r;       // else snT_sel (3 n_sel)
-  T* red = wy + r + (fold ? 9 * g : 3 * n_sel);  // 16: block reductions
-  T* ymm = red + 16;       // 8
-  T* mutac_s = ymm + 8;    // 3 r r, when staged
-  T* inv_s = mutac_s + 3 * r * r;
+  T* smem = smem_at<T>(0);
+  Carve cv;
+  const ChunkLayout L = chunk_layout<O>(cv, r, g, m, n_sel, plan);
+  const ClusterLoop<T> c = cluster_loop(op, L.loop, d, lane_cols, ms);
+  // dimension d's rows of the coefficient state and step values
+  T* ap = smem + L.coef;
+  T* av = ap + 4;
+  T* asn = ap + 8;
+  T* avd = ap + 12;
+  T* wp = smem + L.wp;
+  T* wv = smem + L.wv;
+  T* wsn = smem + L.wsn;
+  T* u = smem + L.u;
+  T* bu0 = smem + L.bu0;
+  T* bu1 = smem + L.bu1;
+  T* bufa = smem + L.bufa;
+  T* rbex = smem + L.rbex;
+  T* wy = smem + L.wy;
+  T* b0s = smem + L.cols;  // CHUNK_FOLD
+  T* b1s = b0s + pad4(g);
+  T* fas = b1s + pad4(g);
+  T* snsel = smem + L.cols;  // else
+  T* ymm = smem + L.ymm;     // the bound's 6, then this block's y row's 2
+  // [0, 1]: the step's verdict by step parity (written by the y block into
+  // every block), [2]: the y block's bound
+  int* flags = reinterpret_cast<int*>(smem + L.loop.misc);
+  const Operand<T> mutac = operand(L.mutac, a.mutac + (size_t)d * r * r, r, r);
+  const Operand<T> map =
+      fold ? operand(L.map, a.UG + (size_t)d * r * g, r, g)
+           : operand(L.map, a.usel + (size_t)d * r * n_sel, r, n_sel);
 
   const bool static_rb = (O & CHUNK_STATIC) && a.rb_T == 1;
-  for (int i = tid; i < 3 * r; i += nt) {
-    bu0[i] = a.bu0[i];
-    bu1[i] = a.bu1[i];
-    bufa[i] = a.bufa[i];
-    if (static_rb) rbex[i] = a.rbex[i];
+  for (int i = tid; i < r; i += nt) {
+    bu0[i] = a.bu0[d * r + i];
+    bu1[i] = a.bu1[d * r + i];
+    bufa[i] = a.bufa[d * r + i];
+    if (static_rb) rbex[i] = a.rbex[d * r + i];
+    wp[i] = T(0);
+    wv[i] = T(0);
   }
   if (fold) {
-    for (int i = tid; i < 3 * g; i += nt) {
-      b0s[i] = a.b0s[i];
-      b1s[i] = a.b1s[i];
-      fas[i] = a.fas[i];
+    for (int i = tid; i < g; i += nt) {
+      b0s[i] = a.b0s[d * g + i];
+      b1s[i] = a.b1s[d * g + i];
+      fas[i] = a.fas[d * g + i];
     }
   }
-  Iter<T> ops = op;
-  const T* mutac = a.mutac;
-  if (a.stage) {
-    for (int i = tid; i < 3 * r * r; i += nt) {
-      mutac_s[i] = a.mutac[i];
-      inv_s[i] = op.inv[i];
-    }
-    mutac = mutac_s;
-    ops.inv = inv_s;
+  if (tid < 3) {  // unit coefficients over the anchors
+    ap[tid] = tid == 0 ? T(1) : T(0);
+    av[tid] = tid == 1 ? T(1) : T(0);
   }
-  affine_reset(ap, av, wp, wv, r);
   if (bound && exact) {
-    // the bound's y-row minima and maxima
-    block_minmax(a.P + N, N, red, ymm + 0, ymm + 3);
-    block_minmax(a.V + N, N, red, ymm + 1, ymm + 4);
-    if (a.first) {
-      block_minmax(a.fa + N, N, red, ymm + 2, ymm + 5);
-      if (tid == 0) {
-        a.ymm[2] = ymm[2];
-        a.ymm[5] = ymm[5];
-      }
-    } else if (tid == 0) {
-      ymm[2] = a.ymm[2];
-      ymm[5] = a.ymm[5];
-    }
-    if (tid == 0) {
-      a.ymm[0] = ymm[0];
-      a.ymm[1] = ymm[1];
-      a.ymm[3] = ymm[3];
-      a.ymm[4] = ymm[4];
-    }
-  } else if (bound && tid < 6) {
+    // the bound's y-row minima and maxima, one row a block: P, V and, in
+    // the first chunk of a call, fa
+    if (d < 2 || a.first)
+      block_minmax((d == 0 ? a.P : d == 1 ? a.V : a.fa) + N, N,
+                   smem + L.red, ymm + 6, ymm + 7);
+  } else if (bound && d == 1 && tid < 6) {
     ymm[tid] = a.ymm[tid];  // the exact-free build: taken by the caller
   }
-  __syncthreads();
+  cp_async_wait_all();
+  // the staged operands are in, and every block of the cluster has started
+  cl.sync();
+  if (bound && exact && d == 1 && tid < 6) {
+    const int src = tid % 3;  // ymm[tid]: row src's minimum, or maximum
+    if (src == 2 && !a.first) {
+      ymm[tid] = a.ymm[tid];
+    } else {
+      ymm[tid] = cl.map_shared_rank(ymm, src)[6 + tid / 3];
+      a.ymm[tid] = ymm[tid];
+    }
+  }
+  int* peer_flags[CLUSTER_SIZE];
+  for (int e = 0; e < CLUSTER_SIZE; ++e)
+    peer_flags[e] = cl.map_shared_rank(flags, e);
 
   const M* Uy = exact ? a.ulift + (size_t)r * N : nullptr;
   int k = 0;
   for (int i = 0; i < a.steps; ++i) {
-    affine_predictor(ap, av, wp, wv, r, a.dt, a.eta, asn, avd, wsn);
+    // the damped predictor of dimension d (affine.cuh affine_predictor_by)
+    const bool damp = a.eta != T(1);
+    for (int j = tid; j < 3 + r; j += nt) {
+      if (j < 3) {
+        const T v = damp ? mul_rn(a.eta, av[j]) : av[j];
+        avd[j] = v;
+        asn[j] = add_rn(add_rn(ap[j], mul_rn(a.dt, v)), j == 2 ? T(1) : T(0));
+      } else {
+        const int q = j - 3;
+        const T v = damp ? mul_rn(a.eta, wv[q]) : wv[q];
+        wsn[q] = add_rn(wp[q], mul_rn(a.dt, v));
+      }
+    }
     __syncthreads();
-    if (exact)
-      for (int j = tid; j < r; j += nt) wy[j] = Round<M, T>::apply(wsn[r + j]);
-    if (bound) {
-      if (tid < 32) {
+    if (d == 1) {
+      // the step's verdict, decided here and written into every block
+      if (exact)
+        for (int j = tid; j < r; j += nt) wy[j] = Round<M, T>::apply(wsn[j]);
+      if (bound && tid < 32) {
         T s2 = T(0);
-        for (int j = tid; j < r; j += 32) s2 += wsn[r + j] * wsn[r + j];
+        for (int j = tid; j < r; j += 32) s2 += wsn[j] * wsn[j];
         s2 = warp_sum(s2);
         if (tid == 0) {
           T lb = T(0);
           for (int j = 0; j < 3; ++j) {
-            const T c = asn[3 + j];
-            lb += c >= T(0) ? c * ymm[j] : c * ymm[3 + j];
+            const T cj = asn[j];
+            lb += cj >= T(0) ? cj * ymm[j] : cj * ymm[3 + j];
           }
           const T rel = a.eps * (T(1) + (lb < T(0) ? -lb : lb));
           if (sqrt_free) {
             const T mm = lb - a.floor_h - rel;
-            maybe = (mm < T(0)) || (mm * mm < a.c2 * s2);
+            flags[2] = (mm < T(0)) || (mm * mm < a.c2 * s2);
           } else {
             // the slack is 0.25 (BOUND_SLACK - 1) of the lift term
             const T wn = tsqrt(s2);
             const T slack = T(0.25) * wn * a.umax + rel;
-            maybe = lb - wn * a.umax - slack < a.floor_h;
+            flags[2] = lb - wn * a.umax - slack < a.floor_h;
           }
         }
       }
       __syncthreads();
-    }
-    if (exact) {
-      if (!bound || maybe) {
+      int stop = bound ? flags[2] : 1;
+      if (exact && stop) {
         int hit = 0;
         for (int v = tid; v < N; v += nt)
-          hit |= affine_row(asn + 3, wy, a.P[N + v], a.V[N + v], a.fa[N + v],
-                            Uy, N, r, v) < a.floor_h;
-        if (__syncthreads_or(hit)) break;
+          hit |= affine_row(asn, wy, a.P[N + v], a.V[N + v], a.fa[N + v], Uy,
+                            N, r, v) < a.floor_h;
+        stop = __syncthreads_or(hit);
       }
-    } else if (maybe) {
-      break;  // the exact-free build: a bound trip is the stop
+      if (tid == 0) {
+        for (int e = 0; e < CLUSTER_SIZE; ++e) {
+          if (e == d)
+            flags[i & 1] = stop;
+          else if ((CHUNK_LOOP & LOOP_MBAR) && num_iterations > 0)
+            // counted on the peer's barrier of the step's first iteration
+            st_async(peer_addr(smem_addr(flags + (i & 1)), e), stop,
+                     c.peer_bar_a[e] + 8 * ((i * num_iterations) & 1));
+          else
+            peer_flags[e][i & 1] = stop;
+        }
+      }
     }
-    affine_rb_const(asn, wsn, bu0, bu1, bufa, mutac,
-                    static_rb ? rbex
-                              : a.rbex + (size_t)min(i, a.rb_T - 1) * 3 * r,
-                    r, rbc);
+    // rb_const = rb_i - (a0 bu0 + a1 bu1 + a2 bu_fa + wsn M_utac) and Vc
+    // of dimension d (affine.cuh affine_rb_const, affine_combine)
+    const T* rbx = static_rb ? rbex
+                             : a.rbex + (size_t)min(i, a.rb_T - 1) * 3 * r +
+                                   (size_t)d * r;
+    gemv(wsn, mutac, r, r, [&](int n, T acc) {
+      const T lin = asn[0] * bu0[n] + asn[1] * bu1[n] + asn[2] * bufa[n] + acc;
+      c.rbc[n] = rbx[n] - lin;
+    });
     if (fold) {
-      affine_combine(asn, wsn, b0s, b1s, fas, g, a.UG, r, g, vc);
+      gemv(wsn, map, r, g, [&](int n, T acc) {
+        c.vc[n] = asn[0] * b0s[n] + asn[1] * b1s[n] + asn[2] * fas[n] + acc;
+      });
     } else {
-      affine_combine(asn, wsn, a.P, a.V, a.fa, N, a.usel, r, n_sel, snsel);
+      const size_t x = (size_t)d * N;
+      gemv(wsn, map, r, n_sel, [&](int n, T acc) {
+        snsel[n] = asn[0] * a.P[x + n] + asn[1] * a.V[x + n] +
+                   asn[2] * a.fa[x + n] + acc;
+      });
       __syncthreads();
-      for (int j = tid; j < 3 * g; j += nt) {
-        const int d = j / g, c = j - d * g;
-        vc[j] = gather_col(ops, snsel + d * n_sel, c);
-      }
+      for (int j = tid; j < g; j += nt) c.vc[j] = gather_col(op, snsel, j);
     }
     __syncthreads();
-    iterate_block(ops, rbc, rb, vc, vall, pt, num_iterations);
-    solve_block(ops, rb, u);
+    if (iterate_cluster<T, CHUNK_LOOP>(c, num_iterations, flags + (i & 1),
+                                       i * num_iterations, d != 1 ? 4 : 0))
+      break;
+    solve_cluster(c, [&](int n, T acc) { u[n] = acc; });
     __syncthreads();
-    affine_update(ap, av, wp, wv, asn, avd, wsn, u, r, a.dt);
+    // the coefficient update of dimension d (affine.cuh affine_update)
+    for (int j = tid; j < 3 + r; j += nt) {
+      if (j < 3) {
+        ap[j] = asn[j];
+        av[j] = avd[j] + (j == 2 ? T(1) / a.dt : T(0));
+      } else {
+        const int q = j - 3;
+        const T wq = wsn[q] + u[q];
+        wv[q] = (wq - wp[q]) / a.dt;
+        wp[q] = wq;
+      }
+    }
     __syncthreads();
     k = i + 1;
   }
-  for (int i = tid; i < 18 + 6 * r; i += nt)
-    a.out[i] = i < 9 ? ap[i] : i < 18 ? av[i - 9]
-             : i < 18 + 3 * r ? wp[i - 18] : wv[i - 18 - 3 * r];
-  if (tid == 0) *a.k = k;
+  for (int j = tid; j < 6 + 2 * r; j += nt) {
+    if (j < 3)
+      a.out[3 * d + j] = ap[j];
+    else if (j < 6)
+      a.out[9 + 3 * d + j - 3] = av[j - 3];
+    else if (j < 6 + r)
+      a.out[18 + d * r + j - 6] = wp[j - 6];
+    else
+      a.out[18 + 3 * r + d * r + j - 6 - r] = wv[j - 6 - r];
+  }
+  if (d == 0 && tid == 0) *a.k = k;
+  // no block leaves while a peer may still read its shared memory
+  cl.sync();
+}
+
+// shared memory of a block (bytes) for the staging plan's bits
+template <int O>
+inline size_t chunk_smem_bytes(int r, int g, int m, int n_sel, int plan) {
+  Carve cv;
+  chunk_layout<O>(cv, r, g, m, n_sel, plan);
+  return 4 * (size_t)cv.at;
 }
 
 template <typename T, typename M, int O>
@@ -332,7 +427,8 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
                  int r, int g, int m, int n_sel, int steps,
                  int num_iterations, int first, int nb, double dt,
                  double eta, double floor_h, double c2, double eps,
-                 double umax, int rb_T, long long rb_sim, void* stream) {
+                 double umax, int rb_T, long long rb_sim, const void* lane_cols,
+                 int ms, int plan, int smem, void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Chunk<T, M> a;
@@ -367,16 +463,15 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
   a.c2 = (T)c2;
   a.eps = (T)eps;
   a.umax = (T)umax;
-  // stage M_utac and inv3 in shared memory when they fit
-  a.stage = sizeof(T) * chunk_smem_elems<O>(r, g, m, n_sel, true) <=
-            SMEM_MAX;
-  const size_t smem = sizeof(T) * chunk_smem_elems<O>(r, g, m, n_sel,
-                                                      a.stage);
+  // the wrapper's plan must size the blocks as this carving does
+  if ((size_t)smem != chunk_smem_bytes<O>(r, g, m, n_sel, plan) ||
+      (size_t)smem > CLUSTER_SMEM_MAX)
+    return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(affine_chunk<T, M, O>, smem);
   if (e != cudaSuccess) return e;
-  affine_chunk<T, M, O><<<nb, THREADS, smem,
+  affine_chunk<T, M, O><<<dim3(CLUSTER_SIZE, nb), CLUSTER_THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      a, op, num_iterations);
+      a, op, num_iterations, static_cast<const int*>(lane_cols), ms, plan);
   return cudaGetLastError();
 }
 
@@ -384,7 +479,9 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
 
 // The C entry point of one build: nb sims (nb = 1: the solo chunk); rbex:
 // rb_T rows of (3, r) per sim from the chunk's first step, sim b's at
-// b * rb_sim (0: shared by the sims)
+// b * rb_sim (0: shared by the sims); lane_cols (ms,): the loop's
+// projection order; plan: the staging plan's bits, smem its bytes a block
+// (ops/cluster.py)
 #define CHUNK_ENTRY(NAME, T, M, O)                                           \
   extern "C" int NAME(                                                       \
       const void* P, const void* V, const void* fa, void* ymm,               \
@@ -396,12 +493,13 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
       const void* eg, const void* ef, void* out, void* k, int N, int r,      \
       int g, int m, int n_sel, int steps, int num_iterations, int first,     \
       int nb, double dt, double eta, double floor_h, double c2, double eps,  \
-      double umax, int rb_T, long long rb_sim, void* stream) {               \
+      double umax, int rb_T, long long rb_sim, const void* lane_cols,        \
+      int ms, int plan, int smem, void* stream) {                            \
     return ksm::launch_chunk<T, M, O>(                                       \
         P, V, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa, rbex, ulift, mutac,    \
         UG, usel, C, inv, WT, gptr, gcol, gw, kind, eg, ef, out, k, N, r, g, \
         m, n_sel, steps, num_iterations, first, nb, dt, eta, floor_h, c2,    \
-        eps, umax, rb_T, rb_sim, stream);                                    \
+        eps, umax, rb_T, rb_sim, lane_cols, ms, plan, smem, stream);         \
   }
 
 // a build for both storage types: affine_chunk_f32_f32_o<O> and

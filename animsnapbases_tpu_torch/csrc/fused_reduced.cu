@@ -10,58 +10,80 @@
 // What bounds it on this card: neither bytes (~0.3 MB of operands) nor
 // operations (~0.1 MFLOP per iteration).  It is a serial chain of small
 // dependent contractions (rb -> Vall -> pT -> rb) with a nonlinear step
-// in the middle, so it is bound by latency: one SM, three barriers per
-// iteration, and the L2 reads of C_allT and WT_all each iteration.
+// in the middle, so it is bound by latency.
 //
-// The batched build (the JAX kernel under `vmap`, which gives its grid a
-// batch axis; make_batched_step) runs the same block once per sim on a
-// grid of nb blocks: block b reads sim b's snT_sel and rb_const at its sim
-// stride and writes its u.  The operands are shared and stay in L2.  Each
-// block does exactly what the solo launch (nb = 1) does, in the same
-// order, so sim b of a batched call equals the solo call from sim b's
-// inputs bit for bit.
-//
-// What the design does about it: the whole loop runs in ONE thread block,
-// so no launch and no device-memory round trip separates the iterations.
-// The iteration state (rb, Vc, Vall, pT: a few KB) lives in shared memory;
-// the per-iteration operands C_allT, WT_all and inv3 (about 0.3-0.4 MB in
-// float32 at r = 64, more than one SM's 227 KB) stay in device memory and
-// are read from L2, where they stay resident across iterations.  Reads
-// are coalesced: consecutive threads take consecutive columns of C_allT
-// and consecutive k of WT_all.  Vc is gathered by the sparse columns of
-// G_allT (iteration.cuh gather_col: one entry for the one-hot tris, spring
-// and tet columns, the weighted star of a bending column, summed in
-// float64), once per launch before the loop; C_allT and inv3 are taken as
+// What the design does about it: the loop runs on one cluster of three
+// thread blocks per sim (iteration_cluster.cuh), block d owning dimension
+// d: the operands of its dimension (C_d 51 KB, WT_d 20 KB, inv3_d 16 KB in
+// float32 at the bench widths) are staged in its shared memory once per
+// call, as the staging plan (ops/cluster.py) says, so no iteration reads
+// L2, and the three rows of Vall meet through distributed shared memory at
+// one cluster barrier per iteration.  Block d gathers its own Vc_d by the
+// sparse columns of G_allT (iteration.cuh gather_col: one entry for the
+// one-hot tris, spring and tet columns, the weighted star of a bending
+// column, summed in float64) before the loop; C_allT and inv3 are taken as
 // the host precomposed them in float64 (usel_inv is never folded into WT).
-#include "iteration.cuh"
+//
+// The batched build (the JAX kernel under `vmap`; make_batched_step) runs
+// one cluster per sim on a grid of (3, nb) blocks: cluster b reads sim b's
+// snT_sel and rb_const at its sim stride and writes its u.  Each cluster
+// does exactly what the solo launch (nb = 1) does, in the same order, so
+// sim b of a batched call equals the solo call from sim b's inputs bit for
+// bit.  The template argument V is the loop's variant (LOOP_*); the
+// wrapper takes the default, LOOP_MBAR, unless asked.
+#include "iteration_cluster.cuh"
 
 namespace ksm {
 
-extern __shared__ __align__(16) unsigned char fused_smem[];
-
-template <typename T>
-__global__ void fused_reduced_kernel(Iter<T> op, const T* snT, int ld_sn,
-                                     long long sim_sn, const T* rb_const,
-                                     T* u, int num_iterations) {
+template <typename T, int V>
+__global__ void __cluster_dims__(3, 1, 1)
+    __launch_bounds__(CLUSTER_THREADS, 1)
+        fused_cluster_kernel(Iter<T> op, const T* snT, int ld_sn,
+                             long long sim_sn, const T* rb_const, T* u,
+                             int num_iterations, const int* lane_cols, int ms,
+                             int plan) {
   const int r = op.r, g = op.g, m = op.m;
-  const int b = blockIdx.x;  // the sim
-  snT += b * sim_sn;
-  rb_const += (size_t)b * 3 * r;
-  u += (size_t)b * 3 * r;
-  T* rbc = reinterpret_cast<T*>(fused_smem);
-  T* rb = rbc + 3 * r;
-  T* vc = rb + 3 * r;
-  T* vall = vc + 3 * g;
-  T* pt = vall + 3 * g;
-  (void)m;
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) rbc[i] = rb_const[i];
-  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
-    const int d = i / g, c = i - d * g;
-    vc[i] = gather_col(op, snT + (size_t)d * ld_sn, c);
-  }
-  __syncthreads();
-  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
-  solve_block(op, rb, u);
+  const int d = (int)cg::this_cluster().block_rank();  // the dimension
+  const int b = blockIdx.y;                            // the sim
+  Carve cv;
+  const LoopLayout L = loop_layout(cv, r, g, m, plan);
+  const ClusterLoop<T> c = cluster_loop(op, L, d, lane_cols, ms);
+  snT += b * sim_sn + (size_t)d * ld_sn;
+  rb_const += ((size_t)b * 3 + d) * r;
+  u += ((size_t)b * 3 + d) * r;
+  for (int i = threadIdx.x; i < r; i += blockDim.x) c.rbc[i] = rb_const[i];
+  for (int i = threadIdx.x; i < g; i += blockDim.x)
+    c.vc[i] = gather_col(op, snT, i);
+  cp_async_wait_all();
+  // the staged operands are in, and every block of the cluster has started
+  // (its shared memory may be written)
+  cg::this_cluster().sync();
+  iterate_cluster<T, V>(c, num_iterations);
+  solve_cluster(c, [&](int k, T acc) { u[k] = acc; });
+  // no block leaves while a peer may still read its shared memory
+  cg::this_cluster().sync();
+}
+
+// shared memory of a block (bytes) for the staging plan's bits
+inline size_t fused_smem_bytes(int r, int g, int m, int plan) {
+  Carve cv;
+  loop_layout(cv, r, g, m, plan);
+  return 4 * (size_t)cv.at;
+}
+
+template <typename T, int V>
+int launch_fused_v(const Iter<T>& op, const void* snT, int ld_sn,
+                   long long sim_sn, const void* rb_const, void* u,
+                   int num_iterations, int nb, const void* lane_cols, int ms,
+                   int plan, size_t smem, void* stream) {
+  cudaError_t e = allow_smem(fused_cluster_kernel<T, V>, smem);
+  if (e != cudaSuccess) return e;
+  fused_cluster_kernel<T, V><<<dim3(CLUSTER_SIZE, nb), CLUSTER_THREADS, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      op, static_cast<const T*>(snT), ld_sn, sim_sn,
+      static_cast<const T*>(rb_const), static_cast<T*>(u), num_iterations,
+      static_cast<const int*>(lane_cols), ms, plan);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -70,33 +92,51 @@ int launch_fused(const void* snT, int ld_sn, long long sim_sn,
                  const void* WT, const void* gptr, const void* gcol,
                  const void* gw, const void* kind, const void* eg,
                  const void* ef, void* u, int r, int g, int m,
-                 int num_iterations, int nb, void* stream) {
+                 int num_iterations, int nb, const void* lane_cols, int ms,
+                 int plan, int smem, int loop, void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
-  const size_t smem = sizeof(T) * iter_smem_elems(r, g, m);
-  cudaError_t e = allow_smem(fused_reduced_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  fused_reduced_kernel<T><<<nb, 256, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      op, static_cast<const T*>(snT), ld_sn, sim_sn,
-      static_cast<const T*>(rb_const), static_cast<T*>(u), num_iterations);
-  return cudaGetLastError();
+  // the wrapper's plan must size the blocks as this carving does
+  if ((size_t)smem != fused_smem_bytes(r, g, m, plan) ||
+      (size_t)smem > CLUSTER_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  using Launch = int (*)(const Iter<T>&, const void*, int, long long,
+                         const void*, void*, int, int, const void*, int, int,
+                         size_t, void*);
+  static const Launch variants[5] = {
+      launch_fused_v<T, 0>, launch_fused_v<T, LOOP_PULL>,
+      launch_fused_v<T, LOOP_SPLIT>, launch_fused_v<T, LOOP_PULL | LOOP_SPLIT>,
+      launch_fused_v<T, LOOP_MBAR>};
+  if (loop < 0 || loop > 4) return cudaErrorInvalidValue;
+  return variants[loop](op, snT, ld_sn, sim_sn, rb_const, u, num_iterations,
+                        nb, lane_cols, ms, plan, smem, stream);
 }
 
 }  // namespace ksm
 
 // nb sims: snT_sel of sim b at snT + b * sim_sn (rows ld_sn apart),
-// rb_const and u (nb, 3, r) contiguous; nb = 1 is the solo launch
+// rb_const and u (nb, 3, r) contiguous; nb = 1 is the solo launch.
+// lane_cols (ms,): the projection order; plan: the staging plan's bits,
+// smem its bytes a block (ops/cluster.py); loop: the loop's variant.
 #define FUSED_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const void* snT, int ld_sn, long long sim_sn,          \
                       const void* rb_const, const void* C, const void* inv,  \
                       const void* WT, const void* gptr,                      \
                       const void* gcol, const void* gw, const void* kind,    \
                       const void* eg, const void* ef, void* u, int r, int g, \
-                      int m, int num_iterations, int nb, void* stream) {     \
+                      int m, int num_iterations, int nb,                     \
+                      const void* lane_cols, int ms, int plan, int smem,     \
+                      int loop, void* stream) {                              \
     return ksm::launch_fused<T>(snT, ld_sn, sim_sn, rb_const, C, inv, WT,    \
                                 gptr, gcol, gw, kind, eg, ef, u, r, g, m,  \
-                                num_iterations, nb, stream);                 \
+                                num_iterations, nb, lane_cols, ms, plan,     \
+                                smem, loop, stream);                         \
   }
 
 FUSED_ENTRY(fused_reduced_iterations_f32, float)
+
+// clusters of the default variant resident at once with smem bytes a block
+extern "C" int fused_reduced_max_clusters(int smem) {
+  return ksm::max_clusters(ksm::fused_cluster_kernel<float, ksm::LOOP_MBAR>,
+                           smem);
+}

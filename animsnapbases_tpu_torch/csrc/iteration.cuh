@@ -1,8 +1,10 @@
-// The hyper-reduced local-global iteration loop, run by ONE thread block.
+// The hyper-reduced local-global iteration loop, run by ONE thread block,
+// and the pieces every loop shares.
 //
-// Shared by fused_reduced.cu (kernel 1, the per-step `step()` path) and
-// resident.cu, affine.cu and affine_chunked.cu (kernels 2-5, which run this
-// loop every step).  It is the body of animsnapbases_tpu/ops/
+// resident.cu and affine.cu (kernels 2-4) run `iterate_block` every step;
+// kernels 1 and 5 run the same loop on a cluster of three blocks
+// (iteration_cluster.cuh) with this file's emitters, gather and element
+// table.  It is the body of animsnapbases_tpu/ops/
 // pallas_resident.py `_make_iteration_loop` and of pallas_reduced.py
 // `build_fused_reduced_iterations`: it carries rb (3, r), forms the
 // gathered vertex values as Vall = Vc + rb C_allT (C_allT = usel_inv G_allT

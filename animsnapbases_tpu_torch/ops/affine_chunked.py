@@ -47,14 +47,16 @@ reads ``k`` back once per chunk and stops after a chunk that exited early.
 
 * ``affine_chunked``: the wrapper.  For CUDA tensors it runs the outer
   loop with the chunk kernel of the options' build (``csrc/affine_chunked
-  .cuh``, instantiated per option set in ``csrc/affine_chunked*.cu``),
-  counting each chunk launch in the build's counter (:func:`counter`: the
-  default build's is ``affine_chunked.launches``); for CPU tensors it runs
-  the plain version; it never falls back from the card to the plain version
-  or to another build.
+  .cuh``, instantiated per option set in ``csrc/affine_chunked*.cu``: one
+  cluster of three blocks, block d owning dimension d, on the staging plan
+  of :func:`chunk_plan`), counting each chunk launch in the build's counter
+  (:func:`counter`: the default build's is ``affine_chunked.launches``;
+  ``.plan`` the plan it ran on); for CPU tensors it runs the plain version;
+  it never falls back from the card to the plain version or to another
+  build.
 * ``affine_chunked_batched``: the batched build (``nb = B`` in the JAX
   package), the tier 1 of ``make_batched_run``'s large-model route: B
-  independent sims, sim-major (B, 3, N), one block per sim's chunk, with
+  independent sims, sim-major (B, 3, N), one cluster per sim's chunk, with
   whole-batch early exit (counted in its own counters).
 * ``affine_chunked_plain``: the outer loop with ``affine_chunk_plain``, the
   plain transcription of the chunk kernel; on (B, 3, N) tensors the plain
@@ -80,6 +82,7 @@ from animsnapbases_tpu_torch.ops.affine import (
     AffineOperands,
     split_coef,
 )
+from animsnapbases_tpu_torch.ops.cluster import staging_plan
 from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc, rowvec_bmm
 from animsnapbases_tpu_torch.ops.resident import (
     check_state,
@@ -317,7 +320,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
-_ARGTYPES = (_P,) * 26 + (_I,) * 9 + (_D,) * 6 + (_I, _L, _P)
+_ARGTYPES = (_P,) * 26 + (_I,) * 9 + (_D,) * 6 + (_I, _L, _P) + (_I,) * 3 + (
+    _P,)
 
 
 def library(options: ChunkOptions) -> str:
@@ -337,11 +341,21 @@ def symbol(P_dtype, M_dtype, options: ChunkOptions) -> str:
 
 class LaunchCount:
     """A launch counter of one non-default build of kernel 5, beside the
-    wrappers' own (``launches``; ``__name__`` names the build)."""
+    wrappers' own (``launches``; ``__name__`` names the build; ``plan`` the
+    staging plan of its last launch)."""
 
     def __init__(self, name: str):
         self.__name__ = name
         self.launches = 0
+        self.plan = None
+
+
+def chunk_plan(ao: AffineOperands, options: ChunkOptions = DEFAULT_OPTIONS):
+    """The staging plan (ops/cluster.py) the chunk kernel of the build of
+    ``options`` runs on for these operands."""
+    fo = ao.fused
+    return staging_plan("affine_chunked", fo.r, fo.g_total, fo.m_total,
+                        ao.res.n_sel, fold_vc=options.fold_vc)
 
 
 def counter(options: ChunkOptions, batched: bool):
@@ -354,20 +368,19 @@ def counter(options: ChunkOptions, batched: bool):
     return _COUNTERS[(b, batched)]
 
 
-def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
-                  fas, bu0, bu1, bu_fa, rb_ex, steps: int,
-                  num_iterations: int, floor_h: float,
-                  options: ChunkOptions = DEFAULT_OPTIONS):
-    """One launch of the build of ``options`` over the sims of the leading
-    axis (none: one sim) -> (coefficients (..., 18 + 6r), k per sim as an
-    int32 tensor (...,)).  The exact-free build gets no lift (its y slice
-    is never read)."""
+def chunk_args(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
+               fas, bu0, bu1, bu_fa, rb_ex, steps: int, num_iterations: int,
+               floor_h: float, out, k,
+               options: ChunkOptions = DEFAULT_OPTIONS, stream=None):
+    """The arguments of the C entry point of the build of ``options``
+    (csrc/affine_chunked.cuh ``CHUNK_ENTRY``, typed by ``_ARGTYPES``) for
+    one launch over the sims of the leading axis (none: one sim) into
+    ``out`` and ``k``: the grid's nb sims (one cluster each), the
+    projection order, the staging plan's bits and bytes a block
+    (:func:`chunk_plan`).  The exact-free build gets no lift (its y slice
+    is never read).  Checks the inputs and raises on what the kernel does
+    not take."""
     ro, fo = ao.res, ao.fused
-    fn = _build.function(library(options),
-                         symbol(P.dtype, ro.U_liftT.dtype, options),
-                         _ARGTYPES)
-    r = fo.r
-    lead = tuple(P.shape[:-2])
     for name, t in (("P", P), ("V", V), ("fa", fa), ("ymm", ymm),
                     ("b0s", b0s), ("b1s", b1s), ("fas", fas), ("bu0", bu0),
                     ("bu1", bu1), ("bu_fa", bu_fa)):
@@ -377,26 +390,48 @@ def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
         raise ValueError("the fold_vc build takes the gathered columns")
     check_state(ro, P, V, fa, rb_ex)
     rb_rows, rb_sim = rb_layout(rb_ex)
-    nb = lead[0] if lead else 1
-    out = torch.empty(lead + (2 * 9 + 2 * 3 * r,), dtype=P.dtype,
-                      device=P.device)
-    k = torch.zeros(lead, dtype=torch.int32, device=P.device)
+    nb = P.shape[0] if P.dim() == 3 else 1
+    plan = chunk_plan(ao, options)
     p = _build.ptr
 
     def opt(t):
         return None if t is None else p(t)
 
-    code = fn(p(P), p(V), p(fa), p(ymm), opt(b0s), opt(b1s), opt(fas),
-              p(bu0), p(bu1), p(bu_fa), p(rb_ex),
-              p(ro.U_liftT) if options.floor_exact else None, p(ao.M_utac),
-              p(fo.UG_allT), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
-              p(fo.WT_all), p(fo.gptr), p(fo.gcol), p(fo.gw),
-              p(fo.elem_kind), p(fo.elem_g), p(fo.elem_f),
-              p(out), p(k), ro.n, r, fo.g_total, fo.m_total, ro.n_sel,
-              int(steps), int(num_iterations), int(first), nb, ro.dt,
-              ro.eta, float(floor_h), (BOUND_SLACK * ao.umax) ** 2,
-              BOUND_EPS, ao.umax, rb_rows, rb_sim, _build.stream_of(P.device))
-    _build.check(library(options), code, "affine_chunked")
+    return (p(P), p(V), p(fa), p(ymm), opt(b0s), opt(b1s), opt(fas), p(bu0),
+            p(bu1), p(bu_fa), p(rb_ex),
+            p(ro.U_liftT) if options.floor_exact else None, p(ao.M_utac),
+            p(fo.UG_allT), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
+            p(fo.WT_all), p(fo.gptr), p(fo.gcol), p(fo.gw), p(fo.elem_kind),
+            p(fo.elem_g), p(fo.elem_f), p(out), p(k), ro.n, fo.r,
+            fo.g_total, fo.m_total, ro.n_sel, int(steps),
+            int(num_iterations), int(first), nb, ro.dt, ro.eta,
+            float(floor_h), (BOUND_SLACK * ao.umax) ** 2, BOUND_EPS,
+            ao.umax, rb_rows, rb_sim, p(fo.lane_cols), fo.lane_cols.numel(),
+            plan.bits, plan.smem_bytes, stream)
+
+
+def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
+                  fas, bu0, bu1, bu_fa, rb_ex, steps: int,
+                  num_iterations: int, floor_h: float,
+                  options: ChunkOptions = DEFAULT_OPTIONS):
+    """One launch of the build of ``options`` over the sims of the leading
+    axis (none: one sim) -> (coefficients (..., 18 + 6r), k per sim as an
+    int32 tensor (...,)): a grid of one cluster of three blocks per sim, on
+    the staging plan of :func:`chunk_plan` (:func:`chunk_args`).  A launch
+    the card refuses (a cluster that cannot be placed with the plan's
+    shared memory) raises."""
+    ro, r = ao.res, ao.fused.r
+    lead = tuple(P.shape[:-2])
+    out = torch.empty(lead + (2 * 9 + 2 * 3 * r,), dtype=P.dtype,
+                      device=P.device)
+    k = torch.zeros(lead, dtype=torch.int32, device=P.device)
+    args = chunk_args(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
+                      bu_fa, rb_ex, steps, num_iterations, floor_h, out, k,
+                      options, _build.stream_of(P.device))
+    fn = _build.function(library(options),
+                         symbol(P.dtype, ro.U_liftT.dtype, options),
+                         _ARGTYPES)
+    _build.check(library(options), fn(*args), "affine_chunked")
     return out, k
 
 
@@ -408,7 +443,9 @@ def _chunk_cuda(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     out, k = _chunk_launch(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
                            bu_fa, rb_ex, steps, num_iterations, floor_h,
                            options)
-    counter(options, False).launches += 1
+    count = counter(options, False)
+    count.launches += 1
+    count.plan = chunk_plan(ao, options)
     return (*split_coef(out, ao.fused.r), int(k.item()))
 
 
@@ -420,13 +457,14 @@ def _chunk_cuda_batched(ao: AffineOperands, P, V, fa, ymm, first: bool,
     chunk in its own block and records its own k_b (B int32 read back).
     When they differ, the chunk is launched again for k = min k_b steps
     from the same inputs; the launch is deterministic, so each sim's
-    coefficients are those of the first k steps bit for bit.  (No block
-    waits for another: a grid-wide barrier would hang when the blocks are
-    not all resident.)"""
+    coefficients are those of the first k steps bit for bit.  (No cluster
+    waits for another: a grid-wide barrier would hang when the clusters
+    are not all resident.)"""
     launch = (ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1, bu_fa, rb_ex)
     out, kb = _chunk_launch(*launch, steps, num_iterations, floor_h, options)
     count = counter(options, True)
     count.launches += 1
+    count.plan = chunk_plan(ao, options)
     kb = kb.tolist()
     k = min(kb)
     if k < max(kb):
@@ -456,6 +494,7 @@ def affine_chunked(ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
 
 
 affine_chunked.launches = 0
+affine_chunked.plan = None
 
 
 def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
@@ -468,7 +507,7 @@ def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
     steps before the first one at which any sim would clamp (trips its
     bound, in the exact-free build).  CPU tensors run the plain version;
     CUDA tensors run the outer loop (one batched projection and lift of the
-    anchors per chunk) with the build's chunk kernel on one block per sim,
+    anchors per chunk) with the build's chunk kernel on one cluster per sim,
     or raise.  The inputs are not modified."""
     if P.dim() != 3:
         raise ValueError("P must be (B, 3, N)")
@@ -484,6 +523,7 @@ def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
 
 
 affine_chunked_batched.launches = 0
+affine_chunked_batched.plan = None
 
 # the launch counters of the non-default builds, solo and batched
 _COUNTERS = {

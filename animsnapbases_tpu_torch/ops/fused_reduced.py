@@ -9,13 +9,15 @@ the five kinds (``_tri_p``, ``_spring_p``, ``_tet_p``, ``_bending_p``), and
 the loop itself three ways:
 
 * ``fused_reduced_iterations``: the wrapper.  For a CUDA tensor it
-  launches the hand-written kernel ``csrc/fused_reduced.cu`` and counts the
-  launch in ``fused_reduced_iterations.launches``; for a CPU tensor it
-  runs the plain version; it never falls back from the card to the plain
-  version.
+  launches the hand-written kernel ``csrc/fused_reduced.cu`` (the loop on
+  one cluster of three blocks, ``csrc/iteration_cluster.cuh``, with the
+  staging plan of ``ops/cluster.py``) and counts the launch in
+  ``fused_reduced_iterations.launches`` (the plan it ran on in ``.plan``);
+  for a CPU tensor it runs the plain version; it never falls back from the
+  card to the plain version.
 * ``fused_reduced_iterations_batched``: the batched build (the JAX kernel
   under ``vmap``, ``make_batched_step``): the same kernel on a grid of one
-  block per sim, counted in its own ``launches``.
+  cluster per sim, counted in its own ``launches``.
 * ``fused_reduced_iterations_plain``: the plain PyTorch version, a
   transcription of the JAX loop (``build_fused_reduced_iterations``); a
   leading batch axis of sims (B, 3, ·) makes it the batched build's plain
@@ -44,6 +46,11 @@ import numpy as np
 import torch
 
 from animsnapbases_tpu_torch.ops import _build
+from animsnapbases_tpu_torch.ops.cluster import (
+    DEFAULT_LOOP,
+    LOOP_VARIANTS,
+    staging_plan,
+)
 from animsnapbases_tpu_torch.ops.strain2d import clamped_fhat_2x2
 from animsnapbases_tpu_torch.ops.strain3d import (
     polar_rotation,
@@ -257,6 +264,10 @@ class FusedOperands:
     # a column's end
     gpad_col: torch.Tensor
     gpad_w: torch.Tensor
+    # the cluster loop's projection order (csrc/iteration_cluster.cuh): the
+    # table's columns with each kind's run starting at a multiple of 32
+    # threads, so that no warp runs two kinds' emitters; -1 an idle thread
+    lane_cols: torch.Tensor
 
     @property
     def r(self) -> int:
@@ -369,6 +380,7 @@ def fused_operands(ops: dict, device, dtype) -> FusedOperands:
     if col != m_total:
         raise ValueError(f"layout covers {col} of {m_total} rhs columns")
     pc, pw = _pad_columns(gptr, gcol, gw)
+    lane_cols = warp_runs(segments)
 
     def t(x, dt=dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dt,
@@ -383,7 +395,20 @@ def fused_operands(ops: dict, device, dtype) -> FusedOperands:
         elem_g=t(eg, torch.int32), elem_f=t(ef),
         segments=tuple(segments),
         UG_allT=t(np.asarray(ops["UG_allT"], np.float64)),
-        gpad_col=t(pc, torch.long), gpad_w=t(pw, torch.float64))
+        gpad_col=t(pc, torch.long), gpad_w=t(pw, torch.float64),
+        lane_cols=t(lane_cols, torch.int32))
+
+
+def warp_runs(segments, warp: int = 32) -> np.ndarray:
+    """The table's columns, each segment's run padded to a multiple of
+    ``warp`` threads (but the last), -1 in the padding."""
+    runs = []
+    for i, (_, first, cols, _, _) in enumerate(segments):
+        run = np.full(cols if i == len(segments) - 1
+                      else -(-cols // warp) * warp, -1, np.int32)
+        run[:cols] = first + np.arange(cols)
+        runs.append(run)
+    return np.concatenate(runs) if runs else np.zeros(0, np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +584,7 @@ def fused_reduced_iterations_plain(fo: FusedOperands, snT_sel, rb_const,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = (_P, _I, _L) + (_P,) * 11 + (_I,) * 5 + (_P,)
+_ARGTYPES = (_P, _I, _L) + (_P,) * 11 + (_I,) * 5 + (_P,) + (_I,) * 4 + (_P,)
 
 
 def _check_cuda_operands(fo: FusedOperands, tensors: dict):
@@ -572,11 +597,20 @@ def _check_cuda_operands(fo: FusedOperands, tensors: dict):
                             f"{fo.C_allT.dtype}")
 
 
-def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int):
-    """One launch of csrc/fused_reduced.cu over the sims of the leading
-    axis of snT_sel (..., 3, n_sel) and rb_const (..., 3, r) -> u."""
-    if snT_sel.device.type != "cuda":
-        raise ValueError(f"unsupported device {snT_sel.device}")
+def fused_plan(fo: FusedOperands):
+    """The staging plan kernel 1 runs on for these operands."""
+    return staging_plan("fused_reduced", fo.r, fo.g_total, fo.m_total)
+
+
+def fused_args(fo: FusedOperands, snT_sel, rb_const, u,
+               num_iterations: int, loop: int = DEFAULT_LOOP, stream=None):
+    """The arguments of csrc/fused_reduced.cu's C entry point (``FUSED_ENTRY``,
+    typed by ``_ARGTYPES``) for one launch over the sims of the leading
+    axis of snT_sel (..., 3, n_sel) and rb_const (..., 3, r) into u: the
+    grid's nb sims (one cluster each), the projection order, the staging
+    plan's bits and bytes a block (:func:`fused_plan`) and the loop's
+    variant -> (arguments, plan).  Checks the shapes and raises on what
+    the kernel does not take."""
     r, g, m = fo.r, fo.g_total, fo.m_total
     if fo.C_allT.dtype != torch.float32:
         raise TypeError("the kernel runs float32 state only, got "
@@ -589,41 +623,59 @@ def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int):
                          "unit column stride")
     if tuple(rb_const.shape) != lead + (3, r) or not rb_const.is_contiguous():
         raise ValueError(f"rb_const must be contiguous {lead + (3, r)}")
+    if loop not in LOOP_VARIANTS.values():
+        raise ValueError(f"no loop variant {loop}")
     nb = lead[0] if lead else 1
     sim_sn = int(snT_sel.stride(0)) if lead else 0
-    u = torch.empty(lead + (3, r), dtype=rb_const.dtype,
+    plan = fused_plan(fo)
+    p = _build.ptr
+    return (p(snT_sel), int(snT_sel.stride(-2)), sim_sn, p(rb_const),
+            p(fo.C_allT), p(fo.inv3), p(fo.WT_all), p(fo.gptr), p(fo.gcol),
+            p(fo.gw), p(fo.elem_kind), p(fo.elem_g), p(fo.elem_f), p(u), r, g,
+            m, int(num_iterations), nb, p(fo.lane_cols),
+            fo.lane_cols.numel(), plan.bits, plan.smem_bytes, int(loop),
+            stream), plan
+
+
+def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int,
+                  loop: int = DEFAULT_LOOP):
+    """One launch of csrc/fused_reduced.cu over the sims of the leading
+    axis of snT_sel (..., 3, n_sel) and rb_const (..., 3, r): a grid of one
+    cluster of three blocks per sim, on the staging plan of
+    :func:`fused_plan` and the loop's variant ``loop`` (ops/cluster.py
+    LOOP_VARIANTS) -> (u, plan).  A launch the card refuses (a cluster that
+    cannot be placed with the plan's shared memory) raises."""
+    if snT_sel.device.type != "cuda":
+        raise ValueError(f"unsupported device {snT_sel.device}")
+    u = torch.empty(rb_const.shape, dtype=rb_const.dtype,
                     device=rb_const.device)
+    args, plan = fused_args(fo, snT_sel, rb_const, u, num_iterations, loop,
+                            _build.stream_of(rb_const.device))
     fn = _build.function("fused_reduced", "fused_reduced_iterations_f32",
                          _ARGTYPES)
-    code = fn(_build.ptr(snT_sel), int(snT_sel.stride(-2)), sim_sn,
-              _build.ptr(rb_const), _build.ptr(fo.C_allT),
-              _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
-              _build.ptr(fo.gptr), _build.ptr(fo.gcol), _build.ptr(fo.gw),
-              _build.ptr(fo.elem_kind),
-              _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(u),
-              r, g, m, int(num_iterations), nb,
-              _build.stream_of(rb_const.device))
-    _build.check("fused_reduced", code, "fused_reduced_iterations")
-    return u
+    _build.check("fused_reduced", fn(*args), "fused_reduced_iterations")
+    return u, plan
 
 
 def fused_reduced_iterations(fo: FusedOperands, snT_sel, rb_const,
                              num_iterations: int):
     """u (3, r) after ``num_iterations`` of the loop.  A CPU tensor runs the
     plain version; a CUDA tensor launches ``csrc/fused_reduced.cu`` (one
-    thread block) on the current stream, or raises."""
+    cluster of three blocks) on the current stream, or raises."""
     if snT_sel.device.type == "cpu":
         return fused_reduced_iterations_plain(fo, snT_sel, rb_const,
                                               num_iterations)
     if snT_sel.dim() != 2:
         raise ValueError("snT_sel must be (3, n_sel): a batch of sims takes "
                          "fused_reduced_iterations_batched")
-    u = _launch_fused(fo, snT_sel, rb_const, num_iterations)
+    u, fused_reduced_iterations.plan = _launch_fused(fo, snT_sel, rb_const,
+                                                     num_iterations)
     fused_reduced_iterations.launches += 1
     return u
 
 
 fused_reduced_iterations.launches = 0
+fused_reduced_iterations.plan = None
 
 
 def fused_reduced_iterations_batched(fo: FusedOperands, snT_sel, rb_const,
@@ -631,15 +683,17 @@ def fused_reduced_iterations_batched(fo: FusedOperands, snT_sel, rb_const,
     """The batched build of kernel 1: u (B, 3, r) of B independent sims from
     snT_sel (B, 3, n_sel) and rb_const (B, 3, r).  CPU tensors run the
     plain version; CUDA tensors launch ``csrc/fused_reduced.cu`` on a grid
-    of B blocks, one sim each, or raise."""
+    of B clusters, one sim each, or raise."""
     if snT_sel.dim() != 3:
         raise ValueError("snT_sel must be (B, 3, n_sel)")
     if snT_sel.device.type == "cpu":
         return fused_reduced_iterations_plain(fo, snT_sel, rb_const,
                                               num_iterations)
-    u = _launch_fused(fo, snT_sel, rb_const, num_iterations)
+    u, fused_reduced_iterations_batched.plan = _launch_fused(
+        fo, snT_sel, rb_const, num_iterations)
     fused_reduced_iterations_batched.launches += 1
     return u
 
 
 fused_reduced_iterations_batched.launches = 0
+fused_reduced_iterations_batched.plan = None

@@ -33,8 +33,13 @@ version.  Phases, each of which fails the run when it fails:
    every 3 and 16 steps, so that the mode is entered, carried and left on
    the card, with the y state it carries), and the drift of contact mode's
    incremental projections after 16, 64 and 256 steps;
-4. times (CUDA events, median of the repetitions after warm-up) beside each
-   kernel's bound from its bytes and operations;
+4. times (CUDA events, median of the repetitions after warm-up; kernel
+   1's device time per launch from launches run back to back) beside each
+   kernel's bound from its bytes and operations; for kernels 1 and 5, on
+   the cluster loop, their staging plans (what each block of the cluster
+   keeps in shared memory, what it reads from L2, its bytes, the clusters
+   the card holds at once), the loop's slope per iteration and intercept,
+   and their operations' time on the cluster's 3 SMs;
 2-4 for ensemble serving (:func:`ensemble`): ``make_batched_run`` on a
    ring-down ensemble of 64 sims over 2,000 steps and on a mixed batch of
    16, half of it falling onto the floor, on the default route (batched
@@ -130,6 +135,13 @@ import numpy as np
 # the HBM rate: NVIDIA publishes no L2 rate.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+# the SMs a cluster of kernels 1 and 5 occupies (one block a dimension)
+# and their float32 lanes at the H100 SXM's 1,980 MHz boost clock (data
+# sheet): the least time the cluster loop's operations take there, beside
+# the card-wide bound, which spreads them over all 132 SMs
+CLUSTER_SMS = 3
+SM_F32_LANES = 128
+SM_CLOCK_HZ = 1.98e9
 # floating-point operations of one projection row (one column of the
 # element table; a block-form element has p of them), counted from
 # csrc/iteration.cuh and csrc/strain3d.cuh: the 2x2 clamp with its two
@@ -184,8 +196,9 @@ REBASE_EVERY = 256
 # the floor, falling at this speed (units/s)
 CONTACT_GAP = 0.05
 CONTACT_SPEED = 2.0
-# repetitions of the plain versions' 64-step calls (~1 s each)
-PLAIN_REPS = 3
+# calls of the plain versions' 64-step timings (~1-3 s each on the card,
+# no warm-up: their time is the function's definition, not a yardstick)
+PLAIN_REPS = 1
 # ensemble serving (make_batched_run / make_batched_step): the ring-down
 # ensemble's size, the sizes its per-step time is taken at, and the
 # spread of its excitations (sim b: (1 - SPREAD b) x a tenth of the main
@@ -535,6 +548,27 @@ def cuda_ms(torch, fn, reps=REPS, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps=REPS, warmup=3):
+    """Device milliseconds per call of ``fn`` (a function that launches
+    and does not wait for the card) over ``reps`` calls enqueued behind a
+    spin kernel that keeps the card busy while the host enqueues them, so
+    that they run back to back between two CUDA events: the kernel's own
+    time, where a call between two events would hold the wrapper's host
+    time when that is the longer."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(5e5 * reps))   # ~0.25 ms a call at ~2 GHz
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
@@ -727,6 +761,13 @@ def k3m_cost(ao, steps, iters, every, contact, any_contact, entries, nb=1):
                        + entries * 2 * 2 * r * n + (rebases + 1) * 2 * po),
            "float64": contact * 2 * r * n + (rebases + 1) * (po + 2 * po)}
     return nbytes, ops
+
+
+def loop_floor_ms(f32_ops):
+    """Milliseconds of ``f32_ops`` float32 operations (a multiply-add
+    counts 2) on the FP32 lanes of the cluster's SMs, one multiply-add a
+    lane a cycle; the loop's exchanges (one an iteration) come on top."""
+    return 1e3 * f32_ops / (CLUSTER_SMS * SM_F32_LANES * 2 * SM_CLOCK_HZ)
 
 
 def bound_ms(nbytes, ops):
@@ -1677,7 +1718,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
             spent.items(), key=lambda kv: -kv[1])[:8]))
     k3_plain_ms = cuda_ms(torch, lambda: resident_affine_plain(
         ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
-        warmup=1)
+        warmup=0)
     k3_bound, k3_by = bound_ms(*k3_cost(ao, SCENE_STEPS, ITERATIONS,
                                         REBASE_EVERY, 0, nb=ENSEMBLE))
 
@@ -1685,7 +1726,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         ro, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS))
     k2_plain_ms = cuda_ms(torch, lambda: resident_multistep_plain(
         ro, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
-        warmup=1)
+        warmup=0)
     k2_bound, k2_by = bound_ms(*k2_cost(ro, SCENE_STEPS, ITERATIONS,
                                         nb=ENSEMBLE))
     k2_by_B = {B: 1e3 * cuda_ms(torch, lambda B=B: resident_multistep_batched(
@@ -1709,14 +1750,18 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         ao, P64, V64, F0, rb, WINDOW_STEPS, ITERATIONS), reps=3, warmup=1)
     k5_plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
         ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
-        warmup=1)
+        warmup=0)
     k5_bound, k5_by = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
                                         CHUNK_EVERY, nb=ENSEMBLE))
 
-    k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
+    # the device time per launch (a call between two events holds the
+    # wrapper's host time too)
+    k1_call_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
+        fo, snT, rbc, ITERATIONS), reps=100)
+    k1_ms = device_ms(torch, lambda: fused_reduced_iterations_batched(
         fo, snT, rbc, ITERATIONS), reps=100)
     k1_plain_ms = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
-        fo, snT, rbc, ITERATIONS))
+        fo, snT, rbc, ITERATIONS), reps=PLAIN_REPS, warmup=0)
     k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS,
                                         nb=ENSEMBLE))
     # the large-model route through the entry point (the solver is still
@@ -1751,7 +1796,8 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         f"bound {1e3 * k5_bound / SCENE_STEPS:.4f} us/step ({k5_by}); "
         f"make_batched_run on the large-model route over {WINDOW_STEPS} "
         f"steps {entry_c:.0f} aggregate steps/s, host transfers included")
-    log(f"[4] batched kernel 1, B={ENSEMBLE}: {1e3 * k1_ms:.2f} us/call; "
+    log(f"[4] batched kernel 1, B={ENSEMBLE}: {1e3 * k1_ms:.2f} us/launch on "
+        f"the device ({1e3 * k1_call_ms:.2f} us/call between two events); "
         f"plain {1e3 * k1_plain_ms:.1f} us; bound {1e3 * k1_bound:.4f} us "
         f"({k1_by}); make_batched_step entry point "
         f"{1e3 * statistics.median(step_s):.1f} ms/step, host transfers "
@@ -1815,7 +1861,8 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     return [
         entry("fused_reduced_iterations_batched", "fused_reduced.cu",
               "pallas_reduced.py:393", k1_err, k1_ms, k1_plain_ms, k1_bound,
-              k1_by, entry_step_ms=1e3 * statistics.median(step_s)),
+              k1_by, entry_step_ms=1e3 * statistics.median(step_s),
+              call_ms=k1_call_ms),
         entry("resident_multistep_batched", "resident.cu",
               "pallas_resident.py:415", err["kernel 2"], k2_ms, k2_plain_ms,
               k2_bound, k2_by, steps_per_call=SCENE_STEPS,
@@ -1944,8 +1991,10 @@ def tet_bending(torch, counted, paths):
         affine_chunked_batched,
         affine_chunked_plain,
         chunk_anchors,
+        chunk_plan,
     )
     from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_plan,
         fused_reduced_iterations,
         fused_reduced_iterations_batched,
         fused_reduced_iterations_plain,
@@ -2113,14 +2162,19 @@ def tet_bending(torch, counted, paths):
                      NEW_BATCH)
 
         # ---- 4. times and bounds -----------------------------------------
-        k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+        # kernel 1's device time per launch (a call between two events
+        # holds the wrapper's host time too)
+        k1_ms = device_ms(torch, lambda: fused_reduced_iterations(
             fo, snT_sel, rb_const, ITERATIONS), reps=100)
         k1_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
             fo, snT_sel, rb_const, ITERATIONS), reps=1, warmup=0)
+        plans = {"fused_reduced_iterations": fused_plan(fo),
+                 "affine_chunked": chunk_plan(ao)}
         note("fused_reduced_iterations", label, k1_err, k1_ms, k1_plain,
              *bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS)),
-             table_columns=cols)
-        kb_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
+             table_columns=cols,
+             staging_plan=plans["fused_reduced_iterations"].as_dict())
+        kb_ms = device_ms(torch, lambda: fused_reduced_iterations_batched(
             fo, snb[..., :ro.n_sel], rbcb, ITERATIONS))
         kb_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
             fo, snb[..., :ro.n_sel], rbcb, ITERATIONS), reps=1, warmup=0)
@@ -2136,7 +2190,8 @@ def tet_bending(torch, counted, paths):
             ao, Pm, Vm, Fx, rb, NEW_DEPTH, ITERATIONS), reps=1, warmup=0)
         note("affine_chunked", label, err[5], k5_ms, k5_plain,
              *bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS, CHUNK_EVERY)),
-             steps_per_call=SCENE_STEPS, plain_steps_per_call=NEW_DEPTH)
+             steps_per_call=SCENE_STEPS, plain_steps_per_call=NEW_DEPTH,
+             staging_plan=plans["affine_chunked"].as_dict())
         fl = _launch_affine(ao, Pc, Vc, Fx, rb, SCENE_STEPS, ITERATIONS,
                             REBASE_EVERY, "contact")[2][FLAG_SLOTS:]
         in_mode = int(((fl & 2) > 0).sum())
@@ -2164,7 +2219,12 @@ def tet_bending(torch, counted, paths):
              plain_steps_per_call=NEW_DEPTH)
         log(f"[2-4] {label}: paths, holds and times "
             f"{time.perf_counter() - t0:.1f} s")
-        log(f"[4] {label}: kernel 1 {1e3 * k1_ms:.2f} us/call (batched, "
+        log(f"[4] {label}: staging plans (r={fo.r}, g={fo.g_total}, "
+            f"m={fo.m_total}): " + "; ".join(
+                f"{name} {list(p_.staged)} in shared memory, "
+                f"{list(p_.from_l2) or 'nothing'} from L2, {p_.smem_bytes} B"
+                for name, p_ in plans.items()))
+        log(f"[4] {label}: kernel 1 {1e3 * k1_ms:.2f} us/launch (batched, "
             f"{NEW_BATCH} sims, {1e3 * kb_ms:.2f}); kernel 5 "
             f"{1e3 * k5_ms / SCENE_STEPS:.2f} us/step; kernel 3 (contact "
             f"mode), contact window ({in_mode} of {SCENE_STEPS} steps in "
@@ -3184,10 +3244,10 @@ def chunk_options(torch, counted, paths, solver, model, f, rest, main_state):
             OPTION_ROUNDS)
         plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
             ao, Pw, Vw, F0, rb, SCENE_STEPS, ITERATIONS, options=o),
-            reps=PLAIN_REPS, warmup=1)
+            reps=PLAIN_REPS, warmup=0)
         plain_b_ms = cuda_ms(torch, lambda: affine_chunked_plain(
             ao, Pe, Ve, Fe, rb, SCENE_STEPS, ITERATIONS, options=o),
-            reps=PLAIN_REPS, warmup=1)
+            reps=PLAIN_REPS, warmup=0)
         bound, by = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
                                       CHUNK_EVERY, options=o))
         bound_b, by_b = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
@@ -3252,6 +3312,7 @@ def scale_phase(torch, counted, paths, dev):
         affine_chunked_batched,
         affine_chunked_plain,
         chunk_anchors,
+        chunk_plan,
         counter,
         fill_ymm,
     )
@@ -3277,6 +3338,10 @@ def scale_phase(torch, counted, paths, dev):
             "the megacloth is not on the large-model route")
     exact, free = DEFAULT_OPTIONS, ChunkOptions(floor_exact=False)
     bound_off = ChunkOptions(floor_bound_skip=False)
+    plan = chunk_plan(ao)
+    log(f"[4] megacloth: kernel 5's staging plan {list(plan.staged)} in "
+        f"shared memory, {list(plan.from_l2) or 'nothing'} from L2, "
+        f"{plan.smem_bytes} B a block")
     rb = solver._rb_extra()
     rest = (model.positions.copy(), model.velocities.copy())
     f0 = np.zeros_like(rest[0])
@@ -3423,7 +3488,7 @@ def scale_phase(torch, counted, paths, dev):
     t_near = near_in_turns(torch, solver, model, near, fg, MEGA_NEAR)
     plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
         ao, Pr, Vr, F0, rb, SCENE_STEPS, ITERATIONS, options=free), reps=1,
-        warmup=1)
+        warmup=0)
     for key, o in (("exact", exact), ("exact-free", free)):
         name = counter(o, False).__name__
         bound, by = bound_ms(*k5_cost(ao, WINDOW_STEPS, ITERATIONS,
@@ -3532,6 +3597,7 @@ def scale_phase(torch, counted, paths, dev):
         + f"; each sim within {STEP_TOL} of its change from its solo run, "
         f"max abs {err_b:.3e}")
     out["exact_check_us"] = exact_us
+    out["staging_plan"] = plan.as_dict()
     out["empty_chunk_us"] = {k: 1e3 * v for k, v in t_chunk.items()}
     out["prepare_s"] = prep_s
     retier(solver, **DEFAULT_SWITCHES)
@@ -3570,8 +3636,14 @@ def main() -> int:
         affine_chunked_batched,
         affine_chunked_plain,
         chunk_anchors,
+        chunk_plan,
+    )
+    from animsnapbases_tpu_torch.ops.cluster import (
+        THREADS as CLUSTER_THREADS,
+        resident_clusters,
     )
     from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_plan,
         fused_reduced_iterations,
         fused_reduced_iterations_batched,
         fused_reduced_iterations_plain,
@@ -3694,6 +3766,7 @@ def main() -> int:
     require(d <= TOL_SMALL * scale, "small scene disagrees with the reference")
 
     # ---- 3. kernels against their plain versions -----------------------
+    t_main = time.perf_counter()
     P = solver._to_device(model.positions)
     V = solver._to_device(model.velocities)
     Fx = solver._to_device(f)
@@ -3992,22 +4065,53 @@ def main() -> int:
                if clamped else f"first step free, {share:.3e} of the plain "
                f"version's step size (tol {STEP_TOL})"))
 
+    log(f"[3] bench scene holds {time.perf_counter() - t_main:.1f} s")
+    t_main = time.perf_counter()
     # ---- 4. times --------------------------------------------------------
-    k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+    # kernels 1 and 5 run the cluster loop on the staging plans their
+    # wrappers computed and ran the main path on
+    plans = {}
+    for name, fn, lib, plan in (
+            ("kernel 1", fused_reduced_iterations, "fused_reduced",
+             fused_plan(fo)),
+            ("kernel 5", affine_chunked, "affine_chunked", chunk_plan(ao))):
+        require(fn.plan == plan, f"{name} ran the main path on another "
+                f"staging plan ({fn.plan}) than its widths give ({plan})")
+        plans[fn.__name__] = dict(plan.as_dict(),
+                                  resident_clusters=resident_clusters(
+                                      lib, plan))
+        log(f"[4] {name}: staging plan {list(plan.staged)} in shared "
+            f"memory, {list(plan.from_l2) or 'nothing'} from L2, "
+            f"{plan.smem_bytes} B a block; a cluster of 3 blocks of "
+            f"{CLUSTER_THREADS} threads (one a dimension) per sim, "
+            f"{plans[fn.__name__]['resident_clusters']} clusters resident at "
+            f"once")
+    # kernel 1: a call between two events holds the wrapper's host time,
+    # which its launch outlasted when it was one block; the device time
+    # per launch is the kernel's own
+    k1_call_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
         fo, snT_sel, rb_const, ITERATIONS), reps=200)
     k1_plain_ms = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
-        fo, snT_sel, rb_const, ITERATIONS))
+        fo, snT_sel, rb_const, ITERATIONS), reps=PLAIN_REPS, warmup=0)
     k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS))
-    log(f"[4] kernel 1: {1e3 * k1_ms:.2f} us/call at {ITERATIONS} "
-        f"iterations; plain {1e3 * k1_plain_ms:.1f} us; bound "
-        f"{1e3 * k1_bound:.4f} us ({k1_by})")
     # where kernel 1's time goes: the slope over the iteration count is
-    # the loop body, the intercept the launch, the gather and the solve
-    k1_at = {it: cuda_ms(torch, lambda it=it: fused_reduced_iterations(
-        fo, snT_sel, rb_const, it), reps=100) for it in (0, 1, 20)}
-    log(f"[4] kernel 1 by iterations: " + ", ".join(
+    # the loop body, the intercept the staging, the gather and the solve
+    k1_at = {it: device_ms(torch, lambda it=it: fused_reduced_iterations(
+        fo, snT_sel, rb_const, it), reps=100)
+        for it in (0, ITERATIONS, 20)}
+    k1_ms = k1_at[ITERATIONS]
+    k1_slope = 1e3 * (k1_at[20] - k1_at[0]) / 20
+    k1_floor = loop_floor_ms(k1_cost(fo, ro.n_sel, ITERATIONS)[1]["float32"])
+    log(f"[4] kernel 1: {1e3 * k1_ms:.2f} us/launch on the device at "
+        f"{ITERATIONS} iterations ({1e3 * k1_call_ms:.2f} us/call between "
+        f"two events, the wrapper included); plain "
+        f"{1e3 * k1_plain_ms:.1f} us; bound {1e3 * k1_bound:.4f} us "
+        f"({k1_by}); its operations on the cluster's {CLUSTER_SMS} SMs "
+        f"{1e3 * k1_floor:.4f} us, and {ITERATIONS} exchanges")
+    log(f"[4] kernel 1 by iterations (device): " + ", ".join(
         f"{it}: {1e3 * ms:.2f} us" for it, ms in k1_at.items())
-        + f"; slope {1e3 * (k1_at[20] - k1_at[1]) / 19:.3f} us/iteration")
+        + f"; slope {k1_slope:.3f} us/iteration, intercept "
+        f"{1e3 * k1_at[0]:.2f} us/launch")
 
     def k2_call():
         return resident_multistep(ro, P, V, Fx, rb_extra, SCENE_STEPS,
@@ -4015,8 +4119,8 @@ def main() -> int:
 
     k2_ms = cuda_ms(torch, k2_call)
     k2_plain_ms = cuda_ms(torch, lambda: resident_multistep_plain(
-        ro, P, V, Fx, rb_extra, SCENE_STEPS, ITERATIONS), reps=REPS,
-        warmup=1)
+        ro, P, V, Fx, rb_extra, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+        warmup=0)
     k2_bound, k2_by = bound_ms(*k2_cost(ro, SCENE_STEPS, ITERATIONS))
     window_ms = cuda_ms(torch, lambda: resident_multistep(
         ro, P, V, Fx, rb_extra, WINDOW_STEPS, ITERATIONS), warmup=1)
@@ -4054,10 +4158,16 @@ def main() -> int:
 
     k5_ms = cuda_ms(torch, k5(SCENE_STEPS))
     k5_window_ms = cuda_ms(torch, k5(WINDOW_STEPS), warmup=1)
+    # the loop's slope and the step's intercept over the window: 20
+    # iterations against 10 (with none the window would reach the floor)
+    k = affine_chunked(ao, Pw, Vw, F0, rb_extra, WINDOW_STEPS, 20)[2]
+    require(k == WINDOW_STEPS, f"the window at 20 iterations is not "
+            f"contact-free (kernel 5 stopped after {k} steps)")
+    k5_window20_ms = cuda_ms(torch, k5(WINDOW_STEPS, 20), reps=5, warmup=1)
     k5_at = {it: cuda_ms(torch, k5(SCENE_STEPS, it)) for it in (0, 20)}
     k5_plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
         ao, Pw, Vw, F0, rb_extra, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
-        warmup=1)
+        warmup=0)
     k5_bound, k5_by = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
                                         CHUNK_EVERY))
     k5_wbound, _ = bound_ms(*k5_cost(ao, WINDOW_STEPS, ITERATIONS,
@@ -4079,7 +4189,10 @@ def main() -> int:
     k5_trip_ms = cuda_ms(torch, lambda: affine_chunked(
         ao_trip, Pw, Vw, F0, rb_extra, SCENE_STEPS, ITERATIONS))
     exact_us = 1e3 * (k5_trip_ms - k5_ms) / (SCENE_STEPS - 1)
-    slope = 1e3 * (k5_at[20] - k5_at[0]) / (20 * SCENE_STEPS)
+    slope = 1e3 * (k5_window20_ms - k5_window_ms) / (
+        (20 - ITERATIONS) * WINDOW_STEPS)
+    intercept = 1e3 * k5_window_ms / WINDOW_STEPS - ITERATIONS * slope
+    k5_floor = loop_floor_ms(small_cost(ao, ITERATIONS, fo.g_total)[1])
     log(f"[4] kernel 5: {1e3 * k5_ms / SCENE_STEPS:.2f} us/step "
         f"({k5_ms:.3f} ms per {SCENE_STEPS}-step call); over "
         f"{WINDOW_STEPS} steps {1e3 * k5_window_ms / WINDOW_STEPS:.2f} us/"
@@ -4089,10 +4202,13 @@ def main() -> int:
         f"{1e3 * k5_wbound / WINDOW_STEPS:.4f} us/step over {WINDOW_STEPS}")
     log(f"[4] kernel 5 by iterations ({SCENE_STEPS}-step calls): 0: "
         f"{1e3 * k5_at[0] / SCENE_STEPS:.2f} us/step, 20: "
-        f"{1e3 * k5_at[20] / SCENE_STEPS:.2f} us/step; slope {slope:.3f} "
-        f"us/iteration, intercept {1e3 * k5_at[0] / SCENE_STEPS:.2f} us/"
-        f"step; outer loop between chunks {1e3 * outer_ms:.1f} us per "
-        f"chunk; with the exact check on every step "
+        f"{1e3 * k5_at[20] / SCENE_STEPS:.2f} us/step; over the "
+        f"{WINDOW_STEPS}-step window at 20 iterations "
+        f"{1e3 * k5_window20_ms / WINDOW_STEPS:.2f} us/step: slope "
+        f"{slope:.3f} us/iteration, intercept {intercept:.2f} us/step; a "
+        f"step's operations on the cluster's {CLUSTER_SMS} SMs "
+        f"{1e3 * k5_floor:.4f} us, and {ITERATIONS} exchanges; outer loop "
+        f"between chunks {1e3 * outer_ms:.1f} us per chunk; with the exact check on every step "
         f"{1e3 * k5_trip_ms / SCENE_STEPS:.2f} us/step, so the exact check "
         f"costs {exact_us:.2f} us")
 
@@ -4105,10 +4221,10 @@ def main() -> int:
                                  ITERATIONS)[2] == SCENE_STEPS,
             "kernel 4 stopped in the contact-free window")
     k3_plain_ms = cuda_ms(torch, affine_call(resident_affine_plain, Pw, Vw,
-                                             F0), reps=PLAIN_REPS, warmup=1)
+                                             F0), reps=PLAIN_REPS, warmup=0)
     k4_plain_ms = cuda_ms(torch, affine_call(resident_affine_exit_plain, Pw,
                                              Vw, F0), reps=PLAIN_REPS,
-                          warmup=1)
+                          warmup=0)
     k3_bound, k3_by = bound_ms(*k3_cost(ao, SCENE_STEPS, ITERATIONS,
                                         REBASE_EVERY, 0))
     # the contact scene's window: how many of its steps clamp, kernel 3's
@@ -4145,7 +4261,7 @@ def main() -> int:
                                              Vw, F0))
     k3m_plain_ms = cuda_ms(torch, affine_call(resident_affine_contact_plain,
                                               Pc, Vc, Fx), reps=PLAIN_REPS,
-                           warmup=1)
+                           warmup=0)
     k3m_bound, k3m_by = bound_ms(*k3m_cost(
         ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY, m_contact, m_contact,
         int((mflags & 1).sum())))
@@ -4172,6 +4288,7 @@ def main() -> int:
             "tier 1 did not certify the entry point's window")
     log(f"[4] run_steps entry point over {WINDOW_STEPS} steps on tier 1 "
         f"(certified): {WINDOW_STEPS / entry_s:.0f} steps/s")
+    log(f"[4] bench scene times {time.perf_counter() - t_main:.1f} s")
 
     # ---- 5. kernel list and result -------------------------------------
     def entry(name, source, replaces, err, ms, plain_ms, bound, by, **extra):
@@ -4187,7 +4304,9 @@ def main() -> int:
     kernels = [
         entry("fused_reduced_iterations", "fused_reduced.cu",
               "pallas_reduced.py:393", k1_abs, k1_ms, k1_plain_ms, k1_bound,
-              k1_by),
+              k1_by, call_ms=k1_call_ms, us_per_iteration=k1_slope,
+              intercept_us=1e3 * k1_at[0], cluster_floor_ms=k1_floor,
+              staging_plan=plans["fused_reduced_iterations"]),
         entry("resident_multistep", "resident.cu", "pallas_resident.py:415",
               k2_err["bfloat16"], k2_ms, k2_plain_ms, k2_bound, k2_by,
               steps_per_call=SCENE_STEPS,
@@ -4206,8 +4325,9 @@ def main() -> int:
               "pallas_resident.py:1145", affine_err["kernel 5"], k5_ms,
               k5_plain_ms, k5_bound, k5_by, steps_per_call=SCENE_STEPS,
               window_steps_per_s=WINDOW_STEPS / (k5_window_ms / 1e3),
-              us_per_iteration=slope,
-              intercept_us_per_step=1e3 * k5_at[0] / SCENE_STEPS,
+              us_per_iteration=slope, intercept_us_per_step=intercept,
+              cluster_floor_ms_per_step=k5_floor,
+              staging_plan=plans["affine_chunked"],
               outer_loop_ms_per_chunk=outer_ms,
               exact_check_us=exact_us,
               entry_steps_per_s=WINDOW_STEPS / entry_s),
@@ -4246,6 +4366,7 @@ def main() -> int:
     k5 = next(k for k in kernels if k["name"] == "affine_chunked")
     k5.update(exact_check_us_bound_off=exact_us_bench,
               megacloth_exact_check_us=mega["exact_check_us"],
+              megacloth_staging_plan=mega["staging_plan"],
               megacloth_empty_chunk_us=mega["empty_chunk_us"],
               megacloth_prepare_s=mega["prepare_s"])
     log(f"[5] launches per path (the kernels that launched): " + json.dumps(

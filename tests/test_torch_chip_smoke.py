@@ -15,7 +15,7 @@ import torch
 
 import chip_smoke as cs
 from animsnapbases_tpu_torch import device
-from animsnapbases_tpu_torch.ops import _build, affine, affine_chunked
+from animsnapbases_tpu_torch.ops import _build, affine, affine_chunked, cluster
 from animsnapbases_tpu_torch.sim import reduced
 
 
@@ -125,6 +125,9 @@ def _fake_card(monkeypatch):
         run=lambda *a, **k: types.SimpleNamespace(stdout="cpu, 0 W\n")))
     monkeypatch.setattr(cs, "device_breakdown",
                         lambda torch_, fn: (fn(), 1.0, {"kernel": 0.5})[1:])
+    monkeypatch.setattr(cs, "device_ms", lambda torch_, fn, reps=1,
+                        warmup=0: (fn(), 1.0)[1])
+    monkeypatch.setattr(cluster, "resident_clusters", lambda lib, plan: 0)
     timed = cs.cuda_ms
     monkeypatch.setattr(cs, "cuda_ms", lambda torch_, fn, reps=1, warmup=0:
                         timed(torch_, fn, reps=1, warmup=0))
@@ -173,10 +176,12 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     held = _fake_card(monkeypatch)
 
     def require(ok, what):
-        # the plain versions count no launches, and a batched plain version
-        # differs from the solo one in the order of its sums
+        # the plain versions count no launches and keep no staging plan,
+        # and a batched plain version differs from the solo one in the
+        # order of its sums
         if ("never launched" not in what
-                and "differs from the solo kernel" not in what):
+                and "differs from the solo kernel" not in what
+                and "on another staging plan" not in what):
             held(ok, what)
 
     monkeypatch.setattr(cs, "require", require)
@@ -200,6 +205,29 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     for k in kernels:
         assert keys <= set(k)
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
+    # kernels 1 and 5 on the cluster loop: the staging plans the main path
+    # ran on (bench, per scene, megacloth), the loop's slope and intercept
+    # and the operations' floor on the cluster's SMs
+    plan_keys = {"staged", "from_l2", "smem_bytes", "bits", "cluster",
+                 "threads"}
+    k1, k5 = kernels[0], kernels[4]
+    assert plan_keys | {"resident_clusters"} <= set(k1["staging_plan"])
+    assert plan_keys | {"resident_clusters"} <= set(k5["staging_plan"])
+    assert plan_keys <= set(k5["megacloth_staging_plan"])
+    assert k1["staging_plan"]["staged"] and k5["staging_plan"]["staged"]
+    for k in (k1, k5):
+        assert k["staging_plan"]["cluster"] == [3, 1, 1]
+        assert 0 < k["staging_plan"]["smem_bytes"] <= cluster.SMEM_MAX
+        for entry in k["scenes"].values():
+            assert plan_keys <= set(entry["staging_plan"])
+    assert {"call_ms", "us_per_iteration", "intercept_us",
+            "cluster_floor_ms"} <= set(k1)
+    assert {"us_per_iteration", "intercept_us_per_step",
+            "cluster_floor_ms_per_step"} <= set(k5)
+    assert k1["cluster_floor_ms"] > 0 and k5["cluster_floor_ms_per_step"] > 0
+    out = "\n".join(lines)
+    assert "kernel 1: staging plan" in out and "kernel 5: staging plan" in out
+    assert "clusters resident at once" in out
     # kernel 5's builds: each on its own path (no launches counted here: the
     # plain versions run), timed beside the default
     # build; the scale phase's megacloth numbers on kernel 5 (both builds),
