@@ -65,8 +65,8 @@
 // from L2 where rb_const is formed.  The y block (d = 1) holds what the
 // floor test reads: it decides the bound (one thread) and the exact check
 // (__syncthreads_or) and writes the step's verdict into every block's
-// shared memory before the loop's first cluster barrier; all three read it
-// after that barrier and stop together, so no block leaves the step loop
+// shared memory before the loop's first exchange; all three read it after
+// that exchange and stop together, so no block leaves the step loop
 // while a peer waits at a barrier.  The exact builds with the bound take
 // the three y rows' minima and maxima one row a block at the chunk's
 // start.  The options are template arguments, so a build carries no code
@@ -100,9 +100,6 @@ enum : int {
   CHUNK_SQRT_FREE = 16,  // sqrt_free_bound: the bound on squared magnitudes
   CHUNK_DEFAULT = 31
 };
-
-// the loop's variant in every build (iteration_cluster.cuh LOOP_*)
-constexpr int CHUNK_LOOP = LOOP_MBAR;
 
 template <typename T, typename M>
 struct Chunk {
@@ -340,7 +337,7 @@ __global__ void __cluster_dims__(3, 1, 1)
         for (int e = 0; e < CLUSTER_SIZE; ++e) {
           if (e == d)
             flags[i & 1] = stop;
-          else if ((CHUNK_LOOP & LOOP_MBAR) && num_iterations > 0)
+          else if (num_iterations > 0)
             // counted on the peer's barrier of the step's first iteration
             st_async(peer_addr(smem_addr(flags + (i & 1)), e), stop,
                      c.peer_bar_a[e] + 8 * ((i * num_iterations) & 1));
@@ -372,8 +369,8 @@ __global__ void __cluster_dims__(3, 1, 1)
       for (int j = tid; j < g; j += nt) c.vc[j] = gather_col(op, snsel, j);
     }
     __syncthreads();
-    if (iterate_cluster<T, CHUNK_LOOP>(c, num_iterations, flags + (i & 1),
-                                       i * num_iterations, d != 1 ? 4 : 0))
+    if (iterate_cluster(c, num_iterations, flags + (i & 1),
+                        i * num_iterations, d != 1 ? 4 : 0))
       break;
     solve_cluster(c, [&](int n, T acc) { u[n] = acc; });
     __syncthreads();

@@ -18,10 +18,10 @@
 // float32 at the bench widths) are staged in its shared memory once per
 // call, as the staging plan (ops/cluster.py) says, so no iteration reads
 // L2, and the three rows of Vall meet through distributed shared memory at
-// one cluster barrier per iteration.  Block d gathers its own Vc_d by the
-// sparse columns of G_allT (iteration.cuh gather_col: one entry for the
-// one-hot tris, spring and tet columns, the weighted star of a bending
-// column, summed in float64) before the loop; C_allT and inv3 are taken as
+// one transaction barrier a block per iteration.  Block d gathers its own
+// Vc_d by the sparse columns of G_allT (iteration.cuh gather_col: one entry
+// for the one-hot tris, spring and tet columns, the weighted star of a
+// bending column, summed in float64) before the loop; C_allT and inv3 are taken as
 // the host precomposed them in float64 (usel_inv is never folded into WT).
 //
 // The batched build (the JAX kernel under `vmap`; make_batched_step) runs
@@ -29,13 +29,12 @@
 // snT_sel and rb_const at its sim stride and writes its u.  Each cluster
 // does exactly what the solo launch (nb = 1) does, in the same order, so
 // sim b of a batched call equals the solo call from sim b's inputs bit for
-// bit.  The template argument V is the loop's variant (LOOP_*); the
-// wrapper takes the default, LOOP_MBAR, unless asked.
+// bit.
 #include "iteration_cluster.cuh"
 
 namespace ksm {
 
-template <typename T, int V>
+template <typename T>
 __global__ void __cluster_dims__(3, 1, 1)
     __launch_bounds__(CLUSTER_THREADS, 1)
         fused_cluster_kernel(Iter<T> op, const T* snT, int ld_sn,
@@ -58,7 +57,7 @@ __global__ void __cluster_dims__(3, 1, 1)
   // the staged operands are in, and every block of the cluster has started
   // (its shared memory may be written)
   cg::this_cluster().sync();
-  iterate_cluster<T, V>(c, num_iterations);
+  iterate_cluster(c, num_iterations);
   solve_cluster(c, [&](int k, T acc) { u[k] = acc; });
   // no block leaves while a peer may still read its shared memory
   cg::this_cluster().sync();
@@ -71,21 +70,6 @@ inline size_t fused_smem_bytes(int r, int g, int m, int plan) {
   return 4 * (size_t)cv.at;
 }
 
-template <typename T, int V>
-int launch_fused_v(const Iter<T>& op, const void* snT, int ld_sn,
-                   long long sim_sn, const void* rb_const, void* u,
-                   int num_iterations, int nb, const void* lane_cols, int ms,
-                   int plan, size_t smem, void* stream) {
-  cudaError_t e = allow_smem(fused_cluster_kernel<T, V>, smem);
-  if (e != cudaSuccess) return e;
-  fused_cluster_kernel<T, V><<<dim3(CLUSTER_SIZE, nb), CLUSTER_THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      op, static_cast<const T*>(snT), ld_sn, sim_sn,
-      static_cast<const T*>(rb_const), static_cast<T*>(u), num_iterations,
-      static_cast<const int*>(lane_cols), ms, plan);
-  return cudaGetLastError();
-}
-
 template <typename T>
 int launch_fused(const void* snT, int ld_sn, long long sim_sn,
                  const void* rb_const, const void* C, const void* inv,
@@ -93,23 +77,21 @@ int launch_fused(const void* snT, int ld_sn, long long sim_sn,
                  const void* gw, const void* kind, const void* eg,
                  const void* ef, void* u, int r, int g, int m,
                  int num_iterations, int nb, const void* lane_cols, int ms,
-                 int plan, int smem, int loop, void* stream) {
+                 int plan, int smem, void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   // the wrapper's plan must size the blocks as this carving does
   if ((size_t)smem != fused_smem_bytes(r, g, m, plan) ||
       (size_t)smem > CLUSTER_SMEM_MAX)
     return cudaErrorInvalidValue;
-  using Launch = int (*)(const Iter<T>&, const void*, int, long long,
-                         const void*, void*, int, int, const void*, int, int,
-                         size_t, void*);
-  static const Launch variants[5] = {
-      launch_fused_v<T, 0>, launch_fused_v<T, LOOP_PULL>,
-      launch_fused_v<T, LOOP_SPLIT>, launch_fused_v<T, LOOP_PULL | LOOP_SPLIT>,
-      launch_fused_v<T, LOOP_MBAR>};
-  if (loop < 0 || loop > 4) return cudaErrorInvalidValue;
-  return variants[loop](op, snT, ld_sn, sim_sn, rb_const, u, num_iterations,
-                        nb, lane_cols, ms, plan, smem, stream);
+  cudaError_t e = allow_smem(fused_cluster_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  fused_cluster_kernel<T><<<dim3(CLUSTER_SIZE, nb), CLUSTER_THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      op, static_cast<const T*>(snT), ld_sn, sim_sn,
+      static_cast<const T*>(rb_const), static_cast<T*>(u), num_iterations,
+      static_cast<const int*>(lane_cols), ms, plan);
+  return cudaGetLastError();
 }
 
 }  // namespace ksm
@@ -117,7 +99,7 @@ int launch_fused(const void* snT, int ld_sn, long long sim_sn,
 // nb sims: snT_sel of sim b at snT + b * sim_sn (rows ld_sn apart),
 // rb_const and u (nb, 3, r) contiguous; nb = 1 is the solo launch.
 // lane_cols (ms,): the projection order; plan: the staging plan's bits,
-// smem its bytes a block (ops/cluster.py); loop: the loop's variant.
+// smem its bytes a block (ops/cluster.py).
 #define FUSED_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const void* snT, int ld_sn, long long sim_sn,          \
                       const void* rb_const, const void* C, const void* inv,  \
@@ -126,17 +108,16 @@ int launch_fused(const void* snT, int ld_sn, long long sim_sn,
                       const void* eg, const void* ef, void* u, int r, int g, \
                       int m, int num_iterations, int nb,                     \
                       const void* lane_cols, int ms, int plan, int smem,     \
-                      int loop, void* stream) {                              \
+                      void* stream) {                                        \
     return ksm::launch_fused<T>(snT, ld_sn, sim_sn, rb_const, C, inv, WT,    \
                                 gptr, gcol, gw, kind, eg, ef, u, r, g, m,  \
                                 num_iterations, nb, lane_cols, ms, plan,     \
-                                smem, loop, stream);                         \
+                                smem, stream);                               \
   }
 
 FUSED_ENTRY(fused_reduced_iterations_f32, float)
 
-// clusters of the default variant resident at once with smem bytes a block
+// clusters resident at once with smem bytes a block
 extern "C" int fused_reduced_max_clusters(int smem) {
-  return ksm::max_clusters(ksm::fused_cluster_kernel<float, ksm::LOOP_MBAR>,
-                           smem);
+  return ksm::max_clusters(ksm::fused_cluster_kernel<float>, smem);
 }

@@ -10,24 +10,21 @@
 //
 //   phase A   Vall_d = Vc_d + rb_d C_d             (C_d (r, g) of C_allT)
 //   exchange  every block gets all three rows of Vall
-//   project   all m rows, keeping pT_d (or m/3 rows, scattered)
+//   project   all m rows, keeping pT_d
 //   phase C   rb_d = rbc_d + pT_d WT_d             (WT_d (m, r))
 //   solve     u_d = rb_d inv3_d
 //
-// The exchange runs through distributed shared memory (DSMEM), in one of
-// the variants V (LOOP_* bits; ops/cluster.py LOOP_VARIANTS):
-//   LOOP_MBAR (the default): each block writes its row into its peers'
-//     buffers with st.async, whose bytes the peer's transaction barrier
-//     (mbarrier) counts, and waits at its own barrier for the two rows it
-//     receives: one-way latency, no cluster-wide round trip;
-//   0: the same writes as plain stores, then a cluster barrier;
-//   LOOP_PULL: each block reads its peers' rows after a cluster barrier;
-//   LOOP_SPLIT: block d projects the columns t = d mod 3 of the projection
-//     order and scatters each row's three entries to their owners (a
-//     second cluster barrier); otherwise every block projects every column.
-// Vall is double buffered by iteration parity: a peer may write iteration
-// i + 1's row while a slower block still projects iteration i's.
-// tools/kernel_report.py times kernel 1 in each variant.
+// The exchange runs through distributed shared memory (DSMEM): each block
+// writes its row into its peers' buffers with st.async, whose bytes the
+// peer's transaction barrier (mbarrier) counts, and waits at its own
+// barrier for the two rows it receives: one-way latency, no cluster-wide
+// round trip.  Vall is double buffered by iteration parity: a peer may
+// write iteration i + 1's row while a slower block still projects
+// iteration i's.  On the H100 this exchange took ~230 SM cycles against
+// ~1,100 for the same writes followed by a cluster barrier (cluster.sync()
+// compiles to a GPU-scope fence and an L1 invalidate); pulling the peers'
+// rows after the barrier, or splitting the projections over the blocks
+// with a second barrier, were slower still (PERF.md, slice 8).
 //
 // What bounds it on this card: latency.  Per block an iteration at the
 // bench widths (r = 64, g = 200, m = 80) is 12,800 + 5,120 FMAs, ~70 KB
@@ -63,9 +60,6 @@ enum : int {
   STAGE_MUTAC = 8,  // kernel 5: M_utac_d (r, r)
   STAGE_MAP = 16    // kernel 5: UG_d (r, g), or U_selT_d (r, n_sel)
 };
-
-// The loop's variants (ops/cluster.py LOOP_VARIANTS)
-enum : int { LOOP_PULL = 1, LOOP_SPLIT = 2, LOOP_MBAR = 4 };
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
@@ -168,7 +162,7 @@ __device__ __forceinline__ Operand<T> operand(int off, const T* src,
 }
 
 // ---------------------------------------------------------------------------
-// distributed shared memory and transaction barriers (LOOP_MBAR)
+// distributed shared memory and transaction barriers
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -313,9 +307,7 @@ struct ClusterLoop {
   int ms;
   T *rbc, *rb, *vc, *vall, *pt;
   Operand<T> C, WT, inv;
-  T* peer_vall[CLUSTER_SIZE];
-  T* peer_pt[CLUSTER_SIZE];
-  // LOOP_MBAR: the two transaction barriers (one per Vall buffer) and, as
+  // the two transaction barriers (one per Vall buffer) and, as
   // shared::cluster addresses, the peers' Vall buffers and barriers
   unsigned bar, peer_vall_a[CLUSTER_SIZE], peer_bar_a[CLUSTER_SIZE];
 };
@@ -350,11 +342,8 @@ __device__ __forceinline__ ClusterLoop<T> cluster_loop(const Iter<T>& op,
   c.C = operand(L.C, op.C + (size_t)d * r * g, r, g);
   c.WT = operand(L.WT, op.WT + (size_t)d * m * r, m, r);
   c.inv = operand(L.inv, op.inv + (size_t)d * r * r, r, r);
-  cg::cluster_group cl = cg::this_cluster();
   c.bar = smem_addr(smem + L.misc + 8);
   for (int e = 0; e < CLUSTER_SIZE; ++e) {
-    c.peer_vall[e] = cl.map_shared_rank(c.vall, e);
-    c.peer_pt[e] = cl.map_shared_rank(c.pt, e);
     c.peer_vall_a[e] = peer_addr(smem_addr(c.vall), e);
     c.peer_bar_a[e] = peer_addr(c.bar, e);
   }
@@ -375,30 +364,27 @@ __device__ __forceinline__ T pick(const T o[3], int d) {
 
 // num_iterations of the loop from rbc_d and vc_d; on exit rb_d holds the
 // last rhs.  Every block of the cluster calls it.  When `stop` is given,
-// the blocks read it after their first exchange (a peer wrote it before
-// arriving there: through a plain store before the cluster barrier, or
-// with LOOP_MBAR as flag_bytes more bytes of the first phase) and return
-// true, all together, when it is set; with no iterations they meet at one
-// cluster barrier for it.  With LOOP_MBAR each block awaits the peers'
-// rows at its own transaction barrier: iteration G (G0 + it, counted over
-// the launch) at barrier G % 2, phase parity (G / 2) % 2.  A peer writes
-// iteration G + 2's row into a buffer only after it has this block's row
-// of G + 1, which this block sends after projecting iteration G.
-template <typename T, int V>
-__device__ __forceinline__ bool iterate_cluster(const ClusterLoop<T>& c, int num_iterations,
-                                const int* stop = nullptr, int G0 = 0,
-                                int flag_bytes = 0) {
-  constexpr bool pull = (V & LOOP_PULL) != 0;
-  constexpr bool split = (V & LOOP_SPLIT) != 0;
-  constexpr bool mbar = (V & LOOP_MBAR) != 0;
-  static_assert(!mbar || V == LOOP_MBAR, "LOOP_MBAR pushes, all rows");
-  cg::cluster_group cl = cg::this_cluster();
+// the blocks read it after their first exchange (a peer wrote it as
+// flag_bytes more bytes of the first phase) and return true, all
+// together, when it is set; with no iterations they meet at one cluster
+// barrier for it (a peer wrote it with a plain store before).  Each block
+// awaits the peers' rows at its own transaction barrier: iteration G (G0 +
+// it, counted over the launch) at barrier G % 2, phase parity (G / 2) % 2.
+// A peer writes iteration G + 2's row into a buffer only after it has
+// this block's row of G + 1, which this block sends after projecting
+// iteration G.
+template <typename T>
+__device__ __forceinline__ bool iterate_cluster(const ClusterLoop<T>& c,
+                                                int num_iterations,
+                                                const int* stop = nullptr,
+                                                int G0 = 0,
+                                                int flag_bytes = 0) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int d = c.d, r = c.r, g = c.g, m = c.m, gp = c.op.g;
   for (int i = tid; i < r; i += nt) c.rb[i] = T(0);
   const int j0 = tid < c.ms ? c.lane_cols[tid] : -1;  // this thread's column
   if (num_iterations == 0) {
-    cl.sync();
+    cg::this_cluster().sync();
     return stop != nullptr && *stop != 0;
   }
   __syncthreads();
@@ -406,69 +392,36 @@ __device__ __forceinline__ bool iterate_cluster(const ClusterLoop<T>& c, int num
   unsigned long long t_clock = clock64();
 #endif
   for (int it = 0; it < num_iterations; ++it) {
-    const int G = G0 + it, b = mbar ? G & 1 : it & 1;
+    const int G = G0 + it, b = G & 1;
     const int buf = b * 3 * gp;
     T* vall = c.vall + buf;
     // phase A: this block's row of Vall, into its peers' buffers too
     gemv(c.rb, c.C, r, g, [&](int n, T acc) {
       const T v = c.vc[n] + acc;
       vall[d * gp + n] = v;
-      if (mbar) {
-        const unsigned at = 4u * (buf + d * gp + n);
+      const unsigned at = 4u * (buf + d * gp + n);
 #pragma unroll
-        for (int e = 0; e < CLUSTER_SIZE; ++e)
-          if (e != d)
-            st_async(c.peer_vall_a[e] + at, __float_as_uint(v),
-                     c.peer_bar_a[e] + 8 * b);
-      } else if (!pull) {
-#pragma unroll
-        for (int e = 0; e < CLUSTER_SIZE; ++e)
-          if (e != d) c.peer_vall[e][buf + d * gp + n] = v;
-      }
+      for (int e = 0; e < CLUSTER_SIZE; ++e)
+        if (e != d)
+          st_async(c.peer_vall_a[e] + at, __float_as_uint(v),
+                   c.peer_bar_a[e] + 8 * b);
     });
     LOOP_CLOCK(0);
-    if (mbar) {
-      const int bytes = (CLUSTER_SIZE - 1) * g * 4 + (it == 0 ? flag_bytes : 0);
-      mbar_arrive(c.bar + 8 * b, tid == 0 ? bytes : 0);
-      mbar_wait(c.bar + 8 * b, (G >> 1) & 1);
-    } else {
-      cl.sync();
-    }
+    const int bytes = (CLUSTER_SIZE - 1) * g * 4 + (it == 0 ? flag_bytes : 0);
+    mbar_arrive(c.bar + 8 * b, tid == 0 ? bytes : 0);
+    mbar_wait(c.bar + 8 * b, (G >> 1) & 1);
     LOOP_CLOCK(1);
     if (it == 0 && stop != nullptr && *stop != 0) return true;
-    if (pull) {
-      for (int i = tid; i < 2 * g; i += nt) {
-        const int e = (d + 1 + i / g) % CLUSTER_SIZE, n = i % g;
-        // the peer by selects: an indexed pointer array goes to the stack
-        const T* peer = e == 0 ? c.peer_vall[0]
-                      : e == 1 ? c.peer_vall[1] : c.peer_vall[2];
-        vall[e * gp + n] = peer[buf + e * gp + n];
-      }
-      __syncthreads();
+    for (int t = tid; t < c.ms; t += nt) {
+      const int j = t == tid ? j0 : c.lane_cols[t];
+      if (j < 0) continue;
+      T o[3];
+      project_element(c.op, vall, j, o);
+      c.pt[j] = pick(o, d);
     }
-    if (split) {
-      for (int t = d + CLUSTER_SIZE * tid; t < c.ms; t += CLUSTER_SIZE * nt) {
-        const int j = c.lane_cols[t];
-        if (j < 0) continue;
-        T o[3];
-        project_element(c.op, vall, j, o);
-#pragma unroll
-        for (int e = 0; e < CLUSTER_SIZE; ++e)
-          (e == d ? c.pt : c.peer_pt[e])[j] = o[e];
-      }
-      cl.sync();
-    } else {
-      for (int t = tid; t < c.ms; t += nt) {
-        const int j = t == tid ? j0 : c.lane_cols[t];
-        if (j < 0) continue;
-        T o[3];
-        project_element(c.op, vall, j, o);
-        c.pt[j] = pick(o, d);
-      }
-      LOOP_CLOCK(2);
-      __syncthreads();
-      LOOP_CLOCK(3);
-    }
+    LOOP_CLOCK(2);
+    __syncthreads();
+    LOOP_CLOCK(3);
     // phase C
     gemv(c.pt, c.WT, m, r, [&](int n, T acc) { c.rb[n] = c.rbc[n] + acc; });
     LOOP_CLOCK(4);

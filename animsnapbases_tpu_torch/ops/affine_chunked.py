@@ -50,8 +50,8 @@ reads ``k`` back once per chunk and stops after a chunk that exited early.
   .cuh``, instantiated per option set in ``csrc/affine_chunked*.cu``: one
   cluster of three blocks, block d owning dimension d, on the staging plan
   of :func:`chunk_plan`), counting each chunk launch in the build's counter
-  (:func:`counter`: the default build's is ``affine_chunked.launches``;
-  ``.plan`` the plan it ran on); for CPU tensors it runs the plain version;
+  (:func:`counter`: the default build's is ``affine_chunked.launches``);
+  for CPU tensors it runs the plain version;
   it never falls back from the card to the plain version or to another
   build.
 * ``affine_chunked_batched``: the batched build (``nb = B`` in the JAX
@@ -341,13 +341,11 @@ def symbol(P_dtype, M_dtype, options: ChunkOptions) -> str:
 
 class LaunchCount:
     """A launch counter of one non-default build of kernel 5, beside the
-    wrappers' own (``launches``; ``__name__`` names the build; ``plan`` the
-    staging plan of its last launch)."""
+    wrappers' own (``launches``; ``__name__`` names the build)."""
 
     def __init__(self, name: str):
         self.__name__ = name
         self.launches = 0
-        self.plan = None
 
 
 def chunk_plan(ao: AffineOperands, options: ChunkOptions = DEFAULT_OPTIONS):
@@ -443,9 +441,7 @@ def _chunk_cuda(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     out, k = _chunk_launch(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
                            bu_fa, rb_ex, steps, num_iterations, floor_h,
                            options)
-    count = counter(options, False)
-    count.launches += 1
-    count.plan = chunk_plan(ao, options)
+    counter(options, False).launches += 1
     return (*split_coef(out, ao.fused.r), int(k.item()))
 
 
@@ -464,7 +460,6 @@ def _chunk_cuda_batched(ao: AffineOperands, P, V, fa, ymm, first: bool,
     out, kb = _chunk_launch(*launch, steps, num_iterations, floor_h, options)
     count = counter(options, True)
     count.launches += 1
-    count.plan = chunk_plan(ao, options)
     kb = kb.tolist()
     k = min(kb)
     if k < max(kb):
@@ -494,7 +489,6 @@ def affine_chunked(ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
 
 
 affine_chunked.launches = 0
-affine_chunked.plan = None
 
 
 def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
@@ -523,7 +517,6 @@ def affine_chunked_batched(ao: AffineOperands, P, V, fext, rb_extra,
 
 
 affine_chunked_batched.launches = 0
-affine_chunked_batched.plan = None
 
 # the launch counters of the non-default builds, solo and batched
 _COUNTERS = {

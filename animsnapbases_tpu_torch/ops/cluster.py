@@ -15,8 +15,7 @@ Each stages when it fits beside the block's buffers and what staged
 before it, within the 232,448 bytes a block can use; what does not fit is
 read from L2.  The wrapper passes the plan's bits and bytes to the launch
 (the kernel carves its shared memory by the same rules and refuses a plan
-whose bytes differ) and keeps the plan it ran on its launch counter
-(``.plan``).  :func:`staging_plan` mirrors ``loop_layout`` and
+whose bytes differ).  :func:`staging_plan` mirrors ``loop_layout`` and
 ``chunk_layout`` of the sources: every piece padded to 4 elements, rows of
 staged operands to a multiple of 4.
 """
@@ -35,17 +34,6 @@ THREADS = 256        # threads a block
 # the plan's bits (csrc/iteration_cluster.cuh STAGE_*)
 STAGE_BITS = {"C": 1, "WT": 2, "inv3": 4, "M_utac": 8, "UG": 16,
               "U_selT": 16}
-# the loop's variants (csrc/iteration_cluster.cuh LOOP_*): how the three
-# rows of Vall meet (push: each block writes its row into its peers before
-# a cluster barrier; pull: reads theirs after it; transaction barrier: each
-# block pushes its row with stores that its peers' barriers count, and
-# awaits its own) and who projects (all: every block every column; split:
-# a third each, scattered, a second cluster barrier).  Kernel 5 runs the
-# default; kernel 1 builds all five (tools/kernel_report.py times them).
-LOOP_VARIANTS = {"push, cluster barrier": 0, "pull, cluster barrier": 1,
-                 "push, split": 2, "pull, split": 3,
-                 "push, transaction barrier": 4}
-DEFAULT_LOOP = 4
 KERNELS = ("fused_reduced", "affine_chunked")
 
 
@@ -119,8 +107,8 @@ def staging_plan(kernel: str, r: int, g: int, m: int, n_sel: int = 0,
 
 
 def resident_clusters(library: str, plan: StagingPlan) -> int:
-    """How many clusters of the default kernel of ``csrc/<library>.cu``
-    (kernel 1's default loop, kernel 5's default build) the card holds at
+    """How many clusters of the kernel of ``csrc/<library>.cu`` (kernel
+    5's default build) the card holds at
     once with the plan's shared memory a block
     (cudaOccupancyMaxActiveClusters; -1 when it holds none)."""
     fn = _build.function(library, f"{library}_max_clusters", (ctypes.c_int,))

@@ -12,9 +12,8 @@ the loop itself three ways:
   launches the hand-written kernel ``csrc/fused_reduced.cu`` (the loop on
   one cluster of three blocks, ``csrc/iteration_cluster.cuh``, with the
   staging plan of ``ops/cluster.py``) and counts the launch in
-  ``fused_reduced_iterations.launches`` (the plan it ran on in ``.plan``);
-  for a CPU tensor it runs the plain version; it never falls back from the
-  card to the plain version.
+  ``fused_reduced_iterations.launches``; for a CPU tensor it runs the
+  plain version; it never falls back from the card to the plain version.
 * ``fused_reduced_iterations_batched``: the batched build (the JAX kernel
   under ``vmap``, ``make_batched_step``): the same kernel on a grid of one
   cluster per sim, counted in its own ``launches``.
@@ -46,11 +45,7 @@ import numpy as np
 import torch
 
 from animsnapbases_tpu_torch.ops import _build
-from animsnapbases_tpu_torch.ops.cluster import (
-    DEFAULT_LOOP,
-    LOOP_VARIANTS,
-    staging_plan,
-)
+from animsnapbases_tpu_torch.ops.cluster import staging_plan
 from animsnapbases_tpu_torch.ops.strain2d import clamped_fhat_2x2
 from animsnapbases_tpu_torch.ops.strain3d import (
     polar_rotation,
@@ -584,7 +579,7 @@ def fused_reduced_iterations_plain(fo: FusedOperands, snT_sel, rb_const,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = (_P, _I, _L) + (_P,) * 11 + (_I,) * 5 + (_P,) + (_I,) * 4 + (_P,)
+_ARGTYPES = (_P, _I, _L) + (_P,) * 11 + (_I,) * 5 + (_P,) + (_I,) * 3 + (_P,)
 
 
 def _check_cuda_operands(fo: FusedOperands, tensors: dict):
@@ -603,14 +598,13 @@ def fused_plan(fo: FusedOperands):
 
 
 def fused_args(fo: FusedOperands, snT_sel, rb_const, u,
-               num_iterations: int, loop: int = DEFAULT_LOOP, stream=None):
+               num_iterations: int, stream=None):
     """The arguments of csrc/fused_reduced.cu's C entry point (``FUSED_ENTRY``,
     typed by ``_ARGTYPES``) for one launch over the sims of the leading
     axis of snT_sel (..., 3, n_sel) and rb_const (..., 3, r) into u: the
     grid's nb sims (one cluster each), the projection order, the staging
-    plan's bits and bytes a block (:func:`fused_plan`) and the loop's
-    variant -> (arguments, plan).  Checks the shapes and raises on what
-    the kernel does not take."""
+    plan's bits and bytes a block (:func:`fused_plan`).  Checks the shapes
+    and raises on what the kernel does not take."""
     r, g, m = fo.r, fo.g_total, fo.m_total
     if fo.C_allT.dtype != torch.float32:
         raise TypeError("the kernel runs float32 state only, got "
@@ -623,8 +617,6 @@ def fused_args(fo: FusedOperands, snT_sel, rb_const, u,
                          "unit column stride")
     if tuple(rb_const.shape) != lead + (3, r) or not rb_const.is_contiguous():
         raise ValueError(f"rb_const must be contiguous {lead + (3, r)}")
-    if loop not in LOOP_VARIANTS.values():
-        raise ValueError(f"no loop variant {loop}")
     nb = lead[0] if lead else 1
     sim_sn = int(snT_sel.stride(0)) if lead else 0
     plan = fused_plan(fo)
@@ -633,28 +625,26 @@ def fused_args(fo: FusedOperands, snT_sel, rb_const, u,
             p(fo.C_allT), p(fo.inv3), p(fo.WT_all), p(fo.gptr), p(fo.gcol),
             p(fo.gw), p(fo.elem_kind), p(fo.elem_g), p(fo.elem_f), p(u), r, g,
             m, int(num_iterations), nb, p(fo.lane_cols),
-            fo.lane_cols.numel(), plan.bits, plan.smem_bytes, int(loop),
-            stream), plan
+            fo.lane_cols.numel(), plan.bits, plan.smem_bytes, stream)
 
 
-def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int,
-                  loop: int = DEFAULT_LOOP):
+def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int):
     """One launch of csrc/fused_reduced.cu over the sims of the leading
     axis of snT_sel (..., 3, n_sel) and rb_const (..., 3, r): a grid of one
     cluster of three blocks per sim, on the staging plan of
-    :func:`fused_plan` and the loop's variant ``loop`` (ops/cluster.py
-    LOOP_VARIANTS) -> (u, plan).  A launch the card refuses (a cluster that
-    cannot be placed with the plan's shared memory) raises."""
+    :func:`fused_plan` -> u.  A launch the card refuses (a cluster that
+    cannot be placed with the plan's shared memory, a plan whose bytes
+    differ from the kernel's carving) raises."""
     if snT_sel.device.type != "cuda":
         raise ValueError(f"unsupported device {snT_sel.device}")
     u = torch.empty(rb_const.shape, dtype=rb_const.dtype,
                     device=rb_const.device)
-    args, plan = fused_args(fo, snT_sel, rb_const, u, num_iterations, loop,
-                            _build.stream_of(rb_const.device))
+    args = fused_args(fo, snT_sel, rb_const, u, num_iterations,
+                      _build.stream_of(rb_const.device))
     fn = _build.function("fused_reduced", "fused_reduced_iterations_f32",
                          _ARGTYPES)
     _build.check("fused_reduced", fn(*args), "fused_reduced_iterations")
-    return u, plan
+    return u
 
 
 def fused_reduced_iterations(fo: FusedOperands, snT_sel, rb_const,
@@ -668,14 +658,12 @@ def fused_reduced_iterations(fo: FusedOperands, snT_sel, rb_const,
     if snT_sel.dim() != 2:
         raise ValueError("snT_sel must be (3, n_sel): a batch of sims takes "
                          "fused_reduced_iterations_batched")
-    u, fused_reduced_iterations.plan = _launch_fused(fo, snT_sel, rb_const,
-                                                     num_iterations)
+    u = _launch_fused(fo, snT_sel, rb_const, num_iterations)
     fused_reduced_iterations.launches += 1
     return u
 
 
 fused_reduced_iterations.launches = 0
-fused_reduced_iterations.plan = None
 
 
 def fused_reduced_iterations_batched(fo: FusedOperands, snT_sel, rb_const,
@@ -689,11 +677,9 @@ def fused_reduced_iterations_batched(fo: FusedOperands, snT_sel, rb_const,
     if snT_sel.device.type == "cpu":
         return fused_reduced_iterations_plain(fo, snT_sel, rb_const,
                                               num_iterations)
-    u, fused_reduced_iterations_batched.plan = _launch_fused(
-        fo, snT_sel, rb_const, num_iterations)
+    u = _launch_fused(fo, snT_sel, rb_const, num_iterations)
     fused_reduced_iterations_batched.launches += 1
     return u
 
 
 fused_reduced_iterations_batched.launches = 0
-fused_reduced_iterations_batched.plan = None

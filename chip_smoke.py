@@ -199,6 +199,9 @@ CONTACT_SPEED = 2.0
 # calls of the plain versions' 64-step timings (~1-3 s each on the card,
 # no warm-up: their time is the function's definition, not a yardstick)
 PLAIN_REPS = 1
+# seconds of calls before a device time (device_ms), so that the card has
+# left its idle clock
+DEVICE_WARMUP_S = 0.5
 # ensemble serving (make_batched_run / make_batched_step): the ring-down
 # ensemble's size, the sizes its per-step time is taken at, and the
 # spread of its excitations (sim b: (1 - SPREAD b) x a tenth of the main
@@ -548,25 +551,42 @@ def cuda_ms(torch, fn, reps=REPS, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=REPS, warmup=3):
+def device_ms(torch, fn, reps=REPS, warmup_s=DEVICE_WARMUP_S, rounds=3):
     """Device milliseconds per call of ``fn`` (a function that launches
-    and does not wait for the card) over ``reps`` calls enqueued behind a
-    spin kernel that keeps the card busy while the host enqueues them, so
-    that they run back to back between two CUDA events: the kernel's own
-    time, where a call between two events would hold the wrapper's host
-    time when that is the longer."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(5e5 * reps))   # ~0.25 ms a call at ~2 GHz
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    and does not wait for the card): ``reps`` calls enqueued behind a spin
+    kernel that keeps the card busy while the host enqueues them, so that
+    they run back to back between two CUDA events; the median of
+    ``rounds`` such runs after ``warmup_s`` seconds of calls (the card at
+    its working clock).  A run whose enqueue outlasted the spin (the calls
+    did not run back to back) is made again with a spin twice as long.
+    The kernel's own time, where a call between two events (``cuda_ms``)
+    holds the wrapper's host time when that is the longer."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warmup_s:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    times, spin = [], int(5e5 * reps)   # ~0.25 ms a call at ~2 GHz
+    while len(times) < rounds:
+        s0 = torch.cuda.Event(enable_timing=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(spin)
+        a.record()
+        t_host = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t_host = time.perf_counter() - t_host
+        b.record()
+        b.synchronize()
+        if 1e3 * t_host < s0.elapsed_time(a):
+            times.append(a.elapsed_time(b) / reps)
+        elif spin < 2 ** 40:
+            spin *= 2
+        else:
+            raise RuntimeError("the host enqueue outlasted every spin")
+    return statistics.median(times)
 
 
 def max_abs(a, b):
@@ -1754,11 +1774,11 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     k5_bound, k5_by = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
                                         CHUNK_EVERY, nb=ENSEMBLE))
 
-    # the device time per launch (a call between two events holds the
-    # wrapper's host time too)
-    k1_call_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
+    # a call between two events (the wrapper's host time included), and the
+    # device time per launch
+    k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
         fo, snT, rbc, ITERATIONS), reps=100)
-    k1_ms = device_ms(torch, lambda: fused_reduced_iterations_batched(
+    k1_device_ms = device_ms(torch, lambda: fused_reduced_iterations_batched(
         fo, snT, rbc, ITERATIONS), reps=100)
     k1_plain_ms = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
         fo, snT, rbc, ITERATIONS), reps=PLAIN_REPS, warmup=0)
@@ -1796,8 +1816,9 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         f"bound {1e3 * k5_bound / SCENE_STEPS:.4f} us/step ({k5_by}); "
         f"make_batched_run on the large-model route over {WINDOW_STEPS} "
         f"steps {entry_c:.0f} aggregate steps/s, host transfers included")
-    log(f"[4] batched kernel 1, B={ENSEMBLE}: {1e3 * k1_ms:.2f} us/launch on "
-        f"the device ({1e3 * k1_call_ms:.2f} us/call between two events); "
+    log(f"[4] batched kernel 1, B={ENSEMBLE}: {1e3 * k1_ms:.2f} us/call "
+        f"between two events ({1e3 * k1_device_ms:.2f} us/launch on the "
+        f"device); "
         f"plain {1e3 * k1_plain_ms:.1f} us; bound {1e3 * k1_bound:.4f} us "
         f"({k1_by}); make_batched_step entry point "
         f"{1e3 * statistics.median(step_s):.1f} ms/step, host transfers "
@@ -1862,7 +1883,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         entry("fused_reduced_iterations_batched", "fused_reduced.cu",
               "pallas_reduced.py:393", k1_err, k1_ms, k1_plain_ms, k1_bound,
               k1_by, entry_step_ms=1e3 * statistics.median(step_s),
-              call_ms=k1_call_ms),
+              device_ms=k1_device_ms),
         entry("resident_multistep_batched", "resident.cu",
               "pallas_resident.py:415", err["kernel 2"], k2_ms, k2_plain_ms,
               k2_bound, k2_by, steps_per_call=SCENE_STEPS,
@@ -2162,9 +2183,11 @@ def tet_bending(torch, counted, paths):
                      NEW_BATCH)
 
         # ---- 4. times and bounds -----------------------------------------
-        # kernel 1's device time per launch (a call between two events
-        # holds the wrapper's host time too)
-        k1_ms = device_ms(torch, lambda: fused_reduced_iterations(
+        # kernel 1: a call between two events, and the device time per
+        # launch
+        k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+            fo, snT_sel, rb_const, ITERATIONS), reps=100)
+        k1_dev = device_ms(torch, lambda: fused_reduced_iterations(
             fo, snT_sel, rb_const, ITERATIONS), reps=100)
         k1_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
             fo, snT_sel, rb_const, ITERATIONS), reps=1, warmup=0)
@@ -2172,9 +2195,9 @@ def tet_bending(torch, counted, paths):
                  "affine_chunked": chunk_plan(ao)}
         note("fused_reduced_iterations", label, k1_err, k1_ms, k1_plain,
              *bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS)),
-             table_columns=cols,
+             table_columns=cols, device_ms=k1_dev,
              staging_plan=plans["fused_reduced_iterations"].as_dict())
-        kb_ms = device_ms(torch, lambda: fused_reduced_iterations_batched(
+        kb_ms = cuda_ms(torch, lambda: fused_reduced_iterations_batched(
             fo, snb[..., :ro.n_sel], rbcb, ITERATIONS))
         kb_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
             fo, snb[..., :ro.n_sel], rbcb, ITERATIONS), reps=1, warmup=0)
@@ -2224,8 +2247,9 @@ def tet_bending(torch, counted, paths):
                 f"{name} {list(p_.staged)} in shared memory, "
                 f"{list(p_.from_l2) or 'nothing'} from L2, {p_.smem_bytes} B"
                 for name, p_ in plans.items()))
-        log(f"[4] {label}: kernel 1 {1e3 * k1_ms:.2f} us/launch (batched, "
-            f"{NEW_BATCH} sims, {1e3 * kb_ms:.2f}); kernel 5 "
+        log(f"[4] {label}: kernel 1 {1e3 * k1_ms:.2f} us/call "
+            f"({1e3 * k1_dev:.2f} us/launch on the device; batched, "
+            f"{NEW_BATCH} sims, {1e3 * kb_ms:.2f} us/call); kernel 5 "
             f"{1e3 * k5_ms / SCENE_STEPS:.2f} us/step; kernel 3 (contact "
             f"mode), contact window ({in_mode} of {SCENE_STEPS} steps in "
             f"the mode) {1e3 * k3m_ms / SCENE_STEPS:.2f} us/step (batched, "
@@ -4068,15 +4092,14 @@ def main() -> int:
     log(f"[3] bench scene holds {time.perf_counter() - t_main:.1f} s")
     t_main = time.perf_counter()
     # ---- 4. times --------------------------------------------------------
-    # kernels 1 and 5 run the cluster loop on the staging plans their
-    # wrappers computed and ran the main path on
+    # kernels 1 and 5 run the cluster loop on the staging plans of their
+    # widths (the C launch refuses a plan whose bytes differ from its own
+    # carving)
     plans = {}
     for name, fn, lib, plan in (
             ("kernel 1", fused_reduced_iterations, "fused_reduced",
              fused_plan(fo)),
             ("kernel 5", affine_chunked, "affine_chunked", chunk_plan(ao))):
-        require(fn.plan == plan, f"{name} ran the main path on another "
-                f"staging plan ({fn.plan}) than its widths give ({plan})")
         plans[fn.__name__] = dict(plan.as_dict(),
                                   resident_clusters=resident_clusters(
                                       lib, plan))
@@ -4086,32 +4109,36 @@ def main() -> int:
             f"{CLUSTER_THREADS} threads (one a dimension) per sim, "
             f"{plans[fn.__name__]['resident_clusters']} clusters resident at "
             f"once")
-    # kernel 1: a call between two events holds the wrapper's host time,
-    # which its launch outlasted when it was one block; the device time
-    # per launch is the kernel's own
-    k1_call_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+    # kernel 1: a call between two events (the wrapper's host time
+    # included, which its launch outlasted when it was one block), and the
+    # device time per launch, the kernel's own
+    k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
         fo, snT_sel, rb_const, ITERATIONS), reps=200)
     k1_plain_ms = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
         fo, snT_sel, rb_const, ITERATIONS), reps=PLAIN_REPS, warmup=0)
     k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS))
     # where kernel 1's time goes: the slope over the iteration count is
     # the loop body, the intercept the staging, the gather and the solve
-    k1_at = {it: device_ms(torch, lambda it=it: fused_reduced_iterations(
+    k1_at = {it: cuda_ms(torch, lambda it=it: fused_reduced_iterations(
+        fo, snT_sel, rb_const, it), reps=100) for it in (0, 1, 20)}
+    k1_dev = {it: device_ms(torch, lambda it=it: fused_reduced_iterations(
         fo, snT_sel, rb_const, it), reps=100)
         for it in (0, ITERATIONS, 20)}
-    k1_ms = k1_at[ITERATIONS]
-    k1_slope = 1e3 * (k1_at[20] - k1_at[0]) / 20
+    k1_slope = 1e3 * (k1_dev[20] - k1_dev[0]) / 20
     k1_floor = loop_floor_ms(k1_cost(fo, ro.n_sel, ITERATIONS)[1]["float32"])
-    log(f"[4] kernel 1: {1e3 * k1_ms:.2f} us/launch on the device at "
-        f"{ITERATIONS} iterations ({1e3 * k1_call_ms:.2f} us/call between "
-        f"two events, the wrapper included); plain "
-        f"{1e3 * k1_plain_ms:.1f} us; bound {1e3 * k1_bound:.4f} us "
-        f"({k1_by}); its operations on the cluster's {CLUSTER_SMS} SMs "
-        f"{1e3 * k1_floor:.4f} us, and {ITERATIONS} exchanges")
-    log(f"[4] kernel 1 by iterations (device): " + ", ".join(
+    log(f"[4] kernel 1: {1e3 * k1_ms:.2f} us/call at {ITERATIONS} "
+        f"iterations ({1e3 * k1_dev[ITERATIONS]:.2f} us/launch on the "
+        f"device); plain {1e3 * k1_plain_ms:.1f} us; bound "
+        f"{1e3 * k1_bound:.4f} us ({k1_by}); its operations on the "
+        f"cluster's {CLUSTER_SMS} SMs {1e3 * k1_floor:.4f} us, and "
+        f"{ITERATIONS} exchanges")
+    log(f"[4] kernel 1 by iterations: " + ", ".join(
         f"{it}: {1e3 * ms:.2f} us" for it, ms in k1_at.items())
+        + f"; slope {1e3 * (k1_at[20] - k1_at[1]) / 19:.3f} us/iteration")
+    log(f"[4] kernel 1 by iterations (device): " + ", ".join(
+        f"{it}: {1e3 * ms:.2f} us" for it, ms in k1_dev.items())
         + f"; slope {k1_slope:.3f} us/iteration, intercept "
-        f"{1e3 * k1_at[0]:.2f} us/launch")
+        f"{1e3 * k1_dev[0]:.2f} us/launch")
 
     def k2_call():
         return resident_multistep(ro, P, V, Fx, rb_extra, SCENE_STEPS,
@@ -4189,9 +4216,10 @@ def main() -> int:
     k5_trip_ms = cuda_ms(torch, lambda: affine_chunked(
         ao_trip, Pw, Vw, F0, rb_extra, SCENE_STEPS, ITERATIONS))
     exact_us = 1e3 * (k5_trip_ms - k5_ms) / (SCENE_STEPS - 1)
-    slope = 1e3 * (k5_window20_ms - k5_window_ms) / (
+    slope = 1e3 * (k5_at[20] - k5_at[0]) / (20 * SCENE_STEPS)
+    w_slope = 1e3 * (k5_window20_ms - k5_window_ms) / (
         (20 - ITERATIONS) * WINDOW_STEPS)
-    intercept = 1e3 * k5_window_ms / WINDOW_STEPS - ITERATIONS * slope
+    w_intercept = 1e3 * k5_window_ms / WINDOW_STEPS - ITERATIONS * w_slope
     k5_floor = loop_floor_ms(small_cost(ao, ITERATIONS, fo.g_total)[1])
     log(f"[4] kernel 5: {1e3 * k5_ms / SCENE_STEPS:.2f} us/step "
         f"({k5_ms:.3f} ms per {SCENE_STEPS}-step call); over "
@@ -4202,13 +4230,15 @@ def main() -> int:
         f"{1e3 * k5_wbound / WINDOW_STEPS:.4f} us/step over {WINDOW_STEPS}")
     log(f"[4] kernel 5 by iterations ({SCENE_STEPS}-step calls): 0: "
         f"{1e3 * k5_at[0] / SCENE_STEPS:.2f} us/step, 20: "
-        f"{1e3 * k5_at[20] / SCENE_STEPS:.2f} us/step; over the "
-        f"{WINDOW_STEPS}-step window at 20 iterations "
+        f"{1e3 * k5_at[20] / SCENE_STEPS:.2f} us/step; slope {slope:.3f} "
+        f"us/iteration, intercept {1e3 * k5_at[0] / SCENE_STEPS:.2f} us/"
+        f"step; over the {WINDOW_STEPS}-step window at 20 iterations "
         f"{1e3 * k5_window20_ms / WINDOW_STEPS:.2f} us/step: slope "
-        f"{slope:.3f} us/iteration, intercept {intercept:.2f} us/step; a "
-        f"step's operations on the cluster's {CLUSTER_SMS} SMs "
+        f"{w_slope:.3f} us/iteration, intercept {w_intercept:.2f} us/step; "
+        f"a step's operations on the cluster's {CLUSTER_SMS} SMs "
         f"{1e3 * k5_floor:.4f} us, and {ITERATIONS} exchanges; outer loop "
-        f"between chunks {1e3 * outer_ms:.1f} us per chunk; with the exact check on every step "
+        f"between chunks {1e3 * outer_ms:.1f} us per chunk; with the exact "
+        f"check on every step "
         f"{1e3 * k5_trip_ms / SCENE_STEPS:.2f} us/step, so the exact check "
         f"costs {exact_us:.2f} us")
 
@@ -4304,8 +4334,9 @@ def main() -> int:
     kernels = [
         entry("fused_reduced_iterations", "fused_reduced.cu",
               "pallas_reduced.py:393", k1_abs, k1_ms, k1_plain_ms, k1_bound,
-              k1_by, call_ms=k1_call_ms, us_per_iteration=k1_slope,
-              intercept_us=1e3 * k1_at[0], cluster_floor_ms=k1_floor,
+              k1_by, device_ms=k1_dev[ITERATIONS],
+              device_us_per_iteration=k1_slope,
+              device_intercept_us=1e3 * k1_dev[0],
               staging_plan=plans["fused_reduced_iterations"]),
         entry("resident_multistep", "resident.cu", "pallas_resident.py:415",
               k2_err["bfloat16"], k2_ms, k2_plain_ms, k2_bound, k2_by,
@@ -4325,8 +4356,10 @@ def main() -> int:
               "pallas_resident.py:1145", affine_err["kernel 5"], k5_ms,
               k5_plain_ms, k5_bound, k5_by, steps_per_call=SCENE_STEPS,
               window_steps_per_s=WINDOW_STEPS / (k5_window_ms / 1e3),
-              us_per_iteration=slope, intercept_us_per_step=intercept,
-              cluster_floor_ms_per_step=k5_floor,
+              us_per_iteration=slope,
+              intercept_us_per_step=1e3 * k5_at[0] / SCENE_STEPS,
+              window_us_per_iteration=w_slope,
+              window_intercept_us_per_step=w_intercept,
               staging_plan=plans["affine_chunked"],
               outer_loop_ms_per_chunk=outer_ms,
               exact_check_us=exact_us,

@@ -15,8 +15,6 @@ from animsnapbases_tpu_torch.geometry.procedural import cloth_model
 from animsnapbases_tpu_torch.ops import affine_chunked as k5
 from animsnapbases_tpu_torch.ops import fused_reduced as k1
 from animsnapbases_tpu_torch.ops.cluster import (
-    DEFAULT_LOOP,
-    LOOP_VARIANTS,
     SMEM_MAX,
     STAGE_BITS,
     buffer_elems,
@@ -140,9 +138,8 @@ def small():
 
 def test_fused_args_contract(small):
     """Kernel 1's launch arguments match its C entry point's types: one
-    cluster per sim (nb), the projection order, the plan's bits and bytes,
-    the loop's variant; the operands' type and the variant are checked; a
-    CPU tensor never reaches a launch."""
+    cluster per sim (nb), the projection order, the plan's bits and bytes;
+    the operands' type is checked; a CPU tensor never reaches a launch."""
     model, s = small
     fo = s._resident.fused
     assert torch.equal(fo.lane_cols, torch.as_tensor(
@@ -153,21 +150,17 @@ def test_fused_args_contract(small):
         snT = torch.randn(lead + (3, n_sel), generator=g)
         rb = torch.randn(lead + (3, r), generator=g)
         u = torch.empty_like(rb)
-        args, plan = k1.fused_args(fo, snT, rb, u, 10)
+        args = k1.fused_args(fo, snT, rb, u, 10)
+        plan = k1.fused_plan(fo)
         assert len(args) == len(k1._ARGTYPES)
         assert plan == staging_plan("fused_reduced", r, fo.g_total,
                                     fo.m_total)
         assert args[14:19] == (r, fo.g_total, fo.m_total, 10,
                                lead[0] if lead else 1)
         assert args[19].value == fo.lane_cols.data_ptr()
-        assert args[20:24] == (fo.lane_cols.numel(), plan.bits,
-                               plan.smem_bytes, DEFAULT_LOOP)
+        assert args[20:23] == (fo.lane_cols.numel(), plan.bits,
+                               plan.smem_bytes)
         assert args[2] == (snT.stride(0) if lead else 0)
-    assert DEFAULT_LOOP == LOOP_VARIANTS["push, transaction barrier"]
-    for v in LOOP_VARIANTS.values():
-        assert k1.fused_args(fo, snT, rb, u, 10, loop=v)[0][23] == v
-    with pytest.raises(ValueError, match="variant"):
-        k1.fused_args(fo, snT, rb, u, 10, loop=5)
     fo64 = dataclasses.replace(fo, C_allT=fo.C_allT.double())
     with pytest.raises(TypeError, match="float32"):
         k1.fused_args(fo64, snT, rb, u, 10)

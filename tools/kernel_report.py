@@ -13,18 +13,18 @@ out-of-line device function, what ptxas reports (registers, stack frame,
 spill stores and loads), then on the bench scene (10 iterations):
 
 * kernel 1: a call between two CUDA events (the wrapper's host time
-  included, median of 200) and the kernel's device time per launch (200
-  launches back to back, ``chip_smoke.device_ms``), and the device time at
-  0 and 20
-  iterations (slope per iteration, intercept per call); in a tree with the
-  cluster loop, the device time of each of its variants
-  (ops/cluster.py LOOP_VARIANTS);
-* kernel 5: µs per step over the 2,000-step tier-1 window of
-  ``chip_smoke.py`` (median of 10), and at 20 iterations (slope per
-  iteration against 10, intercept per step; with none the window would
-  reach the floor); the window on the exact-free build and 64-step calls
-  on the build without the bound against the default (the exact floor
-  check's cost per step);
+  included, median of 200: ``ms`` of chip_smoke.py's kernels line) and the
+  kernel's device time per launch (200 launches back to back after half a
+  second of calls, median of three runs, ``chip_smoke.device_ms``), and
+  the device time at 0 and 20 iterations (slope per iteration, intercept
+  per call);
+* kernel 5: 64-step calls at 0 and 20 iterations (slope per iteration and
+  intercept per step as in chip_smoke.py's kernels line); µs per step over
+  the 2,000-step tier-1 window of ``chip_smoke.py`` (median of 10), and at
+  20 iterations (slope per iteration against 10, intercept per step; with
+  none the window would reach the floor); the window on the exact-free
+  build and 64-step calls on the build without the bound against the
+  default (the exact floor check's cost per step);
 * batched: kernel 1 on 64 sims (device time per launch) and kernel 5 on 8
   ring-down sims over the window (µs per step);
 * the staging plans, in a tree with the cluster loop;
@@ -138,15 +138,7 @@ say(f"bench scene: kernel 1 {1e3 * call:.2f} us/call (events); device "
     f"{1e3 * dev_k1[0]:.2f} and {1e3 * dev_k1[20]:.2f} us: slope "
     f"{1e3 * (dev_k1[20] - dev_k1[0]) / 20:.3f} us/iteration, intercept "
     f"{1e3 * dev_k1[0]:.2f} us/call")
-try:
-    from animsnapbases_tpu_torch.ops.cluster import LOOP_VARIANTS as variants
-except ImportError:          # a tree without the cluster loop
-    variants = {}
-for label, v in variants.items():
-    ms = cs.device_ms(torch, lambda v=v: k1mod._launch_fused(
-        fo, snT, rb_const, ITERS, loop=v), reps=200)
-    say(f"bench scene: kernel 1 loop variant {v} ({label}): device "
-        f"{1e3 * ms:.2f} us/launch")
+clustered = hasattr(k1mod, "fused_plan")   # a tree with the cluster loop
 
 s.step(f, num_iterations=ITERS)
 s.run_steps(f, cs.SCENE_STEPS, num_iterations=ITERS)
@@ -155,6 +147,13 @@ Vw = 0.1 * s._to_device(model.velocities)
 F0 = torch.zeros_like(Pw)
 k = affine_chunked(ao, Pw, Vw, F0, rb, WINDOW, ITERS)[2]
 assert k == WINDOW, f"the window is not contact-free ({k})"
+at = {it: cs.cuda_ms(torch, lambda it=it: affine_chunked(
+    ao, Pw, Vw, F0, rb, cs.SCENE_STEPS, it)) for it in (0, 20)}
+say(f"bench scene: kernel 5 {cs.SCENE_STEPS}-step calls at 0 and 20 "
+    f"iterations {per_step(at[0], cs.SCENE_STEPS)} and "
+    f"{per_step(at[20], cs.SCENE_STEPS)}: slope "
+    f"{1e3 * (at[20] - at[0]) / (20 * cs.SCENE_STEPS):.3f} us/iteration, "
+    f"intercept {per_step(at[0], cs.SCENE_STEPS)}")
 k5 = cs.cuda_ms(torch, lambda: affine_chunked(ao, Pw, Vw, F0, rb, WINDOW,
                                               ITERS), reps=10, warmup=1)
 k = affine_chunked(ao, Pw, Vw, F0, rb, WINDOW, 20)[2]
@@ -201,7 +200,7 @@ say(f"bench scene: kernel 5 batched, {B5} sims: {per_step(ms, WINDOW)} over "
     f"{WINDOW} steps, {B5 * WINDOW / (ms / 1e3):.0f} aggregate steps/s")
 
 # ---- staging plans ---------------------------------------------------------
-if variants:
+if clustered:
     from animsnapbases_tpu_torch.ops.affine_chunked import chunk_plan
     say(f"staging plan, kernel 1: {k1mod.fused_plan(fo).as_dict()}")
     say(f"staging plan, kernel 5: {chunk_plan(ao).as_dict()}")
@@ -225,5 +224,5 @@ say(f"megacloth: kernel 5 {cs.SCENE_STEPS}-step calls in turns: default "
     f"{per_step(t['default'], cs.SCENE_STEPS)}, bound off "
     f"{per_step(t['bound off'], cs.SCENE_STEPS)}: the exact check "
     f"{1e3 * (t['bound off'] - t['default']) / cs.SCENE_STEPS:.2f} us/step")
-if variants:
+if clustered:
     say(f"staging plan, kernel 5, megacloth: {chunk_plan(mao).as_dict()}")

@@ -12,9 +12,7 @@ iteration for each block: phase A (its own work: this block's row of
 Vall, pushed to its peers), the exchange (waiting for the peers' rows),
 the projections (its own column, then the block's last ones at the
 barrier), phase C (its own work) and its barrier.  Kernel 1 over 200
-calls in each loop variant (ops/cluster.py LOOP_VARIANTS; the phases of
-the split variants' projections are not counted); kernel 5 (its default
-variant) over a 1,000-step call on the tier-1 window.  The counters
+calls; kernel 5 over a 1,000-step call on the tier-1 window.  The counters
 cost a clock read and an atomic add per phase: the totals run a little
 above the plain build's slope per iteration (chip_smoke.py,
 tools/kernel_report.py).
@@ -33,7 +31,6 @@ from animsnapbases_tpu_torch.device import resolve_device  # noqa: E402
 from animsnapbases_tpu_torch.ops import _build  # noqa: E402
 from animsnapbases_tpu_torch.ops.affine_chunked import (  # noqa: E402
     affine_chunked)
-from animsnapbases_tpu_torch.ops.cluster import LOOP_VARIANTS  # noqa: E402
 from animsnapbases_tpu_torch.ops.fused_reduced import (  # noqa: E402
     _launch_fused)
 from animsnapbases_tpu_torch.ops.resident import (  # noqa: E402
@@ -79,15 +76,13 @@ rb = s._rb_extra()
 sn, rb_const = predict(ro, P, V, force_term(ro, Fx), rb)
 snT = sn[:, :ro.n_sel]
 
-for label, v in LOOP_VARIANTS.items():
-    _launch_fused(ro.fused, snT, rb_const, cs.ITERATIONS, loop=v)
-    torch.cuda.synchronize()
-    read("fused_reduced")
-    for _ in range(CALLS):
-        _launch_fused(ro.fused, snT, rb_const, cs.ITERATIONS, loop=v)
-    torch.cuda.synchronize()
-    show(f"kernel 1, variant {v} ({label})", read("fused_reduced"),
-         CALLS * cs.ITERATIONS)
+_launch_fused(ro.fused, snT, rb_const, cs.ITERATIONS)
+torch.cuda.synchronize()
+read("fused_reduced")
+for _ in range(CALLS):
+    _launch_fused(ro.fused, snT, rb_const, cs.ITERATIONS)
+torch.cuda.synchronize()
+show("kernel 1", read("fused_reduced"), CALLS * cs.ITERATIONS)
 
 s.step(f, num_iterations=cs.ITERATIONS)
 s.run_steps(f, cs.SCENE_STEPS, num_iterations=cs.ITERATIONS)
