@@ -37,7 +37,7 @@
 //   mode_predict (128-vertex tiles): on entry Py, Vy materialized from the
 //     coefficients; sn_y = Py + dt eta Vy + fa_y, clamped at the floor, into
 //     the y row of sn; per-tile float64 partials of pc;
-//   mode_solve (one block per sim): on entry buPy, buVy from bu0, bu1, bu_fa
+//   mode_solve (one cluster per sim): on entry buPy, buVy from bu0, bu1, bu_fa
 //     and M_utac; rb_const and snT_sel with their y rows from the recursion
 //     and the clamped sn_y; the loop; the coefficient update; the buPy/buVy
 //     recursion; mode on;
@@ -51,10 +51,9 @@
 // What bounds it on this card: a free step reads the (r, N) y slice of the
 // lift for the floor test (1.8 MB in bfloat16 at the bench scene) and a few
 // r x r and r x n_sel operands, ~0.6 us at the HBM rate; its iteration loop
-// is kernel 1's single-block latency chain, which sets the time.  A lean
-// contact step costs what a step of kernel 2 costs; a contact-mode step
-// reads the two y slices (3.7 MB) and the y state, ~1.2 us, and still runs
-// the loop.
+// is kernel 1's latency chain, which sets the time.  A lean contact step
+// costs what a step of kernel 2 costs; a contact-mode step reads the two y
+// slices (3.7 MB) and the y state, ~1.2 us, and still runs the loop.
 //
 // What the design does about it: as kernel 2 does, one C loop in this file
 // enqueues every step's launches on the caller's stream, and nothing
@@ -67,10 +66,32 @@
 // rebase steps.  (A cooperative launch with grid.sync() would need every
 // block resident at once and hangs the card if one is not; the per-launch
 // flags need neither and reuse what kernel 2 proved.)  O(N) work (the floor
-// test, projections, materializations) runs on grids of 128-vertex tiles;
-// the step's serial part runs in one block (iteration.cuh).  Projections
+// test, projections, materializations) runs on grids of 128-vertex tiles.
+// The step's serial part (free_step, contact_solve, mode_solve) runs on
+// one cluster of three blocks per sim (iteration_cluster.cuh), block d
+// owning dimension d: its rows of the coefficients, of rb_const and of the
+// selected prefix (affine.cuh's row pieces, as kernel 5 runs them), the
+// loop's operands C_d, WT_d, inv3_d and then M_utac_d and U_selT_d staged
+// in its shared memory as the staging plan says (ops/cluster.py, kernel
+// "affine": bits STAGE_*; the launch refuses a plan whose bytes differ),
+// the rows of Vall pushed to the peers with st.async.  In contact mode the
+// y block owns the y-only work: the pc sum, s, the buPy/buVy recursion
+// with M_utac's y block and the Vc row gathered from the clamped sn_y; the
+// x and z blocks run the affine rows.  Each output of a product is one
+// thread's chain in the order of the one-block loop these kernels ran
+// before, so the cluster kernels equal it bit for bit.  Projections
 // through U^T A_c accumulate in float64, in per-tile partials summed in a
 // fixed order (no atomics), as in kernel 2.
+//
+// Flags read by three blocks: each block of a cluster reads the sim's
+// flags at its start and decides its branch from them; the y block writes
+// them back (F_STALE, F_DONE, F_K, F_MODE and the step's S_CONTACT) only
+// after the cluster barrier at the end of the launch, which every block
+// passes after its read (kernel 4's F_DONE on a clamped step is written on
+// the way out of a launch that all three blocks leave at their start).  So
+// the three blocks take the same branch, and all return early together:
+// a block that left while its peers waited at their transaction barriers
+// would hang the card.
 //
 // The batched builds of kernel 3 (nb sims, the JAX kernel's nb = B; the
 // routes of make_batched_run below CHUNKED_TIER1_MIN_VERTS) keep sim-major
@@ -78,16 +99,23 @@
 // states and flags.  The contact branch is PER SIM: in the lean build a sim
 // whose predictor the floor clamps takes the re-anchoring tail, the others
 // take the free step; in the contact-mode build each sim has its own mode
-// slot, entered when its own predictor clamps.  (The JAX kernel sends the
+// slot, entered when its own predictor clamps; the cluster of a sim whose
+// branch is not taken returns at its start.  (The JAX kernel sends the
 // whole batch through the exact tail, or into contact mode with one mode
 // flag, when any sim clamps; the clamp is the identity for the airborne
 // sims, so both are exact, and per sim does not pay a contact step for
-// each of them.)  The single-block launches run on a grid of nb blocks,
-// one sim each; the O(N) launches on a grid of (tiles, up to SIM_Y) blocks
-// that loop over the sims; the floor test on (vertex blocks, sim groups of
-// Y_GROUP), each lift element read once for the group.  Every sim's
-// arithmetic runs in the order of the solo call (nb = 1), so sim b of a
-// batched call equals the solo call from sim b's state bit for bit.
+// each of them.)  The cluster launches run on a grid of (3, nb) blocks,
+// one cluster a sim; the O(N) launches on a grid of (tiles, up to SIM_Y)
+// blocks that loop over the sims; the floor test on (vertex blocks, sim
+// groups of Y_GROUP), each lift element read once for the group.  Waves
+// in the batched builds: a block of the full plan (~164 KB at the bench
+// widths) leaves room for one on an SM, so fewer clusters than sims may be
+// resident; the wrapper then takes the plan that stages less where that
+// needs fewer waves of clusters (ops/cluster.py launch_plan), and the
+// blocks hold their registers to two blocks an SM (__launch_bounds__).
+// Every sim's arithmetic runs in the order of the solo call (nb = 1), and
+// no plan changes a result, so sim b of a batched call equals the solo
+// call from sim b's state bit for bit.
 #include "affine.cuh"
 
 namespace ksm {
@@ -140,10 +168,10 @@ struct Affine {
   __device__ T* wv() const { return coef + 18 + 3 * r; }
 
   // the same struct over sim b's buffers (the per-sim ones are laid out
-  // sim after sim).  The O(N) launches use it; the two single-block loop
-  // launches (free_step, contact_solve) offset only the pointers they use:
-  // a copy of the whole struct there made the solo free step 98 -> 138 us
-  // (tools/time_solo_kernels.py's profile on an H100)
+  // sim after sim).  The O(N) launches use it; the cluster launches
+  // (free_step, contact_solve, mode_solve) offset only the pointers they
+  // use: a copy of the whole struct there made the solo free step 98 -> 138
+  // us (tools/time_solo_kernels.py's profile on an H100)
   __device__ Affine at(int b) const {
     Affine s = *this;
     const size_t x = (size_t)b * 3 * N;
@@ -163,6 +191,66 @@ struct Affine {
     return s;
   }
 };
+
+// The shared memory of a block of the cluster launches (free_step,
+// contact_solve, mode_solve), the loop's buffers and staged operands
+// first; every launch carves the same pieces, so one plan sizes the three
+// (ops/cluster.py, kernel "affine")
+struct AffineLayout {
+  LoopLayout loop;
+  int coef;                 // ap, av, asn, avd: 4 each
+  int wp, wv, wsn, u, sy;   // r each (sy: contact mode's s, the y block)
+  int sel;                  // n_sel: the dimension's row of snT_sel
+  int mutac, usel;          // staged M_utac_d, U_selT_d, or -1
+};
+
+__host__ __device__ inline AffineLayout affine_layout(Carve& cv, int r, int g,
+                                                      int m, int n_sel,
+                                                      int plan) {
+  AffineLayout L;
+  L.loop = loop_layout(cv, r, g, m, plan);
+  L.coef = cv.take(16);
+  L.wp = cv.take(r);
+  L.wv = cv.take(r);
+  L.wsn = cv.take(r);
+  L.u = cv.take(r);
+  L.sy = cv.take(r);
+  L.sel = cv.take(n_sel);
+  L.mutac = cv.take_if(plan & STAGE_MUTAC, r * pad4(r));
+  L.usel = cv.take_if(plan & STAGE_MAP, r * pad4(n_sel));
+  return L;
+}
+
+// shared memory of a block (bytes) for the staging plan's bits
+inline size_t affine_smem_bytes(int r, int g, int m, int n_sel, int plan) {
+  Carve cv;
+  affine_layout(cv, r, g, m, n_sel, plan);
+  return 4 * (size_t)cv.at;
+}
+
+// One cluster block's rows of dimension d in its shared memory
+template <typename T>
+struct Rows {
+  T *ap, *av, *asn, *avd;  // 3 each
+  T *wp, *wv, *wsn, *u, *sy, *sel;
+};
+
+template <typename T>
+__device__ __forceinline__ Rows<T> rows_of(const AffineLayout& L) {
+  T* smem = smem_at<T>(0);
+  Rows<T> w;
+  w.ap = smem + L.coef;
+  w.av = w.ap + 4;
+  w.asn = w.ap + 8;
+  w.avd = w.ap + 12;
+  w.wp = smem + L.wp;
+  w.wv = smem + L.wv;
+  w.wsn = smem + L.wsn;
+  w.u = smem + L.u;
+  w.sy = smem + L.sy;
+  w.sel = smem + L.sel;
+  return w;
+}
 
 // The O(N) launches run on blocks (tile, y) that serve the sims y,
 // y + gridDim.y, ...: of the 32 of them from `base` on, the bit mask of
@@ -256,6 +344,21 @@ __device__ void sum_partials(const double* partial, int nblk, int r, int s,
   }
 }
 
+// Dimension d's rows of bu0 and bu1 (slots 0 and 1 of a sim's partials)
+// summed as sum_partials sums them; out0, out1 the rows (r each)
+template <typename T>
+__device__ void sum_partial_rows(const double* partial, int nblk, int r,
+                                 int d, T* out0, T* out1) {
+  const int n = 3 * r;
+  for (int i = threadIdx.x; i < 2 * r; i += blockDim.x) {
+    const int s = i / r, k = i - s * r;
+    double acc = 0.0;
+    for (int b = 0; b < nblk; ++b)
+      acc += partial[((size_t)b * 2 + s) * n + d * r + k];
+    (s ? out1 : out0)[k] = (T)acc;
+  }
+}
+
 // Start of a call, one block per sim: bu_fa = U^T A_c fa (once per call),
 // unit coefficients over the entry state, stale projections.
 template <typename T, typename M>
@@ -322,60 +425,73 @@ __global__ void y_check(Affine<T, M> all, int step) {
   }
 }
 
-// The free step of step i, one block per sim: skipped when the step
-// clamped (kernel 4 then stops for good) or the sim is in contact mode.
+// The free step of step i, one cluster per sim (block d: dimension d):
+// skipped when the step clamped (kernel 4 then stops for good) or the sim
+// is in contact mode.
 template <typename T, typename M>
-__global__ void free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
-                          int num_iterations) {
-  const int b = blockIdx.x;  // the sim
-  const int r = op.r, g = op.g, m = op.m, n_sel = a.n_sel, N = a.N;
+__global__ void __cluster_dims__(3, 1, 1)
+    __launch_bounds__(CLUSTER_THREADS, 2)
+        free_step(Affine<T, M> a, Iter<T> op, int step, int mode,
+                  int num_iterations, const int* lane_cols, int ms,
+                  int plan) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int d = (int)cl.block_rank();  // the dimension; 1: the y block
+  const int b = blockIdx.y;            // the sim
+  const int r = op.r, n_sel = a.n_sel, N = a.N;
+  // the flags as they stand at the launch, read by all three blocks (the
+  // y block writes them after the last cluster barrier)
   int* fl = a.flags + (size_t)b * a.flag_stride;
+  const bool stale = fl[F_STALE];
   if (fl[F_DONE] || fl[F_MODE]) return;
   if (fl[F_STEP + step]) {
-    if (mode == EXIT && threadIdx.x == 0) fl[F_DONE] = 1;
+    // all three blocks return here, before any touches a peer
+    if (mode == EXIT && d == 1 && threadIdx.x == 0) fl[F_DONE] = 1;
     return;
   }
+  Carve cv;
+  const AffineLayout L = affine_layout(cv, r, op.g, op.m, n_sel, plan);
+  const ClusterLoop<T> c = cluster_loop(op, L.loop, d, lane_cols, ms);
+  const Operand<T> mutac =
+      operand(L.mutac, a.mutac + (size_t)d * r * r, r, r);
+  const Operand<T> usel =
+      operand(L.usel, a.uselT + (size_t)d * r * n_sel, r, n_sel);
+  const Rows<T> w = rows_of<T>(L);
   T* coef = a.coef + (size_t)b * (18 + 6 * r);  // ap, av, wp, wv
-  const double* partial = a.partial + (size_t)b * a.nblk * 2 * 3 * r;
-  const size_t x = (size_t)b * 3 * N;
-  T* rbc = reinterpret_cast<T*>(affine_smem);
-  T* rb = rbc + 3 * r;
-  T* vc = rb + 3 * r;
-  T* vall = vc + 3 * g;
-  T* pt = vall + 3 * g;
-  T* asn = pt + 3 * m;       // 9
-  T* avd = asn + 9;          // 9
-  T* wsn = avd + 9;          // 3r
-  T* u = wsn + 3 * r;        // 3r
-  T* snsel = u + 3 * r;      // 3 n_sel
-  T* bu0 = a.bu + (size_t)b * 9 * r;
-  T* bu1 = bu0 + 3 * r;
-  const bool stale = fl[F_STALE];
+  T* bu0 = a.bu + (size_t)b * 9 * r + (size_t)d * r;  // bu1, bu_fa: 3r, 6r on
+  const size_t x = (size_t)b * 3 * N + (size_t)d * N;  // row d of the state
+  coef_rows(coef, d, r, w.ap, w.av, w.wp, w.wv, false);
+  if (stale)
+    sum_partial_rows(a.partial + (size_t)b * a.nblk * 2 * 3 * r, a.nblk, r,
+                     d, bu0, bu0 + 3 * r);
+  cp_async_wait_all();
+  // the staged operands are in, every block has read the flags, and every
+  // block of the cluster has started (its shared memory may be written)
+  cl.sync();
+  affine_predictor_row(w.ap, w.av, w.wp, w.wv, r, a.dt, a.eta, w.asn, w.avd,
+                       w.wsn);
   __syncthreads();
-  if (stale) {
-    sum_partials(partial, a.nblk, r, 0, bu0);
-    sum_partials(partial, a.nblk, r, 1, bu1);
+  affine_rb_const_row(w.asn, w.wsn, bu0, bu0 + 3 * r, bu0 + 6 * r, mutac,
+                      a.rbex + (size_t)b * a.rb_sim + (size_t)d * r, r,
+                      c.rbc);
+  affine_combine_row(w.asn, w.wsn, a.b0 + x, a.b1 + x, a.fa + x, usel, r,
+                     n_sel, w.sel);
+  __syncthreads();
+  for (int j = threadIdx.x; j < op.g; j += blockDim.x)
+    c.vc[j] = gather_col(op, w.sel, j);
+  __syncthreads();
+  iterate_cluster(c, num_iterations);
+  solve_cluster(c, [&](int n, T acc) { w.u[n] = acc; });
+  __syncthreads();
+  affine_update_row(w.ap, w.av, w.wp, w.wv, w.asn, w.avd, w.wsn, w.u, r,
+                    a.dt);
+  __syncthreads();
+  coef_rows(coef, d, r, w.ap, w.av, w.wp, w.wv, true);
+  // no block leaves while a peer may still read its shared memory
+  cl.sync();
+  if (d == 1 && threadIdx.x == 0) {
+    if (stale) fl[F_STALE] = 0;
+    if (mode == EXIT) fl[F_K] += 1;
   }
-  affine_predictor(coef, coef + 9, coef + 18, coef + 18 + 3 * r, r, a.dt,
-                   a.eta, asn, avd, wsn);
-  __syncthreads();
-  if (stale && threadIdx.x == 0) fl[F_STALE] = 0;
-  affine_rb_const(asn, wsn, bu0, bu1, bu0 + 6 * r, a.mutac,
-                  a.rbex + (size_t)b * a.rb_sim, r, rbc);
-  affine_combine(asn, wsn, a.b0 + x, a.b1 + x, a.fa + x, N, a.uselT, r, n_sel,
-                 snsel);
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
-    const int d = i / g, c = i - d * g;
-    vc[i] = gather_col(op, snsel + d * n_sel, c);
-  }
-  __syncthreads();
-  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
-  solve_block(op, rb, u);
-  __syncthreads();
-  affine_update(coef, coef + 9, coef + 18, coef + 18 + 3 * r, asn, avd, wsn,
-                u, r, a.dt);
-  if (mode == EXIT && threadIdx.x == 0) fl[F_K] += 1;
 }
 
 // Contact tail (kernel 3), part 1, on 128-vertex tiles, for each sim whose
@@ -437,38 +553,47 @@ __global__ void contact_predict(Affine<T, M> all, int step) {
   }
 }
 
-// Contact tail, part 2, one block per sim: rb_const from the partials, the
-// loop on the clamped predictor's selected columns, u; then unit
-// coefficients over the anchors the lift below writes, with stale
-// projections.
+// Contact tail, part 2, one cluster per sim (block d: dimension d):
+// rb_const from the partials, the loop on the clamped predictor's selected
+// columns, u; then unit coefficients over the anchors the lift below
+// writes, with stale projections.  (It stages the loop's operands only:
+// M_utac_d and U_selT_d are not read here.)
 template <typename T, typename M>
-__global__ void contact_solve(Affine<T, M> a, Iter<T> op, int step,
-                              int num_iterations) {
-  const int b = blockIdx.x;  // the sim
-  const int r = op.r, g = op.g, N = a.N;
+__global__ void __cluster_dims__(3, 1, 1)
+    __launch_bounds__(CLUSTER_THREADS, 2)
+        contact_solve(Affine<T, M> a, Iter<T> op, int step,
+                      int num_iterations, const int* lane_cols, int ms,
+                      int plan) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int d = (int)cl.block_rank();
+  const int b = blockIdx.y;
+  const int r = op.r, N = a.N;
   int* fl = a.flags + (size_t)b * a.flag_stride;
-  if (!fl[F_STEP + step]) return;
-  T* coef = a.coef + (size_t)b * (18 + 6 * r);
-  const T* sn = a.sn + (size_t)b * 3 * N;
-  T* rbc = reinterpret_cast<T*>(affine_smem);
-  T* rb = rbc + 3 * r;
-  T* vc = rb + 3 * r;
-  T* vall = vc + 3 * g;
-  T* pt = vall + 3 * g;
-  sum_partials(a.partial + (size_t)b * a.nblk * 2 * 3 * r, a.nblk, r, 0, rbc);
-  __syncthreads();
-  const T* rbex = a.rbex + (size_t)b * a.rb_sim;
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x)
-    rbc[i] = rbex[i] - rbc[i];
-  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
-    const int d = i / g, c = i - d * g;
-    vc[i] = gather_col(op, sn + (size_t)d * N, c);
+  if (!fl[F_STEP + step]) return;  // no block of this launch writes it
+  Carve cv;
+  const AffineLayout L = affine_layout(cv, r, op.g, op.m, a.n_sel, plan);
+  const ClusterLoop<T> c = cluster_loop(op, L.loop, d, lane_cols, ms);
+  const double* partial = a.partial + (size_t)b * a.nblk * 2 * 3 * r;
+  const T* rbex = a.rbex + (size_t)b * a.rb_sim + (size_t)d * r;
+  for (int k = threadIdx.x; k < r; k += blockDim.x) {
+    double acc = 0.0;
+    for (int t = 0; t < a.nblk; ++t)
+      acc += partial[(size_t)t * 2 * 3 * r + d * r + k];
+    c.rbc[k] = rbex[k] - (T)acc;
   }
-  __syncthreads();
-  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
-  solve_block(op, rb, a.u + (size_t)b * 3 * r);
-  affine_reset(coef, coef + 9, coef + 18, coef + 18 + 3 * r, r);
-  if (threadIdx.x == 0) fl[F_STALE] = 1;
+  const T* sn = a.sn + (size_t)b * 3 * N + (size_t)d * N;
+  for (int j = threadIdx.x; j < op.g; j += blockDim.x)
+    c.vc[j] = gather_col(op, sn, j);
+  cp_async_wait_all();
+  cl.sync();
+  iterate_cluster(c, num_iterations);
+  T* u = a.u + (size_t)b * 3 * r + (size_t)d * r;
+  solve_cluster(c, [&](int n, T acc) { u[n] = acc; });
+  T* coef = a.coef + (size_t)b * (18 + 6 * r);
+  affine_reset_row(coef + 3 * d, coef + 9 + 3 * d, coef + 18 + d * r,
+                   coef + 18 + 3 * r + d * r, r);
+  cl.sync();
+  if (d == 1 && threadIdx.x == 0) fl[F_STALE] = 1;
 }
 
 // Contact tail, part 3, over the 3N entries of each sim whose step i
@@ -571,97 +696,102 @@ __global__ void mode_predict(Affine<T, M> all, int step) {
   }
 }
 
-// Contact mode, part 2, one block per sim in contact mode at step i
-// (pallas_resident.py:762-819): on entry the projections buPy, buVy of the
-// y rows of P and V (:854-863); rb_const with its y row rb_ex_y - s,
-// s = buPy + dt eta buVy + bu_fa_y + pc; snT_sel with the clamped y row;
-// the loop and its solve u; the coefficient update (its y rows unused in
-// contact mode); buPy' = s + u_y M_utac_y, buVy' = (buPy' - buPy)/dt; the
-// step's slot and the mode set.
+// Contact mode, part 2, one cluster per sim in contact mode at step i
+// (pallas_resident.py:762-819), block d dimension d: on entry the
+// projections buPy, buVy of the y rows of P and V (:854-863); rb_const
+// with its y row rb_ex_y - s, s = buPy + dt eta buVy + bu_fa_y + pc;
+// snT_sel's x and z rows, Vc's y row from the clamped sn_y; the loop and
+// its solve u; the coefficient update (its y row unused in contact mode);
+// buPy' = s + u_y M_utac_y, buVy' = (buPy' - buPy)/dt; the step's slot and
+// the mode set.  The y block does the y-only work, the x and z blocks the
+// affine rows.
 template <typename T, typename M>
-__global__ void mode_solve(Affine<T, M> a, Iter<T> op, int step,
-                           int num_iterations) {
-  const int b = blockIdx.x;  // the sim
-  const int r = op.r, g = op.g, m = op.m, n_sel = a.n_sel, N = a.N;
+__global__ void __cluster_dims__(3, 1, 1)
+    __launch_bounds__(CLUSTER_THREADS, 2)
+        mode_solve(Affine<T, M> a, Iter<T> op, int step, int num_iterations,
+                   const int* lane_cols, int ms, int plan) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int d = (int)cl.block_rank();  // 1: the y block
+  const int b = blockIdx.y;
+  const int r = op.r, n_sel = a.n_sel, N = a.N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // the flags as they stand at the launch (written after the last cluster
+  // barrier)
   int* fl = a.flags + (size_t)b * a.flag_stride;
+  const bool stale = fl[F_STALE];  // only a sim entering at a rebase step
   const bool enter = fl[F_STEP + step] & S_CLAMPED;
   if (!fl[F_MODE] && !enter) return;
-  T* coef = a.coef + (size_t)b * (18 + 6 * r);  // ap, av, wp, wv
-  const double* partial = a.partial + (size_t)b * a.nblk * 2 * 3 * r;
-  const double* pcpart = a.pcpart + (size_t)b * a.nblk * r;
-  const size_t x = (size_t)b * 3 * N;
-  T* ybu = a.ybu + (size_t)b * 2 * r;  // buPy, buVy
-  T* rbc = reinterpret_cast<T*>(affine_smem);
-  T* rb = rbc + 3 * r;
-  T* vc = rb + 3 * r;
-  T* vall = vc + 3 * g;
-  T* pt = vall + 3 * g;
-  T* asn = pt + 3 * m;       // 9
-  T* avd = asn + 9;          // 9
-  T* wsn = avd + 9;          // 3r
-  T* u = wsn + 3 * r;        // 3r
-  T* snsel = u + 3 * r;      // 3 n_sel
-  T* sy = snsel + 3 * n_sel; // r: s
-  T* bu0 = a.bu + (size_t)b * 9 * r;
-  T* bu1 = bu0 + 3 * r;
+  Carve cv;
+  const AffineLayout L = affine_layout(cv, r, op.g, op.m, n_sel, plan);
+  const ClusterLoop<T> c = cluster_loop(op, L.loop, d, lane_cols, ms);
+  const Operand<T> mutac =
+      operand(L.mutac, a.mutac + (size_t)d * r * r, r, r);
+  const Operand<T> usel =
+      operand(L.usel, a.uselT + (size_t)d * r * n_sel, r, n_sel);
+  const Rows<T> w = rows_of<T>(L);
+  T* coef = a.coef + (size_t)b * (18 + 6 * r);
+  T* bu0 = a.bu + (size_t)b * 9 * r + (size_t)d * r;
+  const T* bu1 = bu0 + 3 * r;
   const T* bufa = bu0 + 6 * r;
-  const T* M1 = a.mutac + (size_t)r * r;  // M_utac's y block
-  const bool stale = fl[F_STALE];
+  T* ybu = a.ybu + (size_t)b * 2 * r;  // buPy, buVy
+  const T* rbex = a.rbex + (size_t)b * a.rb_sim + (size_t)d * r;
+  coef_rows(coef, d, r, w.ap, w.av, w.wp, w.wv, false);
+  if (stale)
+    sum_partial_rows(a.partial + (size_t)b * a.nblk * 2 * 3 * r, a.nblk, r,
+                     d, bu0, bu0 + 3 * r);
+  cp_async_wait_all();
+  cl.sync();
+  affine_predictor_row(w.ap, w.av, w.wp, w.wv, r, a.dt, a.eta, w.asn, w.avd,
+                       w.wsn);
   __syncthreads();
-  if (stale) {  // only a sim entering at a step whose anchors are new
-    sum_partials(partial, a.nblk, r, 0, bu0);
-    sum_partials(partial, a.nblk, r, 1, bu1);
-  }
-  affine_predictor(coef, coef + 9, coef + 18, coef + 18 + 3 * r, r, a.dt,
-                   a.eta, asn, avd, wsn);
-  __syncthreads();
-  if (stale && threadIdx.x == 0) fl[F_STALE] = 0;
-  if (enter) {
-    for (int i = threadIdx.x; i < 2 * r; i += blockDim.x) {
-      const int s = i / r, k = i - s * r;  // s = 0: P (ap, wp); 1: V
-      const T* ac = coef + 9 * s + 3;
-      const T* w = coef + 18 + 3 * r * s + r;
-      T acc = T(0);
-      for (int j = 0; j < r; ++j) acc += w[j] * M1[(size_t)j * r + k];
-      ybu[i] = ac[0] * bu0[r + k] + ac[1] * bu1[r + k] + ac[2] * bufa[r + k] +
-               acc;
+  if (d == 1) {
+    if (enter) {
+      // buPy (buVy) = the y rows of ap (av) over bu0, bu1, bu_fa
+      // + wp_y (wv_y) M_utac_y
+      affine_combine_row(w.ap, w.wp, bu0, bu1, bufa, mutac, r, r, ybu);
+      affine_combine_row(w.av, w.wv, bu0, bu1, bufa, mutac, r, r, ybu + r);
+      __syncthreads();
     }
+    const double* pcpart = a.pcpart + (size_t)b * a.nblk * r;
+    const bool damp = a.eta != T(1);
+    for (int k = tid; k < r; k += nt) {
+      double acc = 0.0;
+      for (int t = 0; t < a.nblk; ++t) acc += pcpart[(size_t)t * r + k];
+      const T bv = damp ? mul_rn(a.eta, ybu[r + k]) : ybu[r + k];
+      const T bupsn = add_rn(add_rn(ybu[k], mul_rn(a.dt, bv)), bufa[k]);
+      w.sy[k] = add_rn(bupsn, (T)acc);
+      c.rbc[k] = rbex[k] - w.sy[k];
+    }
+    const T* sny = a.sn + (size_t)b * 3 * N + N;
+    for (int j = tid; j < op.g; j += nt) c.vc[j] = gather_col(op, sny, j);
+  } else {
+    const size_t x = (size_t)b * 3 * N + (size_t)d * N;
+    affine_rb_const_row(w.asn, w.wsn, bu0, bu1, bufa, mutac, rbex, r, c.rbc);
+    affine_combine_row(w.asn, w.wsn, a.b0 + x, a.b1 + x, a.fa + x, usel, r,
+                       n_sel, w.sel);
     __syncthreads();
-  }
-  const bool damp = a.eta != T(1);
-  for (int k = threadIdx.x; k < r; k += blockDim.x) {
-    double acc = 0.0;
-    for (int t = 0; t < a.nblk; ++t) acc += pcpart[(size_t)t * r + k];
-    const T bv = damp ? mul_rn(a.eta, ybu[r + k]) : ybu[r + k];
-    const T bupsn = add_rn(add_rn(ybu[k], mul_rn(a.dt, bv)), bufa[r + k]);
-    sy[k] = add_rn(bupsn, (T)acc);
-  }
-  const T* rbex = a.rbex + (size_t)b * a.rb_sim;
-  affine_rb_const(asn, wsn, bu0, bu1, bufa, a.mutac, rbex, r, rbc);
-  affine_combine(asn, wsn, a.b0 + x, a.b1 + x, a.fa + x, N, a.uselT, r, n_sel,
-                 snsel);
-  __syncthreads();
-  for (int k = threadIdx.x; k < r; k += blockDim.x)
-    rbc[r + k] = rbex[r + k] - sy[k];
-  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
-    const int d = i / g, c = i - d * g;
-    vc[i] = gather_col(op, d == 1 ? a.sn + x + N : snsel + d * n_sel, c);
+    for (int j = tid; j < op.g; j += nt) c.vc[j] = gather_col(op, w.sel, j);
   }
   __syncthreads();
-  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
-  solve_block(op, rb, u);
+  iterate_cluster(c, num_iterations);
+  solve_cluster(c, [&](int n, T acc) { w.u[n] = acc; });
   __syncthreads();
-  for (int k = threadIdx.x; k < r; k += blockDim.x) {
-    T acc = T(0);
-    for (int j = 0; j < r; ++j) acc += u[r + j] * M1[(size_t)j * r + k];
-    const T bup = sy[k] + acc;
-    ybu[r + k] = (bup - ybu[k]) / a.dt;
-    ybu[k] = bup;
-    a.u[(size_t)b * 3 * r + r + k] = u[r + k];
+  if (d == 1) {
+    T* uy = a.u + (size_t)b * 3 * r + r;  // for mode_lift
+    gemv(w.u, mutac, r, r, [&](int n, T acc) {
+      const T bup = w.sy[n] + acc;
+      ybu[r + n] = (bup - ybu[n]) / a.dt;
+      ybu[n] = bup;
+      uy[n] = w.u[n];
+    });
   }
-  affine_update(coef, coef + 9, coef + 18, coef + 18 + 3 * r, asn, avd, wsn,
-                u, r, a.dt);
-  if (threadIdx.x == 0) {
+  affine_update_row(w.ap, w.av, w.wp, w.wv, w.asn, w.avd, w.wsn, w.u, r,
+                    a.dt);
+  __syncthreads();
+  coef_rows(coef, d, r, w.ap, w.av, w.wp, w.wv, true);
+  cl.sync();
+  if (d == 1 && tid == 0) {
+    if (stale) fl[F_STALE] = 0;
     fl[F_MODE] = 1;
     fl[F_STEP + step] |= S_CONTACT;
   }
@@ -746,28 +876,30 @@ __global__ void rebase_reset(Affine<T, M> all) {
 template <typename T, typename M, int SG>
 cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
                            int num_iterations, int rebase_every, int mode,
-                           int rb_rows, cudaStream_t s) {
-  const int N = a.N, r = a.r, nb = a.nb, g = op.g, m = op.m;
+                           int rb_rows, const int* lane_cols, int ms,
+                           int plan, int smem, cudaStream_t s) {
+  const int N = a.N, r = a.r, nb = a.nb;
   const int ys = min(nb, SIM_Y);
   const dim3 grid_tiles(a.nblk, ys);
   const dim3 grid_entries((3 * N + THREADS - 1) / THREADS, ys);
   const dim3 grid_y((N + THREADS - 1) / THREADS, (nb + SG - 1) / SG);
-  const size_t smem_free =
-      sizeof(T) * (iter_smem_elems(r, g, m) + 18 + 6 * r + 3 * a.n_sel);
-  const size_t smem_solve = sizeof(T) * iter_smem_elems(r, g, m);
+  const dim3 grid_cluster(CLUSTER_SIZE, nb);  // one cluster a sim
   const size_t smem_pred = sizeof(T) * (18 + 6 * r + 3 * TILE);
   const size_t smem_mat = sizeof(T) * (18 + 6 * r);
   const size_t smem_y = sizeof(T) * SG * (18 + 3 * r);
   const size_t smem_mpred = sizeof(T) * (6 + 2 * r + TILE);
-  const size_t smem_msolve = smem_free + sizeof(T) * r;
   const dim3 grid_verts((N + THREADS - 1) / THREADS, ys);
-  cudaError_t e = allow_smem(free_step<T, M>, smem_free);
-  if (e == cudaSuccess) e = allow_smem(contact_solve<T, M>, smem_solve);
+  // the wrapper's plan must size the cluster blocks as this carving does
+  if ((size_t)smem != affine_smem_bytes(r, op.g, op.m, a.n_sel, plan) ||
+      (size_t)smem > CLUSTER_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(free_step<T, M>, smem);
+  if (e == cudaSuccess) e = allow_smem(contact_solve<T, M>, smem);
+  if (e == cudaSuccess) e = allow_smem(mode_solve<T, M>, smem);
   if (e == cudaSuccess) e = allow_smem(contact_predict<T, M>, smem_pred);
   if (e == cudaSuccess) e = allow_smem(materialize<T, M>, smem_mat);
   if (e == cudaSuccess) e = allow_smem(y_check<T, M, SG>, smem_y);
   if (e == cudaSuccess) e = allow_smem(mode_predict<T, M>, smem_mpred);
-  if (e == cudaSuccess) e = allow_smem(mode_solve<T, M>, smem_msolve);
   if (e != cudaSuccess) return e;
   project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(a, SRC_FA,
                                                         GATE_ALWAYS, 0);
@@ -788,18 +920,18 @@ cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
     // contact mode needs the anchors' projections on its entry too
     project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(
         a, SRC_ANCHORS, mode == CONTACT ? GATE_STALE : GATE_REFRESH, i);
-    free_step<T, M><<<nb, THREADS, smem_free, s>>>(a, op, i, mode,
-                                                   num_iterations);
+    free_step<T, M><<<grid_cluster, CLUSTER_THREADS, smem, s>>>(
+        a, op, i, mode, num_iterations, lane_cols, ms, plan);
     if (mode == CONTACT) {
       mode_predict<T, M><<<grid_tiles, THREADS, smem_mpred, s>>>(a, i);
-      mode_solve<T, M><<<nb, THREADS, smem_msolve, s>>>(a, op, i,
-                                                        num_iterations);
+      mode_solve<T, M><<<grid_cluster, CLUSTER_THREADS, smem, s>>>(
+          a, op, i, num_iterations, lane_cols, ms, plan);
       mode_lift<T, M><<<grid_verts, THREADS, sizeof(T) * r, s>>>(a, i);
     }
     if (mode == LEAN) {
       contact_predict<T, M><<<grid_tiles, THREADS, smem_pred, s>>>(a, i);
-      contact_solve<T, M><<<nb, THREADS, smem_solve, s>>>(a, op, i,
-                                                          num_iterations);
+      contact_solve<T, M><<<grid_cluster, CLUSTER_THREADS, smem, s>>>(
+          a, op, i, num_iterations, lane_cols, ms, plan);
       contact_lift<T, M><<<grid_entries, THREADS, sizeof(T) * 3 * r, s>>>(
           a, i);
     }
@@ -822,7 +954,8 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
                   int N, int r, int n_sel, int g, int m, int num_steps,
                   int num_iterations, int rebase_every, int mode, int nb,
                   int flag_stride, double dt, double eta, double floor_h,
-                  int rb_rows, long long rb_sim, void* stream) {
+                  int rb_rows, long long rb_sim, const void* lane_cols,
+                  int ms, int plan, int smem, void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Affine<T, M> a;
@@ -855,12 +988,27 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
   a.eta = (T)eta;
   a.floor_h = (T)floor_h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lanes = static_cast<const int*>(lane_cols);
   return nb == 1 ? enqueue_affine<T, M, 1>(a, op, num_steps, num_iterations,
-                                          rebase_every, mode, rb_rows, s)
-                 : enqueue_affine<T, M, Y_GROUP>(a, op, num_steps,
-                                                 num_iterations,
-                                                 rebase_every, mode, rb_rows,
-                                                 s);
+                                          rebase_every, mode, rb_rows, lanes,
+                                          ms, plan, smem, s)
+                 : enqueue_affine<T, M, Y_GROUP>(
+                       a, op, num_steps, num_iterations, rebase_every, mode,
+                       rb_rows, lanes, ms, plan, smem, s);
+}
+
+// The largest number of clusters resident at once with smem bytes a block,
+// over the three cluster launches in both storage types (-1: none)
+inline int affine_clusters(int smem) {
+  int n = max_clusters(free_step<float, float>, smem);
+  const int more[] = {
+      max_clusters(free_step<float, __nv_bfloat16>, smem),
+      max_clusters(contact_solve<float, float>, smem),
+      max_clusters(contact_solve<float, __nv_bfloat16>, smem),
+      max_clusters(mode_solve<float, float>, smem),
+      max_clusters(mode_solve<float, __nv_bfloat16>, smem)};
+  for (int k : more) n = k < n ? k : n;
+  return n;
 }
 
 }  // namespace ksm
@@ -870,7 +1018,9 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
 // (nb, 2r) and pcpart (nb, nblk, r) float64 (unused, and may be null, in
 // the other modes); flags (nb, flag_stride) int32; rbex: rb_rows rows of
 // (3, r) per sim, sim b's at b * rb_sim (0: one schedule shared by the
-// sims), step i reading row min(i, rb_rows - 1); nb = 1 is the solo call
+// sims), step i reading row min(i, rb_rows - 1); nb = 1 is the solo call;
+// lane_cols (ms,): the loop's projection order; plan: the staging plan's
+// bits, smem its bytes a block of the cluster launches (ops/cluster.py)
 #define AFFINE_ENTRY(NAME, T, M)                                             \
   extern "C" int NAME(                                                       \
       void* b0, void* b1, const void* fa, const void* rbex,                 \
@@ -883,15 +1033,21 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
       int n_sel, int g, int m, int num_steps, int num_iterations,            \
       int rebase_every, int mode, int nb, int flag_stride, double dt,        \
       double eta, double floor_h, int rb_rows, long long rb_sim,             \
-      void* stream) {                                                        \
+      const void* lane_cols, int ms, int plan, int smem, void* stream) {     \
     return ksm::launch_affine<T, M>(                                         \
         b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gptr, gcol, \
         gw, kind, eg, ef, coef, bu, sn, Pm, u, partial, ys, ybu, pcpart,     \
         flags, N, r, n_sel, g, m, num_steps, num_iterations, rebase_every,   \
-        mode, nb, flag_stride, dt, eta, floor_h, rb_rows, rb_sim, stream);   \
+        mode, nb, flag_stride, dt, eta, floor_h, rb_rows, rb_sim, lane_cols, \
+        ms, plan, smem, stream);                                             \
   }
 
 AFFINE_ENTRY(resident_affine_f32_f32, float, float)
 AFFINE_ENTRY(resident_affine_f32_bf16, float, __nv_bfloat16)
 
 extern "C" int affine_tile() { return ksm::TILE; }
+
+// clusters of the cluster launches resident at once with smem bytes a block
+extern "C" int affine_max_clusters(int smem) {
+  return ksm::affine_clusters(smem);
+}

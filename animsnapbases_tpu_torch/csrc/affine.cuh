@@ -1,8 +1,12 @@
-// The affine-coordinate step pieces of kernels 3 and 4 (affine.cu): the
-// block-level counterparts of animsnapbases_tpu/ops/pallas_resident.py
-// `_make_affine_ctx` (predictor, free_step).  Kernel 5
-// (affine_chunked.cuh) runs one dimension's row of each in each block of
-// its cluster, in the same arithmetic, and shares `affine_row`.
+// The affine-coordinate step pieces of kernels 3, 4 (affine.cu) and 5
+// (affine_chunked.cuh): the counterparts of animsnapbases_tpu/ops/
+// pallas_resident.py `_make_affine_ctx` (predictor, free_step).  Every
+// piece but the O(N) materialization is separable by dimension, so each
+// comes as one dimension's row, which block d of a cluster (one block a
+// dimension, iteration_cluster.cuh) runs on its own rows; the O(N)
+// launches of affine.cu, one block over all three rows, run the same
+// entries.  Each entry is one thread's arithmetic whichever thread runs
+// it, so the row forms equal the one-block forms they replaced bit for bit.
 //
 // Coefficient state, dims-leading as everywhere in the port:
 //   ap, av (3, 3): row d holds dim d's coefficients over [b0, b1, fa];
@@ -11,29 +15,54 @@
 // entries over the threads; callers put a barrier between dependent calls.
 #pragma once
 
-#include "iteration.cuh"
+#include "iteration_cluster.cuh"
 #include "storage.cuh"
 
 namespace ksm {
 
-// The damped predictor: asn = ap + dt*avd + e2, avd = eta*av,
+// Entry j of one dimension's row of the damped predictor: j < 3 a base
+// coefficient (ap, av, asn, avd: that row's 3), else reduced coordinate
+// j - 3 (wp, wv, wsn: its r): asn = ap + dt*avd + e2, avd = eta*av,
 // wsn = wp + dt*eta*wv, with round-to-nearest operations in the plain
-// version's order (ops/affine.py AffineContext.predictor).  Threads tid
-// of nt split the entries (each entry is one thread's, whichever).
+// version's order (ops/affine.py AffineContext.predictor).
+template <typename T>
+__device__ __forceinline__ void affine_predict_entry(int j, const T* ap,
+                                                     const T* av, const T* wp,
+                                                     const T* wv, T dt, T eta,
+                                                     T* asn, T* avd, T* wsn) {
+  const bool damp = eta != T(1);
+  if (j < 3) {
+    const T a = damp ? mul_rn(eta, av[j]) : av[j];
+    avd[j] = a;
+    asn[j] = add_rn(add_rn(ap[j], mul_rn(dt, a)), j == 2 ? T(1) : T(0));
+  } else {
+    const int q = j - 3;
+    const T v = damp ? mul_rn(eta, wv[q]) : wv[q];
+    wsn[q] = add_rn(wp[q], mul_rn(dt, v));
+  }
+}
+
+// One dimension's row of the predictor, split over the block
+template <typename T>
+__device__ __forceinline__ void affine_predictor_row(const T* ap, const T* av,
+                                                     const T* wp, const T* wv,
+                                                     int r, T dt, T eta,
+                                                     T* asn, T* avd, T* wsn) {
+  for (int j = threadIdx.x; j < 3 + r; j += blockDim.x)
+    affine_predict_entry(j, ap, av, wp, wv, dt, eta, asn, avd, wsn);
+}
+
+// All three rows (ap, av, asn, avd (3, 3); wp, wv, wsn (3, r)), threads
+// tid of nt splitting the entries
 template <typename T>
 __device__ void affine_predictor_by(int tid, int nt, const T* ap,
                                     const T* av, const T* wp, const T* wv,
                                     int r, T dt, T eta, T* asn, T* avd,
                                     T* wsn) {
-  const bool damp = eta != T(1);
-  for (int i = tid; i < 9; i += nt) {
-    const T a = damp ? mul_rn(eta, av[i]) : av[i];
-    avd[i] = a;
-    asn[i] = add_rn(add_rn(ap[i], mul_rn(dt, a)), (i % 3) == 2 ? T(1) : T(0));
-  }
-  for (int i = tid; i < 3 * r; i += nt) {
-    const T v = damp ? mul_rn(eta, wv[i]) : wv[i];
-    wsn[i] = add_rn(wp[i], mul_rn(dt, v));
+  for (int i = tid; i < 3 * (3 + r); i += nt) {
+    const int d = i / (3 + r), j = i - d * (3 + r);
+    affine_predict_entry(j, ap + 3 * d, av + 3 * d, wp + d * r, wv + d * r,
+                         dt, eta, asn + 3 * d, avd + 3 * d, wsn + d * r);
   }
 }
 
@@ -46,75 +75,105 @@ __device__ void affine_predictor(const T* ap, const T* av, const T* wp,
                       asn, avd, wsn);
 }
 
-// rbc = rb_ex - rb_lin with
-// rb_lin[d, k] = asn[d,0] bu0 + asn[d,1] bu1 + asn[d,2] bu_fa
-//               + sum_j wsn[d, j] M_utac[d, j, k]
+// One dimension's rb_const: rbc = rb_ex - rb_lin with
+// rb_lin[k] = asn[0] bu0[k] + asn[1] bu1[k] + asn[2] bu_fa[k]
+//             + sum_j wsn[j] M_utac_d[j, k]
+// (wsn 16-byte aligned in shared memory: gemv's x)
 template <typename T>
-__device__ void affine_rb_const(const T* asn, const T* wsn, const T* bu0,
-                                const T* bu1, const T* bufa,
-                                const T* mutac, const T* rbex, int r,
-                                T* rbc) {
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
-    const int d = i / r, k = i - d * r;
-    const T* Md = mutac + (size_t)d * r * r + k;
-    const T* wd = wsn + d * r;
-    T acc = T(0);
-    for (int j = 0; j < r; ++j) acc += wd[j] * Md[(size_t)j * r];
-    const T lin = asn[3 * d] * bu0[i] + asn[3 * d + 1] * bu1[i] +
-                  asn[3 * d + 2] * bufa[i] + acc;
-    rbc[i] = rbex[i] - lin;
+__device__ __forceinline__ void affine_rb_const_row(
+    const T* asn, const T* wsn, const T* bu0, const T* bu1, const T* bufa,
+    const Operand<T>& mutac, const T* rbex, int r, T* rbc) {
+  gemv(wsn, mutac, r, r, [&](int n, T acc) {
+    const T lin = asn[0] * bu0[n] + asn[1] * bu1[n] + asn[2] * bufa[n] + acc;
+    rbc[n] = rbex[n] - lin;
+  });
+}
+
+// One dimension's out[c] = asn[0] x0[c] + asn[1] x1[c] + asn[2] x2[c]
+//                          + sum_k wsn[k] map[k, c]   for c < width.
+// Kernels 3, 4 and kernel 5 without fold_vc form the selected prefix
+// snT_sel this way (x* = the anchors' and fa's row, map = U_selT_d);
+// kernel 5 with fold_vc forms Vc (x* = their gathered columns, map = UG_d).
+template <typename T>
+__device__ __forceinline__ void affine_combine_row(const T* asn, const T* wsn,
+                                                   const T* x0, const T* x1,
+                                                   const T* x2,
+                                                   const Operand<T>& map,
+                                                   int r, int width, T* out) {
+  gemv(wsn, map, r, width, [&](int n, T acc) {
+    out[n] = asn[0] * x0[n] + asn[1] * x1[n] + asn[2] * x2[n] + acc;
+  });
+}
+
+// One dimension's coefficient update after a free step, without the
+// cancelling subtract: ap = asn, av = avd + e2/dt, wq = wsn + u,
+// wv = (wq - wp)/dt, wp = wq.
+template <typename T>
+__device__ __forceinline__ void affine_update_row(T* ap, T* av, T* wp, T* wv,
+                                                  const T* asn, const T* avd,
+                                                  const T* wsn, const T* u,
+                                                  int r, T dt) {
+  for (int j = threadIdx.x; j < 3 + r; j += blockDim.x) {
+    if (j < 3) {
+      ap[j] = asn[j];
+      av[j] = avd[j] + (j == 2 ? T(1) / dt : T(0));
+    } else {
+      const int q = j - 3;
+      const T wq = wsn[q] + u[q];
+      wv[q] = (wq - wp[q]) / dt;
+      wp[q] = wq;
+    }
   }
 }
 
-// out[d, c] = asn[d,0] x0[d, c] + asn[d,1] x1[d, c] + asn[d,2] x2[d, c]
-//             + sum_k wsn[d, k] map[d, k, c]   for c < width,
-// with x* read at row stride ld and map (3, r, width).  Kernels 3 and 4
-// form snT_sel this way (x* = the anchors' and fa's selected prefix, map =
-// U_selT); kernel 5 forms Vc (x* = their gathered columns, map = UG_allT).
+// One dimension's reset to unit coefficients over new anchors
 template <typename T>
-__device__ void affine_combine(const T* asn, const T* wsn, const T* x0,
-                               const T* x1, const T* x2, int ld,
-                               const T* map, int r, int width, T* out) {
-  for (int i = threadIdx.x; i < 3 * width; i += blockDim.x) {
-    const int d = i / width, c = i - d * width;
-    const T* md = map + (size_t)d * r * width + c;
-    const T* wd = wsn + d * r;
-    T acc = T(0);
-    for (int k = 0; k < r; ++k) acc += wd[k] * md[(size_t)k * width];
-    const size_t x = (size_t)d * ld + c;
-    out[i] = asn[3 * d] * x0[x] + asn[3 * d + 1] * x1[x] +
-             asn[3 * d + 2] * x2[x] + acc;
+__device__ __forceinline__ void affine_reset_row(T* ap, T* av, T* wp, T* wv,
+                                                 int r) {
+  for (int j = threadIdx.x; j < 3 + r; j += blockDim.x) {
+    if (j < 3) {
+      ap[j] = j == 0 ? T(1) : T(0);
+      av[j] = j == 1 ? T(1) : T(0);
+    } else {
+      wp[j - 3] = T(0);
+      wv[j - 3] = T(0);
+    }
   }
 }
 
-// The coefficient update of a free step, without the cancelling subtract:
-// ap = asn, av = avd + e2/dt, wq = wsn + u, wv = (wq - wp)/dt, wp = wq.
-template <typename T>
-__device__ void affine_update(T* ap, T* av, T* wp, T* wv, const T* asn,
-                              const T* avd, const T* wsn, const T* u, int r,
-                              T dt) {
-  for (int i = threadIdx.x; i < 9; i += blockDim.x) {
-    ap[i] = asn[i];
-    av[i] = avd[i] + ((i % 3) == 2 ? T(1) / dt : T(0));
-  }
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
-    const T wq = wsn[i] + u[i];
-    wv[i] = (wq - wp[i]) / dt;
-    wp[i] = wq;
-  }
-}
-
-// Reset to unit coefficients over new anchors.
+// ... of all three rows
 template <typename T>
 __device__ void affine_reset(T* ap, T* av, T* wp, T* wv, int r) {
-  for (int i = threadIdx.x; i < 9; i += blockDim.x) {
-    const int j = i % 3;
-    ap[i] = j == 0 ? T(1) : T(0);
-    av[i] = j == 1 ? T(1) : T(0);
-  }
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
-    wp[i] = T(0);
-    wv[i] = T(0);
+  for (int d = 0; d < 3; ++d)
+    affine_reset_row(ap + 3 * d, av + 3 * d, wp + d * r, wv + d * r, r);
+}
+
+// Dimension d's rows of a sim's flat coefficients coef (ap (9), av (9),
+// wp (3r), wv (3r): ops/affine.py split_coef) copied into the row
+// buffers ap, av (3), wp, wv (r), or with `store` from them back
+template <typename T>
+__device__ __forceinline__ void coef_rows(T* coef, int d, int r, T* ap,
+                                          T* av, T* wp, T* wv, bool store) {
+  for (int j = threadIdx.x; j < 6 + 2 * r; j += blockDim.x) {
+    T* g;
+    T* s;
+    if (j < 3) {
+      g = coef + 3 * d + j;
+      s = ap + j;
+    } else if (j < 6) {
+      g = coef + 9 + 3 * d + j - 3;
+      s = av + j - 3;
+    } else if (j < 6 + r) {
+      g = coef + 18 + d * r + j - 6;
+      s = wp + j - 6;
+    } else {
+      g = coef + 18 + 3 * r + d * r + j - 6 - r;
+      s = wv + j - 6 - r;
+    }
+    if (store)
+      *g = *s;
+    else
+      *s = *g;
   }
 }
 

@@ -242,8 +242,6 @@ __global__ void __cluster_dims__(3, 1, 1)
     bu1[i] = a.bu1[d * r + i];
     bufa[i] = a.bufa[d * r + i];
     if (static_rb) rbex[i] = a.rbex[d * r + i];
-    wp[i] = T(0);
-    wv[i] = T(0);
   }
   if (fold) {
     for (int i = tid; i < g; i += nt) {
@@ -252,10 +250,7 @@ __global__ void __cluster_dims__(3, 1, 1)
       fas[i] = a.fas[d * g + i];
     }
   }
-  if (tid < 3) {  // unit coefficients over the anchors
-    ap[tid] = tid == 0 ? T(1) : T(0);
-    av[tid] = tid == 1 ? T(1) : T(0);
-  }
+  affine_reset_row(ap, av, wp, wv, r);  // unit coefficients over the anchors
   if (bound && exact) {
     // the bound's y-row minima and maxima, one row a block: P, V and, in
     // the first chunk of a call, fa
@@ -284,19 +279,8 @@ __global__ void __cluster_dims__(3, 1, 1)
   const M* Uy = exact ? a.ulift + (size_t)r * N : nullptr;
   int k = 0;
   for (int i = 0; i < a.steps; ++i) {
-    // the damped predictor of dimension d (affine.cuh affine_predictor_by)
-    const bool damp = a.eta != T(1);
-    for (int j = tid; j < 3 + r; j += nt) {
-      if (j < 3) {
-        const T v = damp ? mul_rn(a.eta, av[j]) : av[j];
-        avd[j] = v;
-        asn[j] = add_rn(add_rn(ap[j], mul_rn(a.dt, v)), j == 2 ? T(1) : T(0));
-      } else {
-        const int q = j - 3;
-        const T v = damp ? mul_rn(a.eta, wv[q]) : wv[q];
-        wsn[q] = add_rn(wp[q], mul_rn(a.dt, v));
-      }
-    }
+    // the damped predictor of dimension d
+    affine_predictor_row(ap, av, wp, wv, r, a.dt, a.eta, asn, avd, wsn);
     __syncthreads();
     if (d == 1) {
       // the step's verdict, decided here and written into every block
@@ -347,24 +331,17 @@ __global__ void __cluster_dims__(3, 1, 1)
       }
     }
     // rb_const = rb_i - (a0 bu0 + a1 bu1 + a2 bu_fa + wsn M_utac) and Vc
-    // of dimension d (affine.cuh affine_rb_const, affine_combine)
+    // of dimension d
     const T* rbx = static_rb ? rbex
                              : a.rbex + (size_t)min(i, a.rb_T - 1) * 3 * r +
                                    (size_t)d * r;
-    gemv(wsn, mutac, r, r, [&](int n, T acc) {
-      const T lin = asn[0] * bu0[n] + asn[1] * bu1[n] + asn[2] * bufa[n] + acc;
-      c.rbc[n] = rbx[n] - lin;
-    });
+    affine_rb_const_row(asn, wsn, bu0, bu1, bufa, mutac, rbx, r, c.rbc);
     if (fold) {
-      gemv(wsn, map, r, g, [&](int n, T acc) {
-        c.vc[n] = asn[0] * b0s[n] + asn[1] * b1s[n] + asn[2] * fas[n] + acc;
-      });
+      affine_combine_row(asn, wsn, b0s, b1s, fas, map, r, g, c.vc);
     } else {
       const size_t x = (size_t)d * N;
-      gemv(wsn, map, r, n_sel, [&](int n, T acc) {
-        snsel[n] = asn[0] * a.P[x + n] + asn[1] * a.V[x + n] +
-                   asn[2] * a.fa[x + n] + acc;
-      });
+      affine_combine_row(asn, wsn, a.P + x, a.V + x, a.fa + x, map, r, n_sel,
+                         snsel);
       __syncthreads();
       for (int j = tid; j < g; j += nt) c.vc[j] = gather_col(op, snsel, j);
     }
@@ -374,31 +351,12 @@ __global__ void __cluster_dims__(3, 1, 1)
       break;
     solve_cluster(c, [&](int n, T acc) { u[n] = acc; });
     __syncthreads();
-    // the coefficient update of dimension d (affine.cuh affine_update)
-    for (int j = tid; j < 3 + r; j += nt) {
-      if (j < 3) {
-        ap[j] = asn[j];
-        av[j] = avd[j] + (j == 2 ? T(1) / a.dt : T(0));
-      } else {
-        const int q = j - 3;
-        const T wq = wsn[q] + u[q];
-        wv[q] = (wq - wp[q]) / a.dt;
-        wp[q] = wq;
-      }
-    }
+    // the coefficient update of dimension d
+    affine_update_row(ap, av, wp, wv, asn, avd, wsn, u, r, a.dt);
     __syncthreads();
     k = i + 1;
   }
-  for (int j = tid; j < 6 + 2 * r; j += nt) {
-    if (j < 3)
-      a.out[3 * d + j] = ap[j];
-    else if (j < 6)
-      a.out[9 + 3 * d + j - 3] = av[j - 3];
-    else if (j < 6 + r)
-      a.out[18 + d * r + j - 6] = wp[j - 6];
-    else
-      a.out[18 + 3 * r + d * r + j - 6 - r] = wv[j - 6 - r];
-  }
+  coef_rows(a.out, d, r, ap, av, wp, wv, true);
   if (d == 0 && tid == 0) *a.k = k;
   // no block leaves while a peer may still read its shared memory
   cl.sync();

@@ -63,13 +63,6 @@ __global__ void __cluster_dims__(3, 1, 1)
   cg::this_cluster().sync();
 }
 
-// shared memory of a block (bytes) for the staging plan's bits
-inline size_t fused_smem_bytes(int r, int g, int m, int plan) {
-  Carve cv;
-  loop_layout(cv, r, g, m, plan);
-  return 4 * (size_t)cv.at;
-}
-
 template <typename T>
 int launch_fused(const void* snT, int ld_sn, long long sim_sn,
                  const void* rb_const, const void* C, const void* inv,
@@ -81,7 +74,7 @@ int launch_fused(const void* snT, int ld_sn, long long sim_sn,
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   // the wrapper's plan must size the blocks as this carving does
-  if ((size_t)smem != fused_smem_bytes(r, g, m, plan) ||
+  if ((size_t)smem != loop_smem_bytes(r, g, m, plan) ||
       (size_t)smem > CLUSTER_SMEM_MAX)
     return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(fused_cluster_kernel<T>, smem);

@@ -1,18 +1,15 @@
-// The hyper-reduced local-global iteration loop, run by ONE thread block,
-// and the pieces every loop shares.
-//
-// resident.cu and affine.cu (kernels 2-4) run `iterate_block` every step;
-// kernels 1 and 5 run the same loop on a cluster of three blocks
-// (iteration_cluster.cuh) with this file's emitters, gather and element
-// table.  It is the body of animsnapbases_tpu/ops/
-// pallas_resident.py `_make_iteration_loop` and of pallas_reduced.py
-// `build_fused_reduced_iterations`: it carries rb (3, r), forms the
-// gathered vertex values as Vall = Vc + rb C_allT (C_allT = usel_inv G_allT
-// precomposed in float64 on the host), evaluates one projection row per
-// column of the element table (the five kinds of pallas_reduced.py
-// TERM_DISPATCH: tris_strain 2x2 clamp, edge_spring, tets_strain and
-// tets_deformation_gradient 3x3 Jacobi, verts_bending), and forms
-// rb = rb_const + pT WT.  At the end u = rb inv3.
+// The pieces of the hyper-reduced local-global iteration loop that every
+// kernel shares: the element table's projection emitters, the sparse
+// gather and the operand struct.  The loop itself runs on a cluster of
+// three blocks per sim (iteration_cluster.cuh) in kernels 1-5.  It is the
+// body of animsnapbases_tpu/ops/pallas_resident.py `_make_iteration_loop`
+// and of pallas_reduced.py `build_fused_reduced_iterations`: it carries rb
+// (3, r), forms the gathered vertex values as Vall = Vc + rb C_allT
+// (C_allT = usel_inv G_allT precomposed in float64 on the host), evaluates
+// one projection row per column of the element table (the five kinds of
+// pallas_reduced.py TERM_DISPATCH: tris_strain 2x2 clamp, edge_spring,
+// tets_strain and tets_deformation_gradient 3x3 Jacobi, verts_bending),
+// and forms rb = rb_const + pT WT.  At the end u = rb inv3.
 //
 // Element table (built by ops/fused_reduced.py `fused_operands`): column j
 // of pT is one projection row, of kind `kind[j]`, whose vertex slots read
@@ -270,68 +267,6 @@ __device__ __forceinline__ T gather_col(const Iter<T>& op, const T* x,
   for (int e = op.gptr[c]; e < op.gptr[c + 1]; ++e)
     acc += op.gw[e] * (double)x[op.gcol[e]];
   return (T)acc;
-}
-
-// Shared memory the loop needs, in elements of T: rbc, rb (3r each),
-// Vc, Vall (3g each), pT (3m).
-__host__ __device__ inline int iter_smem_elems(int r, int g, int m) {
-  return 6 * r + 6 * g + 3 * m;
-}
-
-// Runs num_iterations of the loop.  On entry rbc (3r) and vc (3g) hold
-// rb_const and Vc = snT_sel G_allT; on exit rb holds the last rhs.
-// Threads split Vall's columns, then the elements, then rb's (d, k)
-// entries, with a barrier between the phases.
-template <typename T>
-__device__ void iterate_block(const Iter<T>& op, const T* rbc, T* rb,
-                              const T* vc, T* vall, T* pt,
-                              int num_iterations) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int r = op.r, g = op.g, m = op.m;
-  for (int i = tid; i < 3 * r; i += nt) rb[i] = T(0);
-  __syncthreads();
-  for (int it = 0; it < num_iterations; ++it) {
-    for (int i = tid; i < 3 * g; i += nt) {
-      const int d = i / g, c = i - d * g;
-      const T* Cd = op.C + (size_t)d * r * g + c;
-      const T* rbd = rb + d * r;
-      T acc = T(0);
-      for (int k = 0; k < r; ++k) acc += rbd[k] * Cd[(size_t)k * g];
-      vall[i] = vc[i] + acc;
-    }
-    __syncthreads();
-    for (int j = tid; j < m; j += nt) {
-      T o[3];
-      project_element(op, vall, j, o);
-      pt[j] = o[0];
-      pt[m + j] = o[1];
-      pt[2 * m + j] = o[2];
-    }
-    __syncthreads();
-    for (int i = tid; i < 3 * r; i += nt) {
-      const int d = i / r, k = i - d * r;
-      const T* Wd = op.WT + (size_t)d * m * r + k;
-      const T* pd = pt + d * m;
-      T acc = T(0);
-      for (int j = 0; j < m; ++j) acc += pd[j] * Wd[(size_t)j * r];
-      rb[i] = rbc[i] + acc;
-    }
-    __syncthreads();
-  }
-}
-
-// u = rb inv3 per dim (inv3 symmetric: row form as in the JAX kernels)
-template <typename T>
-__device__ void solve_block(const Iter<T>& op, const T* rb, T* u) {
-  const int r = op.r;
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
-    const int d = i / r, k = i - d * r;
-    const T* inv = op.inv + (size_t)d * r * r + k;
-    const T* rbd = rb + d * r;
-    T acc = T(0);
-    for (int j = 0; j < r; ++j) acc += rbd[j] * inv[(size_t)j * r];
-    u[i] = acc;
-  }
 }
 
 template <typename T>

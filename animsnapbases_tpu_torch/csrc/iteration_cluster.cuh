@@ -1,8 +1,10 @@
 // The hyper-reduced local-global iteration loop on a cluster of three
-// thread blocks, block d owning dimension d (kernels 1 and 5).
+// thread blocks, block d owning dimension d: the one loop of the port,
+// which kernels 1 (fused_reduced.cu), 2 (resident.cu), 3 and 4 (affine.cu)
+// and 5 (affine_chunked.cuh) run.
 //
-// It computes what iteration.cuh's `iterate_block` computes (the body of
-// animsnapbases_tpu/ops/pallas_resident.py `_make_iteration_loop`): from
+// It computes the body of animsnapbases_tpu/ops/pallas_resident.py
+// `_make_iteration_loop` with iteration.cuh's emitters and gather: from
 // rb (3, r), Vall = Vc + rb C_allT, one projection row per column of the
 // element table, rb = rb_const + pT WT_all; at the end u = rb inv3.  Every
 // step of it but the projections is separable by dimension, so block d of
@@ -34,9 +36,10 @@
 // in its shared memory when the staging plan says so (ops/cluster.py
 // `staging_plan`, computed on the host: bits STAGE_*), copied in once per
 // launch with cp.async; what does not fit is read from L2.  Each output of
-// a product is one thread's chain over its row index, as in iteration.cuh,
-// so the plan never changes a result and the kernels equal the one-block
-// loop they replace.
+// a product is one thread's chain over its row index, in the order of the
+// one-block loop (one block a sim, all three dimensions) that every kernel
+// ran before, so the plan never changes a result and the kernels equal
+// that loop bit for bit.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -57,8 +60,9 @@ enum : int {
   STAGE_C = 1,      // C_d (r, g)
   STAGE_WT = 2,     // WT_d (m, r)
   STAGE_INV = 4,    // inv3_d (r, r)
-  STAGE_MUTAC = 8,  // kernel 5: M_utac_d (r, r)
-  STAGE_MAP = 16    // kernel 5: UG_d (r, g), or U_selT_d (r, n_sel)
+  STAGE_MUTAC = 8,  // kernels 3-5: M_utac_d (r, r)
+  STAGE_MAP = 16    // kernel 5: UG_d (r, g); kernels 3, 4 and kernel 5
+                    // without fold_vc: U_selT_d (r, n_sel)
 };
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
@@ -105,6 +109,14 @@ __host__ __device__ inline LoopLayout loop_layout(Carve& cv, int r, int g,
   L.WT = cv.take_if(plan & STAGE_WT, m * rp);
   L.inv = cv.take_if(plan & STAGE_INV, r * rp);
   return L;
+}
+
+// shared memory of a block (bytes) of a kernel whose block holds the loop's
+// buffers alone (kernels 1 and 2), for the staging plan's bits
+inline size_t loop_smem_bytes(int r, int g, int m, int plan) {
+  Carve cv;
+  loop_layout(cv, r, g, m, plan);
+  return 4 * (size_t)cv.at;
 }
 
 // ---------------------------------------------------------------------------
@@ -235,8 +247,8 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
 
 // epi(n, sum_k x[k] A[k, n]) for n < N, A (K, N) at row stride lda: one
 // thread a column, its sum a chain of fused multiply-adds over k = 0, 1,
-// ..., K - 1 from 0, the order of iteration.cuh (kernels 2-4) and of the
-// one-block loop this replaces, so the results equal its bit for bit.  x
+// ..., K - 1 from 0, the order of the one-block loop this replaces, so the
+// results equal its bit for bit.  x
 // is read four entries at a time (16 bytes, x 16-byte aligned) and the
 // loop unrolled to 16 rows, so that a row's loads are in flight while the
 // chain runs; the warp's 32 columns are consecutive words of a row.

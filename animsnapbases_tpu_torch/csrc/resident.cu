@@ -19,9 +19,9 @@
 // matrices (2 x 3 x 64 x 14,400 x 2 B = 11.1 MB in bfloat16 at the bench
 // scene, L2-resident on the 50 MB L2) and does ~11 MFLOP of matrix-vector
 // work on them, spread over the SMs; the iteration loop in the middle is
-// the same single-block latency chain as kernel 1.  At the bench scene the
-// latency of that chain, not bytes or FLOPs, sets the step time.  An
-// animated schedule adds one (3, r) row per sim and step (768 B at r = 64).
+// the same latency chain as kernel 1.  At the bench scene the latency of
+// that chain, not bytes or FLOPs, sets the step time.  An animated
+// schedule adds one (3, r) row per sim and step (768 B at r = 64).
 //
 // What the design does about it: three launches per step on the caller's
 // stream, enqueued by one host loop in this file (no host read-back and no
@@ -29,14 +29,20 @@
 //   (a) predict_project: a grid over 128-vertex tiles forms sn, writes it,
 //       and writes one partial (3, r) of ut_acT . sn per tile (one warp
 //       per output row, coalesced reads of ut_acT along N);
-//   (b) resident_iterate: one block sums the partials in a fixed order
-//       (deterministic, no atomics), forms rb_const, gathers Vc from the
-//       selected prefix of sn and runs the iteration loop (iteration.cuh).
-//       The contraction over N accumulates in float64, in (a) and (b): its
-//       14,400 terms cancel to ~4e-4 of their absolute sum (A_c annihilates
-//       translations, and the state sits ~20 units up): with a float32
-//       sum in tile order one step of the bench scene came out 6.2x
-//       further from float64 in P than a float32 cuBLAS product.  The
+//   (b) resident_iterate: one cluster of three blocks per sim
+//       (iteration_cluster.cuh), block d owning dimension d: it sums its
+//       rows of the partials in a fixed order (deterministic, no atomics;
+//       113 tiles at 14,400 vertices, 1,954 at 250,000), forms rb_const_d,
+//       gathers Vc_d from the selected prefix of sn_d and runs the loop on
+//       its staged operands (C_d, WT_d, inv3_d as the staging plan says:
+//       ops/cluster.py, kernel "resident"), the rows of Vall pushed to the
+//       peers with st.async.  Each output is one thread's chain in the
+//       order of the one-block loop it ran before, so it equals it bit for
+//       bit.  The contraction over N accumulates in float64, in (a) and
+//       (b): its 14,400 terms cancel to ~4e-4 of their absolute sum (A_c
+//       annihilates translations, and the state sits ~20 units up): with a
+//       float32 sum in tile order one step of the bench scene came out
+//       6.2x further from float64 in P than a float32 cuBLAS product.  The
 //       float64 work is ~2.8 MFLOP a step; rb_const itself is rounded back
 //       to the state type.  The plain version accumulates it the same way.
 //   (c) lift_update: a grid over the 3N entries forms q and V.  Each
@@ -53,7 +59,8 @@
 //       to SIM_GROUP sims and reads each element of ut_acT once for all of
 //       them, so the (3, r, N) matrix is read nb / SIM_GROUP times a step,
 //       not nb times;
-//   (b) on a grid of nb blocks, one sim each;
+//   (b) on a grid of (3, nb) blocks, one cluster a sim, on the plan that
+//       needs the fewest waves of clusters (ops/cluster.py launch_plan);
 //   (c) on a grid of (entry blocks, sim groups): each U_liftT element is
 //       read once for the group's sims.
 // Each sim's sums run in the same order as in the solo launch (nb = 1,
@@ -61,7 +68,7 @@
 // call from sim b's state bit for bit.
 #include <type_traits>
 
-#include "iteration.cuh"
+#include "iteration_cluster.cuh"
 #include "storage.cuh"
 
 namespace ksm {
@@ -121,35 +128,40 @@ __global__ void predict_project(const T* P, const T* V, const T* fa, T* sn,
   }
 }
 
-// (b) reduction of the partials and the iteration loop, one block per sim
+// (b) reduction of the partials and the iteration loop, one cluster per
+// sim, block d dimension d
 template <typename T>
-__global__ void resident_iterate(Iter<T> op, const T* sn, int N,
-                                 const double* partial, int nblk,
-                                 const T* rb_extra, long long rb_sim, T* u,
-                                 int num_iterations) {
-  const int r = op.r, g = op.g;
-  const int b = blockIdx.x;  // the sim
-  rb_extra += (size_t)b * rb_sim;  // this step's row of sim b's schedule
-  sn += (size_t)b * 3 * N;
-  partial += (size_t)b * nblk * 3 * r;
-  u += (size_t)b * 3 * r;
-  T* rbc = reinterpret_cast<T*>(resident_smem);
-  T* rb = rbc + 3 * r;
-  T* vc = rb + 3 * r;
-  T* vall = vc + 3 * g;
-  T* pt = vall + 3 * g;
-  for (int i = threadIdx.x; i < 3 * r; i += blockDim.x) {
+__global__ void __cluster_dims__(3, 1, 1)
+    __launch_bounds__(CLUSTER_THREADS, 2)
+        resident_iterate(Iter<T> op, const T* sn, int N,
+                         const double* partial, int nblk, const T* rb_extra,
+                         long long rb_sim, T* u, int num_iterations,
+                         const int* lane_cols, int ms, int plan) {
+  const int r = op.r;
+  const int d = (int)cg::this_cluster().block_rank();  // the dimension
+  const int b = blockIdx.y;                            // the sim
+  Carve cv;
+  const LoopLayout L = loop_layout(cv, r, op.g, op.m, plan);
+  const ClusterLoop<T> c = cluster_loop(op, L, d, lane_cols, ms);
+  // row d of this step's row of sim b's schedule, of its partials, its sn
+  rb_extra += (size_t)b * rb_sim + (size_t)d * r;
+  partial += (size_t)b * nblk * 3 * r + (size_t)d * r;
+  sn += (size_t)b * 3 * N + (size_t)d * N;
+  for (int k = threadIdx.x; k < r; k += blockDim.x) {
     double s = 0.0;
-    for (int b = 0; b < nblk; ++b) s += partial[(size_t)b * 3 * r + i];
-    rbc[i] = rb_extra[i] - (T)s;
+    for (int t = 0; t < nblk; ++t) s += partial[(size_t)t * 3 * r + k];
+    c.rbc[k] = rb_extra[k] - (T)s;
   }
-  for (int i = threadIdx.x; i < 3 * g; i += blockDim.x) {
-    const int d = i / g, c = i - d * g;
-    vc[i] = gather_col(op, sn + (size_t)d * N, c);
-  }
-  __syncthreads();
-  iterate_block(op, rbc, rb, vc, vall, pt, num_iterations);
-  solve_block(op, rb, u);
+  for (int j = threadIdx.x; j < op.g; j += blockDim.x)
+    c.vc[j] = gather_col(op, sn, j);
+  cp_async_wait_all();
+  // the staged operands are in, and every block of the cluster has started
+  cg::this_cluster().sync();
+  iterate_cluster(c, num_iterations);
+  u += ((size_t)b * 3 + d) * r;
+  solve_cluster(c, [&](int k, T acc) { u[k] = acc; });
+  // no block leaves while a peer may still read its shared memory
+  cg::this_cluster().sync();
 }
 
 // (c) lift q = sn + U u and the velocity update, in place, for the sims of
@@ -195,23 +207,27 @@ cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
                           T* sn, double* part, T* u, int N, int r, int nb,
                           int num_steps, int num_iterations, T dt, T dtv,
                           int floor_on, T floor_h, int rb_rows,
-                          long long rb_sim, cudaStream_t s) {
+                          long long rb_sim, const int* lane_cols, int ms,
+                          int plan, int smem, cudaStream_t s) {
   const int nblk = (N + TILE - 1) / TILE;
   const int groups = (nb + SG - 1) / SG;
   const dim3 grid_a(nblk, groups);
   const dim3 grid_c((3 * N + THREADS - 1) / THREADS, groups);
-  const size_t smem_it = sizeof(T) * iter_smem_elems(op.r, op.g, op.m);
   const size_t smem_lift = sizeof(T) * SG * 3 * r;
-  cudaError_t e = allow_smem(resident_iterate<T>, smem_it);
+  // the wrapper's plan must size the cluster blocks as this carving does
+  if ((size_t)smem != loop_smem_bytes(r, op.g, op.m, plan) ||
+      (size_t)smem > CLUSTER_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(resident_iterate<T>, smem);
   if (e == cudaSuccess) e = allow_smem(lift_update<T, M, SG>, smem_lift);
   if (e != cudaSuccess) return e;
   for (int step = 0; step < num_steps; ++step) {
     predict_project<T, M, SG><<<grid_a, THREADS, 0, s>>>(
         P, V, fa, sn, part, utac, N, r, nb, dtv, floor_on, floor_h);
-    resident_iterate<T><<<nb, THREADS, smem_it, s>>>(
+    resident_iterate<T><<<dim3(CLUSTER_SIZE, nb), CLUSTER_THREADS, smem, s>>>(
         op, sn, N, part, nblk,
         rb_extra + (size_t)min(step, rb_rows - 1) * 3 * r, rb_sim, u,
-        num_iterations);
+        num_iterations, lane_cols, ms, plan);
     lift_update<T, M, SG><<<grid_c, THREADS, smem_lift, s>>>(
         P, V, sn, u, ulift, N, r, nb, dt);
     e = cudaGetLastError();
@@ -229,7 +245,8 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                     void* partial, void* u, int N, int r, int g,
                     int m, int num_steps, int num_iterations, int nb,
                     double dt, double dtv, int floor_on, double floor_h,
-                    int rb_rows, long long rb_sim, void* stream) {
+                    int rb_rows, long long rb_sim, const void* lane_cols,
+                    int ms, int plan, int smem, void* stream) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -241,7 +258,8 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
         static_cast<const M*>(ulift), static_cast<const M*>(utac),
         static_cast<T*>(sn), static_cast<double*>(partial),
         static_cast<T*>(u), N, r, nb, num_steps, num_iterations, (T)dt,
-        (T)dtv, floor_on, (T)floor_h, rb_rows, rb_sim, s);
+        (T)dtv, floor_on, (T)floor_h, rb_rows, rb_sim,
+        static_cast<const int*>(lane_cols), ms, plan, smem, s);
   };
   return nb == 1 ? run(std::integral_constant<int, 1>{})
                  : run(std::integral_constant<int, SIM_GROUP>{});
@@ -251,7 +269,9 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
 
 // P, V, fa, sn: (nb, 3, N); partial (nb, nblk, 3, r) float64; u (nb, 3, r);
 // rb_extra: rb_rows rows of (3, r) per sim, sim b's at b * rb_sim (0: one
-// schedule shared by the sims); nb = 1 is the solo call
+// schedule shared by the sims); nb = 1 is the solo call; lane_cols (ms,):
+// the loop's projection order; plan: the staging plan's bits, smem its
+// bytes a block of (b) (ops/cluster.py)
 #define RESIDENT_ENTRY(NAME, T, M)                                           \
   extern "C" int NAME(void* P, void* V, const void* fa,                      \
                       const void* rb_extra, const void* ulift,               \
@@ -262,14 +282,21 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                       void* partial, void* u, int N, int r, int g, int m,    \
                       int num_steps, int num_iterations, int nb, double dt,  \
                       double dtv, int floor_on, double floor_h, int rb_rows, \
-                      long long rb_sim, void* stream) {                      \
+                      long long rb_sim, const void* lane_cols, int ms,       \
+                      int plan, int smem, void* stream) {                    \
     return ksm::launch_resident<T, M>(                                       \
         P, V, fa, rb_extra, ulift, utac, C, inv, WT, gptr, gcol, gw, kind,   \
         eg, ef, sn, partial, u, N, r, g, m, num_steps, num_iterations, nb,   \
-        dt, dtv, floor_on, floor_h, rb_rows, rb_sim, stream);                \
+        dt, dtv, floor_on, floor_h, rb_rows, rb_sim, lane_cols, ms, plan,    \
+        smem, stream);                                                       \
   }
 
 RESIDENT_ENTRY(resident_multistep_f32_f32, float, float)
 RESIDENT_ENTRY(resident_multistep_f32_bf16, float, __nv_bfloat16)
 
 extern "C" int resident_tile() { return ksm::TILE; }
+
+// clusters of (b) resident at once with smem bytes a block
+extern "C" int resident_max_clusters(int smem) {
+  return ksm::max_clusters(ksm::resident_iterate<float>, smem);
+}

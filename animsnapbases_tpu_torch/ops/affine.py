@@ -35,9 +35,10 @@ becomes the new anchors.
 * The wrappers ``resident_affine`` (kernel 3, lean), ``resident_affine_contact``
   (kernel 3, contact mode) and ``resident_affine_exit`` (kernel 4).  For CUDA
   tensors a wrapper launches ``csrc/affine.cu`` (one C loop enqueues every
-  step's launches) and counts the call in its ``launches``; for CPU tensors
-  it runs the plain version; it never falls back from the card to the plain
-  version.
+  step's launches; the step's loop runs on one cluster of three blocks per
+  sim, on the staging plan of :func:`affine_plan`) and counts the call in
+  its ``launches``; for CPU tensors it runs the plain version; it never
+  falls back from the card to the plain version.
 * ``resident_affine_batched`` and ``resident_affine_contact_batched``: kernel
   3's batched builds (``nb = B`` in the JAX package), the routes of
   ``make_batched_run`` below ``CHUNKED_TIER1_MIN_VERTS``: B independent sims
@@ -83,6 +84,7 @@ import numpy as np
 import torch
 
 from animsnapbases_tpu_torch.ops import _build
+from animsnapbases_tpu_torch.ops.cluster import launch_plan
 from animsnapbases_tpu_torch.ops.fused_reduced import (
     FusedOperands,
     gather_vc,
@@ -532,7 +534,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
-_ARGTYPES = (_P,) * 27 + (_I,) * 11 + (_D,) * 3 + (_I, _L, _P)
+_ARGTYPES = (_P,) * 27 + (_I,) * 11 + (_D,) * 3 + (_I, _L, _P) + (_I,) * 3 + (
+    _P,)
 # int32 flag slots of one sim of a call (csrc/affine.cu): stale, done,
 # steps done, contact mode, then one slot per step (what
 # AffineContext.step returns: 1 the floor test clamped, 2 contact mode)
@@ -554,6 +557,79 @@ def split_coef(coef, r: int):
             coef[..., 18 + 3 * r:].view(*lead, 3, r))
 
 
+def affine_plan(ao: AffineOperands, nb: int = 1, clusters=None):
+    """The staging plan (ops/cluster.py) the cluster launches of
+    csrc/affine.cu run on for nb sims (:func:`~animsnapbases_tpu_torch.ops.
+    cluster.launch_plan`: the full plan for one sim; for a batch, the plan
+    that needs the fewest waves of clusters on the card)."""
+    fo = ao.fused
+    return launch_plan("affine", "affine", nb, fo.r, fo.g_total, fo.m_total,
+                       ao.res.n_sel, clusters=clusters)
+
+
+def affine_buffers(ao: AffineOperands, P, V, fext, num_steps: int,
+                   variant: str, tile: int) -> dict:
+    """The buffers of one call of csrc/affine.cu on the (3, N) state or the
+    (B, 3, N) states of B sims, in the entry point's order from ``b0`` to
+    ``flags`` (``tile``: vertices a block of its O(N) launches)."""
+    ro, r, n = ao.res, ao.fused.r, ao.res.n
+    nb = P.shape[0] if P.dim() == 3 else 1
+    nblk = (n + tile - 1) // tile
+    dev = P.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    b0 = P.contiguous().clone()          # the anchors, then the outputs
+    # contact mode's per-sim y state: Py, Vy and buPy, buVy, 0 until a sim
+    # enters the mode (as in the plain version)
+    ny = nb if variant == "contact" and ro.floor else 0
+    return {
+        "b0": b0, "b1": V.contiguous().clone(),
+        "fa": force_term(ro, fext).contiguous(),
+        "coef": f32(nb, 2 * 9 + 2 * 3 * r),    # ap, av, wp, wv
+        "bu": f32(nb, 3 * 3 * r),              # bu0, bu1, bu_fa
+        "sn": torch.empty_like(b0), "Pm": torch.empty_like(b0),
+        "u": f32(nb, 3 * r),
+        # float64 per-tile partials of U^T A_c: two (3, r) sums per tile,
+        # and in contact mode one (r,) sum of the y slice per tile (pc)
+        "partial": torch.empty((nb, nblk, 2, 3 * r), dtype=torch.float64,
+                               device=dev),
+        "ys": torch.zeros((ny, 2, n), dtype=torch.float32, device=dev),
+        "ybu": torch.zeros((ny, 2 * r), dtype=torch.float32, device=dev),
+        "pcpart": torch.empty((ny, nblk, r), dtype=torch.float64,
+                              device=dev),
+        "flags": torch.zeros((nb, FLAG_SLOTS + max(num_steps, 1)),
+                             dtype=torch.int32, device=dev)}
+
+
+def affine_args(ao: AffineOperands, bufs: dict, rb_extra, num_steps: int,
+                num_iterations: int, rebase_every: int, variant: str, plan,
+                stream=None):
+    """The arguments of csrc/affine.cu's C entry point (``AFFINE_ENTRY``,
+    typed by ``_ARGTYPES``) for one call over the sims of the buffers
+    ``bufs`` (:func:`affine_buffers`): the kernel's mode of ``variant``,
+    the grid's nb sims (one cluster each in its cluster launches), the
+    projection order, the staging plan's bits and bytes a block."""
+    ro, fo = ao.res, ao.fused
+    b0, flags = bufs["b0"], bufs["flags"]
+    nb = b0.shape[0] if b0.dim() == 3 else 1
+    rb_rows, rb_sim = rb_layout(rb_extra)
+    mode = _VARIANTS[variant] if ro.floor else 0
+    p = _build.ptr
+    return (*(p(bufs[k]) for k in ("b0", "b1", "fa")), p(rb_extra),
+            p(ro.U_liftT), p(ro.ut_acT), p(ao.M_utac), p(ao.U_selT),
+            p(fo.C_allT), p(fo.inv3), p(fo.WT_all), p(fo.gptr), p(fo.gcol),
+            p(fo.gw), p(fo.elem_kind), p(fo.elem_g), p(fo.elem_f),
+            *(p(bufs[k]) for k in ("coef", "bu", "sn", "Pm", "u", "partial",
+                                   "ys", "ybu", "pcpart", "flags")),
+            ro.n, fo.r, ro.n_sel, fo.g_total, fo.m_total, int(num_steps),
+            int(num_iterations), int(rebase_every), mode, nb,
+            flags.shape[-1], ro.dt, ro.eta, ao.floor_level, rb_rows, rb_sim,
+            p(fo.lane_cols), fo.lane_cols.numel(), plan.bits,
+            plan.smem_bytes, stream)
+
+
 def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
                    num_steps: int, num_iterations: int, rebase_every: int,
                    variant: str):
@@ -563,7 +639,10 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     coefficients (:func:`split_coef`) over the last anchors, which are the
     inputs P, V when no rebase fell in the call; y is contact mode's
     (Py, Vy, buPy, buVy) of the contact variant with the floor on, else
-    None; flags, coef and y have a leading sim axis when the state has."""
+    None; flags, coef and y have a leading sim axis when the state has.
+    A launch the card refuses (a cluster that cannot be placed with the
+    plan's shared memory, a plan whose bytes differ from the kernel's
+    carving) raises."""
     ro, fo = ao.res, ao.fused
     check_state(ro, P, V, fext, rb_extra)
     if rebase_every < 1:
@@ -574,52 +653,19 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
         raise ValueError("kernel 4 has no batched build")
     fn = _build.function("affine", _SYMBOLS[(P.dtype, ro.U_liftT.dtype)],
                          _ARGTYPES)
-    dev = P.device
-    n, r = ro.n, fo.r
-    tile = affine_tile()
-    nblk = (n + tile - 1) // tile
-    contact = variant == "contact" and ro.floor
-    b0 = P.contiguous().clone()          # the anchors, then the outputs
-    b1 = V.contiguous().clone()
-    fa = force_term(ro, fext).contiguous()
-    rb_rows, rb_sim = rb_layout(rb_extra)
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    coef = f32(nb, 2 * 9 + 2 * 3 * r)    # ap, av, wp, wv
-    bu = f32(nb, 3 * 3 * r)              # bu0, bu1, bu_fa
-    sn, Pm = torch.empty_like(b0), torch.empty_like(b0)
-    u = f32(nb, 3 * r)
-    # float64 per-tile partials of U^T A_c: two (3, r) sums per tile, and
-    # in contact mode one (r,) sum of the y slice per tile (pc)
-    partial = torch.empty((nb, nblk, 2, 3 * r), dtype=torch.float64,
-                          device=dev)
-    # contact mode's per-sim y state: Py, Vy and buPy, buVy, 0 until a sim
-    # enters the mode (as in the plain version)
-    ny = nb if contact else 0
-    ys = torch.zeros((ny, 2, n), dtype=torch.float32, device=dev)
-    ybu = torch.zeros((ny, 2 * r), dtype=torch.float32, device=dev)
-    pcpart = torch.empty((ny, nblk, r), dtype=torch.float64, device=dev)
-    stride = FLAG_SLOTS + max(num_steps, 1)
-    flags = torch.zeros((nb, stride), dtype=torch.int32, device=dev)
-    mode = _VARIANTS[variant] if ro.floor else 0
-    p = _build.ptr
-    code = fn(p(b0), p(b1), p(fa), p(rb_extra), p(ro.U_liftT), p(ro.ut_acT),
-              p(ao.M_utac), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
-              p(fo.WT_all), p(fo.gptr), p(fo.gcol), p(fo.gw),
-              p(fo.elem_kind), p(fo.elem_g),
-              p(fo.elem_f), p(coef), p(bu), p(sn), p(Pm), p(u), p(partial),
-              p(ys), p(ybu), p(pcpart), p(flags), n, r, ro.n_sel, fo.g_total,
-              fo.m_total, int(num_steps), int(num_iterations),
-              int(rebase_every), mode, nb, stride, ro.dt, ro.eta,
-              ao.floor_level, rb_rows, rb_sim, _build.stream_of(dev))
+    bufs = affine_buffers(ao, P, V, fext, num_steps, variant, affine_tile())
+    code = fn(*affine_args(ao, bufs, rb_extra, num_steps, num_iterations,
+                           rebase_every, variant, affine_plan(ao, nb),
+                           _build.stream_of(P.device)))
     _build.check("affine", code, "resident_affine")
+    r, flags, coef = fo.r, bufs["flags"], bufs["coef"]
+    ys, ybu = bufs["ys"], bufs["ybu"]
+    contact = ys.shape[0] > 0
     y = (ys[:, 0], ys[:, 1], ybu[:, :r], ybu[:, r:]) if contact else None
     if not batched:
         flags, coef = flags[0], coef[0]
         y = tuple(x[0] for x in y) if contact else None
-    return b0, b1, flags, coef, y
+    return bufs["b0"], bufs["b1"], flags, coef, y
 
 
 def _kernel3(wrapper, variant: str, batched: bool, ao: AffineOperands, P, V,

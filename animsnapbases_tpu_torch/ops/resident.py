@@ -8,7 +8,9 @@ permuted so that the selected-element union is a prefix of the vertex axis
 
 * ``resident_multistep``: the wrapper.  For CUDA tensors it launches the
   hand-written kernel ``csrc/resident.cu`` (three launches per step,
-  enqueued by one C loop) and counts the call in
+  enqueued by one C loop; the step's loop runs on one cluster of three
+  blocks per sim, on the staging plan of :func:`resident_plan`) and counts
+  the call in
   ``resident_multistep.launches``; for CPU tensors it runs the plain
   version; it never falls back from the card to the plain version.
 * ``resident_multistep_batched``: the batched build (``nb = B`` in the JAX
@@ -53,6 +55,7 @@ import numpy as np
 import torch
 
 from animsnapbases_tpu_torch.ops import _build
+from animsnapbases_tpu_torch.ops.cluster import launch_plan
 from animsnapbases_tpu_torch.ops.fused_reduced import (
     FusedOperands,
     fused_reduced_iterations_plain,
@@ -207,7 +210,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
-_ARGTYPES = ((_P,) * 18 + (_I,) * 7 + (_D, _D, _I, _D, _I, _L, _P))
+_ARGTYPES = ((_P,) * 18 + (_I,) * 7 + (_D, _D, _I, _D, _I, _L, _P)
+             + (_I,) * 3 + (_P,))
 
 
 def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
@@ -247,10 +251,43 @@ def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
     return key
 
 
+def resident_plan(ro: ResidentOperands, nb: int = 1, clusters=None):
+    """The staging plan (ops/cluster.py) the iteration launch of
+    csrc/resident.cu runs on for nb sims (:func:`~animsnapbases_tpu_torch.
+    ops.cluster.launch_plan`: the full plan for one sim; for a batch, the
+    plan that needs the fewest waves of clusters on the card)."""
+    fo = ro.fused
+    return launch_plan("resident", "resident", nb, fo.r, fo.g_total,
+                       fo.m_total, clusters=clusters)
+
+
+def resident_args(ro: ResidentOperands, P, V, fa, rb_extra, sn, partial, u,
+                  num_steps: int, num_iterations: int, plan, stream=None):
+    """The arguments of csrc/resident.cu's C entry point
+    (``RESIDENT_ENTRY``, typed by ``_ARGTYPES``) for one call over the sims
+    of the leading axis of the state P, V (updated in place) into the
+    buffers sn, partial and u: the grid's nb sims (one cluster each in the
+    iteration launch), the projection order, the staging plan's bits and
+    bytes a block."""
+    fo = ro.fused
+    nb = P.shape[0] if P.dim() == 3 else 1
+    rb_rows, rb_sim = rb_layout(rb_extra)
+    p = _build.ptr
+    return (p(P), p(V), p(fa), p(rb_extra), p(ro.U_liftT), p(ro.ut_acT),
+            p(fo.C_allT), p(fo.inv3), p(fo.WT_all), p(fo.gptr), p(fo.gcol),
+            p(fo.gw), p(fo.elem_kind), p(fo.elem_g), p(fo.elem_f), p(sn),
+            p(partial), p(u), ro.n, fo.r, fo.g_total, fo.m_total,
+            int(num_steps), int(num_iterations), nb, ro.dt, ro.dt * ro.eta,
+            int(ro.floor), ro.floor_h, rb_rows, rb_sim, p(fo.lane_cols),
+            fo.lane_cols.numel(), plan.bits, plan.smem_bytes, stream)
+
+
 def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
                      num_steps: int, num_iterations: int):
     """One call of csrc/resident.cu over the (3, N) state or the (B, 3, N)
-    states of B sims -> (P', V')."""
+    states of B sims -> (P', V').  A launch the card refuses (a cluster
+    that cannot be placed with the plan's shared memory, a plan whose bytes
+    differ from the kernel's carving) raises."""
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
     key = check_state(ro, P, V, fext, rb_extra)
@@ -263,24 +300,16 @@ def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
     P_out = P.contiguous().clone()
     V_out = V.contiguous().clone()
     fa = force_term(ro, fext).contiguous()
-    rb_rows, rb_sim = rb_layout(rb_extra)
     sn = torch.empty_like(P_out)
     # per-sim, per-tile partials of U^T A_c sn, accumulated in float64
     # (resident.cu)
     partial = torch.empty((nb, (n + tile - 1) // tile, 3, r),
                           dtype=torch.float64, device=P.device)
     u = torch.empty((nb, 3, r), dtype=dtype, device=P.device)
-    code = fn(_build.ptr(P_out), _build.ptr(V_out), _build.ptr(fa),
-              _build.ptr(rb_extra), _build.ptr(ro.U_liftT),
-              _build.ptr(ro.ut_acT), _build.ptr(fo.C_allT),
-              _build.ptr(fo.inv3), _build.ptr(fo.WT_all),
-              _build.ptr(fo.gptr), _build.ptr(fo.gcol), _build.ptr(fo.gw),
-              _build.ptr(fo.elem_kind),
-              _build.ptr(fo.elem_g), _build.ptr(fo.elem_f), _build.ptr(sn),
-              _build.ptr(partial), _build.ptr(u),
-              n, r, fo.g_total, fo.m_total, int(num_steps),
-              int(num_iterations), nb, ro.dt, ro.dt * ro.eta, int(ro.floor),
-              ro.floor_h, rb_rows, rb_sim, _build.stream_of(P.device))
+    code = fn(*resident_args(ro, P_out, V_out, fa, rb_extra, sn, partial, u,
+                             num_steps, num_iterations,
+                             resident_plan(ro, nb),
+                             _build.stream_of(P.device)))
     _build.check("resident", code, "resident_multistep")
     return P_out, V_out
 

@@ -1380,6 +1380,26 @@ def device_breakdown(torch, fn):
     return wall, spent
 
 
+def plans_by_sims(name, plan_of, library):
+    """{B: the staging plan a launch of B sims runs on (``plan_of(B)``),
+    the clusters the card holds at once on it and the waves its B clusters
+    take} for B in ENSEMBLE_SIZES, logged."""
+    from animsnapbases_tpu_torch.ops.cluster import resident_clusters, waves
+
+    out = {}
+    for B in ENSEMBLE_SIZES:
+        plan = plan_of(B)
+        n = resident_clusters(library, plan)
+        out[B] = {"staged": list(plan.staged), "smem_bytes": plan.smem_bytes,
+                  "bits": plan.bits, "resident_clusters": n,
+                  "waves": waves(B, n) if n > 0 else None}
+    log(f"[4] {name}: staging plan by sims: " + "; ".join(
+        f"B={B} {v['staged']} {v['smem_bytes']} B a block, "
+        f"{v['resident_clusters']} clusters resident, {v['waves']} waves"
+        for B, v in out.items()))
+    return out
+
+
 def ensemble(torch, counted, solver, model, f, main_state, paths):
     """The ensemble-serving section: the paths (2), holds (3) and times (4)
     of make_batched_run / make_batched_step and the batched builds of
@@ -1388,6 +1408,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
         _launch_affine,
+        affine_plan,
         resident_affine,
         resident_affine_batched,
         resident_affine_contact_batched,
@@ -1414,6 +1435,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         resident_multistep,
         resident_multistep_batched,
         resident_multistep_plain,
+        resident_plan,
     )
 
     ro, ao = solver._resident, solver._affine
@@ -1724,6 +1746,10 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
             f"steps: {per_step[B]:.2f} us/step, {B / per_step[B] * 1e6:.0f} "
             f"aggregate steps/s, {1e6 / per_step[B]:.0f} per sim; bound "
             f"{bounds[B]:.4f} us/step")
+    k3_plans = plans_by_sims("batched kernel 3", lambda B: affine_plan(
+        ao, B), "affine")
+    k2_plans = plans_by_sims("batched kernel 2", lambda B: resident_plan(
+        ro, B), "resident")
     k3_ms = cuda_ms(torch, lambda: resident_affine_batched(
         ao, P64, V64, F0, rb, SCENE_STEPS, ITERATIONS))
     # where a batched step's time goes: device time per kernel of one
@@ -1888,13 +1914,15 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
               "pallas_resident.py:415", err["kernel 2"], k2_ms, k2_plain_ms,
               k2_bound, k2_by, steps_per_call=SCENE_STEPS,
               us_per_step_by_sims=k2_by_B,
-              library_part_ms_per_step=part_ms),
+              library_part_ms_per_step=part_ms,
+              staging_plan_by_sims=k2_plans),
         entry("resident_affine_batched", "affine.cu",
               "pallas_resident.py:558", err["kernel 3"], k3_ms, k3_plain_ms,
               k3_bound, k3_by, steps_per_call=SCENE_STEPS,
               window_us_per_step_by_sims=per_step,
               window_bound_us_per_step_by_sims=bounds,
               entry_aggregate_steps_per_s=entry_a_lean,
+              staging_plan_by_sims=k3_plans,
               device_busy_share=busy / wall,
               device_us_per_step_by_launch={
                   k: 1e6 * v / SCENE_STEPS for k, v in spent.items()}),
@@ -1914,6 +1942,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
               contact_mode_sim_steps=int(in_mode.sum()),
               ringdown_window_us_per_step=1e3 * k3m_ring_ms / WINDOW_STEPS,
               entry_aggregate_steps_per_s=entry_a,
+              staging_plan_by_sims=k3_plans,
               crumple_entry_s=out["e s"],
               device_busy_share=sum(spent_m.values()) / wall_m,
               device_us_per_step_by_launch={
@@ -1997,6 +2026,7 @@ def tet_bending(torch, counted, paths):
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
         _launch_affine,
+        affine_plan,
         resident_affine,
         resident_affine_batched,
         resident_affine_contact,
@@ -2523,6 +2553,7 @@ def animated(torch, counted, paths, main_state, dev):
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
         _launch_affine,
+        affine_plan,
         resident_affine,
         resident_affine_batched,
         resident_affine_contact,
@@ -3643,6 +3674,7 @@ def main() -> int:
         FLAG_SLOTS,
         MODE_SLOT,
         _launch_affine,
+        affine_plan,
         affine_run_plain,
         resident_affine,
         resident_affine_batched,
@@ -3678,6 +3710,7 @@ def main() -> int:
         resident_multistep,
         resident_multistep_batched,
         resident_multistep_plain,
+        resident_plan,
     )
     from animsnapbases_tpu_torch.sim.model import DeformableModel
     from animsnapbases_tpu_torch.utils.synthetic import (
@@ -4092,13 +4125,14 @@ def main() -> int:
     log(f"[3] bench scene holds {time.perf_counter() - t_main:.1f} s")
     t_main = time.perf_counter()
     # ---- 4. times --------------------------------------------------------
-    # kernels 1 and 5 run the cluster loop on the staging plans of their
-    # widths (the C launch refuses a plan whose bytes differ from its own
-    # carving)
+    # every kernel runs the cluster loop on the staging plan of its widths
+    # (the C launch refuses a plan whose bytes differ from its own carving)
     plans = {}
     for name, fn, lib, plan in (
             ("kernel 1", fused_reduced_iterations, "fused_reduced",
              fused_plan(fo)),
+            ("kernel 2", resident_multistep, "resident", resident_plan(ro)),
+            ("kernels 3 and 4", resident_affine, "affine", affine_plan(ao)),
             ("kernel 5", affine_chunked, "affine_chunked", chunk_plan(ao))):
         plans[fn.__name__] = dict(plan.as_dict(),
                                   resident_clusters=resident_clusters(
@@ -4343,15 +4377,18 @@ def main() -> int:
               steps_per_call=SCENE_STEPS,
               library_part_ms_per_step=part_ms,
               window_steps_per_s=WINDOW_STEPS / (window_ms / 1e3),
-              contact_scene_ms=k2c_ms),
+              contact_scene_ms=k2c_ms,
+              staging_plan=plans["resident_multistep"]),
         entry("resident_affine", "affine.cu", "pallas_resident.py:558",
               affine_err["kernel 3"], k3_ms, k3_plain_ms, k3_bound, k3_by,
               steps_per_call=SCENE_STEPS, contact_scene_ms=k3c_ms,
               contact_scene_clamped_steps=n_contact,
-              contact_scene_bound_ms=k3c_bound),
+              contact_scene_bound_ms=k3c_bound,
+              staging_plan=plans["resident_affine"]),
         entry("resident_affine_exit", "affine.cu", "pallas_resident.py:980",
               affine_err["kernel 4"], k4_ms, k4_plain_ms, k3_bound, k3_by,
-              steps_per_call=SCENE_STEPS),
+              steps_per_call=SCENE_STEPS,
+              staging_plan=plans["resident_affine"]),
         entry("affine_chunked", "affine_chunked.cu",
               "pallas_resident.py:1145", affine_err["kernel 5"], k5_ms,
               k5_plain_ms, k5_bound, k5_by, steps_per_call=SCENE_STEPS,
@@ -4369,6 +4406,7 @@ def main() -> int:
               k3m_ms, k3m_plain_ms, k3m_bound, k3m_by,
               steps_per_call=SCENE_STEPS, scene="contact scene",
               contact_mode_steps=m_contact, free_steps_ms=k3m_free_ms,
+              staging_plan=plans["resident_affine"],
               recursion_drift={f"{n} steps, {who} {key}": v for (
                   n, who, key), v in drift.items()}),
     ]

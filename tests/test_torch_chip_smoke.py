@@ -127,7 +127,7 @@ def _fake_card(monkeypatch):
                         lambda torch_, fn: (fn(), 1.0, {"kernel": 0.5})[1:])
     monkeypatch.setattr(cs, "device_ms", lambda torch_, fn, reps=1:
                         (fn(), 1.0)[1])
-    monkeypatch.setattr(cluster, "resident_clusters", lambda lib, plan: 0)
+    monkeypatch.setattr(cluster, "resident_clusters", lambda lib, plan: 40)
     timed = cs.cuda_ms
     monkeypatch.setattr(cs, "cuda_ms", lambda torch_, fn, reps=1, warmup=0:
                         timed(torch_, fn, reps=1, warmup=0))
@@ -222,6 +222,15 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     assert {"device_ms", "device_us_per_iteration",
             "device_intercept_us"} <= set(k1)
     assert "device_ms" in kernels[6]
+    # kernels 2-4 on the cluster loop too: their plans at the bench widths,
+    # and the batched builds' plan at each batch size with the clusters the
+    # card holds at once and the waves the sims take
+    for k in (*kernels[1:4], kernels[5]):
+        assert plan_keys | {"resident_clusters"} <= set(k["staging_plan"])
+    for k in (kernels[7], kernels[8], kernels[10]):
+        by_sims = k["staging_plan_by_sims"]
+        assert set(by_sims) == {str(B) for B in cs.ENSEMBLE_SIZES}
+        assert all(v["waves"] >= 1 for v in by_sims.values())
     assert {"us_per_iteration", "intercept_us_per_step",
             "window_us_per_iteration",
             "window_intercept_us_per_step"} <= set(k5)
@@ -230,6 +239,8 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     out = "\n".join(lines)
     assert "on the cluster's 3 SMs" in out
     assert "kernel 1: staging plan" in out and "kernel 5: staging plan" in out
+    assert "kernel 2: staging plan" in out
+    assert "kernels 3 and 4: staging plan" in out
     assert "clusters resident at once" in out
     # kernel 5's builds: each on its own path (no launches counted here: the
     # plain versions run), timed beside the default

@@ -1,9 +1,10 @@
-"""The cluster loop of kernels 1 and 5 on the CPU, where no kernel runs:
-the staging plan's Python mirror (``animsnapbases_tpu_torch.ops.cluster``)
-at the widths of the scenes ``chip_smoke.py`` runs, the projection order
-(``ops/fused_reduced.py`` ``warp_runs``), and the arguments the wrappers
-hand the cluster launches (``fused_args``, ``chunk_args``), checked against
-their C entry points' argument types."""
+"""The cluster loop of kernels 1-5 on the CPU, where no kernel runs: the
+staging plan's Python mirror (``animsnapbases_tpu_torch.ops.cluster``) at
+the widths of the scenes ``chip_smoke.py`` runs, the batched launch's
+choice of plan, the projection order (``ops/fused_reduced.py``
+``warp_runs``), and the arguments the wrappers hand the cluster launches
+(``fused_args``, ``resident_args``, ``affine_args``, ``chunk_args``),
+checked against their C entry points' argument types."""
 
 import dataclasses
 
@@ -12,12 +13,15 @@ import torch
 
 import chip_smoke as cs
 from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+from animsnapbases_tpu_torch.ops import affine as k3
 from animsnapbases_tpu_torch.ops import affine_chunked as k5
 from animsnapbases_tpu_torch.ops import fused_reduced as k1
+from animsnapbases_tpu_torch.ops import resident as k2
 from animsnapbases_tpu_torch.ops.cluster import (
     SMEM_MAX,
     STAGE_BITS,
     buffer_elems,
+    launch_plan,
     pad4,
     staging_plan,
 )
@@ -48,6 +52,12 @@ K5_STAGED = {scene: K5 for scene in WIDTHS}
 K5_STAGED["bar, row form"] = K5[:4]
 K5_STAGED["bar, block form"] = K5[:4]
 K5_STAGED["bar, strain and bending"] = K5[:4]
+K3 = ("C", "WT", "inv3", "M_utac", "U_selT")
+# what kernels 3 and 4 stage at each: on the bar and the bending cloth
+# U_selT_d (75-112 KB) no longer fits beside the rest
+K3_STAGED = {scene: K3[:4] for scene in WIDTHS}
+K3_STAGED["bench"] = K3
+K3_STAGED["megacloth"] = K3
 
 
 def _elems(name, r, g, m, n_sel):
@@ -90,13 +100,35 @@ def test_staging_plan_at_scene_widths(scene):
     _held(p5s, "affine_chunked", widths, fold_vc=False)
 
 
+@pytest.mark.parametrize("scene", sorted(WIDTHS))
+def test_staging_plan_of_kernels_2_to_4_at_scene_widths(scene):
+    """Kernel 2 stages what kernel 1 does, in the same bytes (its block
+    holds the loop's buffers only); kernels 3 and 4 stage C, WT, inv3,
+    M_utac and U_selT in that order while they fit, U_selT whatever
+    fold_vc says."""
+    widths = WIDTHS[scene]
+    p2 = staging_plan("resident", *widths)
+    assert p2.staged == ("C", "WT", "inv3") and p2.from_l2 == ()
+    assert p2.smem_bytes == staging_plan("fused_reduced", *widths).smem_bytes
+    _held(p2, "resident", widths)
+    p3 = staging_plan("affine", *widths)
+    assert [n for n, _ in p3.operand_bytes] == list(K3)
+    assert p3.staged == K3_STAGED[scene]
+    assert p3.from_l2 == tuple(n for n in K3 if n not in p3.staged)
+    _held(p3, "affine", widths)
+    assert staging_plan("affine", *widths, fold_vc=False) == p3
+
+
 def test_staging_plan_bench_bytes_and_refusals():
-    """At the bench widths kernel 1 keeps 94,560 B a block (two blocks fit
-    on an SM) and kernel 5 167,008 B (one); without fold_vc kernel 5
-    stages U_selT; a block whose own buffers do not fit, or another
-    element size, is refused."""
+    """At the bench widths kernels 1 and 2 keep 94,560 B a block (two
+    blocks fit on an SM), kernels 3 and 4 164,288 B and kernel 5 167,008 B
+    (one); without fold_vc kernel 5 stages U_selT; a kernel without a
+    cluster loop, a block whose own buffers do not fit, or another element
+    size, is refused."""
     bench = WIDTHS["bench"]
     assert staging_plan("fused_reduced", *bench).smem_bytes == 94_560
+    assert staging_plan("resident", *bench).smem_bytes == 94_560
+    assert staging_plan("affine", *bench).smem_bytes == 164_288
     assert staging_plan("affine_chunked", *bench).smem_bytes == 167_008
     assert staging_plan("affine_chunked", *bench,
                         fold_vc=False).staged[-1] == "U_selT"
@@ -105,7 +137,7 @@ def test_staging_plan_bench_bytes_and_refusals():
     with pytest.raises(ValueError, match="4-byte"):
         staging_plan("fused_reduced", *bench[:3], itemsize=8)
     with pytest.raises(ValueError, match="no cluster loop"):
-        staging_plan("resident", *bench[:3])
+        staging_plan("predict_project", *bench[:3])
     d = staging_plan("affine_chunked", *bench).as_dict()
     assert d["cluster"] == [3, 1, 1] and d["threads"] == 256
     assert sum(d["operand_bytes"].values()) == 155_648
@@ -209,3 +241,119 @@ def test_chunk_args_contract(small):
         k5.chunk_args(ao, P, V, fa, torch.zeros(6), True, None, None, None,
                       *k5.chunk_anchors(ao, P, V)[:2], project(ro, fa), rb,
                       16, 10, 0.0, out[0], k[0])
+
+
+def _h100ish(lib, plan):
+    """Clusters resident at once as a card might hold them: one block a SM
+    above 114,000 B a block, two above 20,000 B, more below."""
+    b = plan.smem_bytes
+    return 39 if b > 114_000 else 79 if b > 20_000 else 120
+
+
+# nb -> how many operands of the staging order the batched plans of
+# kernels 3 and 4, and of kernel 2, stage at the bench widths under
+# _h100ish: the full plan while one wave holds the sims; then for kernels 3
+# and 4 the plan without U_selT (113,088 B, two blocks a SM); past 79 sims
+# nothing staged where that saves a wave, and on a tie the plan that
+# stages more
+CHOICE = {1: (5, 3), 8: (5, 3), 39: (5, 3), 40: (4, 3), 64: (4, 3),
+          79: (4, 3), 80: (0, 0), 128: (4, 3), 158: (4, 3), 160: (0, 0)}
+
+
+@pytest.mark.parametrize("nb", sorted(CHOICE))
+def test_batched_plan_choice_as_nb_grows(nb):
+    """launch_plan: one sim runs on the full plan without asking the card;
+    a batch on the prefix of the staging order that needs the fewest waves
+    of clusters, the one that stages more on a tie."""
+    bench = WIDTHS["bench"]
+    asked = []
+
+    def clusters(lib, plan):
+        asked.append(lib)
+        return _h100ish(lib, plan)
+
+    k3_most, k2_most = CHOICE[nb]
+    plan = launch_plan("affine", "affine", nb, *bench, clusters=clusters)
+    assert plan == staging_plan("affine", *bench, most=k3_most)
+    assert plan.staged == K3[:k3_most]
+    assert (asked == []) == (nb == 1) and set(asked) <= {"affine"}
+    k2 = launch_plan("resident", "resident", nb, *bench[:3],
+                     clusters=_h100ish)
+    assert k2.staged == K3[:k2_most]
+
+
+def test_batched_plan_skips_plans_the_card_cannot_place():
+    """A plan whose cluster the card cannot place (-1) is not chosen; when
+    none can be placed the launch raises, with no fallback."""
+    bench = WIDTHS["bench"]
+    plan = launch_plan("affine", "affine", 8, *bench, clusters=lambda lib, p:
+                       -1 if p.smem_bytes > 100_000 else 40)
+    assert plan.staged == K3[:3]
+    with pytest.raises(RuntimeError, match="no cluster"):
+        launch_plan("resident", "resident", 8, *bench[:3],
+                    clusters=lambda lib, p: -1)
+
+
+@pytest.mark.parametrize("B", [None, 2])
+def test_resident_args_contract(small, B):
+    """Kernel 2's launch arguments match its C entry point's types: one
+    cluster per sim in its iteration launch (nb), the projection order,
+    the plan's bits and bytes (the full plan for one sim)."""
+    model, s = small
+    ro = s._resident
+    fo = ro.fused
+    P = s._to_device(model.positions)
+    if B is not None:
+        P = torch.stack([P] * B).contiguous()
+    V, fa, sn = torch.zeros_like(P), torch.zeros_like(P), torch.empty_like(P)
+    lead = P.shape[:-2]
+    partial = torch.empty(lead + (3, 3, fo.r), dtype=torch.float64)
+    u = torch.empty(lead + (3, fo.r))
+    plan = k2.resident_plan(ro, B or 1, clusters=_h100ish)
+    args = k2.resident_args(ro, P, V, fa, s._rb_extra(), sn, partial, u, 16,
+                            10, plan)
+    assert len(args) == len(k2._ARGTYPES)
+    assert plan == staging_plan("resident", fo.r, fo.g_total, fo.m_total)
+    assert args[18:25] == (ro.n, fo.r, fo.g_total, fo.m_total, 16, 10,
+                           B or 1)
+    assert args[31].value == fo.lane_cols.data_ptr()
+    assert args[32:35] == (fo.lane_cols.numel(), plan.bits,
+                           plan.smem_bytes)
+
+
+@pytest.mark.parametrize("variant, B", [("lean", None), ("lean", 2),
+                                        ("contact", None), ("contact", 2),
+                                        ("exit", None)])
+def test_affine_args_contract(small, variant, B):
+    """Kernels 3 (lean, contact mode) and 4's launch arguments match their
+    C entry point's types, solo and batched: the mode of the variant, one
+    cluster per sim (nb), a flag slot per step, the projection order, the
+    plan's bits and bytes; contact mode's y state only in contact mode;
+    kernel 4 has no batched build."""
+    model, s = small
+    ao = s._affine
+    ro, fo = ao.res, ao.fused
+    P = s._to_device(model.positions)
+    if B is not None:
+        P = torch.stack([P] * B).contiguous()
+    bufs = k3.affine_buffers(ao, P, torch.zeros_like(P), torch.zeros_like(P),
+                             16, variant, 128)
+    nb = B or 1
+    assert bufs["flags"].shape == (nb, k3.FLAG_SLOTS + 16)
+    assert bufs["ys"].shape[0] == (nb if variant == "contact" else 0)
+    plan = k3.affine_plan(ao, nb, clusters=_h100ish)
+    args = k3.affine_args(ao, bufs, s._rb_extra(), 16, 10, 256, variant,
+                          plan)
+    assert len(args) == len(k3._ARGTYPES)
+    assert args[27:41] == (ro.n, fo.r, ro.n_sel, fo.g_total, fo.m_total, 16,
+                           10, 256, {"lean": 2, "contact": 3, "exit": 1}[
+                               variant], nb, k3.FLAG_SLOTS + 16, ro.dt,
+                           ro.eta, ao.floor_level)
+    assert args[43].value == fo.lane_cols.data_ptr()
+    assert args[44:47] == (fo.lane_cols.numel(), plan.bits,
+                           plan.smem_bytes)
+    if variant == "exit":
+        with pytest.raises(ValueError, match="no batched build"):
+            k3._launch_affine(ao, torch.stack([P] * 2), torch.stack([P] * 2),
+                              torch.stack([P] * 2), s._rb_extra(), 16, 10,
+                              256, "exit")

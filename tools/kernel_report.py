@@ -27,7 +27,9 @@ spill stores and loads), then on the bench scene (10 iterations):
   default (the exact floor check's cost per step);
 * batched: kernel 1 on 64 sims (device time per launch) and kernel 5 on 8
   ring-down sims over the window (µs per step);
-* the staging plans, in a tree with the cluster loop;
+* the staging plans, in a tree with the cluster loop (kernels 2-4: in a
+  tree that runs them on it, with the clusters the card holds at once on
+  each and, batched, the plan a launch of 8, 64 and 128 sims takes);
 
 then the megacloth of ``chip_smoke.scale_phase`` (250,000 vertices):
 kernel 5's exact and exact-free builds over 2,000-step calls at rest, and
@@ -204,6 +206,19 @@ if clustered:
     from animsnapbases_tpu_torch.ops.affine_chunked import chunk_plan
     say(f"staging plan, kernel 1: {k1mod.fused_plan(fo).as_dict()}")
     say(f"staging plan, kernel 5: {chunk_plan(ao).as_dict()}")
+from animsnapbases_tpu_torch.ops import affine as k3mod  # noqa: E402
+if hasattr(k3mod, "affine_plan"):   # kernels 2-4 on the cluster loop
+    from animsnapbases_tpu_torch.ops.cluster import resident_clusters
+    from animsnapbases_tpu_torch.ops.resident import resident_plan
+    for name, lib, plan_of in (("kernel 2", "resident",
+                                lambda B: resident_plan(ro, B)),
+                               ("kernels 3 and 4", "affine",
+                                lambda B: k3mod.affine_plan(ao, B))):
+        for B in (1, 8, 64, 128):
+            plan = plan_of(B)
+            say(f"staging plan, {name}, {B} sims: {list(plan.staged)}, "
+                f"{plan.smem_bytes} B a block, "
+                f"{resident_clusters(lib, plan)} clusters resident")
 
 # ---- the megacloth -----------------------------------------------------------
 mmodel, ms_ = cs.megacloth_solver(torch, dev)

@@ -1,5 +1,5 @@
-"""Kernels 1 and 5 of one source tree on fixed inputs, saved for a bit for
-bit comparison with another tree's: a redesign that keeps the arithmetic's
+"""Kernels 1-5 of one source tree on fixed inputs, saved for a bit for bit
+comparison with another tree's: a redesign that keeps the arithmetic's
 order gives the same bits.
 
     python3 tools/same_outputs.py <tree> <file.pt>
@@ -9,8 +9,15 @@ The inputs, from the bench scene of ``chip_smoke.py`` at rest under
 gravity: kernel 1 (10 iterations) solo and on 8 jittered sims; kernel 5
 over 64 steps in four builds (the default, exact-free, ``fold_vc`` off,
 the bound off), over 300 steps with a rebase every 16, on the contact scene
-(tier 1 exits) and batched on 4 sims, each with its steps done.  To compare
-with the parent commit in one call on the card::
+(tier 1 exits) and batched on 4 sims, each with its steps done; over 64
+steps, kernel 2 and kernel 3 in both builds on the contact scene (kernel
+3 with a rebase every 16 steps and every 256, so that contact mode is
+entered, carried and left), kernel 4 on free steps (the rest state moving
+at 0.05 sin(x) in y, no force: the tier-1 window's kind) and on the
+contact scene (it stops), each with its steps done; the batched kernel 3
+in both builds on the first 8 sims of the crumpling ensemble and on a
+ring-down ensemble of 8 from the free state, kernel 2 on the 8 crumpling
+sims.  To compare with the parent commit in one call on the card::
 
     git archive <parent> | tar -x -C build/parent
     python3 tools/same_outputs.py build/parent build/outputs_parent.pt
@@ -41,6 +48,7 @@ def compare(a_path, b_path):
 
 def outputs(tree, path):
     sys.path[0] = tree
+    import numpy as np
     import torch
 
     from animsnapbases_tpu_torch.device import resolve_device
@@ -53,7 +61,19 @@ def outputs(tree, path):
         fused_reduced_iterations,
         fused_reduced_iterations_batched,
     )
-    from animsnapbases_tpu_torch.ops.resident import force_term, predict
+    from animsnapbases_tpu_torch.ops.affine import (
+        resident_affine,
+        resident_affine_batched,
+        resident_affine_contact,
+        resident_affine_contact_batched,
+        resident_affine_exit,
+    )
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        predict,
+        resident_multistep,
+        resident_multistep_batched,
+    )
 
     dev = resolve_device("cuda")
     model, s = cs.bench_solver(torch, dev)
@@ -91,6 +111,42 @@ def outputs(tree, path):
     Pk, Vk, _ = affine_chunked_batched(ao, Pb, Vb, torch.stack(
         [Fx] * 4).contiguous(), rb, 64, 10)
     out["kernel 5, 4 sims"] = torch.stack([Pk, Vk])
+
+    def run(key, fn, *a, **kw):
+        o = fn(*a, **kw)
+        out[key] = torch.stack([o[0], o[1]])
+        if len(o) > 2:
+            out[key + ", steps done"] = torch.tensor(o[2])
+
+    steps = cs.SCENE_STEPS
+    run("kernel 2, contact scene", resident_multistep, ro, Pc, Vc, Fx, rb,
+        steps, 10)
+    for every in (16, 256):
+        run(f"kernel 3 lean, contact scene, rebase every {every}",
+            resident_affine, ao, Pc, Vc, Fx, rb, steps, 10, every)
+        run(f"kernel 3 contact mode, contact scene, rebase every {every}",
+            resident_affine_contact, ao, Pc, Vc, Fx, rb, steps, 10, every)
+    v = np.zeros_like(model.positions)
+    v[:, 1] = 0.05 * np.sin(np.linspace(0, 6.28, len(v)))
+    Vf, F0 = s._to_device(v), torch.zeros_like(P)
+    run("kernel 3 lean, free steps", resident_affine, ao, P, Vf, F0, rb,
+        steps, 10)
+    run("kernel 3 contact mode, free steps", resident_affine_contact, ao, P,
+        Vf, F0, rb, steps, 10)
+    run("kernel 4, free steps", resident_affine_exit, ao, P, Vf, F0, rb,
+        steps, 10)
+    run("kernel 4, contact scene", resident_affine_exit, ao, Pc, Vc, Fx, rb,
+        steps, 10)
+    B = 8
+    crumple = [s._pack(x[:B]) for x in cs.crumple_state(model, f)]
+    ring = [s._pack(x) for x in cs.ensemble_state((model.positions, v), B)]
+    for name, batch in (("crumpling", crumple), ("ring-down", ring)):
+        run(f"kernel 3 lean, {B} {name} sims", resident_affine_batched, ao,
+            *batch, rb, steps, 10)
+        run(f"kernel 3 contact mode, {B} {name} sims",
+            resident_affine_contact_batched, ao, *batch, rb, steps, 10)
+    run(f"kernel 2, {B} crumpling sims", resident_multistep_batched, ro,
+        *crumple, rb, steps, 10)
     torch.save({k: v.cpu() for k, v in out.items()}, path)
     print(f"{tree}: {len(out)} outputs saved to {path}", flush=True)
     return 0
