@@ -1,0 +1,182 @@
+"""The record -> bases -> reduced-solver pipeline of the bench scene.
+
+The steps ``bench.py`` takes with the JAX package (``_run_fom_and_bases_impl``,
+``build_group_basis``, ``build_reduced_solver``), taken with the port's
+entry points: :func:`record_fom` records a full-order run with
+``sim/solver.py`` (trajectory, ``assembly_ST.npz``, ``<group>_p.npz``),
+:func:`build_group_basis` drives ``BasesConfig -> NonlinearSnapshots ->
+ConstraintComponents`` (``pod_vectorized`` and row DEIM) on one group's
+recording, and :func:`reduced_args` gives the reduced solver's arguments
+for the bases written.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import time
+
+import numpy as np
+
+from animsnapbases_tpu_torch.bases.constraints import ConstraintComponents
+from animsnapbases_tpu_torch.config.bases_config import BasesConfig
+from animsnapbases_tpu_torch.config.sim_config import default_sim_args
+from animsnapbases_tpu_torch.snapshots.nonlinear import NonlinearSnapshots
+from animsnapbases_tpu_torch.sim.solver import Solver
+
+
+def record_fom(model, fext, record, frames: int, iterations: int, dt: float,
+               damping: float, global_solve: str = "host", device=None):
+    """Record ``frames`` steps of ``model`` under ``fext`` (bench.py:
+    243-270): the S^T export and the p-snapshots under ``record`` (flushed
+    at frame ``frames - 1``) -> (trajectory (frames, N, 3), the prepared
+    solver)."""
+    solver = Solver(global_solve=global_solve, device=device)
+    solver.set_model(model)
+    args = default_sim_args()
+    args.dt = dt
+    args.damping = damping
+    solver.prepare(args)
+    solver.store_assembly_matrices(record)
+    solver.set_record_path(record)
+    solver.set_store_p(True)
+    solver.max_p_snapshots_num = frames - 1
+    traj = solver.run_steps(fext, frames, num_iterations=iterations,
+                            record=True)
+    return traj, solver
+
+
+def group_basis_config(record, gname: str, p: int, num_modes: int,
+                       frames: int, work_dir: str) -> BasesConfig:
+    """The bases config of bench.py:129-163 for one group's recording:
+    ``pod_vectorized``, row DEIM, ``num_modes`` modes, the first
+    ``frames`` frames, no weighting, standardization or orthogonalization."""
+    elements = "_tris" if gname == "tris_strain" else "_edges"
+    cfg = {
+        "object": {"experiment_dir": work_dir + "/", "mesh": "bunny",
+                   "volumetric": False, "experiment": "bench_" + gname,
+                   "snap_format": ".off"},
+        "vertexPos_bases": {"computeState": {"compute": False}},
+        "constraintProj_bases": {
+            "computeState": {"compute": True, "run_main": True,
+                             "testingComputations": "_Release"},
+            "constraintType": {"name": gname, "elements": elements,
+                               "p_snaps_folder": "/x",
+                               "assembly_file_name": "assembly_ST.npz",
+                               "assembly_key": gname,
+                               "snaps_pattern_full_p": "/t.npz",
+                               "constrained_elements": "",
+                               "rowSize": p},
+            "snapshots": {"numFrames": frames, "frame_increment": 1,
+                          "preAlignement": "_noAlignement",
+                          "reduced_snaps_available": False},
+            "basis_type": "pod_vectorized", "interpolation_type": "deim",
+            "desired_num_components": num_modes, "bases_res_tol": 1e-20,
+            "dim": 3, "max_element_per_geom_vert": 10,
+            "rest_shape": "first", "massWeighted": "_nonWeighted",
+            "standarized": "_nonStandarized", "supported": "_Global",
+            "orthogonalized": "_nonOrthogonalized",
+            "store_sing_val": False, "store_to_files": True,
+            "run_tests": False, "visualize_geom_elements": False,
+            "visualize_elements_at_bases_num": 0},
+    }
+    param = BasesConfig.from_dict(cfg, results_dir=os.path.join(work_dir,
+                                                                "results"))
+    param.constProj_input_snapshots_pattern = os.path.join(
+        record, gname + "_p.npz")
+    param.constProj_weightedSt = os.path.join(record, "assembly_ST.npz")
+    param.ensure_dirs()
+    return param
+
+
+def build_group_basis(record, gname: str, p: int, num_modes: int,
+                      frames: int, work_dir: str, basis_dir: str,
+                      device=None, timings=None):
+    """One group's bases through the product pipeline, copied to
+    ``basis_dir/<gname>/basis.npz`` -> the ConstraintComponents.
+    ``timings`` (a dict) gathers the seconds of each stage."""
+    param = group_basis_config(record, gname, p, num_modes, frames, work_dir)
+    t = timings if timings is not None else {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t[name] = t.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    nl = NonlinearSnapshots(param)
+    nl.config()
+    timed("snapshots_prepare", nl.snapshots_prepare)
+    cc = ConstraintComponents(param, nl, device=device)
+    cc.config()
+    timed("pod", cc.compute_components_store_singvalues)
+    timed("post_process", cc.post_process_components)
+    timed("deim", cc.deim)
+    npz = timed("store", cc.store_components_n_interpol_points)
+    gdir = os.path.join(basis_dir, gname)
+    os.makedirs(gdir, exist_ok=True)
+    shutil.copy(npz, os.path.join(gdir, "basis.npz"))
+    return cc
+
+
+def build_bases(model, record, traj, work_dir: str, constr_modes: int,
+                pos_modes: int, device=None, timings=None):
+    """Both steps of bench.py:272-291 on a recording: each non-positional
+    group's bases from the recording's first ``len(traj) - 1`` frames
+    (:func:`build_group_basis`), under ``work_dir/bases``, and the position
+    basis of ``traj`` (r = min(pos_modes, frames)) in
+    ``work_dir/pos_basis.npz`` -> (basis_dir, pos_path, {group:
+    ConstraintComponents}).  ``timings`` gathers the seconds of each stage,
+    the position basis under "position_basis"."""
+    from animsnapbases_tpu_torch.bases.position_reduction import (
+        position_basis_from_trajectory,
+        save_position_basis,
+    )
+
+    t = timings if timings is not None else {}
+    basis_dir = os.path.join(work_dir, "bases")
+    groups = {}
+    for gname, g in model.groups.items():
+        if gname == "positional":
+            continue
+        groups[gname] = build_group_basis(
+            record, gname, g.p, constr_modes, len(traj) - 1,
+            os.path.join(work_dir, "work"), basis_dir, device=device,
+            timings=t)
+    t0 = time.perf_counter()
+    pos_path = os.path.join(work_dir, "pos_basis.npz")
+    save_position_basis(pos_path, position_basis_from_trajectory(
+        traj, pos_modes, device=device))
+    t["position_basis"] = t.get("position_basis", 0.0) + (
+        time.perf_counter() - t0)
+    return basis_dir, pos_path, groups
+
+
+def reduced_args(basis_dir: str, pos_path: str, constr_modes: int,
+                 pos_modes: int, dt: float, damping: float,
+                 oversample: float = 4.0 / 3.0):
+    """The reduced solver's arguments of bench.py:331-381: both groups
+    reduced at ``constr_modes`` modes (``deim_pod_vectorized``), DEIM
+    oversampled ``oversample`` times, ``pos_modes`` position modes."""
+    args = default_sim_args()
+    args.dt = dt
+    args.damping = damping
+    args.constraint_projection_basis_type = "deim_pod_vectorized"
+    args.tri_strain_reduced = True
+    args.tri_strain_num_components = constr_modes
+    args.edge_spring_reduced = True
+    args.edge_spring_num_components = constr_modes
+    args.deim_oversample = oversample
+    args.geom_interpolation_basis_dir = basis_dir
+    args.geom_interpolation_basis_file = "basis.npz"
+    args.position_reduced = True
+    args.position_num_components = pos_modes
+    args.position_basis_file = pos_path
+    return args
+
+
+def fom_deviation(positions: np.ndarray, fom: np.ndarray):
+    """bench.py:485-490's statistic: |P - P_FOM| / max|P_FOM| per entry ->
+    (mean, p99, max)."""
+    d = np.abs(positions - fom) / np.abs(fom).max()
+    return float(d.mean()), float(np.quantile(d, 0.99)), float(d.max())

@@ -7,6 +7,11 @@ float64 on the CPU (the parity tests against the JAX package run there).
 The storage dtype of the large per-step matrices (``matmul_dtype``) is
 float32 or bfloat16 on the card, as ``AnimSnapBasesSolver.matmul_dtype``
 is in the JAX package; accumulation stays in the working dtype.
+The full-order recorder (``sim/solver.py``) and the bases pipeline
+(``bases/``, ``ops/podlinalg.py``, ``ops/deim_scan.py``) run in
+``PIPELINE_DTYPE``, float64, on the card and on the CPU alike, as the JAX
+bench records and builds them: a float32 recording would diverge at the
+chaotic free-swinging vertices.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import torch
 
 DEFAULT_DEVICE = "cuda"
+PIPELINE_DTYPE = torch.float64
 
 
 def resolve_device(device=None) -> torch.device:

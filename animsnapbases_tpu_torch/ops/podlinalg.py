@@ -1,0 +1,53 @@
+"""Snapshot-POD linear algebra (the method of snapshots).
+
+Counterpart of ``animsnapbases_tpu/ops/podlinalg.py``.  For a snapshot
+matrix X (n, F) with n >> F the left singular vectors come from the F x F
+Gram matrix: X^T X = W L W^T, U = X W L^{-1/2}.  :func:`snapshot_pod` does
+this on the port's device in float64 (``device.PIPELINE_DTYPE``),
+:func:`snapshot_pod_host` with numpy and BLAS on the host; both zero-fill
+the columns of U past the numerical rank.  The sharded form is not ported
+(ROADMAP Queue A item A18).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from animsnapbases_tpu_torch.device import PIPELINE_DTYPE, resolve_device
+
+
+def snapshot_pod(X, device=None):
+    """Economy SVD of X (n, F), n >= F, via the Gram matrix, on ``device``
+    (default: the card) -> (U (n, F), s (F,), Vt (F, F)) as float64
+    tensors, singular values descending; the columns of U whose singular
+    value is below 1e-12 of the largest are zero."""
+    X = torch.as_tensor(X, dtype=PIPELINE_DTYPE,
+                        device=resolve_device(device))
+    w, W = torch.linalg.eigh(X.T @ X)                  # ascending
+    w, W = w.flip(0), W.flip(1)
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    denom = torch.where(s > 1e-12 * (s[0] + 1e-30), s, torch.inf)
+    return (X @ W) / denom[None, :], s, W.T
+
+
+def snapshot_pod_host(X, n_modes: int | None = None):
+    """Host (numpy float64) twin of :func:`snapshot_pod`: the same Gram
+    method (one ``dsyrk``) and zero-fill; ``n_modes`` keeps the leading
+    columns of U only, the singular values are all returned."""
+    from scipy.linalg import blas
+
+    X = np.asarray(X, dtype=np.float64)
+    F = X.shape[1]
+    k = F if n_modes is None else min(int(n_modes), F)
+    Xf = X if X.flags.c_contiguous or X.flags.f_contiguous else (
+        np.ascontiguousarray(X))
+    G = blas.dsyrk(1.0, Xf, trans=1, lower=0)       # upper triangle of X^T X
+    G = np.triu(G) + np.triu(G, 1).T
+    w, W = np.linalg.eigh(G)
+    w = w[::-1]
+    W = np.ascontiguousarray(W[:, ::-1])
+    s = np.sqrt(np.maximum(w, 0.0))
+    denom = np.where(s > 1e-12 * (s[0] + 1e-30), s, np.inf)
+    U = Xf @ (W[:, :k] / denom[None, :k])
+    return U, s, W.T

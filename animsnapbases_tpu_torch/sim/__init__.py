@@ -1,1 +1,1 @@
-"""Host model, solver glue and the reduced solver of the port."""
+"""Host model, the full-order solver, the reduced solver of the port."""

@@ -1,12 +1,13 @@
 """Deformable model: simulation state + constraint-group management.
 
 Counterpart of ``animsnapbases_tpu/sim/model.py`` for what the reduced
-serving path needs: pinning (``fix``, mass 1e10) with the side and corner
-fixers, positional targets, and the constructors of the five constraint
-group kinds (``tris_strain``, ``edge_spring``, ``tets_strain``,
-``tets_deformation_gradient``, ``verts_bending`` with its area masses).
-The state stays host numpy in float64, as in the JAX package; the solver
-casts it once per call to the working dtype on its device.
+serving path and the full-order recorder need: pinning (``fix``, mass
+1e10) with the side and corner fixers, positional targets, the
+constructors of the five constraint group kinds (``tris_strain``,
+``edge_spring``, ``tets_strain``, ``tets_deformation_gradient``,
+``verts_bending`` with its area masses) and the S^T export
+(``assembly_matrices``).  The state stays host numpy in float64, as in the
+JAX package; the solvers cast it to their dtype on their device.
 """
 
 from __future__ import annotations
@@ -166,6 +167,15 @@ class DeformableModel:
         self.groups["verts_bending"] = G.build_verts_bending(
             self.positions, self.faces, wi, voronoi, prevent_bending_flips,
             flat_bending)
+
+    def has_group(self, name: str) -> bool:
+        return name in self.groups
+
+    def assembly_matrices(self) -> dict:
+        """scipy S^T matrices per group but the positional one (the
+        ``assembly_ST.npz`` export)."""
+        return {name: g.assembly_scipy(self.n_verts)
+                for name, g in self.groups.items() if name != "positional"}
 
     def vertex_masses(self, triangles, positions):
         """Per-vertex area masses (a third of each incident triangle),

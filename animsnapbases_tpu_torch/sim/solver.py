@@ -1,17 +1,45 @@
-"""Global-matrix assembly shared by the solvers.
+"""Full-order projective-dynamics solver and the global-matrix assembly.
 
-Counterpart of ``animsnapbases_tpu/sim/solver.py`` for what the reduced
-solver and its callers need: ``build_global_matrix``, the
-``flatten``/``unflatten`` layout helpers and ``positional_targets_timeline``
-(a model's target timeline, e.g. a ``targets_seq`` for
-``make_batched_run``).  The full-order ``Solver`` is
-not ported yet (ROADMAP Queue A item 7).
+Counterpart of ``animsnapbases_tpu/sim/solver.py``: ``Solver`` (explicit
+predictor, floor collision, ``num_iterations`` local-global sweeps with a
+prefactored global solve, per-frame recording of the trajectory and of the
+stacked projections p), ``build_global_matrix`` (which the reduced solver
+shares), ``make_local_stage``, the per-dimension constraint block
+(``group_dim_triplets``, ``build_constraint_dim_coo``) and
+``positional_targets_timeline``.
+
+The local stage (every group's projections and S^T p, ``sim/projections.py``)
+runs on the solver's device, in ``device.PIPELINE_DTYPE`` (float64) on the
+card as on the CPU.  Global-solve tiers (``global_solve``):
+
+* ``"host"`` -- scipy's sparse LU (``factorized``) on the host, the tier
+  the JAX bench records with: b and q cross between the card and the host
+  once per iteration (``seconds`` splits the time into the local stage,
+  the transfers and the LU solves);
+* ``"dense"`` -- a dense Cholesky factor on the device
+  (``torch.linalg.cholesky`` / ``cholesky_solve``) for 3N <= DENSE_LIMIT;
+* ``"cg"`` -- Jacobi-preconditioned CG on the device in displacement form,
+  warm-started from the previous iteration (``ops/cg.py``);
+* ``"auto"`` -- dense up to DENSE_LIMIT, else CG.
+
+Self-collision is not ported (ROADMAP Queue A item A12): asking for it
+raises.
 """
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import scipy.sparse
+import scipy.sparse.linalg
+import torch
+
+from animsnapbases_tpu_torch.device import PIPELINE_DTYPE, resolve_device
+from animsnapbases_tpu_torch.ops import segment
+from animsnapbases_tpu_torch.ops.cg import build_ell, ell_matvec, pcg_solve
+from animsnapbases_tpu_torch.sim import collisions, projections
 
 
 def flatten(p: np.ndarray) -> np.ndarray:
@@ -20,6 +48,49 @@ def flatten(p: np.ndarray) -> np.ndarray:
 
 def unflatten(q: np.ndarray) -> np.ndarray:
     return q.reshape(-1, 3)
+
+
+def device_group_data(g, device, dtype):
+    """The group's arrays as tensors on ``device`` (floats in ``dtype``);
+    scalars and object arrays as they are."""
+    out = {}
+    for k, v in g.data.items():
+        if isinstance(v, np.ndarray) and v.dtype != object:
+            t = torch.as_tensor(v, device=device)
+            out[k] = t.to(dtype) if t.is_floating_point() else t
+        else:
+            out[k] = v
+    return out
+
+
+def make_local_stage(model, device=None, dtype=PIPELINE_DTYPE):
+    """The local stage of the model's current groups:
+    ``local(q, positional_targets) -> (b, {name: stacked_p})`` with b =
+    sum over groups of S^T p, each product summed in a fixed order
+    (``ops/segment.py``), so that two runs on the card agree bit for
+    bit."""
+    device = resolve_device(device)
+    n = model.n_verts
+    static = []
+    for name, g in model.groups.items():
+        layout = segment.row_layout(
+            g.st_rows, g.st_cols,
+            torch.as_tensor(g.st_vals, dtype=dtype, device=device), n)
+        static.append((name, device_group_data(g, device, dtype), layout))
+
+    def local(q, positional_targets):
+        b = torch.zeros((n, 3), dtype=q.dtype, device=q.device)
+        stacked = {}
+        for name, data, layout in static:
+            if name == "positional":
+                p = projections.positional_p(positional_targets)
+            else:
+                p = projections.PROJECTION_KERNELS[name](q, data)
+            stacked[name] = p
+            b = b + segment.row_sum(layout, p)
+        return b, stacked
+
+    return local
 
 
 def build_global_matrix(model, dt: float):
@@ -35,6 +106,311 @@ def build_global_matrix(model, dt: float):
     return scipy.sparse.csc_matrix(
         (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
         shape=(3 * n, 3 * n))
+
+
+def group_dim_triplets(g):
+    """One group's per-dimension (N, N) LHS block as COO triplets: every
+    group couples equal dimensions only, with the same values in each, so
+    the d = 0 entries describe the block."""
+    if g.lhs_rows is None or len(g.lhs_rows) == 0:
+        z = np.empty(0, dtype=np.int64)
+        return z, z.copy(), np.empty(0)
+    m = (g.lhs_rows % 3 == 0) & (g.lhs_cols % 3 == 0)
+    return g.lhs_rows[m] // 3, g.lhs_cols[m] // 3, g.lhs_vals[m]
+
+
+def build_constraint_dim_coo(model):
+    """COO triplets of the per-dimension constraint block A_c (N, N), so
+    that A_d = A_c + diag(mass/dt^2) for every dimension d."""
+    rows, cols, vals = [], [], []
+    for g in model.groups.values():
+        r, c, v = group_dim_triplets(g)
+        if len(r):
+            rows.append(r)
+            cols.append(c)
+            vals.append(v)
+    if not rows:
+        z = np.empty(0, dtype=np.int64)
+        return z, z.copy(), np.empty(0)
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals))
+
+
+class Solver:
+    """Full-order PD solver with the reference's prepare/step API (see the
+    module docstring for the global-solve tiers)."""
+
+    DENSE_LIMIT = 2400  # max 3N for the dense Cholesky tier
+    CG_TOL = 1e-11      # relative preconditioned-residual tolerance
+    CG_MAX_ITERS = 500
+
+    def __init__(self, global_solve: str = "auto", device=None):
+        self.device = resolve_device(device)
+        self.dtype = PIPELINE_DTYPE
+        self.model = None
+        self.global_solve = global_solve
+        self.dirty = True
+        self.dt = None
+        self.eta = 1.0
+        self.frame = 0
+        self._mode = None
+        self._local = None
+        self._local_key = None
+        # recording
+        self.store_stacked_projections = False
+        self.record_path = ""
+        self.max_p_snapshots_num = 200
+        self._recorded: dict[str, dict[str, np.ndarray]] = {}
+        # self-collision is not ported (A12); any true value raises
+        self.enable_self_collision = False
+        # seconds of the host tier's iterations: the local stage on the
+        # device, the transfers of b and q, the LU solves
+        self.seconds = {"local": 0.0, "transfer": 0.0, "solve": 0.0}
+
+    # ------------------------------------------------------------------
+    def set_model(self, model):
+        self.model = model
+        self.set_dirty()
+
+    def set_dirty(self):
+        self.dirty = True
+
+    def set_clean(self):
+        self.dirty = False
+
+    def ready(self):
+        return not self.dirty
+
+    def set_record_path(self, path: str):
+        self.record_path = path
+
+    def set_store_p(self, value: bool):
+        self.store_stacked_projections = value
+
+    def _refuse_self_collision(self):
+        if self.enable_self_collision:
+            raise NotImplementedError(
+                "self-collision is not ported to the PyTorch solver yet "
+                "(ROADMAP Queue A item A12)")
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                               device=self.device)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def store_assembly_matrices(self, record_path: str):
+        """``assembly_ST.npz`` (scipy S^T per group, as object arrays) and,
+        with a bending group, ``verts_bending_constrained_indices.npz``."""
+        os.makedirs(record_path, exist_ok=True)
+        matrices = self.model.assembly_matrices()
+        if self.model.has_group("verts_bending"):
+            np.savez(os.path.join(record_path,
+                                  "verts_bending_constrained_indices.npz"),
+                     indices=np.asarray(
+                         self.model.groups["verts_bending"].data["indices"]))
+        np.savez(os.path.join(record_path, "assembly_ST.npz"), **matrices)
+
+    def prepare(self, args, store_fom_info=False, record_path=None):
+        self._refuse_self_collision()
+        if store_fom_info:
+            if record_path is None:
+                raise ValueError("store_fom_info needs a record_path")
+            self.store_assembly_matrices(record_path)
+            self.record_path = record_path
+        self.dt = args.dt
+        # s_n = q + dt*eta*v + dt^2 M^-1 f, v = (q_new - q)/dt
+        self.eta = 1.0 - float(getattr(args, "damping", 0.0) or 0.0)
+        self.max_p_snapshots_num = getattr(args, "max_p_snapshots_num",
+                                           self.max_p_snapshots_num)
+        model = self.model
+        A = build_global_matrix(model, self.dt)
+        dt2 = self.dt * self.dt
+        mode = self.global_solve
+        if mode == "auto":
+            mode = "dense" if A.shape[0] <= self.DENSE_LIMIT else "cg"
+        if mode == "dense":
+            self._chol = torch.linalg.cholesky(self._tensor(A.toarray()))
+            self._mass_dt2 = self._tensor(model.mass / dt2)
+        elif mode == "cg":
+            ac_rows, ac_cols, ac_vals = build_constraint_dim_coo(model)
+            mass_diag = np.asarray(model.mass / dt2, dtype=float)
+            diag = mass_diag.copy()
+            on_diag = ac_rows == ac_cols
+            np.add.at(diag, ac_rows[on_diag], ac_vals[on_diag])
+            ell_cols, ell_vals = build_ell(ac_rows, ac_cols, ac_vals,
+                                           model.n_verts, diag_add=mass_diag)
+            self._mass_dt2 = self._tensor(mass_diag)
+            self._ell = (torch.as_tensor(ell_cols.astype(np.int64),
+                                         device=self.device),
+                         self._tensor(ell_vals))
+            self._dinv = self._tensor(1.0 / diag)
+        elif mode == "host":
+            self._solve = scipy.sparse.linalg.factorized(A)
+        else:
+            raise ValueError(f"unknown global_solve mode {mode!r}")
+        self._mode = mode
+        # the local stage holds the groups' rest data: rebuild it only when
+        # the group structure changed
+        local_key = tuple((name, id(g)) for name, g in model.groups.items())
+        if self._local_key != local_key:
+            self._local = make_local_stage(model, self.device, self.dtype)
+            self._local_key = local_key
+        self.set_clean()
+
+    # ------------------------------------------------------------------
+    def _prep(self, sn):
+        """Once per step: the masses term (dense) or the displacement
+        form's constant -A_c s_n (CG)."""
+        if self._mode == "dense":
+            return self._mass_dt2[:, None] * sn
+        return self._mass_dt2[:, None] * sn - ell_matvec(*self._ell, sn)
+
+    def _apply(self, c, sn, u_prev, ctx):
+        """Once per iteration: (q, u) from the constraint term c."""
+        if self._mode == "dense":
+            q = torch.cholesky_solve((c + ctx).reshape(-1, 1),
+                                     self._chol).reshape(-1, 3)
+            return q, q - sn
+        u, _ = pcg_solve(lambda x: ell_matvec(*self._ell, x), self._dinv,
+                         c + ctx, u_prev, tol=self.CG_TOL,
+                         max_iters=self.CG_MAX_ITERS)
+        return sn + u, u
+
+    def _sweep(self, sn, targets, num_iterations):
+        """The device tiers' local-global sweep from the predictor sn: at
+        least one iteration, as the JAX sweep."""
+        ctx = self._prep(sn)
+        q, u = sn, torch.zeros_like(sn)
+        stacked = {}
+        for _ in range(max(num_iterations, 1)):
+            c, stacked = self._local(q, targets)
+            q, u = self._apply(c, sn, u, ctx)
+        return q, stacked
+
+    def _host_sweep(self, sn, targets, num_iterations):
+        """The host tier: the local stage on the device, the LU solve on the
+        host, b and q crossing once per iteration."""
+        dt2 = self.dt * self.dt
+        masses_term = self._tensor((self.model.mass / dt2)[:, None] * sn)
+        q = self._tensor(sn)
+        stacked = {}
+        sec = self.seconds
+        for _ in range(num_iterations):
+            t0 = time.perf_counter()
+            b, stacked = self._local(q, targets)
+            b = b + masses_term
+            self._sync()
+            t1 = time.perf_counter()
+            b_host = b.cpu().numpy().reshape(-1)
+            t2 = time.perf_counter()
+            q_host = self._solve(b_host)
+            t3 = time.perf_counter()
+            q = self._tensor(unflatten(q_host))
+            t4 = time.perf_counter()
+            sec["local"] += t1 - t0
+            sec["transfer"] += (t2 - t1) + (t4 - t3)
+            sec["solve"] += t3 - t2
+        return q, stacked
+
+    def step(self, fext, num_iterations=10):
+        self._refuse_self_collision()
+        model = self.model
+        dt = self.dt
+        dt2 = dt * dt
+        a = fext / model.mass[:, None]
+        explicit = model.positions + dt * self.eta * model.velocities \
+            + dt2 * a
+        if model.floor_collision:
+            explicit, corrections = collisions.resolve_floor_collision(
+                explicit, model.floor_height)
+            model.positions_corrections = corrections
+        targets = self._tensor(model.positional_targets(self.frame))
+        if self._mode == "host":
+            q, stacked = self._host_sweep(explicit, targets, num_iterations)
+        else:
+            q, stacked = self._sweep(self._tensor(explicit), targets,
+                                     num_iterations)
+        if self.store_stacked_projections:
+            self._record_frame(stacked)
+        q_next = q.cpu().numpy()
+        model.velocities = (q_next - model.positions) * (1.0 / dt)
+        model.positions = q_next
+        self.frame += 1
+
+    # ------------------------------------------------------------------
+    def run_steps(self, fext, num_steps, num_iterations=10, record=False):
+        """Advance ``num_steps`` steps; with ``record=True`` return the
+        (T, N, 3) trajectory.  The host tier steps through :meth:`step`;
+        the device tiers keep the state on the device between steps."""
+        self._refuse_self_collision()
+        model = self.model
+        if self._mode == "host":
+            traj = []
+            for _ in range(num_steps):
+                self.step(fext, num_iterations)
+                if record:
+                    traj.append(model.positions.copy())
+            return np.array(traj) if record else None
+        dt = self.dt
+        dtv = dt * self.eta
+        dt2 = dt * dt
+        pos = self._tensor(model.positions)
+        vel = self._tensor(model.velocities)
+        a = self._tensor(fext) / self._tensor(model.mass)[:, None]
+        corr = torch.zeros_like(pos)
+        traj = []
+        for _ in range(num_steps):
+            sn_raw = pos + dtv * vel + dt2 * a
+            sn = sn_raw
+            if model.floor_collision:
+                sn = sn_raw.clone()
+                sn[:, 1] = torch.clamp(sn_raw[:, 1], min=model.floor_height)
+            q, stacked = self._sweep(
+                sn, self._tensor(model.positional_targets(self.frame)),
+                num_iterations)
+            vel = (q - pos) / dt
+            pos = q
+            corr = sn_raw - sn
+            if record:
+                traj.append(q)
+            if self.store_stacked_projections:
+                self._record_frame(stacked)
+            self.frame += 1
+        model.positions = pos.cpu().numpy()
+        model.velocities = vel.cpu().numpy()
+        if model.floor_collision:
+            model.positions_corrections = corr.cpu().numpy()
+        if record:
+            return (torch.stack(traj).cpu().numpy() if traj
+                    else np.empty((0,) + model.positions.shape))
+        return None
+
+    # ------------------------------------------------------------------
+    def _record_frame(self, stacked: dict):
+        """Keep the last iteration's stacked p per group under the frame's
+        key; flush each group to <name>_p.npz when the frame counter
+        reaches max_p_snapshots_num."""
+        for name, p in stacked.items():
+            if name == "positional":
+                continue
+            self._recorded.setdefault(name, {})[str(self.frame)] = (
+                p.cpu().numpy())
+        if self.frame == self.max_p_snapshots_num and self.record_path:
+            self.flush_recordings()
+
+    def flush_recordings(self):
+        """Write every recorded group to <name>_p.npz, one key per frame
+        ("0", "1", ...)."""
+        if not self.record_path or not self._recorded:
+            return
+        os.makedirs(self.record_path, exist_ok=True)
+        for name, frames in self._recorded.items():
+            np.savez(os.path.join(self.record_path, name + "_p.npz"),
+                     **frames)
 
 
 def positional_targets_timeline(model, frame: int, num_steps: int):

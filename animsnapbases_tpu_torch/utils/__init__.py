@@ -1,1 +1,1 @@
-"""Helpers for smokes and tests."""
+"""Helpers: synthetic bases for smokes and tests, invariant checks, phase timing."""

@@ -1,0 +1,46 @@
+"""Phase timing: wall-clock per pipeline stage under the stage's name.
+
+Counterpart of ``log_time`` of ``animsnapbases_tpu/utils/timing.py``
+(stdlib only): each decorated stage of the bases pipeline records its
+seconds in one process-wide timer.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+
+
+class PhaseTimer:
+    """Collects named phase durations."""
+
+    def __init__(self):
+        self.records: list[tuple[str, float]] = []
+
+    def record(self, name: str, seconds: float) -> None:
+        self.records.append((name, seconds))
+
+
+_GLOBAL_TIMER = PhaseTimer()
+
+
+def global_timer() -> PhaseTimer:
+    return _GLOBAL_TIMER
+
+
+def log_time(func=None):
+    """Decorator recording wall-clock into the global timer under the
+    function's name."""
+
+    def deco(f):
+        @functools.wraps(f)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            _GLOBAL_TIMER.record(f.__name__, time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    if func is not None:
+        return deco(func)
+    return deco

@@ -100,10 +100,26 @@ version.  Phases, each of which fails the run when it fails:
    steps, the near-floor window and kernel 2 against the plain versions,
    the batched chunk bit for bit against the solo one; the builds timed in
    turns;
+6. ``pipeline`` (:func:`pipeline_phase`): bench.py's flagship path on the
+   card with real bases, on the bench scene: the full-order recording
+   (``Solver(global_solve="host")``, 48 frames at 10 iterations, its
+   seconds split into the local stage, the transfers and the LU solves),
+   the constraint bases (40 modes, ``pod_vectorized``, row DEIM) and the
+   position basis (r = 48), the reduced solver prepared from those files
+   as bench.py prepares it, ``run_steps(48)`` (the reduced-vs-FOM mean,
+   p99 and max) and ``step()``: one counted path (kernels 1 and 5).  Held:
+   a second recording on the card bit for bit, the CPU's within 1e-6 of
+   the scene's extent; the bases again on the CPU (DEIM picks equal or
+   ties of the greedy's argmax, the POD within the Gram method's rounding
+   bound), no warning of the bases pipeline; the ring-down window
+   (2,000 steps) certified by tier 1 and floor-clear; kernels 1 and 5
+   against their plain versions on these bases; times, kernel 5's floor
+   bound and the stages' seconds;
 5. the ``kernels`` line (21 entries: six solo kernels, five batched
    builds, each with its times on the new scenes under ``scenes``, with a
-   target schedule under ``animated`` and at 250,000 vertices under
-   ``megacloth``, then kernel 5's five option builds, solo and batched),
+   target schedule under ``animated``, at 250,000 vertices under
+   ``megacloth`` and, for kernels 1 and 5, on real bases under
+   ``real_bases``, then kernel 5's five option builds, solo and batched),
    then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
@@ -309,6 +325,29 @@ MEGA_BATCH_STEPS = 2000
 MEGA_DRIFT = 0.1
 MEGA_DEPTH = 16
 MEGA_ROUNDS = 9
+# the pipeline phase (:func:`pipeline_phase`), bench.py's flagship path on
+# real bases: the full-order recording (frames, iterations), the bases'
+# widths (position modes, modes a group, the reduced solver's modes a
+# group), the ring-down's excitation (a share of the recording's tail
+# velocity) and warm-up steps, the chunk of the window's comparison run,
+# the card's recording against the CPU's (a
+# share of the scene's extent); POD_GAMMA bounds the rounding of two
+# float64 Gram products of one snapshot matrix, as a share of the largest
+# eigenvalue (16 float64 units: the JAX package's and the port's Gram
+# matrices of the bench scene's snapshots part by at most 0.12 of one,
+# tools/pipeline_parity.py), PICK_RTOL the tie of two rows' residual
+# energies in a DEIM step
+FOM_FRAMES = 48
+FOM_ITERS = 10
+POS_MODES = 64
+CONSTR_MODES = 40
+REDUCED_MODES = 30
+EXCITE = 0.1
+PIPE_WARMUP = 50
+PIPE_CHUNK = 64
+CPU_DEVIATION = 1e-6
+POD_GAMMA = 16 * 2.0 ** -52
+PICK_RTOL = 1e-10
 
 
 def log(*a):
@@ -683,7 +722,7 @@ def big_pass(ao, nb=1):
             + nb * 4 * 3 * ro.n, nb * 2 * 3 * ao.fused.r * ro.n)
 
 
-def k5_cost(ao, steps, iters, every, nb=1, options=None):
+def k5_cost(ao, steps, iters, every, nb=1, options=None, exact_steps=0):
     """(bytes, {dtype: ops}) of one kernel-5 call of ``steps`` contact-free
     steps for ``nb`` sims whose floor bound never trips (the exact check
     then reads nothing): per call the small operands (:func:`small_cost`),
@@ -700,7 +739,9 @@ def k5_cost(ao, steps, iters, every, nb=1, options=None):
     ``fold_vc`` the map to the gathered values is U_selT over the n_sel
     selected columns, each sim's prefixes of P, V and fa (3 x 3 n_sel) are
     read once per call, no gathered columns are formed, and every step
-    sums the star gather in float64."""
+    sums the star gather in float64.  ``exact_steps``: the steps of the
+    call on which the bound trips, each reading what the exact check
+    reads."""
     ro, fo = ao.res, ao.fused
     n, r, g = ro.n, fo.r, fo.g_total
     bound = options is None or options.floor_bound_skip
@@ -714,10 +755,11 @@ def k5_cost(ao, steps, iters, every, nb=1, options=None):
               + nb * 4 * (3 * n * 2 + (n if bound else 0)) + pb)
     ops = {"float32": nb * steps * so + chunks * (2 * po + nb * 6 * 3 * n),
            "float64": (2 * chunks + 1) * po}
-    if not bound:
-        nbytes += steps * (ro.U_liftT.element_size() * r * n
-                           + nb * 4 * 3 * n)
-        ops["float32"] += steps * nb * 2 * r * n
+    checks = exact_steps if bound else steps
+    if checks:
+        nbytes += checks * (ro.U_liftT.element_size() * r * n
+                            + nb * 4 * 3 * n)
+        ops["float32"] += checks * nb * 2 * r * n
     if not fold:
         nbytes += nb * 4 * 9 * ro.n_sel
         ops["float64"] += steps * nb * 2 * 3 * fo.gw.numel()
@@ -3659,6 +3701,477 @@ def scale_phase(torch, counted, paths, dev):
     return out
 
 
+def pod_bounds(S, K):
+    """(bound on |s_k - s'_k|, bound on max |U_k - U'_k|) for k < K: two
+    float64 snapshot PODs (the Gram method, ops/podlinalg.py) of one matrix
+    X whose Gram products differ by E, |E| at most e = POD_GAMMA lam_0 (the
+    largest eigenvalue), to first order.  Weyl: each eigenvalue moves at
+    most e, so s_k at most e / (2 s_k).  The eigenvector w_k takes at most
+    e / |lam_k - lam_j| of each other w_j, and U_k = X w_k / s_k turns that
+    into s_j / s_k of U_j; with the change of 1 / s_k,
+    |dU_k| <= sum_j e s_j / (|lam_k - lam_j| s_k) + |ds_k| / s_k.  Floors:
+    1e-10 of s_k and 1e-9.  Tight for the leading modes, the bounds grow
+    without limit in a tail whose eigenvalues crowd within e of each other:
+    there the Gram method's modes are set by rounding."""
+    S = np.asarray(S, dtype=float)
+    lam = S * S
+    e = POD_GAMMA * lam[0]
+    ds = 1e-10 * S[:K] + e / (2.0 * S[:K])
+    du = np.empty(K)
+    for k in range(K):
+        j = np.arange(len(S)) != k
+        du[k] = (1e-9 + e * np.sum(S[j] / np.abs(lam[k] - lam[j])) / S[k]
+                 + ds[k] / S[k])
+    return ds, du
+
+
+def sign_aligned_diff(a, b):
+    """max |a_k - s_k b_k| per mode k (axis 0), s_k = +-1 aligning b_k with
+    a_k."""
+    a = np.asarray(a, dtype=float).reshape(len(a), -1)
+    b = np.asarray(b, dtype=float).reshape(len(b), -1)
+    s = np.where((a * b).sum(axis=1) < 0, -1.0, 1.0)
+    return np.abs(a - s[:, None] * b).max(axis=1)
+
+
+def deim_picks_agree(comps, picks_ref, picks, mode_diff):
+    """Whether ``picks`` is the greedy DEIM sequence of ``comps`` (K, ep, d)
+    wherever it differs from ``picks_ref``: following ``picks``, step k's
+    residual of mode k against the rows picked before it (the host loop's
+    lstsq per dimension) must be largest at picks[k], within PICK_RTOL plus
+    what the components' difference between the two sides (``mode_diff``,
+    per mode) can move it.  -> (ok, [(k, ref pick, pick, shortfall)])."""
+    picks_ref, picks = np.asarray(picks_ref), np.asarray(picks)
+    if picks.shape != picks_ref.shape:
+        return False, []
+    bases = np.asarray(comps).swapaxes(0, 1)         # (ep, K, d)
+    ties = []
+    for k in np.nonzero(picks != picks_ref)[0]:
+        vk = bases[:, k, :]
+        sol_l1 = 0.0
+        if k == 0:
+            r = vk
+        else:
+            c = np.empty(vk.shape)
+            for i in range(vk.shape[1]):
+                sol = np.linalg.lstsq(bases[picks[:k], :k, i],
+                                      vk[picks[:k], i], rcond=None)[0]
+                c[:, i] = bases[:, :k, i] @ sol
+                sol_l1 = max(sol_l1, float(np.abs(sol).sum()))
+            r = c - vk
+        energy = (r ** 2).sum(axis=1)
+        top = float(energy.max())
+        rtol = PICK_RTOL + 8.0 * float(np.max(mode_diff[:k + 1])) * (
+            1.0 + sol_l1) / np.sqrt(top)
+        shortfall = 1.0 - float(energy[picks[k]]) / top
+        ties.append((int(k), int(picks_ref[k]), int(picks[k]), shortfall))
+        if shortfall > rtol:
+            return False, ties
+    return True, ties
+
+
+def on_host(x):
+    """``x`` (a tensor, or a dataclass or tuple holding tensors) with every
+    tensor copied to the host."""
+    if hasattr(x, "cpu") and callable(x.cpu):
+        return x.cpu()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: on_host(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, (tuple, list)):
+        return type(x)(on_host(v) for v in x)
+    return x
+
+
+def bound_trips(ao, P, V, F, rb, steps):
+    """The steps of kernel 5's window from (P, V) on which its O(r) floor
+    bound trips (the exact check runs), counted on the plain version on
+    the host (``ops/affine_chunked.py`` ``floor_bound``)."""
+    import animsnapbases_tpu_torch.ops.affine_chunked as ac
+
+    trips, real = [], ac.floor_bound
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        trips.append(bool(out.any()))
+        return out
+
+    ac.floor_bound = spy
+    try:
+        done = ac.affine_chunked_plain(on_host(ao), P.cpu(), V.cpu(),
+                                       F.cpu(), rb.cpu(), steps,
+                                       ITERATIONS)[2]
+    finally:
+        ac.floor_bound = real
+    require(done == steps, "the plain kernel 5 stopped in the window")
+    return sum(trips)
+
+
+def pipeline_phase(torch, counted, paths, dev):
+    """bench.py's flagship path on the card with real bases, on the bench
+    scene (:func:`bench_scene`): the full-order recording
+    (``Solver(global_solve="host")``, FOM_FRAMES frames at FOM_ITERS
+    iterations under gravity, p-snapshots stored), the two constraint
+    bases (bench.py:118-181's config: CONSTR_MODES modes,
+    ``pod_vectorized``, row DEIM) and the position basis (r = min(POS_MODES,
+    FOM_FRAMES)), the reduced solver prepared from those files as
+    ``bench.build_reduced_solver`` prepares it (REDUCED_MODES modes a group,
+    DEIM oversampled 4/3, float32 state, bfloat16 matrices, the lean
+    contact tier), then ``run_steps(FOM_FRAMES)`` from the hang state under
+    gravity (bench.py's reduced-vs-FOM statistic) and one ``step()``: one
+    counted path (kernels 1 and 5).  The recording again on the card (bit
+    for bit: trajectory and p-snapshots) and on the CPU (within
+    CPU_DEVIATION of the scene's extent); the bases again on the CPU from
+    the card's files (the DEIM picks equal or ties, :func:`deim_picks_agree`;
+    components and singular values within :func:`pod_bounds`); no warning
+    of the bases pipeline.  The ring-down window (bench.py's timed phase:
+    EXCITE x the recording's tail velocity, no force, PIPE_WARMUP steps,
+    then WINDOW_STEPS) as a counted path, certified by tier 1 and
+    floor-clear.  Kernels 1 and 5 held against their plain versions on
+    these bases (kernel 1 against float64, :func:`as_accurate`; kernel 5
+    step by step and its carried steps) and timed.  Returns {kernel name:
+    the numbers the kernels line carries under "real_bases"}."""
+    import warnings
+
+    from animsnapbases_tpu_torch.bases.pipeline import (
+        build_bases,
+        fom_deviation,
+        record_fom,
+        reduced_args,
+    )
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        ChunkOptions,
+        affine_chunked,
+        affine_chunked_plain,
+        chunk_plan,
+    )
+    from animsnapbases_tpu_torch.ops.cluster import resident_clusters
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_plan,
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import force_term, predict
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+
+    dt = 0.016
+
+    def scene():
+        return bench_scene(DeformableModel, cloth_model)
+
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        # ---- 2. the pipeline's main path, counted ------------------------
+        model = scene()
+        f = gravity(model)
+        state = {}
+
+        def record(label, device):
+            m = scene()
+            t0 = time.perf_counter()
+            traj, fom = record_fom(m, f, os.path.join(work, label, "FOM"),
+                                   FOM_FRAMES, FOM_ITERS, dt, BENCH_DAMPING,
+                                   device=device)
+            secs[f"record, {label}"] = time.perf_counter() - t0
+            log(f"[6] pipeline: recorded {FOM_FRAMES} frames at {FOM_ITERS} "
+                f"iterations on the {label} ({fom._mode} global solve) in "
+                f"{secs[f'record, {label}']:.2f} s: local stage "
+                f"{fom.seconds['local']:.2f} s, transfers "
+                f"{fom.seconds['transfer']:.2f} s, LU solves "
+                f"{fom.seconds['solve']:.2f} s")
+            return traj, fom
+
+        def main_pipeline():
+            traj, fom = record("card", dev)
+            timings = {}
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                basis_dir, pos_path, groups = build_bases(
+                    model, os.path.join(work, "card", "FOM"), traj,
+                    os.path.join(work, "card"), CONSTR_MODES, POS_MODES,
+                    device=dev, timings=timings)
+            own = [str(w.message) for w in caught
+                   if "animsnapbases_tpu_torch" in w.filename]
+            require(not own, f"the bases pipeline warned: {own}")
+            secs["bases, card"] = sum(timings.values())
+            log(f"[6] pipeline: bases on the card in "
+                f"{secs['bases, card']:.2f} s ("
+                + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+                + "); " + "; ".join(
+                    f"{g}: {cc.numComp} modes, {len(cc.geom_Pt)} DEIM rows, "
+                    f"s_K/s_0 {cc.singVals[cc.numComp - 1] / cc.singVals[0]:.3e}"
+                    for g, cc in groups.items()) + "; no warning")
+            args = reduced_args(basis_dir, pos_path, min(REDUCED_MODES,
+                                                          CONSTR_MODES),
+                                POS_MODES, dt, BENCH_DAMPING)
+            solver = AnimSnapBasesSolver(args, device=dev,
+                                         dtype=torch.float32,
+                                         matmul_dtype=torch.bfloat16)
+            solver.resident_contact_mode = False
+            solver.set_model(model)
+            t0 = time.perf_counter()
+            solver.prepare(args)
+            secs["prepare"] = time.perf_counter() - t0
+            state["entry"] = model.positions.copy()
+            solver.run_steps(f, FOM_FRAMES, num_iterations=FOM_ITERS)
+            state["after"] = (model.positions.copy(),
+                              model.velocities.copy())
+            solver.step(f, num_iterations=FOM_ITERS)
+            state.update(traj=traj, groups=groups, solver=solver,
+                         basis_dir=basis_dir)
+
+        paths["pipeline: record, bases, prepare, run_steps + step"] = (
+            counted_path(torch, counted, "the pipeline (record -> bases -> "
+                         f"prepare -> run_steps({FOM_FRAMES}) + step())",
+                         {"fused_reduced_iterations", "affine_chunked"},
+                         main_pipeline))
+        traj, groups, solver = state["traj"], state["groups"], state["solver"]
+        ro, ao = solver._resident, solver._affine
+        fo = ro.fused
+        require(solver._resident_fast_kind == "chunked"
+                and solver._resident_kind == "affine",
+                "the real-basis solver is not on the bench tiers")
+        mean, p99, top = fom_deviation(state["after"][0], traj[-1])
+        require(np.isfinite(state["after"][0]).all()
+                and np.isfinite(state["after"][1]).all()
+                and np.isfinite(model.positions).all(),
+                "the reduced solve on real bases left non-finite state")
+        out["vs_fom"] = {"mean": mean, "p99": p99, "max": top}
+        log(f"[6] pipeline: prepare {secs['prepare']:.2f} s: N={ro.n} "
+            f"r={fo.r} n_sel={ro.n_sel} g_total={fo.g_total} m_total="
+            f"{fo.m_total}; reduced-vs-FOM after {FOM_FRAMES} steps "
+            f"(|P - P_FOM| / max|P_FOM|): mean {mean:.4f}, p99 {p99:.4f}, "
+            f"max {top:.4f}; state finite")
+        plans = {}
+        for name, lib, plan in (
+                ("fused_reduced_iterations", "fused_reduced", fused_plan(fo)),
+                ("affine_chunked", "affine_chunked", chunk_plan(ao))):
+            plans[name] = dict(plan.as_dict(), resident_clusters=(
+                resident_clusters(lib, plan)))
+            log(f"[6] pipeline, {name} at r = {fo.r}: staging plan "
+                f"{list(plan.staged)} in shared memory, "
+                f"{list(plan.from_l2) or 'nothing'} from L2, "
+                f"{plan.smem_bytes} B a block, "
+                f"{plans[name]['resident_clusters']} clusters resident")
+
+        # ---- 2. the recording again, on the card and on the CPU ---------
+        again, _ = record("card, again", dev)
+        same = bool(np.array_equal(again, traj))
+        for g in groups:
+            a = np.load(os.path.join(work, "card", "FOM", g + "_p.npz"))
+            b = np.load(os.path.join(work, "card, again", "FOM",
+                                     g + "_p.npz"))
+            same = same and a.files == b.files and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+        log(f"[6] pipeline: the recording again on the card equals the "
+            f"first bit for bit (trajectory and p-snapshots): {same}")
+        require(same, "two recordings on the card differ")
+        cpu_traj, _ = record("cpu", "cpu")
+        extent = float(np.abs(cpu_traj).max())
+        dev_rel = float(np.abs(traj - cpu_traj).max()) / extent
+        log(f"[6] pipeline: the card's recording against the CPU's: "
+            f"{dev_rel:.3e} of the scene's extent (limit {CPU_DEVIATION})")
+        require(dev_rel <= CPU_DEVIATION,
+                "the card's recording departs from the CPU's")
+        out["record_vs_cpu"] = dev_rel
+
+        # ---- 3. the bases again, on the CPU from the card's files --------
+        timings = {}
+        _, cpu_pos, cpu_groups = build_bases(
+            scene(), os.path.join(work, "card", "FOM"), traj,
+            os.path.join(work, "cpu bases"), CONSTR_MODES, POS_MODES,
+            device="cpu", timings=timings)
+        secs["bases, cpu"] = sum(timings.values())
+        for g, cc in groups.items():
+            cpu = cpu_groups[g]
+            K = cc.numComp
+            ds, du = pod_bounds(cpu.singVals, K)
+            d_s = np.abs(cc.singVals[:K] - cpu.singVals[:K])
+            d_u = sign_aligned_diff(cpu.comps, cc.comps)
+            ok, ties = deim_picks_agree(cpu.comps, cpu.geom_Pt, cc.geom_Pt,
+                                        d_u)
+            log(f"[6] pipeline, {g}: the card's bases against the CPU's "
+                f"({K} modes): picks equal on {int((cc.geom_Pt == cpu.geom_Pt).sum())}"
+                f" of {K}, ties (step, CPU pick, card pick, shortfall) "
+                f"{ties}; components within {d_u.max():.3e} (at most "
+                f"{(d_u / du).max():.3e} of the bound; {d_u[:8].max():.3e} "
+                f"over the first 8 modes), singular values within "
+                f"{(d_s / cpu.singVals[:K]).max():.3e} relative (at most "
+                f"{(d_s / ds).max():.3e} of the bound)")
+            require(cpu.numComp == K and ok, f"{g}: the card's DEIM picks "
+                    "are not the CPU's greedy picks")
+            require(bool((d_u <= du).all() and (d_s <= ds).all()),
+                    f"{g}: the card's POD departs from the CPU's beyond "
+                    "the rounding of the Gram method")
+        pos_c = np.load(os.path.join(work, "card", "pos_basis.npz"))[
+            "components"]
+        pos_h = np.load(cpu_pos)["components"]
+        log(f"[6] pipeline: position bases (r = {len(pos_c)}), card against "
+            f"CPU, by dimension, the first 8 modes: " + ", ".join(
+                f"{sign_aligned_diff(pos_h[:8, :, d], pos_c[:8, :, d]).max():.3e}"
+                for d in range(3)) + f"; bases on the CPU "
+            f"{secs['bases, cpu']:.2f} s")
+
+        # ---- 4. the ring-down window on the entry point ------------------
+        v0 = EXCITE * (traj[-1] - traj[-2]) / dt
+        v0[model.fixed_flags] = 0.0
+        model.positions, model.velocities = state["entry"].copy(), v0
+        solver.frame = 0
+        f0 = np.zeros_like(f)
+        solver.run_steps(f0, PIPE_WARMUP, num_iterations=ITERATIONS)
+        ring = (model.positions.copy(), model.velocities.copy())
+        window = {}
+
+        def serve():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.run_steps(f0, WINDOW_STEPS, num_iterations=ITERATIONS)
+            torch.cuda.synchronize()
+            window["s"] = time.perf_counter() - t0
+
+        paths["pipeline: ring-down window"] = counted_path(
+            torch, counted, f"the ring-down window on real bases "
+            f"(run_steps({WINDOW_STEPS}))", {"affine_chunked"}, serve)
+        end_y = float(model.positions[:, 1].min())
+        require(solver._last_fast_steps == WINDOW_STEPS,
+                "tier 1 did not certify the ring-down window on real bases")
+        require(np.isfinite(model.positions).all()
+                and np.isfinite(model.velocities).all() and end_y > 5.0,
+                f"the ring-down window ended non-finite or near the floor "
+                f"(min y {end_y:.3f})")
+        entry_sps = WINDOW_STEPS / window["s"]
+
+        # ---- 5. kernels 1 and 5 on real bases ----------------------------
+        Pr, Vr = (solver._to_device(x) for x in ring)
+        Pg = solver._to_device(state["entry"])
+        Vg = torch.zeros_like(Pg)
+        Fx = solver._to_device(f)
+        F0 = torch.zeros_like(Fx)
+        rb = solver._rb_extra()
+        fo64 = as_f64(fo)
+        k1 = {"err": 0.0}
+        for label, P_, V_, F_ in (("hang state under gravity", Pg, Vg, Fx),
+                                  ("ring-down state", Pr, Vr, F0)):
+            sn, rb_const = predict(ro, P_, V_, force_term(ro, F_), rb)
+            sel = sn[:, :ro.n_sel]
+            u_k = fused_reduced_iterations(fo, sel, rb_const, ITERATIONS)
+            u_p = fused_reduced_iterations_plain(fo, sel, rb_const,
+                                                 ITERATIONS)
+            u_64 = fused_reduced_iterations_plain(
+                fo64, sel.double(), rb_const.double(), ITERATIONS)
+            ok, e_k, e_p = as_accurate(u_k, u_p, u_64)
+            k1["err"] = max(k1["err"], max_abs(u_k, u_p))
+            log(f"[6] pipeline, kernel 1 ({label}): vs plain max abs "
+                f"{max_abs(u_k, u_p):.3e} (max|u| "
+                f"{float(u_p.abs().max()):.3e}); vs float64: kernel "
+                f"{e_k:.3e}, plain {e_p:.3e} (limit {ACC_RATIO}x)")
+            require(bool(torch.isfinite(u_k).all()) and ok,
+                    "kernel 1 is less accurate than its plain version on "
+                    "real bases")
+        k1["ms"] = cuda_ms(torch, lambda: fused_reduced_iterations(
+            fo, sel, rb_const, ITERATIONS), reps=200)
+        k1["plain_ms"] = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+            fo, sel, rb_const, ITERATIONS), reps=PLAIN_REPS, warmup=0)
+        model.positions, model.velocities = (x.copy() for x in ring)
+        solver.step(f0, num_iterations=ITERATIONS)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            solver.step(f0, num_iterations=ITERATIONS)
+        step_ms = 1e3 * (time.perf_counter() - t0) / 20
+
+        def one(fn):
+            def run(P_, V_):
+                o = fn(ao, P_, V_, F0, rb, 1, ITERATIONS)
+                require(o[2] == 1, f"{fn.__name__} stopped on a free step")
+                return o[:2]
+            return run
+
+        k5_err, _ = step_by_step(
+            torch, "pipeline, kernel 5 (ring-down state)", ro,
+            one(affine_chunked), one(affine_chunked_plain), Pr, Vr, F0, rb,
+            SCENE_STEPS)
+        for label, P_, V_, F_ in (("ring-down state", Pr, Vr, F0),
+                                  ("hang state under gravity", Pg, Vg, Fx)):
+            err, _ = carried_steps(
+                torch, f"pipeline, kernel 5 ({label}), carried steps", 5,
+                ao, affine_chunked_plain, P_, V_, F_, rb, SCENE_STEPS,
+                CHUNK_EVERY)
+            k5_err = max(k5_err, err)
+        def k5_window(**kw):
+            return lambda: affine_chunked(ao, Pr, Vr, F0, rb, WINDOW_STEPS,
+                                          ITERATIONS, **kw)
+
+        k5_ms = cuda_ms(torch, k5_window(), reps=10, warmup=1)
+        require(k5_window()()[2] == WINDOW_STEPS,
+                "kernel 5 stopped in the ring-down window on real bases")
+        # where the O(r) floor bound stands on these bases: the exact-free
+        # build stops at its first trip; the window with the exact check on
+        # every step (the bound off) and in chunks of PIPE_CHUNK steps
+        first_trip = k5_window(options=ChunkOptions(floor_exact=False))()[2]
+        k5_exact_ms = cuda_ms(torch, k5_window(options=ChunkOptions(
+            floor_bound_skip=False)), reps=10, warmup=1)
+        k5_short_ms = cuda_ms(torch, k5_window(rebase_every=PIPE_CHUNK),
+                              reps=10, warmup=1)
+        k1["device_ms"] = device_ms(torch, lambda: fused_reduced_iterations(
+            fo, sel, rb_const, ITERATIONS), reps=100)
+        trips = bound_trips(ao, Pr, Vr, F0, rb, WINDOW_STEPS)
+        k5_plain_ms = cuda_ms(torch, lambda: affine_chunked_plain(
+            ao, Pr, Vr, F0, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+            warmup=0)
+        launch_path = "pipeline: record, bases, prepare, run_steps + step"
+        k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS))
+        k5_bound, k5_by = bound_ms(*k5_cost(ao, WINDOW_STEPS, ITERATIONS,
+                                            CHUNK_EVERY, exact_steps=trips))
+        log(f"[6] pipeline on real bases: run_steps over {WINDOW_STEPS} "
+            f"steps (certified) {entry_sps:.0f} steps/s at the entry point; "
+            f"kernel 5 {1e3 * k5_ms / WINDOW_STEPS:.2f} us/step over the "
+            f"window (bound {1e3 * k5_bound / WINDOW_STEPS:.4f}, {k5_by}; "
+            f"plain {1e3 * k5_plain_ms / SCENE_STEPS:.1f} us/step); kernel "
+            f"1 {1e3 * k1['ms']:.2f} us a call, "
+            f"{1e3 * k1['device_ms']:.2f} us a launch on the device (bound "
+            f"{1e3 * k1_bound:.4f}, {k1_by}; plain "
+            f"{1e3 * k1['plain_ms']:.1f} us), step() {1e3 * step_ms:.1f} us "
+            f"at the entry point; end min y {end_y:.3f}")
+        log(f"[6] pipeline, kernel 5's O(r) floor bound on real bases "
+            f"(umax {ao.umax:.4f}): "
+            + (f"it first trips at step {first_trip} of the ring-down window "
+               f"(the exact-free build's stop)" if first_trip < WINDOW_STEPS
+               else "no trip in the ring-down window")
+            + f", trips on {trips} of its {WINDOW_STEPS} steps (the plain "
+            f"version on the host; the bound counts their exact checks)"
+            + f"; the window "
+            f"{1e3 * k5_ms / WINDOW_STEPS:.2f} us/step on the default build, "
+            f"{1e3 * k5_exact_ms / WINDOW_STEPS:.2f} with the exact check on "
+            f"every step, {1e3 * k5_short_ms / WINDOW_STEPS:.2f} in chunks of "
+            f"{PIPE_CHUNK} steps")
+        log("[6] pipeline seconds: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in secs.items()))
+        common = {"launches_path": launch_path, "vs_fom": out["vs_fom"],
+                  "record_vs_cpu": dev_rel, "pipeline_s": secs}
+        return {
+            "fused_reduced_iterations": dict(
+                common, launches=paths[launch_path]["fused_reduced_iterations"],
+                max_abs_err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
+                bound_ms=k1_bound, bound_by=k1_by, step_ms=step_ms,
+                device_ms=k1["device_ms"],
+                staging_plan=plans["fused_reduced_iterations"]),
+            "affine_chunked": dict(
+                common, launches=paths[launch_path]["affine_chunked"],
+                max_abs_err=k5_err, ms=k5_ms, steps_per_call=WINDOW_STEPS,
+                plain_ms=k5_plain_ms, plain_steps_per_call=SCENE_STEPS,
+                bound_ms=k5_bound, bound_by=k5_by,
+                entry_steps_per_s=entry_sps, umax=ao.umax,
+                bound_first_trip=first_trip, bound_trips=trips,
+                exact_every_step_ms=k5_exact_ms,
+                short_chunks_ms=k5_short_ms, short_chunk_steps=PIPE_CHUNK,
+                window_launches=paths["pipeline: ring-down window"][
+                    "affine_chunked"],
+                staging_plan=plans["affine_chunked"])}
+
+
 def main() -> int:
     import torch
 
@@ -4430,10 +4943,16 @@ def main() -> int:
     t0 = time.perf_counter()
     mega = scale_phase(torch, counted, paths, dev)
     log(f"[2-4] scale: the megacloth {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    real = pipeline_phase(torch, counted, paths, dev)
+    log(f"[6] pipeline: record, bases, reduced solve on real bases "
+        f"{time.perf_counter() - t0:.1f} s")
     kernels += options
     for k in kernels:
         if k["name"] in mega:
             k["megacloth"] = mega[k["name"]]
+        if k["name"] in real:
+            k["real_bases"] = real[k["name"]]
     k5 = next(k for k in kernels if k["name"] == "affine_chunked")
     k5.update(exact_check_us_bound_off=exact_us_bench,
               megacloth_exact_check_us=mega["exact_check_us"],

@@ -147,7 +147,9 @@ def _fake_card(monkeypatch):
                         ("MEGA_ROWS", 12), ("MEGA_R", 8), ("MEGA_REST", 24),
                         ("MEGA_NEAR", 12), ("MEGA_BATCH", 2),
                         ("MEGA_BATCH_STEPS", 8), ("MEGA_DEPTH", 3),
-                        ("MEGA_ROUNDS", 1)):
+                        ("MEGA_ROUNDS", 1), ("FOM_FRAMES", 12),
+                        ("CONSTR_MODES", 6), ("POS_MODES", 10),
+                        ("REDUCED_MODES", 6)):
         monkeypatch.setattr(cs, name, value)
     mega = cs.megacloth_solver
 
@@ -221,6 +223,21 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
             assert plan_keys <= set(entry["staging_plan"])
     assert {"device_ms", "device_us_per_iteration",
             "device_intercept_us"} <= set(k1)
+    # the pipeline phase: kernels 1 and 5 on real bases (record -> bases
+    # -> prepare -> run_steps + step), each with its plan at the recorded
+    # r, its error against the plain version, its times and bound
+    for k in (k1, k5):
+        real = k["real_bases"]
+        assert {"launches", "launches_path", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "staging_plan", "vs_fom",
+                "record_vs_cpu", "pipeline_s"} <= set(real)
+        assert plan_keys <= set(real["staging_plan"])
+        assert real["bound_ms"] > 0 and real["record_vs_cpu"] <= 1e-6
+        assert set(real["vs_fom"]) == {"mean", "p99", "max"}
+    assert k5["real_bases"]["entry_steps_per_s"] > 0
+    assert "step_ms" in k1["real_bases"]
+    assert all(k["name"] in ("fused_reduced_iterations", "affine_chunked")
+               for k in kernels if "real_bases" in k)
     assert "device_ms" in kernels[6]
     # kernels 2-4 on the cluster loop too: their plans at the bench widths,
     # and the batched builds' plan at each batch size with the clusters the
@@ -237,6 +254,15 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     for k in kernels:
         assert not any(key.startswith("cluster_floor") for key in k)
     out = "\n".join(lines)
+    for line in ("[6] pipeline: recorded 12 frames", "equals the first bit "
+                 "for bit (trajectory and p-snapshots): True",
+                 "the card's recording against the CPU's",
+                 "[6] pipeline, tris_strain: the card's bases against the "
+                 "CPU's", "reduced-vs-FOM after 12 steps",
+                 "[6] pipeline on real bases: run_steps over 16 steps "
+                 "(certified)", "pipeline, kernel 5 (ring-down state), "
+                 "carried steps"):
+        assert line in out, line
     assert "on the cluster's 3 SMs" in out
     assert "kernel 1: staging plan" in out and "kernel 5: staging plan" in out
     assert "kernel 2: staging plan" in out

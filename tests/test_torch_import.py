@@ -43,6 +43,16 @@ def test_port_imports_no_jax():
     loaded = res["loaded"]
     assert "animsnapbases_tpu_torch.sim.reduced" in res["modules"]
     assert "animsnapbases_tpu_torch.demos.poke" in res["modules"]
+    # the recorder and the bases pipeline
+    for name in ("ops.svd3", "ops.segment", "ops.cg", "ops.podlinalg",
+                 "ops.deim_scan", "sim.projections", "sim.solver",
+                 "geometry.mass", "io.binfmt", "io.meshes",
+                 "config.bases_config", "snapshots.nonlinear",
+                 "bases.greedy", "bases.constraints",
+                 "bases.position_reduction", "bases.pipeline",
+                 "utils.checks", "utils.timing"):
+        assert f"animsnapbases_tpu_torch.{name}" in res["modules"], name
+        assert f"animsnapbases_tpu_torch.{name}" in loaded, name
     assert "animsnapbases_tpu_torch.ops.resident" in loaded
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
     assert not [m for m in loaded if m == "animsnapbases_tpu"
@@ -59,6 +69,38 @@ def test_default_device_needs_a_card():
         AnimSnapBasesSolver(default_sim_args())
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+
+
+def test_pipeline_entry_points_default_to_the_card(tmp_path):
+    """The recorder, the POD, the DEIM scan and the bases take the card
+    unless the CPU is asked for: without one they raise."""
+    import numpy as np
+
+    from animsnapbases_tpu_torch.bases.constraints import (
+        ConstraintComponents,
+    )
+    from animsnapbases_tpu_torch.bases.position_reduction import (
+        position_basis_from_trajectory,
+    )
+    from animsnapbases_tpu_torch.device import PIPELINE_DTYPE
+    from animsnapbases_tpu_torch.ops.deim_scan import deim_rows
+    from animsnapbases_tpu_torch.ops.podlinalg import snapshot_pod
+    from animsnapbases_tpu_torch.sim.solver import Solver
+
+    assert PIPELINE_DTYPE == torch.float64
+    X = np.random.default_rng(0).normal(size=(30, 4))
+    assert Solver(device="cpu").device.type == "cpu"
+    assert snapshot_pod(X, device="cpu")[0].dtype == torch.float64
+    if torch.cuda.is_available():
+        return
+    param = type("P", (), {"constProj_support": "global"})()
+    for call in (Solver, lambda: snapshot_pod(X),
+                 lambda: deim_rows(X[:, :, None]),
+                 lambda: position_basis_from_trajectory(
+                     X.T[:, :, None].repeat(3, 2), 2),
+                 lambda: ConstraintComponents(param, snapshots=object())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_cpu_policy():
