@@ -1,9 +1,8 @@
 """Non-negative weights of the greedy deflation extraction.
 
 Counterpart of ``project_weight`` and ``signed_nonneg_weight`` of
-``animsnapbases_tpu/bases/greedy.py``.  The greedy block extractions that
-use them (``pca_blocks``, ``pca_blocks_with_St``) are not ported yet
-(ROADMAP Queue A item A8, its block forms).
+``animsnapbases_tpu/bases/greedy.py``, the weights of the greedy
+deflation in ``bases/constraints.py``.
 """
 
 from __future__ import annotations

@@ -1,13 +1,20 @@
-"""The record -> bases -> reduced-solver pipeline of the bench scene.
+"""The record -> bases -> reduced-solver pipeline.
 
 The steps ``bench.py`` takes with the JAX package (``_run_fom_and_bases_impl``,
-``build_group_basis``, ``build_reduced_solver``), taken with the port's
-entry points: :func:`record_fom` records a full-order run with
-``sim/solver.py`` (trajectory, ``assembly_ST.npz``, ``<group>_p.npz``),
-:func:`build_group_basis` drives ``BasesConfig -> NonlinearSnapshots ->
-ConstraintComponents`` (``pod_vectorized`` and row DEIM) on one group's
-recording, and :func:`reduced_args` gives the reduced solver's arguments
-for the bases written.
+``build_group_basis``, ``build_reduced_solver``) and the reference's own
+workflow (record a full-order run, compute one constraint group's bases from
+a ``configs/examples/*.json`` config, replay with the reduced solver), taken
+with the port's entry points: :func:`record_fom` records a full-order run
+with ``sim/solver.py`` (trajectory, ``assembly_ST.npz``, ``<group>_p.npz``);
+:func:`example_config` reads an example config with its paths pointed at a
+recording and :func:`export_mesh` writes the recorded model's mesh where the
+config looks for it; :func:`build_bases_from_config` drives ``BasesConfig ->
+NonlinearSnapshots -> ConstraintComponents`` on one group, with the
+selection its ``interpolation_type`` names (``deim``, ``deim_block_form``,
+or ``geom`` with the error in position space, as the JAX ``cli.py`` runs
+them); :func:`build_group_basis` does so on bench.py's config
+(``pod_vectorized``, row DEIM); :func:`reduced_args` gives the reduced
+solver's arguments for the bench's bases.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 from animsnapbases_tpu_torch.bases.constraints import ConstraintComponents
 from animsnapbases_tpu_torch.config.bases_config import BasesConfig
 from animsnapbases_tpu_torch.config.sim_config import default_sim_args
+from animsnapbases_tpu_torch.io.meshes import save_medit_mesh, save_obj
 from animsnapbases_tpu_torch.snapshots.nonlinear import NonlinearSnapshots
 from animsnapbases_tpu_torch.sim.solver import Solver
 
@@ -89,13 +97,55 @@ def group_basis_config(record, gname: str, p: int, num_modes: int,
     return param
 
 
-def build_group_basis(record, gname: str, p: int, num_modes: int,
-                      frames: int, work_dir: str, basis_dir: str,
-                      device=None, timings=None):
-    """One group's bases through the product pipeline, copied to
-    ``basis_dir/<gname>/basis.npz`` -> the ConstraintComponents.
+def example_config(json_path: str, record: str, work_dir: str,
+                   **overrides) -> BasesConfig:
+    """The bases config of ``json_path`` (a ``configs/examples/*.json``
+    file) for the recording under ``record``: its snapshots, S^T and
+    constrained-element files are the recording's, its outputs and mesh
+    files lie under ``work_dir``.  ``overrides`` replace entries of its
+    ``constraintProj_bases`` section (``numFrames`` and ``frame_increment``
+    those of its ``snapshots``)."""
+    import json
+
+    with open(json_path) as fp:
+        cfg = json.load(fp)
+    cfg["object"]["experiment_dir"] = work_dir + "/"
+    cp = cfg["constraintProj_bases"]
+    for key, value in overrides.items():
+        if key in ("numFrames", "frame_increment"):
+            cp["snapshots"][key] = value
+        else:
+            cp[key] = value
+    param = BasesConfig.from_dict(cfg, results_dir=os.path.join(work_dir,
+                                                                "results"))
+    gname = param.constProj_name
+    param.constProj_input_snapshots_pattern = os.path.join(
+        record, gname + "_p.npz")
+    param.constProj_weightedSt = os.path.join(record, "assembly_ST.npz")
+    constrained = cp["constraintType"].get("constrained_elements", "")
+    if constrained:
+        param.constProj_input_snaps_constrained_elements = os.path.join(
+            record, constrained)
+    param.ensure_dirs()
+    return param
+
+
+def export_mesh(model, param: BasesConfig) -> None:
+    """The model's rest mesh where ``param`` reads it: the surface as OBJ
+    and, for a tet model, the tets and surface as MEDIT ``.mesh``."""
+    os.makedirs(os.path.dirname(param.tri_mesh_file), exist_ok=True)
+    save_obj(param.tri_mesh_file, model.positions, model.faces)
+    if getattr(model, "elements", None) is not None and len(model.elements):
+        save_medit_mesh(param.tet_mesh_file, model.positions,
+                        tets=model.elements, tris=model.faces)
+
+
+def build_bases_from_config(param: BasesConfig, basis_dir: str,
+                            device=None, timings=None):
+    """One group's bases through the product pipeline, with the selection
+    of ``param``'s interpolation type, copied to
+    ``basis_dir/<group>/basis.npz`` -> the ConstraintComponents.
     ``timings`` (a dict) gathers the seconds of each stage."""
-    param = group_basis_config(record, gname, p, num_modes, frames, work_dir)
     t = timings if timings is not None else {}
 
     def timed(name, fn):
@@ -104,6 +154,15 @@ def build_group_basis(record, gname: str, p: int, num_modes: int,
         t[name] = t.get(name, 0.0) + time.perf_counter() - t0
         return out
 
+    itype = param.constProj_bases_interpolation_type
+    select = {
+        "deim": lambda cc: cc.deim(),
+        "deim_block_form": lambda cc: cc.deim_blocksForm(),
+        "geom": lambda cc: cc.geom_block_form_utilizing_differential_operator(
+            error_in_pos_space=True),
+    }
+    if itype not in select:
+        raise ValueError(f"unknown interpolation type: {itype}")
     nl = NonlinearSnapshots(param)
     nl.config()
     timed("snapshots_prepare", nl.snapshots_prepare)
@@ -111,12 +170,22 @@ def build_group_basis(record, gname: str, p: int, num_modes: int,
     cc.config()
     timed("pod", cc.compute_components_store_singvalues)
     timed("post_process", cc.post_process_components)
-    timed("deim", cc.deim)
+    timed("deim", lambda: select[itype](cc))
     npz = timed("store", cc.store_components_n_interpol_points)
-    gdir = os.path.join(basis_dir, gname)
+    gdir = os.path.join(basis_dir, param.constProj_name)
     os.makedirs(gdir, exist_ok=True)
     shutil.copy(npz, os.path.join(gdir, "basis.npz"))
     return cc
+
+
+def build_group_basis(record, gname: str, p: int, num_modes: int,
+                      frames: int, work_dir: str, basis_dir: str,
+                      device=None, timings=None):
+    """One group's bases on bench.py's config (:func:`group_basis_config`)
+    -> the ConstraintComponents (:func:`build_bases_from_config`)."""
+    param = group_basis_config(record, gname, p, num_modes, frames, work_dir)
+    return build_bases_from_config(param, basis_dir, device=device,
+                                   timings=timings)
 
 
 def build_bases(model, record, traj, work_dir: str, constr_modes: int,

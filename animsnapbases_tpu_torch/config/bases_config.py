@@ -3,9 +3,9 @@
 Copy of ``animsnapbases_tpu/config/bases_config.py``: the reference's JSON
 schema, the same derived attributes (snapshot patterns, the flags of the
 string-token grammar, the self-describing output directories), directories
-made only by :meth:`ensure_dirs`.  One difference: the sharded bases
-compute (``device_mesh_shards`` > 1) is not ported, and asking for it
-raises (ROADMAP Queue A item A18).
+made only by :meth:`ensure_dirs`.  ``device_mesh_shards`` is read as
+the JAX package reads it; ``bases/constraints.py`` decides what it does
+(``check_mesh_shards``).
 """
 
 from __future__ import annotations
@@ -157,11 +157,6 @@ class BasesConfig:
 
         self._load_pos(cfg)
         self._load_constproj(cfg)
-        if int(self.device_mesh_shards or 0) > 1:
-            raise NotImplementedError(
-                f"device_mesh_shards={self.device_mesh_shards}: the sharded "
-                "bases compute is not ported to PyTorch yet (ROADMAP Queue A "
-                "item A18)")
         return self
 
     # ------------------------------------------------------------------

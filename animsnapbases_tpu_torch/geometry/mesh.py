@@ -1,9 +1,10 @@
 """Mesh topology queries the constraint groups need.
 
 Counterpart of ``animsnapbases_tpu/geometry/mesh.py``: only
-``unique_edges``, ``tet_edges``, ``boundary_facets`` and
-``build_vertex_stars`` (with its ``StarEdge`` record), copied so the port
-imports nothing of the JAX package.
+``unique_edges``, ``tet_edges``, ``boundary_facets``, ``build_vertex_stars``
+(with its ``StarEdge`` record) and the incidence queries of the geometric
+bases selection (``elements_per_vertex``, ``vertex_star_vertices``), copied
+so the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +30,23 @@ def tet_edges(tets: np.ndarray) -> np.ndarray:
     e = np.concatenate([tets[:, list(p)] for p in pairs])
     e = np.sort(e, axis=1)
     return np.unique(e, axis=0)
+
+
+def elements_per_vertex(vertex_indices, elements: np.ndarray) -> list[int]:
+    """Indices of the elements (rows of tets, tris or edges) that contain
+    any of the given vertices, in ascending order."""
+    elements = np.asarray(elements)
+    vset = np.asarray(list(vertex_indices))
+    mask = np.isin(elements, vset).any(axis=1)
+    return np.nonzero(mask)[0].tolist()
+
+
+def vertex_star_vertices(vertex_index: int, faces: np.ndarray) -> list[int]:
+    """The vertices of the faces incident to ``vertex_index`` (the vertex
+    itself included), ascending."""
+    faces = np.asarray(faces)
+    mask = (faces == vertex_index).any(axis=1)
+    return sorted(set(faces[mask].flatten().tolist()))
 
 
 def boundary_facets(tets: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Mesh readers of the bases pipeline: OBJ and MEDIT ``.mesh``.
 
-Copy of ``load_obj`` and ``load_medit_mesh`` of
-``animsnapbases_tpu/io/meshes.py`` (numpy only), which the constraint
-snapshots read to compute element masses.
+Copy of ``load_obj``, ``load_medit_mesh``, ``save_obj`` and
+``save_medit_mesh`` of ``animsnapbases_tpu/io/meshes.py`` (numpy only):
+the constraint snapshots read a mesh to compute element masses, and the
+geometric bases selection reads its elements; the pipeline writes the
+recorded model's mesh where a bases config looks for it.
 """
 
 from __future__ import annotations
@@ -72,3 +74,30 @@ def load_medit_mesh(path: str):
             break
         # skip unknown scalar tokens (MeshVersionFormatted value, Dimension value)
     return verts, tets, tris
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray) -> None:
+    with open(path, "w") as f:
+        for v in np.asarray(verts):
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for t in np.asarray(faces, dtype=int):
+            f.write("f " + " ".join(str(i + 1) for i in t) + "\n")
+
+
+def save_medit_mesh(path: str, verts: np.ndarray,
+                    tets: np.ndarray | None = None,
+                    tris: np.ndarray | None = None) -> None:
+    with open(path, "w") as f:
+        f.write("MeshVersionFormatted 1\nDimension 3\n")
+        f.write(f"Vertices\n{len(verts)}\n")
+        for v in np.asarray(verts):
+            f.write(f"{v[0]} {v[1]} {v[2]} 0\n")
+        if tris is not None and len(tris):
+            f.write(f"Triangles\n{len(tris)}\n")
+            for t in np.asarray(tris, dtype=int):
+                f.write(f"{t[0] + 1} {t[1] + 1} {t[2] + 1} 0\n")
+        if tets is not None and len(tets):
+            f.write(f"Tetrahedra\n{len(tets)}\n")
+            for t in np.asarray(tets, dtype=int):
+                f.write(f"{t[0] + 1} {t[1] + 1} {t[2] + 1} {t[3] + 1} 0\n")
+        f.write("End\n")

@@ -1,7 +1,8 @@
-"""Row-wise DEIM as one loop on the device.
+"""Row-wise and block DEIM as one loop on the device.
 
-Counterpart of ``animsnapbases_tpu/ops/deim_scan.py`` ``deim_rows``: the
-greedy DEIM recurrence, sequential in k, with the basis kept on the device
+Counterpart of ``animsnapbases_tpu/ops/deim_scan.py`` (``deim_rows`` and
+``deim_blocks``): the greedy DEIM recurrence, sequential in k, with the
+basis kept on the device
 in dimension-major layout (d, ep, K) and the inverse of the selected-row
 system grown by one row and column a step with the block-bordering
 identity
@@ -12,8 +13,8 @@ identity
 
 embedded in a fixed (K, K) matrix whose unselected rows and columns stay
 identity.  The picks stay on the device until the end: no step waits for
-the host.  The block form (``deim_blocks``) is not ported (ROADMAP Queue A
-item A8, its block forms).
+the host.  The block form grows the system by p rows and columns a step,
+with p such updates.
 """
 
 from __future__ import annotations
@@ -78,3 +79,56 @@ def deim_rows_host_result(bases, p: int, K: int | None = None, device=None):
     Pt, _ = deim_rows(bases, K, device=device)
     Pt = Pt.cpu().numpy().astype(np.int64)
     return Pt, Pt // p, np.arange(1, len(Pt) + 1)
+
+
+def deim_blocks(bases, p: int, K: int | None = None, device=None):
+    """Greedy block selection (block DEIM) on ``bases`` (ep, K_b * p, d) on
+    ``device`` (default: the card), in float64 -> alphas (K,), the element
+    picked for each block of p modes, as a tensor.  At step k the residual
+    of modes [k p, (k + 1) p) against the selected (k p, k p) system picks
+    the row of largest residual energy; all p rows of its element join the
+    selection.  ``K`` defaults to the number of blocks."""
+    bases = torch.as_tensor(bases, dtype=PIPELINE_DTYPE,
+                            device=resolve_device(device))
+    ep, kp_total, d = bases.shape
+    K = kp_total // p if K is None else min(K, kp_total // p)
+    Kp = K * p
+    basesT = bases[:, :Kp, :].permute(2, 0, 1).contiguous()  # (d, ep, Kp)
+    dev = basesT.device
+    alphas = torch.zeros(K, dtype=torch.int64, device=dev)
+    Vsel = torch.zeros((d, Kp, Kp), dtype=basesT.dtype, device=dev)
+    Minv = torch.eye(Kp, dtype=basesT.dtype, device=dev).repeat(d, 1, 1)
+    arange = torch.arange(Kp, device=dev)
+    offsets = torch.arange(p, device=dev)
+    for k in range(K):
+        kp = k * p
+        vk = basesT[:, :, kp:kp + p]                          # (d, ep, p)
+        if k == 0:
+            r = vk
+        else:
+            mask = (arange < kp)[None, :, None]
+            b = torch.where(mask, Vsel[:, :, kp:kp + p], 0.0)  # (d, Kp, p)
+            x = torch.einsum("dab,dbp->dap", Minv, b)
+            r = torch.einsum("dek,dkp->dep", basesT, x) - vk
+        alpha = torch.argmax((r ** 2).sum(dim=(0, 2))) // p
+        alphas[k] = alpha
+        newV = basesT[:, alpha * p + offsets, :]              # (d, p, Kp)
+        Vsel[:, kp:kp + p, :] = newV
+        for j in range(p):
+            q = kp + j
+            maskq = (arange < q)[None, :]
+            Minv = _border_update(
+                Minv, torch.where(maskq, Vsel[:, :, q], 0.0),
+                torch.where(maskq, newV[:, j, :], 0.0), newV[:, j, q:q + 1],
+                q, Kp)
+    return alphas
+
+
+def deim_blocks_host_result(bases, p: int, K: int | None = None,
+                            device=None):
+    """:func:`deim_blocks` as numpy (Pt, alphas, alpha_ranges) in the
+    reference's output convention (Pt holds whole p-row blocks)."""
+    alphas = deim_blocks(bases, p, K, device=device).cpu().numpy().astype(
+        np.int64)
+    Pt = (alphas[:, None] * p + np.arange(p)[None, :]).reshape(-1)
+    return Pt, alphas, np.arange(1, len(alphas) + 1)

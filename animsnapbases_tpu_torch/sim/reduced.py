@@ -1,10 +1,9 @@
 """Reduced projective-dynamics solver: the serving path.
 
-Counterpart of ``animsnapbases_tpu/sim/reduced.py`` for the fully-reduced
-configuration (every constraint group hyper-reduced, in DEIM row form or
-in block form, positions reduced to r modes per dim; the five group kinds
+Counterpart of ``animsnapbases_tpu/sim/reduced.py`` (the five group kinds
 ``tris_strain``, ``edge_spring``, ``tets_strain``,
-``tets_deformation_gradient`` and ``verts_bending``):
+``tets_deformation_gradient`` and ``verts_bending``, in DEIM row form or in
+block form):
 
     DeformableModel -> AnimSnapBasesSolver(args).set_model(model)
         -> prepare(args) -> step() / run_steps()
@@ -13,6 +12,27 @@ It reads the same product ``.npz`` bases as the JAX package.  Host-side
 preparation stays numpy/scipy in float64 (the global matrix, ``inv(Ar)``,
 ``U^T A_c``, the DEIM ``W`` solves, and the ``C_allT`` precomposition) and
 is cast once to the working dtype on the solver's device.
+
+The fully-reduced configuration (every constraint group hyper-reduced,
+positions reduced to r modes per dim) serves on the kernels below.  The
+others serve on plain torch on the solver's device, in
+``device.PIPELINE_DTYPE`` (float64) whatever the working dtype, as the
+full-order ``Solver`` does (the global matrix carries the 1e10 masses of
+pinned vertices), each iteration's local stage made of the full groups'
+projections (``sim/solver.py`` ``make_local_stage``) and the reduced
+groups' ``W p`` terms (the JAX solver's ``sim/reduced.py:1063-1231``):
+
+* positions reduced with some groups full (or none reduced): ``u =
+  Ar^-1 (-U^T A_c s_n + U^T b_full + sum W p)``, ``q = s_n + U u``;
+* positions full, 3N <= ``DENSE_LIMIT``: a dense Cholesky factor of the
+  global matrix on the device (``cholesky_solve``, not an inverse);
+* positions full above it: scipy's sparse LU on the host, b and q crossing
+  once per iteration (``step()`` and ``run_steps`` step by step there).
+
+With ``set_store_p(True)`` and a full group, ``step()`` takes that host
+path and records the full groups' last-iteration projections per frame
+(``<group>_p.npz``, flushed at ``max_p_snapshots_num``), as the JAX
+solver's host path does; with positions reduced that raises, as there.
 
 ``step()`` runs one step with the iteration loop on kernel 1
 (``ops/fused_reduced.py``).  ``run_steps()`` serves on two tiers, as the
@@ -70,11 +90,10 @@ permuted (3, N) state contiguous (the JAX package keeps dim-major (3B, N)
 rows d*B + b): ``_pack`` and ``_unpack`` move (B, N, 3) host arrays across.
 There is no fallback: a kernel that fails to build or launch raises.
 
-Not ported yet, and raising ``NotImplementedError`` in ``step`` /
-``run_steps`` and the batched runners:
+Not ported yet, and raising ``NotImplementedError``:
 
-* groups that are not fully reduced, or no position reduction
-  (ROADMAP Queue A items 4 and 7);
+* batched serving of a configuration that is not fully reduced (the
+  batched runners; ROADMAP Queue A item A4b);
 * self-collision (Queue A item 12);
 * batched serving over a mesh (``mesh=``, Queue A item 18).
 
@@ -92,9 +111,11 @@ from functools import partial
 
 import numpy as np
 import scipy.sparse
+import scipy.sparse.linalg
 import torch
 
 from animsnapbases_tpu_torch.device import (
+    PIPELINE_DTYPE,
     resolve_device,
     storage_dtype,
     working_dtype,
@@ -134,8 +155,15 @@ from animsnapbases_tpu_torch.ops.resident import (
     resident_operands,
     step_once,
 )
-from animsnapbases_tpu_torch.sim import collisions
-from animsnapbases_tpu_torch.sim.solver import build_global_matrix
+from animsnapbases_tpu_torch.sim import collisions, projections
+from animsnapbases_tpu_torch.sim.solver import (
+    Solver,
+    build_global_matrix,
+    device_data,
+    make_local_stage,
+    positional_targets_timeline,
+    unflatten,
+)
 
 GROUP_ARG_NAMES = {
     "verts_bending": ("vert_bending_reduced", "vert_bending_num_components"),
@@ -253,6 +281,111 @@ def prepare_reduced_group(g, reduction_type: str, num_components: int,
         alphas, Pt
 
 
+class _GroupView:
+    """The model as ``make_local_stage`` sees it, with a subset of its
+    groups."""
+
+    def __init__(self, model, groups):
+        self.groups = groups
+        self.n_verts = model.n_verts
+
+
+class _FullSpace:
+    """The plain torch step of a configuration that is not fully reduced
+    (see the module docstring), on the solver's device in float64: ``mode``
+    is "mixed" (positions reduced), "dense" or "host" (positions full)."""
+
+    def __init__(self, solver):
+        model = solver.model
+        dev, dt64 = solver.device, PIPELINE_DTYPE
+        full = {name: g for name, g in model.groups.items()
+                if name not in solver._reduced_groups}
+        # the full constraint groups, whose projections a step can record
+        self.recorded = [name for name in full if name != "positional"]
+        self.local_full = make_local_stage(_GroupView(model, full), dev, dt64)
+        self.reduced = [
+            (name, device_data(rg.subset_data, dev, dt64),
+             torch.as_tensor(rg.W, dtype=dt64, device=dev),
+             None if rg.row_select is None
+             else torch.as_tensor(rg.row_select, device=dev))
+            for name, rg in solver._reduced_groups.items()]
+        self.mass = torch.as_tensor(model.mass, dtype=dt64, device=dev)
+        self.dt, self.eta = solver.dt, solver.eta
+        self.floor = model.floor_collision
+        self.floor_h = model.floor_height
+        if solver.reduced_position:
+            self.mode = "mixed"
+            self.U = torch.as_tensor(solver.U, dtype=dt64, device=dev)
+            self.inv3 = torch.as_tensor(solver._inv_np, dtype=dt64,
+                                        device=dev)
+            self.ut_ac = torch.as_tensor(solver._ut_ac_np, dtype=dt64,
+                                         device=dev)
+        else:
+            self.mode = "dense" if solver._chol_full is not None else "host"
+            self.chol = solver._chol_full
+            self.lu = solver._solve
+
+    def tensor(self, x):
+        return torch.as_tensor(np.asarray(x), dtype=PIPELINE_DTYPE,
+                               device=self.mass.device)
+
+    def reduced_terms(self, q):
+        """The reduced groups' ``W p`` terms, (r, 3) each (positions
+        reduced) or (N, 3)."""
+        terms = []
+        for name, data, W, rs in self.reduced:
+            p = projections.PROJECTION_KERNELS[name](q, data)
+            if rs is not None:
+                p = p[rs]
+            terms.append(torch.einsum("dop,pd->od", W, p))
+        return terms
+
+    def local_terms(self, q, targets):
+        """The full-space rhs of the constraints, and the full groups'
+        stacked projections."""
+        b, stacked = self.local_full(q, targets)
+        for term in self.reduced_terms(q):
+            b = b + term
+        return b, stacked
+
+    def solve(self, b):
+        """The global solve of the positions-full modes."""
+        if self.mode == "dense":
+            return torch.cholesky_solve(b.reshape(-1, 1),
+                                        self.chol).reshape(-1, 3)
+        q = self.lu(b.cpu().numpy().reshape(-1))
+        return self.tensor(unflatten(q))
+
+    def predict(self, P, V, fext):
+        """The predictor s_n, clamped to the floor."""
+        dt = self.dt
+        sn = P + (dt * self.eta) * V + (dt * dt) * (fext / self.mass[:, None])
+        if self.floor:
+            sn = sn.clone()
+            sn[:, 1] = torch.clamp(sn[:, 1], min=self.floor_h)
+        return sn
+
+    def step(self, P, V, fext, targets, num_iterations):
+        """One step of the device modes ("mixed", "dense") -> (q, v)."""
+        sn = self.predict(P, V, fext)
+        q = sn
+        if self.mode == "mixed":
+            rb_base = -torch.einsum("drn,nd->rd", self.ut_ac, sn)
+            for _ in range(num_iterations):
+                b_full, _ = self.local_full(q, targets)
+                rb = rb_base + torch.einsum("nrd,nd->rd", self.U, b_full)
+                for term in self.reduced_terms(q):
+                    rb = rb + term
+                u = torch.einsum("drs,sd->rd", self.inv3, rb)
+                q = sn + torch.einsum("nrd,rd->nd", self.U, u)
+        else:
+            masses_term = (self.mass / (self.dt * self.dt))[:, None] * sn
+            for _ in range(num_iterations):
+                b, _ = self.local_terms(q, targets)
+                q = self.solve(b + masses_term)
+        return q, (q - P) / self.dt
+
+
 class AnimSnapBasesSolver:
     """Reduced solver built from sim args, serving on the port's kernels.
 
@@ -272,6 +405,7 @@ class AnimSnapBasesSolver:
     ``resident_floor_exact`` and ``resident_chunked_opts``
     (:meth:`_chunk_options`)."""
 
+    DENSE_LIMIT = 2400   # max 3N for the dense Cholesky of full positions
     # models of this many vertices or more take kernel 2 as the contact
     # tier instead of kernel 3: the JAX package's value, which keeps its
     # tiers.  On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, "Findings"),
@@ -335,9 +469,16 @@ class AnimSnapBasesSolver:
         self._chunk_every = 1024     # kernel 5's chunk (its rebase cadence)
         self._chunk_opts = None      # kernel 5's build (ChunkOptions)
         self._contact_mode = False
-        self._unsupported = "prepare() has not run"
+        self._full = None            # _FullSpace when not fully reduced
+        self._chol_full = None       # the dense factor of full positions
+        self._solve = None           # the host LU of full positions
         self._ut_st_cache = None
         self._rb_sched = None        # (T, 3, r) on the device when animated
+        # recording of the full groups' projections (the host step path)
+        self.store_stacked_projections = False
+        self.record_path = ""
+        self.max_p_snapshots_num = getattr(args, "max_p_snapshots_num", 200)
+        self._recorded: dict[str, dict[str, np.ndarray]] = {}
 
     # ------------------------------------------------------------------
     def set_model(self, model):
@@ -358,6 +499,16 @@ class AnimSnapBasesSolver:
     def ready(self):
         return not self.dirty
 
+    def set_record_path(self, path):
+        self.record_path = path
+
+    def set_store_p(self, value):
+        self.store_stacked_projections = value
+
+    store_assembly_matrices = Solver.store_assembly_matrices
+    _record_frame = Solver._record_frame
+    flush_recordings = Solver.flush_recordings
+
     # ------------------------------------------------------------------
     # prepare
     # ------------------------------------------------------------------
@@ -370,16 +521,25 @@ class AnimSnapBasesSolver:
         self.U = comps[:r].transpose(1, 0, 2)           # (N, r, 3)
 
     def prepare_global_matrix(self, args):
-        """Displacement form: solve ``Ar u = c - A_c sn`` with
-        ``q = sn + U u``; the pinned-mass rhs terms cancel analytically,
-        which keeps the reduced rhs at elastic scale (essential in
-        float32).  ``inv(Ar)`` is precomputed per dim in float64."""
+        """With positions reduced, the displacement form: solve ``Ar u = c
+        - A_c sn`` with ``q = sn + U u``; the pinned-mass rhs terms cancel
+        analytically, which keeps the reduced rhs at elastic scale
+        (essential in float32).  ``inv(Ar)`` is precomputed per dim in
+        float64.  With positions full, a dense Cholesky factor of the global
+        matrix on the device in float64 at 3N <= DENSE_LIMIT, else scipy's
+        sparse LU on the host; either raises if the factorization fails."""
         self.dt = args.dt
         # velocity damping: the predictor uses s_n = q + dt*eta*v + dt^2
         # M^-1 f with eta = 1 - damping; stored velocities stay (q'-q)/dt
         self.eta = 1.0 - float(getattr(args, "damping", 0.0) or 0.0)
         A = build_global_matrix(self.model, self.dt)
+        self._chol_full = self._solve = None
         if not self.reduced_position:
+            if A.shape[0] <= self.DENSE_LIMIT:
+                self._chol_full = torch.linalg.cholesky(torch.as_tensor(
+                    A.toarray(), dtype=PIPELINE_DTYPE, device=self.device))
+            else:
+                self._solve = scipy.sparse.linalg.factorized(A)
             return
         self._load_position_basis()
         invs, ut_ac = [], []
@@ -414,7 +574,12 @@ class AnimSnapBasesSolver:
                 oversample=getattr(args, "deim_oversample", 1.0))
             self._reduced_groups[name] = rg
 
-    def prepare(self, args):
+    def prepare(self, args, store_fom_info=False, record_path=None):
+        if store_fom_info:
+            if record_path is None:
+                raise ValueError("store_fom_info needs a record_path")
+            self.store_assembly_matrices(record_path)
+            self.record_path = record_path
         if self.dirty:
             self.prepare_global_matrix(args)
         if (self.has_reduced_constraint_projections
@@ -460,29 +625,18 @@ class AnimSnapBasesSolver:
             remapped[name] = sub
         return union, remapped
 
-    def _unsupported_reason(self):
-        """Why this configuration cannot serve on the port yet, or None."""
-        if not self.reduced_position:
-            return ("solves without position reduction (ROADMAP Queue A "
-                    "item 7)")
-        full = [n for n in self.model.groups
-                if n != "positional" and n not in self._reduced_groups]
-        if full:
-            return (f"groups {full} are not hyper-reduced: only the "
-                    "fully-reduced path is ported (ROADMAP Queue A item 4)")
-        if not self._reduced_groups:
-            return "no hyper-reduced group (ROADMAP Queue A item 4)"
-        return None
-
     def _build_step(self):
         self._resident = self._affine = None
         self._resident_fast = self._resident_run = None
         self._resident_kind = self._resident_fast_kind = None
         self._rb_sched = None
-        self._unsupported = self._unsupported_reason()
-        if self._unsupported is not None:
-            return
+        self._full = None
         model = self.model
+        full = [n for n in model.groups
+                if n != "positional" and n not in self._reduced_groups]
+        if not (self.reduced_position and self._reduced_groups and not full):
+            self._full = _FullSpace(self)
+            return
         union, remapped = self._remapped_subsets()
         ident = np.arange(len(union))
         packed = []
@@ -598,11 +752,22 @@ class AnimSnapBasesSolver:
     def _require(self):
         if self.dirty:
             raise RuntimeError("call prepare() first")
-        if self._unsupported is not None:
-            raise NotImplementedError(self._unsupported)
         if self.enable_self_collision:
             raise NotImplementedError(
                 "self-collision is not ported yet (ROADMAP Queue A item 12)")
+
+    def _require_batched(self):
+        """:meth:`_require`, and the batched runners' refusal of a
+        configuration that is not fully reduced."""
+        self._require()
+        if self._full is not None:
+            full = self._full.recorded
+            what = (f"groups {full} are not hyper-reduced" if full
+                    else "positions are not reduced" if
+                    not self.reduced_position else "no group is reduced")
+            raise NotImplementedError(
+                f"{what}: batched serving of configurations that are not "
+                "fully reduced is not ported yet (ROADMAP Queue A item A4b)")
 
     def _to_device(self, x):
         """(N, 3) host array -> permuted (3, N) tensor on the device."""
@@ -695,8 +860,12 @@ class AnimSnapBasesSolver:
     def step(self, fext, num_iterations=10):
         """One step; the iteration loop runs on kernel 1, with the target
         term of the current frame as ``run_steps`` reads it (the prepared
-        schedule's row while the targets are animated)."""
+        schedule's row while the targets are animated).  A configuration
+        that is not fully reduced steps on :class:`_FullSpace`."""
         self._require()
+        if self._full is not None:
+            self._full_step(fext, num_iterations)
+            return
         model = self.model
         if model.floor_collision:
             # the step clamps the predictor on the device; mirror the
@@ -734,6 +903,8 @@ class AnimSnapBasesSolver:
         (:meth:`_run_steps_recorded`)."""
         self._last_fast_steps = None
         self._require()
+        if self._full is not None:
+            return self._full_run(fext, num_steps, num_iterations, record)
         if record:
             return self._run_steps_recorded(fext, num_steps, num_iterations)
         model = self.model
@@ -807,6 +978,119 @@ class AnimSnapBasesSolver:
         return traj
 
     # ------------------------------------------------------------------
+    # configurations that are not fully reduced
+    # ------------------------------------------------------------------
+
+    def _host_path(self):
+        """Whether step() takes the host path: the host LU, or the
+        recording of full groups' projections."""
+        fs = self._full
+        return fs.mode == "host" or (self.store_stacked_projections
+                                     and bool(fs.recorded))
+
+    def _full_step(self, fext, num_iterations):
+        """step() of a configuration that is not fully reduced."""
+        model, fs = self.model, self._full
+        if self._host_path():
+            self._host_step(fext, num_iterations)
+            return
+        if model.floor_collision:
+            a = np.asarray(fext, dtype=float) / model.mass[:, None]
+            sn_raw = (model.positions + self.dt * self.eta * model.velocities
+                      + self.dt * self.dt * a)
+            _, corr = collisions.resolve_floor_collision(
+                sn_raw, model.floor_height)
+            model.positions_corrections = corr
+        q, v = fs.step(fs.tensor(model.positions),
+                       fs.tensor(model.velocities), fs.tensor(fext),
+                       fs.tensor(model.positional_targets(self.frame)),
+                       num_iterations)
+        model.positions = q.cpu().numpy()
+        model.velocities = v.cpu().numpy()
+        self.frame += 1
+
+    def _host_step(self, fext, num_iterations):
+        """The JAX solver's host step path (``sim/reduced.py:1315-1358``):
+        the local stage on the device, the global solve by the dense factor
+        or the host LU, and the full groups' projections recorded when
+        ``store_stacked_projections`` is set."""
+        if self.reduced_position:
+            # W is U^T-composed with positions reduced: the full-space
+            # solve below cannot run
+            raise RuntimeError(
+                "recording full-group projections is not supported with "
+                "position reduction while non-reduced constraint groups "
+                "are present; disable recording or reduce every group")
+        model, fs = self.model, self._full
+        dt = self.dt
+        dt2 = dt * dt
+        a = np.asarray(fext) / model.mass[:, None]
+        explicit = model.positions + dt * self.eta * model.velocities \
+            + dt2 * a
+        if model.floor_collision:
+            explicit, corr = collisions.resolve_floor_collision(
+                explicit, model.floor_height)
+            model.positions_corrections = corr
+        targets = fs.tensor(model.positional_targets(self.frame))
+        masses_term = fs.tensor((model.mass / dt2)[:, None] * explicit)
+        q = fs.tensor(explicit)
+        stacked = {}
+        for _ in range(num_iterations):
+            b, stacked = fs.local_terms(q, targets)
+            q = fs.solve(b + masses_term)
+        if self.store_stacked_projections:
+            self._record_frame(stacked)
+        q_next = q.cpu().numpy()
+        model.velocities = (q_next - model.positions) / dt
+        model.positions = q_next
+        self.frame += 1
+
+    def _full_run(self, fext, num_steps, num_iterations, record):
+        """run_steps of a configuration that is not fully reduced: on the
+        host path step by step (with the host LU, and when a recorded run
+        records the full groups' projections: the JAX solver records them
+        in ``step()`` and in a recorded run, not in a plain one); on the
+        device modes with the state kept on
+        the device, step i with the positional targets of frame
+        ``self.frame + i``.  ``record=True`` returns the (num_steps, N, 3)
+        trajectory and, with the floor on, leaves ``positions_corrections``
+        as the last step's (as the JAX recorded run does)."""
+        model, fs = self.model, self._full
+        if fs.mode == "host" or (record and self._host_path()):
+            traj = []
+            for _ in range(num_steps):
+                self.step(fext, num_iterations)
+                if record:
+                    traj.append(model.positions.copy())
+            return np.array(traj) if record else None
+        tl, _ = positional_targets_timeline(model, self.frame, num_steps)
+        tl = fs.tensor(tl)
+        P, V = fs.tensor(model.positions), fs.tensor(model.velocities)
+        Fx = fs.tensor(fext)
+        traj = []
+        corr_y = torch.zeros_like(P[:, 1])
+        for i in range(num_steps):
+            if record and model.floor_collision:
+                sn_y = (P[:, 1] + self.dt * self.eta * V[:, 1]
+                        + self.dt * self.dt * Fx[:, 1] / fs.mass)
+                corr_y = torch.clamp(sn_y - model.floor_height, max=0.0)
+            P, V = fs.step(P, V, Fx, tl[min(i, tl.shape[0] - 1)],
+                           num_iterations)
+            if record:
+                traj.append(P)
+        model.positions = P.cpu().numpy()
+        model.velocities = V.cpu().numpy()
+        self.frame += num_steps
+        if not record:
+            return None
+        if model.floor_collision:
+            corr = np.zeros_like(model.positions)
+            corr[:, 1] = corr_y.cpu().numpy()
+            model.positions_corrections = corr
+        return (torch.stack(traj).cpu().numpy() if traj
+                else np.empty((0,) + model.positions.shape))
+
+    # ------------------------------------------------------------------
     # ensemble serving
     # ------------------------------------------------------------------
 
@@ -872,7 +1156,7 @@ class AnimSnapBasesSolver:
                  targets=None):
             self._refuse_self_collision()
             B = self._check_batch(positions, velocities, fext)
-            self._require()
+            self._require_batched()
             ro = self._resident
             P, V = self._pack(positions), self._pack(velocities)
             fa = force_term(ro, self._pack(fext))
@@ -919,7 +1203,7 @@ class AnimSnapBasesSolver:
                 targets_seq=None):
             self._refuse_self_collision()
             B = self._check_batch(positions, velocities, fext)
-            self._require()
+            self._require_batched()
             rb = (self._rb_schedule_from(serving_frame[0])
                   if targets_seq is None
                   else self._rb_timeline(targets_seq, B))

@@ -50,17 +50,23 @@ def unflatten(q: np.ndarray) -> np.ndarray:
     return q.reshape(-1, 3)
 
 
-def device_group_data(g, device, dtype):
-    """The group's arrays as tensors on ``device`` (floats in ``dtype``);
-    scalars and object arrays as they are."""
+def device_data(data: dict, device, dtype) -> dict:
+    """A group's arrays (its ``data``, or a subset of it) as tensors on
+    ``device`` (floats in ``dtype``); scalars and object arrays as they
+    are."""
     out = {}
-    for k, v in g.data.items():
+    for k, v in data.items():
         if isinstance(v, np.ndarray) and v.dtype != object:
             t = torch.as_tensor(v, device=device)
             out[k] = t.to(dtype) if t.is_floating_point() else t
         else:
             out[k] = v
     return out
+
+
+def device_group_data(g, device, dtype):
+    """The group's arrays as tensors on ``device`` (:func:`device_data`)."""
+    return device_data(g.data, device, dtype)
 
 
 def make_local_stage(model, device=None, dtype=PIPELINE_DTYPE):

@@ -115,12 +115,34 @@ version.  Phases, each of which fails the run when it fails:
    (2,000 steps) certified by tier 1 and floor-clear; kernels 1 and 5
    against their plain versions on these bases; times, kernel 5's floor
    bound and the stages' seconds;
+7. ``per-group`` (:func:`per_group_phase`): the reference's own workflow
+   (record a full-order run, compute each constraint group's bases from
+   its ``configs/examples/*.json`` config, replay with the reduced solver)
+   at the reference's sizes: (a) the demo cloth of
+   ``cloth_automated_bend_spring_strain.json`` (20x20, its groups, weights
+   and fixed corners) recorded for 200 frames (dense tier), its groups'
+   bases from the six ``cloth_automated_{deim,geom}_*`` configs, served as
+   the demo asks (``deim_pod_vectorized``, positions full: the dense
+   Cholesky on the card) and on the geom bases under a block type; (b) the
+   bench cloth on phase [6]'s recording and bases with the positions full
+   (the host LU) and with the positions reduced and ``edge_spring`` full;
+   each of those solves held step by step against the CPU (one step from
+   the CPU's state, within CPU_DEVIATION of the extent) with its
+   reduced-vs-FOM statistic; (c) the bar of
+   ``bar_automated_deformationgradient.json`` recorded for 140 frames, with
+   ``pca_blocks`` + ``deim_block_form`` and ``pod_vectorized`` + ``geom``
+   bases from its example configs and a position basis of the recorded
+   displacements, served fully reduced under ``deim_pca_blocks`` and
+   ``geom_pca_blocks_withSt``: kernels 1 and 5 in their block-form builds
+   on real bases, a counted path each, held against their plain versions
+   and timed; each stage's seconds beside the card's name and power limit;
 5. the ``kernels`` line (21 entries: six solo kernels, five batched
    builds, each with its times on the new scenes under ``scenes``, with a
    target schedule under ``animated``, at 250,000 vertices under
    ``megacloth`` and, for kernels 1 and 5, on real bases under
-   ``real_bases``, then kernel 5's five option builds, solo and batched),
-   then the last line ``{"ok": true, "device": {...}}``.
+   ``real_bases`` and on the bar's block-form bases under ``per_group``,
+   then kernel 5's five option builds, solo and batched), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -136,6 +158,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -348,6 +371,36 @@ PIPE_CHUNK = 64
 CPU_DEVIATION = 1e-6
 POD_GAMMA = 16 * 2.0 ** -52
 PICK_RTOL = 1e-10
+# ---- [7] the reference's per-group workflow (:func:`per_group_phase`) ----
+# the recording lengths the example configs read: the cloth's
+# max_numFrames (200; 100 frames at increment 2) and the bar demo's
+# max_p_snapshots_num (140; its examples read 70 frames at increment 2)
+GROUP_FRAMES = 200
+BAR_FRAMES = 140
+# the steps of each reduced solve: phase [6]'s reduced-vs-FOM statistic
+GROUP_STEPS = 48
+# entries of the example configs replaced (none: the configs' own frames
+# and component counts)
+GROUP_OVERRIDES = {}
+CLOTH_EXAMPLE = "configs/examples/cloth_automated_{}_{}Subspace.json"
+CLOTH_KINDS = {"tris_strain": "triStrain", "edge_spring": "edgeSpring",
+               "verts_bending": "vertBending"}
+BAR_EXAMPLE = ("configs/examples/bar_automated_{}_"
+               "tetDeformationGradientSubspace.json")
+# the bar's position basis: the POD of its recorded displacements from the
+# rest shape (the reference's position configs subtract the first frame),
+# so that it is zero at the pinned vertices, whose 1e10 masses would
+# otherwise enter U^T A U; at 16 modes, where its per-dimension POD nears
+# the Gram method's rounding floor (the bar sags 0.3 units in 140 frames).
+# On the CPU's recording: cond(Ar) 6.9e8 at 16 modes, 2.2e11 at 32, 8.9e15
+# at 64 (there the rounding-set modes make the solve diverge); a POD of the
+# positions themselves at 32 modes leaves float32 1 % of |u| off float64
+BAR_POS_MODES = 16
+# the reduction type each selection is served under: row DEIM as the demo
+# config asks, the block selections under the block types
+SERVED_AS = {"deim": "deim_pod_vectorized",
+             "geom": "geom_pca_blocks_withSt",
+             "deim_block_form": "deim_pca_blocks"}
 
 
 def log(*a):
@@ -2047,9 +2100,10 @@ def star_sum_f32(fo, x):
     return acc
 
 
-def tet_bending(torch, counted, paths):
+def tet_bending(torch, counted, paths, scenes=None):
     """The scenes of the tet, bending and block-form kinds
-    (:func:`tet_bending_scenes`) on the card.  Each scene goes through
+    (:func:`tet_bending_scenes`; ``scenes``, a set of labels, picks some
+    of them) on the card.  Each scene goes through
     ``prepare -> step -> run_steps(SCENE_STEPS)`` on the default tiers
     (kernel 1, then kernel 5, which must certify the window), then a
     contact window (kernel 5 exits, kernel 3's contact-mode build finishes
@@ -2115,6 +2169,8 @@ def tet_bending(torch, counted, paths):
 
     dev = resolve_device("cuda")
     for label, args, build, comps, block, damping in tet_bending_scenes():
+        if scenes is not None and label not in scenes:
+            continue
         t0 = time.perf_counter()
         model = build()
         solver = scene_solver(
@@ -4172,71 +4228,526 @@ def pipeline_phase(torch, counted, paths, dev):
                 staging_plan=plans["affine_chunked"])}
 
 
-def main() -> int:
-    import torch
+# the launches of each kernel in the kernels line: those of the path
+# that serves it (kernels 1 and 5: the main path; 3: the lean contact
+# tier; 4: tier 1 with resident_chunked_tier1=False; 3 in contact mode:
+# the contact tier with resident_contact_mode=True; 2: the contact tier
+# at >= CHUNKED_TIER1_MIN_VERTS)
+LAUNCH_PATH = {
+    "fused_reduced_iterations": "main path",
+    "affine_chunked": "main path",
+    "resident_affine": "lean contact tier, contact scene",
+    "resident_affine_exit": "resident_chunked_tier1=False, bench window",
+    "resident_affine_contact": "resident_contact_mode=True, contact scene",
+    "resident_multistep": "CHUNKED_TIER1_MIN_VERTS=0, contact scene"}
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
 
-    from animsnapbases_tpu_torch.device import resolve_device
+def demo_cloth(args):
+    """The model of CLOTH_DEMO as the JAX package's scenario builds it at
+    frame 0 (``demos/scenarios.py`` ``_frame0``): ``cloth_model(width,
+    height)`` normalized into the unit box, 2 units up, floor on, the
+    demo's masses, its bending, spring and strain groups at its weights,
+    and its fixed corners (``fix_left_corners``, ``fix_right_corners``: the
+    top and bottom vertices of the left and right sides).  The scenario's
+    scheduled releases (frames 20, 60 and 140) are not run."""
     from animsnapbases_tpu_torch.geometry.procedural import cloth_model
-    from animsnapbases_tpu_torch.ops import _build
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    V, F = cloth_model(args.cloth_width, args.cloth_height)
+    model = DeformableModel(rescale(V), F,
+                            masses=np.full(len(V), args.mass_per_particle),
+                            floor_collision=True, init_height_shift=2.0)
+    model.compute_cloth_corner_indices()
+    sides = model._side_surface_verts
+    ends = np.union1d(sides["top"], sides["bottom"])
+    for side in ("left", "right"):
+        for vi in np.intersect1d(sides[side], ends):
+            model.fix(vi)
+    model.add_vertex_bending_constraint(args.vert_bending_constraint_wi)
+    model.add_edge_spring_constraint(args.edge_constraint_wi)
+    model.add_tri_constrain_strain(args.sigma_min, args.sigma_max,
+                                   args.strain_limit_constraint_wi)
+    return model
+
+
+def group_bases(model, json_path, record, work, basis_dir, dev, secs, label,
+                **overrides):
+    """One group's bases from an example config pointed at ``record``
+    (``bases/pipeline.py``), its stages' seconds gathered in ``secs`` under
+    ``label`` -> the ConstraintComponents.  The pipeline's warnings (the
+    configs ask for more modes than some recordings hold) are printed."""
+    import warnings
+
+    from animsnapbases_tpu_torch.bases.pipeline import (
+        build_bases_from_config,
+        example_config,
+        export_mesh,
+    )
+
+    param = example_config(json_path, record, work,
+                           **{**GROUP_OVERRIDES, **overrides})
+    export_mesh(model, param)
+    timings = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cc = build_bases_from_config(param, basis_dir, device=dev,
+                                     timings=timings)
+    for stage, t in timings.items():
+        secs[f"{label}: bases, {stage}"] = t
+    said = sorted({str(w.message) for w in caught
+                   if "animsnapbases_tpu_torch" in w.filename})
+    log(f"[7] {label}: {param.constProj_basis_type} + "
+        f"{param.constProj_bases_interpolation_type}, "
+        f"{param.constProj_numFrames} frames, {cc.numComp} components, "
+        f"{len(cc.geom_alpha)} elements selected in "
+        f"{sum(timings.values()):.2f} s" + (f"; warned: {said}" if said
+                                           else ""))
+    require(len(cc.geom_alpha) > 0 and np.isfinite(cc.comps).all(),
+            f"{label}: no usable bases")
+    return cc
+
+
+def card_and_cpu(torch, label, args, build, f, steps, dev, secs):
+    """The reduced solver of ``args`` on ``build()``'s model, on the card
+    and on the CPU (float64 on both: a configuration that is not fully
+    reduced serves in ``device.PIPELINE_DTYPE``): prepare, then ``steps``
+    steps.  Held step by step: each of the card's ``step()`` calls from
+    the CPU's state before that step lands within CPU_DEVIATION of the
+    scene's extent of the CPU's next state.  The card's free run
+    (``run_steps(steps, record=True)`` from the start) is printed beside
+    the CPU's, not held: the reduced step map amplifies rounding (the dense
+    factor carries the 1e10 masses of pinned vertices), so two float64
+    orders part over a window.  -> (the card's free trajectory, its
+    solver)."""
+    from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+
+    solvers = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        solver = AnimSnapBasesSolver(args, device=device)
+        solver.set_model(build())
+        t0 = time.perf_counter()
+        solver.prepare(args)
+        secs[f"{label}: prepare, {where}"] = time.perf_counter() - t0
+        solvers[where] = solver
+    card, cpu = solvers["card"], solvers["cpu"]
+    states = [(cpu.model.positions.copy(), cpu.model.velocities.copy())]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        cpu.step(f, num_iterations=ITERATIONS)
+        states.append((cpu.model.positions.copy(),
+                       cpu.model.velocities.copy()))
+    secs[f"{label}: {steps} steps, cpu"] = time.perf_counter() - t0
+    extent = float(np.abs(states[-1][0]).max())
+    per_step = []
+    for i in range(steps):
+        card.model.positions, card.model.velocities = (
+            x.copy() for x in states[i])
+        card.frame = i
+        card.step(f, num_iterations=ITERATIONS)
+        per_step.append(float(np.abs(card.model.positions
+                                     - states[i + 1][0]).max()) / extent)
+    per_step = np.array(per_step)
+    card.model.positions, card.model.velocities = (x.copy()
+                                                   for x in states[0])
+    card.frame = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = card.run_steps(f, steps, num_iterations=ITERATIONS, record=True)
+    torch.cuda.synchronize()
+    secs[f"{label}: {steps} steps, card"] = time.perf_counter() - t0
+    free = float(np.abs(traj[-1] - states[-1][0]).max()) / extent
+    log(f"[7] {label}: {card._full.mode} path; each of {steps} steps on the "
+        f"card from the CPU's state: at most {per_step.max():.3e} of the "
+        f"scene's extent from the CPU's step (step "
+        f"{int(per_step.argmax()) + 1}; limit {CPU_DEVIATION}); the free "
+        f"runs {free:.3e} apart after {steps} steps (not held)")
+    require(np.isfinite(traj).all() and per_step.max() <= CPU_DEVIATION,
+            f"{label}: a step on the card departs from the CPU's")
+    return traj, card
+
+
+def group_demo(torch, dev, work, secs, smi):
+    """(a) The demo: CLOTH_DEMO's cloth (:func:`demo_cloth`) recorded for
+    GROUP_FRAMES frames by the port's ``Solver`` (its dense tier), each
+    group's bases from the six cloth example configs (row DEIM and geom),
+    then the reduced solver as the demo config asks (``deim_pod_vectorized``,
+    positions full: the dense Cholesky on the card) and on the geom bases
+    under a block type (``verts_bending`` full there), each held against the
+    CPU step by step -> {reduction type: reduced-vs-FOM (mean, p99,
+    max)}."""
+    import copy
+
+    from animsnapbases_tpu_torch.bases.pipeline import (
+        fom_deviation,
+        record_fom,
+    )
+    from animsnapbases_tpu_torch.config.sim_config import SimConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = SimConfig(os.path.join(root, CLOTH_DEMO)).build_args("Cloth")
+    model = demo_cloth(args)
+    f = gravity(model)
+    record = os.path.join(work, "demo", "FOM")
+    t0 = time.perf_counter()
+    traj, fom = record_fom(demo_cloth(args), f, record, GROUP_FRAMES,
+                           args.solver_iterations, args.dt, args.damping,
+                           global_solve="dense", device=dev)
+    secs["demo: record"] = time.perf_counter() - t0
+    log(f"[7] demo: {model.n_verts} vertices, {int(model.fixed_flags.sum())}"
+        f" pinned, groups {sorted(model.groups)}; recorded {GROUP_FRAMES} "
+        f"frames ({fom._mode} global solve) in {secs['demo: record']:.2f} s "
+        f"({smi})")
+    dirs, stats = {}, {}
+    for itype in ("deim", "geom"):
+        dirs[itype] = os.path.join(work, "demo", itype, "bases")
+        for g, tag in CLOTH_KINDS.items():
+            group_bases(model, os.path.join(root, CLOTH_EXAMPLE.format(
+                itype, tag)), record, os.path.join(work, "demo", itype, g),
+                dirs[itype], dev, secs, f"demo, {g}, {itype}")
+    for itype, bdir in dirs.items():
+        rtype = SERVED_AS[itype]
+        a = copy.copy(args)
+        a.constraint_projection_basis_type = rtype
+        a.geom_interpolation_basis_dir = bdir
+        a.geom_interpolation_basis_file = "basis.npz"
+        if itype == "geom":
+            # a verts_bending geom file lists vertex ids where the solver
+            # reads constrained-vertex rows (ROADMAP Queue C): the group
+            # serves full
+            a.vert_bending_reduced = False
+        card, solver = card_and_cpu(torch, f"demo, {itype} bases as {rtype}",
+                                    a, lambda: demo_cloth(args), f,
+                                    GROUP_STEPS, dev, secs)
+        require(solver._full.mode == "dense",
+                "the demo's solve is not on the dense Cholesky")
+        stats[rtype] = fom_deviation(card[-1], traj[GROUP_STEPS - 1])
+        log(f"[7] demo, {itype} bases as {rtype}: reduced-vs-FOM after "
+            f"{GROUP_STEPS} steps (|P - P_FOM| / max|P_FOM|): mean "
+            f"{stats[rtype][0]:.3e}, p99 {stats[rtype][1]:.3e}, max "
+            f"{stats[rtype][2]:.3e} ({smi})")
+    return stats
+
+
+def group_bench(torch, dev, work, secs, smi):
+    """(b) The bench cloth (:func:`bench_scene`) without position
+    reduction: phase [6]'s recording (FOM_FRAMES frames) and bases
+    (``bases/pipeline.py`` ``build_bases``), then the reduced solver of
+    ``reduced_args`` with the positions full (the host LU above
+    ``DENSE_LIMIT``: at 3N = 43,200) and with the positions reduced and ``edge_spring`` full, each over
+    FOM_FRAMES steps, held against the CPU step by step and against the
+    recording -> {path: reduced-vs-FOM (mean, p99, max)}."""
+    from animsnapbases_tpu_torch.bases.pipeline import (
+        build_bases,
+        fom_deviation,
+        record_fom,
+        reduced_args,
+    )
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+
+    def scene():
+        return bench_scene(DeformableModel, cloth_model)
+
+    dt = 0.016
+    model = scene()
+    full = ("dense" if 3 * model.n_verts <= AnimSnapBasesSolver.DENSE_LIMIT
+            else "host")
+    f = gravity(model)
+    record = os.path.join(work, "bench", "FOM")
+    t0 = time.perf_counter()
+    traj, _ = record_fom(model, f, record, FOM_FRAMES, FOM_ITERS, dt,
+                         BENCH_DAMPING, device=dev)
+    secs["bench: record"] = time.perf_counter() - t0
+    timings = {}
+    basis_dir, pos_path, _ = build_bases(
+        model, record, traj, os.path.join(work, "bench"), CONSTR_MODES,
+        POS_MODES, device=dev, timings=timings)
+    for stage, t in timings.items():
+        secs[f"bench: bases, {stage}"] = t
+    log(f"[7] bench: recorded {FOM_FRAMES} frames in "
+        f"{secs['bench: record']:.2f} s, bases in "
+        f"{sum(timings.values()):.2f} s ({smi})")
+    stats = {}
+    for label, position_reduced, edge_reduced, mode in (
+            ("positions full", False, True, full),
+            ("positions reduced, edge_spring full", True, False, "mixed")):
+        args = reduced_args(basis_dir, pos_path, min(REDUCED_MODES,
+                                                      CONSTR_MODES),
+                            POS_MODES, dt, BENCH_DAMPING)
+        args.position_reduced = position_reduced
+        args.edge_spring_reduced = edge_reduced
+        card, solver = card_and_cpu(torch, f"bench, {label}", args, scene,
+                                    f, FOM_FRAMES, dev, secs)
+        require(solver._full.mode == mode,
+                f"bench, {label}: served on {solver._full.mode}, not {mode}")
+        stats[label] = fom_deviation(card[-1], traj[-1])
+        log(f"[7] bench, {label}: reduced-vs-FOM after {FOM_FRAMES} steps: "
+            f"mean {stats[label][0]:.3e}, p99 {stats[label][1]:.3e}, max "
+            f"{stats[label][2]:.3e} ({smi})")
+    return stats
+
+
+def group_bar(torch, counted, paths, dev, work, secs, smi):
+    """(c) Block forms on real bases, through the kernels: the bar of
+    BAR_DEMO (:func:`bar_scene`, tets_deformation_gradient) recorded for
+    BAR_FRAMES frames (host LU), ``pca_blocks`` + ``deim_block_form`` bases
+    and ``pod_vectorized`` + ``geom`` bases from the bar's example configs,
+    a position basis of the recorded displacements (r = BAR_POS_MODES);
+    each served fully reduced (``deim_pca_blocks``,
+    ``geom_pca_blocks_withSt``; float32 state and matrices) through
+    ``prepare -> step -> run_steps`` (a counted path: kernels 1 and 5 in
+    their block-form builds), tier 1 certifying the window; kernel 1 held
+    against float64 and kernel 5 against its plain version step by step and
+    in the steps one call carries, NEW_DEPTH steps (as the tet scenes of
+    :func:`tet_bending`); both timed beside their bounds (kernel 5 and its
+    plain version in NEW_DEPTH-step calls) ->
+    {kernel name: {reduction type: entry}}."""
+    import copy
+
+    from animsnapbases_tpu_torch.bases.pipeline import (
+        fom_deviation,
+        record_fom,
+    )
+    from animsnapbases_tpu_torch.bases.position_reduction import (
+        position_basis_from_trajectory,
+        save_position_basis,
+    )
+    from animsnapbases_tpu_torch.config.sim_config import SimConfig
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        affine_chunked,
+        affine_chunked_plain,
+        chunk_plan,
+    )
+    from animsnapbases_tpu_torch.ops.cluster import resident_clusters
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_plan,
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import force_term, predict
+    from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = SimConfig(os.path.join(root, BAR_DEMO)).build_args("Bar")
+    kinds = {"tets_deformation_gradient":
+             args.deformation_gradient_constraint_wi}
+
+    def scene():
+        return bar_scene(args, kinds)
+
+    model = scene()
+    f = gravity(model)
+    record = os.path.join(work, "bar", "FOM")
+    t0 = time.perf_counter()
+    traj, _ = record_fom(scene(), f, record, BAR_FRAMES, ITERATIONS, args.dt,
+                         args.damping, device=dev)
+    secs["bar: record"] = time.perf_counter() - t0
+    log(f"[7] bar: {model.n_verts} vertices, {len(model.elements)} tets; "
+        f"recorded {BAR_FRAMES} frames in {secs['bar: record']:.2f} s "
+        f"({smi})")
+    dirs = {}
+    for itype, example, btype in (("deim_block_form", "deim", "pca_blocks"),
+                                  ("geom", "geom", "pod_vectorized")):
+        dirs[itype] = os.path.join(work, "bar", itype, "bases")
+        group_bases(model, os.path.join(root, BAR_EXAMPLE.format(example)),
+                    record, os.path.join(work, "bar", itype), dirs[itype],
+                    dev, secs, f"bar, {itype}", basis_type=btype,
+                    interpolation_type=itype)
+    t0 = time.perf_counter()
+    pos_path = os.path.join(work, "bar", "pos_basis.npz")
+    save_position_basis(pos_path, position_basis_from_trajectory(
+        traj - model.positions[None], BAR_POS_MODES, device=dev))
+    secs["bar: position basis"] = time.perf_counter() - t0
+
+    out = {"fused_reduced_iterations": {}, "affine_chunked": {}}
+    for itype, bdir in dirs.items():
+        rtype = SERVED_AS[itype]
+        a = copy.copy(args)
+        a.constraint_projection_basis_type = rtype
+        a.geom_interpolation_basis_dir = bdir
+        a.geom_interpolation_basis_file = "basis.npz"
+        a.position_reduced = True
+        a.position_num_components = BAR_POS_MODES
+        a.position_basis_file = pos_path
+        m = scene()
+        # float32 matrices: in bfloat16, sn (~7 units up) rounds to a 1/32
+        # grid before U^T A_c, whose tets weigh 1e8, and the solve lands 3
+        # units off after one step (the plain version on the CPU)
+        solver = AnimSnapBasesSolver(a, device=dev, dtype=torch.float32,
+                                     matmul_dtype=torch.float32)
+        solver.set_model(m)
+        label = f"bar, {itype} bases as {rtype}"
+
+        def serve():
+            t0 = time.perf_counter()
+            solver.prepare(a)
+            secs[f"{label}: prepare"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            solver.step(f, num_iterations=ITERATIONS)
+            solver.run_steps(f, GROUP_STEPS - 1, num_iterations=ITERATIONS)
+            torch.cuda.synchronize()
+            secs[f"{label}: {GROUP_STEPS} steps"] = time.perf_counter() - t0
+
+        key = f"per-group: {label}"
+        paths[key] = counted_path(
+            torch, counted, f"{label} (prepare -> step + run_steps("
+            f"{GROUP_STEPS - 1}))", {"fused_reduced_iterations",
+                                     "affine_chunked"}, serve)
+        ro, ao = solver._resident, solver._affine
+        fo = ro.fused
+        require(solver._full is None and solver._last_fast_steps
+                == GROUP_STEPS - 1 and np.isfinite(m.positions).all(),
+                f"{label}: tier 1 did not certify the window "
+                f"({solver._last_fast_steps})")
+        vs_fom = fom_deviation(m.positions, traj[GROUP_STEPS - 1])
+        log(f"[7] {label}: N={ro.n} r={fo.r} n_sel={ro.n_sel} g_total="
+            f"{fo.g_total} m_total={fo.m_total} table columns "
+            f"{kind_columns(fo)}; reduced-vs-FOM after {GROUP_STEPS} steps: "
+            f"mean {vs_fom[0]:.3e}, p99 {vs_fom[1]:.3e}, max {vs_fom[2]:.3e}"
+            f" ({smi})")
+
+        # kernels 1 and 5 on these bases, from the rest state under gravity
+        P = solver._to_device(scene().positions)
+        V = torch.zeros_like(P)
+        Fx = solver._to_device(f)
+        rb = solver._rb_extra()
+        sn, rb_const = predict(ro, P, V, force_term(ro, Fx), rb)
+        sel = sn[:, :ro.n_sel]
+        u_k = fused_reduced_iterations(fo, sel, rb_const, ITERATIONS)
+        u_p = fused_reduced_iterations_plain(fo, sel, rb_const, ITERATIONS)
+        u_64 = fused_reduced_iterations_plain(
+            as_f64(fo), sel.double(), rb_const.double(), ITERATIONS)
+        ok, e_k, e_p = as_accurate(u_k, u_p, u_64)
+        k1_err = max_abs(u_k, u_p)
+        log(f"[7] {label}, kernel 1: vs plain max abs {k1_err:.3e} (max|u| "
+            f"{float(u_p.abs().max()):.3e}); vs float64: kernel {e_k:.3e}, "
+            f"plain {e_p:.3e} (limit {ACC_RATIO}x)")
+        require(bool(torch.isfinite(u_k).all()) and ok,
+                f"{label}: kernel 1 is less accurate than its plain version")
+
+        def one(fn):
+            def run(P_, V_):
+                o = fn(ao, P_, V_, Fx, rb, 1, ITERATIONS)
+                require(o[2] == 1, f"{fn.__name__} stopped on a free step")
+                return o[:2]
+            return run
+
+        k5_err, _ = step_by_step(
+            torch, f"{label}, kernel 5", ro, one(affine_chunked),
+            one(affine_chunked_plain), P, V, Fx, rb, NEW_DEPTH)
+        err, _ = carried_steps(torch, f"{label}, kernel 5, carried steps", 5,
+                               ao, affine_chunked_plain, P, V, Fx, rb,
+                               NEW_DEPTH, CHUNK_EVERY)
+        k5_err = max(k5_err, err)
+        require(affine_chunked(ao, P, V, Fx, rb, NEW_DEPTH,
+                               ITERATIONS)[2] == NEW_DEPTH,
+                f"{label}: kernel 5 stopped in the {NEW_DEPTH}-step window")
+        k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+            fo, sel, rb_const, ITERATIONS), reps=200)
+        k1_dev = device_ms(torch, lambda: fused_reduced_iterations(
+            fo, sel, rb_const, ITERATIONS), reps=100)
+        k1_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+            fo, sel, rb_const, ITERATIONS), reps=PLAIN_REPS, warmup=0)
+        k5_ms = cuda_ms(torch, lambda: affine_chunked(
+            ao, P, V, Fx, rb, NEW_DEPTH, ITERATIONS))
+        k5_plain = cuda_ms(torch, lambda: affine_chunked_plain(
+            ao, P, V, Fx, rb, NEW_DEPTH, ITERATIONS), reps=PLAIN_REPS,
+            warmup=0)
+        trips = bound_trips(ao, P, V, Fx, rb, NEW_DEPTH)
+        k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS))
+        k5_bound, k5_by = bound_ms(*k5_cost(ao, NEW_DEPTH, ITERATIONS,
+                                            CHUNK_EVERY, exact_steps=trips))
+        log(f"[7] {label}: kernel 1 {1e3 * k1_ms:.2f} us a call, "
+            f"{1e3 * k1_dev:.2f} us a launch on the device (bound "
+            f"{1e3 * k1_bound:.4f} us, {k1_by}; plain {1e3 * k1_plain:.1f} "
+            f"us); kernel 5 {1e3 * k5_ms / NEW_DEPTH:.2f} us/step over "
+            f"{NEW_DEPTH}-step calls (bound "
+            f"{1e3 * k5_bound / NEW_DEPTH:.4f} us/step, {k5_by}; floor "
+            f"bound trips on {trips} of them; plain "
+            f"{1e3 * k5_plain / NEW_DEPTH:.1f} us/step) ({smi})")
+        common = {"launches_path": key, "vs_fom": dict(zip(
+            ("mean", "p99", "max"), vs_fom))}
+        plans = {"fused_reduced_iterations": ("fused_reduced",
+                                              fused_plan(fo)),
+                 "affine_chunked": ("affine_chunked", chunk_plan(ao))}
+        for name, err, ms, plain, bound, by, extra in (
+                ("fused_reduced_iterations", k1_err, k1_ms, k1_plain,
+                 k1_bound, k1_by, {"device_ms": k1_dev}),
+                ("affine_chunked", k5_err, k5_ms, k5_plain, k5_bound, k5_by,
+                 {"steps_per_call": NEW_DEPTH, "bound_trips": trips})):
+            lib, plan = plans[name]
+            out[name][rtype] = dict(
+                common, launches=paths[key][name], max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                staging_plan=dict(plan.as_dict(), resident_clusters=(
+                    resident_clusters(lib, plan))),
+                table_columns=kind_columns(fo), **extra)
+    return out
+
+
+def per_group_phase(torch, counted, paths, dev, smi):
+    """[7] The reference's per-group workflow on the card, at the
+    reference's own sizes: record a full-order run, compute each group's
+    bases from its example config, replay with the reduced solver.  (a)
+    the demo cloth (:func:`group_demo`), (b) the bench cloth without
+    position reduction (:func:`group_bench`), (c) the bar's block forms
+    through kernels 1 and 5 (:func:`group_bar`).  Each stage's seconds are
+    printed beside the card's name and power limit.  Returns {kernel name:
+    the entries the kernels line carries under "per_group"}."""
+    secs = {}
+    with tempfile.TemporaryDirectory() as work:
+        demo = group_demo(torch, dev, work, secs, smi)
+        bench = group_bench(torch, dev, work, secs, smi)
+        out = group_bar(torch, counted, paths, dev, work, secs, smi)
+    log(f"[7] per-group workflow seconds ({smi}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()))
+    workflow = {"demo_vs_fom": {k: dict(zip(("mean", "p99", "max"), v))
+                                for k, v in demo.items()},
+                "bench_vs_fom": {k: dict(zip(("mean", "p99", "max"), v))
+                                 for k, v in bench.items()},
+                "seconds": secs}
+    for entries in out.values():
+        entries["workflow"] = workflow
+    return out
+
+
+def port_counters():
+    """The launch counters the script reads: the eleven kernel wrappers,
+    then kernel 5's option builds (``ops/affine_chunked.py``
+    ``COUNTERS``)."""
     from animsnapbases_tpu_torch.ops.affine import (
-        FLAG_SLOTS,
-        MODE_SLOT,
-        _launch_affine,
-        affine_plan,
-        affine_run_plain,
         resident_affine,
         resident_affine_batched,
         resident_affine_contact,
         resident_affine_contact_batched,
-        resident_affine_contact_plain,
         resident_affine_exit,
-        resident_affine_exit_plain,
-        resident_affine_plain,
     )
     from animsnapbases_tpu_torch.ops.affine_chunked import (
         COUNTERS,
-        advance,
         affine_chunked,
         affine_chunked_batched,
-        affine_chunked_plain,
-        chunk_anchors,
-        chunk_plan,
-    )
-    from animsnapbases_tpu_torch.ops.cluster import (
-        THREADS as CLUSTER_THREADS,
-        resident_clusters,
     )
     from animsnapbases_tpu_torch.ops.fused_reduced import (
-        fused_plan,
         fused_reduced_iterations,
         fused_reduced_iterations_batched,
-        fused_reduced_iterations_plain,
     )
     from animsnapbases_tpu_torch.ops.resident import (
-        force_term,
-        predict,
         resident_multistep,
         resident_multistep_batched,
-        resident_multistep_plain,
-        resident_plan,
-    )
-    from animsnapbases_tpu_torch.sim.model import DeformableModel
-    from animsnapbases_tpu_torch.utils.synthetic import (
-        synthetic_reduced_solver,
     )
 
-    dev = resolve_device("cuda")
-    torch.manual_seed(0)
-    counted = (fused_reduced_iterations, resident_multistep, resident_affine,
-               resident_affine_exit, affine_chunked, resident_affine_contact,
-               fused_reduced_iterations_batched, resident_multistep_batched,
-               resident_affine_batched, affine_chunked_batched,
-               resident_affine_contact_batched, *COUNTERS)
+    return (fused_reduced_iterations, resident_multistep, resident_affine,
+            resident_affine_exit, affine_chunked, resident_affine_contact,
+            fused_reduced_iterations_batched, resident_multistep_batched,
+            resident_affine_batched, affine_chunked_batched,
+            resident_affine_contact_batched, *COUNTERS)
+
+
+def build_phase(torch):
+    """[1] The card's name and power limit, the versions of torch, CUDA,
+    Python and nvcc, and the build of every kernel -> the nvidia-smi line."""
+    from animsnapbases_tpu_torch.ops import _build
 
     # ---- 1. device and build -------------------------------------------
     smi = subprocess.run(
@@ -4256,13 +4767,21 @@ def main() -> int:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
+    return smi
 
+
+def bench_phase(torch, counted, dev):
+    """[2] The bench scene through the entry points: prepare, then
+    ``step`` + ``run_steps(SCENE_STEPS)``, the main path (counted), whose
+    tier 1 must certify the window -> the phase's state: the model and
+    solver, the rest state, the force, the state run_steps started from
+    (``main_in``), the end state (``main_state``), the device and the
+    counted paths."""
     # ---- 2. the bench scene through the entry points -------------------
     t0 = time.perf_counter()
     model, solver = bench_solver(torch, dev)
     rest = (model.positions.copy(), model.velocities.copy())
     ro = solver._resident
-    ao = solver._affine
     fo = ro.fused
     log(f"[2] prepare {time.perf_counter() - t0:.1f} s: N={ro.n} r={fo.r} "
         f"n_sel={ro.n_sel} g_total={fo.g_total} m_total={fo.m_total} "
@@ -4292,6 +4811,24 @@ def main() -> int:
         f"{model.positions[:, 1].max():.4f}], "
         f"|v|max {np.abs(model.velocities).max():.4f}")
     main_state = (model.positions.copy(), model.velocities.copy())
+    return types.SimpleNamespace(
+        model=model, solver=solver, rest=rest, f=f, main_in=main_in,
+        main_state=main_state, paths=paths, dev=dev)
+
+
+def tiers_phase(torch, counted, b):
+    """[2] Each configuration of ``TIER_SWITCHES`` through the tiers
+    (:func:`tiered_runs`, each run a counted path), then the solver back
+    on its default tiers at the main path's end state; and the small scene
+    on the card against the float64 plain version on the CPU."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+
+    solver, model, f, rest = b.solver, b.model, b.f, b.rest
+    paths, main_state = b.paths, b.main_state
     t0 = time.perf_counter()
     # every configuration sets resident_contact_mode itself, so that the
     # paths do not depend on its default
@@ -4301,22 +4838,8 @@ def main() -> int:
                                        rest, label, tier1, contact).items():
             paths[f"{label}, {run}"] = counts
     log(f"[2] tiered runs {time.perf_counter() - t0:.1f} s")
-    # the launches of each kernel in the kernels line: those of the path
-    # that serves it (kernels 1 and 5: the main path; 3: the lean contact
-    # tier; 4: tier 1 with resident_chunked_tier1=False; 3 in contact mode:
-    # the contact tier with resident_contact_mode=True; 2: the contact tier
-    # at >= CHUNKED_TIER1_MIN_VERTS)
-    launch_path = {
-        "fused_reduced_iterations": "main path",
-        "affine_chunked": "main path",
-        "resident_affine": "lean contact tier, contact scene",
-        "resident_affine_exit": "resident_chunked_tier1=False, bench window",
-        "resident_affine_contact": "resident_contact_mode=True, contact scene",
-        "resident_multistep": "CHUNKED_TIER1_MIN_VERTS=0, contact scene"}
     reprepare(solver, CHUNKED_TIER1_MIN_VERTS=type(
         solver).CHUNKED_TIER1_MIN_VERTS)
-    ro, ao = solver._resident, solver._affine
-    fo = ro.fused
     model.positions, model.velocities = (x.copy() for x in main_state)
 
     # the small scene on the card against the float64 plain version
@@ -4335,6 +4858,43 @@ def main() -> int:
         f"max|dP| {d:.3e} (rel {d / scale:.3e}, tol {TOL_SMALL})")
     require(d <= TOL_SMALL * scale, "small scene disagrees with the reference")
 
+
+def holds_phase(torch, b):
+    """[3] Each kernel against its plain version on the bench scene, from
+    the same state: one-step calls, the steps one call carries, contact
+    mode's recursions -> the readings and the inputs that :func:`times_phase`
+    times."""
+    from animsnapbases_tpu_torch.ops.affine import (
+        FLAG_SLOTS,
+        MODE_SLOT,
+        _launch_affine,
+        affine_run_plain,
+        resident_affine,
+        resident_affine_contact,
+        resident_affine_contact_plain,
+        resident_affine_exit,
+        resident_affine_exit_plain,
+        resident_affine_plain,
+    )
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        affine_chunked,
+        affine_chunked_plain,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        predict,
+        resident_multistep,
+        resident_multistep_plain,
+    )
+
+    solver, model, f, dev = b.solver, b.model, b.f, b.dev
+    main_in = b.main_in
+    ro, ao = solver._resident, solver._affine
+    fo = ro.fused
     # ---- 3. kernels against their plain versions -----------------------
     t_main = time.perf_counter()
     P = solver._to_device(model.positions)
@@ -4636,6 +5196,58 @@ def main() -> int:
                f"version's step size (tol {STEP_TOL})"))
 
     log(f"[3] bench scene holds {time.perf_counter() - t_main:.1f} s")
+    return types.SimpleNamespace(
+        k1_abs=k1_abs, k2_err=k2_err, affine_err=affine_err, drift=drift,
+        P=P, V=V, Fx=Fx, rb_extra=rb_extra, sn=sn, rb_const=rb_const,
+        snT_sel=snT_sel, u_k=u_k, Pw=Pw, Vw=Vw, F0=F0, Pc=Pc, Vc=Vc)
+
+
+def times_phase(torch, b, h):
+    """[4] The bench scene's times beside each kernel's bound, the staging
+    plans, and the entry point over the tier-1 window; [5] the six solo
+    kernels' entries of the kernels line -> those entries."""
+    from animsnapbases_tpu_torch.ops.affine import (
+        FLAG_SLOTS,
+        _launch_affine,
+        affine_plan,
+        resident_affine,
+        resident_affine_contact,
+        resident_affine_contact_plain,
+        resident_affine_exit,
+        resident_affine_exit_plain,
+        resident_affine_plain,
+    )
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        advance,
+        affine_chunked,
+        affine_chunked_plain,
+        chunk_anchors,
+        chunk_plan,
+    )
+    from animsnapbases_tpu_torch.ops.cluster import (
+        THREADS as CLUSTER_THREADS,
+        resident_clusters,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_plan,
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        resident_multistep,
+        resident_multistep_plain,
+        resident_plan,
+    )
+
+    solver, model, f, dev, paths = b.solver, b.model, b.f, b.dev, b.paths
+    ro, ao = solver._resident, solver._affine
+    fo = ro.fused
+    k1_abs, k2_err, affine_err, drift = (h.k1_abs, h.k2_err, h.affine_err,
+                                         h.drift)
+    P, V, Fx, rb_extra = h.P, h.V, h.Fx, h.rb_extra
+    sn, rb_const, snT_sel, u_k = h.sn, h.rb_const, h.snT_sel, h.u_k
+    Pw, Vw, F0, Pc, Vc = h.Pw, h.Vw, h.F0, h.Pc, h.Vc
     t_main = time.perf_counter()
     # ---- 4. times --------------------------------------------------------
     # every kernel runs the cluster loop on the staging plan of its widths
@@ -4872,13 +5484,13 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": f"animsnapbases_tpu_torch/csrc/{source}",
                 "replaces": f"animsnapbases_tpu/ops/{replaces}",
-                "launches": paths[launch_path[name]][name],
-                "launches_path": launch_path[name],
+                "launches": paths[LAUNCH_PATH[name]][name],
+                "launches_path": LAUNCH_PATH[name],
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": None, **extra}
 
-    kernels = [
+    return [
         entry("fused_reduced_iterations", "fused_reduced.cu",
               "pallas_reduced.py:393", k1_abs, k1_ms, k1_plain_ms, k1_bound,
               k1_by, device_ms=k1_dev[ITERATIONS],
@@ -4923,6 +5535,27 @@ def main() -> int:
               recursion_drift={f"{n} steps, {who} {key}": v for (
                   n, who, key), v in drift.items()}),
     ]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+
+    from animsnapbases_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    torch.manual_seed(0)
+    counted = port_counters()
+    smi = build_phase(torch)
+    b = bench_phase(torch, counted, dev)
+    tiers_phase(torch, counted, b)
+    kernels = times_phase(torch, b, holds_phase(torch, b))
+    solver, model, f, paths = b.solver, b.model, b.f, b.paths
+    main_state, rest = b.main_state, b.rest
     # ---- ensemble serving: paths, holds and times ----------------------
     t0 = time.perf_counter()
     kernels += ensemble(torch, counted, solver, model, f, main_state, paths)
@@ -4947,12 +5580,18 @@ def main() -> int:
     real = pipeline_phase(torch, counted, paths, dev)
     log(f"[6] pipeline: record, bases, reduced solve on real bases "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    per_group = per_group_phase(torch, counted, paths, dev, smi)
+    log(f"[7] per-group workflow: record, bases, reduced solves "
+        f"{time.perf_counter() - t0:.1f} s")
     kernels += options
     for k in kernels:
         if k["name"] in mega:
             k["megacloth"] = mega[k["name"]]
         if k["name"] in real:
             k["real_bases"] = real[k["name"]]
+        if k["name"] in per_group:
+            k["per_group"] = per_group[k["name"]]
     k5 = next(k for k in kernels if k["name"] == "affine_chunked")
     k5.update(exact_check_us_bound_off=exact_us_bench,
               megacloth_exact_check_us=mega["exact_check_us"],

@@ -1,22 +1,40 @@
-"""``chip_smoke.py`` rehearsed on the CPU: its phases run end to end with the
-card faked (``torch.cuda`` answers as if a card were there, CUDA events
-time nothing, ``nvcc``, ``nvidia-smi`` and the profiler are not called),
-the kernel wrappers on their plain versions (the tensors lie on the CPU),
-a 14x14 cloth in place of the bench scene and a 6x3x3 bar in place of the
-reference's, short windows, ensembles of a few sims and at most 8 modes
-per group.  It checks the script's own logic (phases, tiered runs,
-step-by-step holds, bounds, the two JSON lines), which otherwise runs only
-on the card; it checks no kernel."""
+"""``chip_smoke.py`` rehearsed on the CPU with the card faked (``torch.cuda``
+answers as if a card were there, CUDA events time nothing, ``nvcc``,
+``nvidia-smi`` and the profiler are not called), the kernel wrappers on
+their plain versions (the tensors lie on the CPU), a 14x14 cloth in place
+of the bench scene and a 6x3x3 bar in place of the reference's, short
+windows, ensembles of a few sims and at most 8 modes per group.  It checks
+the script's own logic (phases, tiered runs, step-by-step holds, bounds,
+the two JSON lines), which otherwise runs only on the card; it checks no
+kernel.
+
+This file holds the fakes (:func:`rehearsal`, :func:`bench`), which the
+rehearsal of each phase imports from its own
+``tests/test_torch_chip_smoke_<phase>.py`` (so that ``--dist loadfile``
+spreads the phases over the workers), and one run of ``main()`` end to
+end at the smallest sizes (:data:`SMALLEST`): the phases in their order
+and the two JSON lines."""
 
 import json
 import types
 
+import pytest
 import torch
 
 import chip_smoke as cs
 from animsnapbases_tpu_torch import device
 from animsnapbases_tpu_torch.ops import _build, affine, affine_chunked, cluster
 from animsnapbases_tpu_torch.sim import reduced
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The rehearsal on one torch thread: its tensors are small, and the
+    CPU's threads, spinning beside other test workers, only slow it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class _Event:
@@ -174,143 +192,97 @@ def _fake_card(monkeypatch):
     return cs.require
 
 
-def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
-    held = _fake_card(monkeypatch)
+KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+PLAN_KEYS = {"staged", "from_l2", "smem_bytes", "bits", "cluster",
+             "threads"}
+SOLO = ["fused_reduced_iterations", "resident_multistep", "resident_affine",
+        "resident_affine_exit", "affine_chunked", "resident_affine_contact"]
+BATCHED = ["fused_reduced_iterations_batched", "resident_multistep_batched",
+           "resident_affine_batched", "affine_chunked_batched",
+           "resident_affine_contact_batched"]
+BUILDS = [f"affine_chunked{b}[{label}]"
+          for label in ("floor_exact=False", "floor_bound_skip=False",
+                        "fold_vc=False", "sqrt_free_bound=False",
+                        "static_rb=False") for b in ("", "_batched")]
 
+
+def lenient(monkeypatch, held):
+    """The script's ``require`` but for two holds the plain versions cannot
+    meet: they count no launches, and a batched plain version differs from
+    the solo one in the order of its sums."""
     def require(ok, what):
-        # the plain versions count no launches, and a batched plain version
-        # differs from the solo one in the order of its sums
         if ("never launched" not in what
                 and "differs from the solo kernel" not in what):
             held(ok, what)
 
     monkeypatch.setattr(cs, "require", require)
+
+
+def rehearsal(monkeypatch):
+    """The card faked (:func:`_fake_card`), the holds :func:`lenient` ->
+    (the launch counters, the device)."""
+    lenient(monkeypatch, _fake_card(monkeypatch))
+    return cs.port_counters(), torch.device("cpu")
+
+
+def bench(monkeypatch):
+    """:func:`rehearsal`, then the bench scene's main path
+    (``chip_smoke.bench_phase``) -> (counters, its state)."""
+    counted, dev = rehearsal(monkeypatch)
+    return counted, cs.bench_phase(torch, counted, dev)
+
+
+def assert_entries(entries, names):
+    """Kernels-line entries of ``names``, in order, with the contract's
+    keys and a positive bound."""
+    assert [k["name"] for k in entries] == names
+    for k in entries:
+        assert KEYS <= set(k), k["name"]
+        assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes",
+                                                        "operations")
+
+
+# main() end to end at its smallest: 4 iterations a step, one of kernel 5's
+# other builds, one tet/bending scene (the bending cloth), phase [7]'s
+# recordings of 12 frames and example configs of 5 frames and 4 components
+SMALLEST = {"ITERATIONS": 4, "OPTION_BUILDS": cs.OPTION_BUILDS[:1],
+            "GROUP_FRAMES": 12, "BAR_FRAMES": 12, "GROUP_STEPS": 6,
+            "GROUP_OVERRIDES": {"numFrames": 5, "desired_num_components": 4}}
+SMALLEST_SCENES = ("bending cloth",)
+
+
+def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
+    rehearsal(monkeypatch)
+    for name, value in SMALLEST.items():
+        monkeypatch.setattr(cs, name, value)
+    scenes = cs.tet_bending_scenes
+    monkeypatch.setattr(cs, "tet_bending_scenes", lambda: [
+        s for s in scenes() if s[0] in SMALLEST_SCENES])
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 0}}
     kernels = json.loads(lines[-2])["kernels"]
-    builds = [f"affine_chunked{b}[{label}]"
-              for label in ("floor_exact=False", "floor_bound_skip=False",
-                            "fold_vc=False", "sqrt_free_bound=False",
-                            "static_rb=False") for b in ("", "_batched")]
-    assert [k["name"] for k in kernels] == [
-        "fused_reduced_iterations", "resident_multistep", "resident_affine",
-        "resident_affine_exit", "affine_chunked", "resident_affine_contact",
-        "fused_reduced_iterations_batched", "resident_multistep_batched",
-        "resident_affine_batched", "affine_chunked_batched",
-        "resident_affine_contact_batched", *builds]
-    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    for k in kernels:
-        assert keys <= set(k)
-        assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
-    # kernels 1 and 5 on the cluster loop: the staging plans of their
-    # widths (bench, per scene, megacloth), kernel 1's device time and the
-    # loop's slope and intercept; the operations' floor on the cluster's
-    # SMs is computed, not measured, and stays out of the kernels line
-    plan_keys = {"staged", "from_l2", "smem_bytes", "bits", "cluster",
-                 "threads"}
-    k1, k5 = kernels[0], kernels[4]
-    assert plan_keys | {"resident_clusters"} <= set(k1["staging_plan"])
-    assert plan_keys | {"resident_clusters"} <= set(k5["staging_plan"])
-    assert plan_keys <= set(k5["megacloth_staging_plan"])
-    assert k1["staging_plan"]["staged"] and k5["staging_plan"]["staged"]
-    for k in (k1, k5):
-        assert k["staging_plan"]["cluster"] == [3, 1, 1]
-        assert 0 < k["staging_plan"]["smem_bytes"] <= cluster.SMEM_MAX
-        for entry in k["scenes"].values():
-            assert plan_keys <= set(entry["staging_plan"])
-    assert {"device_ms", "device_us_per_iteration",
-            "device_intercept_us"} <= set(k1)
-    # the pipeline phase: kernels 1 and 5 on real bases (record -> bases
-    # -> prepare -> run_steps + step), each with its plan at the recorded
-    # r, its error against the plain version, its times and bound
-    for k in (k1, k5):
-        real = k["real_bases"]
-        assert {"launches", "launches_path", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "staging_plan", "vs_fom",
-                "record_vs_cpu", "pipeline_s"} <= set(real)
-        assert plan_keys <= set(real["staging_plan"])
-        assert real["bound_ms"] > 0 and real["record_vs_cpu"] <= 1e-6
-        assert set(real["vs_fom"]) == {"mean", "p99", "max"}
-    assert k5["real_bases"]["entry_steps_per_s"] > 0
-    assert "step_ms" in k1["real_bases"]
-    assert all(k["name"] in ("fused_reduced_iterations", "affine_chunked")
-               for k in kernels if "real_bases" in k)
-    assert "device_ms" in kernels[6]
-    # kernels 2-4 on the cluster loop too: their plans at the bench widths,
-    # and the batched builds' plan at each batch size with the clusters the
-    # card holds at once and the waves the sims take
-    for k in (*kernels[1:4], kernels[5]):
-        assert plan_keys | {"resident_clusters"} <= set(k["staging_plan"])
-    for k in (kernels[7], kernels[8], kernels[10]):
-        by_sims = k["staging_plan_by_sims"]
-        assert set(by_sims) == {str(B) for B in cs.ENSEMBLE_SIZES}
-        assert all(v["waves"] >= 1 for v in by_sims.values())
-    assert {"us_per_iteration", "intercept_us_per_step",
-            "window_us_per_iteration",
-            "window_intercept_us_per_step"} <= set(k5)
-    for k in kernels:
-        assert not any(key.startswith("cluster_floor") for key in k)
-    out = "\n".join(lines)
-    for line in ("[6] pipeline: recorded 12 frames", "equals the first bit "
-                 "for bit (trajectory and p-snapshots): True",
-                 "the card's recording against the CPU's",
-                 "[6] pipeline, tris_strain: the card's bases against the "
-                 "CPU's", "reduced-vs-FOM after 12 steps",
-                 "[6] pipeline on real bases: run_steps over 16 steps "
-                 "(certified)", "pipeline, kernel 5 (ring-down state), "
-                 "carried steps"):
-        assert line in out, line
-    assert "on the cluster's 3 SMs" in out
-    assert "kernel 1: staging plan" in out and "kernel 5: staging plan" in out
-    assert "kernel 2: staging plan" in out
-    assert "kernels 3 and 4: staging plan" in out
-    assert "clusters resident at once" in out
-    # kernel 5's builds: each on its own path (no launches counted here: the
-    # plain versions run), timed beside the default
-    # build; the scale phase's megacloth numbers on kernel 5 (both builds),
-    # batched kernel 5's exact-free build and kernel 2
+    assert_entries(kernels[:11], SOLO + BATCHED)
+    assert [k["name"] for k in kernels[11:]] == BUILDS[:2]
     for k in kernels[11:]:
-        assert k["launches"] >= 0 and k["default_ms"] > 0, k["name"]
-    assert kernels[11]["source"].endswith("affine_chunked_free.cu")
-    assert kernels[13]["source"].endswith("affine_chunked_opts.cu")
-    for i in (1, 4, 11, 12):
-        assert kernels[i]["megacloth"], kernels[i]["name"]
-    assert kernels[11]["megacloth"]["near_floor_tier1_calls"][0] > 0
-    assert kernels[4]["exact_check_us_bound_off"] is not None
-    kernels = kernels[:11]
-    assert kernels[5]["recursion_drift"]
-    assert kernels[10]["launches_path"].startswith(
-        "make_batched_run, B=4 ring-down, default")
-    # the tet, bending and block-form scenes: every kernel timed and
-    # bounded on the scenes that drive it, kernels 1, 5 and 3' (solo and
-    # batched) on all five
-    scenes = [label for label, *_ in cs.tet_bending_scenes()]
-    for k in kernels:
-        assert k["scenes"], k["name"]
-        for entry in k["scenes"].values():
-            assert keys - {"name", "route", "source", "replaces",
-                           "library_ms"} <= set(entry)
-            assert entry["bound_ms"] > 0
-    for i in (0, 4, 5, 6, 10):
-        assert sorted(kernels[i]["scenes"]) == sorted(scenes)
-    # animated targets: every kernel with a schedule timed with it and
-    # with a static term, each beside its bound; kernel 1 on the recorded
-    # run
-    for k in kernels:
-        anim = k["animated"]
-        if k["name"] == "fused_reduced_iterations_batched":
-            continue
-        assert anim["launches"] >= 0, k["name"]
-        if k["name"] != "fused_reduced_iterations":
-            assert {"ms", "static_ms", "bound_ms", "static_bound_ms",
-                    "max_abs_err"} <= set(anim), k["name"]
-            assert anim["bound_ms"] > anim["static_bound_ms"] > 0
-    assert kernels[0]["scenes"]["bar, block form"]["table_columns"] == {
-        "tets_deformation_gradient": 3 * kernels[0]["scenes"][
-            "bar, row form"]["table_columns"]["tets_deformation_gradient"]}
+        assert KEYS <= set(k)
+    for k in kernels[:11]:
+        assert {"scenes", "animated"} <= set(k), k["name"]
+    assert sorted(kernels[0]["scenes"]) == list(SMALLEST_SCENES)
+    k1, k5 = kernels[0], kernels[4]
+    assert {"real_bases", "per_group"} <= set(k1)
+    assert {"real_bases", "per_group", "megacloth"} <= set(k5)
+    out = "\n".join(lines)
+    order = ["[1] built", "[2] step + run_steps", "[2] tiered runs",
+             "[3] bench scene holds", "[4] bench scene times",
+             "[2-4] ensemble serving", "[2-4] kernel 5's other builds",
+             "[2-4] tet, bending and block-form scenes",
+             "[2-4] scale: the megacloth", "[6] pipeline: record, bases",
+             "[7] per-group workflow:"]
+    at = [out.index(line) for line in order]
+    assert at == sorted(at)
 
 
 def test_chip_smoke_branch_step_rules_run(monkeypatch, capsys):

@@ -1,0 +1,31 @@
+"""``chip_smoke.ensemble`` (ensemble serving) rehearsed on the CPU with the
+fakes of ``tests/test_torch_chip_smoke.py``, after the bench scene's main
+path: the five batched kernels' entries of the kernels line, batched
+kernel 1's device time, and the batched builds' staging plan at each batch
+size."""
+
+import torch
+
+import chip_smoke as cs
+from test_torch_chip_smoke import (  # noqa: F401
+    BATCHED,
+    assert_entries,
+    bench,
+    one_thread,
+)
+
+
+def test_chip_smoke_ensemble_phase(monkeypatch):
+    counted, b = bench(monkeypatch)
+    kernels = cs.ensemble(torch, counted, b.solver, b.model, b.f,
+                          b.main_state, b.paths)
+    assert_entries(kernels, BATCHED)
+    assert "device_ms" in kernels[0]
+    for k in (kernels[1], kernels[2], kernels[4]):
+        by_sims = k["staging_plan_by_sims"]
+        assert {str(B) for B in by_sims} == {str(B) for B in cs.ENSEMBLE_SIZES}
+        assert all(v["waves"] >= 1 for v in by_sims.values())
+    for k in kernels:
+        assert not any(key.startswith("cluster_floor") for key in k)
+    assert kernels[4]["launches_path"].startswith(
+        "make_batched_run, B=4 ring-down, default")

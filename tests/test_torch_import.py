@@ -43,10 +43,12 @@ def test_port_imports_no_jax():
     loaded = res["loaded"]
     assert "animsnapbases_tpu_torch.sim.reduced" in res["modules"]
     assert "animsnapbases_tpu_torch.demos.poke" in res["modules"]
-    # the recorder and the bases pipeline
+    # the recorder and the bases pipeline, with the block forms
+    # (bases.constraints, ops.deim_scan, geometry.mesh, io.meshes) and the
+    # solves that are not fully reduced (sim.reduced)
     for name in ("ops.svd3", "ops.segment", "ops.cg", "ops.podlinalg",
                  "ops.deim_scan", "sim.projections", "sim.solver",
-                 "geometry.mass", "io.binfmt", "io.meshes",
+                 "geometry.mass", "geometry.mesh", "io.binfmt", "io.meshes",
                  "config.bases_config", "snapshots.nonlinear",
                  "bases.greedy", "bases.constraints",
                  "bases.position_reduction", "bases.pipeline",

@@ -116,9 +116,12 @@ def test_serving_path_matches_jax(tmp_path, bases):
 
 
 def test_unported_configurations_raise(tmp_path):
-    """What the port does not port yet raises NotImplementedError from
-    prepare/step/run_steps instead of running something else: self-collision
-    and full (unreduced) groups.  Kernel 5's build options are served:
+    """What the port does not port yet raises NotImplementedError instead
+    of running something else: self-collision in step/run_steps, and the
+    batched runners on a configuration with a full (unreduced) group
+    (A4b), which step() now serves on the full-space path
+    (``tests/test_torch_full_space.py`` holds it against the JAX
+    solver).  Kernel 5's build options are served:
     each switch reaches the build that tier 1 runs (ops/affine_chunked.py
     ChunkOptions), and prepare() no longer refuses them."""
     from animsnapbases_tpu_torch.ops.affine_chunked import ChunkOptions
@@ -155,8 +158,12 @@ def test_unported_configurations_raise(tmp_path):
     s2 = AnimSnapBasesSolver(args, device="cpu")
     s2.set_model(small_model(DeformableModel))
     s2.prepare(args)
-    with pytest.raises(NotImplementedError, match="not hyper-reduced"):
-        s2.step(f)
+    s2.step(f)
+    assert s2.frame == 1 and s2._full.mode == "mixed"
+    B = [np.repeat(x[None], 2, axis=0) for x in (
+        s2.model.positions, s2.model.velocities, f)]
+    with pytest.raises(NotImplementedError, match="not hyper-reduced.*A4b"):
+        s2.make_batched_step()(*B)
 
 
 def test_static_positional_targets_match_jax(tmp_path):
