@@ -96,6 +96,15 @@ def tets_deformation_gradient_p(q: torch.Tensor, data: dict) -> torch.Tensor:
     return R.transpose(1, 2).reshape(-1, 3)
 
 
+# the index arrays of each group's data that hold vertex ids
+VERTEX_KEYS = {
+    "verts_bending": ("indices", "neighbors"),
+    "edge_spring": ("edges",),
+    "tris_strain": ("faces",),
+    "tets_strain": ("elements",),
+    "tets_deformation_gradient": ("elements",),
+}
+
 PROJECTION_KERNELS = {
     "verts_bending": verts_bending_p,
     "edge_spring": edge_spring_p,

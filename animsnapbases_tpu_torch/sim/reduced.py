@@ -67,6 +67,25 @@ min(f + i, T - 1).  Once every shift has ended a call is static (one row).
 into a (num_steps, 3, N) buffer on the device that crosses to the host
 once.
 
+Self-collision (``enable_self_collision``, as in the JAX package):
+False runs no pass; True runs the host resolvers of ``sim/collisions.py``
+after each ``step()``, and ``run_steps`` steps through ``step()``;
+``"device"`` is captured at ``prepare()`` (``_collision_mode``), and every
+step core then applies the masked pass of ``sim/collisions_device.py`` to
+q before v = (q - P)/dt: kernel 1's step (on the permuted layout, the
+faces remapped), the "mixed" and "dense" steps after their iteration loop,
+the host path after its LU.  ``"device"`` set after ``prepare()`` is
+applied out of band by ``step()``, and ``run_steps`` then steps through
+``step()``.  With the pass captured, ``run_steps`` of a fully reduced
+configuration serves on the proximity-gated tier
+(:meth:`AnimSnapBasesSolver._run_steps_self_collision`, the JAX
+``sim/reduced.py:2508-2762``): the pass is the identity while every vertex
+is at least ``collisions_device.MIN_DIST`` from its candidate triangles, so
+windows certified clear run on tier 1 without it, and proximity windows
+of ``self_collision_contact_window`` steps run on kernel 1 with the pass.
+``self_collision_resident = False`` builds no tiers, and ``run_steps``
+steps on kernel 1 with the pass.
+
 Ensemble serving, B independent sims of one prepared model on one card
 (``sim/reduced.py:1369-1872`` of the JAX package):
 
@@ -83,19 +102,25 @@ Ensemble serving, B independent sims of one prepared model on one card
   ``batched-chunked+perstep[{w}w]``.  One sim (B = 1) serves on the solo
   kernels.
 * ``make_batched_step()`` runs one step for the whole batch, its iteration
-  loop on the batched kernel 1, with per-call static ``targets``.
+  loop on the batched kernel 1, with per-call static ``targets``; with the
+  device pass captured it applies the pass to each sim.
+* A configuration that is not fully reduced serves both runners on a
+  batched :class:`_FullSpace` step in float64 on the card ("mixed" and
+  "dense": the local stage of all the sims in one pass, the dense factor
+  solved with a right-hand side per sim), ``_last_batched_path``
+  ``batched-full``.  The host LU ("host") raises ``RuntimeError``, as the
+  JAX package does without a jitted step.
 
 The batched layout on the device is sim-major, (B, 3, N) with sim b's
 permuted (3, N) state contiguous (the JAX package keeps dim-major (3B, N)
 rows d*B + b): ``_pack`` and ``_unpack`` move (B, N, 3) host arrays across.
 There is no fallback: a kernel that fails to build or launch raises.
 
-Not ported yet, and raising ``NotImplementedError``:
-
-* batched serving of a configuration that is not fully reduced (the
-  batched runners; ROADMAP Queue A item A4b);
-* self-collision (Queue A item 12);
-* batched serving over a mesh (``mesh=``, Queue A item 18).
+``make_batched_run`` raises ``RuntimeError`` under any self-collision, and
+so does ``make_batched_step`` unless the device pass was captured (the JAX
+vmapped step skips an uncaptured pass silently; ROADMAP Queue C).
+Batched serving over a mesh (``mesh=``, ROADMAP Queue A item 18) is not
+ported yet and raises ``NotImplementedError``.
 
 Kernel 5's build options follow the JAX solver's switches
 (``resident_floor_bound_skip``, ``resident_floor_exact`` and
@@ -156,8 +181,16 @@ from animsnapbases_tpu_torch.ops.resident import (
     step_once,
 )
 from animsnapbases_tpu_torch.sim import collisions, projections
+from animsnapbases_tpu_torch.sim.collisions_device import (
+    MIN_DIST,
+    make_collide,
+    min_clearance_device,
+    min_clearance_lower_bound_device,
+)
+from animsnapbases_tpu_torch.sim.projections import VERTEX_KEYS
 from animsnapbases_tpu_torch.sim.solver import (
     Solver,
+    batch_data,
     build_global_matrix,
     device_data,
     make_local_stage,
@@ -174,13 +207,6 @@ GROUP_ARG_NAMES = {
                                   "tet_deformation_num_components"),
 }
 
-_VERTEX_KEYS = {
-    "verts_bending": ("indices", "neighbors"),
-    "edge_spring": ("edges",),
-    "tris_strain": ("faces",),
-    "tets_strain": ("elements",),
-    "tets_deformation_gradient": ("elements",),
-}
 
 
 def _subset_group_data(g, alphas: np.ndarray) -> dict:
@@ -293,22 +319,29 @@ class _GroupView:
 class _FullSpace:
     """The plain torch step of a configuration that is not fully reduced
     (see the module docstring), on the solver's device in float64: ``mode``
-    is "mixed" (positions reduced), "dense" or "host" (positions full)."""
+    is "mixed" (positions reduced), "dense" or "host" (positions full).
+    ``collide`` is the device pass captured at prepare (None: no pass).
+    The device modes also step B sims at once on (B, N, 3) state
+    (:meth:`stage`)."""
 
-    def __init__(self, solver):
+    def __init__(self, solver, collide=None):
         model = solver.model
         dev, dt64 = solver.device, PIPELINE_DTYPE
         full = {name: g for name, g in model.groups.items()
                 if name not in solver._reduced_groups}
         # the full constraint groups, whose projections a step can record
         self.recorded = [name for name in full if name != "positional"]
-        self.local_full = make_local_stage(_GroupView(model, full), dev, dt64)
+        self.view = _GroupView(model, full)
+        self.local_full = make_local_stage(self.view, dev, dt64)
         self.reduced = [
             (name, device_data(rg.subset_data, dev, dt64),
              torch.as_tensor(rg.W, dtype=dt64, device=dev),
              None if rg.row_select is None
              else torch.as_tensor(rg.row_select, device=dev))
             for name, rg in solver._reduced_groups.items()]
+        self.n = model.n_verts
+        self.collide = collide
+        self._stages = {}            # B -> the batched stage
         self.mass = torch.as_tensor(model.mass, dtype=dt64, device=dev)
         self.dt, self.eta = solver.dt, solver.eta
         self.floor = model.floor_collision
@@ -329,28 +362,53 @@ class _FullSpace:
         return torch.as_tensor(np.asarray(x), dtype=PIPELINE_DTYPE,
                                device=self.mass.device)
 
-    def reduced_terms(self, q):
-        """The reduced groups' ``W p`` terms, (r, 3) each (positions
-        reduced) or (N, 3)."""
+    def stage(self, B):
+        """(local stage of the full groups, reduced groups) of one sim
+        (B None) or of B sims in one pass: their data stacked along the
+        vertex axis (``sim/solver.py`` ``batch_data``)."""
+        if B is None:
+            return self.local_full, self.reduced
+        if B not in self._stages:
+            dev = self.mass.device
+            self._stages[B] = (
+                make_local_stage(self.view, dev, PIPELINE_DTYPE, batch=B),
+                [(name, batch_data(name, data, B, self.n), W, rs)
+                 for name, data, W, rs in self.reduced])
+        return self._stages[B]
+
+    @staticmethod
+    def reduced_terms(q, reduced):
+        """The reduced groups' ``W p`` terms, (..., r, 3) each (positions
+        reduced) or (..., N, 3), of q (N, 3) or of B sims (B, N, 3) with
+        their stacked data (:meth:`stage`)."""
         terms = []
-        for name, data, W, rs in self.reduced:
-            p = projections.PROJECTION_KERNELS[name](q, data)
+        lead = q.shape[:-2]
+        for name, data, W, rs in reduced:
+            p = projections.PROJECTION_KERNELS[name](q.reshape(-1, 3), data)
+            p = p.reshape(lead + (-1, 3))
             if rs is not None:
-                p = p[rs]
-            terms.append(torch.einsum("dop,pd->od", W, p))
+                p = p[..., rs, :]
+            terms.append(torch.einsum("dop,...pd->...od", W, p))
         return terms
 
-    def local_terms(self, q, targets):
+    def local_terms(self, q, targets, B=None):
         """The full-space rhs of the constraints, and the full groups'
         stacked projections."""
-        b, stacked = self.local_full(q, targets)
-        for term in self.reduced_terms(q):
+        local_full, reduced = self.stage(B)
+        b, stacked = local_full(q, targets)
+        for term in self.reduced_terms(q, reduced):
             b = b + term
         return b, stacked
 
     def solve(self, b):
-        """The global solve of the positions-full modes."""
+        """The global solve of the positions-full modes, of one sim's b (N,
+        3) or, "dense", of B sims' (B, N, 3) in one ``cholesky_solve`` with
+        a right-hand side per sim."""
         if self.mode == "dense":
+            if b.dim() == 3:
+                rhs = b.reshape(b.shape[0], -1).T
+                return torch.cholesky_solve(rhs, self.chol).T.reshape(
+                    b.shape)
             return torch.cholesky_solve(b.reshape(-1, 1),
                                         self.chol).reshape(-1, 3)
         q = self.lu(b.cpu().numpy().reshape(-1))
@@ -362,27 +420,43 @@ class _FullSpace:
         sn = P + (dt * self.eta) * V + (dt * dt) * (fext / self.mass[:, None])
         if self.floor:
             sn = sn.clone()
-            sn[:, 1] = torch.clamp(sn[:, 1], min=self.floor_h)
+            sn[..., 1] = torch.clamp(sn[..., 1], min=self.floor_h)
         return sn
 
+    def apply_pass(self, q):
+        """The captured device pass of q (N, 3), or of each sim of (B, N,
+        3)."""
+        if self.collide is None:
+            return q
+        if q.dim() == 2:
+            return self.collide(q)
+        return torch.stack([self.collide(x) for x in q])
+
     def step(self, P, V, fext, targets, num_iterations):
-        """One step of the device modes ("mixed", "dense") -> (q, v)."""
+        """One step of the device modes ("mixed", "dense") -> (q, v), of
+        one sim (N, 3) or of B sims (B, N, 3) with the targets (e, 3)
+        shared or (B, e, 3) per sim; the captured pass applied to q before
+        v."""
+        B = P.shape[0] if P.dim() == 3 else None
+        local_full, reduced = self.stage(B)
         sn = self.predict(P, V, fext)
         q = sn
         if self.mode == "mixed":
-            rb_base = -torch.einsum("drn,nd->rd", self.ut_ac, sn)
+            rb_base = -torch.einsum("drn,...nd->...rd", self.ut_ac, sn)
             for _ in range(num_iterations):
-                b_full, _ = self.local_full(q, targets)
-                rb = rb_base + torch.einsum("nrd,nd->rd", self.U, b_full)
-                for term in self.reduced_terms(q):
+                b_full, _ = local_full(q, targets)
+                rb = rb_base + torch.einsum("nrd,...nd->...rd", self.U,
+                                            b_full)
+                for term in self.reduced_terms(q, reduced):
                     rb = rb + term
-                u = torch.einsum("drs,sd->rd", self.inv3, rb)
-                q = sn + torch.einsum("nrd,rd->nd", self.U, u)
+                u = torch.einsum("drs,...sd->...rd", self.inv3, rb)
+                q = sn + torch.einsum("nrd,...rd->...nd", self.U, u)
         else:
             masses_term = (self.mass / (self.dt * self.dt))[:, None] * sn
             for _ in range(num_iterations):
-                b, _ = self.local_terms(q, targets)
+                b, _ = self.local_terms(q, targets, B)
                 q = self.solve(b + masses_term)
+        q = self.apply_pass(q)
         return q, (q - P) / self.dt
 
 
@@ -426,6 +500,17 @@ class AnimSnapBasesSolver:
     # contact scene -2.9 % and -4.7 %; over the megacloth's near-floor
     # window, mostly kernel 2's steps, -6.6 % and +9.2 %).
     CHUNKED_EXACT_FREE_MIN_VERTS = 64000
+    # the proximity-gated serving tier under the captured device pass
+    # (:meth:`_run_steps_self_collision`), the JAX solver's instance
+    # switches and their defaults: False builds no tiers; the longest
+    # certified window; the steps of a proximity window; the
+    # budget-admitted windows before the exact probe must run.  The pass's
+    # distance is not a switch: the pass and the tier both read
+    # collisions_device.MIN_DIST, so the certificate holds for the pass.
+    self_collision_resident = True
+    self_collision_window_cap = 4096
+    self_collision_contact_window = 64
+    self_collision_budget_windows = 8
 
     def __init__(self, args, device=None, dtype=None, matmul_dtype=None):
         self.args = args
@@ -437,7 +522,14 @@ class AnimSnapBasesSolver:
         self.dt = None
         self.eta = 1.0
         self.frame = 0
+        # self-collision: False, True (the host resolvers) or "device",
+        # captured at prepare into _collision_mode
         self.enable_self_collision = False
+        self._collision_mode = False
+        self._collide = None         # the device pass over model.faces
+        self._perm_collide = None    # the same over the permuted layout
+        self._in_sc_window = False
+        self._last_sc_windows = None
 
         self.reduced_position = getattr(args, "position_reduced", False)
         self.num_pos_modes = getattr(args, "position_num_components", -1)
@@ -483,6 +575,7 @@ class AnimSnapBasesSolver:
     # ------------------------------------------------------------------
     def set_model(self, model):
         self.model = model
+        self._collide = self._perm_collide = None   # keyed on the faces
         self.constraint_projection_ready = False
         self._reduced_groups = {}
         self._resident = None
@@ -611,7 +704,7 @@ class AnimSnapBasesSolver:
         vertex indices remapped into the compact union ordering."""
         union = []
         for rg in self._reduced_groups.values():
-            for key in _VERTEX_KEYS[rg.name]:
+            for key in VERTEX_KEYS[rg.name]:
                 union.append(np.asarray(rg.subset_data[key]).reshape(-1))
         union = np.unique(np.concatenate(union)) if union else np.empty(
             0, np.int64)
@@ -620,7 +713,7 @@ class AnimSnapBasesSolver:
         remapped = {}
         for name, rg in self._reduced_groups.items():
             sub = dict(rg.subset_data)
-            for key in _VERTEX_KEYS[name]:
+            for key in VERTEX_KEYS[name]:
                 sub[key] = lookup[np.asarray(sub[key])]
             remapped[name] = sub
         return union, remapped
@@ -631,11 +724,17 @@ class AnimSnapBasesSolver:
         self._resident_kind = self._resident_fast_kind = None
         self._rb_sched = None
         self._full = None
+        self._perm_collide = None
+        # the step cores apply the device pass when it is asked for now;
+        # changing the flag afterwards needs set_dirty() + prepare()
+        self._collision_mode = self.enable_self_collision
+        captured = self._collision_mode == "device"
         model = self.model
         full = [n for n in model.groups
                 if n != "positional" and n not in self._reduced_groups]
         if not (self.reduced_position and self._reduced_groups and not full):
-            self._full = _FullSpace(self)
+            self._full = _FullSpace(
+                self, self._model_collide() if captured else None)
             return
         union, remapped = self._remapped_subsets()
         ident = np.arange(len(union))
@@ -672,6 +771,11 @@ class AnimSnapBasesSolver:
                            for d in range(3)])             # (3, r, r)
         self._affine = affine_operands(self._resident, M_utac, U_selT)
         self._build_tiers(n)
+        if captured and not self.self_collision_resident:
+            # the pass cannot run inside the tiers' kernels, and without
+            # the serving tier they would never serve (JAX
+            # sim/reduced.py:561-568): run_steps steps on kernel 1
+            self._resident_fast = self._resident_run = None
         total = self._rb_schedule_length()
         if total:
             self._rb_sched = torch.as_tensor(
@@ -752,22 +856,63 @@ class AnimSnapBasesSolver:
     def _require(self):
         if self.dirty:
             raise RuntimeError("call prepare() first")
-        if self.enable_self_collision:
-            raise NotImplementedError(
-                "self-collision is not ported yet (ROADMAP Queue A item 12)")
 
     def _require_batched(self):
-        """:meth:`_require`, and the batched runners' refusal of a
-        configuration that is not fully reduced."""
+        """:meth:`_require`, and the batched runners' refusal of the host
+        LU, which has no batched solve (the JAX solver has no jitted step
+        there and raises the same)."""
         self._require()
-        if self._full is not None:
-            full = self._full.recorded
-            what = (f"groups {full} are not hyper-reduced" if full
-                    else "positions are not reduced" if
-                    not self.reduced_position else "no group is reduced")
-            raise NotImplementedError(
-                f"{what}: batched serving of configurations that are not "
-                "fully reduced is not ported yet (ROADMAP Queue A item A4b)")
+        if self._full is not None and self._full.mode == "host":
+            raise RuntimeError(
+                "batched serving needs a device solve (reduced positions or "
+                f"3N <= DENSE_LIMIT = {self.DENSE_LIMIT}); this "
+                "configuration solves with the host LU")
+
+    # ------------------------------------------------------------------
+    # self-collision
+    # ------------------------------------------------------------------
+
+    def _model_collide(self):
+        """The device pass over the model's faces, (N, 3) positions (made
+        once per model)."""
+        if self._collide is None:
+            self._collide = make_collide(self.model.faces, self.device)
+        return self._collide
+
+    def _perm_collide_fn(self):
+        """The device pass over the permuted layout: the faces remapped
+        through ``iperm`` (distances do not depend on the order of the
+        vertices)."""
+        if self._perm_collide is None:
+            self._perm_collide = make_collide(
+                self._resident.iperm[self.model.faces], self.device)
+        return self._perm_collide
+
+    def _perm_pass(self, q):
+        """The device pass of a permuted (3, N) state."""
+        return self._perm_collide_fn()(q.T).T.contiguous()
+
+    def _host_passes(self, q_next):
+        """The host resolvers on (N, 3) float64 positions when
+        ``enable_self_collision`` is True."""
+        if self.enable_self_collision is True:
+            return collisions.resolve_self_collisions(q_next,
+                                                      self.model.faces)
+        return q_next
+
+    def _uncaptured_pass(self):
+        """Whether ``step()`` applies the device pass out of band: asked for
+        after ``prepare()`` captured no pass."""
+        return (self.enable_self_collision == "device"
+                and self._collision_mode != "device")
+
+    def _self_collision_clearance(self) -> float:
+        """The current minimum vertex-to-non-own-triangle distance over the
+        device pass's own candidates, of the model's positions in the
+        working dtype."""
+        q = torch.as_tensor(self.model.positions, dtype=self.dtype,
+                            device=self.device)
+        return float(min_clearance_device(q, self._model_collide().faces))
 
     def _to_device(self, x):
         """(N, 3) host array -> permuted (3, N) tensor on the device."""
@@ -840,18 +985,9 @@ class AnimSnapBasesSolver:
         """The target-term schedule of a caller's timeline: (T, 3, r) of a
         (T, e, 3) timeline that the sims share, (B, T, 3, r) of a per-sim
         (B, T, e, 3) one, contracted in float64 on the host and cast once;
-        the static zero term without a positional group.  Raises
-        ``ValueError`` on a shape that does not fit."""
-        tl = np.asarray(targets_seq, dtype=np.float64)
+        the static zero term without a positional group."""
         uts = self._ut_st_np()
-        e = 0 if uts is None else uts.shape[2]
-        if (tl.ndim not in (3, 4) or tuple(tl.shape[-2:]) != (e, 3)
-                or tl.shape[-3] < 1):
-            raise ValueError(f"targets_seq must be (T, {e}, 3) or (B, T, "
-                             f"{e}, 3) for this model; got {tl.shape}")
-        if tl.ndim == 4 and tl.shape[0] != B:
-            raise ValueError(f"per-sim targets_seq has batch {tl.shape[0]}, "
-                             f"expected {B}")
+        tl = _timeline(targets_seq, B, 0 if uts is None else uts.shape[2])
         if uts is None:
             return self._rb_extra()
         return torch.as_tensor(np.einsum("dre,...ted->...tdr", uts, tl),
@@ -860,8 +996,11 @@ class AnimSnapBasesSolver:
     def step(self, fext, num_iterations=10):
         """One step; the iteration loop runs on kernel 1, with the target
         term of the current frame as ``run_steps`` reads it (the prepared
-        schedule's row while the targets are animated).  A configuration
-        that is not fully reduced steps on :class:`_FullSpace`."""
+        schedule's row while the targets are animated), then the captured
+        device pass.  A configuration that is not fully reduced steps on
+        :class:`_FullSpace`.  The device pass asked for after ``prepare()``
+        runs out of band, and ``enable_self_collision = True`` runs the host
+        resolvers and sets v from the resolved positions."""
         self._require()
         if self._full is not None:
             self._full_step(fext, num_iterations)
@@ -883,8 +1022,16 @@ class AnimSnapBasesSolver:
         rb = rb_at(self._rb_schedule_from(self.frame), 0)
         q, v = step_once(ro, P, V, fa, rb, num_iterations,
                          iterate=fused_reduced_iterations)
-        model.positions = self._to_host(q)
-        model.velocities = self._to_host(v)
+        if self._collision_mode == "device" or self._uncaptured_pass():
+            q = self._perm_pass(q)
+            v = (q - P) / ro.dt
+        q_next = self._to_host(q)
+        if self.enable_self_collision is True:
+            q_next = self._host_passes(q_next)
+            model.velocities = (q_next - model.positions) / self.dt
+        else:
+            model.velocities = self._to_host(v)
+        model.positions = q_next
         self.frame += 1
 
     def run_steps(self, fext, num_steps, num_iterations=10, record=False):
@@ -900,13 +1047,40 @@ class AnimSnapBasesSolver:
 
         With ``record=True`` the steps run on kernel 1 instead and the
         (num_steps, N, 3) trajectory of positions is returned
-        (:meth:`_run_steps_recorded`)."""
+        (:meth:`_run_kernel1`).
+
+        Self-collision (the JAX ``run_steps``, ``sim/reduced.py:2764-2822``):
+        the host resolvers, or the device pass asked for after
+        ``prepare()``, step through :meth:`step`; with the pass captured
+        the proximity-gated tier serves (:meth:`_run_steps_self_collision`),
+        or without tiers (``self_collision_resident = False``) kernel 1
+        with the pass, step by step on the device."""
         self._last_fast_steps = None
+        if not self._in_sc_window:
+            self._last_sc_windows = None
         self._require()
+        if self.enable_self_collision is True or self._uncaptured_pass():
+            traj = []
+            for _ in range(num_steps):
+                self.step(fext, num_iterations)
+                if record:
+                    traj.append(self.model.positions.copy())
+            return np.array(traj) if record else None
         if self._full is not None:
             return self._full_run(fext, num_steps, num_iterations, record)
         if record:
-            return self._run_steps_recorded(fext, num_steps, num_iterations)
+            return self._run_kernel1(fext, num_steps, num_iterations,
+                                     record=True)
+        if self._resident_run is None or (
+                self.enable_self_collision == "device"
+                and not self.self_collision_resident):
+            # no tiers (or the serving tier switched off after prepare):
+            # kernel 1 with the captured pass, every step
+            return self._run_kernel1(fext, num_steps, num_iterations)
+        if (self.enable_self_collision == "device"
+                and not self._in_sc_window):
+            return self._run_steps_self_collision(fext, num_steps,
+                                                  num_iterations)
         model = self.model
         P = self._to_device(model.positions)
         V = self._to_device(model.velocities)
@@ -944,38 +1118,179 @@ class AnimSnapBasesSolver:
         model.velocities = self._to_host(V)
         self.frame += num_steps
 
-    def _run_steps_recorded(self, fext, num_steps, num_iterations):
-        """``run_steps(record=True)`` (the JAX ``_run_steps_recorded``):
-        ``num_steps`` steps on kernel 1, step i with the target-term row of
-        frame ``self.frame + i``, each step's positions written into a
+    def _run_kernel1(self, fext, num_steps, num_iterations, record=False):
+        """``num_steps`` steps on kernel 1, the state on the device, step i
+        with the target-term row of frame ``self.frame + i``, each followed
+        by the captured device pass.  With ``record`` (the JAX
+        ``_run_steps_recorded``) each step's positions go into a
         (num_steps, 3, N) buffer on the device, which crosses to the host
-        once -> the (num_steps, N, 3) float64 trajectory.  With the floor
-        on, ``positions_corrections`` is the last step's, as ``step()``
-        leaves it (y: the raw predictor less the floor where it is below,
-        else 0)."""
+        once -> the (num_steps, N, 3) float64 trajectory; with the floor
+        on, ``positions_corrections`` is then the last step's, as
+        ``step()`` leaves it (y: the raw predictor less the floor where it
+        is below, else 0)."""
         model, ro = self.model, self._resident
+        collide = self._collision_mode == "device"
         P = self._to_device(model.positions)
         V = self._to_device(model.velocities)
         fa = force_term(ro, self._to_device(fext))
         rb = self._rb_schedule_from(self.frame)
-        buf = P.new_empty((num_steps,) + tuple(P.shape))
+        buf = P.new_empty((num_steps,) + tuple(P.shape)) if record else None
         corr_y = torch.zeros_like(P[1])
         for i in range(num_steps):
-            if model.floor_collision:
+            if record and model.floor_collision:
                 sn_y = P[1] + ro.dt * ro.eta * V[1] + fa[1]
                 corr_y = torch.clamp(sn_y - ro.floor_h, max=0.0)
-            P, V = step_once(ro, P, V, fa, rb_at(rb, i), num_iterations,
+            q, v = step_once(ro, P, V, fa, rb_at(rb, i), num_iterations,
                              iterate=fused_reduced_iterations)
-            buf[i] = P
-        traj = buf.cpu().numpy().astype(float).transpose(0, 2, 1)[:, ro.iperm]
+            if collide:
+                q = self._perm_pass(q)
+                v = (q - P) / ro.dt
+            P, V = q, v
+            if record:
+                buf[i] = P
         model.positions = self._to_host(P)
         model.velocities = self._to_host(V)
+        self.frame += num_steps
+        if not record:
+            return None
+        traj = buf.cpu().numpy().astype(float).transpose(0, 2, 1)[:, ro.iperm]
         if model.floor_collision:
             corr = np.zeros_like(model.positions)
             corr[:, 1] = corr_y.cpu().numpy().astype(float)[ro.iperm]
             model.positions_corrections = corr
-        self.frame += num_steps
         return traj
+
+    def _run_steps_self_collision(self, fext, num_steps, num_iterations):
+        """The proximity-gated serving tier under the captured device pass
+        (the JAX ``_run_steps_self_collision``, ``sim/reduced.py:2632``).
+
+        The pass is the identity while every vertex stays at least
+        ``MIN_DIST`` from its candidate triangles, so a
+        window certified clear runs on the tiers without it.  A clearance c
+        admits floor(c / (4 dt vmax)) steps (the per-step displacement is
+        dt |v|; 2x for two approaching sides, 2x for velocity growth over
+        the window): a heuristic, so the clearance is re-checked at every
+        window's end and windows are capped at
+        ``self_collision_window_cap``.  Without animation, tier 1 serves
+        the windows (:meth:`_sc_tier1`); with an animated schedule (or no
+        tier 1) each clear window is a nested ``run_steps`` on the tiers
+        with the flag off.  Where no window is admitted (proximity, or a
+        tier-1 exit at the floor), ``self_collision_contact_window`` steps
+        run on kernel 1 with the pass, then the clearance is probed again.
+        ``_last_fast_steps`` is set only when tier 1 served every step;
+        ``_last_sc_windows`` lists the windows served."""
+        model = self.model
+        cap = int(self.self_collision_window_cap)
+        contact_w = int(self.self_collision_contact_window)
+        animated = any(
+            c["motion_type"] == "user_defined"
+            and c["frame_shift"] is not None
+            and len(c["frame_shift"]) > self.frame
+            for c in getattr(model, "_positional", []))
+        on_tier1 = not animated and self._resident_fast is not None
+        tier1 = 0
+        remaining = num_steps
+        windows = []
+        self._in_sc_window = True
+        try:
+            while remaining > 0:
+                if on_tier1:
+                    P = self._to_device(model.positions)
+                    V = self._to_device(model.velocities)
+                    Fx = self._to_device(fext)
+                    P, V, done = self._sc_tier1(
+                        P, V, Fx, self._rb_schedule_from(self.frame),
+                        remaining, num_iterations, windows)
+                    model.positions = self._to_host(P)
+                    model.velocities = self._to_host(V)
+                    self.frame += done
+                    tier1 += done
+                    remaining -= done
+                    if remaining <= 0:
+                        break
+                else:
+                    clearance = self._self_collision_clearance() - MIN_DIST
+                    w = 0
+                    if clearance > 0:
+                        vmax = float(np.linalg.norm(model.velocities,
+                                                    axis=1).max())
+                        w = int(clearance
+                                / (4.0 * self.dt * max(vmax, 1e-12)))
+                    if w >= 1:
+                        w = min(w, cap, remaining)
+                        flag = self.enable_self_collision
+                        self.enable_self_collision = False
+                        try:
+                            self.run_steps(fext, w, num_iterations)
+                        finally:
+                            self.enable_self_collision = flag
+                        windows.append({"path": "tiers", "steps": w,
+                                        "tier1": self._last_fast_steps or 0})
+                        if self._last_fast_steps:
+                            tier1 += self._last_fast_steps
+                        remaining -= w
+                        continue
+                # proximity: kernel 1 with the pass, then probe again
+                w = min(contact_w, remaining)
+                self._run_kernel1(fext, w, num_iterations)
+                windows.append({"path": "per-step", "steps": w})
+                remaining -= w
+        finally:
+            self._in_sc_window = False
+        self._last_sc_windows = windows
+        self._last_fast_steps = tier1 if tier1 == num_steps else None
+
+    def _sc_tier1(self, P, V, Fx, rb, total, num_iterations, windows):
+        """Certified windows on tier 1 from the permuted state (the window
+        loop of the JAX ``_sc_fused_runner``, ``sim/reduced.py:2508-2630``,
+        here a host loop with the state on the device) -> (P', V', steps
+        done), stopping at the first window no clearance admits or at a
+        tier-1 exit.
+
+        A clearance budget is carried between windows: each window spends
+        its own bound k 4 dt vmax, and the cheap centroid-radius lower bound
+        refreshes it (bound <= probe).  The exact probe runs when the
+        budget is under one step's 4 dt vmax, or after
+        ``self_collision_budget_windows`` windows in a row that the carried
+        budget (not the fresh bound) admitted.  The probes take the
+        positions in float32, as the JAX loop does; the budget and the
+        window lengths are in the working dtype."""
+        faces = self._perm_collide_fn().faces
+        cap = float(self.self_collision_window_cap)
+        max_carry = int(self.self_collision_budget_windows)
+        dtype = P.dtype
+        budget = torch.zeros((), dtype=dtype, device=P.device)
+        nb, done = 0, 0
+        while done < total:
+            Pt = P.T.to(torch.float32)
+            bound = (min_clearance_lower_bound_device(Pt, faces)
+                     - MIN_DIST).to(dtype)
+            carried = budget
+            budget = torch.maximum(budget, bound)
+            vmax = torch.sqrt((V * V).sum(dim=0)).max()
+            denom = 4.0 * self.dt * torch.clamp(vmax, min=1e-12)
+            short, by_carry = (torch.stack([budget < denom, carried > bound])
+                               .tolist())
+            exact = short or nb >= max_carry
+            clearance = ((min_clearance_device(Pt, faces)
+                          - MIN_DIST).to(dtype) if exact else budget)
+            # consecutive windows admitted by the carried budget
+            nb = 0 if exact else (nb + 1 if by_carry else 0)
+            w = torch.clamp(torch.nan_to_num(torch.floor(clearance / denom),
+                                             nan=0.0), 0.0, cap)
+            w = min(int(w), total - done)
+            if w < 1:
+                break
+            P2, V2, k = self._resident_fast(P, V, Fx, rb, w, num_iterations)
+            windows.append({"path": "tier 1", "steps": k, "admitted": w,
+                            "probe": exact})
+            if k > 0:
+                P, V = P2, V2
+            done += k
+            budget = clearance - k * denom
+            if k < w:
+                break           # a tier-1 exit at the floor
+        return P, V, done
 
     # ------------------------------------------------------------------
     # configurations that are not fully reduced
@@ -1001,12 +1316,20 @@ class AnimSnapBasesSolver:
             _, corr = collisions.resolve_floor_collision(
                 sn_raw, model.floor_height)
             model.positions_corrections = corr
-        q, v = fs.step(fs.tensor(model.positions),
-                       fs.tensor(model.velocities), fs.tensor(fext),
+        P = fs.tensor(model.positions)
+        q, v = fs.step(P, fs.tensor(model.velocities), fs.tensor(fext),
                        fs.tensor(model.positional_targets(self.frame)),
                        num_iterations)
-        model.positions = q.cpu().numpy()
-        model.velocities = v.cpu().numpy()
+        if self._uncaptured_pass():
+            q = self._model_collide()(q)
+            v = (q - P) / self.dt
+        q_next = q.cpu().numpy()
+        if self.enable_self_collision is True:
+            q_next = self._host_passes(q_next)
+            model.velocities = (q_next - model.positions) / self.dt
+        else:
+            model.velocities = v.cpu().numpy()
+        model.positions = q_next
         self.frame += 1
 
     def _host_step(self, fext, num_iterations):
@@ -1040,7 +1363,9 @@ class AnimSnapBasesSolver:
             q = fs.solve(b + masses_term)
         if self.store_stacked_projections:
             self._record_frame(stacked)
-        q_next = q.cpu().numpy()
+        if self.enable_self_collision == "device":
+            q = self._model_collide()(q)
+        q_next = self._host_passes(q.cpu().numpy())
         model.velocities = (q_next - model.positions) / dt
         model.positions = q_next
         self.frame += 1
@@ -1133,10 +1458,30 @@ class AnimSnapBasesSolver:
                 "batched serving over a mesh is not ported yet (ROADMAP "
                 "Queue A item 18)")
 
-    def _refuse_self_collision(self):
-        if self.enable_self_collision:
+    def _refuse_self_collision(self, captured_ok=False):
+        """``make_batched_run`` serves no self-collision: the host
+        resolvers and an uncaptured pass cannot run inside its loop, and
+        failing beats serving interpenetrating sims.  ``make_batched_step``
+        (``captured_ok``) applies a pass captured at prepare to each sim;
+        the JAX vmapped step skips the others silently, the port refuses
+        them (ROADMAP Queue C)."""
+        flag = self.enable_self_collision
+        if flag and not (captured_ok and flag == "device"
+                         and self._collision_mode == "device"):
             raise RuntimeError("batched serving does not support "
                                "self-collision resolvers")
+
+    def _full_timeline(self, targets_seq, B, start, num_steps):
+        """The positional targets of a batched full-space window as a
+        float64 (T, e, 3) timeline shared by the sims or (B, T, e, 3) per
+        sim: the caller's ``targets_seq`` (:func:`_timeline`), else the
+        model's own from frame ``start``."""
+        if targets_seq is None:
+            tl, _ = positional_targets_timeline(self.model, start, num_steps)
+        else:
+            tl = _timeline(targets_seq, B, np.shape(
+                self.model.positional_targets(start))[0])
+        return self._full.tensor(tl)
 
     def make_batched_step(self, mesh=None):
         """Ensemble stepping: ``step(positions (B, N, 3), velocities,
@@ -1148,15 +1493,26 @@ class AnimSnapBasesSolver:
         model's targets at a serving frame that starts at the solver's
         frame and advances by one per call.  The prepared state is read at
         call time, so a ``set_dirty()`` + ``prepare()`` rebuild is
-        served."""
+        served.  A device pass captured at prepare is applied to each sim
+        after its step (:meth:`_refuse_self_collision`).  A configuration
+        that is not fully reduced steps on the batched :class:`_FullSpace`
+        step in float64."""
         self._refuse_mesh(mesh)
         serving_frame = [self.frame]
 
         def step(positions, velocities, fext, num_iterations=10,
                  targets=None):
-            self._refuse_self_collision()
+            self._refuse_self_collision(captured_ok=True)
             B = self._check_batch(positions, velocities, fext)
             self._require_batched()
+            if self._full is not None:
+                fs = self._full
+                t = fs.tensor(self.model.positional_targets(serving_frame[0])
+                              if targets is None else targets)
+                q, v = fs.step(fs.tensor(positions), fs.tensor(velocities),
+                               fs.tensor(fext), t, num_iterations)
+                serving_frame[0] += 1
+                return q.cpu().numpy(), v.cpu().numpy()
             ro = self._resident
             P, V = self._pack(positions), self._pack(velocities)
             fa = force_term(ro, self._pack(fext))
@@ -1171,6 +1527,9 @@ class AnimSnapBasesSolver:
                     ro.fused, sn[..., :ro.n_sel], rb_const.contiguous(),
                     num_iterations)
             q, v = lift(ro, P, sn, u)
+            if self._collision_mode == "device":
+                q = torch.stack([self._perm_pass(x) for x in q])
+                v = (q - P) / ro.dt
             serving_frame[0] += 1
             return self._unpack(q), self._unpack(v)
 
@@ -1194,7 +1553,9 @@ class AnimSnapBasesSolver:
         kernel 3 (its contact-mode build unless ``resident_contact_mode``
         is False) serves the window; at or above it the batched kernel 5
         serves contact-free stretches and the batched kernel 2 the windows
-        after a whole-batch exit (:meth:`_run_batched_chunked`)."""
+        after a whole-batch exit (:meth:`_run_batched_chunked`).  A
+        configuration that is not fully reduced runs the batched
+        :class:`_FullSpace` step (:meth:`_run_batched_full`)."""
         self._refuse_mesh(mesh)
         self._refuse_self_collision()
         serving_frame = [self.frame]
@@ -1204,6 +1565,13 @@ class AnimSnapBasesSolver:
             self._refuse_self_collision()
             B = self._check_batch(positions, velocities, fext)
             self._require_batched()
+            if self._full is not None:
+                out = self._run_batched_full(
+                    positions, velocities, fext, int(num_steps),
+                    num_iterations, self._full_timeline(
+                        targets_seq, B, serving_frame[0], int(num_steps)))
+                serving_frame[0] += int(num_steps)
+                return out
             rb = (self._rb_schedule_from(serving_frame[0])
                   if targets_seq is None
                   else self._rb_timeline(targets_seq, B))
@@ -1220,6 +1588,23 @@ class AnimSnapBasesSolver:
             return self._unpack(P), self._unpack(V)
 
         return run
+
+    def _run_batched_full(self, positions, velocities, fext, num_steps,
+                          num_iterations, tl):
+        """The window of a configuration that is not fully reduced: the
+        batched :class:`_FullSpace` step on (B, N, 3) float64 state on the
+        device, step i with row min(i, T - 1) of the timeline ``tl``
+        (shared (T, e, 3) or per sim (B, T, e, 3)) -> (B, N, 3) host
+        arrays."""
+        fs = self._full
+        self._last_batched_path = "batched-full"
+        P, V = fs.tensor(positions), fs.tensor(velocities)
+        Fx = fs.tensor(fext)
+        T = tl.shape[-3]
+        for i in range(num_steps):
+            P, V = fs.step(P, V, Fx, tl[..., min(i, T - 1), :, :],
+                           num_iterations)
+        return P.cpu().numpy(), V.cpu().numpy()
 
     def _run_batched_resident(self, P, V, Fx, rb, num_steps, num_iterations):
         """The window on the batched kernel 3, lean or in contact mode as
@@ -1286,6 +1671,21 @@ class AnimSnapBasesSolver:
         if windows:
             self._last_batched_path = f"batched-chunked+perstep[{windows}w]"
         return P, V
+
+
+def _timeline(targets_seq, B, e):
+    """A caller's positional-target timeline as a float64 array, (T, e, 3)
+    shared by the sims or (B, T, e, 3) per sim; raises ``ValueError`` on a
+    shape that does not fit a model of ``e`` targets and a batch of B."""
+    tl = np.asarray(targets_seq, dtype=np.float64)
+    if (tl.ndim not in (3, 4) or tuple(tl.shape[-2:]) != (e, 3)
+            or tl.shape[-3] < 1):
+        raise ValueError(f"targets_seq must be (T, {e}, 3) or (B, T, {e}, 3)"
+                         f" for this model; got {tl.shape}")
+    if tl.ndim == 4 and tl.shape[0] != B:
+        raise ValueError(f"per-sim targets_seq has batch {tl.shape[0]}, "
+                         f"expected {B}")
+    return tl
 
 
 def _sim0(rb):

@@ -22,8 +22,12 @@ card as on the CPU.  Global-solve tiers (``global_solve``):
   warm-started from the previous iteration (``ops/cg.py``);
 * ``"auto"`` -- dense up to DENSE_LIMIT, else CG.
 
-Self-collision is not ported (ROADMAP Queue A item A12): asking for it
-raises.
+Self-collision (``enable_self_collision``): False (the default) runs no
+pass; ``"device"`` applies the masked pass of ``sim/collisions_device.py``
+to q on the device after each step's sweep, before v = (q - P)/dt, in
+``step()`` and in every step of ``run_steps``; True runs the two host
+resolvers of ``sim/collisions.py`` after each step, and ``run_steps`` then
+steps through :meth:`Solver.step`.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from animsnapbases_tpu_torch.device import PIPELINE_DTYPE, resolve_device
 from animsnapbases_tpu_torch.ops import segment
 from animsnapbases_tpu_torch.ops.cg import build_ell, ell_matvec, pcg_solve
 from animsnapbases_tpu_torch.sim import collisions, projections
+from animsnapbases_tpu_torch.sim.collisions_device import make_collide
 
 
 def flatten(p: np.ndarray) -> np.ndarray:
@@ -69,32 +74,73 @@ def device_group_data(g, device, dtype):
     return device_data(g.data, device, dtype)
 
 
-def make_local_stage(model, device=None, dtype=PIPELINE_DTYPE):
+def batch_data(name: str, data: dict, B: int, n: int) -> dict:
+    """A group's tensors (:func:`device_data`) for B sims stacked along the
+    vertex axis, sim b's vertices at rows b*n to (b + 1)*n: the index
+    arrays of ``projections.VERTEX_KEYS`` offset by b*n, every other array
+    repeated B times along its element axis, scalars as they are.  A
+    projection of the stacked (B*n, 3) positions is then the B sims'
+    projections, sim after sim, each element computed as for one sim."""
+    keys = projections.VERTEX_KEYS[name]
+    out = {}
+    for k, v in data.items():
+        if not torch.is_tensor(v) or v.dim() == 0:
+            out[k] = v
+        elif k in keys:
+            off = torch.arange(B, device=v.device) * n
+            out[k] = (v[None] + off.reshape((B,) + (1,) * v.dim())) \
+                .reshape((-1,) + tuple(v.shape[1:]))
+        else:
+            out[k] = v.repeat((B,) + (1,) * (v.dim() - 1))
+    return out
+
+
+def make_local_stage(model, device=None, dtype=PIPELINE_DTYPE, batch=None):
     """The local stage of the model's current groups:
     ``local(q, positional_targets) -> (b, {name: stacked_p})`` with b =
     sum over groups of S^T p, each product summed in a fixed order
     (``ops/segment.py``), so that two runs on the card agree bit for
-    bit."""
+    bit.  With ``batch`` = B it is the stage of B sims in one pass: q (B,
+    N, 3), the targets (e, 3) shared or (B, e, 3) per sim, b (B, N, 3) and
+    each stacked p (B, e*p, 3); the sims lie one after another on the
+    vertex axis (:func:`batch_data`), S^T block-diagonal, each sim's rows
+    summed in the single sim's order."""
     device = resolve_device(device)
     n = model.n_verts
+    B = 1 if batch is None else int(batch)
     static = []
     for name, g in model.groups.items():
+        rows, cols = np.asarray(g.st_rows), np.asarray(g.st_cols)
+        vals = np.asarray(g.st_vals)
+        data = device_group_data(g, device, dtype)
+        if batch is not None:
+            width = g.num * g.p
+            rows = (rows[None] + n * np.arange(B)[:, None]).reshape(-1)
+            cols = (cols[None] + width * np.arange(B)[:, None]).reshape(-1)
+            vals = np.tile(vals, B)
+            if name != "positional":
+                data = batch_data(name, data, B, n)
         layout = segment.row_layout(
-            g.st_rows, g.st_cols,
-            torch.as_tensor(g.st_vals, dtype=dtype, device=device), n)
-        static.append((name, device_group_data(g, device, dtype), layout))
+            rows, cols, torch.as_tensor(vals, dtype=dtype, device=device),
+            B * n)
+        static.append((name, data, layout))
 
     def local(q, positional_targets):
-        b = torch.zeros((n, 3), dtype=q.dtype, device=q.device)
+        if batch is not None:
+            q = q.reshape(B * n, 3)
+            positional_targets = positional_targets.expand(
+                (B,) + tuple(positional_targets.shape[-2:])).reshape(-1, 3)
+        b = torch.zeros((B * n, 3), dtype=q.dtype, device=q.device)
         stacked = {}
         for name, data, layout in static:
             if name == "positional":
                 p = projections.positional_p(positional_targets)
             else:
                 p = projections.PROJECTION_KERNELS[name](q, data)
-            stacked[name] = p
+            stacked[name] = p if batch is None else p.reshape(B, -1, 3)
             b = b + segment.row_sum(layout, p)
-        return b, stacked
+        return (b, stacked) if batch is None else (b.reshape(B, n, 3),
+                                                   stacked)
 
     return local
 
@@ -167,8 +213,9 @@ class Solver:
         self.record_path = ""
         self.max_p_snapshots_num = 200
         self._recorded: dict[str, dict[str, np.ndarray]] = {}
-        # self-collision is not ported (A12); any true value raises
+        # self-collision: False, True (the host resolvers) or "device"
         self.enable_self_collision = False
+        self._collide = None         # the device pass over model.faces
         # seconds of the host tier's iterations: the local stage on the
         # device, the transfers of b and q, the LU solves
         self.seconds = {"local": 0.0, "transfer": 0.0, "solve": 0.0}
@@ -176,6 +223,7 @@ class Solver:
     # ------------------------------------------------------------------
     def set_model(self, model):
         self.model = model
+        self._collide = None         # keyed on the faces: now stale
         self.set_dirty()
 
     def set_dirty(self):
@@ -193,11 +241,12 @@ class Solver:
     def set_store_p(self, value: bool):
         self.store_stacked_projections = value
 
-    def _refuse_self_collision(self):
-        if self.enable_self_collision:
-            raise NotImplementedError(
-                "self-collision is not ported to the PyTorch solver yet "
-                "(ROADMAP Queue A item A12)")
+    def _collide_device(self, q):
+        """The device pass over the model's faces (made once per
+        model)."""
+        if self._collide is None:
+            self._collide = make_collide(self.model.faces, self.device)
+        return self._collide(q)
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
@@ -221,7 +270,6 @@ class Solver:
         np.savez(os.path.join(record_path, "assembly_ST.npz"), **matrices)
 
     def prepare(self, args, store_fom_info=False, record_path=None):
-        self._refuse_self_collision()
         if store_fom_info:
             if record_path is None:
                 raise ValueError("store_fom_info needs a record_path")
@@ -323,7 +371,6 @@ class Solver:
         return q, stacked
 
     def step(self, fext, num_iterations=10):
-        self._refuse_self_collision()
         model = self.model
         dt = self.dt
         dt2 = dt * dt
@@ -342,7 +389,11 @@ class Solver:
                                      num_iterations)
         if self.store_stacked_projections:
             self._record_frame(stacked)
+        if self.enable_self_collision == "device":
+            q = self._collide_device(q)
         q_next = q.cpu().numpy()
+        if self.enable_self_collision is True:
+            q_next = collisions.resolve_self_collisions(q_next, model.faces)
         model.velocities = (q_next - model.positions) * (1.0 / dt)
         model.positions = q_next
         self.frame += 1
@@ -350,11 +401,12 @@ class Solver:
     # ------------------------------------------------------------------
     def run_steps(self, fext, num_steps, num_iterations=10, record=False):
         """Advance ``num_steps`` steps; with ``record=True`` return the
-        (T, N, 3) trajectory.  The host tier steps through :meth:`step`;
-        the device tiers keep the state on the device between steps."""
-        self._refuse_self_collision()
+        (T, N, 3) trajectory.  The host tier and the host resolvers
+        (``enable_self_collision = True``) step through :meth:`step`; the
+        device tiers keep the state on the device between steps, with the
+        device pass in each step under ``"device"``."""
         model = self.model
-        if self._mode == "host":
+        if self._mode == "host" or self.enable_self_collision is True:
             traj = []
             for _ in range(num_steps):
                 self.step(fext, num_iterations)
@@ -378,6 +430,8 @@ class Solver:
             q, stacked = self._sweep(
                 sn, self._tensor(model.positional_targets(self.frame)),
                 num_iterations)
+            if self.enable_self_collision == "device":
+                q = self._collide_device(q)
             vel = (q - pos) / dt
             pos = q
             corr = sn_raw - sn

@@ -135,14 +135,31 @@ version.  Phases, each of which fails the run when it fails:
    displacements, served fully reduced under ``deim_pca_blocks`` and
    ``geom_pca_blocks_withSt``: kernels 1 and 5 in their block-form builds
    on real bases, a counted path each, held against their plain versions
-   and timed; each stage's seconds beside the card's name and power limit;
+   and timed; ``make_batched_run`` and ``make_batched_step`` at 8 sims on
+   the demo's dense solve and the bench cloth's mixed one, each sim
+   against its solo run on the card (:func:`batched_full`), and both
+   refusing the host LU (:func:`refuses_batched`); each stage's seconds
+   beside the card's name and power limit;
+8. ``self-collision`` (:func:`self_collision_phase`): (a) the 160x160 cloth
+   of ``scripts/bench_selfcollision.py`` (25,600 vertices, r = 32, bf16
+   matrices) under ``enable_self_collision="device"``: a 40,000-step
+   ring-down through ``run_steps``, a counted path (kernel 5 alone) that
+   tier 1 must certify, its time by part, the probe, lower bound and pass
+   against float64 on the CPU, kernel 5 against its plain version and
+   ``self_collision_resident=False`` (kernel 1 with the pass, counted)
+   against the tier; (b) the cloth folded onto itself 0.5 min_dist apart:
+   ``run_steps(64)`` on kernel 1 with the pass (counted), each step
+   rebuilt and held against float64, the pass pushing the layers apart,
+   kernel 1 against float64 and timed; the full-order solver's two modes
+   against the CPU;
 5. the ``kernels`` line (21 entries: six solo kernels, five batched
    builds, each with its times on the new scenes under ``scenes``, with a
    target schedule under ``animated``, at 250,000 vertices under
    ``megacloth`` and, for kernels 1 and 5, on real bases under
-   ``real_bases`` and on the bar's block-form bases under ``per_group``,
-   then kernel 5's five option builds, solo and batched), then the last
-   line ``{"ok": true, "device": {...}}``.
+   ``real_bases``, on the bar's block-form bases under ``per_group`` and
+   under self-collision under ``self_collision``, then kernel 5's five
+   option builds, solo and batched), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -280,9 +297,14 @@ CRUMPLE_STEP = 0.01
 # (:func:`tet_bending_scenes`):
 # the reference's sim configs they take their settings from, the bar's
 # size, the bench's widths (bench.py: 30 modes per group, 4/3
-# oversampled to 40 rows; damping), the depth of their step-by-step holds,
-# the size of their batches (make_batched_run) and the scene that takes
-# every tier switch
+# oversampled to 40 rows; damping), the depth of their step-by-step holds
+# and plain timings (8: cut from 16, half their plain steps, to keep the
+# whole script near half its time limit; the tet, bending and block scenes
+# took 169.0-194.5 s at 16 and 115.8 s at 8 on an H100), the depth of the
+# bar's block-form holds in phase [7] (16: kernel 5's drift from its plain
+# version grows with the steps there, and the bar's steps are cheap), the
+# size of their batches (make_batched_run) and the scene that takes every
+# tier switch
 BAR_DEMO = "configs/demos/bar_automated_deformationgradient.json"
 CLOTH_DEMO = "configs/demos/cloth_automated_bend_spring_strain.json"
 BAR_SIZE = (40, 5, 5)
@@ -290,7 +312,8 @@ BAR_LIFT = 6.0
 BENCH_MODES = 30
 OVERSAMPLE = 4.0 / 3.0
 BENCH_DAMPING = 2e-3
-NEW_DEPTH = 16
+NEW_DEPTH = 8
+BAR_DEPTH = 16
 NEW_BATCH = 8
 SWITCH_SCENE = "bar, strain and bending"
 # animated targets (:func:`animated`): the poke of scripts/bench_poke.py on
@@ -401,6 +424,67 @@ BAR_POS_MODES = 16
 SERVED_AS = {"deim": "deim_pod_vectorized",
              "geom": "geom_pca_blocks_withSt",
              "deim_block_form": "deim_pca_blocks"}
+# the batched runners on phase [7]'s solves that are not fully reduced:
+# the sims, the steps of make_batched_run on each solve and each sim's
+# distance from its solo run on the card, in the extent.  The batched
+# solve sums in other orders than the solo one (a right-hand side per sim
+# in one cholesky_solve, batched products), and the reduced step map
+# amplifies rounding (:func:`card_and_cpu`): on an H100 the demo's dense
+# solve parted by 3.6e-11 of the extent in 4 steps, so it is held over one
+FULL_BATCH = 8
+FULL_BATCH_STEPS = {"dense": 1, "mixed": 4}
+SOLO_DEVIATION = 1e-12
+# ---- [8] self-collision (:func:`self_collision_phase`) -----------------
+# the cloth of scripts/bench_selfcollision.py at SC_ROWS=160 (25,600
+# vertices, 50,562 triangles: 1.29e9 vertex-triangle pairs, five slabs of
+# collisions_device.MAX_PAIRS), r = 32 synthetic bases, the window cap of
+# that script, and the ring-down window served on tier 1 (at least
+# 20,000 steps; two windows at the cap)
+SC_ROWS = 160
+SC_R = 32
+SC_CAP = 32768
+SC_WINDOW = 40000
+SC_MIN_DIST = 0.001
+# the fold of scene (b): the upper half 0.5 min_dist above the lower,
+# every vertex moved in the plane by a normal draw of this size (ties of
+# the centroid distances broken well above their float32 rounding at
+# coordinates ~160: ~3e-3 in a squared distance)
+SC_GAP = 0.5 * SC_MIN_DIST
+SC_JITTER = 0.05
+# the proximity path's window (the solver's self_collision_contact_window)
+SC_FOLD_STEPS = 64
+# steps of kernel 5 against its plain version, and of the short window
+# that self_collision_resident=False serves against the tier: from the rest
+# shape with the free vertices kicked at SC_KICK units/s along z (at rest
+# the reduced step moves the cloth by less than a float32 rounding of its
+# coordinates), held within SC_OFF_REL of the window's own largest
+# displacement (a path that left the state frozen parts by 1)
+SC_DEPTH = 16
+SC_SHORT = 64
+SC_KICK = 1.0
+SC_OFF_REL = 1e-2
+# calls timed of the probe, the lower bound and the pass (~10-100 ms each)
+SC_REPS = 5
+# float32 on the card against float64 from the same positions, where the
+# candidate sets agree: the clear state's clearances and corrections within
+# this many float32 roundings of the extent (F32_EPS x max |P|; a distance
+# comes from a closest point computed at coordinates of the extent's size,
+# a handful of roundings; measured 9.8e-6 absolute, 0.5 roundings, on the
+# 160x160 cloth on an H100).  On the fold, where the pass pushes, its
+# corrections within SC_FOLD_REL of the largest float64 correction of the
+# run: a distance's few roundings at the fold's gap are a few per cent of
+# a push (min_dist - d) there, while a pass at half stiffness parts by
+# 0.5 and one that tests the nearest candidate alone drops whole pushes;
+# both planted faults are read beside the sound pass in every run and
+# must exceed the limit.  The solve of each fold step (kernel 1 in float32
+# against the plain version in float64) within SC_STEP_TOL of the extent
+# (measured 2.3e-8 there)
+SC_ROUND = 8
+SC_FOLD_REL = 0.1
+SC_STEP_TOL = 1e-6
+# the full-order solver's fold: the 6x12 cloth of
+# tests/test_self_collision.py at 0.004 units a cell
+SC_FOM = (6, 12)
 
 
 def log(*a):
@@ -4366,7 +4450,7 @@ def card_and_cpu(torch, label, args, build, f, steps, dev, secs):
     return traj, card
 
 
-def group_demo(torch, dev, work, secs, smi):
+def group_demo(torch, dev, work, secs, smi, batched):
     """(a) The demo: CLOTH_DEMO's cloth (:func:`demo_cloth`) recorded for
     GROUP_FRAMES frames by the port's ``Solver`` (its dense tier), each
     group's bases from the six cloth example configs (row DEIM and geom),
@@ -4415,11 +4499,17 @@ def group_demo(torch, dev, work, secs, smi):
             # reads constrained-vertex rows (ROADMAP Queue C): the group
             # serves full
             a.vert_bending_reduced = False
-        card, solver = card_and_cpu(torch, f"demo, {itype} bases as {rtype}",
-                                    a, lambda: demo_cloth(args), f,
+        label = f"demo, {itype} bases as {rtype}"
+        card, solver = card_and_cpu(torch, label, a,
+                                    lambda: demo_cloth(args), f,
                                     GROUP_STEPS, dev, secs)
         require(solver._full.mode == "dense",
                 "the demo's solve is not on the dense Cholesky")
+        if itype == "deim":
+            m0 = demo_cloth(args)
+            batched[label] = batched_full(
+                torch, label, solver, f, (m0.positions, m0.velocities),
+                secs, smi)
         stats[rtype] = fom_deviation(card[-1], traj[GROUP_STEPS - 1])
         log(f"[7] demo, {itype} bases as {rtype}: reduced-vs-FOM after "
             f"{GROUP_STEPS} steps (|P - P_FOM| / max|P_FOM|): mean "
@@ -4428,7 +4518,7 @@ def group_demo(torch, dev, work, secs, smi):
     return stats
 
 
-def group_bench(torch, dev, work, secs, smi):
+def group_bench(torch, dev, work, secs, smi, batched):
     """(b) The bench cloth (:func:`bench_scene`) without position
     reduction: phase [6]'s recording (FOM_FRAMES frames) and bases
     (``bases/pipeline.py`` ``build_bases``), then the reduced solver of
@@ -4481,6 +4571,13 @@ def group_bench(torch, dev, work, secs, smi):
                                     f, FOM_FRAMES, dev, secs)
         require(solver._full.mode == mode,
                 f"bench, {label}: served on {solver._full.mode}, not {mode}")
+        if mode == "host":
+            refuses_batched(f"bench, {label}", solver, f)
+        else:
+            m0 = scene()
+            batched[f"bench, {label}"] = batched_full(
+                torch, f"bench, {label}", solver, f,
+                (m0.positions, m0.velocities), secs, smi)
         stats[label] = fom_deviation(card[-1], traj[-1])
         log(f"[7] bench, {label}: reduced-vs-FOM after {FOM_FRAMES} steps: "
             f"mean {stats[label][0]:.3e}, p99 {stats[label][1]:.3e}, max "
@@ -4499,9 +4596,9 @@ def group_bar(torch, counted, paths, dev, work, secs, smi):
     ``prepare -> step -> run_steps`` (a counted path: kernels 1 and 5 in
     their block-form builds), tier 1 certifying the window; kernel 1 held
     against float64 and kernel 5 against its plain version step by step and
-    in the steps one call carries, NEW_DEPTH steps (as the tet scenes of
+    in the steps one call carries, BAR_DEPTH steps (as the tet scenes of
     :func:`tet_bending`); both timed beside their bounds (kernel 5 and its
-    plain version in NEW_DEPTH-step calls) ->
+    plain version in BAR_DEPTH-step calls) ->
     {kernel name: {reduction type: entry}}."""
     import copy
 
@@ -4635,14 +4732,14 @@ def group_bar(torch, counted, paths, dev, work, secs, smi):
 
         k5_err, _ = step_by_step(
             torch, f"{label}, kernel 5", ro, one(affine_chunked),
-            one(affine_chunked_plain), P, V, Fx, rb, NEW_DEPTH)
+            one(affine_chunked_plain), P, V, Fx, rb, BAR_DEPTH)
         err, _ = carried_steps(torch, f"{label}, kernel 5, carried steps", 5,
                                ao, affine_chunked_plain, P, V, Fx, rb,
-                               NEW_DEPTH, CHUNK_EVERY)
+                               BAR_DEPTH, CHUNK_EVERY)
         k5_err = max(k5_err, err)
-        require(affine_chunked(ao, P, V, Fx, rb, NEW_DEPTH,
-                               ITERATIONS)[2] == NEW_DEPTH,
-                f"{label}: kernel 5 stopped in the {NEW_DEPTH}-step window")
+        require(affine_chunked(ao, P, V, Fx, rb, BAR_DEPTH,
+                               ITERATIONS)[2] == BAR_DEPTH,
+                f"{label}: kernel 5 stopped in the {BAR_DEPTH}-step window")
         k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
             fo, sel, rb_const, ITERATIONS), reps=200)
         k1_dev = device_ms(torch, lambda: fused_reduced_iterations(
@@ -4650,22 +4747,22 @@ def group_bar(torch, counted, paths, dev, work, secs, smi):
         k1_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
             fo, sel, rb_const, ITERATIONS), reps=PLAIN_REPS, warmup=0)
         k5_ms = cuda_ms(torch, lambda: affine_chunked(
-            ao, P, V, Fx, rb, NEW_DEPTH, ITERATIONS))
+            ao, P, V, Fx, rb, BAR_DEPTH, ITERATIONS))
         k5_plain = cuda_ms(torch, lambda: affine_chunked_plain(
-            ao, P, V, Fx, rb, NEW_DEPTH, ITERATIONS), reps=PLAIN_REPS,
+            ao, P, V, Fx, rb, BAR_DEPTH, ITERATIONS), reps=PLAIN_REPS,
             warmup=0)
-        trips = bound_trips(ao, P, V, Fx, rb, NEW_DEPTH)
+        trips = bound_trips(ao, P, V, Fx, rb, BAR_DEPTH)
         k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS))
-        k5_bound, k5_by = bound_ms(*k5_cost(ao, NEW_DEPTH, ITERATIONS,
+        k5_bound, k5_by = bound_ms(*k5_cost(ao, BAR_DEPTH, ITERATIONS,
                                             CHUNK_EVERY, exact_steps=trips))
         log(f"[7] {label}: kernel 1 {1e3 * k1_ms:.2f} us a call, "
             f"{1e3 * k1_dev:.2f} us a launch on the device (bound "
             f"{1e3 * k1_bound:.4f} us, {k1_by}; plain {1e3 * k1_plain:.1f} "
-            f"us); kernel 5 {1e3 * k5_ms / NEW_DEPTH:.2f} us/step over "
-            f"{NEW_DEPTH}-step calls (bound "
-            f"{1e3 * k5_bound / NEW_DEPTH:.4f} us/step, {k5_by}; floor "
+            f"us); kernel 5 {1e3 * k5_ms / BAR_DEPTH:.2f} us/step over "
+            f"{BAR_DEPTH}-step calls (bound "
+            f"{1e3 * k5_bound / BAR_DEPTH:.4f} us/step, {k5_by}; floor "
             f"bound trips on {trips} of them; plain "
-            f"{1e3 * k5_plain / NEW_DEPTH:.1f} us/step) ({smi})")
+            f"{1e3 * k5_plain / BAR_DEPTH:.1f} us/step) ({smi})")
         common = {"launches_path": key, "vs_fom": dict(zip(
             ("mean", "p99", "max"), vs_fom))}
         plans = {"fused_reduced_iterations": ("fused_reduced",
@@ -4675,7 +4772,7 @@ def group_bar(torch, counted, paths, dev, work, secs, smi):
                 ("fused_reduced_iterations", k1_err, k1_ms, k1_plain,
                  k1_bound, k1_by, {"device_ms": k1_dev}),
                 ("affine_chunked", k5_err, k5_ms, k5_plain, k5_bound, k5_by,
-                 {"steps_per_call": NEW_DEPTH, "bound_trips": trips})):
+                 {"steps_per_call": BAR_DEPTH, "bound_trips": trips})):
             lib, plan = plans[name]
             out[name][rtype] = dict(
                 common, launches=paths[key][name], max_abs_err=err, ms=ms,
@@ -4695,10 +4792,10 @@ def per_group_phase(torch, counted, paths, dev, smi):
     through kernels 1 and 5 (:func:`group_bar`).  Each stage's seconds are
     printed beside the card's name and power limit.  Returns {kernel name:
     the entries the kernels line carries under "per_group"}."""
-    secs = {}
+    secs, batched = {}, {}
     with tempfile.TemporaryDirectory() as work:
-        demo = group_demo(torch, dev, work, secs, smi)
-        bench = group_bench(torch, dev, work, secs, smi)
+        demo = group_demo(torch, dev, work, secs, smi, batched)
+        bench = group_bench(torch, dev, work, secs, smi, batched)
         out = group_bar(torch, counted, paths, dev, work, secs, smi)
     log(f"[7] per-group workflow seconds ({smi}): " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()))
@@ -4706,10 +4803,638 @@ def per_group_phase(torch, counted, paths, dev, smi):
                                 for k, v in demo.items()},
                 "bench_vs_fom": {k: dict(zip(("mean", "p99", "max"), v))
                                  for k, v in bench.items()},
+                "batched_vs_solo": batched,
                 "seconds": secs}
     for entries in out.values():
         entries["workflow"] = workflow
     return out
+
+
+def batched_full(torch, label, solver, f, start, secs, smi):
+    """[7] The batched runners of a solve that is not fully reduced
+    (``solver._full``, "mixed" or "dense") at FULL_BATCH sims on the card
+    from ``start``, sim b under (1 + 0.05 b) x ``f``: ``make_batched_run``
+    over FULL_BATCH_STEPS[mode] steps and ``make_batched_step``, each sim
+    against its solo ``run_steps`` / ``step()`` on the card within
+    SOLO_DEVIATION of the extent (velocities: of the extent over dt) ->
+    {call: (P, V) deviations}."""
+    B = FULL_BATCH
+    model, mode = solver.model, solver._full.mode
+    steps = FULL_BATCH_STEPS[mode]
+    pos = np.repeat(start[0][None], B, axis=0)
+    vel = np.repeat(start[1][None], B, axis=0)
+    fs = np.stack([f * (1.0 + 0.05 * b) for b in range(B)])
+    out = {}
+    for call, n in (("make_batched_run", steps), ("make_batched_step", 1)):
+        solver.frame = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if call == "make_batched_run":
+            p, v = solver.make_batched_run()(pos, vel, fs, n,
+                                             num_iterations=ITERATIONS)
+            require(solver._last_batched_path == "batched-full",
+                    f"{label}: make_batched_run took "
+                    f"{solver._last_batched_path}")
+        else:
+            p, v = solver.make_batched_step()(pos, vel, fs, ITERATIONS)
+        torch.cuda.synchronize()
+        secs[f"{label}: {call}, {B} sims x {n} steps"] = (
+            time.perf_counter() - t0)
+        extent = float(np.abs(p).max())
+        worst = [0.0, 0.0]
+        for b in range(B):
+            model.positions, model.velocities = pos[b].copy(), vel[b].copy()
+            solver.frame = 0
+            if call == "make_batched_step":
+                solver.step(fs[b], num_iterations=ITERATIONS)
+            else:
+                solver.run_steps(fs[b], n, num_iterations=ITERATIONS)
+            worst = [max(worst[0], float(np.abs(model.positions - p[b]).max())
+                         / extent),
+                     max(worst[1], float(np.abs(model.velocities
+                                                - v[b]).max())
+                         * solver.dt / extent)]
+        out[call] = worst
+        log(f"[7] {label}: {call} ({n} step{'s' if n > 1 else ''}) at {B} "
+            f"sims on the batched full-space step ({mode}): each sim at most "
+            f"{worst[0]:.3e} of the extent from its solo run on the card (V: "
+            f"{worst[1]:.3e} of the extent over dt; limit {SOLO_DEVIATION})"
+            f" ({smi})")
+        require(np.isfinite(p).all() and max(worst) <= SOLO_DEVIATION,
+                f"{label}: a sim of {call} departs from its solo run")
+    return out
+
+
+def refuses_batched(label, solver, f):
+    """[7] The host LU has no batched solve: both runners raise
+    RuntimeError."""
+    state = [np.repeat(x[None], 2, axis=0) for x in (
+        solver.model.positions, solver.model.velocities, f)]
+    for make, call in ((solver.make_batched_run, lambda r: r(*state, 2)),
+                       (solver.make_batched_step, lambda r: r(*state))):
+        try:
+            call(make())
+        except RuntimeError as e:
+            require("host LU" in str(e), f"{label}: {e}")
+            continue
+        require(False, f"{label}: {make.__name__} served the host LU")
+    log(f"[7] {label}: make_batched_run and make_batched_step raise "
+        "RuntimeError (the host LU)")
+
+
+def sc_scene(DeformableModel, cloth_model, rows, fold=False):
+    """The cloth of ``scripts/bench_selfcollision.py`` (rows x rows, one
+    unit a cell, z += 0.1 x, masses 10, floor off, tris_strain 0.95-1.05 and
+    edge_spring at wi = 1e4, the left side pinned); with ``fold``, folded
+    onto itself along y first (as ``tests/test_self_collision.py:51-68``
+    folds its cloth), the upper half SC_GAP above the lower, every vertex
+    jittered in the plane by SC_JITTER."""
+    V, F = cloth_model(rows, rows)
+    V = V.copy()
+    if fold:
+        half = (rows - 1) / 2.0
+        top = V[:, 1] > half
+        V[top, 1] = (rows - 1) - V[top, 1]
+        V[top, 2] += SC_GAP
+        V[:, :2] += np.random.default_rng(8).normal(scale=SC_JITTER,
+                                                    size=(len(V), 2))
+    V[:, 2] += 0.1 * V[:, 0]
+    model = DeformableModel(V, F, masses=np.full(len(V), 10.0),
+                            floor_collision=False)
+    model.add_tri_constrain_strain(0.95, 1.05, wi=1e4)
+    model.add_edge_spring_constraint(wi=1e4)
+    model.compute_cloth_corner_indices()
+    model.fix_surface_side_vertices("left")
+    return model
+
+
+def sc_solver(torch, dev, model, matmul_dtype, dtype=None, mode="device"):
+    """The synthetic reduced solver of ``scripts/bench_selfcollision.py``
+    (r = SC_R, damping 2e-3) on ``model``, ``enable_self_collision = mode``
+    captured at prepare, window cap SC_CAP."""
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+
+    solver = synthetic_reduced_solver(
+        model, r=SC_R, device=dev, dtype=dtype or torch.float32,
+        matmul_dtype=matmul_dtype, extra_args={"damping": 2e-3})
+    solver.enable_self_collision = mode
+    solver.self_collision_window_cap = SC_CAP
+    solver.prepare(solver.args)            # rebuilds the step: captures
+    return solver
+
+
+def same_sets(a, b):
+    """Per row, whether two (n, k) candidate lists hold the same
+    triangles."""
+    return (a.sort(dim=1).values == b.sort(dim=1).values).all(dim=1)
+
+
+def probes_vs_cpu(torch, label, q32, faces, smi):
+    """The probe, the lower bound and the pass of (n, 3) float32 positions
+    on the card against the same functions in float64 on the CPU from the
+    same values (one shared candidate pass on each side): the per-vertex
+    clearance and the pass's corrections within SC_ROUND float32
+    roundings of the extent where the candidate sets agree, the bound at
+    most the probe on the card -> the readings."""
+    from animsnapbases_tpu_torch.sim import collisions_device as cd
+
+    extent = float(q32.abs().max())
+    tol = SC_ROUND * F32_EPS * extent
+    out = {}
+    t0 = time.perf_counter()
+    for where, q, fc in (("card", q32, faces),
+                         ("cpu", q32.double().cpu(), faces.cpu())):
+        idx, delta, d, own = cd._candidate_distances(q, fc, cd.K_NEAREST,
+                                                     cd.MAX_PAIRS)
+        out[where] = (idx.cpu(), cd.clearances(d, own).double().cpu(),
+                      (cd._push(q, delta, d, own, cd.MIN_DIST, 1.0)
+                       - q).double().cpu(),
+                      float(cd.min_clearance_lower_bound_device(q, fc)))
+    secs = time.perf_counter() - t0
+    (i32, c32, p32, b32), (i64, c64, p64, b64) = out["card"], out["cpu"]
+    agree = same_sets(i32, i64)
+    n_off = int((~agree).sum())
+    fin = torch.isfinite(c64) & torch.isfinite(c32)
+    dc = float((c32 - c64)[agree & fin].abs().max()) if bool(
+        (agree & fin).any()) else 0.0
+    dp = float((p32 - p64)[agree].abs().max())
+    probe32, probe64 = float(c32.min()), float(c64.min())
+    log(f"[8] {label}: probe {probe32:.6f} on the card (float32), "
+        f"{probe64:.6f} on the CPU (float64), float32 - float64 "
+        f"{probe32 - probe64:.3e}; lower bound {b32:.6f} and {b64:.6f}, "
+        f"float32 - float64 {b32 - b64:.3e}; candidate sets differ at {n_off} of {len(agree)} "
+        f"vertices; where they agree the clearances part by {dc:.3e} and "
+        f"the corrections by {dp:.3e} (limit {tol:.3e}: {SC_ROUND} float32 "
+        f"roundings of the extent {extent:.1f}); corrections "
+        f"{float(p32.abs().max()):.3e} at most; {secs:.1f} s ({smi})")
+    require(dc <= tol and dp <= tol,
+            f"{label}: the card's probe or pass parts from float64")
+    require(b32 <= probe32, f"{label}: the lower bound {b32} exceeds the "
+            f"probe {probe32}")
+    return {"probe": probe32, "probe_f64": probe64,
+            "probe_f32_minus_f64": probe32 - probe64, "bound": b32,
+            "bound_f64": b64, "bound_f32_minus_f64": b32 - b64,
+            "candidate_sets_differ": n_off,
+            "clearance_err": dc, "correction_err": dp}
+
+
+def sc_times(torch, q, faces):
+    """Milliseconds per call of the probe, the lower bound and the pass on
+    (n, 3) float32 positions on the card (CUDA events, median of SC_REPS
+    after one call)."""
+    from animsnapbases_tpu_torch.sim import collisions_device as cd
+
+    return {name: cuda_ms(torch, lambda fn=fn: fn(q, faces), reps=SC_REPS,
+                          warmup=1)
+            for name, fn in (("probe_ms", cd.min_clearance_device),
+                             ("bound_ms_per_call",
+                              cd.min_clearance_lower_bound_device),
+                             ("pass_ms", cd.resolve_self_collision_device))}
+
+
+def sc_breakdown(torch, solver, rest, fext):
+    """The ring-down window again from ``rest``, each tier-1 call, lower
+    bound and exact probe between two synchronizations -> {part: seconds},
+    the rest of the call under "other" (the window loop's reads, the
+    transfers)."""
+    import animsnapbases_tpu_torch.sim.reduced as red
+
+    spent = {"tier 1": 0.0, "lower bound": 0.0, "exact probe": 0.0}
+    calls = {"tier 1": 0, "lower bound": 0, "exact probe": 0}
+    real = {"min_clearance_lower_bound_device":
+            red.min_clearance_lower_bound_device,
+            "min_clearance_device": red.min_clearance_device}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t
+            calls[name] += 1
+            return out
+        return run
+
+    fast = solver._resident_fast
+    solver._resident_fast = timed("tier 1", fast)
+    red.min_clearance_lower_bound_device = timed(
+        "lower bound", real["min_clearance_lower_bound_device"])
+    red.min_clearance_device = timed("exact probe",
+                                     real["min_clearance_device"])
+    try:
+        solver.model.positions, solver.model.velocities = (
+            x.copy() for x in rest)
+        solver.frame = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solver.run_steps(fext, SC_WINDOW, num_iterations=ITERATIONS)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    finally:
+        solver._resident_fast = fast
+        for name, fn in real.items():
+            setattr(red, name, fn)
+    out = {f"{k} ({calls[k]} calls)": v for k, v in spent.items()}
+    out["other"] = total - sum(spent.values())
+    out["total"] = total
+    return out
+
+
+def sc_clear(torch, counted, paths, dev, smi):
+    """[8] (a) The clear tier at full width: the bench cloth of
+    ``scripts/bench_selfcollision.py`` (:func:`sc_scene`, bfloat16
+    matrices) rings down over SC_WINDOW steps of ``run_steps`` (a counted
+    path: kernel 5 alone), certified by tier 1; the end clearance above
+    min_dist; the probe, bound and pass against float64 on the CPU
+    (:func:`probes_vs_cpu`); kernel 5 against its plain version step by
+    step; ``self_collision_resident = False`` (kernel 1 with the pass, a
+    counted path) against the tier over SC_SHORT steps -> the kernel-5
+    entry."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        affine_chunked,
+        affine_chunked_plain,
+    )
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    t0 = time.perf_counter()
+    model = sc_scene(DeformableModel, cloth_model, SC_ROWS)
+    solver = sc_solver(torch, dev, model, torch.bfloat16)
+    prep = time.perf_counter() - t0
+    ro, ao = solver._resident, solver._affine
+    n, m = model.n_verts, len(model.faces)
+    log(f"[8] (a) the clear tier: {n} vertices, {m} triangles ({n * m:.3e} "
+        f"pairs), r={ao.fused.r}, prepared in {prep:.1f} s; tiers: "
+        f"{solver._resident_fast_kind} tier 1, {solver._resident_kind} "
+        f"contact tier ({smi})")
+    rest = (model.positions.copy(), model.velocities.copy())
+    zero = np.zeros_like(model.positions)
+    key = f"self-collision: run_steps({SC_WINDOW}), clear"
+    took = []
+
+    def window():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solver.run_steps(zero, SC_WINDOW, num_iterations=ITERATIONS)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t)
+
+    paths[key] = counted_path(torch, counted, f"(a) run_steps({SC_WINDOW}) "
+                              "under the device pass", {"affine_chunked"},
+                              window)
+    windows = solver._last_sc_windows
+    clearance = solver._self_collision_clearance()
+    log(f"[8] (a) run_steps({SC_WINDOW}): {SC_WINDOW / took[0]:.1f} steps/s "
+        f"at the entry point ({took[0]:.3f} s); windows {windows}; "
+        f"_last_fast_steps {solver._last_fast_steps}; end clearance "
+        f"{clearance:.6f} (min_dist {SC_MIN_DIST}) ({smi})")
+    require(solver._last_fast_steps == SC_WINDOW,
+            f"(a): tier 1 did not certify the window "
+            f"({solver._last_fast_steps})")
+    require(np.isfinite(model.positions).all()
+            and np.isfinite(model.velocities).all(), "(a): non-finite state")
+    require(clearance > SC_MIN_DIST, f"(a): end clearance {clearance}")
+
+    end = (model.positions.copy(), model.velocities.copy())
+    spent = sc_breakdown(torch, solver, rest, zero)
+    model.positions, model.velocities = end
+    log(f"[8] (a) where the window's time goes (a second run, each part "
+        f"synchronized): " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                       spent.items()) + f" ({smi})")
+    faces = solver._model_collide().faces
+    q32 = torch.as_tensor(model.positions, dtype=torch.float32, device=dev)
+    readings = probes_vs_cpu(torch, "(a) end state", q32, faces, smi)
+    times = sc_times(torch, q32, faces)
+
+    # kernel 5 against its plain version, from the window's end state
+    P = solver._to_device(model.positions)
+    V = solver._to_device(model.velocities)
+    Fx = solver._to_device(zero)
+    rb = solver._rb_extra()
+
+    def one(fn):
+        def run(P_, V_):
+            o = fn(ao, P_, V_, Fx, rb, 1, ITERATIONS)
+            require(o[2] == 1, f"{fn.__name__} stopped on a free step")
+            return o[:2]
+        return run
+
+    k5_err, _ = step_by_step(torch, "(a) kernel 5", ro, one(affine_chunked),
+                             one(affine_chunked_plain), P, V, Fx, rb,
+                             SC_DEPTH)
+    k5_ms = cuda_ms(torch, lambda: affine_chunked(
+        ao, P, V, Fx, rb, WINDOW_STEPS, ITERATIONS), reps=5, warmup=1)
+    k5_plain = cuda_ms(torch, lambda: affine_chunked_plain(
+        ao, P, V, Fx, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+        warmup=0)
+    k5_bound, k5_by = bound_ms(*k5_cost(ao, WINDOW_STEPS, ITERATIONS,
+                                        CHUNK_EVERY))
+
+    # self_collision_resident=False against the tier, SC_SHORT steps from
+    # the kicked rest shape: the pass is the identity here
+    kick = np.zeros_like(rest[1])
+    kick[~np.asarray(model.fixed_flags, bool), 2] = SC_KICK
+    start = (rest[0], kick)
+    model.positions, model.velocities = (x.copy() for x in start)
+    solver.run_steps(zero, SC_SHORT, num_iterations=ITERATIONS)
+    tier, tier_windows = model.positions.copy(), solver._last_sc_windows
+    motion = float(np.abs(tier - rest[0]).max())
+    solver.self_collision_resident = False
+    solver.prepare(solver.args)
+    model.positions, model.velocities = (x.copy() for x in start)
+    key_off = "self-collision: self_collision_resident=False"
+    t = time.perf_counter()
+    paths[key_off] = counted_path(
+        torch, counted, f"(a) self_collision_resident=False, run_steps("
+        f"{SC_SHORT})", {"fused_reduced_iterations"},
+        lambda: solver.run_steps(zero, SC_SHORT, num_iterations=ITERATIONS))
+    off_ms = 1e3 * (time.perf_counter() - t) / SC_SHORT
+    d_off = float(np.abs(model.positions - tier).max())
+    log(f"[8] (a) self_collision_resident=False (kernel 1 with the pass, "
+        f"{off_ms:.2f} ms a step) against the tier over {SC_SHORT} steps "
+        f"from the rest shape kicked at {SC_KICK} along z: max|dP| "
+        f"{d_off:.3e}, the window's largest displacement {motion:.3e} (rel "
+        f"{d_off / motion:.3e}, limit {SC_OFF_REL}); the tier's windows "
+        f"{[(w['path'], w['steps']) for w in tier_windows]}; windows "
+        f"{solver._last_sc_windows} ({smi})")
+    require(all(w["path"] == "tier 1" for w in tier_windows),
+            "(a): the kicked window left tier 1")
+    require(d_off <= SC_OFF_REL * motion
+            and solver._last_sc_windows is None,
+            "(a): self_collision_resident=False departs from the tier")
+    log(f"[8] (a) kernel 5 {1e3 * k5_ms / WINDOW_STEPS:.2f} us/step over "
+        f"{WINDOW_STEPS}-step calls (bound "
+        f"{1e3 * k5_bound / WINDOW_STEPS:.4f} us/step, {k5_by}; plain "
+        f"{1e3 * k5_plain / SCENE_STEPS:.1f} us/step); the probe "
+        f"{times['probe_ms']:.2f} ms, the lower bound "
+        f"{times['bound_ms_per_call']:.2f} ms, the pass "
+        f"{times['pass_ms']:.2f} ms a call ({smi})")
+    return dict(readings, **times, launches_path=key,
+                launches=paths[key]["affine_chunked"], max_abs_err=k5_err,
+                ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound,
+                bound_by=k5_by, steps_per_call=WINDOW_STEPS,
+                window_steps=SC_WINDOW, steps_per_s=SC_WINDOW / took[0],
+                windows=windows, window_seconds=spent,
+                end_clearance=clearance,
+                resident_off_ms_per_step=off_ms,
+                resident_off_vs_tier=d_off / motion,
+                resident_off_motion=motion, prepare_s=prep)
+
+
+def sc_fold(torch, counted, paths, dev, smi):
+    """[8] (b) The proximity path: the cloth folded onto itself
+    (:func:`sc_scene` with ``fold``, float32 matrices), ``run_steps(
+    SC_FOLD_STEPS)`` a counted path (kernel 1 with the pass; no window is
+    certified); each step rebuilt from the card's state (kernel 1 on the
+    card, then the pass) and held: the served run's end state bit for bit,
+    the solve against one float64 step of the CPU's plain version from the
+    same state within SC_STEP_TOL of the extent, the pass's corrections
+    against the pass in float64 from the same positions (on the card: on
+    the CPU one call takes ~10 s at this size) within SC_ROUND float32
+    roundings of the extent where the candidate sets agree; the pass must
+    push (the probed clearance rises toward min_dist); kernel 1 against
+    float64 and timed -> the kernel-1 entry."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import (
+        force_term,
+        predict,
+        step_once,
+    )
+    from animsnapbases_tpu_torch.sim import collisions_device as cd
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    t0 = time.perf_counter()
+    model = sc_scene(DeformableModel, cloth_model, SC_ROWS, fold=True)
+    solver = sc_solver(torch, dev, model, torch.float32)
+    cpu = sc_solver(torch, "cpu", sc_scene(DeformableModel, cloth_model,
+                                           SC_ROWS, fold=True),
+                    torch.float64, torch.float64, mode=False)
+    prep = time.perf_counter() - t0
+    ro, fo = solver._resident, solver._resident.fused
+    require(np.array_equal(ro.perm, cpu._resident.perm),
+            "(b): the card's and the CPU's permutations differ")
+    faces = solver._model_collide().faces
+    q0 = torch.as_tensor(model.positions, dtype=torch.float32, device=dev)
+    probe0 = float(cd.min_clearance_device(q0, faces))
+    rest = (model.positions.copy(), model.velocities.copy())
+    zero = np.zeros_like(model.positions)
+    key = f"self-collision: run_steps({SC_FOLD_STEPS}), fold"
+    took = []
+
+    def window():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solver.run_steps(zero, SC_FOLD_STEPS, num_iterations=ITERATIONS)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t)
+
+    paths[key] = counted_path(torch, counted, f"(b) run_steps("
+                              f"{SC_FOLD_STEPS}) on the fold",
+                              {"fused_reduced_iterations"}, window)
+    served = (model.positions.copy(), model.velocities.copy())
+    probe1 = solver._self_collision_clearance()
+    log(f"[8] (b) the fold: {model.n_verts} vertices, gap {SC_GAP}, "
+        f"prepared in {prep:.1f} s (the card's solver and the CPU's); "
+        f"run_steps({SC_FOLD_STEPS}) {1e3 * took[0] / SC_FOLD_STEPS:.2f} ms "
+        f"a step; windows {solver._last_sc_windows}; _last_fast_steps "
+        f"{solver._last_fast_steps}; probed clearance {probe0:.3e} -> "
+        f"{probe1:.3e} (min_dist {SC_MIN_DIST}) ({smi})")
+    require(solver._last_fast_steps is None
+            and solver._last_sc_windows == [
+                {"path": "per-step", "steps": SC_FOLD_STEPS}],
+            "(b): the fold did not take the per-step path")
+    require(probe1 > probe0, "(b): the pass did not push the layers apart")
+
+    # each step rebuilt and held
+    P = solver._to_device(rest[0])
+    V = solver._to_device(rest[1])
+    fa = force_term(ro, solver._to_device(zero))
+    rb = solver._rb_extra()
+    ro64 = cpu._resident
+    fa64 = force_term(ro64, cpu._to_device(zero))
+    rb64 = cpu._rb_extra()
+    worst = {"solve": 0.0, "pass": 0.0, "differ": 0, "pushed": 0,
+             "scale": 0.0, "half stiffness": 0.0, "nearest only": 0.0}
+    t0 = time.perf_counter()
+    for i in range(SC_FOLD_STEPS):
+        q, _ = step_once(ro, P, V, fa, rb, ITERATIONS,
+                         iterate=fused_reduced_iterations)
+        q64, _ = step_once(ro64, cpu._to_device(solver._to_host(P)),
+                           cpu._to_device(solver._to_host(V)), fa64, rb64,
+                           ITERATIONS)
+        qn = q.T                                        # permuted (N, 3)
+        qn64 = q64.T.to(dev)
+        fperm = solver._perm_collide_fn().faces
+        # the solver's own pass (the served run's), then the float64 pass
+        # from the same (float32) positions
+        Pn = solver._perm_pass(q)
+        out = Pn.T
+        idx, delta, d, own = cd._candidate_distances(
+            qn, fperm, cd.K_NEAREST, cd.MAX_PAIRS)
+        q_wide = qn.double()
+        idx64, delta64, d64, own64 = cd._candidate_distances(
+            q_wide, fperm, cd.K_NEAREST, cd.MAX_PAIRS)
+        out64 = cd._push(q_wide, delta64, d64, own64, cd.MIN_DIST, 1.0)
+        agree = same_sets(idx, idx64)
+        extent = float(qn64.abs().max())
+        corr = (out - qn).double()
+        corr64 = out64 - q_wide
+        # planted faults: the pass at half stiffness, and on the nearest
+        # candidate alone
+        faults = {"half stiffness": cd._push(qn, delta, d, own, cd.MIN_DIST,
+                                             0.5),
+                  "nearest only": cd._push(qn, delta[:, :1], d[:, :1],
+                                           own[:, :1], cd.MIN_DIST, 1.0)}
+        worst["solve"] = max(worst["solve"],
+                             max_abs(qn, qn64) / extent)
+        worst["scale"] = max(worst["scale"],
+                             float(corr64[agree].abs().max()))
+        worst["pass"] = max(worst["pass"], float(
+            (corr - corr64)[agree].abs().max()))
+        for name, fq in faults.items():
+            worst[name] = max(worst[name], float(
+                ((fq - qn).double() - corr64)[agree].abs().max()))
+        worst["differ"] = max(worst["differ"], int((~agree).sum()))
+        worst["pushed"] = max(worst["pushed"],
+                              int((corr.abs().sum(1) > 0).sum()))
+        V = (Pn - P) / ro.dt
+        P = Pn
+    hold_s = time.perf_counter() - t0
+    rel = {k: worst[k] / max(worst["scale"], 1e-30)
+           for k in ("pass", "half stiffness", "nearest only")}
+    same = bool(np.array_equal(solver._to_host(P), served[0])
+                and np.array_equal(solver._to_host(V), served[1]))
+    log(f"[8] (b) each of {SC_FOLD_STEPS} steps rebuilt on the card from its"
+        f" state (kernel 1, then the pass): the served run's end state bit "
+        f"for bit: {same}; the solve at most {worst['solve']:.3e} of the "
+        f"extent from the CPU's float64 step (limit {SC_STEP_TOL}); where "
+        f"the candidate sets agree the pass's corrections at most "
+        f"{worst['pass']:.3e} from float64 ({rel['pass']:.3e} of the "
+        f"largest correction {worst['scale']:.3e}, "
+        f"{worst['pass'] / (F32_EPS * extent):.2f} float32 roundings of "
+        f"the extent; limit {SC_FOLD_REL}), planted faults: half stiffness "
+        f"{rel['half stiffness']:.3e}, the nearest candidate alone "
+        f"{rel['nearest only']:.3e} (the sets differ at up to "
+        f"{worst['differ']} vertices a step); up to {worst['pushed']} "
+        f"vertices pushed a step; {hold_s:.1f} s ({smi})")
+    require(same, "(b): the served run is not kernel 1 with the pass")
+    require(worst["solve"] <= SC_STEP_TOL and rel["pass"] <= SC_FOLD_REL,
+            "(b): a step on the card departs from float64")
+    require(min(rel["half stiffness"], rel["nearest only"]) > SC_FOLD_REL,
+            "(b): the pass's hold does not tell a planted fault")
+    require(worst["pushed"] > 0, "(b): the pass pushed no vertex")
+
+    # kernel 1 on the fold's first step: against float64, timed
+    P0 = solver._to_device(rest[0])
+    sn, rb_const = predict(ro, P0, torch.zeros_like(P0), fa, rb)
+    sel = sn[:, :ro.n_sel]
+    u_k = fused_reduced_iterations(fo, sel, rb_const, ITERATIONS)
+    u_p = fused_reduced_iterations_plain(fo, sel, rb_const, ITERATIONS)
+    u_64 = fused_reduced_iterations_plain(as_f64(fo), sel.double(),
+                                          rb_const.double(), ITERATIONS)
+    ok, e_k, e_p = as_accurate(u_k, u_p, u_64)
+    require(ok, "(b): kernel 1 is less accurate than its plain version")
+    k1_err = max_abs(u_k, u_p)
+    k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+        fo, sel, rb_const, ITERATIONS), reps=200)
+    k1_dev = device_ms(torch, lambda: fused_reduced_iterations(
+        fo, sel, rb_const, ITERATIONS), reps=100)
+    k1_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+        fo, sel, rb_const, ITERATIONS), reps=PLAIN_REPS, warmup=0)
+    k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS))
+    times = sc_times(torch, q0, faces)
+    log(f"[8] (b) kernel 1: vs plain {k1_err:.3e}, vs float64 kernel "
+        f"{e_k:.3e} plain {e_p:.3e}; {1e3 * k1_ms:.2f} us a call, "
+        f"{1e3 * k1_dev:.2f} us a launch on the device (bound "
+        f"{1e3 * k1_bound:.4f} us, {k1_by}; plain {1e3 * k1_plain:.1f} us); "
+        f"on the fold the probe {times['probe_ms']:.2f} ms, the lower bound "
+        f"{times['bound_ms_per_call']:.2f} ms, the pass "
+        f"{times['pass_ms']:.2f} ms a call ({smi})")
+    return dict(times, launches_path=key,
+                launches=paths[key]["fused_reduced_iterations"],
+                max_abs_err=k1_err, ms=k1_ms, device_ms=k1_dev,
+                plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
+                ms_per_step_with_pass=1e3 * took[0] / SC_FOLD_STEPS,
+                probe_before=probe0, probe_after=probe1,
+                solve_vs_f64=worst["solve"],
+                pass_vs_f64=rel["pass"],
+                pass_vs_f64_roundings=worst["pass"] / (F32_EPS * extent),
+                planted_half_stiffness=rel["half stiffness"],
+                planted_nearest_only=rel["nearest only"],
+                candidate_sets_differ=worst["differ"],
+                pushed=worst["pushed"], prepare_s=prep)
+
+
+def sc_fom(torch, dev, smi):
+    """[8] The full-order ``Solver`` on the small fold (the 6x12 cloth of
+    ``tests/test_self_collision.py``, jittered), in ``"device"`` and True
+    modes: one step each on the card (float64) from the same state as on
+    the CPU, within CPU_DEVIATION of the extent; each pass pushed (the step
+    without it ends elsewhere)."""
+    from animsnapbases_tpu_torch.config.sim_config import default_sim_args
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.sim.solver import Solver
+
+    rows, cols = SC_FOM
+    V, F = cloth_model(rows, cols)
+    V = V * 0.004
+    top = V[:, 1] > (cols - 1) / 2.0 * 0.004
+    V[top, 1] = (cols - 1) * 0.004 - V[top, 1]
+    V[top, 2] += 0.6 * SC_MIN_DIST
+    V = V + np.random.default_rng(5).normal(scale=2e-5, size=V.shape)
+    args = default_sim_args()
+    args.dt = 0.016
+    f = np.zeros_like(V)
+    f[:, 2] = -9.81 * 10.0 * 0.01
+    out = {}
+    for mode in ("device", True, False):
+        for where, device in (("card", dev), ("cpu", "cpu")):
+            model = DeformableModel(V, F, masses=np.full(len(V), 10.0),
+                                    floor_collision=False)
+            model.add_edge_spring_constraint(wi=1e4)
+            s = Solver(device=device)
+            s.enable_self_collision = mode
+            s.set_model(model)
+            s.prepare(args)
+            s.step(f, num_iterations=ITERATIONS)
+            out[mode, where] = model.positions.copy()
+    extent = float(np.abs(V).max())
+    for mode in ("device", True):
+        d = float(np.abs(out[mode, "card"] - out[mode, "cpu"]).max())
+        push = float(np.abs(out[mode, "card"] - out[False, "card"]).max())
+        log(f"[8] FOM Solver, enable_self_collision={mode!r}: one step on "
+            f"the card {d / extent:.3e} of the extent from the CPU's (limit "
+            f"{CPU_DEVIATION}); the passes moved it {push:.3e} ({smi})")
+        require(d <= CPU_DEVIATION * extent and push > 0,
+                f"FOM Solver {mode!r}: the card departs from the CPU")
+
+
+def self_collision_phase(torch, counted, paths, dev, smi):
+    """[8] Self-collision: (a) the clear tier at full width
+    (:func:`sc_clear`), (b) the proximity path on the folded cloth
+    (:func:`sc_fold`), the full-order solver's passes (:func:`sc_fom`) ->
+    {kernel name: its entry under "self_collision"}."""
+    from animsnapbases_tpu_torch.sim.collisions_device import MIN_DIST
+
+    require(MIN_DIST == SC_MIN_DIST, f"the pass's distance {MIN_DIST} is "
+            f"not the scenes' {SC_MIN_DIST}")
+    t0 = time.perf_counter()
+    k5 = sc_clear(torch, counted, paths, dev, smi)
+    t1 = time.perf_counter()
+    k1 = sc_fold(torch, counted, paths, dev, smi)
+    t2 = time.perf_counter()
+    sc_fom(torch, dev, smi)
+    log(f"[8] seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, FOM "
+        f"{time.perf_counter() - t2:.1f} ({smi})")
+    return {"affine_chunked": k5, "fused_reduced_iterations": k1}
 
 
 def port_counters():
@@ -5584,6 +6309,10 @@ def main() -> int:
     per_group = per_group_phase(torch, counted, paths, dev, smi)
     log(f"[7] per-group workflow: record, bases, reduced solves "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    collide = self_collision_phase(torch, counted, paths, dev, smi)
+    log(f"[8] self-collision: the clear tier, the proximity path, the FOM "
+        f"passes {time.perf_counter() - t0:.1f} s")
     kernels += options
     for k in kernels:
         if k["name"] in mega:
@@ -5592,6 +6321,8 @@ def main() -> int:
             k["real_bases"] = real[k["name"]]
         if k["name"] in per_group:
             k["per_group"] = per_group[k["name"]]
+        if k["name"] in collide:
+            k["self_collision"] = collide[k["name"]]
     k5 = next(k for k in kernels if k["name"] == "affine_chunked")
     k5.update(exact_check_us_bound_off=exact_us_bench,
               megacloth_exact_check_us=mega["exact_check_us"],

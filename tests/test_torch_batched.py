@@ -418,8 +418,10 @@ def test_runner_serves_a_rebuild(tmp_path):
 def test_batched_serving_refuses(tmp_path):
     """Caller mistakes raise ``ValueError`` before any kernel runs (a
     ``targets_seq`` of the wrong shape or batch among them);
-    self-collision raises ``RuntimeError``; what the port does not port yet
-    raises ``NotImplementedError`` naming its ROADMAP item."""
+    self-collision raises ``RuntimeError`` but for ``make_batched_step``
+    with the device pass captured at prepare, which applies it per sim;
+    ``mesh=`` raises ``NotImplementedError`` naming its ROADMAP item; a
+    configuration with a full group is served (batched-full)."""
     args = _args(tmp_path)
     s, m = port_tiers(args)
     pos, vel, fs = ensemble(m, [1.0, 1.0])
@@ -442,11 +444,22 @@ def test_batched_serving_refuses(tmp_path):
         run(pos, vel, fs, 2)
     with pytest.raises(RuntimeError, match="self-collision"):
         s.make_batched_run()
+    with pytest.raises(RuntimeError, match="self-collision"):
+        s.make_batched_step()(pos, vel, fs)
+    s.enable_self_collision = "device"         # not captured at prepare
+    with pytest.raises(RuntimeError, match="self-collision"):
+        s.make_batched_step()(pos, vel, fs)
+    s.set_dirty()
+    s.prepare(args)                            # captured: served per sim
+    p, v = s.make_batched_step()(pos, vel, fs)
+    assert p.shape == pos.shape and np.isfinite(p).all()
+    with pytest.raises(RuntimeError, match="self-collision"):
+        run(pos, vel, fs, 2)
     s.enable_self_collision = False
     args.edge_spring_reduced = False           # a full (unreduced) group
     s2, m2 = port_tiers(args)
-    with pytest.raises(NotImplementedError, match="not hyper-reduced"):
-        s2.make_batched_run()(*ensemble(m2, [1.0]), 2)
+    p, _ = s2.make_batched_run()(*ensemble(m2, [1.0]), 2)
+    assert s2._last_batched_path == "batched-full" and np.isfinite(p).all()
 
 
 def test_pack_round_trip(tmp_path):

@@ -157,7 +157,7 @@ def _fake_card(monkeypatch):
                         ("CONTACT_RISE", 0.0), ("CRUMPLE", 3),
                         ("CONTACT_EVERY", (256, 3, 6)), ("DRIFT_STEPS", 12),
                         ("WITNESS_DRAWS", 4), ("BAR_SIZE", (6, 3, 3)),
-                        ("NEW_DEPTH", 4), ("NEW_BATCH", 4),
+                        ("NEW_DEPTH", 4), ("BAR_DEPTH", 4), ("NEW_BATCH", 4),
                         ("POKE_CYCLES", 1), ("POKE_WINDOW", 16),
                         ("POKE_TAIL", 4), ("POKE_ROWS", 6),
                         ("POKE_SHARED", 4), ("POKE_DEPTH", 4),
@@ -245,10 +245,13 @@ def assert_entries(entries, names):
 
 # main() end to end at its smallest: 4 iterations a step, one of kernel 5's
 # other builds, one tet/bending scene (the bending cloth), phase [7]'s
-# recordings of 12 frames and example configs of 5 frames and 4 components
+# recordings of 12 frames and example configs of 5 frames and 4 components,
+# phase [8]'s cloth at 12x12
 SMALLEST = {"ITERATIONS": 4, "OPTION_BUILDS": cs.OPTION_BUILDS[:1],
             "GROUP_FRAMES": 12, "BAR_FRAMES": 12, "GROUP_STEPS": 6,
-            "GROUP_OVERRIDES": {"numFrames": 5, "desired_num_components": 4}}
+            "GROUP_OVERRIDES": {"numFrames": 5, "desired_num_components": 4},
+            "SC_ROWS": 12, "SC_R": 8, "SC_WINDOW": 48, "SC_FOLD_STEPS": 8,
+            "SC_DEPTH": 3, "SC_SHORT": 8, "SC_REPS": 1}
 SMALLEST_SCENES = ("bending cloth",)
 
 
@@ -272,15 +275,16 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
         assert {"scenes", "animated"} <= set(k), k["name"]
     assert sorted(kernels[0]["scenes"]) == list(SMALLEST_SCENES)
     k1, k5 = kernels[0], kernels[4]
-    assert {"real_bases", "per_group"} <= set(k1)
-    assert {"real_bases", "per_group", "megacloth"} <= set(k5)
+    assert {"real_bases", "per_group", "self_collision"} <= set(k1)
+    assert {"real_bases", "per_group", "megacloth",
+            "self_collision"} <= set(k5)
     out = "\n".join(lines)
     order = ["[1] built", "[2] step + run_steps", "[2] tiered runs",
              "[3] bench scene holds", "[4] bench scene times",
              "[2-4] ensemble serving", "[2-4] kernel 5's other builds",
              "[2-4] tet, bending and block-form scenes",
              "[2-4] scale: the megacloth", "[6] pipeline: record, bases",
-             "[7] per-group workflow:"]
+             "[7] per-group workflow:", "[8] self-collision:"]
     at = [out.index(line) for line in order]
     assert at == sorted(at)
 

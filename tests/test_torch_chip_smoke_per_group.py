@@ -4,8 +4,9 @@ workflow) rehearsed on the CPU with the fakes of
 example configs to 5 frames and 4 components, 6 reduced steps: the demo
 cloth's six example configs and its two solves (dense), the bench cloth on
 the host LU and the mixed path, the bar's block-form bases through kernels
-1 and 5; every card-vs-CPU hold, the kernels' entries under
-``per_group``."""
+1 and 5; every card-vs-CPU hold, the batched runners on the dense and
+mixed solves (each sim against its solo run) and their refusal of the host
+LU, the kernels' entries under ``per_group``."""
 
 import torch
 
@@ -60,6 +61,9 @@ def test_chip_smoke_per_group_phase(monkeypatch, capsys):
                                                 "geom_pca_blocks_withSt"}
         assert set(workflow["bench_vs_fom"]) == {
             "positions full", "positions reduced, edge_spring full"}
+        assert set(workflow["batched_vs_solo"]) == {
+            "demo, deim bases as deim_pod_vectorized",
+            "bench, positions reduced, edge_spring full"}
     text = capsys.readouterr().out
     for line in ("[7] demo: 400 vertices, 4 pinned",
                  "[7] demo, tris_strain, geom: pod_vectorized + geom",
@@ -70,6 +74,18 @@ def test_chip_smoke_per_group_phase(monkeypatch, capsys):
                  "[7] bar, deim_block_form: pca_blocks + deim_block_form",
                  "[7] bar, geom bases as geom_pca_blocks_withSt, kernel 1",
                  "[7] per-group workflow seconds (cpu, 0 W)",
+                 "[7] demo, deim bases as deim_pod_vectorized: "
+                 "make_batched_run (1 step) at 8 sims on the batched "
+                 "full-space step (dense)",
+                 "[7] demo, deim bases as deim_pod_vectorized: "
+                 "make_batched_step (1 step) at 8 sims",
+                 "[7] bench, positions reduced, edge_spring full: "
+                 "make_batched_run (4 steps) at 8 sims on the batched "
+                 "full-space step (mixed)",
+                 "[7] bench, positions reduced, edge_spring full: "
+                 "make_batched_step (1 step) at 8 sims",
+                 "[7] bench, positions full: make_batched_run and "
+                 "make_batched_step raise RuntimeError (the host LU)",
                  "reduced-vs-FOM after 6 steps"):
         assert line in text, line
 

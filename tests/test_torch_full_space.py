@@ -10,8 +10,8 @@ factor (3N = 243 <= DENSE_LIMIT) and with the host LU (DENSE_LIMIT set to
 path's recording of the full groups' projections (``set_store_p``).  Each
 is held within 1e-9 of the scene's extent after 8 steps at 6 iterations
 (both packages solve the same float64 systems; the measured gaps are
-rounding, below 1e-12).  The batched runners refuse these configurations
-naming A4b.
+rounding, below 1e-12).  The batched runners serve "mixed" and "dense"
+(``tests/test_torch_full_space_batched.py``) and refuse the host LU.
 """
 
 import os
@@ -160,15 +160,28 @@ def test_full_groups_recording_matches_jax(bases, tmp_path, limit):
 
 
 def test_batched_runners_refuse_naming_a4b(bases):
+    """The batched runners once refused these configurations naming A4b.
+    They serve them now on the batched full-space step (held against the
+    JAX runners in ``tests/test_torch_full_space_batched.py``): here "dense"
+    serves both runners, each sim its solo step, and the host LU alone
+    still refuses, with ``RuntimeError`` as the JAX solver does."""
     args = config(bases, False)
     _, _, s_port, m_port = pair(args)
     B = 2
     state = [np.repeat(x[None], B, axis=0) for x in (
         m_port.positions, m_port.velocities, gravity(m_port))]
-    with pytest.raises(NotImplementedError, match="A4b"):
-        s_port.make_batched_run()(*state, 2)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        s_port.make_batched_step()(*state)
+    p, _ = s_port.make_batched_run()(*state, 2)
+    assert s_port._last_batched_path == "batched-full"
+    assert np.isfinite(p).all() and np.abs(p[0] - p[1]).max() == 0
+    p, v = s_port.make_batched_step()(*state)
+    s_port.step(state[2][0])
+    np.testing.assert_allclose(p[0], m_port.positions, rtol=0,
+                               atol=1e-12 * np.abs(p).max())
+    _, _, s_host, _ = pair(args, dense_limit=0)
+    with pytest.raises(RuntimeError, match="host LU"):
+        s_host.make_batched_run()(*state, 2)
+    with pytest.raises(RuntimeError, match="host LU"):
+        s_host.make_batched_step()(*state)
 
 
 def test_prepare_raises_when_the_factorization_fails(bases):

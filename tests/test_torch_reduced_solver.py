@@ -116,12 +116,13 @@ def test_serving_path_matches_jax(tmp_path, bases):
 
 
 def test_unported_configurations_raise(tmp_path):
-    """What the port does not port yet raises NotImplementedError instead
-    of running something else: self-collision in step/run_steps, and the
-    batched runners on a configuration with a full (unreduced) group
-    (A4b), which step() now serves on the full-space path
-    (``tests/test_torch_full_space.py`` holds it against the JAX
-    solver).  Kernel 5's build options are served:
+    """What the port once refused is served: the host self-collision
+    resolvers in run_steps (step by step through step(), as the JAX solver
+    does; ``tests/test_torch_self_collision.py`` holds the modes against
+    it), and the batched runners on a configuration with a full
+    (unreduced) group (the batched full-space step, each sim its solo
+    step; ``tests/test_torch_full_space_batched.py`` holds it against the
+    JAX runners).  Kernel 5's build options are served:
     each switch reaches the build that tier 1 runs (ops/affine_chunked.py
     ChunkOptions), and prepare() no longer refuses them."""
     from animsnapbases_tpu_torch.ops.affine_chunked import ChunkOptions
@@ -129,9 +130,15 @@ def test_unported_configurations_raise(tmp_path):
     s_jax, _ = jax_solver(tmp_path, "off")
     s, m = port_solver(s_jax.args)
     f = gravity(m)
-    s.enable_self_collision = True
-    with pytest.raises(NotImplementedError, match="self-collision"):
-        s.run_steps(f, 2)
+    s_ref, m_ref = port_solver(s_jax.args)
+    for solver in (s, s_ref):
+        solver.enable_self_collision = True
+    s.run_steps(f, 2)
+    for _ in range(2):
+        s_ref.step(f)
+    assert s.frame == 2 and s._last_fast_steps is None
+    np.testing.assert_array_equal(m.positions, m_ref.positions)
+    np.testing.assert_array_equal(m.velocities, m_ref.velocities)
     s.enable_self_collision = False
     for name, value, build in (
             ("resident_floor_bound_skip", False,
@@ -162,8 +169,15 @@ def test_unported_configurations_raise(tmp_path):
     assert s2.frame == 1 and s2._full.mode == "mixed"
     B = [np.repeat(x[None], 2, axis=0) for x in (
         s2.model.positions, s2.model.velocities, f)]
-    with pytest.raises(NotImplementedError, match="not hyper-reduced.*A4b"):
-        s2.make_batched_step()(*B)
+    p, v = s2.make_batched_step()(*B)
+    s2.step(f)
+    assert s2._full.mode == "mixed"
+    extent = np.abs(s2.model.positions).max()
+    for b in range(2):
+        np.testing.assert_allclose(p[b], s2.model.positions, rtol=0,
+                                   atol=1e-12 * extent)
+        np.testing.assert_allclose(v[b], s2.model.velocities, rtol=0,
+                                   atol=1e-12 * np.abs(v).max())
 
 
 def test_static_positional_targets_match_jax(tmp_path):

@@ -343,9 +343,11 @@ def test_auto_tier_and_refusals():
     s.DENSE_LIMIT = 10
     s.prepare(args())
     assert s._mode == "cg"
-    s.enable_self_collision = "device"
-    with pytest.raises(NotImplementedError, match="A12"):
-        s.step(gravity(m))
+    s.enable_self_collision = "device"          # served: the device pass
+    s.step(gravity(m))
+    assert s._collide is not None and np.isfinite(m.positions).all()
+    s.set_model(m)
+    assert s._collide is None                   # keyed on the faces
     with pytest.raises(ValueError, match="global_solve"):
         bad = Solver("lu", device="cpu")
         bad.set_model(m)
