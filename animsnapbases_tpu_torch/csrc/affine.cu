@@ -5,7 +5,7 @@
 //   builds: contact_mode=False, the lean build (mode LEAN, or LEAN_NO_FLOOR),
 //   and contact_mode=True (mode CONTACT, :710-715, :732-871, :928-936);
 //   build_resident_affine_exit (:980-1142, pallas_call :1122): kernel 4
-//   (mode EXIT).
+//   (mode EXIT), solo and batched (below).
 // Both carry the state as base coefficients over the anchors b0, b1 and
 // the force term fa, plus reduced coordinates (ops/affine.py, affine.cuh).
 // Each step i of num_steps:
@@ -116,6 +116,18 @@
 // Every sim's arithmetic runs in the order of the solo call (nb = 1), and
 // no plan changes a result, so sim b of a batched call equals the solo
 // call from sim b's state bit for bit.
+//
+// The batched build of kernel 4 (mode EXIT, nb sims; the JAX kernel's nb >
+// 1, pallas_resident.py:980, call :1122) runs the same launches on the same
+// grids, one cluster a sim.  Each sim keeps its own F_DONE and F_K: its
+// floor test sets its step's slot, its free_step cluster then sets F_DONE
+// and returns, and from there every launch leaves that sim alone (the
+// rebase's materialization and reset included) until the output
+// materializes its state of F_K steps.  The JAX kernel stops the whole
+// batch at the first step any sim would clamp; the wrapper
+// (ops/affine.py resident_affine_exit_batched) takes k = min F_K over the
+// sims and, when they differ, launches again for k steps from the same
+// inputs, so no cluster waits for another.
 #include "affine.cuh"
 
 namespace ksm {

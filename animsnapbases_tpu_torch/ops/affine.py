@@ -31,7 +31,8 @@ becomes the new anchors.
   kernel 3's loop in either build.
 * ``affine_run_plain`` / ``resident_affine_plain`` (kernel 3, either build;
   ``resident_affine_contact_plain`` names the contact-mode one) and
-  ``resident_affine_exit_plain`` (kernel 4): the plain versions.
+  ``resident_affine_exit_plain`` (kernel 4, solo and batched): the plain
+  versions.
 * The wrappers ``resident_affine`` (kernel 3, lean), ``resident_affine_contact``
   (kernel 3, contact mode) and ``resident_affine_exit`` (kernel 4).  For CUDA
   tensors a wrapper launches ``csrc/affine.cu`` (one C loop enqueues every
@@ -52,6 +53,12 @@ becomes the new anchors.
   any sim clamps; the clamp is the identity for airborne sims, so both are
   exact (ROADMAP Queue C), and per sim keeps sim b of a batched call equal
   to its solo call.
+* ``resident_affine_exit_batched``: kernel 4's batched build, with the JAX
+  kernel's whole-batch exit (every sim commits to the steps before the
+  first that any sim would clamp) and its own launch counter.  No entry
+  point takes it: the JAX package builds kernel 4 solo only
+  (``sim/reduced.py:800-803``), and ``make_batched_run`` serves a batch on
+  kernels 3 and 5.
 
 Contact mode (``pallas_resident.py:732-870``, ``:928-936``): a sim whose
 predictor clamps enters it.  Its x and z rows stay in affine coordinates;
@@ -492,7 +499,11 @@ def resident_affine_exit_plain(ao: AffineOperands, P, V, fext, rb_extra,
                                rebase_every: int = 256):
     """Plain version of kernel 4: contact-free steps until the first step
     whose predictor the floor would clamp, which is not applied ->
-    (P', V', steps_done)."""
+    (P', V', steps_done).  With a leading batch axis (B, 3, N) of
+    independent sims (``rb_extra`` shared or per sim) it is the plain
+    version of the batched build, with the JAX kernel's whole-batch exit
+    (``pallas_resident.py:1075-1089``): the floor test looks at every sim,
+    and the batch stops at the first step that any sim would clamp."""
     if P.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     ctx = AffineContext(ao, force_term(ao.res, fext))
@@ -649,8 +660,6 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
         raise ValueError("rebase_every must be >= 1")
     batched = P.dim() == 3
     nb = P.shape[0] if batched else 1
-    if variant == "exit" and batched:
-        raise ValueError("kernel 4 has no batched build")
     fn = _build.function("affine", _SYMBOLS[(P.dtype, ro.U_liftT.dtype)],
                          _ARGTYPES)
     bufs = affine_buffers(ao, P, V, fext, num_steps, variant, affine_tile())
@@ -767,7 +776,8 @@ def resident_affine_exit(ao: AffineOperands, P, V, fext, rb_extra,
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
     if P.dim() != 2:
-        raise ValueError("P must be (3, N): kernel 4 has no batched build")
+        raise ValueError("P must be (3, N): a batch of sims takes "
+                         "resident_affine_exit_batched")
     P_out, V_out, flags, _, _ = _launch_affine(ao, P, V, fext, rb_extra,
                                                num_steps, num_iterations,
                                                rebase_every, "exit")
@@ -776,6 +786,46 @@ def resident_affine_exit(ao: AffineOperands, P, V, fext, rb_extra,
 
 
 resident_affine_exit.launches = 0
+
+
+def resident_affine_exit_batched(ao: AffineOperands, P, V, fext, rb_extra,
+                                 num_steps: int, num_iterations: int,
+                                 rebase_every: int = 256):
+    """The batched build of kernel 4 (``nb = B`` in the JAX package):
+    (P', V', k) of B independent sims (B, 3, N), the target-term schedule
+    ``rb_extra`` shared or per sim, with the JAX kernel's whole-batch exit:
+    every sim is committed to the same k steps, those before the first step
+    at which any sim's predictor the floor would clamp.  CPU tensors run
+    the plain version; CUDA tensors launch the exit variant of
+    ``csrc/affine.cu`` with B sims, one cluster each, every sim stopping at
+    its own first clamp (its own k_b), and read the B values of k_b back.
+    When they differ, the call is launched again for k = min k_b steps from
+    the same inputs (``ops/affine_chunked.py`` ``_chunk_cuda_batched``'s
+    method): no cluster waits for another, and the launch is deterministic,
+    so each sim's state is that of its first k steps bit for bit.  Each
+    launch counts in ``launches``.  The inputs are not modified."""
+    if P.dim() != 3:
+        raise ValueError("P must be (B, 3, N)")
+    if P.device.type == "cpu":
+        return resident_affine_exit_plain(ao, P, V, fext, rb_extra,
+                                          num_steps, num_iterations,
+                                          rebase_every)
+    if P.device.type != "cuda":
+        raise ValueError(f"unsupported device {P.device}")
+    call = (ao, P, V, fext, rb_extra)
+    P_out, V_out, flags, _, _ = _launch_affine(
+        *call, num_steps, num_iterations, rebase_every, "exit")
+    resident_affine_exit_batched.launches += 1
+    kb = flags[:, 2].tolist()
+    k = min(kb)
+    if k < max(kb):
+        P_out, V_out = _launch_affine(*call, k, num_iterations, rebase_every,
+                                      "exit")[:2]
+        resident_affine_exit_batched.launches += 1
+    return P_out, V_out, k
+
+
+resident_affine_exit_batched.launches = 0
 
 
 def affine_tile() -> int:

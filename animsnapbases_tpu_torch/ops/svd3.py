@@ -28,6 +28,15 @@ def _grad_safe_sqrt(x: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(x))
 
 
+def floor_at(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """max(x, lo) with JAX's gradient at a tie: ``jnp.maximum`` (and
+    ``jnp.clip``) split the cotangent in half where x == lo, ``torch.clamp``
+    passes all of it to x; ``torch.maximum`` splits it as JAX does.  The
+    values equal ``torch.clamp``'s bit for bit.  ``lo`` rides as a 0-dim
+    CPU tensor, a scalar argument of the kernel on any device."""
+    return torch.maximum(x, torch.tensor(lo, dtype=x.dtype))
+
+
 # ---------------------------------------------------------------------------
 # symmetric eigendecomposition via cyclic Jacobi
 # ---------------------------------------------------------------------------
@@ -44,22 +53,28 @@ def _jacobi_rotation(app, aqq, apq):
     return c, t * c
 
 
+def _with(X, p, q, Xp, Xq, axis):
+    """X with its columns (axis -1) or rows (axis -2) p and q replaced by
+    Xp and Xq, out of place: autograd saves the operands of the products
+    that made Xp and Xq, which a write into X would change."""
+    parts = [Xp if j == p else Xq if j == q else X.select(axis, j)
+             for j in range(X.shape[axis])]
+    return torch.stack(parts, dim=axis)
+
+
 def _apply_jacobi(A, V, p, q):
     """A <- G^T A G and V <- V G for the rotation G in rows/cols (p, q)."""
     c, s = _jacobi_rotation(A[..., p, p], A[..., q, q], A[..., p, q])
     c, s = c[..., None], s[..., None]
-    A = A.clone()
     Ap = c * A[..., :, p] - s * A[..., :, q]
     Aq = s * A[..., :, p] + c * A[..., :, q]
-    A[..., :, p], A[..., :, q] = Ap, Aq
+    A = _with(A, p, q, Ap, Aq, -1)
     Ap = c * A[..., p, :] - s * A[..., q, :]
     Aq = s * A[..., p, :] + c * A[..., q, :]
-    A[..., p, :], A[..., q, :] = Ap, Aq
-    V = V.clone()
+    A = _with(A, p, q, Ap, Aq, -2)
     Vp = c * V[..., :, p] - s * V[..., :, q]
     Vq = s * V[..., :, p] + c * V[..., :, q]
-    V[..., :, p], V[..., :, q] = Vp, Vq
-    return A, V
+    return A, _with(V, p, q, Vp, Vq, -1)
 
 
 def jacobi_eigh3(S: torch.Tensor, sweeps: int = 6):
@@ -124,10 +139,10 @@ def _orthonormal_u(B: torch.Tensor, sigma: torch.Tensor):
         alt = cand[torch.argmin(scores, dim=-1)]
         for pc in cols:
             alt = alt - dot(alt, pc) * pc
-        alt = alt / torch.clamp(_grad_safe_sqrt((alt * alt).sum(-1)),
-                                min=_EPS)[..., None]
+        alt = alt / floor_at(_grad_safe_sqrt((alt * alt).sum(-1)),
+                             _EPS)[..., None]
         cols.append(torch.where(ok[..., None],
-                                v / torch.clamp(vn, min=_EPS)[..., None],
+                                v / floor_at(vn, _EPS)[..., None],
                                 alt))
     return torch.stack(cols, dim=-1)
 
@@ -152,8 +167,9 @@ def polar_rotation3x3(F: torch.Tensor):
     +1 kept by flipping the last column of U."""
     U, _, Vt = svd3x3(F)
     flip = torch.linalg.det(U @ Vt) < 0
-    U = U.clone()
-    U[..., :, 2] = U[..., :, 2] * torch.where(flip, -1.0, 1.0)[..., None]
+    sign = torch.where(flip, -1.0, 1.0).to(U.dtype)
+    U = torch.cat([U[..., :, :2], U[..., :, 2:] * sign[..., None, None]],
+                  dim=-1)
     return U @ Vt
 
 
@@ -173,5 +189,5 @@ def top_mode_rows(X: torch.Tensor):
         w, V = jacobi_eigh2(G)
     else:
         raise ValueError("top_mode_rows supports d in {2, 3}")
-    sigma0 = torch.sqrt(torch.clamp(w[..., 0], min=0.0))
+    sigma0 = torch.sqrt(floor_at(w[..., 0], 0.0))
     return sigma0, (V[..., :, 0:1] * X).sum(-2)

@@ -13,12 +13,19 @@ import torch
 
 from animsnapbases_tpu_torch.ops.segment import coo_matvec_cols
 from animsnapbases_tpu_torch.ops.svd3 import (
+    floor_at,
     polar_rotation3x3,
     svd2x2,
     svd3x3,
 )
 
 _EPS = 1e-30
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: min(max(x, lo), hi), with JAX's gradient
+    at a tie (:func:`floor_at`)."""
+    return torch.minimum(floor_at(x, lo), torch.tensor(hi, dtype=x.dtype))
 
 
 def positional_p(targets: torch.Tensor) -> torch.Tensor:
@@ -38,7 +45,7 @@ def verts_bending_p(q: torch.Tensor, data: dict) -> torch.Tensor:
     norm = torch.linalg.vector_norm(star_sum, dim=1)
     correction = torch.where(
         (norm < 1e-10)[:, None], tri_n * rest[:, None],
-        star_sum * (rest / torch.clamp(norm, min=_EPS))[:, None])
+        star_sum * (rest / floor_at(norm, _EPS))[:, None])
     if data.get("prevent_bending_flips", True):
         dots = (tri_n * correction).sum(dim=1)
         flip = (norm > 1e-5) & (dots * data["dot_with_normal"] < 0)
@@ -51,7 +58,7 @@ def edge_spring_p(q: torch.Tensor, data: dict) -> torch.Tensor:
     edges = data["edges"]
     spring = q[edges[:, 1]] - q[edges[:, 0]]
     length = torch.linalg.vector_norm(spring, dim=1)
-    n = spring / torch.clamp(length, min=_EPS)[:, None]
+    n = spring / floor_at(length, _EPS)[:, None]
     delta = 0.5 * (length - data["rest_length"])
     pi = 0.5 * spring - delta[:, None] * n
     return torch.where((length > 0)[:, None], pi, 0.0)
@@ -66,7 +73,7 @@ def tris_strain_p(q: torch.Tensor, data: dict) -> torch.Tensor:
     Ds = torch.stack([q[faces[:, 1]] - q1, q[faces[:, 2]] - q1], dim=2)
     F = torch.einsum("eij,eik->ejk", P, Ds) @ data["DmInv"]
     U, s, Vt = svd2x2(F)
-    s = torch.clamp(s, data["sigma_min"], data["sigma_max"])
+    s = clip(s, data["sigma_min"], data["sigma_max"])
     Fhat = (U * s[:, None, :]) @ Vt                          # (e, 2, 2)
     return torch.einsum("eij,ejk->eki", P, Fhat).reshape(-1, 3)
 
@@ -84,7 +91,7 @@ def tets_strain_p(q: torch.Tensor, data: dict) -> torch.Tensor:
     re-signed where det F < 0; returns (e*3, 3)."""
     F = _tet_F(q, data)
     U, s, Vt = svd3x3(F)
-    s = torch.clamp(s, data["sigma_min"], data["sigma_max"])
+    s = clip(s, data["sigma_min"], data["sigma_max"])
     s = torch.cat([s[:, :2], s[:, 2:] * torch.where(
         torch.linalg.det(F) < 0, -1.0, 1.0)[:, None]], dim=1)
     return ((U * s[:, None, :]) @ Vt).reshape(-1, 3)

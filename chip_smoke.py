@@ -52,7 +52,14 @@ version.  Phases, each of which fails the run when it fails:
    and 3, both builds, on the mixed batch and on 64 sims), batched kernel
    5's whole-batch k against the sims' solo k, one step of kernels 2, 3
    (both builds) and 5 against the plain versions on both batches; times at
-   1 to 128 sims, with torch.profiler breakdowns;
+   1 to 128 sims, with torch.profiler breakdowns; then kernel 4's batched
+   build (:func:`exit_batched`, row 4b, which no entry point takes),
+   launched directly as a counted path: the ring-down ensemble at 8 and 64
+   sims certified over 2,000 steps, the mixed batch's whole-batch exit at
+   its first contact sim's first clamp (the plain version's k, two
+   launches), carried steps and one step against the plain version, each
+   sim bit for bit against solo kernel 4 run for as many steps, times at 1,
+   8 and 64 sims in turns with batched kernel 3 (lean);
 2-4 for the tet, bending and block-form kinds (:func:`tet_bending`): five
    scenes at full width, from the reference's JSON configs (the tet bar of
    ``bar_automated_deformationgradient.json`` with tets_deformation_gradient
@@ -152,7 +159,17 @@ version.  Phases, each of which fails the run when it fails:
    rebuilt and held against float64, the pass pushing the layers apart,
    kernel 1 against float64 and timed; the full-order solver's two modes
    against the CPU;
-5. the ``kernels`` line (21 entries: six solo kernels, five batched
+9. ``diff`` (:func:`diff_phase`): differentiable rollouts
+   (``sim/diff.py``, float64 plain torch, no kernel) on phase [6]'s
+   recording and bases (r = 48): a rollout and its gradients with respect
+   to the scales, a force multiplier and the positional targets (two pins
+   added) held against the same calls on the CPU, the scales' gradient
+   against central differences; the ``--bench`` fit of
+   ``demos/fit_material.py`` (its fitted scales, errors, losses, ms an Adam
+   step, a rollout's forward and backward, peak memory), which must
+   converge; the twin experiment end to end, which must pass the script's
+   ``ok``;
+5. the ``kernels`` line (22 entries: six solo kernels, six batched
    builds, each with its times on the new scenes under ``scenes``, with a
    target schedule under ``animated``, at 250,000 vertices under
    ``megacloth`` and, for kernels 1 and 5, on real bases under
@@ -167,6 +184,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -281,6 +299,8 @@ SIM_ROWS = 8
 CONTACT_RISE = 0.15
 CONTACT_STEP = 0.1
 MIXED_EVERY = 16
+# rounds of the in-turns timing of batched kernels 4 and 3 over the window
+EXIT_ROUNDS = 3
 # contact mode (kernel 3's contact-mode build): the rebase cadences of its
 # carried holds on the contact scene (256: none in 64 steps; 3 and 16: the
 # mode entered, carried and left), the last also that of its first drift
@@ -485,6 +505,29 @@ SC_STEP_TOL = 1e-6
 # the full-order solver's fold: the 6x12 cloth of
 # tests/test_self_collision.py at 0.004 units a cell
 SC_FOM = (6, 12)
+# phase [9], differentiable rollouts on phase [6]'s bases: the rollout of
+# the holds (the --bench fit's horizon and iterations); positional pins
+# added to the bench scene for the targets' gradient; the card against the
+# CPU, both float64, relative to the largest entry, within DIFF_ROUNDINGS
+# float64 roundings of the largest condition number of Ar (the two LU
+# factorizations part by ~cond * eps: 1.2e-6 on the targets' gradient at
+# cond 1.0e9 on an NVIDIA H100 80GB HBM3); central differences at three eps (the JAX test's
+# 1e-4 and below) against its limit, each entry's gap relative to the
+# largest entry, held at the closest of the three: the strain clamps make
+# the loss piecewise smooth, and an interval that crosses a clamp boundary
+# parts by 1e-2 to 1 (on the card's bench bases: 1.9e-2 at 1e-4, 5.9e-2 at
+# 3e-5, 2.5e-3 at 1e-5; on the CPU's, 0.70 at 1e-3, 7e-4 at 1e-4),
+# while a wrong gradient parts at every eps; repetitions of the rollout's
+# timing
+DIFF_HORIZON = 12
+DIFF_ITERS = 6
+DIFF_PINS = 2
+DIFF_ROUNDINGS = 64
+DIFF_FD_EPS = (1e-4, 3e-5, 1e-5)
+DIFF_FD_TOL = 5e-3
+DIFF_REPS = 5
+# Adam steps of the two fits (None: the script's defaults, 250 and 150)
+DIFF_FIT_STEPS = None
 
 
 def log(*a):
@@ -1041,9 +1084,11 @@ def step_by_step(torch, label, ro, run_k, run_p, P, V, Fx, rb_extra, steps,
 
 
 def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
-                  steps, every=REBASE_EVERY, options=None):
+                  steps, every=REBASE_EVERY, options=None, batch=None):
     """The steps one call of kernel 3, 4 or 5 (``kernel``; "3c" for kernel
-    3's contact-mode build) carries inside it, in its coefficients over the
+    3's contact-mode build, "4b" for kernel 4's batched build on the sims
+    of ``batch`` = (P, V, F, b), held on its sim b, whose state is P, V,
+    F_) carries inside it, in its coefficients over the
     call's anchors (P, V): for each s <= ``steps``, one kernel call of s
     steps against one plain step (``AffineContext``; through the gathered
     values for kernel 5) from the state that the kernel's call of s - 1
@@ -1184,13 +1229,20 @@ def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
                 rb_extra, s, ITERATIONS, ao.floor_level, options)
             Pk, Vk = advance(ao, P, V, fa, *coefs)
         else:
-            variant = {3: "lean", 4: "exit", "3c": "contact"}[kernel]
-            Pk, Vk, flags, coef, y = _launch_affine(
-                ao, P, V, F_, rb_extra, s, ITERATIONS, every, variant)
+            variant = {3: "lean", 4: "exit", "4b": "exit",
+                       "3c": "contact"}[kernel]
+            if batch is None:
+                Pk, Vk, flags, coef, y = _launch_affine(
+                    ao, P, V, F_, rb_extra, s, ITERATIONS, every, variant)
+            else:
+                *sims, b = batch
+                Pk, Vk, flags, coef = (x[b] for x in _launch_affine(
+                    ao, *sims, rb_extra, s, ITERATIONS, every, variant)[:4])
+                y = None
             coefs = split_coef(coef, ao.fused.r)
             mode = bool(int(flags[MODE_SLOT]))
-            done = (int(flags[2]) if kernel == 4 else s if contact else
-                    s - int(flags[FLAG_SLOTS:FLAG_SLOTS + s].sum()))
+            done = (int(flags[2]) if kernel in (4, "4b") else s if contact
+                    else s - int(flags[FLAG_SLOTS:FLAG_SLOTS + s].sum()))
         require(done == s, f"{label}: the kernel did {done} of {s} "
                 "contact-free steps")
         return Pk, Vk, (tuple(coefs), mode, y), flags
@@ -1582,8 +1634,9 @@ def plans_by_sims(name, plan_of, library):
 def ensemble(torch, counted, solver, model, f, main_state, paths):
     """The ensemble-serving section: the paths (2), holds (3) and times (4)
     of make_batched_run / make_batched_step and the batched builds of
-    kernels 1, 2, 3 (both builds) and 5.  Returns the five batched entries
-    of the kernels line."""
+    kernels 1, 2, 3 (both builds) and 5, then kernel 4's batched build
+    (:func:`exit_batched`).  Returns the six batched entries of the kernels
+    line."""
     from animsnapbases_tpu_torch.ops.affine import (
         FLAG_SLOTS,
         _launch_affine,
@@ -2069,6 +2122,7 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
         "steps/s")
     reprepare(solver, CHUNKED_TIER1_MIN_VERTS=default_min,
               resident_rebase_every=None, resident_contact_mode=None)
+    k4b = exit_batched(torch, counted, paths, solver, model, f, main_state)
 
     # equals_solo_bitwise: each sim's output of a call was held bit for bit
     # against the solo kernel's (kernel 5: its chunk launch; the state it
@@ -2126,7 +2180,159 @@ def ensemble(torch, counted, solver, model, f, main_state, paths):
               device_busy_share=sum(spent_m.values()) / wall_m,
               device_us_per_step_by_launch={
                   k: 1e6 * v / SCENE_STEPS for k, v in spent_m.items()}),
+        k4b,
     ]
+
+
+def exit_batched(torch, counted, paths, solver, model, f, main_state):
+    """Kernel 4's batched build (row 4b: ``build_resident_affine_exit`` at
+    nb > 1, ``pallas_resident.py:1122``), which no entry point takes (the
+    JAX package builds kernel 4 solo only): launched directly, one counted
+    path, on the ring-down ensemble at 8 and ENSEMBLE sims over
+    WINDOW_STEPS (contact-free: k must be the window's steps) and on the
+    mixed batch over SCENE_STEPS (the whole-batch exit: k must be the first
+    contact sim's first clamp, the plain version's k and the least of the
+    sims' solo k, in two launches).  Held step by step against the plain
+    version (:func:`carried_steps` on a ring-down sim and the first contact
+    sim of the mixed batch, every call launched on the whole batch), one
+    step of each batch against the batched plain version, and each sim of
+    the mixed batch (and of the ring-down at 8) bit for bit against solo
+    kernel 4 run for as many steps.  Timed over WINDOW_STEPS at 1, 8 and
+    ENSEMBLE sims in turns with batched kernel 3's lean build (one sim: the
+    solo kernels).  Returns its entry of the kernels line."""
+    from animsnapbases_tpu_torch.ops.affine import (
+        resident_affine,
+        resident_affine_batched,
+        resident_affine_exit,
+        resident_affine_exit_batched,
+        resident_affine_exit_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import force_term
+
+    ao = solver._affine
+    ro = ao.res
+    rb = solver._rb_extra()
+    sizes = [B for B in ENSEMBLE_SIZES if B <= ENSEMBLE]
+    rings = {B: tuple(solver._pack(x) for x in ensemble_state(main_state, B))
+             for B in sizes}
+    Pm, Vm, Fm = (solver._pack(x) for x in mixed_state(model, main_state, f))
+    first = contact_sims()[0]
+    out = {}
+
+    def direct():
+        for B in sizes[1:]:
+            out[B] = resident_affine_exit_batched(
+                ao, *rings[B], rb, WINDOW_STEPS, ITERATIONS)
+        before = resident_affine_exit_batched.launches
+        out["mixed"] = resident_affine_exit_batched(ao, Pm, Vm, Fm, rb,
+                                                    SCENE_STEPS, ITERATIONS)
+        out["mixed launches"] = resident_affine_exit_batched.launches - before
+
+    label = (f"batched kernel 4, launched directly (ring-down at "
+             f"{sizes[1:]} sims, mixed batch of {MIXED})")
+    paths[label] = counted_path(torch, counted, label,
+                                {"resident_affine_exit_batched"}, direct)
+    for B in sizes[1:]:
+        P_, V_, k = out[B]
+        require(k == WINDOW_STEPS and bool(torch.isfinite(P_).all())
+                and bool(torch.isfinite(V_).all()),
+                f"batched kernel 4 stopped after {k} of the ring-down "
+                f"window's {WINDOW_STEPS} steps at {B} sims, or its state is "
+                "not finite")
+    B8 = sizes[1]
+    same_per_sim(torch, f"batched kernel 4, ring-down B={B8}, "
+                 f"{WINDOW_STEPS} steps", out[B8][:2],
+                 lambda b: resident_affine_exit(
+                     ao, *(x[b] for x in rings[B8]), rb, WINDOW_STEPS,
+                     ITERATIONS)[:2], B8)
+    Pk, Vk, k = out["mixed"]
+    ks = [resident_affine_exit(ao, Pm[b], Vm[b], Fm[b], rb, SCENE_STEPS,
+                               ITERATIONS)[2] for b in range(MIXED)]
+    kp = resident_affine_exit_plain(ao, Pm, Vm, Fm, rb, SCENE_STEPS,
+                                    ITERATIONS)[2]
+    log(f"[3] batched kernel 4, mixed batch: whole-batch k {k} in "
+        f"{out['mixed launches']} launches (plain {kp}); the sims' solo "
+        f"k {ks}; the first contact sim {first}")
+    require(k == kp == min(ks) == ks[first] and 0 < k < max(ks),
+            f"batched kernel 4's k {k} is not the first contact sim's first "
+            f"clamp (solo k {ks}) or the plain version's {kp}")
+    require(out["mixed launches"] == 2,
+            f"batched kernel 4 on the mixed batch was never launched twice "
+            f"({out['mixed launches']} launches)")
+    same_per_sim(torch, f"batched kernel 4, mixed batch, k = {k} steps",
+                 (Pk, Vk), lambda b: resident_affine_exit(
+                     ao, Pm[b], Vm[b], Fm[b], rb, k, ITERATIONS)[:2], MIXED)
+    err = 0.0
+    for b in (0, first):
+        e, _ = carried_steps(
+            torch, f"batched kernel 4, mixed batch, sim {b}, carried steps",
+            "4b", ao, resident_affine_exit_plain, Pm[b], Vm[b], Fm[b], rb,
+            k, batch=(Pm, Vm, Fm, b))
+        err = max(err, e)
+    for name, (P_, V_, F_) in (("mixed batch", (Pm, Vm, Fm)),
+                               (f"ring-down B={ENSEMBLE}", rings[ENSEMBLE])):
+        Pk1, Vk1, _ = resident_affine_exit_batched(ao, P_, V_, F_, rb, 1,
+                                                   ITERATIONS)
+        Pp1, Vp1, _ = resident_affine_exit_plain(ao, P_, V_, F_, rb, 1,
+                                                 ITERATIONS)
+        fa = force_term(ro, F_)
+        for b in range(P_.shape[0]):
+            shares = step_share(ro, fa[b], rb, P_[b], V_[b], Pk1[b], Vk1[b],
+                                Pp1[b], Vp1[b])
+            hold_step(f"batched kernel 4, {name}, sim {b}", shares)
+            err = max(err, *(d for d, _ in shares.values()))
+    log(f"[3] batched kernel 4: carried steps of sims 0 and {first} and one "
+        f"step of both batches against the plain version within {STEP_TOL} "
+        f"of each step's size; max abs {err:.3e}")
+
+    # ---- 4. times --------------------------------------------------------
+    per_step, k3_step = {}, {}
+    for B in sizes:
+        P_, V_, F_ = rings[B]
+        if B == 1:      # one sim serves on the solo kernels
+            P_, V_, F_ = P_[0], V_[0], F_[0]
+            k4, k3 = resident_affine_exit, resident_affine
+        else:
+            k4, k3 = resident_affine_exit_batched, resident_affine_batched
+        t = in_turns(torch, {
+            "4": lambda: k4(ao, P_, V_, F_, rb, WINDOW_STEPS, ITERATIONS),
+            "3": lambda: k3(ao, P_, V_, F_, rb, WINDOW_STEPS, ITERATIONS)},
+            EXIT_ROUNDS)
+        per_step[B] = 1e3 * t["4"] / WINDOW_STEPS
+        k3_step[B] = 1e3 * t["3"] / WINDOW_STEPS
+    P64, V64, F64 = rings[ENSEMBLE]
+    ms = cuda_ms(torch, lambda: resident_affine_exit_batched(
+        ao, P64, V64, F64, rb, SCENE_STEPS, ITERATIONS))
+    plain_ms = cuda_ms(torch, lambda: resident_affine_exit_plain(
+        ao, P64, V64, F64, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+        warmup=0)
+    bound, by = bound_ms(*k3_cost(ao, SCENE_STEPS, ITERATIONS, REBASE_EVERY,
+                                  0, nb=ENSEMBLE))
+    bounds = {B: 1e3 * bound_ms(*k3_cost(ao, WINDOW_STEPS, ITERATIONS,
+                                         REBASE_EVERY, 0, nb=B))[0]
+              / WINDOW_STEPS for B in sizes}
+    log(f"[4] batched kernel 4, ring-down over {WINDOW_STEPS} steps, in "
+        f"turns with batched kernel 3 (lean): " + "; ".join(
+            f"B={B} {per_step[B]:.2f} us/step (kernel 3 {k3_step[B]:.2f}; "
+            f"bound {bounds[B]:.4f})" for B in sizes)
+        + f"; B={ENSEMBLE} {SCENE_STEPS}-step calls "
+        f"{1e3 * ms / SCENE_STEPS:.2f} us/step, plain "
+        f"{1e3 * plain_ms / SCENE_STEPS:.1f} us/step, bound "
+        f"{1e3 * bound / SCENE_STEPS:.4f} us/step ({by})")
+    return {"name": "resident_affine_exit_batched", "route": "cuda",
+            "source": "animsnapbases_tpu_torch/csrc/affine.cu",
+            "replaces": "animsnapbases_tpu/ops/pallas_resident.py:1122 "
+                        "(nb > 1)",
+            "launches": paths[label]["resident_affine_exit_batched"],
+            "launches_path": label, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "sims": ENSEMBLE,
+            "steps_per_call": SCENE_STEPS, "equals_solo_bitwise": True,
+            "whole_batch_k": k, "solo_k": ks, "mixed_launches":
+                out["mixed launches"],
+            "window_us_per_step_by_sims": per_step,
+            "kernel3_lean_window_us_per_step_by_sims": k3_step,
+            "window_bound_us_per_step_by_sims": bounds}
 
 
 # the tier switches every run of the bench scene takes, and the switch scene
@@ -3948,7 +4154,7 @@ def bound_trips(ao, P, V, F, rb, steps):
     return sum(trips)
 
 
-def pipeline_phase(torch, counted, paths, dev):
+def pipeline_phase(torch, counted, paths, dev, work=None):
     """bench.py's flagship path on the card with real bases, on the bench
     scene (:func:`bench_scene`): the full-order recording
     (``Solver(global_solve="host")``, FOM_FRAMES frames at FOM_ITERS
@@ -3970,8 +4176,11 @@ def pipeline_phase(torch, counted, paths, dev):
     then WINDOW_STEPS) as a counted path, certified by tier 1 and
     floor-clear.  Kernels 1 and 5 held against their plain versions on
     these bases (kernel 1 against float64, :func:`as_accurate`; kernel 5
-    step by step and its carried steps) and timed.  Returns {kernel name:
-    the numbers the kernels line carries under "real_bases"}."""
+    step by step and its carried steps) and timed.  The recording and the
+    bases lie under ``work`` (``card/bases``, ``card/pos_basis.npz``; a
+    temporary directory when None), where phase [9] reads them.  Returns
+    {kernel name: the numbers the kernels line carries under
+    "real_bases"}."""
     import warnings
 
     from animsnapbases_tpu_torch.bases.pipeline import (
@@ -4003,7 +4212,8 @@ def pipeline_phase(torch, counted, paths, dev):
         return bench_scene(DeformableModel, cloth_model)
 
     out, secs = {}, {}
-    with tempfile.TemporaryDirectory() as work:
+    with (contextlib.nullcontext(work) if work
+          else tempfile.TemporaryDirectory()) as work:
         # ---- 2. the pipeline's main path, counted ------------------------
         model = scene()
         f = gravity(model)
@@ -5437,8 +5647,167 @@ def self_collision_phase(torch, counted, paths, dev, smi):
     return {"affine_chunked": k5, "fused_reduced_iterations": k1}
 
 
+def diff_phase(torch, dev, smi, basis_dir, pos_path):
+    """[9] Differentiable rollouts (``sim/diff.py``, float64 plain torch on
+    the card, no kernel) on phase [6]'s recording and bases of the bench
+    scene (r = 48), through ``demos/fit_material.py``'s pieces.  (a) The
+    bench scene with DIFF_PINS positional constraints added (so that the
+    targets have a gradient): one rollout of DIFF_HORIZON steps at
+    DIFF_ITERS iterations from the hang state under gravity, and the
+    gradient of its trajectory's mean squared displacement with respect to
+    the scales, a force multiplier and the positional targets, on the card
+    and again on the CPU from the same bases files, held within
+    DIFF_ROUNDINGS float64 roundings of cond(Ar) (relative to the largest
+    entry; the trajectory to the scene's extent); the scales' gradient
+    against central differences on the card at each of DIFF_FD_EPS, the
+    closest within DIFF_FD_TOL.  (b) The
+    ``--bench`` fit (its defaults: 250 Adam steps, horizon 12, lr 0.05):
+    fitted scales, relative errors, loss first and last, ms an Adam step,
+    one rollout's forward and forward + backward in ms, the card's peak
+    memory; it must converge (the script's ``ok``).  (c) The twin
+    experiment (the script's default mode) end to end on the card: its
+    ``ok``.  Returns the phase's readings."""
+    from animsnapbases_tpu_torch.demos import fit_material as fm
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    out = {}
+    t_all = time.perf_counter()
+    # the --bench configuration on phase [6]'s files
+    cfg = dict(fm.BENCH, modes=min(REDUCED_MODES, CONSTR_MODES),
+               pos_modes=POS_MODES)
+
+    def scene():
+        return bench_scene(DeformableModel, cloth_model)
+
+    def pinned():
+        model = scene()
+        free = np.flatnonzero(model.mass < 1e9)
+        for vi in free[np.linspace(0, len(free) - 1, DIFF_PINS).astype(int)]:
+            model.add_positional_constraint(int(vi), wi=1e5)
+        return model
+
+    # ---- (a) forward and gradients, card against CPU ---------------------
+    def rollout_grads(device):
+        sim, model = fm.diff_sim(pinned, cfg, basis_dir, pos_path, device)
+        t = sim.tensor
+        q0 = t(model.positions)
+        scales = sim.ones_scales().requires_grad_(True)
+        c = t(1.0).requires_grad_(True)
+        targets = t(model.positional_targets(0))[None].requires_grad_(True)
+        run = sim.make_rollout(DIFF_HORIZON, DIFF_ITERS,
+                               save_trajectory=True)
+        f = t(fm.gravity(model))
+        v0 = t(model.velocities)
+        _, _, traj = run(q0, v0, c * f, targets, scales)
+        loss = ((traj - q0) ** 2).mean()
+        loss.backward()
+        Ar = sim.mass_r + torch.einsum("g,gdrs->drs", sim.ones_scales(),
+                                       sim.G)
+        cond = [float(torch.linalg.cond(Ar[d])) for d in range(3)]
+        return (sim, model, run, (q0, v0, f, targets.detach()),
+                {"trajectory": traj.detach(), "scales": scales.grad,
+                 "force": c.grad, "targets": targets.grad}, cond)
+
+    t0 = time.perf_counter()
+    sim, model, run, inputs, card, cond = rollout_grads(dev)
+    torch.cuda.synchronize()
+    out["card_s"] = time.perf_counter() - t0
+    _, _, _, _, host, _ = rollout_grads("cpu")
+    gaps = {}
+    for key, x in card.items():
+        ref = host[key]
+        gaps[key] = float((x.cpu() - ref).abs().max()
+                          / max(float(ref.abs().max()), 1e-300))
+    limit = DIFF_ROUNDINGS * max(cond) * float(torch.finfo(torch.float64).eps)
+    log(f"[9] diff, bench scene (N={sim.n_verts}, r={sim.r}, "
+        f"{DIFF_PINS} positional pins, groups {sim.group_names}): "
+        f"{DIFF_HORIZON}-step rollout at {DIFF_ITERS} iterations, card "
+        f"against CPU (float64 both): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" relative (limit {limit:.3e}: {DIFF_ROUNDINGS} roundings of "
+        f"cond(Ar)); cond(Ar) by dimension "
+        + ", ".join(f"{c_:.3e}" for c_ in cond)
+        + f"; gradients: scales {card['scales'].tolist()}, force "
+        f"{float(card['force']):.6e}, targets max "
+        f"{float(card['targets'].abs().max()):.3e} ({smi})")
+    for key, gap in gaps.items():
+        require(gap <= limit and bool(torch.isfinite(card[key]).all()),
+                f"diff: the card's {key} departs from the CPU's by {gap:.3e} "
+                "relative")
+    q0, v0, f, targets = inputs
+
+    def loss(scales):
+        with torch.no_grad():
+            traj = run(q0, v0, f, targets, scales)[2]
+            return float(((traj - q0) ** 2).mean())
+
+    ones = sim.ones_scales()
+    g = card["scales"].tolist()
+    fd_rel = {}
+    for eps in DIFF_FD_EPS:
+        fd = []
+        for i in range(len(ones)):
+            e = torch.zeros_like(ones)
+            e[i] = eps
+            fd.append((loss(ones + e) - loss(ones - e)) / (2 * eps))
+        top = max(abs(x) for x in g)
+        fd_rel[eps] = max(abs(a - b) for a, b in zip(g, fd)) / max(top,
+                                                                  1e-300)
+        log(f"[9] diff: the scales' gradient {g} against central "
+            f"differences at eps {eps} on the card {fd}: largest gap "
+            f"{fd_rel[eps]:.3e} of the largest entry")
+    fd_best = min(fd_rel.values())
+    log(f"[9] diff: central differences, the closest gap {fd_best:.3e} "
+        f"(limit {DIFF_FD_TOL})")
+    require(fd_best <= DIFF_FD_TOL, "diff: the scales' gradient departs "
+            "from central differences at every eps")
+    out.update(card_vs_cpu=gaps, card_vs_cpu_limit=limit, cond_Ar=cond,
+               fd_rel=fd_rel, fd_best=fd_best)
+
+    # ---- (b) the --bench fit ----------------------------------------------
+    sim, model = fm.diff_sim(scene, cfg, basis_dir, pos_path, dev)
+    t = sim.tensor
+    q0, v0 = t(model.positions), t(model.velocities)
+    f, targets = t(fm.gravity(model)), t(model.positional_targets(0))[None]
+    steps, horizon, lr = cfg["defaults"]
+    steps = DIFF_FIT_STEPS or steps
+    run = sim.make_rollout(horizon, fm.ITERS, save_trajectory=True)
+    scales = sim.ones_scales().requires_grad_(True)
+
+    def forward():
+        with torch.no_grad():
+            run(q0, v0, f, targets, scales)
+
+    def backward():
+        ((run(q0, v0, f, targets, scales)[2] - q0) ** 2).mean().backward()
+
+    fwd_ms = cuda_ms(torch, forward, reps=DIFF_REPS, warmup=1)
+    both_ms = cuda_ms(torch, backward, reps=DIFF_REPS, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    detail, ok = fm.fit(sim, model, cfg, steps, horizon, lr)
+    detail.update(forward_ms=fwd_ms, forward_backward_ms=both_ms,
+                  max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"[9] diff, the --bench fit ({smi}): " + json.dumps(detail))
+    require(ok, f"diff: the --bench fit did not converge (relative errors "
+            f"{detail['rel_err']}, loss {detail['loss_first']:.3e} -> "
+            f"{detail['loss_last']:.3e})")
+    out["bench_fit"] = detail
+
+    # ---- (c) the twin experiment, end to end ------------------------------
+    t0 = time.perf_counter()
+    data, ok = fm.run(False, dev, steps=DIFF_FIT_STEPS)
+    data["detail"]["end_to_end_s"] = time.perf_counter() - t0
+    log(f"[9] diff, the twin experiment ({smi}): " + json.dumps(data))
+    require(ok, f"diff: the twin experiment did not converge "
+            f"({data['detail']['rel_err']})")
+    out["twin"] = data["detail"]
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def port_counters():
-    """The launch counters the script reads: the eleven kernel wrappers,
+    """The launch counters the script reads: the twelve kernel wrappers,
     then kernel 5's option builds (``ops/affine_chunked.py``
     ``COUNTERS``)."""
     from animsnapbases_tpu_torch.ops.affine import (
@@ -5447,6 +5816,7 @@ def port_counters():
         resident_affine_contact,
         resident_affine_contact_batched,
         resident_affine_exit,
+        resident_affine_exit_batched,
     )
     from animsnapbases_tpu_torch.ops.affine_chunked import (
         COUNTERS,
@@ -5466,7 +5836,8 @@ def port_counters():
             resident_affine_exit, affine_chunked, resident_affine_contact,
             fused_reduced_iterations_batched, resident_multistep_batched,
             resident_affine_batched, affine_chunked_batched,
-            resident_affine_contact_batched, *COUNTERS)
+            resident_affine_contact_batched, resident_affine_exit_batched,
+            *COUNTERS)
 
 
 def build_phase(torch):
@@ -6301,8 +6672,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mega = scale_phase(torch, counted, paths, dev)
     log(f"[2-4] scale: the megacloth {time.perf_counter() - t0:.1f} s")
+    shared = tempfile.TemporaryDirectory()   # phase [6]'s files, for [9]
     t0 = time.perf_counter()
-    real = pipeline_phase(torch, counted, paths, dev)
+    real = pipeline_phase(torch, counted, paths, dev, work=shared.name)
     log(f"[6] pipeline: record, bases, reduced solve on real bases "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -6313,6 +6685,12 @@ def main() -> int:
     collide = self_collision_phase(torch, counted, paths, dev, smi)
     log(f"[8] self-collision: the clear tier, the proximity path, the FOM "
         f"passes {time.perf_counter() - t0:.1f} s")
+    with shared:
+        diff = diff_phase(torch, dev, smi, os.path.join(shared.name, "card",
+                                                        "bases"),
+                          os.path.join(shared.name, "card", "pos_basis.npz"))
+    log(f"[9] differentiable rollouts: holds, the --bench fit, the twin "
+        f"{diff['seconds']:.1f} s")
     kernels += options
     for k in kernels:
         if k["name"] in mega:

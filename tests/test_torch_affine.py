@@ -16,6 +16,7 @@ from animsnapbases_tpu_torch.ops.affine import (
     resident_affine,
     resident_affine_contact,
     resident_affine_exit,
+    resident_affine_exit_batched,
 )
 from animsnapbases_tpu_torch.ops.resident import (
     force_term,
@@ -110,6 +111,74 @@ def test_exit_plain_matches_jax_interpret(tmp_path, case):
                                atol=1e-9)
     np.testing.assert_allclose(V_t.numpy(), np.asarray(V_j), rtol=0,
                                atol=1e-9)
+
+
+def test_exit_batched_plain_matches_jax_interpret(tmp_path):
+    """Kernel 4's batched build at nb = 3 (row 4b): sims 0 and 2 lifted
+    FREE_LIFT under 2x and 4x gravity, sim 1 starting 0.1 above the floor
+    under gravity, 30 steps with rebases every REBASE.  The whole batch
+    stops before sim 1's first clamp: ``resident_affine_exit_batched`` on
+    CPU tensors (the plain version on (3, 3, N)) gives the JAX kernel's
+    steps_done, 0 < k < 30 (k = 1: the cloth's constraints throw sim 1 at
+    the floor), and its P and V to 1e-9 (measured max |dP| 8.9e-15, |dV|
+    4.9e-13 at |V| ~ 45) against ``build_resident_affine_exit(nb=3,
+    interpret=True)``, whose state is dim-major (rows d * B + b); each sim
+    equals the solo plain version run for k steps to 1e-12 (measured
+    1.8e-15 in P, 6.0e-14 in V: the batched products sum in another
+    order), and the solo version of sim 1 alone stops at the same k."""
+    from animsnapbases_tpu.ops.pallas_resident import (
+        build_resident_affine_exit,
+    )
+
+    s, model = lean_jax_solver(tmp_path)
+    st = s._resident_state
+    B, steps = 3, 30
+    r = st["U_liftT"].shape[1]
+    run = build_resident_affine_exit(
+        *jax_common(s), model.floor_height, st["n_sel"],
+        rebase_every=REBASE, interpret=True, nb=B, eta=s.eta)
+    P, V, F = (np.stack(x) for x in zip(*(
+        packed_state(s, model, lift, scale)
+        for lift, scale in ((FREE_LIFT, 2.0), (CONTACT_LIFT, 1.0),
+                            (FREE_LIFT, 4.0)))))
+
+    def dim_major(x):                 # (B, 3, N) -> rows d * B + b
+        return x.transpose(1, 0, 2).reshape(3 * B, -1)
+
+    out_j = run(dim_major(P), dim_major(V), dim_major(F),
+                np.zeros((1, 3 * B, r)), steps, ITERS)
+    k_j = int(np.asarray(out_j[2])[0, 0])
+    P_j, V_j = (np.asarray(x).reshape(3, B, -1).transpose(1, 0, 2)
+                for x in out_j[:2])
+    ao = port_affine(s, model)
+    Pt, Vt, Ft = (torch.from_numpy(x) for x in (P, V, F))
+    rb = torch.zeros(3, r, dtype=torch.float64)
+    P_b, V_b, k = resident_affine_exit_batched(ao, Pt, Vt, Ft, rb, steps,
+                                               ITERS, rebase_every=REBASE)
+    assert k == k_j and 0 < k < steps
+    np.testing.assert_allclose(P_b.numpy(), P_j, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(V_b.numpy(), V_j, rtol=0, atol=1e-9)
+    solo_k = [resident_affine_exit(ao, Pt[b], Vt[b], Ft[b], rb, steps,
+                                   ITERS, rebase_every=REBASE)[2]
+              for b in range(B)]
+    assert solo_k[1] == k < min(solo_k[0], solo_k[2])
+    for b in range(B):
+        P_s, V_s, k_s = resident_affine_exit(ao, Pt[b], Vt[b], Ft[b], rb, k,
+                                             ITERS, rebase_every=REBASE)
+        assert k_s == k
+        np.testing.assert_allclose(P_b[b].numpy(), P_s.numpy(), rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(V_b[b].numpy(), V_s.numpy(), rtol=0,
+                                   atol=1e-12)
+
+
+def test_exit_batched_refuses_a_solo_state(tmp_path):
+    """The batched wrapper takes (B, 3, N) states only."""
+    s, model = lean_jax_solver(tmp_path)
+    _, _, _, _, port_in = _inputs(s, model, FREE_LIFT, 1.0)
+    with pytest.raises(ValueError, match="B, 3, N"):
+        resident_affine_exit_batched(port_affine(s, model), *port_in, 2,
+                                     ITERS)
 
 
 # contact mode: (force scale, steps, rebase_every, eta, initial y velocity)

@@ -128,6 +128,9 @@ def _fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     # every "cuda" device the script asks for is the CPU, in the solver
     # module too (it binds the name when it is imported)
     for module in (device, reduced):
@@ -200,7 +203,10 @@ SOLO = ["fused_reduced_iterations", "resident_multistep", "resident_affine",
         "resident_affine_exit", "affine_chunked", "resident_affine_contact"]
 BATCHED = ["fused_reduced_iterations_batched", "resident_multistep_batched",
            "resident_affine_batched", "affine_chunked_batched",
-           "resident_affine_contact_batched"]
+           "resident_affine_contact_batched", "resident_affine_exit_batched"]
+# the kernels the entry points serve: all but kernel 4's batched build,
+# which chip_smoke.exit_batched launches directly
+SERVED = SOLO + [k for k in BATCHED if k != "resident_affine_exit_batched"]
 BUILDS = [f"affine_chunked{b}[{label}]"
           for label in ("floor_exact=False", "floor_bound_skip=False",
                         "fold_vc=False", "sqrt_free_bound=False",
@@ -208,12 +214,14 @@ BUILDS = [f"affine_chunked{b}[{label}]"
 
 
 def lenient(monkeypatch, held):
-    """The script's ``require`` but for two holds the plain versions cannot
-    meet: they count no launches, and a batched plain version differs from
-    the solo one in the order of its sums."""
+    """The script's ``require`` but for the holds the rehearsal cannot
+    meet: the plain versions count no launches, a batched plain version
+    differs from the solo one in the order of its sums, and phase [9]'s
+    fits do not converge in the rehearsal's few Adam steps."""
     def require(ok, what):
         if ("never launched" not in what
-                and "differs from the solo kernel" not in what):
+                and "differs from the solo kernel" not in what
+                and "did not converge" not in what):
             held(ok, what)
 
     monkeypatch.setattr(cs, "require", require)
@@ -246,12 +254,14 @@ def assert_entries(entries, names):
 # main() end to end at its smallest: 4 iterations a step, one of kernel 5's
 # other builds, one tet/bending scene (the bending cloth), phase [7]'s
 # recordings of 12 frames and example configs of 5 frames and 4 components,
-# phase [8]'s cloth at 12x12
+# phase [8]'s cloth at 12x12, phase [9]'s rollouts of 4 steps and fits of 2
+# Adam steps
 SMALLEST = {"ITERATIONS": 4, "OPTION_BUILDS": cs.OPTION_BUILDS[:1],
             "GROUP_FRAMES": 12, "BAR_FRAMES": 12, "GROUP_STEPS": 6,
             "GROUP_OVERRIDES": {"numFrames": 5, "desired_num_components": 4},
             "SC_ROWS": 12, "SC_R": 8, "SC_WINDOW": 48, "SC_FOLD_STEPS": 8,
-            "SC_DEPTH": 3, "SC_SHORT": 8, "SC_REPS": 1}
+            "SC_DEPTH": 3, "SC_SHORT": 8, "SC_REPS": 1, "DIFF_FIT_STEPS": 2,
+            "DIFF_HORIZON": 4, "DIFF_REPS": 1}
 SMALLEST_SCENES = ("bending cloth",)
 
 
@@ -267,11 +277,11 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 0}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert_entries(kernels[:11], SOLO + BATCHED)
-    assert [k["name"] for k in kernels[11:]] == BUILDS[:2]
-    for k in kernels[11:]:
+    assert_entries(kernels[:12], SOLO + BATCHED)
+    assert [k["name"] for k in kernels[12:]] == BUILDS[:2]
+    for k in kernels[12:]:
         assert KEYS <= set(k)
-    for k in kernels[:11]:
+    for k in kernels[:12]:
         assert {"scenes", "animated"} <= set(k), k["name"]
     assert sorted(kernels[0]["scenes"]) == list(SMALLEST_SCENES)
     k1, k5 = kernels[0], kernels[4]
@@ -284,7 +294,8 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
              "[2-4] ensemble serving", "[2-4] kernel 5's other builds",
              "[2-4] tet, bending and block-form scenes",
              "[2-4] scale: the megacloth", "[6] pipeline: record, bases",
-             "[7] per-group workflow:", "[8] self-collision:"]
+             "[7] per-group workflow:", "[8] self-collision:",
+             "[9] differentiable rollouts:"]
     at = [out.index(line) for line in order]
     assert at == sorted(at)
 

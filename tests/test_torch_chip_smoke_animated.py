@@ -7,8 +7,7 @@ import torch
 
 import chip_smoke as cs
 from test_torch_chip_smoke import (  # noqa: F401
-    BATCHED,
-    SOLO,
+    SERVED,
     bench,
     one_thread,
 )
@@ -17,7 +16,7 @@ from test_torch_chip_smoke import (  # noqa: F401
 def test_chip_smoke_animated_phase(monkeypatch):
     counted, b = bench(monkeypatch)
     anim = cs.animated(torch, counted, b.paths, b.main_state, b.dev)
-    for name in SOLO + BATCHED:
+    for name in SERVED:
         if name == "fused_reduced_iterations_batched":
             continue
         entry = anim[name]

@@ -1,8 +1,8 @@
 """``chip_smoke.ensemble`` (ensemble serving) rehearsed on the CPU with the
 fakes of ``tests/test_torch_chip_smoke.py``, after the bench scene's main
-path: the five batched kernels' entries of the kernels line, batched
-kernel 1's device time, and the batched builds' staging plan at each batch
-size."""
+path: the six batched kernels' entries of the kernels line (kernel 4's
+batched build, row 4b, the last), batched kernel 1's device time, and the
+batched builds' staging plan at each batch size."""
 
 import torch
 
@@ -29,3 +29,8 @@ def test_chip_smoke_ensemble_phase(monkeypatch):
         assert not any(key.startswith("cluster_floor") for key in k)
     assert kernels[4]["launches_path"].startswith(
         "make_batched_run, B=4 ring-down, default")
+    k4b = kernels[5]
+    assert k4b["replaces"].endswith("pallas_resident.py:1122 (nb > 1)")
+    assert k4b["launches_path"].startswith("batched kernel 4, launched")
+    assert 0 < k4b["whole_batch_k"] == min(k4b["solo_k"]) < cs.SCENE_STEPS
+    assert set(k4b["window_us_per_step_by_sims"]) == {1, 2, 4}

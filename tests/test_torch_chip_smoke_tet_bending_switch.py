@@ -7,10 +7,9 @@ import torch
 
 import chip_smoke as cs
 from test_torch_chip_smoke import (  # noqa: F401
-    BATCHED,
     KEYS,
     PLAN_KEYS,
-    SOLO,
+    SERVED,
     one_thread,
     rehearsal,
 )
@@ -21,7 +20,7 @@ SCENES = {cs.SWITCH_SCENE}
 def test_chip_smoke_tet_bending_switch(monkeypatch):
     counted, _ = rehearsal(monkeypatch)
     per = cs.tet_bending(torch, counted, {}, scenes=SCENES)
-    assert set(per) <= set(SOLO + BATCHED)
+    assert set(per) <= set(SERVED)
     for name, entries in per.items():
         for entry in entries.values():
             assert KEYS - {"name", "route", "source", "replaces",
@@ -36,5 +35,5 @@ def test_chip_smoke_tet_bending_switch(monkeypatch):
                  "fused_reduced_iterations_batched",
                  "resident_affine_contact_batched"):
         assert sorted(per[name]) == sorted(SCENES), name
-    # the switch scene drives every kernel
-    assert set(per) == set(SOLO + BATCHED)
+    # the switch scene drives every kernel the entry points serve
+    assert set(per) == set(SERVED)

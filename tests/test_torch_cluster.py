@@ -323,13 +323,13 @@ def test_resident_args_contract(small, B):
 
 @pytest.mark.parametrize("variant, B", [("lean", None), ("lean", 2),
                                         ("contact", None), ("contact", 2),
-                                        ("exit", None)])
+                                        ("exit", None), ("exit", 2)])
 def test_affine_args_contract(small, variant, B):
     """Kernels 3 (lean, contact mode) and 4's launch arguments match their
     C entry point's types, solo and batched: the mode of the variant, one
     cluster per sim (nb), a flag slot per step, the projection order, the
     plan's bits and bytes; contact mode's y state only in contact mode;
-    kernel 4 has no batched build."""
+    kernel 4's batched wrapper takes (B, 3, N) states only."""
     model, s = small
     ao = s._affine
     ro, fo = ao.res, ao.fused
@@ -352,8 +352,8 @@ def test_affine_args_contract(small, variant, B):
     assert args[43].value == fo.lane_cols.data_ptr()
     assert args[44:47] == (fo.lane_cols.numel(), plan.bits,
                            plan.smem_bytes)
-    if variant == "exit":
-        with pytest.raises(ValueError, match="no batched build"):
-            k3._launch_affine(ao, torch.stack([P] * 2), torch.stack([P] * 2),
-                              torch.stack([P] * 2), s._rb_extra(), 16, 10,
-                              256, "exit")
+    if variant == "exit" and B is None:
+        with pytest.raises(ValueError, match="B, 3, N"):
+            k3.resident_affine_exit_batched(ao, P, torch.zeros_like(P),
+                                            torch.zeros_like(P),
+                                            s._rb_extra(), 16, 10)

@@ -166,3 +166,33 @@ def test_cpu_path_counts_no_launch(tmp_path):
     assert s.frame == 3 and np.isfinite(s.model.positions).all()
     assert (fused_reduced_iterations.launches,
             resident_multistep.launches) == before
+
+
+_DIFF_PROBE = """
+import json, sys
+import animsnapbases_tpu_torch.sim.diff
+import animsnapbases_tpu_torch.demos.fit_material
+print(json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_diff_and_fit_demo_import_no_jax_or_optax():
+    """The differentiable rollouts and the material-fit demo, in a fresh
+    interpreter, load neither JAX nor optax (the card's machine has no
+    optax) nor the JAX package; the demo's entry point takes the card
+    unless ``--cpu`` is given."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _DIFF_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    for banned in ("jax", "optax", "animsnapbases_tpu"):
+        assert not [m for m in loaded
+                    if m == banned or m.startswith(banned + ".")], banned
+    if torch.cuda.is_available():
+        return
+    from animsnapbases_tpu_torch.demos import fit_material
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_material.main([])
