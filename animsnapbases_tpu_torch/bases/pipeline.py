@@ -37,18 +37,19 @@ def record_fom(model, fext, record, frames: int, iterations: int, dt: float,
                damping: float, global_solve: str = "host", device=None):
     """Record ``frames`` steps of ``model`` under ``fext`` (bench.py:
     243-270): the S^T export and the p-snapshots under ``record`` (flushed
-    at frame ``frames - 1``) -> (trajectory (frames, N, 3), the prepared
-    solver)."""
+    at frame ``frames - 1``; ``record=None``: the positions only) ->
+    (trajectory (frames, N, 3), the prepared solver)."""
     solver = Solver(global_solve=global_solve, device=device)
     solver.set_model(model)
     args = default_sim_args()
     args.dt = dt
     args.damping = damping
     solver.prepare(args)
-    solver.store_assembly_matrices(record)
-    solver.set_record_path(record)
-    solver.set_store_p(True)
-    solver.max_p_snapshots_num = frames - 1
+    if record is not None:
+        solver.store_assembly_matrices(record)
+        solver.set_record_path(record)
+        solver.set_store_p(True)
+        solver.max_p_snapshots_num = frames - 1
     traj = solver.run_steps(fext, frames, num_iterations=iterations,
                             record=True)
     return traj, solver

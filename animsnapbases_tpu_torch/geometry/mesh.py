@@ -2,9 +2,11 @@
 
 Counterpart of ``animsnapbases_tpu/geometry/mesh.py``: only
 ``unique_edges``, ``tet_edges``, ``boundary_facets``, ``build_vertex_stars``
-(with its ``StarEdge`` record) and the incidence queries of the geometric
-bases selection (``elements_per_vertex``, ``vertex_star_vertices``), copied
-so the port imports nothing of the JAX package.
+(with its ``StarEdge`` record), the incidence queries of the geometric
+bases selection (``elements_per_vertex``, ``vertex_star_vertices``) and
+the helpers of the snapshot import (``connected_components_labels``,
+``largest_component_mask``, ``filter_reindex``, ``triangle_areas``),
+copied so the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +32,41 @@ def tet_edges(tets: np.ndarray) -> np.ndarray:
     e = np.concatenate([tets[:, list(p)] for p in pairs])
     e = np.sort(e, axis=1)
     return np.unique(e, axis=0)
+
+
+def connected_components_labels(n_verts: int, faces: np.ndarray) -> np.ndarray:
+    """Vertex labels of connected components of the face graph."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    faces = np.asarray(faces, dtype=np.int64)
+    ij = np.concatenate([faces[:, [0, 1]], faces[:, [0, 2]], faces[:, [1, 2]]])
+    g = csr_matrix((np.ones(len(ij)), (ij[:, 0], ij[:, 1])),
+                   shape=(n_verts, n_verts))
+    _, labels = connected_components(g, directed=False)
+    return labels
+
+
+def largest_component_mask(n_verts: int, faces: np.ndarray) -> np.ndarray:
+    labels = connected_components_labels(n_verts, faces)
+    sizes = np.bincount(labels)
+    return labels == sizes.argmax()
+
+
+def filter_reindex(condition: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """Reindex ``target`` indices after dropping the vertices where
+    ``condition`` is False."""
+    if condition.dtype != bool:
+        raise ValueError("condition must be a boolean array")
+    reindex = np.cumsum(condition) - 1
+    return reindex[target]
+
+
+def triangle_areas(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    v = np.asarray(verts)
+    f = np.asarray(faces, dtype=np.int64)
+    n = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    return 0.5 * np.linalg.norm(n, axis=1)
 
 
 def elements_per_vertex(vertex_indices, elements: np.ndarray) -> list[int]:

@@ -1,9 +1,9 @@
 """Little-endian binary formats of the bases pipeline.
 
 Copy of the parts of ``animsnapbases_tpu/io/binfmt.py`` that the bases
-pipeline reaches (numpy only): the components ``.bin`` writer, the
-interpolation-points vector writer and the masses reader, byte-compatible
-with the reference's files.
+pipeline reaches (numpy only): the components ``.bin`` writer and reader,
+the interpolation-points vector writer and the masses reader,
+byte-compatible with the reference's files.
 
 components ``.bin``
     header:  int32 N, int32 dim*K
@@ -45,6 +45,19 @@ def write_components_bin(path: str, bases: np.ndarray) -> None:
         f.write(struct.pack("<ii", N, dim * K))
         # d-major, then k, then i  ==  transpose to (dim, K, N) C-order
         f.write(np.ascontiguousarray(bases.transpose(2, 0, 1)).astype(_F64).tobytes())
+
+
+def read_components_bin(path: str, K: int | None = None,
+                        dim: int = 3) -> np.ndarray:
+    """Read a components .bin back to (K, N, dim)."""
+    with open(path, "rb") as f:
+        N, dimK = struct.unpack("<ii", f.read(8))
+        data = np.frombuffer(f.read(), dtype=_F64)
+    if K is None:
+        K = dimK // dim
+    if dim * K != dimK:
+        raise ValueError(f"dim*K mismatch: {dim}*{K} != {dimK}")
+    return data.reshape(dim, K, N).transpose(1, 2, 0)
 
 
 def write_components(base: str, F: int, K: int, N: int, dim: int,

@@ -1,15 +1,95 @@
-"""Mesh readers of the bases pipeline: OBJ and MEDIT ``.mesh``.
+"""Mesh readers and writers of the bases pipeline: OFF / COFF, ASCII PLY,
+OBJ and MEDIT ``.mesh``.
 
-Copy of ``load_obj``, ``load_medit_mesh``, ``save_obj`` and
-``save_medit_mesh`` of ``animsnapbases_tpu/io/meshes.py`` (numpy only):
-the constraint snapshots read a mesh to compute element masses, and the
-geometric bases selection reads its elements; the pipeline writes the
-recorded model's mesh where a bases config looks for it.
+Copy of ``animsnapbases_tpu/io/meshes.py`` (numpy only): the constraint
+snapshots read a mesh to compute element masses, the geometric bases
+selection reads its elements, the snapshot import reads an ``.off`` or
+``.ply`` sequence; the pipeline writes the recorded model's mesh where a
+bases config looks for it.
 """
 
 from __future__ import annotations
 
+import io
+
 import numpy as np
+
+
+def load_off(path: str, no_colors: bool = True):
+    """Read an OFF/COFF file. Returns (verts, faces) when ``no_colors`` else
+    (verts, colors, faces)."""
+    with open(path) as f:
+        lines = [ln for ln in f if ln.strip() and ln[0] != "#"]
+    header = lines[0].strip()
+    if header not in ("OFF", "COFF"):
+        raise ValueError(f"OFF header missing in {path}")
+    has_colors = header == "COFF"
+    n_verts, n_faces, _ = map(int, lines[1].split())
+    vertex_data = np.loadtxt(io.StringIO("".join(lines[2:2 + n_verts])),
+                             dtype=float)
+    vertex_data = np.atleast_2d(vertex_data)
+    if n_faces > 0:
+        faces = np.loadtxt(io.StringIO("".join(lines[2 + n_verts:])),
+                           dtype=int)
+        faces = np.atleast_2d(faces)[:, 1:]
+    else:
+        faces = None
+    if has_colors:
+        colors = vertex_data[:, 3:].astype(np.uint8)
+        vertex_data = vertex_data[:, :3]
+    else:
+        colors = None
+    if no_colors:
+        return vertex_data, faces
+    return vertex_data, colors, faces
+
+
+def save_off(path: str, verts: np.ndarray, faces: np.ndarray) -> None:
+    verts = np.asarray(verts)
+    faces = np.asarray(faces, dtype=int)
+    with open(path, "w") as f:
+        f.write("OFF\n")
+        f.write(f"{len(verts)} {len(faces)} 0\n")
+        for v in verts:
+            f.write(f"{v[0]} {v[1]} {v[2]}\n")
+        for t in faces:
+            f.write(f"{len(t)} " + " ".join(map(str, t)) + "\n")
+
+
+def load_ply(path: str):
+    """Minimal ASCII PLY reader (positions + triangle faces; polygons are
+    fan-triangulated)."""
+    with open(path, errors="replace") as f:
+        if f.readline().strip() != "ply":
+            raise ValueError(f"not a PLY file: {path}")
+        fmt = f.readline().split()
+        if fmt[1] != "ascii":
+            raise ValueError("only ascii PLY is supported")
+        n_verts = n_faces = 0
+        current = None
+        for line in f:
+            tok = line.split()
+            if not tok or tok[0] == "comment":
+                continue
+            if tok[0] == "element":
+                current = tok[1]
+                if current == "vertex":
+                    n_verts = int(tok[2])
+                elif current == "face":
+                    n_faces = int(tok[2])
+            elif tok[0] == "end_header":
+                break
+        verts = np.empty((n_verts, 3))
+        for i in range(n_verts):
+            vals = f.readline().split()
+            verts[i] = [float(vals[0]), float(vals[1]), float(vals[2])]
+        faces = []
+        for _ in range(n_faces):
+            vals = list(map(int, f.readline().split()))
+            idx = vals[1:1 + vals[0]]
+            for k in range(1, len(idx) - 1):
+                faces.append([idx[0], idx[k], idx[k + 1]])
+    return verts, np.asarray(faces, dtype=int)
 
 
 def load_obj(path: str):
@@ -101,3 +181,18 @@ def save_medit_mesh(path: str, verts: np.ndarray,
             for t in np.asarray(tets, dtype=int):
                 f.write(f"{t[0] + 1} {t[1] + 1} {t[2] + 1} {t[3] + 1} 0\n")
         f.write("End\n")
+
+
+def load_mesh_auto(path: str):
+    """Dispatch on extension. Returns (verts, faces) for surface formats and
+    (verts, tets, tris) for .mesh."""
+    lower = path.lower()
+    if lower.endswith(".off"):
+        return load_off(path)
+    if lower.endswith(".obj"):
+        return load_obj(path)
+    if lower.endswith(".ply"):
+        return load_ply(path)
+    if lower.endswith(".mesh"):
+        return load_medit_mesh(path)
+    raise ValueError(f"unknown mesh format: {path}")

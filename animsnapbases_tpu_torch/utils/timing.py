@@ -2,12 +2,14 @@
 
 Counterpart of ``log_time`` of ``animsnapbases_tpu/utils/timing.py``
 (stdlib only): each decorated stage of the bases pipeline records its
-seconds in one process-wide timer.
+seconds in one process-wide timer, which writes them to a
+``function_timings.txt`` in the reference's line format.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import time
 
 
@@ -19,6 +21,19 @@ class PhaseTimer:
 
     def record(self, name: str, seconds: float) -> None:
         self.records.append((name, seconds))
+
+    def flush(self, directory: str) -> str | None:
+        """Write the records to ``directory/function_timings.txt`` ->
+        its path (None with no record)."""
+        if not self.records:
+            return None
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, "function_timings.txt")
+        with open(path, "w") as f:
+            for name, seconds in self.records:
+                f.write(f"Function '{name}' executed in {seconds:.4f} "
+                        "seconds.\n")
+        return path
 
 
 _GLOBAL_TIMER = PhaseTimer()

@@ -169,14 +169,30 @@ version.  Phases, each of which fails the run when it fails:
    step, a rollout's forward and backward, peak memory), which must
    converge; the twin experiment end to end, which must pass the script's
    ``ok``;
+10. ``position bases`` (:func:`position_phase`): the reference's
+   position-bases workflow (``configs/examples/bunny_gFall_posSubspace.json``,
+   the bench cloth in place of the bunny) on the card from the port's own
+   recording: the bench scene recorded for 200 frames (its first 48 bit
+   for bit phase [6]'s), every 2nd frame imported and aligned
+   (``_centered``; the cloth hangs in its plane, so every frame takes the
+   rank-2 Procrustes rule), global PCA (100 components), local-support PCA
+   and SPLOCS, each held against the CPU's float64 run on the same arrays
+   (greedy picks and sigma0 above the residual cut, reconstructions,
+   aligned frames, SPLOCS energies), the global components post-processed
+   (U^T M U = I) and their first 48 served as the position basis on phase
+   [6]'s constraint bases: ``run_steps(48)`` + ``step()``, a counted path
+   (kernels 1 and 5), the reduced-vs-FOM statistic beside phase [6]'s POD
+   basis; kernel 1 against float64, kernel 5 step by step and in carried
+   steps; seconds per stage;
 5. the ``kernels`` line (22 entries: six solo kernels, six batched
    builds, each with its times on the new scenes under ``scenes``, with a
    target schedule under ``animated``, at 250,000 vertices under
    ``megacloth`` and, for kernels 1 and 5, on real bases under
-   ``real_bases``, on the bar's block-form bases under ``per_group`` and
-   under self-collision under ``self_collision``, then kernel 5's five
-   option builds, solo and batched), then the last line ``{"ok": true,
-   "device": {...}}``.
+   ``real_bases``, on the bar's block-form bases under ``per_group``,
+   under self-collision under ``self_collision`` and on the PCA position
+   basis under ``position_bases``, then kernel 5's five option builds,
+   solo and batched), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -528,6 +544,39 @@ DIFF_FD_TOL = 5e-3
 DIFF_REPS = 5
 # Adam steps of the two fits (None: the script's defaults, 250 and 150)
 DIFF_FIT_STEPS = None
+# ---- [10] position bases (:func:`position_phase`) ----------------------
+# the reference's position config (its frames, increment, alignment,
+# weighting, standardization, orthogonalization, support radii, 100
+# components, SPLOCS iterations, lambda and rho); entries of the
+# BasesConfig replaced (none: the config's own); the bench scene recorded
+# for POSB_FRAMES frames at phase [6]'s settings (its first FOM_FRAMES
+# frames are phase [6]'s recording); the first POSB_SERVE post-processed
+# global components served as the position basis at phase [6]'s
+# configuration and storage (POSB_MATMUL); the holds of the greedy picks
+# and sigma0 cover the steps whose residual entering them exceeds
+# POSB_CUT of the first (standardization zeroes frame 0, so the last
+# steps' residual is rounding); the card's and the CPU's extractions may
+# part only where rounding sets a step's choice: a pick by a tie of
+# POSB_TIE in the residual's largest row energy, or (local support) the
+# cone side of wk where one side's largest entry is within POSB_NOISE of
+# max|wk| (on an NVIDIA H100 80GB HBM3 the bench cloth's local PCA parted
+# so at step 39 of 100: the positive side 1.9e-19 of max|wk|, the CPU's
+# run taking it); the
+# card against the CPU's float64 run on the same arrays: sigma0 and the
+# residual after each step POSB_SIGMA relative, reconstructions and
+# aligned frames POSB_EXTENT of the extent, SPLOCS energies POSB_ENERGY
+# relative
+POSB_CONFIG = "configs/examples/bunny_gFall_posSubspace.json"
+POSB_OVERRIDES = {}
+POSB_FRAMES = 200
+POSB_SERVE = 48
+POSB_MATMUL = "bfloat16"
+POSB_CUT = 1e-8
+POSB_TIE = 1e-12
+POSB_NOISE = 1e-10
+POSB_SIGMA = 1e-10
+POSB_EXTENT = 1e-9
+POSB_ENERGY = 1e-9
 
 
 def log(*a):
@@ -4177,8 +4226,9 @@ def pipeline_phase(torch, counted, paths, dev, work=None):
     floor-clear.  Kernels 1 and 5 held against their plain versions on
     these bases (kernel 1 against float64, :func:`as_accurate`; kernel 5
     step by step and its carried steps) and timed.  The recording and the
-    bases lie under ``work`` (``card/bases``, ``card/pos_basis.npz``; a
-    temporary directory when None), where phase [9] reads them.  Returns
+    bases lie under ``work`` (``card/bases``, ``card/pos_basis.npz``,
+    ``card/traj.npy``; a temporary directory when None), where phases [9]
+    and [10] read them.  Returns
     {kernel name: the numbers the kernels line carries under
     "real_bases"}."""
     import warnings
@@ -4270,6 +4320,7 @@ def pipeline_phase(torch, counted, paths, dev, work=None):
             state["after"] = (model.positions.copy(),
                               model.velocities.copy())
             solver.step(f, num_iterations=FOM_ITERS)
+            np.save(os.path.join(work, "card", "traj.npy"), traj)
             state.update(traj=traj, groups=groups, solver=solver,
                          basis_dir=basis_dir)
 
@@ -5806,6 +5857,446 @@ def diff_phase(torch, dev, smi, basis_dir, pos_path):
     return out
 
 
+def greedy_replay(pc, R0, k):
+    """``pc``'s extraction (global or local support) replayed for its
+    first ``k`` steps from ``R0``, the same device steps -> (the residual
+    entering step k, step k's dominant mode wk before the cone
+    projection)."""
+    from animsnapbases_tpu_torch.bases import greedy
+
+    R = R0
+    for i in range(k + 1):
+        idx = int(greedy.select_vertex(R))
+        _, wk = greedy.dominant_mode(R, idx)
+        if i == k:
+            return R, wk
+        support = None
+        if pc.support == "local":
+            wk = greedy.signed_nonneg_weight(wk)
+            support = pc._tensor(1.0 - pc._support_map(idx))
+        R = greedy.deflate(R, wk, support)[1]
+
+
+def cone_sides(wk):
+    """(max of wk's positive part, max of its negative part) over max|wk|:
+    the scales of the two cone projections ``signed_nonneg_weight`` weighs
+    against each other after ``project_weight`` normalizes each to max 1."""
+    top = float(wk.abs().max())
+    return (float(wk.clamp(min=0).max()) / top,
+            float((-wk).clamp(min=0).max()) / top)
+
+
+def greedy_holds(label, card, cpu, R0):
+    """The card's greedy extraction (``card``, a PositionComponents after
+    its extraction) against the CPU's float64 run on the same snapshots
+    (``cpu``; ``R0`` its snapshot tensor), on the steps whose residual
+    entering them exceeds POSB_CUT of the first: step by step, the same
+    pick and the same residual after it (within POSB_SIGMA relative, where
+    that too exceeds the cut), up to the first step where the two part.  There the step must be one
+    whose choice rounding sets, in the CPU's run replayed: a different
+    pick a tie of the residual's row energies within POSB_TIE, or (local
+    support) the same pick with the cone side of wk chosen by rounding,
+    one side's largest entry within POSB_NOISE of max|wk| (JAX's
+    ``project_weight`` normalizes that side's rounding noise to max 1, so
+    the JAX code's own choice there follows its rounding).  Later steps
+    follow other deflations and are not compared.  sigma0 within
+    POSB_SIGMA relative on the steps before; the reconstructions W C
+    within POSB_EXTENT of the snapshots' extent where the two never part
+    -> the readings."""
+    sig_c, res_c = card.measures_at_largeDeforVerts[:, 1:].T
+    sig_h, res_h = cpu.measures_at_largeDeforVerts[:, 1:].T
+    res_in = np.concatenate([[float(R0.norm())], res_h[:-1]])
+    under = np.nonzero(res_in <= POSB_CUT * res_in[0])[0]
+    n_signal = int(under[0]) if len(under) else len(res_in)
+    # the residual after a step is compared where it stays above the cut
+    after = res_h[:n_signal] > POSB_CUT * res_in[0]
+    parted = np.nonzero(
+        (card.picks[:n_signal] != cpu.picks[:n_signal])
+        | (after & (np.abs(res_c[:n_signal] - res_h[:n_signal])
+                    > POSB_SIGMA * res_h[:n_signal])))[0]
+    held, part = n_signal, None
+    if len(parted):
+        held = k = int(parted[0])
+        R, wk = greedy_replay(cpu, R0, k)
+        if card.picks[k] != cpu.picks[k]:
+            e = (R ** 2).sum(dim=(0, 2))
+            short = 1.0 - float(e[int(card.picks[k])] / e.max())
+            part = {"step": k, "why": "pick tie", "cpu_pick":
+                    int(cpu.picks[k]), "card_pick": int(card.picks[k]),
+                    "shortfall": short}
+            ok = short <= POSB_TIE
+        else:
+            sides = cone_sides(wk)
+            part = {"step": k, "why": "cone side set by rounding",
+                    "pick": int(cpu.picks[k]), "positive_side": sides[0],
+                    "negative_side": sides[1]}
+            ok = cpu.support == "local" and min(sides) <= POSB_NOISE
+        require(ok, f"{label}: the card's extraction parts from the CPU's "
+                f"at step {k} where rounding does not set the choice: {part}")
+    d_sig = float(np.max(np.abs(sig_c[:held] - sig_h[:held])
+                         / sig_h[:held])) if held else 0.0
+    require(d_sig <= POSB_SIGMA, f"{label}: sigma0 departs from the CPU's "
+            f"by {d_sig:.3e} relative")
+    rec = None
+    if part is None:
+        extent = float(R0.abs().max())
+        rec = float(np.abs(card.reconstruct(card.numComp)
+                           - cpu.reconstruct(cpu.numComp)).max()) / extent
+        require(rec <= POSB_EXTENT, f"{label}: the reconstruction departs "
+                f"from the CPU's by {rec:.3e} of the extent")
+    log(f"[10] position bases, {label} ({card.numComp} components): the "
+        f"card's steps equal the CPU's (pick, residual after) on {held} of "
+        f"the {n_signal} steps above the cut ({card.numComp - n_signal} "
+        f"steps under it: residual <= {POSB_CUT} of the first, not "
+        f"compared); parted at {part}; sigma0 within {d_sig:.3e} relative "
+        f"(limit {POSB_SIGMA}); reconstruction "
+        + (f"within {rec:.3e} of the extent (limit {POSB_EXTENT})"
+           if rec is not None else "not compared (the paths parted)")
+        + f"; sigma0 first/last {sig_h[0]:.4e}/{sig_h[-1]:.4e}, residual "
+        f"last {res_h[-1]:.3e}")
+    return {"steps_above_cut": n_signal, "steps_held": held, "parted": part,
+            "sigma0_rel": d_sig, "reconstruction": rec}
+
+
+def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
+    """[10] The reference's position-bases workflow
+    (``configs/examples/bunny_gFall_posSubspace.json`` through
+    ``cli.run_position_pipeline``'s steps) on the card from the port's own
+    recording, with the bench cloth in place of the bunny: the bench scene
+    recorded by ``Solver`` (host LU) for POSB_FRAMES frames at phase [6]'s
+    settings (its first FOM_FRAMES frames held bit for bit against phase
+    [6]'s ``card/traj.npy`` under ``work``); every 2nd frame (the config's
+    increment, up to its 100 frames) imported (``import_frames``: float32,
+    zero-area triangles and small components dropped, normalized) and
+    aligned ``_centered`` on the card (``align_frames``; planar frames by
+    the rank-2 rule); the snapshots (Volkwein masses, standardized,
+    geodesics prefactored); global PCA (the config's 100 components),
+    local-support PCA (0.1-0.5) and SPLOCS (the config's 10 iterations of
+    10 ADMM steps, lambda 2, rho 10, from the local components) on the
+    card, each held against the CPU's float64 run on the same arrays (the
+    extractions step by step up to a step whose choice rounding sets,
+    :func:`greedy_holds`; the aligned frames; the SPLOCS energies); the
+    global components post-processed (U^T M U = I held), their first
+    POSB_SERVE served as the position basis on phase [6]'s constraint
+    bases (``work/card/bases``) at its configuration (f32 state, POSB_MATMUL
+    matrices): ``run_steps(FOM_FRAMES)`` from the hang state and one
+    ``step()``, a counted path (kernels 1 and 5), the reduced-vs-FOM
+    statistic beside phase [6]'s POD basis (``pod_vs_fom``); kernel 1
+    against float64 and kernel 5 step by step and in carried steps against
+    its plain version, both timed.  No h5py: the recording stays in memory.
+    Returns {kernel name: its "position_bases" readings}."""
+    import copy
+
+    from animsnapbases_tpu_torch.bases.pca import PositionComponents
+    from animsnapbases_tpu_torch.bases.pipeline import (
+        fom_deviation,
+        record_fom,
+        reduced_args,
+    )
+    from animsnapbases_tpu_torch.bases.position_reduction import (
+        save_position_basis,
+    )
+    from animsnapbases_tpu_torch.config.bases_config import BasesConfig
+    from animsnapbases_tpu_torch.device import PIPELINE_DTYPE
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.geometry.procrustes import (
+        RANK2_RTOL,
+        align_frames,
+        procrustes_transforms,
+    )
+    from animsnapbases_tpu_torch.ops.affine_chunked import (
+        affine_chunked,
+        affine_chunked_plain,
+    )
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import force_term, predict
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+    from animsnapbases_tpu_torch.snapshots.pipeline import import_frames
+    from animsnapbases_tpu_torch.snapshots.position import PositionSnapshots
+    from animsnapbases_tpu_torch.utils.checks import utmu_orthogonality_error
+
+    dt = 0.016
+    secs, out = {}, {}
+    held = {"CPU reruns": 0.0}
+
+    def scene():
+        return bench_scene(DeformableModel, cloth_model)
+
+    def rerun(fn):
+        """The CPU's float64 run of a stage, for the holds (not a stage)."""
+        t0 = time.perf_counter()
+        res = fn()
+        held["CPU reruns"] += time.perf_counter() - t0
+        return res
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return res
+
+    param = BasesConfig.from_json(POSB_CONFIG, results_dir=os.path.join(
+        work, "position results"))
+    for key, value in POSB_OVERRIDES.items():
+        setattr(param, key, value)
+    reduced = ["the bunny mesh (absent) -> the bench cloth (14,400 vertices "
+               "at full size)", "the .off sequence and .h5 files -> the "
+               "recording in memory (import_frames, no h5py)",
+               "local PCA and SPLOCS at the config's component count on "
+               "the same snapshots (the config asks global PCA only)",
+               "the test animation not imported (the bases read the train "
+               "frames only)"]
+    log(f"[10] position bases: {POSB_CONFIG} ({param.vertPos_numFrames} "
+        f"frames at increment {param.frame_increment}, {param.preAlignement}"
+        f", rest {param.vertPos_rest_shape}, Volkwein "
+        f"{param.q_massWeight}, standardized {param.q_standarize}, "
+        f"orthogonalized {param.q_orthogonal}, support "
+        f"{param.vertPos_smooth_min_dist}-{param.vertPos_smooth_max_dist}, "
+        f"{param.vertPos_numComponents} components, SPLOCS "
+        f"{param.splocs_max_itrs}x{param.splocs_admm_num_itrs} lambda "
+        f"{param.splocs_lambda} rho {param.splocs_rho}); reduced: "
+        + json.dumps(reduced))
+
+    # ---- record: the bench scene for POSB_FRAMES frames ------------------
+    model = scene()
+    f = gravity(model)
+    traj, _ = timed("record", lambda: record_fom(
+        model, f, None, POSB_FRAMES, FOM_ITERS, dt, BENCH_DAMPING,
+        device=dev))
+    first = np.load(os.path.join(work, "card", "traj.npy"))
+    same = bool(np.array_equal(traj[:len(first)], first))
+    log(f"[10] position bases: recorded {POSB_FRAMES} frames at {FOM_ITERS} "
+        f"iterations on the card in {secs['record']:.2f} s; its first "
+        f"{len(first)} frames equal phase [6]'s recording bit for bit: "
+        f"{same}")
+    require(same, "the recording's first frames differ from phase [6]'s")
+
+    # ---- import and align, card against CPU ------------------------------
+    frames = traj[::param.frame_increment][:param.vertPos_numFrames]
+    verts, tris, _, _ = import_frames(frames, model.faces)
+
+    def align(device):
+        v = torch.as_tensor(verts, dtype=PIPELINE_DTYPE, device=device)
+        return align_frames(v, param.rigid), procrustes_transforms(
+            v, v[0])[2]
+
+    card_al, card_s = timed("align", lambda: align(dev))
+    cpu_al, cpu_s = rerun(lambda: align("cpu"))
+    extent = float(np.abs(verts).max())
+    d_al = float((card_al.cpu() - cpu_al).abs().max()) / extent
+    ratio_c = (card_s[:, 2] / card_s[:, 0]).cpu().numpy()
+    ratio_h = (cpu_s[:, 2] / cpu_s[:, 0]).numpy()
+    rank2 = ratio_h < RANK2_RTOL
+    log(f"[10] position bases: aligned {len(verts)} frames on the card "
+        f"({param.preAlignement}) in {secs['align']:.3f} s; against the "
+        f"CPU {d_al:.3e} of the extent (limit {POSB_EXTENT}); rank-2 frames "
+        f"(s3/s1 < {RANK2_RTOL}) card {int((ratio_c < RANK2_RTOL).sum())}, "
+        f"CPU {int(rank2.sum())}, largest s3/s1 among them "
+        f"{ratio_h[rank2].max() if rank2.any() else 0.0:.3e}, smallest "
+        f"among the others "
+        f"{ratio_h[~rank2].min() if (~rank2).any() else float('inf'):.3e}")
+    require(d_al <= POSB_EXTENT and bool(
+        np.array_equal(ratio_c < RANK2_RTOL, rank2)),
+        "the card's aligned frames depart from the CPU's")
+    aligned = card_al.cpu().numpy().astype(np.float32)
+    out["align"] = {"vs_cpu": d_al, "rank2_frames": int(rank2.sum())}
+
+    # ---- snapshots and the geodesic prefactor (host) ---------------------
+    snaps = timed("geodesic prefactor", lambda: PositionSnapshots.from_arrays(
+        aligned, tris, rest_shape=param.vertPos_rest_shape,
+        masses_file=param.vertPos_masses_file,
+        standardize=param.q_standarize, mass_weight=param.q_massWeight))
+    R0 = torch.as_tensor(snaps.snapTensor, dtype=PIPELINE_DTYPE)
+
+    def components(support, device):
+        p = copy.copy(param)
+        p.q_support = support
+        p.vertPos_bases_type = "PCA"
+        return PositionComponents(p, snaps, device=device)
+
+    # ---- global and local PCA, card against CPU --------------------------
+    runs = {}
+    for label, support, stage in (("global PCA", "global", "global PCA"),
+                                  ("local PCA", "local", "local PCA")):
+        card = components(support, dev)
+        timed(stage, card.extract_k_components)
+        cpu = components(support, "cpu")
+        rerun(cpu.extract_k_components)
+        out[stage] = greedy_holds(label, card, cpu, R0)
+        runs[support] = card
+
+    # ---- SPLOCS from the local components, card against CPU --------------
+    history = []
+    for device in (dev, "cpu"):
+        p = copy.copy(param)
+        p.q_support, p.vertPos_bases_type = "local", "SPLOCS"
+        sp = PositionComponents(p, snaps, device=device)
+        sp.comps = runs["local"].comps.copy()
+        sp.weigs = runs["local"].weigs.copy()
+        run = lambda: sp.splocs_glob_optimization(  # noqa: E731
+            param.splocs_max_itrs, param.splocs_admm_num_itrs)
+        if device == dev:
+            timed("SPLOCS", run)
+            splocs_card = sp
+        else:
+            rerun(run)
+        history.append(np.array(sp.splocs_history)[:, 1:])
+    h_card, h_cpu = history
+    d_e = float(np.max(np.abs(h_card - h_cpu) / np.abs(h_cpu)))
+    log(f"[10] position bases, SPLOCS ({param.splocs_max_itrs} iterations): "
+        f"energy {h_cpu[0, 0]:.6e} -> {h_cpu[-1, 0]:.6e}, E_rms "
+        f"{h_cpu[0, 1]:.4e} -> {h_cpu[-1, 1]:.4e}; the card's history "
+        f"within {d_e:.3e} relative of the CPU's (limit {POSB_ENERGY}); "
+        f"sparsity (zero share by dimension) "
+        f"{[round(float(x), 4) for x in (splocs_card.comps == 0).mean(axis=(0, 1))]}")
+    require(d_e <= POSB_ENERGY, "the card's SPLOCS energies depart from the "
+            "CPU's")
+    out["SPLOCS"] = {"energy_rel": d_e, "energy": h_card[:, 0].tolist()}
+
+    # ---- post-process the global components ------------------------------
+    pca = runs["global"]
+    timed("post-process", pca.post_process_components)
+    err = utmu_orthogonality_error(pca.comps, snaps.mass)
+    ortho = pca.is_utmu_orthogonal()
+    log(f"[10] position bases: post-processed {pca.numComp} global "
+        f"components in {secs['post-process']:.3f} s: U^T M U = I within "
+        f"{err:.3e} (is_utmu_orthogonal {ortho}), rank-deficient dimensions "
+        f"{getattr(pca, 'rank_deficient_dims', [])}, linearly independent "
+        f"{pca.linear_independent}")
+    require(ortho, "the post-processed components are not M-orthonormal")
+
+    # ---- serve the first POSB_SERVE components on kernels 1 and 5 -------
+    pos_path = os.path.join(work, "pca_pos_basis.npz")
+    save_position_basis(pos_path, pca.comps[:POSB_SERVE])
+    args = reduced_args(os.path.join(work, "card", "bases"), pos_path,
+                        min(REDUCED_MODES, CONSTR_MODES), POSB_SERVE, dt,
+                        BENCH_DAMPING)
+    model = scene()
+    solver = AnimSnapBasesSolver(args, device=dev, dtype=torch.float32,
+                                 matmul_dtype=getattr(torch, POSB_MATMUL))
+    solver.resident_contact_mode = False
+    solver.set_model(model)
+    timed("prepare", lambda: solver.prepare(args))
+    entry = model.positions.copy()
+    state = {}
+
+    def serve():
+        t0 = time.perf_counter()
+        solver.run_steps(f, FOM_FRAMES, num_iterations=FOM_ITERS)
+        state["after"] = model.positions.copy()
+        solver.step(f, num_iterations=FOM_ITERS)
+        secs["serve"] = time.perf_counter() - t0
+
+    launch_path = (f"position bases: run_steps({FOM_FRAMES}) + step on the "
+                   "PCA basis")
+    paths[launch_path] = counted_path(
+        torch, counted, f"the PCA position basis (prepare -> run_steps("
+        f"{FOM_FRAMES}) + step())", {"fused_reduced_iterations",
+                                     "affine_chunked"}, serve)
+    require(solver._resident_fast_kind == "chunked"
+            and solver._resident_kind == "affine",
+            "the PCA-basis solver is not on the bench tiers")
+    require(np.isfinite(state["after"]).all()
+            and np.isfinite(model.positions).all(),
+            "the reduced solve on the PCA basis left non-finite state")
+    mean, p99, top = fom_deviation(state["after"], traj[FOM_FRAMES - 1])
+    out["vs_fom"] = {"mean": mean, "p99": p99, "max": top}
+    log(f"[10] position bases, served (r = {POSB_SERVE}, f32 state, "
+        f"{POSB_MATMUL} matrices, phase [6]'s constraint bases): prepare "
+        f"{secs['prepare']:.2f} s; reduced-vs-FOM after {FOM_FRAMES} steps "
+        f"(|P - P_FOM| / max|P_FOM|): mean {mean:.4f}, p99 {p99:.4f}, max "
+        f"{top:.4f}; phase [6]'s POD basis: "
+        + (", ".join(f"{k} {v:.4f}" for k, v in pod_vs_fom.items())
+           if pod_vs_fom else "not given"))
+
+    # ---- kernels 1 and 5 on the PCA basis --------------------------------
+    t_k = time.perf_counter()
+    ro, ao = solver._resident, solver._affine
+    fo = ro.fused
+    Pg = solver._to_device(entry)
+    Vg = torch.zeros_like(Pg)
+    Fx = solver._to_device(f)
+    rb = solver._rb_extra()
+    sn, rb_const = predict(ro, Pg, Vg, force_term(ro, Fx), rb)
+    sel = sn[:, :ro.n_sel]
+    u_k = fused_reduced_iterations(fo, sel, rb_const, ITERATIONS)
+    u_p = fused_reduced_iterations_plain(fo, sel, rb_const, ITERATIONS)
+    u_64 = fused_reduced_iterations_plain(as_f64(fo), sel.double(),
+                                          rb_const.double(), ITERATIONS)
+    ok, e_k, e_p = as_accurate(u_k, u_p, u_64)
+    k1_err = max_abs(u_k, u_p)
+    log(f"[10] position bases, kernel 1 (hang state under gravity): vs "
+        f"plain max abs {k1_err:.3e} (max|u| {float(u_p.abs().max()):.3e}); "
+        f"vs float64: kernel {e_k:.3e}, plain {e_p:.3e} (limit "
+        f"{ACC_RATIO}x)")
+    require(bool(torch.isfinite(u_k).all()) and ok, "kernel 1 is less "
+            "accurate than its plain version on the PCA basis")
+
+    def one(fn):
+        def run(P_, V_):
+            o = fn(ao, P_, V_, Fx, rb, 1, ITERATIONS)
+            require(o[2] == 1, f"{fn.__name__} stopped on a free step")
+            return o[:2]
+        return run
+
+    k5_err, _ = step_by_step(
+        torch, "position bases, kernel 5 (hang state under gravity)", ro,
+        one(affine_chunked), one(affine_chunked_plain), Pg, Vg, Fx, rb,
+        SCENE_STEPS)
+    err, _ = carried_steps(
+        torch, "position bases, kernel 5 (hang state under gravity), "
+        "carried steps", 5, ao, affine_chunked_plain, Pg, Vg, Fx, rb,
+        SCENE_STEPS, CHUNK_EVERY)
+    k5_err = max(k5_err, err)
+    k1_ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+        fo, sel, rb_const, ITERATIONS), reps=200)
+    k1_plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+        fo, sel, rb_const, ITERATIONS), reps=PLAIN_REPS, warmup=0)
+    k5_ms = cuda_ms(torch, lambda: affine_chunked(
+        ao, Pg, Vg, Fx, rb, SCENE_STEPS, ITERATIONS), reps=10, warmup=1)
+    k5_plain = cuda_ms(torch, lambda: affine_chunked_plain(
+        ao, Pg, Vg, Fx, rb, SCENE_STEPS, ITERATIONS), reps=PLAIN_REPS,
+        warmup=0)
+    trips = bound_trips(ao, Pg, Vg, Fx, rb, SCENE_STEPS)
+    k1_bound, k1_by = bound_ms(*k1_cost(fo, ro.n_sel, ITERATIONS))
+    k5_bound, k5_by = bound_ms(*k5_cost(ao, SCENE_STEPS, ITERATIONS,
+                                        CHUNK_EVERY, exact_steps=trips))
+    log(f"[10] position bases, times ({smi}): kernel 1 "
+        f"{1e3 * k1_ms:.2f} us a call (bound {1e3 * k1_bound:.4f}, {k1_by}; "
+        f"plain {1e3 * k1_plain:.1f}); kernel 5 "
+        f"{1e3 * k5_ms / SCENE_STEPS:.2f} us/step in {SCENE_STEPS}-step "
+        f"calls (bound {1e3 * k5_bound / SCENE_STEPS:.4f}, {k5_by}, its "
+        f"floor bound tripping on {trips} of {SCENE_STEPS} steps; plain "
+        f"{1e3 * k5_plain / SCENE_STEPS:.1f}); umax {ao.umax:.4f}")
+    held["kernel holds and times"] = time.perf_counter() - t_k
+    log("[10] position bases seconds (" + smi + "): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()) + "; beside the stages, "
+        "for the holds: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     held.items()))
+    common = {"launches_path": launch_path, "vs_fom": out["vs_fom"],
+              "pod_vs_fom": pod_vs_fom, "stage_s": secs, "holds_s": held,
+              "matmul_dtype": POSB_MATMUL, "r": POSB_SERVE,
+              "holds": {k: v for k, v in out.items() if k != "vs_fom"},
+              "library_ms": None}
+    return {
+        "fused_reduced_iterations": dict(
+            common, launches=paths[launch_path]["fused_reduced_iterations"],
+            max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+            bound_ms=k1_bound, bound_by=k1_by),
+        "affine_chunked": dict(
+            common, launches=paths[launch_path]["affine_chunked"],
+            max_abs_err=k5_err, ms=k5_ms, steps_per_call=SCENE_STEPS,
+            plain_ms=k5_plain, plain_steps_per_call=SCENE_STEPS,
+            bound_ms=k5_bound, bound_by=k5_by, bound_trips=trips,
+            umax=ao.umax)}
+
+
 def port_counters():
     """The launch counters the script reads: the twelve kernel wrappers,
     then kernel 5's option builds (``ops/affine_chunked.py``
@@ -6689,8 +7180,13 @@ def main() -> int:
         diff = diff_phase(torch, dev, smi, os.path.join(shared.name, "card",
                                                         "bases"),
                           os.path.join(shared.name, "card", "pos_basis.npz"))
-    log(f"[9] differentiable rollouts: holds, the --bench fit, the twin "
-        f"{diff['seconds']:.1f} s")
+        log(f"[9] differentiable rollouts: holds, the --bench fit, the twin "
+            f"{diff['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        posb = position_phase(torch, counted, paths, dev, smi, shared.name,
+                              real["affine_chunked"]["vs_fom"])
+        log(f"[10] position bases: record, align, PCA, SPLOCS, serving "
+            f"{time.perf_counter() - t0:.1f} s")
     kernels += options
     for k in kernels:
         if k["name"] in mega:
@@ -6701,6 +7197,8 @@ def main() -> int:
             k["per_group"] = per_group[k["name"]]
         if k["name"] in collide:
             k["self_collision"] = collide[k["name"]]
+        if k["name"] in posb:
+            k["position_bases"] = posb[k["name"]]
     k5 = next(k for k in kernels if k["name"] == "affine_chunked")
     k5.update(exact_check_us_bound_off=exact_us_bench,
               megacloth_exact_check_us=mega["exact_check_us"],

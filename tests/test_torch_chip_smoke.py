@@ -170,7 +170,12 @@ def _fake_card(monkeypatch):
                         ("MEGA_BATCH_STEPS", 8), ("MEGA_DEPTH", 3),
                         ("MEGA_ROUNDS", 1), ("FOM_FRAMES", 12),
                         ("CONSTR_MODES", 6), ("POS_MODES", 10),
-                        ("REDUCED_MODES", 6)):
+                        ("REDUCED_MODES", 6), ("POSB_FRAMES", 16),
+                        ("POSB_SERVE", 6),
+                        ("POSB_OVERRIDES", {"vertPos_numFrames": 8,
+                                            "vertPos_numComponents": 6,
+                                            "splocs_max_itrs": 2,
+                                            "splocs_admm_num_itrs": 3})):
         monkeypatch.setattr(cs, name, value)
     mega = cs.megacloth_solver
 
@@ -255,7 +260,8 @@ def assert_entries(entries, names):
 # other builds, one tet/bending scene (the bending cloth), phase [7]'s
 # recordings of 12 frames and example configs of 5 frames and 4 components,
 # phase [8]'s cloth at 12x12, phase [9]'s rollouts of 4 steps and fits of 2
-# Adam steps
+# Adam steps, phase [10] at the fakes' sizes (16 frames, 8 of them
+# imported, 6 components, 2 SPLOCS iterations)
 SMALLEST = {"ITERATIONS": 4, "OPTION_BUILDS": cs.OPTION_BUILDS[:1],
             "GROUP_FRAMES": 12, "BAR_FRAMES": 12, "GROUP_STEPS": 6,
             "GROUP_OVERRIDES": {"numFrames": 5, "desired_num_components": 4},
@@ -285,9 +291,10 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
         assert {"scenes", "animated"} <= set(k), k["name"]
     assert sorted(kernels[0]["scenes"]) == list(SMALLEST_SCENES)
     k1, k5 = kernels[0], kernels[4]
-    assert {"real_bases", "per_group", "self_collision"} <= set(k1)
-    assert {"real_bases", "per_group", "megacloth",
-            "self_collision"} <= set(k5)
+    assert {"real_bases", "per_group", "self_collision",
+            "position_bases"} <= set(k1)
+    assert {"real_bases", "per_group", "megacloth", "self_collision",
+            "position_bases"} <= set(k5)
     out = "\n".join(lines)
     order = ["[1] built", "[2] step + run_steps", "[2] tiered runs",
              "[3] bench scene holds", "[4] bench scene times",
@@ -295,7 +302,7 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
              "[2-4] tet, bending and block-form scenes",
              "[2-4] scale: the megacloth", "[6] pipeline: record, bases",
              "[7] per-group workflow:", "[8] self-collision:",
-             "[9] differentiable rollouts:"]
+             "[9] differentiable rollouts:", "[10] position bases: record"]
     at = [out.index(line) for line in order]
     assert at == sorted(at)
 

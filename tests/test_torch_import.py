@@ -52,11 +52,18 @@ def test_port_imports_no_jax():
                  "config.bases_config", "snapshots.nonlinear",
                  "bases.greedy", "bases.constraints",
                  "bases.position_reduction", "bases.pipeline",
-                 "utils.checks", "utils.timing"):
+                 "utils.checks", "utils.timing",
+                 # the position workflow
+                 "geometry.laplacian", "geometry.geodesics",
+                 "geometry.procrustes", "geometry.partitioning",
+                 "geometry.volume", "io.h5anim", "snapshots.pipeline",
+                 "snapshots.position", "bases.splocs", "bases.pca", "cli"):
         assert f"animsnapbases_tpu_torch.{name}" in res["modules"], name
         assert f"animsnapbases_tpu_torch.{name}" in loaded, name
     assert "animsnapbases_tpu_torch.ops.resident" in loaded
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
+    # h5py only for .h5 file I/O, inside the functions that do it
+    assert not [m for m in loaded if m == "h5py" or m.startswith("h5py.")]
     assert not [m for m in loaded if m == "animsnapbases_tpu"
                 or m.startswith("animsnapbases_tpu.")]
 
@@ -101,6 +108,28 @@ def test_pipeline_entry_points_default_to_the_card(tmp_path):
                  lambda: position_basis_from_trajectory(
                      X.T[:, :, None].repeat(3, 2), 2),
                  lambda: ConstraintComponents(param, snapshots=object())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_position_entry_points_default_to_the_card(tmp_path):
+    """The alignment, the position components and the position pipeline
+    take the card unless the CPU is asked for: without one they raise."""
+    import numpy as np
+
+    from animsnapbases_tpu_torch.bases.pca import PositionComponents
+    from animsnapbases_tpu_torch.cli import run_position_pipeline
+    from animsnapbases_tpu_torch.geometry.procrustes import align_animation
+
+    V = np.random.default_rng(0).normal(size=(3, 5, 3))
+    assert align_animation(V, device="cpu").shape == V.shape
+    if torch.cuda.is_available():
+        return
+    param = type("P", (), {"vertPos_bases_type": "PCA",
+                           "run_pca_tests": False})()
+    for call in (lambda: align_animation(V),
+                 lambda: PositionComponents(param, pos_snapshots=object()),
+                 lambda: run_position_pipeline(param)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
