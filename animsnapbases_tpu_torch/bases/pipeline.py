@@ -4,15 +4,17 @@ The steps ``bench.py`` takes with the JAX package (``_run_fom_and_bases_impl``,
 ``build_group_basis``, ``build_reduced_solver``) and the reference's own
 workflow (record a full-order run, compute one constraint group's bases from
 a ``configs/examples/*.json`` config, replay with the reduced solver), taken
-with the port's entry points: :func:`record_fom` records a full-order run
+with the port's entry points: :func:`bench_model` and :func:`gravity` give
+bench.py's scene, :func:`record_fom` records a full-order run
 with ``sim/solver.py`` (trajectory, ``assembly_ST.npz``, ``<group>_p.npz``);
 :func:`example_config` reads an example config with its paths pointed at a
 recording and :func:`export_mesh` writes the recorded model's mesh where the
-config looks for it; :func:`build_bases_from_config` drives ``BasesConfig ->
+config looks for it; :func:`compute_constproj_bases` drives ``BasesConfig ->
 NonlinearSnapshots -> ConstraintComponents`` on one group, with the
 selection its ``interpolation_type`` names (``deim``, ``deim_block_form``,
 or ``geom`` with the error in position space, as the JAX ``cli.py`` runs
-them); :func:`build_group_basis` does so on bench.py's config
+them; the bases CLI runs it too) and :func:`build_bases_from_config`
+stores its result; :func:`build_group_basis` does so on bench.py's config
 (``pod_vectorized``, row DEIM); :func:`reduced_args` gives the reduced
 solver's arguments for the bench's bases.
 """
@@ -31,6 +33,39 @@ from animsnapbases_tpu_torch.config.sim_config import default_sim_args
 from animsnapbases_tpu_torch.io.meshes import save_medit_mesh, save_obj
 from animsnapbases_tpu_torch.snapshots.nonlinear import NonlinearSnapshots
 from animsnapbases_tpu_torch.sim.solver import Solver
+
+
+def bench_model(rows: int = 120):
+    """bench.py's scene without the reference mesh (bench.py:73-109): the
+    procedural cloth of ``rows`` x ``rows`` vertices (120 in bench.py),
+    normalized, hung 20 units up, masses 10, the top cap above the 0.80
+    quantile pinned, tris_strain (0.95-1.05) and edge_spring at wi = 1e4,
+    floor on."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+
+    V, F = cloth_model(rows, rows)
+    V = V / float(rows)
+    V[:, 2] += 0.05 * V[:, 0]
+    V = V - V.mean(axis=0)
+    V = V / np.abs(V).max()
+    V[:, 1] += 20.0
+    model = DeformableModel(V, F, masses=np.full(len(V), 10.0),
+                            floor_collision=True, init_height_shift=0.0)
+    model.add_tri_constrain_strain(0.95, 1.05, wi=1e4)
+    model.add_edge_spring_constraint(wi=1e4)
+    top = np.where(model.positions[:, 1]
+                   > np.quantile(model.positions[:, 1], 0.80))[0]
+    for vi in top:
+        model.fix(vi)
+    return model
+
+
+def gravity(model):
+    """bench.py's external force: -9.81 x 10 along y on every vertex."""
+    f = np.zeros_like(model.positions)
+    f[:, 1] = -9.81 * 10.0
+    return f
 
 
 def record_fom(model, fext, record, frames: int, iterations: int, dt: float,
@@ -141,20 +176,20 @@ def export_mesh(model, param: BasesConfig) -> None:
                         tets=model.elements, tris=model.faces)
 
 
-def build_bases_from_config(param: BasesConfig, basis_dir: str,
-                            device=None, timings=None):
-    """One group's bases through the product pipeline, with the selection
-    of ``param``'s interpolation type, copied to
-    ``basis_dir/<group>/basis.npz`` -> the ConstraintComponents.
+def _timed(timings, name, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def compute_constproj_bases(param: BasesConfig, device=None, timings=None):
+    """One group's bases as ``param`` asks, not yet stored: its snapshots,
+    components and post-processing, then the selection of its
+    interpolation type (``deim``, ``deim_block_form``, or ``geom`` with
+    the error in position space) -> the ConstraintComponents.
     ``timings`` (a dict) gathers the seconds of each stage."""
     t = timings if timings is not None else {}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        t[name] = t.get(name, 0.0) + time.perf_counter() - t0
-        return out
-
     itype = param.constProj_bases_interpolation_type
     select = {
         "deim": lambda cc: cc.deim(),
@@ -165,14 +200,24 @@ def build_bases_from_config(param: BasesConfig, basis_dir: str,
     if itype not in select:
         raise ValueError(f"unknown interpolation type: {itype}")
     nl = NonlinearSnapshots(param)
-    nl.config()
-    timed("snapshots_prepare", nl.snapshots_prepare)
     cc = ConstraintComponents(param, nl, device=device)
+    nl.config()
     cc.config()
-    timed("pod", cc.compute_components_store_singvalues)
-    timed("post_process", cc.post_process_components)
-    timed("deim", lambda: select[itype](cc))
-    npz = timed("store", cc.store_components_n_interpol_points)
+    _timed(t, "snapshots_prepare", nl.snapshots_prepare)
+    _timed(t, "pod", cc.compute_components_store_singvalues)
+    _timed(t, "post_process", cc.post_process_components)
+    _timed(t, "deim", lambda: select[itype](cc))
+    return cc
+
+
+def build_bases_from_config(param: BasesConfig, basis_dir: str,
+                            device=None, timings=None):
+    """One group's bases (:func:`compute_constproj_bases`), stored and
+    copied to ``basis_dir/<group>/basis.npz`` -> the ConstraintComponents.
+    ``timings`` (a dict) gathers the seconds of each stage."""
+    t = timings if timings is not None else {}
+    cc = compute_constproj_bases(param, device=device, timings=t)
+    npz = _timed(t, "store", cc.store_components_n_interpol_points)
     gdir = os.path.join(basis_dir, param.constProj_name)
     os.makedirs(gdir, exist_ok=True)
     shutil.copy(npz, os.path.join(gdir, "basis.npz"))
@@ -213,12 +258,10 @@ def build_bases(model, record, traj, work_dir: str, constr_modes: int,
             record, gname, g.p, constr_modes, len(traj) - 1,
             os.path.join(work_dir, "work"), basis_dir, device=device,
             timings=t)
-    t0 = time.perf_counter()
     pos_path = os.path.join(work_dir, "pos_basis.npz")
-    save_position_basis(pos_path, position_basis_from_trajectory(
-        traj, pos_modes, device=device))
-    t["position_basis"] = t.get("position_basis", 0.0) + (
-        time.perf_counter() - t0)
+    _timed(t, "position_basis", lambda: save_position_basis(
+        pos_path, position_basis_from_trajectory(traj, pos_modes,
+                                                 device=device)))
     return basis_dir, pos_path, groups
 
 

@@ -1,1 +1,2 @@
-"""Scene helpers of the port's demos (numpy only)."""
+"""Scripted scenarios (the snapshot factories), the interactive session
+and the scene helpers of the port's demos."""

@@ -34,6 +34,8 @@ import time
 
 import numpy as np
 
+from animsnapbases_tpu_torch.bases.pipeline import bench_model, gravity
+
 DT = 0.016
 DAMPING = 0.02      # keeps the under-iterated rollout contractive
 ITERS = 6           # iterations of each fitted step
@@ -68,38 +70,6 @@ def twin_model():
     model.compute_cloth_corner_indices()
     model.fix_surface_side_vertices("left")
     return model
-
-
-def bench_model():
-    """bench.py's scene without the reference mesh (bench.py:73-109): the
-    120x120 procedural cloth, normalized, hung 20 units up, masses 10, the
-    top cap above the 0.80 quantile pinned, tris_strain (0.95-1.05) and
-    edge_spring at wi = 1e4, floor on."""
-    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
-    from animsnapbases_tpu_torch.sim.model import DeformableModel
-
-    V, F = cloth_model(120, 120)
-    V = V / 120.0
-    V[:, 2] += 0.05 * V[:, 0]
-    V = V - V.mean(axis=0)
-    V = V / np.abs(V).max()
-    V[:, 1] += 20.0
-    model = DeformableModel(V, F, masses=np.full(len(V), 10.0),
-                            floor_collision=True, init_height_shift=0.0)
-    model.add_tri_constrain_strain(0.95, 1.05, wi=1e4)
-    model.add_edge_spring_constraint(wi=1e4)
-    top = np.where(model.positions[:, 1]
-                   > np.quantile(model.positions[:, 1], 0.80))[0]
-    for vi in top:
-        model.fix(vi)
-    return model
-
-
-def gravity(model):
-    """Gravity on masses of 10 (the pins' 1e10 masses are not loaded)."""
-    f = np.zeros_like(model.positions)
-    f[:, 1] = -9.81 * 10.0
-    return f
 
 
 def record_and_bases(make_model, cfg: dict, work: str, device):

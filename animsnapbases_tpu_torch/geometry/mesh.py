@@ -1,11 +1,13 @@
 """Mesh topology queries the constraint groups need.
 
-Counterpart of ``animsnapbases_tpu/geometry/mesh.py``: only
-``unique_edges``, ``tet_edges``, ``boundary_facets``, ``build_vertex_stars``
-(with its ``StarEdge`` record), the incidence queries of the geometric
-bases selection (``elements_per_vertex``, ``vertex_star_vertices``) and
+Counterpart of ``animsnapbases_tpu/geometry/mesh.py``: ``unique_edges``,
+``tet_edges``, ``boundary_facets``, ``build_vertex_stars`` (with its
+``StarEdge`` record) and its flattened form ``vertex_star_edges``, the
+incidence queries of the geometric bases selection
+(``elements_per_vertex``, ``vertex_star_vertices``, ``padded_incidence``),
 the helpers of the snapshot import (``connected_components_labels``,
-``largest_component_mask``, ``filter_reindex``, ``triangle_areas``),
+``largest_component_mask``, ``filter_reindex``, ``triangle_areas``) and
+those of the analysis (``vertex_normals``, ``decimate_to_face_ratio``),
 copied so the port imports nothing of the JAX package.
 """
 
@@ -69,6 +71,71 @@ def triangle_areas(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
     return 0.5 * np.linalg.norm(n, axis=1)
 
 
+def decimate_to_face_ratio(verts: np.ndarray, faces: np.ndarray,
+                           face_ratio: float = 0.3):
+    """Thin a triangle mesh to roughly ``face_ratio`` of its faces by
+    uniform-grid vertex clustering (display-quality decimation for the
+    viewers) -> (new_verts, new_faces).  Bisects the cluster cell size
+    until the face count lands at or just under the target."""
+    v = np.asarray(verts, dtype=float)
+    f = np.asarray(faces, dtype=np.int64)
+    target = max(4, int(face_ratio * len(f)))
+    if target >= len(f):
+        return v.copy(), f.copy()
+
+    def cluster(cell):
+        keys = np.floor((v - v.min(axis=0)) / cell).astype(np.int64)
+        _, inv = np.unique(keys, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        nv = int(inv.max()) + 1
+        nV = np.zeros((nv, 3))
+        cnt = np.zeros(nv)
+        np.add.at(nV, inv, v)
+        np.add.at(cnt, inv, 1.0)
+        nV /= cnt[:, None]
+        nf = inv[f]
+        keep = ((nf[:, 0] != nf[:, 1]) & (nf[:, 1] != nf[:, 2])
+                & (nf[:, 0] != nf[:, 2]))
+        nf = nf[keep]
+        if len(nf):
+            _, first = np.unique(np.sort(nf, axis=1), axis=0,
+                                 return_index=True)
+            nf = nf[np.sort(first)]
+        return nV, nf
+
+    diag = float(np.linalg.norm(v.max(axis=0) - v.min(axis=0)))
+    lo, hi = diag * 1e-4, diag          # fine (keeps all) .. coarse (1 cell)
+    best = None
+    for _ in range(24):
+        mid = np.sqrt(lo * hi)
+        nV, nf = cluster(mid)
+        if len(nf) > target:
+            lo = mid                     # too fine -> coarsen
+        else:
+            best = (nV, nf)
+            hi = mid                     # at/under target -> try finer
+        if hi / lo < 1.01:
+            break
+    if best is None:
+        best = cluster(hi)
+    return best
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted per-vertex normals (unit length; a vertex of no face
+    gets a zero normal)."""
+    v = np.asarray(verts)
+    f = np.asarray(faces, dtype=np.int64)
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    vn = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(vn, f[:, k], fn)
+    lens = np.linalg.norm(vn, axis=1)
+    nz = lens > 1e-20
+    vn[nz] /= lens[nz, None]
+    return vn
+
+
 def elements_per_vertex(vertex_indices, elements: np.ndarray) -> list[int]:
     """Indices of the elements (rows of tets, tris or edges) that contain
     any of the given vertices, in ascending order."""
@@ -84,6 +151,26 @@ def vertex_star_vertices(vertex_index: int, faces: np.ndarray) -> list[int]:
     faces = np.asarray(faces)
     mask = (faces == vertex_index).any(axis=1)
     return sorted(set(faces[mask].flatten().tolist()))
+
+
+def padded_incidence(n_verts: int, elements: np.ndarray,
+                     fill: int = -1) -> tuple[np.ndarray, np.ndarray]:
+    """Static-shape vertex -> element incidence: (table (N, Dmax), counts
+    (N,)); table[v, :counts[v]] lists the elements containing v in
+    ascending order, the remaining slots hold ``fill``."""
+    elements = np.asarray(elements, dtype=np.int64)
+    e_ids = np.repeat(np.arange(len(elements)), elements.shape[1])
+    v_ids = elements.flatten()
+    order = np.lexsort((e_ids, v_ids))
+    v_sorted, e_sorted = v_ids[order], e_ids[order]
+    counts = np.bincount(v_sorted, minlength=n_verts)
+    dmax = int(counts.max()) if len(counts) else 0
+    table = np.full((n_verts, dmax), fill, dtype=np.int64)
+    # position within each vertex's run
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(len(v_sorted)) - starts[v_sorted]
+    table[v_sorted, pos] = e_sorted
+    return table, counts
 
 
 def boundary_facets(tets: np.ndarray) -> np.ndarray:
@@ -141,3 +228,23 @@ def build_vertex_stars(n_verts: int,
                                                  v_other_t1=int(third),
                                                  t1=t))
     return stars
+
+
+def vertex_star_edges(n_verts: int, faces: np.ndarray) -> dict:
+    """:func:`build_vertex_stars` flattened into int64 arrays over all star
+    edges, grouped by center: ``center``, ``v2``, ``v_other_t1``, ``t1``,
+    ``v_other_t2``, ``t2`` (S,) and ``star_offsets`` (N + 1,), the star of
+    vertex v spanning [star_offsets[v], star_offsets[v + 1])."""
+    stars = build_vertex_stars(n_verts, faces)
+    counts = np.array([len(s) for s in stars])
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    flat = [e for s in stars for e in s]
+    return {
+        "center": np.repeat(np.arange(n_verts), counts),
+        "v2": np.array([e.v2 for e in flat], dtype=np.int64),
+        "v_other_t1": np.array([e.v_other_t1 for e in flat], dtype=np.int64),
+        "t1": np.array([e.t1 for e in flat], dtype=np.int64),
+        "v_other_t2": np.array([e.v_other_t2 for e in flat], dtype=np.int64),
+        "t2": np.array([e.t2 for e in flat], dtype=np.int64),
+        "star_offsets": offsets,
+    }

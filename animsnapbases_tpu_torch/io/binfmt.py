@@ -2,7 +2,7 @@
 
 Copy of the parts of ``animsnapbases_tpu/io/binfmt.py`` that the bases
 pipeline reaches (numpy only): the components ``.bin`` writer and reader,
-the interpolation-points vector writer and the masses reader,
+the interpolation-points vector writer and reader and the masses reader,
 byte-compatible with the reference's files.
 
 components ``.bin``
@@ -109,6 +109,13 @@ def _write_header_vector(path: str, values: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(struct.pack("<ii", values.shape[0], 1))
         f.write(values.astype(_F64).tobytes())
+
+
+def read_points_vector(path: str) -> np.ndarray:
+    """Read any (n, 1)-headed vector ``.bin`` (points or plain vector)."""
+    with open(path, "rb") as f:
+        n, _ = struct.unpack("<ii", f.read(8))
+        return np.frombuffer(f.read(8 * n), dtype=_F64).copy()
 
 
 def read_masses_bin(path: str) -> np.ndarray:

@@ -1,12 +1,13 @@
 """Deformable model: simulation state + constraint-group management.
 
-Counterpart of ``animsnapbases_tpu/sim/model.py`` for what the reduced
-serving path and the full-order recorder need: pinning (``fix``, mass
-1e10) with the side and corner fixers, positional targets, the
+Counterpart of ``animsnapbases_tpu/sim/model.py``: pinning (``fix``, mass
+1e10; ``unfix`` back to the initial mass, ``toggle_fixed``) with the side
+and corner fixers and their releases, picking (``picked_vert``,
+``toggle_picked``), positional targets (added and removed), the
 constructors of the five constraint group kinds (``tris_strain``,
 ``edge_spring``, ``tets_strain``, ``tets_deformation_gradient``,
-``verts_bending`` with its area masses) and the S^T export
-(``assembly_matrices``).  The state stays host numpy in float64, as in the
+``verts_bending`` with its area masses), the S^T export
+(``assembly_matrices``) and ``count_edges``.  The state stays host numpy in float64, as in the
 JAX package; the solvers cast it to their dtype on their device.
 """
 
@@ -38,9 +39,11 @@ class DeformableModel:
         n = self.positions.shape[0]
         self.mass = np.ones(n) if masses is None else np.array(masses,
                                                                dtype=float)
+        self.mass_init = self.mass.copy()
         self.velocities = np.zeros_like(self.positions)
 
         self.fixed_flags = np.zeros(n, dtype=bool)
+        self.picked_vert = np.zeros(n, dtype=bool)
         self.threshold_fixing_ratio = 0.01
         self.groups: dict[str, G.ConstraintGroup] = {}
         # dynamic positional constraints kept as host lists
@@ -50,9 +53,30 @@ class DeformableModel:
     def n_verts(self) -> int:
         return self.positions.shape[0]
 
+    def reset_constraints_attributes(self):
+        self.groups = {}
+        self._positional = []
+
+    def is_fixed(self, i):
+        return bool(self.fixed_flags[i])
+
     def fix(self, i):
         self.fixed_flags[i] = True
         self.mass[i] = 1e10
+
+    def unfix(self, i):
+        self.fixed_flags[i] = False
+        self.mass[i] = self.mass_init[i]
+
+    def toggle_fixed(self, i, mass_when_unfixed=1.0):
+        self.fixed_flags[i] = ~self.fixed_flags[i]
+        self.mass[i] = 1e10 if self.fixed_flags[i] else mass_when_unfixed
+
+    def toggle_picked(self, i):
+        self.picked_vert[i] = ~self.picked_vert[i]
+
+    def immobilize(self):
+        self.velocities[:] = 0
 
     # ------------------------------------------------------------------
     # side / corner fixers
@@ -99,6 +123,13 @@ class DeformableModel:
         if return_target:
             return targets
 
+    def release_surface_side_vertices(self, side="left"):
+        """Unpin the surface vertices of one side."""
+        if not hasattr(self, "_side_surface_verts"):
+            self.compute_cloth_corner_indices()
+        for vi in self._side_surface_verts.get(side, []):
+            self.unfix(vi)
+
     # ------------------------------------------------------------------
     # constraint constructors
     # ------------------------------------------------------------------
@@ -110,6 +141,10 @@ class DeformableModel:
             "frame_shift": (np.asarray(frame_shift)
                             if frame_shift is not None else None),
         })
+        self._rebuild_positional()
+
+    def remove_positional_constraint(self, vi):
+        self._positional = [c for c in self._positional if c["vi"] != vi]
         self._rebuild_positional()
 
     def _rebuild_positional(self):
@@ -167,6 +202,11 @@ class DeformableModel:
         self.groups["verts_bending"] = G.build_verts_bending(
             self.positions, self.faces, wi, voronoi, prevent_bending_flips,
             flat_bending)
+
+    def count_edges(self, faces=None) -> int:
+        """Number of unique undirected edges."""
+        faces = self.faces if faces is None else faces
+        return len(unique_edges(faces))
 
     def has_group(self, name: str) -> bool:
         return name in self.groups

@@ -6,8 +6,10 @@ from one frame-keyed ``.npz`` (as ``sim/solver.py`` records them) or from
 per-frame ``.bin`` files; the train set is frames 0, inc, 2*inc, ..., the
 test set offset by ``train_test_jump``; element masses from a ``.bin``
 vector or accumulated from vertex masses per constrained element; the mass
-weighting massL = sqrt(m) and the standardization.  The export of the
-snapshots as an ``.h5`` animation is not ported.
+weighting massL = sqrt(m), the standardization, and the export of the
+snapshots mapped to position space as a components ``.h5``
+(:meth:`NonlinearSnapshots.store_snapshots_animations`; h5py is imported
+inside it).
 """
 
 from __future__ import annotations
@@ -164,6 +166,26 @@ class NonlinearSnapshots:
             vertex_masses = vertex_masses_barycentric_tet(self.verts, self.tets)
             return tet_element_masses(vertex_masses, self.tets, p)
         raise ValueError(f"unsupported constraint row size p={p} (e={e})")
+
+    # ------------------------------------------------------------------
+    def store_snapshots_animations(self, output_dir: str, file_name: str,
+                                   St=None) -> str:
+        """Map the stacked projections to position space through S^T and
+        store them as a components ``.h5`` -> its path."""
+        from animsnapbases_tpu_torch.io.h5anim import write_components_h5
+
+        if St is None:
+            St = np.load(self.param.constProj_weightedSt, allow_pickle=True)[
+                self.param.costProj_St_key]
+            if isinstance(St, np.ndarray) and St.dtype == object:
+                St = St.item()
+        if self.verts is None or self.tris is None:
+            self.verts, self.tris = load_obj(self.param.tri_mesh_file)
+        anim = np.stack([St @ self.snapTensor[f]
+                         for f in range(self.snapTensor.shape[0])])
+        path = os.path.join(output_dir, file_name)
+        write_components_h5(path, self.verts, self.tris, anim)
+        return path
 
     # ------------------------------------------------------------------
     def standardize(self) -> None:

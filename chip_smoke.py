@@ -184,15 +184,39 @@ version.  Phases, each of which fails the run when it fails:
    (kernels 1 and 5), the reduced-vs-FOM statistic beside phase [6]'s POD
    basis; kernel 1 against float64, kernel 5 step by step and in carried
    steps; seconds per stage;
+11. ``scenarios`` (:func:`scenarios_phase`): the reference's loop through
+   the port's own command lines: (a) ``cloth_automated_bend_spring_strain``
+   on its demo config (20x20 cloth, 240 frames, the sides fixed and
+   released at frames 20, 60 and 140) recorded by ``sim_cli`` (``Solver``,
+   ``--record --record-positions``), the bases of the three
+   ``cloth_automated_deim_*`` example configs by ``cli.main`` (npz,
+   convergence CSVs, ``function_timings.txt``), the reduced replay by
+   ``sim_cli`` (``animSnapBasesSolver``, positions full: the dense
+   Cholesky on the card) and ``compute_accuracy`` on the two ``.off``
+   sequences; held: each event through 3 frames on the CPU from the
+   card's state (recording and replay), the bases against the CPU's run of
+   each config, the CSV against the in-memory trajectories; (b) the same
+   scenario fully reduced (r = 30 of the recording, float32 state and
+   matrices), every frame on kernel 1 through ``run_steps(record=True)``,
+   a counted path, prepared again at every event: cond(Ar) per segment,
+   at each prepare the card's state through 3 frames on the CPU in
+   float64 and float32 (the card held as its float32 twin is), kernel 1
+   against float64 on the first step after each prepare, the per-frame
+   rel-L2 and normal angle beside the CPU's float64 replay's per segment;
+   (c) the accuracy report
+   (``analysis/accuracy_report.py``) on phase [6]'s recording and bases:
+   48 frames on kernel 1, a counted path, with bfloat16 and with float32
+   matrices, under the JAX script's gates (a gate crossed fails the run);
+   heat maps only where matplotlib imports;
 5. the ``kernels`` line (22 entries: six solo kernels, six batched
    builds, each with its times on the new scenes under ``scenes``, with a
    target schedule under ``animated``, at 250,000 vertices under
    ``megacloth`` and, for kernels 1 and 5, on real bases under
    ``real_bases``, on the bar's block-form bases under ``per_group``,
    under self-collision under ``self_collision`` and on the PCA position
-   basis under ``position_bases``, then kernel 5's five option builds,
-   solo and batched), then the last line ``{"ok": true, "device":
-   {...}}``.
+   basis under ``position_bases``, kernel 1 on phase [11]'s replays under
+   ``scenarios``, then kernel 5's five option builds, solo and batched),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
 result.
@@ -577,6 +601,29 @@ POSB_NOISE = 1e-10
 POSB_SIGMA = 1e-10
 POSB_EXTENT = 1e-9
 POSB_ENERGY = 1e-9
+# ---- [11] scenarios, command lines and analysis (:func:`scenarios_phase`)
+# the reference's event demo at its own size (the demo config's 20x20
+# cloth, its 240 frames, the sides fixed and released at frames 20, 60
+# and 140), SCEN_SYSTEM replacing entries of its cloth and SCEN_FRAMES
+# (None: all) cutting its frames; at each event the card's state through
+# the event and SCEN_HOLD_STEPS frames on the CPU within CPU_DEVIATION
+# (the float64 solves) or, for the fully reduced replay in float32, within
+# ACC_RATIO times the CPU's float32 run's distance from its float64 run
+# (:func:`as_accurate`); the example configs' entries replaced (none); the
+# fully reduced replay's position basis, r = SCEN_POS_MODES modes of the
+# recording; the accuracy
+# CSV read back against the in-memory trajectories within CSV_RTOL
+# relative (the .off writer writes each float's shortest repr, which
+# reads back exact)
+SCEN_NAME = "cloth_automated_bend_spring_strain"
+SCEN_CONFIG = CLOTH_DEMO
+SCEN_EVENTS = (20, 60, 140)
+SCEN_SYSTEM = {}
+SCEN_FRAMES = None
+SCEN_HOLD_STEPS = 3
+SCEN_OVERRIDES = {}
+SCEN_POS_MODES = 30
+CSV_RTOL = 1e-12
 
 
 def log(*a):
@@ -4779,18 +4826,16 @@ def group_demo(torch, dev, work, secs, smi, batched):
     return stats
 
 
-def group_bench(torch, dev, work, secs, smi, batched):
+def group_bench(torch, dev, shared, secs, smi, batched):
     """(b) The bench cloth (:func:`bench_scene`) without position
-    reduction: phase [6]'s recording (FOM_FRAMES frames) and bases
-    (``bases/pipeline.py`` ``build_bases``), then the reduced solver of
+    reduction: phase [6]'s recording (FOM_FRAMES frames) and bases, read
+    from its files under ``shared``, then the reduced solver of
     ``reduced_args`` with the positions full (the host LU above
     ``DENSE_LIMIT``: at 3N = 43,200) and with the positions reduced and ``edge_spring`` full, each over
     FOM_FRAMES steps, held against the CPU step by step and against the
     recording -> {path: reduced-vs-FOM (mean, p99, max)}."""
     from animsnapbases_tpu_torch.bases.pipeline import (
-        build_bases,
         fom_deviation,
-        record_fom,
         reduced_args,
     )
     from animsnapbases_tpu_torch.geometry.procedural import cloth_model
@@ -4805,20 +4850,13 @@ def group_bench(torch, dev, work, secs, smi, batched):
     full = ("dense" if 3 * model.n_verts <= AnimSnapBasesSolver.DENSE_LIMIT
             else "host")
     f = gravity(model)
-    record = os.path.join(work, "bench", "FOM")
-    t0 = time.perf_counter()
-    traj, _ = record_fom(model, f, record, FOM_FRAMES, FOM_ITERS, dt,
-                         BENCH_DAMPING, device=dev)
-    secs["bench: record"] = time.perf_counter() - t0
-    timings = {}
-    basis_dir, pos_path, _ = build_bases(
-        model, record, traj, os.path.join(work, "bench"), CONSTR_MODES,
-        POS_MODES, device=dev, timings=timings)
-    for stage, t in timings.items():
-        secs[f"bench: bases, {stage}"] = t
-    log(f"[7] bench: recorded {FOM_FRAMES} frames in "
-        f"{secs['bench: record']:.2f} s, bases in "
-        f"{sum(timings.values()):.2f} s ({smi})")
+    traj = np.load(os.path.join(shared, "card", "traj.npy"))
+    basis_dir = os.path.join(shared, "card", "bases")
+    pos_path = os.path.join(shared, "card", "pos_basis.npz")
+    require(len(traj) == FOM_FRAMES, f"phase [6]'s recording has "
+            f"{len(traj)} frames, not {FOM_FRAMES}")
+    log(f"[7] bench: phase [6]'s recording ({FOM_FRAMES} frames) and bases "
+        f"({smi})")
     stats = {}
     for label, position_reduced, edge_reduced, mode in (
             ("positions full", False, True, full),
@@ -5044,19 +5082,20 @@ def group_bar(torch, counted, paths, dev, work, secs, smi):
     return out
 
 
-def per_group_phase(torch, counted, paths, dev, smi):
+def per_group_phase(torch, counted, paths, dev, smi, shared):
     """[7] The reference's per-group workflow on the card, at the
     reference's own sizes: record a full-order run, compute each group's
     bases from its example config, replay with the reduced solver.  (a)
     the demo cloth (:func:`group_demo`), (b) the bench cloth without
-    position reduction (:func:`group_bench`), (c) the bar's block forms
+    position reduction on phase [6]'s files under ``shared``
+    (:func:`group_bench`), (c) the bar's block forms
     through kernels 1 and 5 (:func:`group_bar`).  Each stage's seconds are
     printed beside the card's name and power limit.  Returns {kernel name:
     the entries the kernels line carries under "per_group"}."""
     secs, batched = {}, {}
     with tempfile.TemporaryDirectory() as work:
         demo = group_demo(torch, dev, work, secs, smi, batched)
-        bench = group_bench(torch, dev, work, secs, smi, batched)
+        bench = group_bench(torch, dev, shared, secs, smi, batched)
         out = group_bar(torch, counted, paths, dev, work, secs, smi)
     log(f"[7] per-group workflow seconds ({smi}): " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()))
@@ -5902,9 +5941,11 @@ def greedy_holds(label, card, cpu, R0):
     follow other deflations and are not compared.  sigma0 within
     POSB_SIGMA relative on the steps before; the reconstructions W C
     within POSB_EXTENT of the snapshots' extent where the two never part
-    -> the readings."""
-    sig_c, res_c = card.measures_at_largeDeforVerts[:, 1:].T
-    sig_h, res_h = cpu.measures_at_largeDeforVerts[:, 1:].T
+    and the CPU ran as many steps.  Where one run has fewer steps than the
+    other, the steps both ran are compared -> the readings."""
+    n = min(len(card.picks), len(cpu.picks))
+    sig_c, res_c = card.measures_at_largeDeforVerts[:n, 1:].T
+    sig_h, res_h = cpu.measures_at_largeDeforVerts[:n, 1:].T
     res_in = np.concatenate([[float(R0.norm())], res_h[:-1]])
     under = np.nonzero(res_in <= POSB_CUT * res_in[0])[0]
     n_signal = int(under[0]) if len(under) else len(res_in)
@@ -5938,24 +5979,26 @@ def greedy_holds(label, card, cpu, R0):
     require(d_sig <= POSB_SIGMA, f"{label}: sigma0 departs from the CPU's "
             f"by {d_sig:.3e} relative")
     rec = None
-    if part is None:
+    if part is None and n == card.numComp:
         extent = float(R0.abs().max())
         rec = float(np.abs(card.reconstruct(card.numComp)
                            - cpu.reconstruct(cpu.numComp)).max()) / extent
         require(rec <= POSB_EXTENT, f"{label}: the reconstruction departs "
                 f"from the CPU's by {rec:.3e} of the extent")
-    log(f"[10] position bases, {label} ({card.numComp} components): the "
-        f"card's steps equal the CPU's (pick, residual after) on {held} of "
-        f"the {n_signal} steps above the cut ({card.numComp - n_signal} "
-        f"steps under it: residual <= {POSB_CUT} of the first, not "
-        f"compared); parted at {part}; sigma0 within {d_sig:.3e} relative "
-        f"(limit {POSB_SIGMA}); reconstruction "
+    log(f"[10] position bases, {label} ({card.numComp} components, the "
+        f"CPU's run {n} steps): the card's steps equal the CPU's (pick, "
+        f"residual after) on {held} of the {n_signal} steps above the cut "
+        f"({n - n_signal} steps under it: residual <= {POSB_CUT} of the "
+        f"first, not compared); parted at {part}; sigma0 within "
+        f"{d_sig:.3e} relative (limit {POSB_SIGMA}); reconstruction "
         + (f"within {rec:.3e} of the extent (limit {POSB_EXTENT})"
-           if rec is not None else "not compared (the paths parted)")
+           if rec is not None else "not compared (the paths parted)"
+           if part is not None else "not compared (the CPU's run was "
+           "cut)")
         + f"; sigma0 first/last {sig_h[0]:.4e}/{sig_h[-1]:.4e}, residual "
         f"last {res_h[-1]:.3e}")
     return {"steps_above_cut": n_signal, "steps_held": held, "parted": part,
-            "sigma0_rel": d_sig, "reconstruction": rec}
+            "sigma0_rel": d_sig, "reconstruction": rec, "steps_replayed": n}
 
 
 def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
@@ -6022,15 +6065,18 @@ def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
     dt = 0.016
     secs, out = {}, {}
     held = {"CPU reruns": 0.0}
+    reruns = {}
 
     def scene():
         return bench_scene(DeformableModel, cloth_model)
 
-    def rerun(fn):
+    def rerun(stage, fn):
         """The CPU's float64 run of a stage, for the holds (not a stage)."""
         t0 = time.perf_counter()
         res = fn()
-        held["CPU reruns"] += time.perf_counter() - t0
+        t = time.perf_counter() - t0
+        held["CPU reruns"] += t
+        reruns[stage] = reruns.get(stage, 0.0) + t
         return res
 
     def timed(name, fn):
@@ -6087,7 +6133,7 @@ def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
             v, v[0])[2]
 
     card_al, card_s = timed("align", lambda: align(dev))
-    cpu_al, cpu_s = rerun(lambda: align("cpu"))
+    cpu_al, cpu_s = rerun("align", lambda: align("cpu"))
     extent = float(np.abs(verts).max())
     d_al = float((card_al.cpu() - cpu_al).abs().max()) / extent
     ratio_c = (card_s[:, 2] / card_s[:, 0]).cpu().numpy()
@@ -6127,7 +6173,7 @@ def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
         card = components(support, dev)
         timed(stage, card.extract_k_components)
         cpu = components(support, "cpu")
-        rerun(cpu.extract_k_components)
+        rerun(stage, cpu.extract_k_components)
         out[stage] = greedy_holds(label, card, cpu, R0)
         runs[support] = card
 
@@ -6145,19 +6191,23 @@ def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
             timed("SPLOCS", run)
             splocs_card = sp
         else:
-            rerun(run)
+            rerun("SPLOCS", run)
         history.append(np.array(sp.splocs_history)[:, 1:])
     h_card, h_cpu = history
+    require(h_card.shape == h_cpu.shape, "the card's SPLOCS history and the "
+            "CPU's differ in length")
     d_e = float(np.max(np.abs(h_card - h_cpu) / np.abs(h_cpu)))
-    log(f"[10] position bases, SPLOCS ({param.splocs_max_itrs} iterations): "
-        f"energy {h_cpu[0, 0]:.6e} -> {h_cpu[-1, 0]:.6e}, E_rms "
-        f"{h_cpu[0, 1]:.4e} -> {h_cpu[-1, 1]:.4e}; the card's history "
-        f"within {d_e:.3e} relative of the CPU's (limit {POSB_ENERGY}); "
+    log(f"[10] position bases, SPLOCS ({param.splocs_max_itrs} iterations "
+        f"on the card and the CPU): energy {h_card[0, 0]:.6e} -> "
+        f"{h_card[-1, 0]:.6e}, E_rms {h_card[0, 1]:.4e} -> "
+        f"{h_card[-1, 1]:.4e}; the card's history within {d_e:.3e} "
+        f"relative of the CPU's (limit {POSB_ENERGY}); "
         f"sparsity (zero share by dimension) "
         f"{[round(float(x), 4) for x in (splocs_card.comps == 0).mean(axis=(0, 1))]}")
     require(d_e <= POSB_ENERGY, "the card's SPLOCS energies depart from the "
             "CPU's")
-    out["SPLOCS"] = {"energy_rel": d_e, "energy": h_card[:, 0].tolist()}
+    out["SPLOCS"] = {"energy_rel": d_e, "energy": h_card[:, 0].tolist(),
+                     "iterations_replayed": len(h_cpu)}
 
     # ---- post-process the global components ------------------------------
     pca = runs["global"]
@@ -6278,12 +6328,13 @@ def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
     log("[10] position bases seconds (" + smi + "): " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()) + "; beside the stages, "
         "for the holds: " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                     held.items()))
+                                     held.items()) + " (CPU reruns: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in reruns.items()) + ")")
     common = {"launches_path": launch_path, "vs_fom": out["vs_fom"],
               "pod_vs_fom": pod_vs_fom, "stage_s": secs, "holds_s": held,
               "matmul_dtype": POSB_MATMUL, "r": POSB_SERVE,
               "holds": {k: v for k, v in out.items() if k != "vs_fom"},
-              "library_ms": None}
+              "cpu_reruns_s": reruns, "library_ms": None}
     return {
         "fused_reduced_iterations": dict(
             common, launches=paths[launch_path]["fused_reduced_iterations"],
@@ -6295,6 +6346,664 @@ def position_phase(torch, counted, paths, dev, smi, work, pod_vs_fom=None):
             plain_ms=k5_plain, plain_steps_per_call=SCENE_STEPS,
             bound_ms=k5_bound, bound_by=k5_by, bound_trips=trips,
             umax=ao.umax)}
+
+
+def have_matplotlib():
+    """Whether matplotlib imports on this host (the phase draws only
+    there; drawing is host plotting, not the device path)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def scen_config(work, name, reduction=None, **directories):
+    """SCEN_CONFIG with its cloth replaced by SCEN_SYSTEM, the entries of
+    its ``constraint_projetions_reduction`` section by ``reduction`` and of
+    its ``directories`` by ``directories``, written under ``work`` -> its
+    path."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, SCEN_CONFIG)) as fp:
+        cfg = json.load(fp)
+    cfg["system"]["Cloth"].update(SCEN_SYSTEM)
+    cfg["constraint_projetions_reduction"].update(reduction or {})
+    cfg["directories"].update(directories)
+    path = os.path.join(work, name)
+    with open(path, "w") as fp:
+        json.dump(cfg, fp, indent=1)
+    return path
+
+
+def scen_event_holds(label, traj, config, solver_name, dt, secs):
+    """Each event of SCEN_EVENTS that the run crossed: the card's state at
+    that frame (positions ``traj[e - 1]``, velocities (traj[e - 1] -
+    traj[e - 2]) / dt, as the card computed them) through the event and
+    SCEN_HOLD_STEPS frames on the CPU, by the same scenario driver, held
+    within CPU_DEVIATION of the scene's extent of the card's frames ->
+    {event: deviation}."""
+    from animsnapbases_tpu_torch.config.sim_config import SimConfig
+    from animsnapbases_tpu_torch.demos.scenarios import build_scenario
+
+    out = {}
+    t0 = time.perf_counter()
+    extent = float(np.abs(traj).max())
+    for e in SCEN_EVENTS:
+        if e + SCEN_HOLD_STEPS > len(traj) or e < 2:
+            continue
+        params = SimConfig(config)
+        args = params.build_args()
+        args.solver = solver_name
+        args.output_dir = os.path.join(os.path.dirname(config),
+                                       f"cpu {label} {e}")
+        d = build_scenario(SCEN_NAME, args, params=params, device="cpu")
+        d._frame0()
+        for ev in sorted(k for k in d.schedule
+                         if isinstance(k, int) and k < e):
+            d.schedule[ev](d)
+        d.model.positions = traj[e - 1].copy()
+        d.model.velocities = (traj[e - 1] - traj[e - 2]) / dt
+        d.solver.frame = e
+        d.solver.set_dirty()
+        d.run(max_frames=e + SCEN_HOLD_STEPS)
+        cpu = np.array(d.trajectory)
+        out[e] = float(np.abs(cpu - traj[e:e + SCEN_HOLD_STEPS]).max()
+                       ) / extent
+    secs[f"{label}: CPU holds"] = time.perf_counter() - t0
+    log(f"[11] scenarios, {label}: at each event the card's state through "
+        f"the event and {SCEN_HOLD_STEPS} frames on the CPU: "
+        + ", ".join(f"frame {e}: {v:.3e}" for e, v in out.items())
+        + f" of the scene's extent (limit {CPU_DEVIATION})")
+    require(all(v <= CPU_DEVIATION for v in out.values()),
+            f"{label}: a frame on the card departs from the CPU's at an "
+            "event")
+    return out
+
+
+def scen_bases_holds(g, cc, cpu):
+    """The card's bases of group ``g`` (``cc``) against the CPU's run of
+    the same config (``cpu``): the standardized components less the mean
+    and scaled back are the POD's modes, held within :func:`pod_bounds`
+    after aligning each mode's sign with the CPU's; the CPU's components
+    rebuilt from its modes in the card's signs and its DEIM run again on
+    them, the card's picks equal or ties (:func:`deim_picks_agree`) ->
+    the readings."""
+    import copy
+
+    def modes(c):
+        sn = c.nonlinearSnapshots
+        return (c.comps - sn.mean[np.newaxis]) * sn.pre_scale_factor
+
+    # the rank cut (singular values above 1e-12 of the first) may fall
+    # on either side of a mode that rounding sets: one whose singular
+    # value the Gram method cannot resolve (its bound as large as itself)
+    K = min(cc.numComp, cpu.numComp)
+    ds_all, _ = pod_bounds(cpu.singVals, max(cc.numComp, cpu.numComp))
+    cut_ok = bool((ds_all[K:] >= cpu.singVals[K:len(ds_all)]).all())
+    raw_c, raw_h = modes(cc)[:K], modes(cpu)[:K]
+    sign = np.where((raw_c * raw_h).sum(axis=(1, 2)) < 0, -1.0, 1.0)
+    ds, du = pod_bounds(cpu.singVals, K)
+    d_u = np.abs(raw_c - sign[:, None, None] * raw_h).reshape(K, -1).max(
+        axis=1)
+    d_s = np.abs(cc.singVals[:K] - cpu.singVals[:K])
+    sn = cpu.nonlinearSnapshots
+    ref = copy.copy(cpu)
+    ref.comps = (sign[:, None, None] * raw_h / sn.pre_scale_factor
+                 + sn.mean[np.newaxis])
+    ref.numComp = K
+    ref._comps_device = None
+    ref.deim()
+    mode_diff = sign_aligned_diff(ref.comps, cc.comps[:K])
+    picks = np.asarray(cc.geom_Pt)[:K]
+    ok, ties = deim_picks_agree(ref.comps, ref.geom_Pt, picks, mode_diff)
+    log(f"[11] scenarios, {g}: the card's bases against the CPU's "
+        f"({cc.numComp} and {cpu.numComp} modes above the rank cut; "
+        f"{K} compared, {int((sign < 0).sum())} of opposite sign): picks "
+        f"equal on {int((picks == np.asarray(ref.geom_Pt)).sum())} of "
+        f"{len(ref.geom_Pt)}, ties (step, CPU pick, card pick, shortfall) "
+        f"{ties}; modes within {d_u.max():.3e} (at most "
+        f"{(d_u / du).max():.3e} of the bound), singular values within "
+        f"{(d_s / cpu.singVals[:K]).max():.3e} relative (at most "
+        f"{(d_s / ds).max():.3e} of the bound); the modes past the shorter "
+        f"rank set by rounding: {cut_ok}")
+    require(cut_ok, f"{g}: the card's rank cut is not the CPU's")
+    require(ok, f"{g}: the card's DEIM picks are not the CPU's greedy "
+            "picks")
+    require(bool((d_u <= du).all() and (d_s <= ds).all()),
+            f"{g}: the card's POD departs from the CPU's beyond the "
+            "rounding of the Gram method")
+    return {"modes": [cc.numComp, cpu.numComp],
+            "opposite_signs": int((sign < 0).sum()), "ties": ties,
+            "mode_vs_bound": float((d_u / du).max())}
+
+
+def scen_demo(dev, work, secs, smi):
+    """(a) SCEN_NAME through the port's command lines at the reference's
+    size: ``sim_cli`` records it (``Solver``, p-snapshots and ``.off``
+    positions), ``cli.main`` builds each group's bases from its
+    ``cloth_automated_deim_*`` example config pointed at the recording
+    (npz, convergence CSVs, ``function_timings.txt``; the figures where
+    matplotlib imports), ``sim_cli`` replays the scenario on those bases
+    with the positions full (the dense Cholesky on the card), and the
+    accuracy of the two ``.off`` sequences (``compute_accuracy``).  Held:
+    each event through SCEN_HOLD_STEPS frames on the CPU
+    (:func:`scen_event_holds`, the recording and the replay), each
+    group's bases against the CPU's run of its config
+    (:func:`scen_bases_holds`), the CSV against
+    ``compute_accuracy_arrays`` on the in-memory trajectories -> the
+    phase's state for (b)."""
+    import csv
+    import shutil
+
+    from animsnapbases_tpu_torch import cli as bases_cli
+    from animsnapbases_tpu_torch import sim_cli
+    from animsnapbases_tpu_torch.analysis.accuracy import (
+        compute_accuracy,
+        compute_accuracy_arrays,
+    )
+    from animsnapbases_tpu_torch.analysis.figures import (
+        nonlinearity_diagnostics,
+    )
+    from animsnapbases_tpu_torch.bases.pipeline import example_config
+    from animsnapbases_tpu_torch.utils.timing import global_timer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    draw = have_matplotlib()
+    dev_flags = ["--cpu"] if dev.type == "cpu" else []
+    frames = ["--max-frames", str(SCEN_FRAMES)] if SCEN_FRAMES else []
+    config = scen_config(work, "demo.json")
+    fom_out = os.path.join(work, "fom")
+    t0 = time.perf_counter()
+    fom = sim_cli.cli(["--example", SCEN_NAME, "--config", config,
+                       "--solver", "Solver", "--record", "--record-positions",
+                       "--output", fom_out] + frames + dev_flags)
+    secs["(a) record"] = time.perf_counter() - t0
+    model = fom.model
+    traj = np.array(fom.trajectory)
+    dt = fom.args.dt
+    log(f"[11] scenarios, (a) {SCEN_NAME} ({SCEN_CONFIG}: "
+        f"{model.n_verts} vertices, events at {list(SCEN_EVENTS)}) recorded "
+        f"by sim_cli in {secs['(a) record']:.2f} s: {len(traj)} frames "
+        f"({fom.solver._mode} global solve), "
+        f"{len(os.listdir(fom.pos_dir))} .off files, p-snapshots "
+        f"{sorted(f for f in os.listdir(fom.record_path) if f.endswith('_p.npz'))}"
+        f" ({smi})")
+    require(np.isfinite(traj).all(), "the recording is not finite")
+    holds = {"record": scen_event_holds("(a) recording", traj, config,
+                                        "Solver", dt, secs)}
+
+    # ---- the bases CLI on the three example configs ----------------------
+    # where the sim config's reduction reads them: its directory, then its
+    # type's name and properties (the properties emptied)
+    basis_root = os.path.join(work, "bases") + os.sep
+    basis_dir = basis_root + fom.args.constraint_projection_basis_type
+    groups, bases_holds = {}, {}
+    for g, tag in CLOTH_KINDS.items():
+        json_path = os.path.join(root, CLOTH_EXAMPLE.format("deim", tag))
+        param = example_config(json_path, fom.record_path, fom_out,
+                               **SCEN_OVERRIDES)
+        if not draw:
+            param.run_geom_tests = False
+        global_timer().records.clear()
+        t0 = time.perf_counter()
+        cc = bases_cli.main(param, device=dev)["constproj"]
+        if not draw:
+            nonlinearity_diagnostics(cc, pca_tests=False,
+                                     postProcess_tests=True, geom_tests=True,
+                                     steps=1)
+        secs[f"(a) bases, {g}"] = time.perf_counter() - t0
+        outd = param.constProj_output_directory
+        made = sorted(os.listdir(outd))
+        npz = os.path.join(
+            outd, "components_interpol_alphas_interpol_verts_interpol_"
+            "alpha_ranges.npz")
+        csvs = [f for f in made if f.endswith("_convergence_tests_train.csv")
+                or f.endswith("_convergence_tests_test.csv")]
+        require(os.path.exists(npz) and len(csvs) == 2 and
+                "function_timings.txt" in made,
+                f"{g}: the bases CLI did not write its npz, CSVs and timings "
+                f"({made})")
+        gdir = os.path.join(basis_dir, g)
+        os.makedirs(gdir, exist_ok=True)
+        shutil.copy(npz, os.path.join(gdir, "basis.npz"))
+        groups[g] = cc
+        log(f"[11] scenarios, (a) cli.main on {os.path.basename(json_path)}: "
+            f"{cc.numComp} components, {len(cc.geom_Pt)} DEIM rows, in "
+            f"{secs[f'(a) bases, {g}']:.2f} s; wrote {made} "
+            f"({'figures drawn' if draw else 'no matplotlib: CSVs only'})")
+        # the same config on the CPU, its mesh copied beside it
+        cpu_work = os.path.join(work, "cpu bases")
+        mesh = os.path.relpath(param.tri_mesh_file, fom_out)
+        os.makedirs(os.path.dirname(os.path.join(cpu_work, mesh)),
+                    exist_ok=True)
+        shutil.copy(param.tri_mesh_file, os.path.join(cpu_work, mesh))
+        cpu_param = example_config(json_path, fom.record_path, cpu_work,
+                                   **SCEN_OVERRIDES)
+        cpu_param.run_geom_tests = False
+        t0 = time.perf_counter()
+        cpu = bases_cli.run_constproj_pipeline(cpu_param, device="cpu")
+        secs[f"(a) CPU bases, {g}"] = time.perf_counter() - t0
+        bases_holds[g] = scen_bases_holds(g, cc, cpu)
+    holds["bases"] = bases_holds
+
+    # ---- the reduced replay through sim_cli, positions full --------------
+    replay_config = scen_config(
+        work, "replay.json", geom_interpolation_basis_dir=basis_root,
+        geom_interpolation_basis_file="basis.npz",
+        reduction={"properties": ""})
+    replay_out = os.path.join(work, "replay")
+    t0 = time.perf_counter()
+    rep = sim_cli.cli(["--example", SCEN_NAME, "--config", replay_config,
+                       "--solver", "animSnapBasesSolver",
+                       "--record-positions", "--output", replay_out]
+                      + frames + dev_flags)
+    secs["(a) replay"] = time.perf_counter() - t0
+    traj_r = np.array(rep.trajectory)
+    require(rep.solver._full is not None and rep.solver._full.mode == "dense",
+            "the replay is not on the dense Cholesky")
+    require(np.isfinite(traj_r).all() and len(traj_r) == len(traj),
+            "the replay is not finite or not as long as the recording")
+    holds["replay"] = scen_event_holds(
+        "(a) replay", traj_r, replay_config, "animSnapBasesSolver", dt,
+        secs)
+
+    # ---- on-mesh accuracy of the two .off sequences -----------------------
+    t0 = time.perf_counter()
+    acc_dir = os.path.join(work, "accuracy")
+    rows = compute_accuracy(os.path.join(fom.pos_dir, "pos_%d.off"),
+                            os.path.join(rep.pos_dir, "pos_%d.off"),
+                            range(len(traj)), out_dir=acc_dir)
+    secs["(a) accuracy"] = time.perf_counter() - t0
+    with open(os.path.join(acc_dir, "on_mesh_accuracy.csv")) as fp:
+        written = list(csv.DictReader(fp))
+    mem, l2, ang = compute_accuracy_arrays(traj, traj_r, model.faces)
+    dev_csv = max(
+        max(abs(float(w[k]) - m[k]) / max(abs(m[k]), 1e-300)
+            for k in ("rel_l2", "normal_angle"))
+        for w, m in zip(written, mem))
+    log(f"[11] scenarios, (a) replay (deim_pod_vectorized, positions full) "
+        f"in {secs['(a) replay']:.2f} s; on-mesh accuracy of the .off "
+        f"sequences ({len(rows)} frames, {secs['(a) accuracy']:.2f} s): "
+        f"mean rel-L2 {np.mean([r['rel_l2'] for r in rows]):.4e}, mean "
+        f"normal angle {np.mean([r['normal_angle'] for r in rows]):.4f} rad"
+        f", last frame {rows[-1]['rel_l2']:.4e} / "
+        f"{rows[-1]['normal_angle']:.4f}; the CSV against the in-memory "
+        f"trajectories within {dev_csv:.3e} relative (limit {CSV_RTOL})")
+    require(len(written) == len(mem) == len(traj)
+            and [int(w["frame"]) for w in written] == list(range(len(traj)))
+            and dev_csv <= CSV_RTOL,
+            "the accuracy CSV departs from the in-memory trajectories")
+    return types.SimpleNamespace(
+        fom=fom, traj=traj, replay=traj_r, basis_root=basis_root,
+        holds=holds,
+        dt=dt, accuracy={"mean_rel_l2": float(np.mean(l2.mean(axis=1))),
+                         "mean_normal_angle": float(np.mean(ang.mean(
+                             axis=1)))})
+
+
+def scen_k1_entry(torch, label, seg, iters):
+    """Kernel 1 on a prepared segment (``seg``: its fused operands and the
+    state it started from): the first step's iteration loop against the
+    plain version and float64 (:func:`as_accurate`), its time, the plain
+    version's and the bound -> the entry's readings."""
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+    from animsnapbases_tpu_torch.ops.resident import force_term, predict
+
+    ro = seg["ro"]
+    fo = ro.fused
+    sn, rb_const = predict(ro, seg["P"], seg["V"], force_term(ro, seg["F"]),
+                           seg["rb"])
+    sel = sn[:, :ro.n_sel]
+    u_k = fused_reduced_iterations(fo, sel, rb_const, iters)
+    u_p = fused_reduced_iterations_plain(fo, sel, rb_const, iters)
+    u_64 = fused_reduced_iterations_plain(as_f64(fo), sel.double(),
+                                          rb_const.double(), iters)
+    ok, e_k, e_p = as_accurate(u_k, u_p, u_64)
+    log(f"[11] scenarios, {label}, kernel 1 on the first step after the "
+        f"prepare at frame {seg['frame']} (cond(Ar) {seg['cond']:.3e}): vs "
+        f"plain max abs {max_abs(u_k, u_p):.3e} (max|u| "
+        f"{float(u_p.abs().max()):.3e}); vs float64: kernel {e_k:.3e}, plain "
+        f"{e_p:.3e} (limit {ACC_RATIO}x)")
+    require(bool(torch.isfinite(u_k).all()) and ok,
+            f"{label}: kernel 1 is less accurate than its plain version "
+            f"after the prepare at frame {seg['frame']}")
+    return {"err": max_abs(u_k, u_p), "timed": (fo, sel, rb_const)}
+
+
+def scen_k1_times(torch, timed, iters):
+    """ms of kernel 1 and of its plain version on ``timed``'s inputs, and
+    the bound -> (ms, plain_ms, bound_ms, bound_by)."""
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+        fused_reduced_iterations_plain,
+    )
+
+    fo, sel, rb_const = timed
+    ms = cuda_ms(torch, lambda: fused_reduced_iterations(
+        fo, sel, rb_const, iters), reps=100)
+    plain = cuda_ms(torch, lambda: fused_reduced_iterations_plain(
+        fo, sel, rb_const, iters), reps=PLAIN_REPS, warmup=0)
+    bound, by = bound_ms(*k1_cost(fo, sel.shape[1], iters))
+    return ms, plain, bound, by
+
+
+def spy_prepares(torch, solver, fext):
+    """Wrap ``solver.prepare`` so that each call records the segment it
+    starts: its frame, its fused operands, the state and force on the
+    device, the target term and cond(Ar) (the largest of the three
+    dimensions' reduced matrices) -> the list the calls append to."""
+    segs = []
+    real = solver.prepare
+
+    def prepare(*a, **kw):
+        real(*a, **kw)
+        model = solver.model
+        segs.append({
+            "frame": solver.frame, "ro": solver._resident,
+            "P": solver._to_device(model.positions),
+            "V": solver._to_device(model.velocities),
+            "F": solver._to_device(fext(model)), "rb": solver._rb_extra(),
+            "cond": max(float(np.linalg.cond(m)) for m in solver._inv_np)})
+
+    solver.prepare = prepare
+    return segs
+
+
+def scen_reduced_driver(torch, config, out_dir, dtype):
+    """SCEN_NAME on ``config`` (the fully reduced replay's) on the CPU in
+    ``dtype`` (state and matrices; float32 runs kernel 1's plain version),
+    its frame 0 set up -> the driver."""
+    from animsnapbases_tpu_torch.config.sim_config import SimConfig
+    from animsnapbases_tpu_torch.demos.scenarios import build_scenario
+    from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+
+    params = SimConfig(config)
+    args = params.build_args()
+    args.solver = "animSnapBasesSolver"
+    args.output_dir = out_dir
+    d = build_scenario(SCEN_NAME, args, params=params, device="cpu")
+    d.solver = AnimSnapBasesSolver(args, device="cpu", dtype=dtype,
+                                   matmul_dtype=dtype)
+    d._frame0()
+    return d
+
+
+def scen_reduced_holds(torch, segs, traj, config, secs):
+    """(b) at each prepare (frame 0 and each event) with SCEN_HOLD_STEPS
+    frames after it in ``traj``: the card's state as the prepare read it
+    (``segs``) through the event and those frames on the CPU by the same
+    scenario driver, in float64 and in float32; the
+    card's frames held against the float64 run within ACC_RATIO times the
+    float32 run's distance from it, or the float32 rounding of the frames'
+    largest entry (:func:`as_accurate`) -> {frame: distances}."""
+    out = {}
+    t0 = time.perf_counter()
+    for s in segs:
+        e = s["frame"]
+        if e + SCEN_HOLD_STEPS > len(traj):
+            continue
+        runs = []
+        for dtype in (torch.float64, torch.float32):
+            d = scen_reduced_driver(torch, config, os.path.join(
+                os.path.dirname(config), f"cpu (b) {e} {dtype}"), dtype)
+            for ev in sorted(k for k in d.schedule
+                             if isinstance(k, int) and k < e):
+                d.schedule[ev](d)
+            iperm = s["ro"].iperm
+            d.model.positions = s["P"].double().cpu().numpy().T[iperm]
+            d.model.velocities = s["V"].double().cpu().numpy().T[iperm]
+            d.solver.frame = e
+            d.solver.set_dirty()
+            d.run(max_frames=e + SCEN_HOLD_STEPS)
+            runs.append(torch.as_tensor(np.array(d.trajectory)))
+        card = torch.as_tensor(traj[e:e + SCEN_HOLD_STEPS])
+        ok, e_k, e_p = as_accurate(card, runs[1], runs[0])
+        out[e] = {"card": e_k, "plain": e_p, "ok": ok}
+    secs["(b) CPU holds"] = time.perf_counter() - t0
+    log(f"[11] scenarios, (b): at each prepare the card's state through the "
+        f"event and {SCEN_HOLD_STEPS} frames on the CPU, max abs from its "
+        f"float64 run (the card; its float32 run, limit {ACC_RATIO}x): "
+        + ", ".join(f"frame {e}: {v['card']:.3e}; {v['plain']:.3e}"
+                    for e, v in out.items()))
+    require(all(v["ok"] for v in out.values()),
+            "(b): the card's frames after a prepare are less accurate than "
+            "the CPU's float32 run")
+    return out
+
+
+def scen_segments(rows, bounds):
+    """Per segment (``bounds``: its first frames and the run's end): the
+    mean and max rel-L2 and the mean normal angle of the ``rows`` of
+    ``compute_accuracy_arrays`` -> a list of dicts."""
+    per_seg = []
+    for f0, f1 in zip(bounds[:-1], bounds[1:]):
+        seg_l2 = [r["rel_l2"] for r in rows[f0:f1]]
+        seg_ang = [r["normal_angle"] for r in rows[f0:f1]]
+        per_seg.append({"frames": [f0, f1],
+                        "mean_rel_l2": float(np.mean(seg_l2)),
+                        "max_rel_l2": float(np.max(seg_l2)),
+                        "mean_normal_angle": float(np.mean(seg_ang))})
+    return per_seg
+
+
+def scen_reduced(torch, counted, paths, dev, work, a, secs):
+    """(b) SCEN_NAME fully reduced: (a)'s bases and a position basis of
+    (a)'s recording (``position_basis_from_trajectory``, r =
+    SCEN_POS_MODES), float32 state and float32 matrices, every frame
+    through ``run_steps(record=True)``: kernel 1, one launch a frame, a
+    counted path; every event prepares again.  cond(Ar) of each segment,
+    the card's frames after each prepare against the CPU's
+    (:func:`scen_reduced_holds`), kernel 1 against float64 on the first
+    step after each prepare, the per-frame rel-L2 and normal angle against
+    the recording, beside the per-segment ones of the whole replay in
+    float64 on the CPU -> (kernel 1's readings, the trajectory)."""
+    from animsnapbases_tpu_torch.analysis.accuracy import (
+        compute_accuracy_arrays,
+    )
+    from animsnapbases_tpu_torch.bases.position_reduction import (
+        position_basis_from_trajectory,
+        save_position_basis,
+    )
+    from animsnapbases_tpu_torch.config.sim_config import SimConfig
+    from animsnapbases_tpu_torch.demos.scenarios import build_scenario
+
+    t0 = time.perf_counter()
+    pos_path = os.path.join(work, "scenario_pos_basis.npz")
+    save_position_basis(pos_path, position_basis_from_trajectory(
+        a.traj, SCEN_POS_MODES, device=dev))
+    secs["(b) position basis"] = time.perf_counter() - t0
+    config = scen_config(
+        work, "reduced.json", geom_interpolation_basis_dir=a.basis_root,
+        geom_interpolation_basis_file="basis.npz",
+        reduction={"properties": "", "position_reduced": True,
+                   "position_num_components": SCEN_POS_MODES,
+                   "position_basis_file": pos_path})
+    params = SimConfig(config)
+    args = params.build_args()
+    args.solver = "animSnapBasesSolver"
+    args.output_dir = os.path.join(work, "reduced")
+    driver = build_scenario(SCEN_NAME, args, params=params, device=dev)
+    mass = float(args.mass_per_particle)
+
+    def fext(model):
+        f = np.zeros_like(model.positions)
+        f[:, 1] -= 9.81 * mass
+        return f
+
+    segs = spy_prepares(torch, driver.solver, fext)
+    frames = SCEN_FRAMES or driver.stop_frame
+    launch_path = f"scenarios: (b) {SCEN_NAME} fully reduced"
+    t0 = time.perf_counter()
+    paths[launch_path] = counted_path(
+        torch, counted, f"(b) {SCEN_NAME} fully reduced ({frames} frames "
+        f"through run_steps(record=True))", {"fused_reduced_iterations"},
+        lambda: driver.run(max_frames=SCEN_FRAMES))
+    secs["(b) replay"] = time.perf_counter() - t0
+    traj = np.array(driver.trajectory)
+    launches = paths[launch_path]["fused_reduced_iterations"]
+    solver = driver.solver
+    require(solver.dtype == (torch.float32 if dev.type == "cuda"
+                             else solver.dtype)
+            and solver.matmul_dtype == solver.dtype,
+            "(b) does not serve float32 state and float32 matrices")
+    require(len(traj) == frames and solver.frame == frames,
+            f"(b) replayed {len(traj)} of {frames} frames")
+    events = [e for e in SCEN_EVENTS if e < frames]
+    require([s["frame"] for s in segs] == [0] + events,
+            f"(b) prepared at frames {[s['frame'] for s in segs]}, not at "
+            f"0 and each event {events}")
+    if dev.type == "cuda":
+        require(launches == frames, f"(b) kernel 1 launched {launches} "
+                f"times over {frames} frames")
+    finite = bool(np.isfinite(traj).all())
+    rows, l2, ang = compute_accuracy_arrays(a.traj[:len(traj)], traj,
+                                            driver.model.faces)
+    bounds = [s["frame"] for s in segs] + [frames]
+    per_seg = scen_segments(rows, bounds)
+    for p, s in zip(per_seg, segs):
+        p["cond_Ar"] = s["cond"]
+    log(f"[11] scenarios, (b) fully reduced (r = {SCEN_POS_MODES} of the "
+        f"recording, {solver.dtype} state, {solver.matmul_dtype} matrices) "
+        f"in {secs['(b) replay']:.2f} s: {len(traj)} frames, kernel 1 "
+        f"launched {launches} times, finite {finite}; per segment (frames, "
+        f"cond(Ar), rel-L2 mean/max, normal angle mean): "
+        + "; ".join(f"{p['frames']}: {p['cond_Ar']:.3e}, "
+                    f"{p['mean_rel_l2']:.3e}/{p['max_rel_l2']:.3e}, "
+                    f"{p['mean_normal_angle']:.4f}" for p in per_seg))
+    log("[11] scenarios, (b) per frame rel-L2: " + " ".join(
+        f"{r['rel_l2']:.3e}" for r in rows))
+    log("[11] scenarios, (b) per frame normal angle: " + " ".join(
+        f"{r['normal_angle']:.4f}" for r in rows))
+    holds = scen_reduced_holds(torch, segs, traj, config, secs)
+    # the whole replay in float64 on the CPU, beside the card's (not held:
+    # the float32 and float64 runs part over the segments)
+    t0 = time.perf_counter()
+    d = scen_reduced_driver(torch, config, os.path.join(work, "cpu (b)"),
+                            torch.float64)
+    d.run(max_frames=SCEN_FRAMES)
+    cpu = np.array(d.trajectory)
+    secs["(b) CPU float64 replay"] = time.perf_counter() - t0
+    cpu_seg = scen_segments(compute_accuracy_arrays(
+        a.traj[:len(cpu)], cpu, d.model.faces)[0], bounds)
+    log(f"[11] scenarios, (b) the same replay on the CPU in float64 in "
+        f"{secs['(b) CPU float64 replay']:.2f} s: per segment rel-L2 "
+        f"mean/max, normal angle mean: " + "; ".join(
+            f"{p['frames']}: {p['mean_rel_l2']:.3e}/{p['max_rel_l2']:.3e}, "
+            f"{p['mean_normal_angle']:.4f}" for p in cpu_seg)
+        + f"; the card's last frame {max_abs(torch.as_tensor(traj[-1]),
+                                               torch.as_tensor(cpu[-1])):.3e}"
+        " from its last (max abs)")
+    err, timed = 0.0, None
+    for s in segs:
+        k1 = scen_k1_entry(torch, "(b)", s, args.solver_iterations)
+        err = max(err, k1["err"])
+        timed = k1["timed"]
+    ms, plain, bound, by = scen_k1_times(torch, timed, args.solver_iterations)
+    return {"launches_path": launch_path, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "frames": frames, "r": SCEN_POS_MODES, "finite": finite,
+            "segments": per_seg, "cpu_float64_segments": cpu_seg,
+            "event_holds": holds,
+            "matmul_dtype": str(solver.matmul_dtype).split(".")[-1]}
+
+
+def scen_report(torch, counted, paths, dev, work, shared, secs, smi):
+    """(c) The accuracy report (``analysis/accuracy_report.py``) on the
+    bench scene from phase [6]'s recording and bases (``shared``): the
+    reduced replay of the recorded window (``replay``: kernel 1, one
+    launch a frame, a counted path) in float32 state with bfloat16
+    matrices, then with float32 matrices, each through ``report`` with the
+    script's gates (a gate crossed raises); the JSON lines written under
+    ``work`` -> {matrices: kernel 1's readings}."""
+    from animsnapbases_tpu_torch.analysis import accuracy_report as ar
+    from animsnapbases_tpu_torch.bases.pipeline import reduced_args
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.sim.reduced import AnimSnapBasesSolver
+
+    traj = np.load(os.path.join(shared, "card", "traj.npy"))
+    args = reduced_args(os.path.join(shared, "card", "bases"),
+                        os.path.join(shared, "card", "pos_basis.npz"),
+                        min(REDUCED_MODES, CONSTR_MODES), POS_MODES, 0.016,
+                        BENCH_DAMPING)
+    draw = have_matplotlib()
+    out = {}
+    for mm in ("bfloat16", "float32"):
+        model = bench_scene(DeformableModel, cloth_model)
+        solver = AnimSnapBasesSolver(args, device=dev, dtype=torch.float32,
+                                     matmul_dtype=getattr(torch, mm))
+        solver.resident_contact_mode = False
+        solver.set_model(model)
+        segs = spy_prepares(torch, solver, gravity)
+        solver.prepare(args)
+        launch_path = f"scenarios: (c) accuracy report, {mm} matrices"
+        got = {}
+        t0 = time.perf_counter()
+        paths[launch_path] = counted_path(
+            torch, counted, f"(c) the accuracy report's replay ({len(traj)} "
+            f"frames, {mm} matrices)", {"fused_reduced_iterations"},
+            lambda: got.update(traj=ar.replay(solver, model, len(traj))))
+        secs[f"(c) replay, {mm}"] = time.perf_counter() - t0
+        launches = paths[launch_path]["fused_reduced_iterations"]
+        if dev.type == "cuda":
+            require(launches == len(traj), f"(c) kernel 1 launched "
+                    f"{launches} times over {len(traj)} frames")
+        line_path = os.path.join(work, f"accuracy_report_{mm}.json")
+
+        def emit(line):
+            with open(line_path, "w") as fp:
+                fp.write(line + "\n")
+            log(f"[11] scenarios, (c) accuracy report, {mm} matrices: {line}")
+
+        t0 = time.perf_counter()
+        # the heat maps and the rotating capture: once, on the first
+        # reading (host plotting, not the device path)
+        rep = ar.report(traj, got["traj"], model.faces,
+                        os.path.join(work, f"accuracy {mm}"),
+                        draw=draw and not out, emit=emit)
+        secs[f"(c) report, {mm}"] = time.perf_counter() - t0
+        k1 = scen_k1_entry(torch, f"(c) {mm} matrices", segs[0],
+                           FOM_ITERS)
+        ms, plain, bound, by = scen_k1_times(torch, k1["timed"], FOM_ITERS)
+        detail = rep["line"]["detail"]
+        log(f"[11] scenarios, (c) {mm} matrices: mean rel-L2 "
+            f"{rep['line']['value']} (gate {ar.REL_L2_GATE}), mean normal "
+            f"angle {detail['mean_normal_angle_rad']} rad (gate "
+            f"{ar.NORMAL_ANGLE_GATE}); the report in "
+            f"{secs[f'(c) report, {mm}']:.2f} s "
+            f"({'drawn' if draw and not out else 'not drawn'}: matplotlib "
+            f"{'imports' if draw else 'is absent'} on this host); kernel 1 "
+            f"{1e3 * ms:.2f} us a call (bound {1e3 * bound:.4f}, {by}; plain "
+            f"{1e3 * plain:.1f}) ({smi})")
+        out[mm] = {"launches_path": launch_path, "launches": launches,
+                   "max_abs_err": k1["err"], "ms": ms, "plain_ms": plain,
+                   "bound_ms": bound, "bound_by": by, "library_ms": None,
+                   "mean_rel_l2": rep["line"]["value"],
+                   "mean_normal_angle": detail["mean_normal_angle_rad"],
+                   "gate_passed": detail["gate_passed"],
+                   "drawn": bool(draw and len(out) == 0)}
+    return out
+
+
+def scenarios_phase(torch, counted, paths, dev, smi, shared):
+    """[11] The reference's loop through the port's command lines and the
+    analysis: (a) :func:`scen_demo`, (b) :func:`scen_reduced`, (c)
+    :func:`scen_report` on phase [6]'s files under ``shared`` -> {kernel
+    name: its "scenarios" readings}."""
+    secs = {}
+    with tempfile.TemporaryDirectory() as work:
+        a = scen_demo(dev, work, secs, smi)
+        b = scen_reduced(torch, counted, paths, dev, work, a, secs)
+        c = scen_report(torch, counted, paths, dev, work, shared, secs, smi)
+    log("[11] scenarios seconds (" + smi + "): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()))
+    return {"fused_reduced_iterations": {
+        "event_demo_full": {"holds": a.holds, "accuracy": a.accuracy},
+        "event_demo_reduced": b, "accuracy_report": c, "stage_s": secs}}
 
 
 def port_counters():
@@ -7163,13 +7872,15 @@ def main() -> int:
     t0 = time.perf_counter()
     mega = scale_phase(torch, counted, paths, dev)
     log(f"[2-4] scale: the megacloth {time.perf_counter() - t0:.1f} s")
-    shared = tempfile.TemporaryDirectory()   # phase [6]'s files, for [9]
+    # phase [6]'s files, for phases [7] and [9]-[11]
+    shared = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
     real = pipeline_phase(torch, counted, paths, dev, work=shared.name)
     log(f"[6] pipeline: record, bases, reduced solve on real bases "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    per_group = per_group_phase(torch, counted, paths, dev, smi)
+    per_group = per_group_phase(torch, counted, paths, dev, smi,
+                                shared.name)
     log(f"[7] per-group workflow: record, bases, reduced solves "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -7187,6 +7898,10 @@ def main() -> int:
                               real["affine_chunked"]["vs_fom"])
         log(f"[10] position bases: record, align, PCA, SPLOCS, serving "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        scen = scenarios_phase(torch, counted, paths, dev, smi, shared.name)
+        log(f"[11] scenarios, command lines and analysis "
+            f"{time.perf_counter() - t0:.1f} s")
     kernels += options
     for k in kernels:
         if k["name"] in mega:
@@ -7199,6 +7914,8 @@ def main() -> int:
             k["self_collision"] = collide[k["name"]]
         if k["name"] in posb:
             k["position_bases"] = posb[k["name"]]
+        if k["name"] in scen:
+            k["scenarios"] = scen[k["name"]]
     k5 = next(k for k in kernels if k["name"] == "affine_chunked")
     k5.update(exact_check_us_bound_off=exact_us_bench,
               megacloth_exact_check_us=mega["exact_check_us"],

@@ -261,13 +261,18 @@ def assert_entries(entries, names):
 # recordings of 12 frames and example configs of 5 frames and 4 components,
 # phase [8]'s cloth at 12x12, phase [9]'s rollouts of 4 steps and fits of 2
 # Adam steps, phase [10] at the fakes' sizes (16 frames, 8 of them
-# imported, 6 components, 2 SPLOCS iterations)
+# imported, 6 components, 2 SPLOCS iterations), phase [11]'s event demo
+# on a 6x6 cloth for 22 frames (its first event crossed) with example
+# configs of 5 frames and 4 components and r = 6
 SMALLEST = {"ITERATIONS": 4, "OPTION_BUILDS": cs.OPTION_BUILDS[:1],
             "GROUP_FRAMES": 12, "BAR_FRAMES": 12, "GROUP_STEPS": 6,
             "GROUP_OVERRIDES": {"numFrames": 5, "desired_num_components": 4},
             "SC_ROWS": 12, "SC_R": 8, "SC_WINDOW": 48, "SC_FOLD_STEPS": 8,
             "SC_DEPTH": 3, "SC_SHORT": 8, "SC_REPS": 1, "DIFF_FIT_STEPS": 2,
-            "DIFF_HORIZON": 4, "DIFF_REPS": 1}
+            "DIFF_HORIZON": 4, "DIFF_REPS": 1,
+            "SCEN_SYSTEM": {"cloth_width": 6, "cloth_height": 6},
+            "SCEN_FRAMES": 22, "SCEN_POS_MODES": 6,
+            "SCEN_OVERRIDES": {"numFrames": 5, "desired_num_components": 4}}
 SMALLEST_SCENES = ("bending cloth",)
 
 
@@ -292,7 +297,7 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
     assert sorted(kernels[0]["scenes"]) == list(SMALLEST_SCENES)
     k1, k5 = kernels[0], kernels[4]
     assert {"real_bases", "per_group", "self_collision",
-            "position_bases"} <= set(k1)
+            "position_bases", "scenarios"} <= set(k1)
     assert {"real_bases", "per_group", "megacloth", "self_collision",
             "position_bases"} <= set(k5)
     out = "\n".join(lines)
@@ -302,7 +307,8 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
              "[2-4] tet, bending and block-form scenes",
              "[2-4] scale: the megacloth", "[6] pipeline: record, bases",
              "[7] per-group workflow:", "[8] self-collision:",
-             "[9] differentiable rollouts:", "[10] position bases: record"]
+             "[9] differentiable rollouts:", "[10] position bases: record",
+             "[11] scenarios, command lines and analysis"]
     at = [out.index(line) for line in order]
     assert at == sorted(at)
 

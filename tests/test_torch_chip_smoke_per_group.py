@@ -3,10 +3,13 @@ workflow) rehearsed on the CPU with the fakes of
 ``tests/test_torch_chip_smoke.py``, the recordings cut to 12 frames, the
 example configs to 5 frames and 4 components, 6 reduced steps: the demo
 cloth's six example configs and its two solves (dense), the bench cloth on
-the host LU and the mixed path, the bar's block-form bases through kernels
+phase [6]'s recording and bases (run first) on the host LU and the mixed
+path, the bar's block-form bases through kernels
 1 and 5; every card-vs-CPU hold, the batched runners on the dense and
 mixed solves (each sim against its solo run) and their refusal of the host
 LU, the kernels' entries under ``per_group``."""
+
+import tempfile
 
 import torch
 
@@ -41,7 +44,10 @@ def test_chip_smoke_per_group_phase(monkeypatch, capsys):
     counted, dev = rehearsal(monkeypatch)
     small(monkeypatch)
     paths = {}
-    out = cs.per_group_phase(torch, counted, paths, dev, "cpu, 0 W")
+    with tempfile.TemporaryDirectory() as work:
+        cs.pipeline_phase(torch, counted, paths, dev, work=work)
+        out = cs.per_group_phase(torch, counted, paths, dev, "cpu, 0 W",
+                                 work)
     assert sorted(out) == ["affine_chunked", "fused_reduced_iterations"]
     for name, entries in out.items():
         workflow = entries.pop("workflow")

@@ -47,14 +47,17 @@ def test_chip_smoke_position_phase(monkeypatch, capsys):
         assert holds[stage]["parted"] is None
         assert holds[stage]["reconstruction"] <= cs.POSB_EXTENT
     assert len(holds["SPLOCS"]["energy"]) == 2
+    assert holds["SPLOCS"]["iterations_replayed"] == 2
     text = capsys.readouterr().out
     for line in ("[10] position bases: configs/examples/bunny_gFall_pos"
                  "Subspace.json", "reduced: [\"the bunny mesh",
                  "its first 12 frames equal phase [6]'s recording bit for "
                  "bit: True", "[10] position bases, global PCA (6 "
-                 "components): the card's steps equal the CPU's",
-                 "[10] position bases, local PCA", "[10] position bases, "
-                 "SPLOCS (2 iterations)", "is_utmu_orthogonal True",
+                 "components, the CPU's run 6 steps): the card's steps "
+                 "equal the CPU's", "[10] position bases, local PCA (6 "
+                 "components, the CPU's run 6 steps)", "[10] position "
+                 "bases, SPLOCS (2 iterations on the card and the CPU)",
+                 "is_utmu_orthogonal True",
                  "phase [6]'s POD basis: mean",
                  "position bases, kernel 5 (hang state under gravity), "
                  "carried steps", "[10] position bases seconds (cpu, 0 W)"):
@@ -91,6 +94,17 @@ def test_greedy_holds_part_only_where_rounding_sets_the_choice(monkeypatch):
     assert all(ok for ok, _ in verdicts) and out["parted"] is None
     assert out["steps_held"] == 6 and out["reconstruction"] == 0.0
 
+    # the CPU's run of 4 steps against the card's 6: those steps held, the
+    # reconstructions not compared
+    short = copy.deepcopy(cpu)
+    short.picks = cpu.picks[:4]
+    short.measures_at_largeDeforVerts = cpu.measures_at_largeDeforVerts[:4]
+    short.numComp = 4
+    out = cs.greedy_holds("cut", copy.deepcopy(cpu), short, R0)
+    assert all(ok for ok, _ in verdicts) and out["parted"] is None
+    assert out["steps_replayed"] == 4 and out["steps_held"] == 4
+    assert out["reconstruction"] is None
+
     other = copy.deepcopy(cpu)
     other.picks[2] = (cpu.picks[2] + 7) % len(anim[0])
     out = cs.greedy_holds("pick", other, cpu, R0)
@@ -110,3 +124,4 @@ def test_greedy_holds_part_only_where_rounding_sets_the_choice(monkeypatch):
                                        dtype=torch.float64))
     assert sides == (1e-17, 1.0)
     assert np.isclose(cs.cone_sides(torch.tensor([2.0, -1.0]))[1], 0.5)
+

@@ -57,13 +57,22 @@ def test_port_imports_no_jax():
                  "geometry.laplacian", "geometry.geodesics",
                  "geometry.procrustes", "geometry.partitioning",
                  "geometry.volume", "io.h5anim", "snapshots.pipeline",
-                 "snapshots.position", "bases.splocs", "bases.pca", "cli"):
+                 "snapshots.position", "bases.splocs", "bases.pca", "cli",
+                 # the scenarios, the command lines and the analysis
+                 "demos.scenarios", "demos.interactive", "sim.interaction",
+                 "sim.checkpoint", "sim_cli", "analysis",
+                 "analysis.accuracy", "analysis.compare", "analysis.viewer",
+                 "analysis.figures", "analysis.ps_viewer",
+                 "analysis.accuracy_report"):
         assert f"animsnapbases_tpu_torch.{name}" in res["modules"], name
         assert f"animsnapbases_tpu_torch.{name}" in loaded, name
     assert "animsnapbases_tpu_torch.ops.resident" in loaded
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
-    # h5py only for .h5 file I/O, inside the functions that do it
-    assert not [m for m in loaded if m == "h5py" or m.startswith("h5py.")]
+    # h5py only for .h5 file I/O, matplotlib only where a function draws,
+    # polyscope only where a window opens: inside those functions
+    for lazy in ("h5py", "matplotlib", "polyscope"):
+        assert not [m for m in loaded
+                    if m == lazy or m.startswith(lazy + ".")], lazy
     assert not [m for m in loaded if m == "animsnapbases_tpu"
                 or m.startswith("animsnapbases_tpu.")]
 

@@ -167,10 +167,23 @@ def test_import_frames_equals_the_h5_of_the_sequence(both):
 
 
 def test_run_tests_names_a16(both, tmp_path):
-    param = config(str(tmp_path), BasesConfig, str(tmp_path / "r"))
-    param.run_pca_tests = True
-    with pytest.raises(NotImplementedError, match="A16"):
-        run_position_pipeline(param, device="cpu")
+    """``run_tests`` draws the PCA test figures (A16, now ported: it no
+    longer raises): the figure and the singular-value CSV as the JAX
+    pipeline writes them."""
+    root = both["port"][0].snapshots_repo_dir.rstrip("/")
+    out = {}
+    for label, cls, run in (("port", BasesConfig, lambda p: (
+            run_position_pipeline(p, device="cpu"))),
+                            ("jax", JaxConfig, jax_pipeline)):
+        param = config(root, cls, str(tmp_path / label))
+        param.run_pca_tests = True
+        run(param)
+        out[label] = param.vertPos_output_directory
+        assert os.path.exists(os.path.join(
+            out[label], "posBases_pca_extraction_tests.png"))
+    a, b = (np.loadtxt(os.path.join(out[k], "posBases_singvals.csv"),
+                       delimiter=",", skiprows=1) for k in ("port", "jax"))
+    np.testing.assert_allclose(a, b, rtol=TOL, atol=0)
 
 
 def test_reduced_solve_on_the_pca_bases_matches_jax(both, tmp_path):
