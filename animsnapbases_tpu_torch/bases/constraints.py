@@ -33,9 +33,14 @@ Known quirk kept from the JAX package: on ``pod_vectorized`` components
 with p > 1 the geometric selection walks the modes in groups of p and
 truncates, with a "zero residual" warning, at the first empty group.
 
-A sharded bases compute (``device_mesh_shards`` > 1 with as many devices
-visible) is not ported (ROADMAP Queue A item A18) and raises; with fewer
-devices visible it warns and stays on one device, as the JAX package does.
+The sharded bases compute: ``device_mesh_shards`` > 1 builds a
+("model",) mesh of that many ranks of the caller's process group
+(``parallel/ensemble.py::mesh_from_shards``, kept as ``pod_mesh``; with
+fewer ranks it warns and stays on one device, as the JAX package does), and
+with a mesh the POD's Gram product is an ``all_reduce``
+(``snapshot_pod_sharded``) and both DEIM forms run the device scan with
+their rows split over the mesh.  Every rank of the mesh runs the whole
+pipeline; the picks are those of one device.
 """
 
 from __future__ import annotations
@@ -64,7 +69,11 @@ from animsnapbases_tpu_torch.ops.deim_scan import (
     deim_blocks_host_result,
     deim_rows_host_result,
 )
-from animsnapbases_tpu_torch.ops.podlinalg import snapshot_pod
+from animsnapbases_tpu_torch.ops.podlinalg import (
+    snapshot_pod,
+    snapshot_pod_sharded,
+)
+from animsnapbases_tpu_torch.parallel.ensemble import mesh_from_shards
 from animsnapbases_tpu_torch.ops.svd3 import top_mode_rows
 from animsnapbases_tpu_torch.snapshots.nonlinear import NonlinearSnapshots
 from animsnapbases_tpu_torch.utils.checks import (
@@ -80,33 +89,13 @@ from animsnapbases_tpu_torch.utils.timing import log_time
 DEIM_DEVICE_MIN_K = 64
 
 
-def _deim_device_auto(param, K: int) -> bool:
-    """The config's ``deim_device`` if set, else the scan at K >=
-    DEIM_DEVICE_MIN_K."""
+def _deim_device_auto(param, mesh, K: int) -> bool:
+    """The config's ``deim_device`` if set, else the scan with a mesh or at
+    K >= DEIM_DEVICE_MIN_K."""
     flag = getattr(param, "deim_device", None)
     if flag is not None:
         return bool(flag)
-    return K >= DEIM_DEVICE_MIN_K
-
-
-def check_mesh_shards(shards, device: torch.device) -> None:
-    """The JAX package's ``mesh_from_shards`` on the port: nothing for
-    ``shards`` <= 1; a warning, and one device, when fewer devices are
-    visible than ``shards``; ``NotImplementedError`` (ROADMAP Queue A item
-    A18) where the JAX package would shard.  The CPU counts as one
-    device."""
-    shards = int(shards or 0)
-    if shards <= 1:
-        return
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if visible < shards:
-        warnings.warn(
-            f"device_mesh_shards={shards} requested but only {visible} "
-            f"devices are visible; bases compute stays single-device")
-        return
-    raise NotImplementedError(
-        f"device_mesh_shards={shards}: the sharded bases compute is not "
-        "ported to PyTorch yet (ROADMAP Queue A item A18)")
+    return mesh is not None or K >= DEIM_DEVICE_MIN_K
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +175,8 @@ class ConstraintComponents:
         self.fileNameBases = "p_nl_"
         self.fileName_geom_points = "p_nl_interpol_points_"
         self.file_name_sing = "_constrprojBases_pcaExtraction_singValues"
-        check_mesh_shards(getattr(param, "device_mesh_shards", 0),
-                          self.device)
+        self.pod_mesh = mesh_from_shards(
+            getattr(param, "device_mesh_shards", 0), self.device)
 
     # ------------------------------------------------------------------
     def config(self, fileNameBases="p_nl_",
@@ -244,7 +233,11 @@ class ConstraintComponents:
         F = R.shape[0]
         e = self.nonlinearSnapshots.num_constained_elements
         p = self.nonlinearSnapshots.constraintsSize
-        U, S, _ = snapshot_pod(R.reshape(F, -1).T, device=self.device)
+        if self.pod_mesh is not None:
+            U, S, _ = snapshot_pod_sharded(R.reshape(F, -1).T, self.pod_mesh,
+                                           device=self.device)
+        else:
+            U, S, _ = snapshot_pod(R.reshape(F, -1).T, device=self.device)
         S = S.cpu().numpy()
         self.singVals = S
         if writer is not None:
@@ -471,11 +464,11 @@ class ConstraintComponents:
         d = self.nonlinearSnapshots.dim
         K = self.numComp
         if device is None:
-            device = _deim_device_auto(self.param, K)
+            device = _deim_device_auto(self.param, self.pod_mesh, K)
         if device:
             Pt, alphas, ranges = deim_rows_host_result(
                 self._device_comps().transpose(0, 1), p, K,
-                device=self.device)
+                device=self.device, mesh=self.pod_mesh)
             if len(np.unique(Pt)) < len(Pt):
                 warnings.warn("device DEIM produced duplicate selections "
                               "(rank-deficient basis); falling back to the "
@@ -537,11 +530,11 @@ class ConstraintComponents:
         d = self.nonlinearSnapshots.dim
         K = self.numComp
         if device is None:
-            device = _deim_device_auto(self.param, K)
+            device = _deim_device_auto(self.param, self.pod_mesh, K)
         if device:
             Pt, alphas, ranges = deim_blocks_host_result(
                 self._device_comps().transpose(0, 1), p, K,
-                device=self.device)
+                device=self.device, mesh=self.pod_mesh)
             if len(np.unique(alphas)) < len(alphas):
                 warnings.warn("device block-DEIM produced duplicate "
                               "selections (rank-deficient basis); falling "

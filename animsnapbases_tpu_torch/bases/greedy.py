@@ -5,7 +5,9 @@ vertex of largest residual energy, takes the dominant mode of its (3, F)
 trajectory (``ops/svd3.py`` ``top_mode_rows``) and deflates the rank-1
 term from the whole (F, N, 3) residual.  :func:`extract_global` runs the
 K steps on the residual's device with no host sync inside a step (the
-JAX package's ``lax.scan``); local support and SPLOCS loop on the host
+JAX package's ``lax.scan``), or with ``mesh=`` its vertex axis split over
+the mesh's "model" axis (a step's argmax and the winning vertex's
+trajectory one ``all_reduce``, ``parallel/collectives.py``); local support and SPLOCS loop on the host
 around :func:`select_vertex`, :func:`dominant_mode` and :func:`deflate`,
 to query a geodesic support map per pick.  ``project_weight`` and
 ``signed_nonneg_weight`` also give the weights of the greedy block
@@ -65,13 +67,15 @@ def extract_global(R0: torch.Tensor, num_components: int, mesh=None):
 
     Returns (comps (K, N, 3), weights (F, K), sigma0s (K,), res_norms (K,),
     indices (K,), R_final), all tensors on R0's device; the K steps queue
-    their work without reading anything back.  ``mesh`` (a sharded vertex
-    axis in the JAX package) raises ``NotImplementedError`` naming ROADMAP
-    Queue A item A18."""
+    their work without reading anything back.  ``mesh`` (a ``DeviceMesh``
+    with a "model" axis; R0 whole on every rank) splits the vertex axis:
+    each rank deflates its block, the picks are those of one device (zero
+    padding never wins the argmax, ties go to the lowest vertex), and the
+    components and residual are gathered on every rank.  The residual
+    norms sum the blocks' squares in another order, so they agree with one
+    device's to rounding."""
     if mesh is not None:
-        raise NotImplementedError(
-            "extract_global(mesh=...): the sharded bases compute is not "
-            "ported to PyTorch yet (ROADMAP Queue A item A18)")
+        return _extract_global_sharded(R0, num_components, mesh)
     R = R0
     C, W, sig, res, idxs = [], [], [], [], []
     for _ in range(num_components):
@@ -85,3 +89,34 @@ def extract_global(R0: torch.Tensor, num_components: int, mesh=None):
         idxs.append(idx)
     return (torch.stack(C), torch.stack(W, dim=1), torch.stack(sig),
             torch.stack(res), torch.stack(idxs), R)
+
+
+def _extract_global_sharded(R0: torch.Tensor, num_components: int, mesh):
+    from animsnapbases_tpu_torch.parallel.collectives import (
+        all_reduce_sum,
+        argmax_pick,
+        axis_of,
+        block_range,
+        gather_blocks,
+    )
+
+    group, size, index = axis_of(mesh, "model")
+    F, n, _ = R0.shape
+    lo, hi = block_range(n, size, index)
+    R = R0[:, lo:hi]
+    C, W, sig, res, idxs = [], [], [], [], []
+    for _ in range(num_components):
+        idx, _, traj = argmax_pick(
+            (R ** 2).sum(dim=(0, 2)), lo,
+            lambda i: R[:, i, :] if i is not None else R.new_zeros((F, 3)),
+            mesh, "model")
+        sigma0, wk = top_mode_rows(traj.T)
+        ck, R = deflate(R, wk)
+        C.append(gather_blocks(ck, n, mesh, "model"))
+        W.append(wk)
+        sig.append(sigma0)
+        res.append(torch.sqrt(all_reduce_sum((R ** 2).sum(), group)))
+        idxs.append(torch.as_tensor(idx, device=R.device))
+    return (torch.stack(C), torch.stack(W, dim=1), torch.stack(sig),
+            torch.stack(res), torch.stack(idxs),
+            gather_blocks(R, n, mesh, "model", dim=1))

@@ -47,8 +47,8 @@ class PositionComponents:
 
     def __init__(self, param, pos_snapshots: PositionSnapshots | None = None,
                  device=None):
-        from animsnapbases_tpu_torch.bases.constraints import (
-            check_mesh_shards,
+        from animsnapbases_tpu_torch.parallel.ensemble import (
+            mesh_from_shards,
         )
 
         self.param = param
@@ -56,8 +56,9 @@ class PositionComponents:
         self.basesType = param.vertPos_bases_type
         if self.basesType not in ("PCA", "SPLOCS"):
             raise ValueError(f"unknown position bases type {self.basesType}")
-        check_mesh_shards(getattr(param, "device_mesh_shards", 0),
-                          self.device)
+        # device_mesh_shards splits the global extraction's vertex axis
+        self.pod_mesh = mesh_from_shards(
+            getattr(param, "device_mesh_shards", 0), self.device)
 
         if pos_snapshots is None:
             train = os.path.join(param.aligned_snapshots_directory,
@@ -109,7 +110,8 @@ class PositionComponents:
         if self.support == "local":
             comps, weights, measures, picks = self._extract_local(R0, K)
         else:
-            C, W, sig, res, picks, _ = greedy.extract_global(R0, K)
+            C, W, sig, res, picks, _ = greedy.extract_global(
+                R0, K, mesh=self.pod_mesh)
             picks = picks.cpu().numpy()
             comps = C.cpu().numpy()
             weights = W.cpu().numpy()

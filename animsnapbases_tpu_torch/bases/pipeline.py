@@ -133,14 +133,10 @@ def group_basis_config(record, gname: str, p: int, num_modes: int,
     return param
 
 
-def example_config(json_path: str, record: str, work_dir: str,
-                   **overrides) -> BasesConfig:
-    """The bases config of ``json_path`` (a ``configs/examples/*.json``
-    file) for the recording under ``record``: its snapshots, S^T and
-    constrained-element files are the recording's, its outputs and mesh
-    files lie under ``work_dir``.  ``overrides`` replace entries of its
-    ``constraintProj_bases`` section (``numFrames`` and ``frame_increment``
-    those of its ``snapshots``)."""
+def _example_dict(json_path: str, work_dir: str, **overrides) -> dict:
+    """The JSON of ``json_path`` with its experiment directory ``work_dir``
+    and ``overrides`` in its ``constraintProj_bases`` section
+    (``numFrames`` and ``frame_increment`` in its ``snapshots``)."""
     import json
 
     with open(json_path) as fp:
@@ -152,18 +148,54 @@ def example_config(json_path: str, record: str, work_dir: str,
             cp["snapshots"][key] = value
         else:
             cp[key] = value
+    return cfg
+
+
+def example_config(json_path: str, record: str, work_dir: str,
+                   **overrides) -> BasesConfig:
+    """The bases config of ``json_path`` (a ``configs/examples/*.json``
+    file) for the recording under ``record``: its snapshots, S^T and
+    constrained-element files are the recording's, its outputs and mesh
+    files lie under ``work_dir``.  ``overrides`` replace entries of its
+    ``constraintProj_bases`` section (``numFrames`` and ``frame_increment``
+    those of its ``snapshots``)."""
+    cfg = _example_dict(json_path, work_dir, **overrides)
     param = BasesConfig.from_dict(cfg, results_dir=os.path.join(work_dir,
                                                                 "results"))
     gname = param.constProj_name
     param.constProj_input_snapshots_pattern = os.path.join(
         record, gname + "_p.npz")
     param.constProj_weightedSt = os.path.join(record, "assembly_ST.npz")
-    constrained = cp["constraintType"].get("constrained_elements", "")
+    constrained = cfg["constraintProj_bases"]["constraintType"].get(
+        "constrained_elements", "")
     if constrained:
         param.constProj_input_snaps_constrained_elements = os.path.join(
             record, constrained)
     param.ensure_dirs()
     return param
+
+
+def example_config_file(json_path: str, record: str, work_dir: str,
+                        path: str, **overrides) -> str:
+    """:func:`example_config` as a JSON file at ``path`` for the bases CLI
+    (``--config_file``; the sweep's workers): the recording is linked where
+    the config's snapshot folder lies under ``work_dir``, so that the file
+    alone names every input.  -> ``path``."""
+    import json
+
+    cfg = _example_dict(json_path, work_dir, **overrides)
+    ct = cfg["constraintProj_bases"]["constraintType"]
+    folder = os.path.normpath(os.path.join(
+        work_dir, cfg["object"]["mesh"], cfg["object"].get("experiment", ""))
+        + "/" + ct.get("p_snaps_folder", ""))
+    if not os.path.lexists(folder):
+        os.makedirs(os.path.dirname(folder), exist_ok=True)
+        os.symlink(os.path.abspath(record), folder)
+    if ct.get("snaps_pattern_full_p"):
+        ct["snaps_pattern_full_p"] = f"/{ct['name']}_p.npz"
+    with open(path, "w") as fp:
+        json.dump(cfg, fp, indent=1)
+    return path
 
 
 def export_mesh(model, param: BasesConfig) -> None:

@@ -4,8 +4,8 @@ Copy of ``animsnapbases_tpu/config/bases_config.py``: the reference's JSON
 schema, the same derived attributes (snapshot patterns, the flags of the
 string-token grammar, the self-describing output directories), directories
 made only by :meth:`ensure_dirs`.  ``device_mesh_shards`` is read as
-the JAX package reads it; ``bases/constraints.py`` decides what it does
-(``check_mesh_shards``).
+the JAX package reads it: the bases pipelines build their mesh from it
+(``parallel/ensemble.py::mesh_from_shards``).
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class BasesConfig:
     constProj_bases_interpolation_type: str = "deim"
     constProj_basis_type: str = "pod_vectorized"
     deim_desired_num_components: int = -1
-    # >1: shard the bases compute over N devices (not ported: A18)
+    # >1: shard the bases compute over N ranks (parallel/ensemble.py)
     device_mesh_shards: int = 0
     # DEIM selection backend: True = the device scan (ops/deim_scan.py),
     # False = the host float64 lstsq loop, None = the JAX package's

@@ -1,7 +1,8 @@
 """Procedural meshes: the tetrahedral bar and the cloth grid.
 
 Counterpart of ``animsnapbases_tpu/geometry/procedural.py``: ``bar_model``,
-``bar_surface_mesh`` and ``cloth_model``, with the same vertex order and
+``bar_surface_mesh``, ``bar_model_surface_tetrahedralized`` and
+``cloth_model``, with the same vertex order and
 winding, so a scene built here and one built by the JAX package are the
 same scene.
 """
@@ -52,6 +53,16 @@ def bar_model(width: int, height: int, depth: int):
     F = F[:, ::-1]
     surface_idx = np.unique(F.flatten())
     return V, T, F, V[surface_idx]
+
+
+def bar_model_surface_tetrahedralized(width: int, height: int, depth: int):
+    """The surface grid of :func:`bar_surface_mesh` fed through
+    ``geometry/volume.py``'s ``tetrahedralize`` (the reference's
+    tetgen-based variant).  Returns (V, T, F)."""
+    from animsnapbases_tpu_torch.geometry.volume import tetrahedralize
+
+    V, F = bar_surface_mesh(width, height, depth)
+    return tetrahedralize(V, F)
 
 
 def bar_surface_mesh(width: int, height: int, depth: int):

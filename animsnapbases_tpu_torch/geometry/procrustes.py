@@ -50,6 +50,21 @@ def procrustes_transforms(frompts: torch.Tensor, topts: torch.Tensor):
     return r, t, s
 
 
+def rigid_procrustes(frompts: torch.Tensor, topts: torch.Tensor,
+                     rigid: bool = True) -> torch.Tensor:
+    """The 4x4 transform moving one frame ``frompts`` (N, 3) onto ``topts``
+    (N, 3), on their device in their dtype: the rotation of
+    :func:`procrustes_transforms` (the rank-2 rule included) and its
+    translation; ``rigid=False`` keeps the identity rotation with that
+    translation, as the JAX function does."""
+    r, t, _ = procrustes_transforms(frompts[None], topts)
+    T = torch.eye(4, dtype=frompts.dtype, device=frompts.device)
+    if rigid:
+        T[:3, :3] = r[0]
+    T[:3, 3] = t[0]
+    return T
+
+
 def align_frames(verts: torch.Tensor, rigid: bool = True) -> torch.Tensor:
     """Every frame of ``verts`` (F, N, 3) aligned onto frame 0, in the
     tensor's dtype on its device."""

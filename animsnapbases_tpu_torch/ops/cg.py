@@ -7,6 +7,8 @@ an (N, 3) right-hand side, in displacement form (u = q - s_n, so the
 pinned-mass terms cancel) and warm-started from the previous iteration's
 u.  The matrix is in padded ELL form (a gather and a sum along a fixed
 axis per row: no scatter, and a fixed order of summation).
+:func:`make_pcg_solver` closes a solve over a matrix given as COO triplets
+(:func:`coo_matvec`) or as a matvec of the caller's.
 """
 
 from __future__ import annotations
@@ -14,6 +16,14 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+
+def coo_matvec(rows, cols, vals, x: torch.Tensor, n: int) -> torch.Tensor:
+    """y = A x for COO triplets; x (n, k) -> y (n, k), each row summed in a
+    fixed order (``ops/segment.py``)."""
+    from animsnapbases_tpu_torch.ops.segment import coo_matvec_cols
+
+    return coo_matvec_cols(rows, cols, vals, x, n)
 
 
 def build_ell(rows, cols, vals, n: int, diag_add=None):
@@ -69,3 +79,26 @@ def pcg_solve(matvec, dinv: torch.Tensor, rhs: torch.Tensor, x0=None,
         rz = rz_new
         it += 1
     return x, it
+
+
+def make_pcg_solver(rows, cols, vals, diag, n: int, *, tol: float = 1e-12,
+                    max_iters: int = 400, matvec=None):
+    """``solve(rhs (n, d), x0=None, max_iterations=max_iters) -> (x,
+    iterations)``: :func:`pcg_solve` on the SPD matrix given by its COO
+    triplets (or by ``matvec``) and its diagonal ``diag`` (a tensor, on the
+    device and in the dtype of the solves)."""
+    dinv = 1.0 / diag
+    if matvec is None:
+        from animsnapbases_tpu_torch.ops.segment import row_layout, row_sum
+
+        layout = row_layout(rows, cols, torch.as_tensor(
+            vals, dtype=diag.dtype, device=diag.device), n)
+
+        def matvec(x):
+            return row_sum(layout, x)
+
+    def solve(rhs, x0=None, max_iterations=max_iters):
+        return pcg_solve(matvec, dinv, rhs, x0, tol=tol,
+                         max_iters=max_iterations)
+
+    return solve

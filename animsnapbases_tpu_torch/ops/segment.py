@@ -1,6 +1,7 @@
 """Sparse products in a fixed order of summation.
 
-Counterpart of ``animsnapbases_tpu/ops/segment.py::coo_matvec_cols``.  The
+Counterpart of ``animsnapbases_tpu/ops/segment.py`` (``coo_matvec``,
+``coo_matvec_cols``, ``segment_sum_3d``).  The
 JAX package sums with ``segment_sum``; a ``torch.index_add_`` on the card
 sums with atomics in no fixed order, and over the recorder's chaotic
 frames a changed order of the S^T p sums can move a DEIM pick between two
@@ -44,3 +45,19 @@ def coo_matvec_cols(rows, cols, vals, X: torch.Tensor,
     """Y = A @ X for COO A (n_rows, n_cols) and dense X (n_cols, d)."""
     vals = torch.as_tensor(vals, dtype=X.dtype, device=X.device)
     return row_sum(row_layout(rows, cols, vals, n_rows), X)
+
+
+def coo_matvec(rows, cols, vals, x: torch.Tensor,
+               n_rows: int) -> torch.Tensor:
+    """y = A @ x for COO A (n_rows, n_cols) and a vector x (n_cols,)."""
+    return coo_matvec_cols(rows, cols, vals, x[:, None], n_rows)[:, 0]
+
+
+def segment_sum_3d(values: torch.Tensor, segment_ids,
+                   num_segments: int) -> torch.Tensor:
+    """Rows of (M, 3) ``values`` added into (num_segments, 3), each
+    segment's rows in their order in ``values``."""
+    m = values.shape[0]
+    ones = torch.ones(m, dtype=values.dtype, device=values.device)
+    return row_sum(row_layout(segment_ids, torch.arange(m), ones,
+                              num_segments), values)

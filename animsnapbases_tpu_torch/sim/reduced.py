@@ -119,8 +119,25 @@ There is no fallback: a kernel that fails to build or launch raises.
 ``make_batched_run`` raises ``RuntimeError`` under any self-collision, and
 so does ``make_batched_step`` unless the device pass was captured (the JAX
 vmapped step skips an uncaptured pass silently; ROADMAP Queue C).
-Batched serving over a mesh (``mesh=``, ROADMAP Queue A item 18) is not
-ported yet and raises ``NotImplementedError``.
+
+Over a mesh (``mesh=``, a ``torch.distributed`` ``DeviceMesh``; JAX
+``_run_batched_resident_sharded`` and
+``_run_batched_resident_chunked_sharded``) every rank of ``batch_axis``
+calls the runner with the whole batch, serves its block of B / n sims on
+its own card's batched kernels, each sim's schedule split with it, and
+the blocks are gathered on every rank (one ``all_reduce`` of the
+zero-padded (B, 3, N) state a call, ``parallel/collectives.py``): no
+collective in the kernels' loop.  The resident route's sims are those of
+one card bit for bit.  On the large-model route the ranks keep lockstep at
+every whole-batch exit: each serves kernel 5 for the remaining steps, one
+``all_reduce`` agrees on the least k, a rank that served more runs again
+for that k (kernel 5 is deterministic), and the windows on kernel 2 run
+on every rank at once.  ``_last_batched_path`` is
+``batched-resident-sharded[{n}x{B/n}]``,
+``batched-chunked-sharded[{n}x{B/n}]`` (with ``+perstep[{w}w]``) or
+``batched-full-sharded[{n}x{B/n}]`` after a run, ``batched-step`` or
+``batched-full`` after a ``make_batched_step`` call (``-sharded[{n}x{B/n}]``
+over a mesh); B must be a multiple of n.
 
 Kernel 5's build options follow the JAX solver's switches
 (``resident_floor_bound_skip``, ``resident_floor_exact`` and
@@ -789,9 +806,10 @@ class AnimSnapBasesSolver:
         ``resident_contact_mode=None`` resolves to contact mode wherever
         kernel 3 is the contact tier.  The JAX package turns it on up to
         32,768 vertices for what it gains on a TPU; the port follows what an
-        NVIDIA H100 measured at the bench scene (PERF.md, Findings):
-        contact steps ~11 % faster than the lean build's, free steps within
-        0.2 %, a crumpling 64-sim ensemble 2.4x faster.
+        NVIDIA H100 (700 W) measured at the bench scene's 14,400 vertices
+        on the cluster loop (``tools/ab_contact_mode.py``, ROADMAP Queue C):
+        contact mode at 0.8366x the lean build's time on the contact scene
+        and 0.3225x on the crumpling 64-sim ensemble.
 
         Kernel 5, solo and batched, is built with
         :meth:`_chunk_options`."""
@@ -1452,11 +1470,42 @@ class AnimSnapBasesSolver:
         return B
 
     @staticmethod
-    def _refuse_mesh(mesh):
-        if mesh is not None:
-            raise NotImplementedError(
-                "batched serving over a mesh is not ported yet (ROADMAP "
-                "Queue A item 18)")
+    def _batch_axis(mesh, batch_axis):
+        """(process group, size, index) of ``batch_axis`` of ``mesh``, or
+        None without a mesh; ``TypeError`` when ``mesh`` is not a
+        ``DeviceMesh``."""
+        if mesh is None:
+            return None
+        from animsnapbases_tpu_torch.parallel.collectives import axis_of
+
+        return axis_of(mesh, batch_axis)
+
+    def _sim_block(self, axis, B):
+        """[lo, hi) of the sims this rank serves: all B without a mesh,
+        else its block of B / n (B a multiple of n)."""
+        if axis is None:
+            return 0, B
+        _, size, index = axis
+        if B % size:
+            raise ValueError(f"a batch of {B} sims does not split over the "
+                             f"{size} ranks of the batch axis")
+        bl = B // size
+        return index * bl, (index + 1) * bl
+
+    def _gather_sims(self, state, B, mesh, batch_axis, axis):
+        """The ranks' blocks of sims (dim 0 of each tensor of ``state``)
+        gathered on every rank, and the path named as sharded; ``state``
+        as it is without a mesh."""
+        if axis is None:
+            return state
+        from animsnapbases_tpu_torch.parallel.collectives import (
+            gather_blocks,
+        )
+
+        head, _, tail = self._last_batched_path.partition("+")
+        self._last_batched_path = (f"{head}-sharded[{axis[1]}x{B // axis[1]}]"
+                                   + (f"+{tail}" if tail else ""))
+        return tuple(gather_blocks(x, B, mesh, batch_axis) for x in state)
 
     def _refuse_self_collision(self, captured_ok=False):
         """``make_batched_run`` serves no self-collision: the host
@@ -1483,7 +1532,7 @@ class AnimSnapBasesSolver:
                 self.model.positional_targets(start))[0])
         return self._full.tensor(tl)
 
-    def make_batched_step(self, mesh=None):
+    def make_batched_step(self, mesh=None, batch_axis: str = "data"):
         """Ensemble stepping: ``step(positions (B, N, 3), velocities,
         fext (B, N, 3), num_iterations=10, targets=None) -> (positions',
         velocities')`` as (B, N, 3) float64 arrays, one step of B
@@ -1496,8 +1545,10 @@ class AnimSnapBasesSolver:
         served.  A device pass captured at prepare is applied to each sim
         after its step (:meth:`_refuse_self_collision`).  A configuration
         that is not fully reduced steps on the batched :class:`_FullSpace`
-        step in float64."""
-        self._refuse_mesh(mesh)
+        step in float64.  ``mesh``: each rank of ``batch_axis`` steps its
+        block of the sims and the blocks are gathered on every rank (see
+        the module docstring)."""
+        axis = self._batch_axis(mesh, batch_axis)
         serving_frame = [self.frame]
 
         def step(positions, velocities, fext, num_iterations=10,
@@ -1505,12 +1556,17 @@ class AnimSnapBasesSolver:
             self._refuse_self_collision(captured_ok=True)
             B = self._check_batch(positions, velocities, fext)
             self._require_batched()
+            lo, hi = self._sim_block(axis, B)
+            positions, velocities = positions[lo:hi], velocities[lo:hi]
+            fext = fext[lo:hi]
             if self._full is not None:
                 fs = self._full
                 t = fs.tensor(self.model.positional_targets(serving_frame[0])
                               if targets is None else targets)
+                self._last_batched_path = "batched-full"
                 q, v = fs.step(fs.tensor(positions), fs.tensor(velocities),
                                fs.tensor(fext), t, num_iterations)
+                q, v = self._gather_sims((q, v), B, mesh, batch_axis, axis)
                 serving_frame[0] += 1
                 return q.cpu().numpy(), v.cpu().numpy()
             ro = self._resident
@@ -1518,7 +1574,8 @@ class AnimSnapBasesSolver:
             fa = force_term(ro, self._pack(fext))
             rb = self._rb_extra(frame=serving_frame[0], targets=targets)
             sn, rb_const = predict(ro, P, V, fa, rb)
-            if B == 1:
+            self._last_batched_path = "batched-step"
+            if hi - lo == 1:
                 u = fused_reduced_iterations(
                     ro.fused, sn[0, :, :ro.n_sel], rb_const[0].contiguous(),
                     num_iterations)[None]
@@ -1530,12 +1587,13 @@ class AnimSnapBasesSolver:
             if self._collision_mode == "device":
                 q = torch.stack([self._perm_pass(x) for x in q])
                 v = (q - P) / ro.dt
+            q, v = self._gather_sims((q, v), B, mesh, batch_axis, axis)
             serving_frame[0] += 1
             return self._unpack(q), self._unpack(v)
 
         return step
 
-    def make_batched_run(self, mesh=None):
+    def make_batched_run(self, mesh=None, batch_axis: str = "data"):
         """Ensemble serving: ``run(positions (B, N, 3), velocities,
         fext (B, N, 3), num_steps, num_iterations=10, targets_seq=None) ->
         (positions', velocities')`` as (B, N, 3) float64 arrays, B
@@ -1555,8 +1613,10 @@ class AnimSnapBasesSolver:
         serves contact-free stretches and the batched kernel 2 the windows
         after a whole-batch exit (:meth:`_run_batched_chunked`).  A
         configuration that is not fully reduced runs the batched
-        :class:`_FullSpace` step (:meth:`_run_batched_full`)."""
-        self._refuse_mesh(mesh)
+        :class:`_FullSpace` step (:meth:`_run_batched_full`).  ``mesh``:
+        each rank of ``batch_axis`` serves its block of the sims and the
+        blocks are gathered on every rank (see the module docstring)."""
+        axis = self._batch_axis(mesh, batch_axis)
         self._refuse_self_collision()
         serving_frame = [self.frame]
 
@@ -1565,25 +1625,34 @@ class AnimSnapBasesSolver:
             self._refuse_self_collision()
             B = self._check_batch(positions, velocities, fext)
             self._require_batched()
+            lo, hi = self._sim_block(axis, B)
+            positions, velocities = positions[lo:hi], velocities[lo:hi]
+            fext = fext[lo:hi]
             if self._full is not None:
-                out = self._run_batched_full(
+                tl = self._full_timeline(targets_seq, B, serving_frame[0],
+                                         int(num_steps))
+                P, V = self._run_batched_full(
                     positions, velocities, fext, int(num_steps),
-                    num_iterations, self._full_timeline(
-                        targets_seq, B, serving_frame[0], int(num_steps)))
+                    num_iterations, tl[lo:hi] if tl.dim() == 4 else tl)
+                P, V = self._gather_sims((P, V), B, mesh, batch_axis, axis)
                 serving_frame[0] += int(num_steps)
-                return out
+                return P.cpu().numpy(), V.cpu().numpy()
             rb = (self._rb_schedule_from(serving_frame[0])
                   if targets_seq is None
                   else self._rb_timeline(targets_seq, B))
+            if rb.dim() == 4:
+                rb = rb[lo:hi]
             P, V = self._pack(positions), self._pack(velocities)
             Fx = self._pack(fext)
             if self._resident_kind == "standard":
-                P, V = self._run_batched_chunked(P, V, Fx, rb, int(num_steps),
-                                                 num_iterations)
+                P, V = self._run_batched_chunked(
+                    P, V, Fx, rb, int(num_steps), num_iterations,
+                    None if axis is None else axis[0])
             else:
                 P, V = self._run_batched_resident(P, V, Fx, rb,
                                                   int(num_steps),
                                                   num_iterations)
+            P, V = self._gather_sims((P, V), B, mesh, batch_axis, axis)
             serving_frame[0] += int(num_steps)
             return self._unpack(P), self._unpack(V)
 
@@ -1594,8 +1663,8 @@ class AnimSnapBasesSolver:
         """The window of a configuration that is not fully reduced: the
         batched :class:`_FullSpace` step on (B, N, 3) float64 state on the
         device, step i with row min(i, T - 1) of the timeline ``tl``
-        (shared (T, e, 3) or per sim (B, T, e, 3)) -> (B, N, 3) host
-        arrays."""
+        (shared (T, e, 3) or per sim (B, T, e, 3)) -> (B, N, 3) float64
+        tensors on the device."""
         fs = self._full
         self._last_batched_path = "batched-full"
         P, V = fs.tensor(positions), fs.tensor(velocities)
@@ -1604,7 +1673,7 @@ class AnimSnapBasesSolver:
         for i in range(num_steps):
             P, V = fs.step(P, V, Fx, tl[..., min(i, T - 1), :, :],
                            num_iterations)
-        return P.cpu().numpy(), V.cpu().numpy()
+        return P, V
 
     def _run_batched_resident(self, P, V, Fx, rb, num_steps, num_iterations):
         """The window on the batched kernel 3, lean or in contact mode as
@@ -1624,14 +1693,17 @@ class AnimSnapBasesSolver:
         return batched(self._affine, P, V, Fx, rb, num_steps, num_iterations,
                        rebase_every=every)
 
-    def _run_batched_chunked(self, P, V, Fx, rb, num_steps, num_iterations):
+    def _run_batched_chunked(self, P, V, Fx, rb, num_steps, num_iterations,
+                             group=None):
         """The large-model route (JAX ``_run_batched_resident_chunked``):
         the batched kernel 5 commits the steps before the first one at
         which any sim would clamp; a window of
         ``max(resident_rebase_every or 1024, ceil(num_steps / 64))`` steps
         then runs on the batched kernel 2, and stepping hands back to
         kernel 5.  B = 1 runs the solo kernels 5 and 2.  Each call takes
-        the target-term schedule ``rb`` from its own first step on."""
+        the target-term schedule ``rb`` from its own first step on.  With
+        the process ``group`` of a batch axis the ranks agree on each
+        commit (:func:`_agree_on_k`)."""
         ao = self._affine
         solo = P.shape[0] == 1
         if solo:
@@ -1640,18 +1712,22 @@ class AnimSnapBasesSolver:
                          or 1024), -(-num_steps // 64))
         remaining, windows = num_steps, 0
         self._last_batched_path = "batched-chunked"
-        while remaining > 0:
-            rb_now = rb_from(rb, num_steps - remaining)
+        def serve(rb_now, budget):
             if solo:
                 Pf, Vf, k = affine_chunked(ao, P[0], V[0], Fx[0], rb_now,
-                                           remaining, num_iterations,
+                                           budget, num_iterations,
                                            rebase_every=self._chunk_every,
                                            options=self._chunk_opts)
-                Pf, Vf = Pf[None], Vf[None]
-            else:
-                Pf, Vf, k = affine_chunked_batched(
-                    ao, P, V, Fx, rb_now, remaining, num_iterations,
-                    rebase_every=self._chunk_every, options=self._chunk_opts)
+                return Pf[None], Vf[None], k
+            return affine_chunked_batched(
+                ao, P, V, Fx, rb_now, budget, num_iterations,
+                rebase_every=self._chunk_every, options=self._chunk_opts)
+
+        while remaining > 0:
+            rb_now = rb_from(rb, num_steps - remaining)
+            Pf, Vf, k = serve(rb_now, remaining)
+            if group is not None:
+                Pf, Vf, k = _agree_on_k(serve, rb_now, Pf, Vf, k, group)
             if k > 0:
                 P, V = Pf, Vf
                 remaining -= k
@@ -1671,6 +1747,26 @@ class AnimSnapBasesSolver:
         if windows:
             self._last_batched_path = f"batched-chunked+perstep[{windows}w]"
         return P, V
+
+
+def _agree_on_k(serve, rb_now, Pf, Vf, k, group, probes=3):
+    """Lockstep of a sharded batched kernel-5 call (JAX
+    ``_run_batched_resident_chunked_sharded``): the ranks' committed steps
+    k agree through one ``all_reduce`` (of [-k, k], MAX); where they differ,
+    each rank serves again for the least k, which every rank can commit
+    (kernel 5 is deterministic, and no sim clamped before it), up to
+    ``probes`` times.  Returns the state and k to commit (0: none, the
+    caller's window on kernel 2 follows on every rank)."""
+    import torch.distributed as dist
+
+    for _ in range(probes + 1):
+        both = torch.tensor([-k, k], dtype=torch.int64, device=Pf.device)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
+        kmin, kmax = -int(both[0]), int(both[1])
+        if kmin == kmax or kmin == 0:
+            return Pf, Vf, kmin
+        Pf, Vf, k = serve(rb_now, kmin)
+    return Pf, Vf, 0
 
 
 def _timeline(targets_seq, B, e):

@@ -5,8 +5,10 @@ predictor, floor collision, ``num_iterations`` local-global sweeps with a
 prefactored global solve, per-frame recording of the trajectory and of the
 stacked projections p), ``build_global_matrix`` (which the reduced solver
 shares), ``make_local_stage``, the per-dimension constraint block
-(``group_dim_triplets``, ``build_constraint_dim_coo``) and
-``positional_targets_timeline``.
+(``group_dim_triplets``, ``build_constraint_dim_coo``),
+``positional_targets_timeline`` and ``make_device_global_solve`` (the dense
+and CG solves of one iteration, which ``Solver`` and the sharded steps of
+``parallel/`` share).
 
 The local stage (every group's projections and S^T p, ``sim/projections.py``)
 runs on the solver's device, in ``device.PIPELINE_DTYPE`` (float64) on the
@@ -42,7 +44,7 @@ import torch
 
 from animsnapbases_tpu_torch.device import PIPELINE_DTYPE, resolve_device
 from animsnapbases_tpu_torch.ops import segment
-from animsnapbases_tpu_torch.ops.cg import build_ell, ell_matvec, pcg_solve
+from animsnapbases_tpu_torch.ops.cg import build_ell, ell_matvec, make_pcg_solver
 from animsnapbases_tpu_torch.sim import collisions, projections
 from animsnapbases_tpu_torch.sim.collisions_device import make_collide
 
@@ -281,29 +283,17 @@ class Solver:
         self.max_p_snapshots_num = getattr(args, "max_p_snapshots_num",
                                            self.max_p_snapshots_num)
         model = self.model
-        A = build_global_matrix(model, self.dt)
-        dt2 = self.dt * self.dt
         mode = self.global_solve
         if mode == "auto":
-            mode = "dense" if A.shape[0] <= self.DENSE_LIMIT else "cg"
-        if mode == "dense":
-            self._chol = torch.linalg.cholesky(self._tensor(A.toarray()))
-            self._mass_dt2 = self._tensor(model.mass / dt2)
-        elif mode == "cg":
-            ac_rows, ac_cols, ac_vals = build_constraint_dim_coo(model)
-            mass_diag = np.asarray(model.mass / dt2, dtype=float)
-            diag = mass_diag.copy()
-            on_diag = ac_rows == ac_cols
-            np.add.at(diag, ac_rows[on_diag], ac_vals[on_diag])
-            ell_cols, ell_vals = build_ell(ac_rows, ac_cols, ac_vals,
-                                           model.n_verts, diag_add=mass_diag)
-            self._mass_dt2 = self._tensor(mass_diag)
-            self._ell = (torch.as_tensor(ell_cols.astype(np.int64),
-                                         device=self.device),
-                         self._tensor(ell_vals))
-            self._dinv = self._tensor(1.0 / diag)
+            mode = "dense" if 3 * model.n_verts <= self.DENSE_LIMIT else "cg"
+        if mode in ("dense", "cg"):
+            self._prep, self._apply = make_device_global_solve(
+                model, self.dt, self.device, self.dtype,
+                dense_limit=float("inf") if mode == "dense" else 0,
+                cg_tol=self.CG_TOL, cg_max_iters=self.CG_MAX_ITERS)
         elif mode == "host":
-            self._solve = scipy.sparse.linalg.factorized(A)
+            self._solve = scipy.sparse.linalg.factorized(
+                build_global_matrix(model, self.dt))
         else:
             raise ValueError(f"unknown global_solve mode {mode!r}")
         self._mode = mode
@@ -316,27 +306,10 @@ class Solver:
         self.set_clean()
 
     # ------------------------------------------------------------------
-    def _prep(self, sn):
-        """Once per step: the masses term (dense) or the displacement
-        form's constant -A_c s_n (CG)."""
-        if self._mode == "dense":
-            return self._mass_dt2[:, None] * sn
-        return self._mass_dt2[:, None] * sn - ell_matvec(*self._ell, sn)
-
-    def _apply(self, c, sn, u_prev, ctx):
-        """Once per iteration: (q, u) from the constraint term c."""
-        if self._mode == "dense":
-            q = torch.cholesky_solve((c + ctx).reshape(-1, 1),
-                                     self._chol).reshape(-1, 3)
-            return q, q - sn
-        u, _ = pcg_solve(lambda x: ell_matvec(*self._ell, x), self._dinv,
-                         c + ctx, u_prev, tol=self.CG_TOL,
-                         max_iters=self.CG_MAX_ITERS)
-        return sn + u, u
-
     def _sweep(self, sn, targets, num_iterations):
         """The device tiers' local-global sweep from the predictor sn: at
-        least one iteration, as the JAX sweep."""
+        least one iteration, as the JAX sweep, on the solve of
+        :func:`make_device_global_solve`."""
         ctx = self._prep(sn)
         q, u = sn, torch.zeros_like(sn)
         stacked = {}
@@ -501,3 +474,72 @@ def positional_targets_timeline(model, frame: int, num_steps: int):
             shift = c["frame_shift"]
             tl[:, i] += shift[np.minimum(frames, len(shift) - 1)]
     return tl, True
+
+
+def make_device_global_solve(model, dt: float, device=None,
+                             dtype=PIPELINE_DTYPE,
+                             dense_limit: float | None = None,
+                             cg_tol: float | None = None,
+                             cg_max_iters: int | None = None):
+    """The global solve of one local-global iteration on ``device`` (default
+    the card) in ``dtype`` -> ``(prep, apply)``:
+
+    * ``prep(sn) -> ctx``, once a step: the masses term (dense) or the
+      displacement form's constant -A_c s_n (CG);
+    * ``apply(c, sn, u_prev, ctx) -> (q, u)``, once an iteration, ``c`` the
+      summed constraint term sum S^T p and ``u_prev`` the CG's warm start
+      (the dense solve ignores it).
+
+    At 3N <= ``dense_limit`` (default ``Solver.DENSE_LIMIT``) a dense
+    Cholesky factor of the global matrix; above it Jacobi-preconditioned CG
+    (``ops/cg.py``) in displacement form on the per-dimension matrix in
+    ELL form, with no dense matrix, so a large model steps on it."""
+    dense_limit = Solver.DENSE_LIMIT if dense_limit is None else dense_limit
+    cg_tol = Solver.CG_TOL if cg_tol is None else cg_tol
+    cg_max_iters = (Solver.CG_MAX_ITERS if cg_max_iters is None
+                    else cg_max_iters)
+    dev = resolve_device(device)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    n = model.n_verts
+    mass_dt2 = tensor(model.mass / (dt * dt))
+    if 3 * n <= dense_limit:
+        chol = torch.linalg.cholesky(tensor(
+            build_global_matrix(model, dt).toarray()))
+
+        def prep(sn):
+            return mass_dt2[:, None] * sn
+
+        def apply(c, sn, u_prev, ctx):
+            q = torch.cholesky_solve((c + ctx).reshape(-1, 1),
+                                     chol).reshape(-1, 3)
+            return q, q - sn
+
+        return prep, apply
+
+    ac_rows, ac_cols, ac_vals = build_constraint_dim_coo(model)
+    mass_diag = np.asarray(model.mass / (dt * dt), dtype=float)
+    diag = mass_diag.copy()
+    on_diag = ac_rows == ac_cols
+    np.add.at(diag, ac_rows[on_diag], ac_vals[on_diag])
+    ell_cols, ell_vals = build_ell(ac_rows, ac_cols, ac_vals, n,
+                                   diag_add=mass_diag)
+    ell = (torch.as_tensor(ell_cols.astype(np.int64), device=dev),
+           tensor(ell_vals))
+
+    def matvec(x):
+        return ell_matvec(*ell, x)
+
+    cg = make_pcg_solver(None, None, None, tensor(diag), n, tol=cg_tol,
+                         max_iters=cg_max_iters, matvec=matvec)
+
+    def prep(sn):
+        return mass_dt2[:, None] * sn - matvec(sn)
+
+    def apply(c, sn, u_prev, ctx):
+        u, _ = cg(c + ctx, u_prev)
+        return sn + u, u
+
+    return prep, apply

@@ -14,26 +14,52 @@ import time
 
 
 class PhaseTimer:
-    """Collects named phase durations."""
+    """Collects named phase durations; ``directory`` is where
+    :meth:`flush` writes them unless it is given another."""
 
-    def __init__(self):
+    def __init__(self, directory: str = ""):
+        self.directory = directory
         self.records: list[tuple[str, float]] = []
+
+    def path(self, directory: str | None = None) -> str:
+        """``function_timings.txt`` under ``directory`` (default: the
+        timer's)."""
+        return os.path.join(self.directory if directory is None
+                            else directory, "function_timings.txt")
 
     def record(self, name: str, seconds: float) -> None:
         self.records.append((name, seconds))
 
-    def flush(self, directory: str) -> str | None:
-        """Write the records to ``directory/function_timings.txt`` ->
-        its path (None with no record)."""
+    def phase(self, name: str):
+        """A context manager recording the seconds of its block under
+        ``name``."""
+        return _Phase(self, name)
+
+    def flush(self, directory: str | None = None) -> str | None:
+        """Write the records to :meth:`path` of ``directory`` -> that path
+        (None with no record)."""
         if not self.records:
             return None
-        os.makedirs(directory, exist_ok=True)
-        path = os.path.join(directory, "function_timings.txt")
+        path = self.path(directory)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             for name, seconds in self.records:
                 f.write(f"Function '{name}' executed in {seconds:.4f} "
                         "seconds.\n")
         return path
+
+
+class _Phase:
+    def __init__(self, timer: PhaseTimer, name: str):
+        self.timer, self.name = timer, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.record(self.name, time.perf_counter() - self.t0)
+        return False
 
 
 _GLOBAL_TIMER = PhaseTimer()

@@ -115,13 +115,13 @@ version.  Phases, each of which fails the run when it fails:
    position basis (r = 48), the reduced solver prepared from those files
    as bench.py prepares it, ``run_steps(48)`` (the reduced-vs-FOM mean,
    p99 and max) and ``step()``: one counted path (kernels 1 and 5).  Held:
-   a second recording on the card bit for bit, the CPU's within 1e-6 of
-   the scene's extent; the bases again on the CPU (DEIM picks equal or
-   ties of the greedy's argmax, the POD within the Gram method's rounding
-   bound), no warning of the bases pipeline; the ring-down window
-   (2,000 steps) certified by tier 1 and floor-clear; kernels 1 and 5
-   against their plain versions on these bases; times, kernel 5's floor
-   bound and the stages' seconds;
+   a second recording on the card bit for bit, the CPU's first 12 frames
+   within 1e-6 of the scene's extent; the bases again on the CPU (DEIM
+   picks equal or ties of the greedy's argmax, the POD within the Gram
+   method's rounding bound), no warning of the bases pipeline; the
+   ring-down window (2,000 steps) certified by tier 1 and floor-clear;
+   kernels 1 and 5 against their plain versions on these bases; times,
+   kernel 5's floor bound and the stages' seconds;
 7. ``per-group`` (:func:`per_group_phase`): the reference's own workflow
    (record a full-order run, compute each constraint group's bases from
    its ``configs/examples/*.json`` config, replay with the reduced solver)
@@ -136,7 +136,8 @@ version.  Phases, each of which fails the run when it fails:
    each of those solves held step by step against the CPU (one step from
    the CPU's state, within CPU_DEVIATION of the extent) with its
    reduced-vs-FOM statistic; (c) the bar of
-   ``bar_automated_deformationgradient.json`` recorded for 140 frames, with
+   ``bar_automated_deformationgradient.json`` recorded for 71 frames (its
+   examples' 70 frames read at increment 1), with
    ``pca_blocks`` + ``deim_block_form`` and ``pod_vectorized`` + ``geom``
    bases from its example configs and a position basis of the recorded
    displacements, served fully reduced under ``deim_pca_blocks`` and
@@ -208,6 +209,28 @@ version.  Phases, each of which fails the run when it fails:
    48 frames on kernel 1, a counted path, with bfloat16 and with float32
    matrices, under the JAX script's gates (a gate crossed fails the run);
    heat maps only where matplotlib imports;
+12. ``multichip`` (:func:`multichip_phase`): (a) the sharded paths
+   (``parallel/``) on MC_RANKS ranks on the one card, each a process of a
+   gloo group (:func:`multichip_rank`): the bench scene's ring-down
+   ensemble (64 sims over 2,000 steps) through ``make_batched_run(mesh)``
+   on the resident route (batched kernel 3's contact-mode build) and on
+   the large-model route (batched kernel 5, and on the mixed batch its
+   windows on batched kernel 2), each rank's launches counted, each sim
+   bit for bit against the single-process batch on both routes (the
+   large-model route's ranks commit the same least k at every whole-batch
+   exit); the TP-reduced step against the single-process step from the
+   same state (:func:`tp_against_steps`: its float64 plain version, its
+   float32 peer, kernel 1); the element-sharded FOM step (device CG) against
+   ``Solver.step``; the 120,001 x 16 sharded POD within ``pod_bounds``;
+   phase [6]'s recording through ``ConstraintComponents`` with
+   ``device_mesh_shards`` = MC_RANKS (picks equal to the unsharded device
+   scan's, modes within ``pod_bounds``, ties of phase [6]'s host DEIM);
+   seconds and µs a step per rank; (b) the smoke battery
+   (``python -m animsnapbases_tpu_torch.smoke``, nine PASS lines) and the
+   sweep (``python -m animsnapbases_tpu_torch.sweep``, ``--jobs 3``) over
+   phase [11]'s three example configs, each output against phase [11]'s
+   in-process ``cli.main``; (c) the native library of ``io/native.py``
+   built, its readers equal to the Python ones;
 5. the ``kernels`` line (22 entries: six solo kernels, six batched
    builds, each with its times on the new scenes under ``scenes``, with a
    target schedule under ``animated``, at 250,000 vertices under
@@ -215,7 +238,9 @@ version.  Phases, each of which fails the run when it fails:
    ``real_bases``, on the bar's block-form bases under ``per_group``,
    under self-collision under ``self_collision`` and on the PCA position
    basis under ``position_bases``, kernel 1 on phase [11]'s replays under
-   ``scenarios``, then kernel 5's five option builds, solo and batched),
+   ``scenarios``, batched kernels 3 (contact mode), 5 and 2 on phase
+   [12]'s sharded serving under ``multichip``, then kernel 5's five option
+   builds, solo and batched),
    then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints no
@@ -236,6 +261,23 @@ import time
 import types
 
 import numpy as np
+
+from animsnapbases_tpu_torch import holds
+# the holds of a kernel against its plain version (one copy, beside the
+# smoke battery's)
+from animsnapbases_tpu_torch.holds import (  # noqa: F401
+    ACC_RATIO,
+    F32_EPS,
+    REBASE_EVERY,
+    STEP_TOL,
+    WITNESS_DRAWS,
+    as_accurate,
+    as_f64,
+    hold_step,
+    max_abs,
+    step_by_step,
+    step_share,
+)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense; float32 and float64
 # on the CUDA cores, where these kernels compute): the bound of a kernel
@@ -277,35 +319,12 @@ SCENE_STEPS = 64
 ITERATIONS = 10
 WINDOW_STEPS = 2000
 REPS = 50
-# kernel 1 vs its plain version on the card: both run in float32 from the
-# same inputs and are held against the float64 plain result from those
-# inputs.  Their float32 errors are of one size (the same arithmetic in
-# another order); the kernel fails when its error exceeds ACC_RATIO times
-# the plain version's.
-ACC_RATIO = 4.0
-F32_EPS = 2.0 ** -23
-# contact mode's branch steps (:func:`carried_steps`): the float64 step
-# from the kernel's input moved at random by one float32 unit, this many
-# draws in one batched step, is printed beside each
-WITNESS_DRAWS = 64
-# kernel 2 vs its plain version, step by step from the same state: both
-# round sn to the storage type bit for bit, so they differ only by the
-# order of their float32 sums, which the nonlinear loop amplifies at some
-# states (up to ~3% of the step's lift at the bench scene).  Each step's
-# difference must stay below STEP_TOL times that step's own size: its
-# change of P and the lift U u within it for P, its change of V for V.  A
-# kernel that skipped or misweighted a part of the step fails.  (A float64
-# reference cannot hold it tighter: at a few states the loop's clamps
-# branch differently in float64, and it then parts from both float32
-# versions by ~0.1 in P within one step.)
-STEP_TOL = 0.1
 # the small scene on the card (float32) against the plain float64
 # version on the CPU
 TOL_SMALL = 1e-3
-# the solver's defaults: kernel 5's chunk (its rebase cadence) and the
-# in-kernel rebase cadence of kernels 3 and 4
+# the solver's default chunk of kernel 5 (its rebase cadence; kernels 3
+# and 4 rebase every REBASE_EVERY steps)
 CHUNK_EVERY = 1024
-REBASE_EVERY = 256
 # the contact scene: the bench cloth with its lowest vertex this far above
 # the floor, falling at this speed (units/s)
 CONTACT_GAP = 0.05
@@ -452,19 +471,25 @@ EXCITE = 0.1
 PIPE_WARMUP = 50
 PIPE_CHUNK = 64
 CPU_DEVIATION = 1e-6
+# the CPU's recording, held against the card's first frames (the whole 48
+# on the CPU took 18.6-20.9 s of the run's limit)
+CPU_FRAMES = 12
 POD_GAMMA = 16 * 2.0 ** -52
 PICK_RTOL = 1e-10
 # ---- [7] the reference's per-group workflow (:func:`per_group_phase`) ----
 # the recording lengths the example configs read: the cloth's
-# max_numFrames (200; 100 frames at increment 2) and the bar demo's
-# max_p_snapshots_num (140; its examples read 70 frames at increment 2)
+# max_numFrames (200; 100 frames at increment 2) and, for the bar, its
+# examples' 70 frames read at increment 1 (BAR_OVERRIDES; at the configs'
+# increment 2 the bar demo records 140, 29.9 s of the run's limit), one
+# frame longer than read (the p-snapshots stop a frame short)
 GROUP_FRAMES = 200
-BAR_FRAMES = 140
+BAR_FRAMES = 71
 # the steps of each reduced solve: phase [6]'s reduced-vs-FOM statistic
 GROUP_STEPS = 48
 # entries of the example configs replaced (none: the configs' own frames
-# and component counts)
+# and component counts), and those of the bar's examples
 GROUP_OVERRIDES = {}
+BAR_OVERRIDES = {"frame_increment": 1}
 CLOTH_EXAMPLE = "configs/examples/cloth_automated_{}_{}Subspace.json"
 CLOTH_KINDS = {"tris_strain": "triStrain", "edge_spring": "edgeSpring",
                "verts_bending": "vertBending"}
@@ -624,6 +649,31 @@ SCEN_HOLD_STEPS = 3
 SCEN_OVERRIDES = {}
 SCEN_POS_MODES = 30
 CSV_RTOL = 1e-12
+# phase [11]'s hand-off to phase [12]'s sweep, under the shared directory
+SCEN_MANIFEST = "scenarios.json"
+# phase [12], the sharded paths, the battery and the sweep, the native
+# reader: ranks on the one card (time-sharing it, over
+# gloo: NCCL refuses two ranks on one card), each a process; the limit on
+# the ranks and on each collective; the sharded POD's matrix; the element-
+# sharded FOM step's iterations (the recorder's); the battery and the
+# sweep's limit (each a subprocess)
+MC_RANKS = 2
+MC_TIMEOUT = 600.0
+MC_POD = (120_001, 16)
+MC_FOM_ITERS = FOM_ITERS
+MC_SUB_TIMEOUT = 600
+# element-sharded FOM step against Solver.step, of the extent (float64, the
+# same CG tolerance); the sweep's modes against phase [11]'s where not bit
+# for bit (a worker's BLAS on its own threads)
+MC_FOM_TOL = 1e-9
+SWEEP_TOL = 1e-9
+# the batched kernels phase [12]'s sharded serving counts, and the run
+# whose readings each takes in the kernels line
+MC_KERNELS = {"resident_affine_contact_batched": "resident",
+              "affine_chunked_batched": "chunked",
+              "resident_multistep_batched": "chunked_mixed"}
+BATTERY = ("contact", "tets", "bend", "batched", "batched_poke", "damped",
+           "chunked", "chunked_only", "batched_chunked")
 
 
 def log(*a):
@@ -904,30 +954,6 @@ def device_ms(torch, fn, reps=REPS, warmup_s=DEVICE_WARMUP_S, rounds=3):
     return statistics.median(times)
 
 
-def max_abs(a, b):
-    return float((a.double() - b.double()).abs().max())
-
-
-def as_accurate(got, plain, ref64):
-    """(ok, kernel error, plain error) against the float64 result from the
-    same inputs.  Kernel and plain version do the same float32 arithmetic
-    in another order, so their errors are of one size: the kernel passes
-    when its error is within ACC_RATIO times the plain version's or the
-    float32 rounding of the result's largest entry, whichever is larger."""
-    e_k = max_abs(got, ref64)
-    e_p = max_abs(plain, ref64)
-    floor = F32_EPS * float(ref64.abs().max())
-    return e_k <= ACC_RATIO * max(e_p, floor), e_k, e_p
-
-
-def as_f64(fo):
-    """The fused operands with their float values widened to float64."""
-    return dataclasses.replace(
-        fo, C_allT=fo.C_allT.double(), inv3=fo.inv3.double(),
-        WT_all=fo.WT_all.double(), elem_f=fo.elem_f.double(),
-        UG_allT=fo.UG_allT.double())
-
-
 def k1_cost(fo, n_sel, iters, nb=1):
     """(bytes, {dtype: ops}) of one kernel-1 call for ``nb`` sims: every
     input read once, the output written once; the loop's operands (the
@@ -1115,374 +1141,9 @@ def bound_ms(nbytes, ops):
                                        else "operations")
 
 
-def step_share(ro, fa, rb_extra, Pi, Vi, Pk, Vk, Pp, Vp):
-    """{"P": (difference, size), "V": ...} of a kernel's step (Pk, Vk)
-    against its plain version's step (Pp, Vp), both from (Pi, Vi).  The
-    size of P's step is the smaller of its change and the lift U u within
-    it (P' against the clamped predictor); that of V's step its change."""
-    from animsnapbases_tpu_torch.ops.resident import predict
-
-    sn, _ = predict(ro, Pi, Vi, fa, rb_extra)
-    return {"P": (max_abs(Pk, Pp), min(max_abs(Pp, Pi), max_abs(Pp, sn))),
-            "V": (max_abs(Vk, Vp), max_abs(Vp, Vi))}
-
-
-def hold_step(label, shares):
-    """Each difference of :func:`step_share` below STEP_TOL of its size."""
-    for key, (d, s) in shares.items():
-        require(d <= STEP_TOL * s,
-                f"{label} {key}: differs from the plain version by {d:.3e}, "
-                f"above {STEP_TOL} of the step's size {s:.3e}")
-
-
-def step_by_step(torch, label, ro, run_k, run_p, P, V, Fx, rb_extra, steps,
-                 run_64=None):
-    """Each of ``steps`` steps as a one-step call of the kernel
-    (``run_k``) and of its plain version (``run_p``), both from the
-    kernel's own state, held at STEP_TOL of the step's size
-    (:func:`step_share`).  ``run_64`` (optional) gives P's distance from a
-    float64 step, printed and not held.  Returns the largest difference and
-    the kernel's end state."""
-    from animsnapbases_tpu_torch.ops.resident import force_term
-
-    fa = force_term(ro, Fx)
-    diff = {"P": 0.0, "V": 0.0}
-    share = {"P": 0.0, "V": 0.0}
-    size = {"P": float("inf"), "V": float("inf")}
-    off64 = [0.0, 0.0]
-    Pi, Vi = P, V
-    for _ in range(steps):
-        Pk, Vk = run_k(Pi, Vi)
-        Pp, Vp = run_p(Pi, Vi)
-        require(bool(torch.isfinite(Pk).all() and torch.isfinite(Vk).all()),
-                f"{label}: non-finite state")
-        if run_64 is not None:
-            P64 = run_64(Pi, Vi)
-            off64 = [max(off64[0], max_abs(Pk, P64)),
-                     max(off64[1], max_abs(Pp, P64))]
-        shares = step_share(ro, fa, rb_extra, Pi, Vi, Pk, Vk, Pp, Vp)
-        hold_step(label, shares)
-        for key, (d, s) in shares.items():
-            diff[key] = max(diff[key], d)
-            share[key] = max(share[key], d / s if s > 0 else 0.0)
-            size[key] = min(size[key], s)
-        Pi, Vi = Pk, Vk
-    torch.cuda.synchronize()
-    log(f"[3] {label}, {steps} steps one by one against the plain version: "
-        + "; ".join(f"{key} max abs {diff[key]:.3e}, at most "
-                    f"{share[key]:.3e} of the step's size (tol {STEP_TOL}), "
-                    f"smallest step size {size[key]:.3e}"
-                    for key in ("P", "V"))
-        + (f"; largest P distance from the float64 step (not held): "
-           f"kernel {off64[0]:.3e}, plain {off64[1]:.3e}"
-           if run_64 is not None else ""))
-    return max(diff.values()), (Pi, Vi)
-
-
-def carried_steps(torch, label, kernel, ao, plain, P, V, F_, rb_extra,
-                  steps, every=REBASE_EVERY, options=None, batch=None):
-    """The steps one call of kernel 3, 4 or 5 (``kernel``; "3c" for kernel
-    3's contact-mode build, "4b" for kernel 4's batched build on the sims
-    of ``batch`` = (P, V, F, b), held on its sim b, whose state is P, V,
-    F_) carries inside it, in its coefficients over the
-    call's anchors (P, V): for each s <= ``steps``, one kernel call of s
-    steps against one plain step (``AffineContext``; through the gathered
-    values for kernel 5) from the state that the kernel's call of s - 1
-    steps left, over the same anchors, held at STEP_TOL of that step's size
-    (:func:`step_share`).  The plain step starts from the kernel's own
-    coefficients (and, for "3c", its contact mode and y state: Py, Vy,
-    buPy, buVy), so what it is held to does not drift as s grows; and over
-    the same anchors, so the bfloat16 rounding of the anchors is the same
-    on both sides (a step from the materialized state would round other
-    anchors).  Calls of kernels 3, 4 and 5 must do all their steps without
-    a rebase or a contact step.  Kernel "3c" may enter contact mode, and
-    rebases every ``every`` steps: a rebase before step s re-anchors at the
-    state the call of s - 1 steps returned (the same materialization,
-    bit for bit), so the plain step then starts from those anchors.
-
-    At a branch step, where the loop's clamps take another branch in the
-    two float32 orders and the step parts by more than STEP_TOL, kernels
-    3, 4 and 5 must be as near to the float64 plain step from the same
-    state as the float32 plain step is, within ACC_RATIO (as kernel 1 is
-    held); a kernel that carried a wrong state is far from both.
-
-    In contact mode the loop branches on a third of the contact scene's
-    steps, and which of two float32 orders lands nearer the float64 step
-    is a coin's toss (either is the farther by more than ACC_RATIO on
-    some steps).  There every step is held in two parts.  Everything but
-    the loop: the kernel's step against the plain step given the kernel's
-    own loop answer u (recovered from its coefficients), at STEP_TOL of
-    that step's size, the carried y state with it (buPy, buVy within
-    STEP_TOL of their change in the step; the contact mode equal): the
-    predictor, the clamp, pc, the recursions, the lift, the coefficient
-    update and the mixed output.  The loop (iteration.cuh, kernel 1's,
-    held against float64 on its own): over the window's branch steps the
-    kernel's distance from the float64 step, in the median and at most,
-    within ACC_RATIO of the plain version's.  Printed at each branch
-    step: the farthest float64 step from the same state with its
-    coefficients and y state moved at random by one float32 unit
-    (WITNESS_DRAWS draws), and on how many steps each float32 order lies
-    beyond ACC_RATIO of it.
-
-    Printed, not held: the kernel's call of s steps against the plain
-    version's call (``plain``) of as many steps from (P, V), for a few s,
-    which the dynamics of this scene part within a few steps.  ``options``
-    (kernel 5 only) selects its build (ops/affine_chunked.py ChunkOptions;
-    None: the default): without ``fold_vc`` its plain step takes the
-    gathered values through ``U_selT`` as kernels 3 and 4 do.  With a
-    target-term schedule ``rb_extra`` ((T, 3, r), animated targets) step s
-    of the plain side takes the schedule's row min(s - 1, T - 1), as the
-    kernel's step s does.  Returns the largest difference and the flags of
-    the call of ``steps`` steps."""
-    from animsnapbases_tpu_torch.ops.affine import (
-        FLAG_SLOTS,
-        MODE_SLOT,
-        AffineContext,
-        AffineState,
-        _launch_affine,
-        _rebase_due,
-        basis,
-        split_coef,
-    )
-    from animsnapbases_tpu_torch.ops.affine_chunked import (
-        DEFAULT_OPTIONS,
-        _chunk_cuda,
-        advance,
-        fill_ymm,
-        gathered_values,
-    )
-    from animsnapbases_tpu_torch.ops.fused_reduced import gather_vc
-    from animsnapbases_tpu_torch.ops.resident import (
-        force_term,
-        project,
-        rb_at,
-    )
-
-    class GivenU(AffineContext):
-        """The plain step with the loop's answer given (``self.u``)."""
-
-        def solve(self, Vc, rb_const, num_iterations):
-            return self.u
-
-    contact = kernel == "3c"
-    require(contact or steps < every, "a carried window must not rebase")
-    ro = ao.res
-    fa = force_term(ro, F_)
-    ctx = AffineContext(ao, fa)
-    given = GivenU(ao, fa, ctx.bu_fa)
-    options = options or DEFAULT_OPTIONS
-    fold = kernel == 5 and options.fold_vc
-    b0s, b1s, fas = ((gather_vc(ao.fused, x) for x in (P, V, fa)) if fold
-                     else (None, None, None))
-    bu0, bu1 = project(ro, P), project(ro, V)
-    # the float64 plain step, the matrices kept in their storage type
-    ro64 = dataclasses.replace(ro, fused=as_f64(ro.fused),
-                               mass_inv=ro.mass_inv.double())
-    ao64 = dataclasses.replace(ao, res=ro64, M_utac=ao.M_utac.double(),
-                               U_selT=ao.U_selT.double())
-    ctx64 = AffineContext(ao64, fa.double())
-
-    def plain_step(cx, state, rb):
-        """One plain step from ``state`` (anchors, coefficients, contact
-        mode and y state; each may carry a leading axis of draws) in the
-        context ``cx`` -> (state before, state after), materialized, and
-        in contact mode the y state after (Py, Vy, buPy, buVy) when the
-        step ends in the mode, else None."""
-        (b0, b1), coefs, mode, y = state
-        dt = cx.fa.dtype
-        st = AffineState(b0.to(dt), b1.to(dt), *(c.to(dt) for c in coefs))
-        before = cx.output(st)
-        if contact:
-            cx.init_contact(st)
-            if mode:
-                st.mode = torch.ones_like(st.mode)
-                st.Py, st.Vy, st.buPy, st.buVy = (t.to(dt) for t in y)
-            cx.step(st, rb, ITERATIONS)
-            return before, cx.output(st), (
-                (st.Py, st.Vy, st.buPy, st.buVy) if bool(st.mode.all())
-                else None)
-        _, _, wp, _, avd, asn, wsn = cx.predictor(st)
-        if fold:
-            cols = (gather_vc(cx.fo, st.b0), gather_vc(cx.fo, st.b1),
-                    gather_vc(cx.fo, cx.fa))
-            cx.gathered_step(st, asn, wsn, avd, wp,
-                             gathered_values(cx.ao, asn, wsn, *cols), rb,
-                             ITERATIONS)
-        else:
-            cx.free_step(st, asn, wsn, avd, wp, rb, ITERATIONS)
-        return before, cx.output(st), None
-
-    def run_k(s):
-        """The kernel's call of s steps -> (P', V', its coefficients,
-        contact mode, y state, flags)."""
-        mode, y, flags = False, None, None
-        if kernel == 5:
-            ymm = torch.empty(6, dtype=P.dtype, device=P.device)
-            if not options.floor_exact:
-                fill_ymm(ymm, P, V, fa, True)
-            *coefs, done = _chunk_cuda(
-                ao, P, V, fa, ymm, True, b0s, b1s, fas, bu0, bu1, ctx.bu_fa,
-                rb_extra, s, ITERATIONS, ao.floor_level, options)
-            Pk, Vk = advance(ao, P, V, fa, *coefs)
-        else:
-            variant = {3: "lean", 4: "exit", "4b": "exit",
-                       "3c": "contact"}[kernel]
-            if batch is None:
-                Pk, Vk, flags, coef, y = _launch_affine(
-                    ao, P, V, F_, rb_extra, s, ITERATIONS, every, variant)
-            else:
-                *sims, b = batch
-                Pk, Vk, flags, coef = (x[b] for x in _launch_affine(
-                    ao, *sims, rb_extra, s, ITERATIONS, every, variant)[:4])
-                y = None
-            coefs = split_coef(coef, ao.fused.r)
-            mode = bool(int(flags[MODE_SLOT]))
-            done = (int(flags[2]) if kernel in (4, "4b") else s if contact
-                    else s - int(flags[FLAG_SLOTS:FLAG_SLOTS + s].sum()))
-        require(done == s, f"{label}: the kernel did {done} of {s} "
-                "contact-free steps")
-        return Pk, Vk, (tuple(coefs), mode, y), flags
-
-    def given_u(s, state, after, Pk, Vk, rb):
-        """The kernel's step against the plain step from ``state`` given
-        the kernel's u (its wp after the step less the predictor's), the
-        y state with it -> the largest share of a step's size."""
-        anchors, coefs, mode, y = state
-        wsn = ctx.predictor(AffineState(*anchors, *coefs))[-1]
-        given.u = after[0][2] - wsn
-        (Pi, Vi), (Pf, Vf), y_f = plain_step(given, state, rb)
-        shares = step_share(ro, fa, rb, Pi, Vi, Pk, Vk, Pf, Vf)
-        require(after[1] == (y_f is not None),
-                f"{label}, step {s}: the kernel's contact mode "
-                f"{after[1]} differs from the plain step's")
-        if y_f is not None:
-            zr = torch.zeros_like(y_f[2])
-            for key, i in (("buPy", 2), ("buVy", 3)):
-                shares[key] = (max_abs(after[2][i], y_f[i]),
-                               max_abs(y_f[i], y[i] if mode else zr))
-        hold_step(f"{label}, step {s}, against the plain step given the "
-                  "kernel's u", shares)
-        return max(d / sz if sz > 0 else 0.0 for d, sz in shares.values())
-
-    def witness(s, state, P64, V64, rb):
-        """{"P": d, "V": d}: the farthest from (P64, V64) of the float64
-        plain steps from ``state`` with its coefficients and y state moved
-        at random by one float32 unit, WITNESS_DRAWS draws in one batched
-        step."""
-        gen = torch.Generator(device=P.device).manual_seed(s)
-        draws = WITNESS_DRAWS
-
-        def many(x):
-            return x.double().expand(draws, *x.shape)
-
-        def nudge(x):
-            x = many(x)
-            return x * (1.0 + F32_EPS * torch.randn(
-                x.shape, generator=gen, device=x.device, dtype=x.dtype))
-
-        anchors, coefs, mode, y = state
-        _, (Pq, Vq), _ = plain_step(ctx64, (
-            tuple(many(b) for b in anchors), tuple(nudge(c) for c in coefs),
-            mode, None if y is None else tuple(nudge(t) for t in y)),
-            rb.double())
-        return {"P": max_abs(Pq, P64), "V": max_abs(Vq, V64)}
-
-    e0, e1, _ = basis(P.dtype, P.device)
-    zw = torch.zeros((3, ao.fused.r), dtype=P.dtype, device=P.device)
-    unit = ((e0, e1, zw, zw), False, None)
-    state, prev = ((P, V), *unit), (P, V)
-    diff = {"P": 0.0, "V": 0.0}
-    share = {"P": (0.0, 0), "V": (0.0, 0)}
-    apart, branches = {}, []
-    given_worst = (0.0, 0)
-    for s in range(1, steps + 1):
-        if contact and _rebase_due(s - 1, every):
-            state = (prev, *unit)
-        Pk, Vk, after, flags = run_k(s)
-        rb_s = rb_at(rb_extra, s - 1)
-        (Pi, Vi), (Pp, Vp), _ = plain_step(ctx, state, rb_s)
-        shares = step_share(ro, fa, rb_s, Pi, Vi, Pk, Vk, Pp, Vp)
-        if contact:
-            given_worst = max(given_worst, (given_u(s, state, after, Pk, Vk,
-                                                    rb_s), s))
-        if all(d <= STEP_TOL * sz for d, sz in shares.values()):
-            for key, (d, sz) in shares.items():
-                diff[key] = max(diff[key], d)
-                share[key] = max(share[key], (d / sz if sz > 0 else 0.0, s))
-        else:
-            _, (P64, V64), _ = plain_step(ctx64, state, rb_s.double())
-            seen = witness(s, state, P64, V64, rb_s) if contact else None
-            near = {}
-            for key, got, pl, ref in (("P", Pk, Pp, P64), ("V", Vk, Vp, V64)):
-                e_k, e_p = max_abs(got, ref), max_abs(pl, ref)
-                floor = F32_EPS * float(ref.abs().max())
-                require(contact or e_k <= ACC_RATIO * max(e_p, floor),
-                        f"{label}, step {s} {key}: differs from the plain "
-                        f"version by {shares[key][0]:.3e} (step size "
-                        f"{shares[key][1]:.3e}) and is {e_k:.3e} from the "
-                        f"float64 step, the plain version {e_p:.3e}")
-                near[key] = (shares[key][0] / shares[key][1],
-                             max(e_k, floor), max(e_p, floor),
-                             seen[key] if seen else None)
-            branches.append((s, near))
-        if s in (1, 2, 3, 4, steps):
-            out = plain(ao, P, V, F_, rb_extra, s, ITERATIONS)
-            done = out[2] if len(out) > 2 else s
-            require(done == s, f"{label}: the plain version stopped after "
-                    f"{done} of {s} steps")
-            apart[s] = (max_abs(Pk, out[0]), max_abs(Vk, out[1]))
-        # the kernel's state after s steps is over the anchors of step s
-        state, prev = (state[0], *after), (Pk, Vk)
-    torch.cuda.synchronize()
-    window = ""
-    if contact and branches:
-        parts = []
-        for key in ("P", "V"):
-            e_k, e_p, w = zip(*(near[key][1:] for _, near in branches))
-            med = (statistics.median(e_k), statistics.median(e_p))
-            top = (max(e_k), max(e_p))
-            require(med[0] <= ACC_RATIO * med[1]
-                    and top[0] <= ACC_RATIO * top[1],
-                    f"{label}, {key}: over {len(branches)} branch steps the "
-                    f"kernel lies {med[0]:.3e} (median), {top[0]:.3e} (at "
-                    f"most) from the float64 step, the plain version "
-                    f"{med[1]:.3e}, {top[1]:.3e}")
-
-            def beyond(a, b):
-                return sum(x > ACC_RATIO * y for x, y in zip(a, b))
-
-            parts.append(
-                f"{key} median {med[0]:.3e} / {med[1]:.3e}, at most "
-                f"{top[0]:.3e} / {top[1]:.3e}; beyond {ACC_RATIO}x of the "
-                f"other on {beyond(e_k, e_p)} / {beyond(e_p, e_k)} steps, of "
-                f"the witness on {beyond(e_k, w)} / {beyond(e_p, w)}")
-        window = (f"; over the branch steps, the kernel / the plain version "
-                  f"from the float64 step (limit {ACC_RATIO}x): "
-                  + "; ".join(parts))
-    log(f"[3] {label}: calls of 1..{steps} steps, each step against a plain "
-        f"step from the kernel's state: " + "; ".join(
-            f"{key} max abs {diff[key]:.3e}, at most {share[key][0]:.3e} of "
-            f"the step's size (tol {STEP_TOL}, at step {share[key][1]})"
-            for key in ("P", "V"))
-        + f" on {steps - len(branches)} of {steps} steps"
-        + (f"; every step against the plain step given the kernel's u, the "
-           f"y state included: at most {given_worst[0]:.3e} of the step's "
-           f"size (tol {STEP_TOL}, at step {given_worst[1]})"
-           if contact else "")
-        + "; branch steps (share of the step's size, the kernel's and the "
-        "plain version's distance from the float64 step"
-        + (", the farthest float64 step from inputs one float32 unit away"
-           if contact else f"; limit {ACC_RATIO}x") + "): " + (", ".join(
-            f"step {s}: " + " ".join(
-                f"{key} {x:.3e} {e_k:.3e} {e_p:.3e}"
-                + ("" if w is None else f" witness {w:.3e}")
-                for key, (x, e_k, e_p, w) in near.items())
-            for s, near in branches) or "none")
-        + window
-        + "; the call of s steps against the plain version's call of s "
-        "steps (not held): " + ", ".join(
-            f"s={s}: P {p:.3e} V {v:.3e}" for s, (p, v) in apart.items()))
-    return max(diff.values()), flags
+def carried_steps(torch, *args, **kw):
+    """``holds.carried_steps`` at this script's ITERATIONS."""
+    return holds.carried_steps(torch, *args, iterations=ITERATIONS, **kw)
 
 
 def same_as_steps(torch, label, call, P, V, Pi, Vi, steps):
@@ -4263,16 +3924,17 @@ def pipeline_phase(torch, counted, paths, dev, work=None):
     contact tier), then ``run_steps(FOM_FRAMES)`` from the hang state under
     gravity (bench.py's reduced-vs-FOM statistic) and one ``step()``: one
     counted path (kernels 1 and 5).  The recording again on the card (bit
-    for bit: trajectory and p-snapshots) and on the CPU (within
-    CPU_DEVIATION of the scene's extent); the bases again on the CPU from
-    the card's files (the DEIM picks equal or ties, :func:`deim_picks_agree`;
-    components and singular values within :func:`pod_bounds`); no warning
-    of the bases pipeline.  The ring-down window (bench.py's timed phase:
-    EXCITE x the recording's tail velocity, no force, PIPE_WARMUP steps,
-    then WINDOW_STEPS) as a counted path, certified by tier 1 and
-    floor-clear.  Kernels 1 and 5 held against their plain versions on
-    these bases (kernel 1 against float64, :func:`as_accurate`; kernel 5
-    step by step and its carried steps) and timed.  The recording and the
+    for bit: trajectory and p-snapshots) and its first CPU_FRAMES frames on
+    the CPU (within CPU_DEVIATION of the scene's extent); the bases again
+    on the CPU from the card's files (the DEIM picks equal or ties,
+    :func:`deim_picks_agree`; components and singular values within
+    :func:`pod_bounds`); no warning of the bases pipeline.  The ring-down
+    window (bench.py's timed phase: EXCITE x the recording's tail
+    velocity, no force, PIPE_WARMUP steps, then WINDOW_STEPS) as a counted
+    path, certified by tier 1 and floor-clear.  Kernels 1 and 5 held
+    against their plain versions on these bases (kernel 1 against float64,
+    :func:`as_accurate`; kernel 5 step by step and its carried steps) and
+    timed.  The recording and the
     bases lie under ``work`` (``card/bases``, ``card/pos_basis.npz``,
     ``card/traj.npy``; a temporary directory when None), where phases [9]
     and [10] read them.  Returns
@@ -4316,14 +3978,14 @@ def pipeline_phase(torch, counted, paths, dev, work=None):
         f = gravity(model)
         state = {}
 
-        def record(label, device):
+        def record(label, device, frames=FOM_FRAMES):
             m = scene()
             t0 = time.perf_counter()
             traj, fom = record_fom(m, f, os.path.join(work, label, "FOM"),
-                                   FOM_FRAMES, FOM_ITERS, dt, BENCH_DAMPING,
+                                   frames, FOM_ITERS, dt, BENCH_DAMPING,
                                    device=device)
             secs[f"record, {label}"] = time.perf_counter() - t0
-            log(f"[6] pipeline: recorded {FOM_FRAMES} frames at {FOM_ITERS} "
+            log(f"[6] pipeline: recorded {frames} frames at {FOM_ITERS} "
                 f"iterations on the {label} ({fom._mode} global solve) in "
                 f"{secs[f'record, {label}']:.2f} s: local stage "
                 f"{fom.seconds['local']:.2f} s, transfers "
@@ -4417,11 +4079,12 @@ def pipeline_phase(torch, counted, paths, dev, work=None):
         log(f"[6] pipeline: the recording again on the card equals the "
             f"first bit for bit (trajectory and p-snapshots): {same}")
         require(same, "two recordings on the card differ")
-        cpu_traj, _ = record("cpu", "cpu")
+        cpu_traj, _ = record("cpu", "cpu", CPU_FRAMES)
         extent = float(np.abs(cpu_traj).max())
-        dev_rel = float(np.abs(traj - cpu_traj).max()) / extent
-        log(f"[6] pipeline: the card's recording against the CPU's: "
-            f"{dev_rel:.3e} of the scene's extent (limit {CPU_DEVIATION})")
+        dev_rel = float(np.abs(traj[:CPU_FRAMES] - cpu_traj).max()) / extent
+        log(f"[6] pipeline: the card's first {CPU_FRAMES} frames against the "
+            f"CPU's: {dev_rel:.3e} of the scene's extent (limit "
+            f"{CPU_DEVIATION})")
         require(dev_rel <= CPU_DEVIATION,
                 "the card's recording departs from the CPU's")
         out["record_vs_cpu"] = dev_rel
@@ -4949,7 +4612,7 @@ def group_bar(torch, counted, paths, dev, work, secs, smi):
         group_bases(model, os.path.join(root, BAR_EXAMPLE.format(example)),
                     record, os.path.join(work, "bar", itype), dirs[itype],
                     dev, secs, f"bar, {itype}", basis_type=btype,
-                    interpolation_type=itype)
+                    interpolation_type=itype, **BAR_OVERRIDES)
     t0 = time.perf_counter()
     pos_path = os.path.join(work, "bar", "pos_basis.npz")
     save_position_basis(pos_path, position_basis_from_trajectory(
@@ -6635,7 +6298,7 @@ def scen_demo(dev, work, secs, smi):
             "the accuracy CSV departs from the in-memory trajectories")
     return types.SimpleNamespace(
         fom=fom, traj=traj, replay=traj_r, basis_root=basis_root,
-        holds=holds,
+        basis_dir=basis_dir, fom_out=fom_out, draw=draw, holds=holds,
         dt=dt, accuracy={"mean_rel_l2": float(np.mean(l2.mean(axis=1))),
                          "mean_normal_angle": float(np.mean(ang.mean(
                              axis=1)))})
@@ -6995,15 +6658,556 @@ def scenarios_phase(torch, counted, paths, dev, smi, shared):
     :func:`scen_report` on phase [6]'s files under ``shared`` -> {kernel
     name: its "scenarios" readings}."""
     secs = {}
-    with tempfile.TemporaryDirectory() as work:
-        a = scen_demo(dev, work, secs, smi)
-        b = scen_reduced(torch, counted, paths, dev, work, a, secs)
-        c = scen_report(torch, counted, paths, dev, work, shared, secs, smi)
+    # under ``shared``: phase [12]'s sweep reads (a)'s recording and bases
+    # through SCEN_MANIFEST
+    work = os.path.join(shared, "scenarios")
+    os.makedirs(work, exist_ok=True)
+    a = scen_demo(dev, work, secs, smi)
+    with open(os.path.join(shared, SCEN_MANIFEST), "w") as fp:
+        json.dump({"record": a.fom.record_path, "work": a.fom_out,
+                   "bases": a.basis_dir, "draw": a.draw}, fp)
+    b = scen_reduced(torch, counted, paths, dev, work, a, secs)
+    c = scen_report(torch, counted, paths, dev, work, shared, secs, smi)
     log("[11] scenarios seconds (" + smi + "): " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()))
     return {"fused_reduced_iterations": {
         "event_demo_full": {"holds": a.holds, "accuracy": a.accuracy},
         "event_demo_reduced": b, "accuracy_report": c, "stage_s": secs}}
+
+
+def mc_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mc_counts(counted):
+    return {fn.__name__: fn.launches for fn in counted}
+
+
+def mc_serve(torch, spec, solver, mesh, label, state, dev, counted, rank):
+    """One sharded ``make_batched_run`` window on this rank (counters set
+    to 0 before it), then, on rank 0, the single-process run of the same
+    batch -> the readings."""
+    import torch.distributed as dist
+
+    pos, vel, fs = state
+    steps, iters = spec["steps"], spec["iterations"]
+    run = solver.make_batched_run(mesh, batch_axis="data")
+    dist.barrier()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    p, v = run(pos, vel, fs, steps, num_iterations=iters)
+    mc_sync(torch, dev)
+    out = {"seconds": time.perf_counter() - t0,
+           "path": solver._last_batched_path,
+           "counts": mc_counts(counted), "sims": len(pos)}
+    out["us_per_step"] = 1e6 * out["seconds"] / steps
+    dist.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        p1, v1 = solver.make_batched_run()(pos, vel, fs, steps,
+                                           num_iterations=iters)
+        mc_sync(torch, dev)
+        out["single_seconds"] = time.perf_counter() - t0
+        out["single_us_per_step"] = 1e6 * out["single_seconds"] / steps
+        out["single_path"] = solver._last_batched_path
+        out["bit_for_bit"] = bool(np.array_equal(p, p1)
+                                  and np.array_equal(v, v1))
+        out["max_abs"] = float(np.abs(p - p1).max())
+        out["finite"] = bool(np.isfinite(p).all())
+    dist.barrier()
+    return out
+
+
+def tp_against_steps(torch, solver, q_tp, P0, V0, f, iterations):
+    """[12](a) the TP-reduced step ``q_tp`` (N, 3) from the host state (P0,
+    V0) against the single-process fully reduced step from the same float32
+    state (``step_once`` of ops/resident.py, rank 0 alone): its plain
+    version in float64 with every operand widened from the host's float64
+    arrays (the reference: no code of the TP step), in float32 with
+    float32 matrices (the TP step's arithmetic in another order: its peer
+    for :func:`as_accurate`), and in the bench configuration's storage type
+    (bfloat16 U and U^T A_c), plain and on kernel 1 -> the readings: the
+    TP step within ACC_RATIO of its peer's distance from float64, and within
+    ACC_RATIO of kernel 1's step's own distance from float64 of that
+    step."""
+    from animsnapbases_tpu_torch.ops.fused_reduced import (
+        fused_reduced_iterations,
+    )
+    from animsnapbases_tpu_torch.ops.resident import force_term, step_once
+
+    ro = solver._resident
+    perm, dev = ro.perm, ro.mass_inv.device
+
+    def wide(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float64),
+                               device=dev)
+
+    ro64 = dataclasses.replace(
+        ro, fused=as_f64(ro.fused),
+        U_liftT=wide(solver.U[perm].transpose(2, 1, 0)),
+        ut_acT=wide(solver._ut_ac_np[:, :, perm]),
+        mass_inv=wide(1.0 / solver.model.mass[perm]).reshape(1, -1))
+    ro32 = dataclasses.replace(ro, U_liftT=ro64.U_liftT.float(),
+                               ut_acT=ro64.ut_acT.float())
+    P, V, F = (solver._to_device(x) for x in (P0, V0, f))
+    rb = solver._rb_extra()
+
+    def host(q):
+        return torch.as_tensor(solver._to_host(q))
+
+    def step(o, iterate=None, wide_=False):
+        x = [t.double() if wide_ else t for t in (P, V, F, rb)]
+        kw = {} if iterate is None else {"iterate": iterate}
+        return host(step_once(o, x[0], x[1], force_term(o, x[2]), x[3],
+                              iterations, **kw)[0])
+
+    q64 = step(ro64, wide_=True)
+    q32 = step(ro32)
+    q_bf = step(ro)
+    q_k = step(ro, fused_reduced_iterations)
+    q_tp = torch.as_tensor(q_tp.cpu().double())
+    ok, e_tp, e_32 = as_accurate(q_tp, q32, q64)
+    e_k = max_abs(q_k, q64)
+    floor = F32_EPS * float(q64.abs().max())
+    vs_step = max_abs(q_tp, q_k)
+    return {"as_accurate": ok, "tp_err64": e_tp, "peer_err64": e_32,
+            "step_err64": e_k, "step_plain_err64": max_abs(q_bf, q64),
+            "vs_step": vs_step,
+            "vs_step_ok": vs_step <= ACC_RATIO * max(e_k, floor),
+            "extent": float(q64.abs().max())}
+
+
+def multichip_rank(rank, world, spec):
+    """[12](a) on one rank of a ``world``-rank gloo group (every rank on
+    the one card): the bench scene's sharded serving on both routes, the
+    TP-reduced and element-sharded steps, the sharded POD and the sharded
+    constraint bases of phase [6]'s recording.  Each rank writes its
+    readings to ``spec["out"]/rank<r>.json``; rank 0 runs the
+    single-process references.  No hold here: the parent holds them."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from animsnapbases_tpu_torch.bases.pipeline import (
+        compute_constproj_bases,
+        group_basis_config,
+    )
+    from animsnapbases_tpu_torch.config.sim_config import default_sim_args
+    from animsnapbases_tpu_torch.device import resolve_device
+    from animsnapbases_tpu_torch.ops.deim_scan import deim_rows_host_result
+    from animsnapbases_tpu_torch.ops.podlinalg import (
+        snapshot_pod,
+        snapshot_pod_sharded,
+    )
+    from animsnapbases_tpu_torch.parallel import (
+        build_device_mesh,
+        make_element_sharded_step,
+        make_tp_reduced_step,
+    )
+    from animsnapbases_tpu_torch.sim.solver import Solver
+    from animsnapbases_tpu_torch.utils.synthetic import (
+        synthetic_reduced_solver,
+    )
+
+    dev = resolve_device(spec["device"])
+    dtype = getattr(torch, spec["dtype"])
+    matmul = getattr(torch, spec["matmul"])
+    data = build_device_mesh((world,), ("data",), dev)
+    model_axis = build_device_mesh((world,), ("model",), dev)
+    counted = port_counters()
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    model = copy.deepcopy(spec["model"])
+    solver = scene_solver(synthetic_reduced_solver, model, spec["K"],
+                          spec["r"], spec["damping"], device=dev,
+                          dtype=dtype, matmul_dtype=matmul)
+    res["prepare_s"] = time.perf_counter() - t0
+    # ---- the sharded serving: resident route, then the large-model route
+    res["resident"] = mc_serve(torch, spec, solver, data, "resident",
+                               spec["ring"], dev, counted, rank)
+    solver.CHUNKED_TIER1_MIN_VERTS = 0
+    solver.prepare(solver.args)
+    res["chunked"] = mc_serve(torch, spec, solver, data, "chunked",
+                              spec["ring"], dev, counted, rank)
+    res["chunked_mixed"] = mc_serve(torch, spec, solver, data,
+                                    "chunked, mixed", spec["mixed"], dev,
+                                    counted, rank)
+    # ---- the TP-reduced step against the single-process step (kernel 1)
+    P0, V0 = spec["main_state"]
+    f = gravity(model)
+    tp = make_tp_reduced_step(solver, model_axis)
+    tp(P0, V0, f, num_iterations=spec["iterations"])     # warm
+    mc_sync(torch, dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    q, _ = tp(P0, V0, f, num_iterations=spec["iterations"])
+    mc_sync(torch, dev)
+    res["tp"] = {"seconds": time.perf_counter() - t0,
+                 "finite": bool(torch.isfinite(q).all())}
+    if rank == 0:
+        res["tp"].update(tp_against_steps(torch, solver, q, P0, V0, f,
+                                          spec["iterations"]))
+    # ---- the element-sharded FOM step against Solver.step (device CG)
+    fom_model = copy.deepcopy(spec["model"])
+    fom = Solver(device=dev)
+    fom.set_model(fom_model)
+    args = default_sim_args()
+    args.dt = solver.dt
+    fom.prepare(args)
+    rest = fom_model.positions.copy()
+    step = make_element_sharded_step(copy.deepcopy(spec["model"]),
+                                     solver.dt, model_axis,
+                                     num_iterations=spec["fom_iters"],
+                                     device=dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    qf, _ = step(rest, np.zeros_like(rest), f)
+    mc_sync(torch, dev)
+    el_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fom.step(f, num_iterations=spec["fom_iters"])
+    mc_sync(torch, dev)
+    res["element"] = {"seconds": el_s, "solver_seconds":
+                      time.perf_counter() - t0, "mode": fom._mode,
+                      "max_abs": float(np.abs(qf.cpu().numpy()
+                                              - fom_model.positions).max()),
+                      "extent": float(np.abs(fom_model.positions).max())}
+    # ---- the sharded POD
+    rng = np.random.default_rng(0)
+    n_rows, cols = spec["pod"]
+    X = rng.normal(size=(n_rows, cols)) * np.geomspace(10.0, 0.1, cols)
+    dist.barrier()
+    t0 = time.perf_counter()
+    U, s, _ = snapshot_pod_sharded(X, model_axis, device=dev)
+    mc_sync(torch, dev)
+    pod = {"seconds": time.perf_counter() - t0}
+    U1, s1, _ = snapshot_pod(X, device=dev)
+    ds, du = pod_bounds(s1.cpu().numpy(), cols)
+    pod["within_bounds"] = bool(
+        (np.abs(s.cpu().numpy() - s1.cpu().numpy()) <= ds).all()
+        and (sign_aligned_diff(U1.cpu().numpy().T, U.cpu().numpy().T)
+             <= du).all())
+    pod["u_max_abs"] = float(sign_aligned_diff(
+        U1.cpu().numpy().T, U.cpu().numpy().T).max())
+    res["pod"] = pod
+    # ---- phase [6]'s recording through ConstraintComponents, 2 shards
+    bases = {}
+    for gname, p in spec["groups"]:
+        def config(shards, sub):
+            param = group_basis_config(
+                spec["record"], gname, p, spec["constr_modes"],
+                spec["frames"], os.path.join(spec["out"], f"r{rank}{sub}"))
+            param.device_mesh_shards = shards
+            # with a mesh the DEIM runs the device scan: so does the
+            # unsharded run it is held to
+            param.deim_device = True
+            return param
+        t0 = time.perf_counter()
+        cc = compute_constproj_bases(config(world, ""), device=dev)
+        b = {"seconds": time.perf_counter() - t0,
+             "sharded": cc.pod_mesh is not None}
+        if rank == 0:
+            # the scan's invariant: on the sharded run's own basis the
+            # unsharded scan picks the same rows (the two PODs differ by
+            # rounding, which may break an exact tie of the data otherwise)
+            same = deim_rows_host_result(
+                torch.as_tensor(cc.comps).transpose(0, 1), p,
+                len(cc.comps), device=dev)[0]
+            one = compute_constproj_bases(config(0, "one"), device=dev)
+            K = len(one.comps)
+            _, du = pod_bounds(one.singVals, K)
+            d_u = sign_aligned_diff(one.comps, cc.comps)
+            ok1, ties1 = deim_picks_agree(one.comps, one.geom_Pt, cc.geom_Pt,
+                                          d_u)
+            ref = np.load(os.path.join(spec["bases"], gname, "basis.npz"))
+            ok6, ties6 = deim_picks_agree(ref["components"], ref["Pt"],
+                                          cc.geom_Pt, sign_aligned_diff(
+                                              ref["components"], cc.comps))
+            b.update(same_basis_picks_equal=bool(np.array_equal(
+                         same, cc.geom_Pt)),
+                     within_bounds=bool(cc.comps.shape == one.comps.shape
+                                        and (d_u <= du).all()),
+                     mode_diff_max=float(d_u.max()), unsharded_agree=ok1,
+                     unsharded_ties=ties1, phase6_agree=ok6,
+                     phase6_ties=ties6)
+        bases[gname] = b
+    res["bases"] = bases
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fp:
+        json.dump(res, fp)
+
+
+def multichip_a(torch, dev, smi, shared, solver, main_state):
+    """[12](a): :func:`multichip_rank` on MC_RANKS ranks for the bench
+    scene of ``solver`` (the main path's: its widths, dtypes and damping),
+    its readings held here -> the phase's readings."""
+    from animsnapbases_tpu_torch.geometry.procedural import cloth_model
+    from animsnapbases_tpu_torch.parallel.launch import run_ranks
+    from animsnapbases_tpu_torch.sim.model import DeformableModel
+    from animsnapbases_tpu_torch.sim.solver import Solver
+
+    model = bench_scene(DeformableModel, cloth_model)
+    K = max(solver.num_components.values())
+    r = solver.U.shape[1]
+    f = gravity(model)
+    ring = ensemble_state(main_state, ENSEMBLE)
+    mixed = mixed_state(model, main_state, f)
+    with tempfile.TemporaryDirectory() as out:
+        spec = {"out": out, "device": dev.type, "model": model, "K": K,
+                "r": r, "damping": 1.0 - solver.eta,
+                "dtype": str(solver.dtype).split(".")[-1],
+                "matmul": str(solver.matmul_dtype).split(".")[-1],
+                "iterations": ITERATIONS, "steps": WINDOW_STEPS,
+                "ring": ring, "mixed": mixed, "main_state": main_state,
+                "fom_iters": MC_FOM_ITERS, "pod": MC_POD,
+                "record": os.path.join(shared, "card", "FOM"),
+                "bases": os.path.join(shared, "card", "bases"),
+                "groups": [(g, model.groups[g].p) for g in model.groups
+                           if g != "positional"],
+                "constr_modes": CONSTR_MODES, "frames": FOM_FRAMES - 1}
+        t0 = time.perf_counter()
+        run_ranks(MC_RANKS, multichip_rank, (spec,), backend="gloo",
+                  timeout=MC_TIMEOUT,
+                  threads=1 if dev.type == "cpu" else None)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for i in range(MC_RANKS):
+            with open(os.path.join(out, f"rank{i}.json")) as fp:
+                ranks.append(json.load(fp))
+    r0 = ranks[0]
+    n, bl = MC_RANKS, ENSEMBLE // MC_RANKS
+    serve = {}
+    for key, own, sims in (
+            ("resident", ("resident_affine_contact_batched",), ENSEMBLE),
+            ("chunked", ("affine_chunked_batched",), ENSEMBLE),
+            ("chunked_mixed", ("affine_chunked_batched",
+                               "resident_multistep_batched"), MIXED)):
+        kind = "resident" if key == "resident" else "chunked"
+        base = f"batched-{kind}-sharded[{n}x{sims // n}]"
+        for rk in ranks:
+            got = rk[key]
+            require(got["path"].startswith(base),
+                    f"[12] {key}: rank {rk['rank']} took {got['path']}")
+            for name, c in got["counts"].items():
+                if name in own:
+                    require(c > 0, f"{name} was never launched on rank "
+                            f"{rk['rank']}'s sharded {key} serving")
+                else:
+                    require(c == 0, f"{name} was launched {c} times on "
+                            f"rank {rk['rank']}'s sharded {key} serving")
+        got = r0[key]
+        require(got["finite"] and got["bit_for_bit"],
+                f"[12] {key}: the sharded sims part from the single-process "
+                f"batch by {got['max_abs']:.3e}")
+        serve[key] = {"rule": "bit for bit", "max_abs": got["max_abs"],
+                      "us_per_step_per_rank": [rk[key]["us_per_step"]
+                                               for rk in ranks],
+                      "single_us_per_step": got["single_us_per_step"],
+                      "path": got["path"], "sims": sims,
+                      "launches": [{k: v for k, v in rk[key]["counts"].items()
+                                    if v} for rk in ranks]}
+        log(f"[12] (a) sharded serving, {key} ({sims} sims, {WINDOW_STEPS} "
+            f"steps, {n} ranks on one card): {got['path']}, each sim "
+            f"against the single-process batch bit for bit (max abs "
+            f"{got['max_abs']:.3e}); µs a step per rank "
+            + ", ".join(f"{rk[key]['us_per_step']:.2f}" for rk in ranks)
+            + f" beside the single process's {got['single_us_per_step']:.2f}"
+            f" ({smi}; the ranks time-share one card: no speed-up is "
+            f"expected); launches per rank {serve[key]['launches']}")
+    tp = r0["tp"]
+    require(tp["finite"] and tp["as_accurate"],
+            f"[12] TP-reduced step {tp['tp_err64']:.3e} from the float64 "
+            f"single-process step, its float32 peer {tp['peer_err64']:.3e} "
+            f"(limit {ACC_RATIO}x)")
+    require(tp["vs_step_ok"],
+            f"[12] TP-reduced step {tp['vs_step']:.3e} from the single-"
+            f"process step (kernel 1), whose own distance from float64 is "
+            f"{tp['step_err64']:.3e} (limit {ACC_RATIO}x)")
+    log(f"[12] (a) TP-reduced step (bench cloth, r = {r}, {n} ranks): "
+        f"{1e3 * tp['seconds']:.2f} ms; from the float64 single-process "
+        f"step (plain, operands from the host's float64) {tp['tp_err64']:.3e}"
+        f" beside its float32 peer's (float32 matrices) "
+        f"{tp['peer_err64']:.3e} (limit {ACC_RATIO}x); from the single-"
+        f"process step on kernel 1 {tp['vs_step']:.3e}, whose own distance "
+        f"from float64 is {tp['step_err64']:.3e} (limit {ACC_RATIO}x; its "
+        f"plain version in the same bfloat16 storage "
+        f"{tp['step_plain_err64']:.3e}); extent {tp['extent']:.3e}")
+    el = r0["element"]
+    require(el["mode"] == ("cg" if model.n_verts * 3 > Solver.DENSE_LIMIT
+                           else "dense")
+            and el["max_abs"] <= MC_FOM_TOL * el["extent"],
+            f"[12] element-sharded step off Solver.step by "
+            f"{el['max_abs']:.3e} ({el['mode']})")
+    log(f"[12] (a) element-sharded FOM step ({model.n_verts} vertices, "
+        f"{el['mode']} solve, {MC_FOM_ITERS} iterations, {n} ranks): "
+        f"{el['seconds']:.3f} s beside Solver.step's "
+        f"{el['solver_seconds']:.3f} s; max abs {el['max_abs']:.3e} of "
+        f"extent {el['extent']:.3e} (limit {MC_FOM_TOL})")
+    pod = r0["pod"]
+    require(pod["within_bounds"], f"[12] sharded POD {MC_POD} off the "
+            f"single POD beyond pod_bounds ({pod['u_max_abs']:.3e})")
+    log(f"[12] (a) sharded POD {MC_POD[0]}x{MC_POD[1]}: {pod['seconds']:.3f}"
+        f" s, U within pod_bounds (max {pod['u_max_abs']:.3e})")
+    for g, b in r0["bases"].items():
+        require(b["sharded"] and b["same_basis_picks_equal"]
+                and b["within_bounds"] and b["unsharded_agree"]
+                and b["phase6_agree"],
+                f"[12] {g}: the sharded constraint bases part from the "
+                f"unsharded ones or from phase [6]'s: {b}")
+        log(f"[12] (a) {g} bases of phase [6]'s recording with "
+            f"device_mesh_shards = {n}: {b['seconds']:.2f} s; the sharded "
+            f"DEIM scan's picks equal to the unsharded scan's on the same "
+            f"basis; against the unsharded pipeline: modes within "
+            f"pod_bounds (max {b['mode_diff_max']:.3e}), picks equal or "
+            f"ties {b['unsharded_ties']}; against phase [6]'s host DEIM: "
+            f"equal or ties {b['phase6_ties']}")
+    log(f"[12] (a) {n} ranks: {wall:.1f} s in all, prepare "
+        f"{r0['prepare_s']:.1f} s a rank ({smi})")
+    return {"serving": serve, "tp": tp, "element": el, "pod": pod,
+            "bases": r0["bases"], "seconds": wall}
+
+
+def start_battery():
+    """The smoke battery (``python -m animsnapbases_tpu_torch.smoke``)
+    started now as a subprocess, its output to temporary files.
+    :func:`run_phases` starts it after phase [2]'s main path, so that it
+    runs beside phase [3]'s holds, which time nothing, and waits for its
+    end (:func:`battery_result`) before phase [4], so that no timed phase
+    shares the card with it; phase [12](b) holds its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "animsnapbases_tpu_torch.smoke"], cwd=root,
+                            stdout=out, stderr=err)
+    return types.SimpleNamespace(proc=proc, out=out, err=err,
+                                 t0=time.perf_counter())
+
+
+def battery_result(battery):
+    """(exit code, stdout, stderr, seconds from its start to its end as
+    seen here: the wait's) of a battery of :func:`start_battery`, once it
+    has ended."""
+    rc = battery.proc.wait(timeout=MC_SUB_TIMEOUT)
+    texts = []
+    for f in (battery.out, battery.err):
+        f.seek(0)
+        texts.append(f.read().decode(errors="replace"))
+        f.close()
+    return rc, texts[0], texts[1], time.perf_counter() - battery.t0
+
+
+def multichip_b(torch, dev, smi, shared, battery=None):
+    """[12](b): the battery whole in a subprocess (``battery``: the
+    :func:`battery_result` of one run earlier, else one run now; nine PASS
+    lines), then the sweep over phase [11]'s three configs (``--jobs 3``),
+    each output equal to phase [11]'s in-process ``cli.main`` output."""
+    from animsnapbases_tpu_torch.bases.pipeline import example_config_file
+    from animsnapbases_tpu_torch.config.bases_config import BasesConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rc, out, err, wall = battery or battery_result(start_battery())
+    secs = {"battery": wall}
+    passed = [ln for ln in out.splitlines() if ln.startswith("PASS ")]
+    require(rc == 0 and [ln.split()[1] for ln in passed] == list(BATTERY),
+            f"[12] the battery: exit {rc}, {passed}; {err[-1500:]}")
+    log(f"[12] (b) smoke battery, ended within {wall:.1f} s of its start "
+        f"({'beside phase [3]' if battery else 'alone'}): "
+        + "; ".join(passed) + f" ({smi})")
+    with open(os.path.join(shared, SCEN_MANIFEST)) as fp:
+        man = json.load(fp)
+    sweep_dir = os.path.join(shared, "sweep")
+    os.makedirs(sweep_dir, exist_ok=True)
+    over = dict(SCEN_OVERRIDES)
+    if not man["draw"]:
+        over["run_tests"] = False
+    configs = [example_config_file(
+        os.path.join(root, CLOTH_EXAMPLE.format("deim", tag)),
+        man["record"], man["work"], os.path.join(sweep_dir, f"{g}.json"),
+        **over) for g, tag in CLOTH_KINDS.items()]
+    results = os.path.join(sweep_dir, "results")
+    t0 = time.perf_counter()
+    sw = subprocess.run([sys.executable, "-m", "animsnapbases_tpu_torch.sweep",
+                         *configs, "--jobs", "3", "--results_dir", results]
+                        + (["--cpu"] if dev.type == "cpu" else []),
+                        cwd=root, capture_output=True, text=True,
+                        timeout=MC_SUB_TIMEOUT)
+    secs["sweep"] = time.perf_counter() - t0
+    require(sw.returncode == 0, f"[12] the sweep: {sw.stdout[-500:]} "
+            f"{sw.stderr[-1500:]}")
+    npz = "components_interpol_alphas_interpol_verts_interpol_alpha_ranges.npz"
+    same = {}
+    for g, cfg in zip(CLOTH_KINDS, configs):
+        outd = BasesConfig.from_json(
+            cfg, results_dir=results).constProj_output_directory
+        got = np.load(os.path.join(outd, npz))
+        ref = np.load(os.path.join(man["bases"], g, "basis.npz"))
+        K = len(ref["components"])
+        d_u = sign_aligned_diff(ref["components"], got["components"])
+        bits = all(np.array_equal(ref[k], got[k]) for k in ref.files)
+        require(all(np.array_equal(ref[k], got[k]) for k in
+                    ("Pt", "interpol_alphas", "interpol_alpha_ranges"))
+                and got["components"].shape == ref["components"].shape
+                and (bits or d_u.max() <= SWEEP_TOL),
+                f"[12] the sweep's {g} bases part from phase [11]'s "
+                f"in-process cli.main (modes {d_u.max():.3e})")
+        same[g] = {"bit_for_bit": bits, "mode_diff_max": float(d_u.max()),
+                   "K": K}
+    log(f"[12] (b) sweep of {len(configs)} configs (--jobs 3) in "
+        f"{secs['sweep']:.1f} s: {sw.stdout.strip().splitlines()[0]}; "
+        f"against phase [11]'s cli.main: {same} ({smi})")
+    return {"battery": passed, "sweep": same, "seconds": secs}
+
+
+def multichip_c(shared):
+    """[12](c): the native library built, and its readers equal to the
+    Python ones on files the port wrote (phase [11]'s .off frames, a
+    components .bin of phase [6]'s bases)."""
+    from animsnapbases_tpu_torch.io import binfmt, native
+    from animsnapbases_tpu_torch.io.meshes import load_off
+
+    require(native.available(), "[12] the native library did not build")
+    with open(os.path.join(shared, SCEN_MANIFEST)) as fp:
+        man = json.load(fp)
+    pos_dir = next(os.path.join(d, "") for d, _, files in os.walk(
+        man["work"]) if any(f.endswith(".off") for f in files))
+    offs = sorted((f for f in os.listdir(pos_dir) if f.endswith(".off")),
+                  key=lambda f: int(f.rsplit("_", 1)[-1][:-len(".off")]))
+    paths = [os.path.join(pos_dir, f) for f in offs]
+    t0 = time.perf_counter()
+    V, F = native.load_off_sequence(paths)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = [load_off(p) for p in paths]
+    t_py = time.perf_counter() - t0
+    same_off = (np.array_equal(V, np.stack([v for v, _ in py]))
+                and np.array_equal(F, py[0][1]))
+    comps = np.load(os.path.join(shared, "card", "bases", "tris_strain",
+                                 "basis.npz"))["components"]
+    path = os.path.join(shared, "comps.bin")
+    binfmt.write_components_bin(path, comps)
+    same_bin = np.array_equal(native.read_components_bin(
+        path, *comps.shape), binfmt.read_components_bin(path))
+    require(same_off and same_bin, "[12] the native reader parts from the "
+            "Python reader")
+    log(f"[12] (c) native I/O: built at {native.lib_path()}; {len(paths)} "
+        f".off frames equal to the Python reader ({t_native:.3f} s native, "
+        f"{t_py:.3f} s Python), a {comps.shape} components .bin equal")
+    return {"off_frames": len(paths), "native_s": t_native, "python_s": t_py}
+
+
+def multichip_phase(torch, dev, smi, shared, solver, main_state,
+                    battery=None):
+    """[12] (a) :func:`multichip_a` on the bench scene of ``solver``, (b)
+    :func:`multichip_b` (``battery``: the :func:`battery_result` of one run
+    earlier), (c) :func:`multichip_c` -> their readings."""
+    t0 = time.perf_counter()
+    a = multichip_a(torch, dev, smi, shared, solver, main_state)
+    b = multichip_b(torch, dev, smi, shared, battery)
+    c = multichip_c(shared)
+    return {"sharded": a, "battery_and_sweep": b, "native": c,
+            "seconds": time.perf_counter() - t0}
 
 
 def port_counters():
@@ -7848,8 +8052,26 @@ def main() -> int:
     counted = port_counters()
     smi = build_phase(torch)
     b = bench_phase(torch, counted, dev)
+    battery = start_battery()
+    try:
+        return run_phases(torch, counted, dev, smi, b, battery)
+    finally:
+        if battery.proc.poll() is None:
+            battery.proc.kill()
+            battery.proc.wait()
+
+
+def run_phases(torch, counted, dev, smi, b, battery) -> int:
+    """Phases [2]-[12] and the two JSON lines, from phase [2]'s main path
+    ``b``; ``battery`` the smoke battery, running since before phase [3]
+    and waited for before phase [4]."""
     tiers_phase(torch, counted, b)
-    kernels = times_phase(torch, b, holds_phase(torch, b))
+    held = holds_phase(torch, b)
+    t0 = time.perf_counter()
+    battery = battery_result(battery)
+    log(f"[3] the smoke battery ended within {battery[3]:.1f} s of its "
+        f"start (waited {time.perf_counter() - t0:.1f} s before phase [4])")
+    kernels = times_phase(torch, b, held)
     solver, model, f, paths = b.solver, b.model, b.f, b.paths
     main_state, rest = b.main_state, b.rest
     # ---- ensemble serving: paths, holds and times ----------------------
@@ -7902,6 +8124,10 @@ def main() -> int:
         scen = scenarios_phase(torch, counted, paths, dev, smi, shared.name)
         log(f"[11] scenarios, command lines and analysis "
             f"{time.perf_counter() - t0:.1f} s")
+        multi = multichip_phase(torch, dev, smi, shared.name, solver,
+                                main_state, battery)
+        log(f"[12] sharded paths, battery, sweep and native I/O "
+            f"{multi['seconds']:.1f} s")
     kernels += options
     for k in kernels:
         if k["name"] in mega:
@@ -7916,6 +8142,9 @@ def main() -> int:
             k["position_bases"] = posb[k["name"]]
         if k["name"] in scen:
             k["scenarios"] = scen[k["name"]]
+        if k["name"] in MC_KERNELS:
+            k["multichip"] = multi["sharded"]["serving"][MC_KERNELS[
+                k["name"]]]
     k5 = next(k for k in kernels if k["name"] == "affine_chunked")
     k5.update(exact_check_us_bound_off=exact_us_bench,
               megacloth_exact_check_us=mega["exact_check_us"],

@@ -437,7 +437,7 @@ def test_batched_serving_refuses(tmp_path):
     with pytest.raises(ValueError, match="per-sim targets_seq has batch 3"):
         run(pos, vel, fs, 2, targets_seq=np.zeros((3, 2, 0, 3)))
     for make in (s.make_batched_run, s.make_batched_step):
-        with pytest.raises(NotImplementedError, match="Queue A item 18"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make(mesh=object())
     s.enable_self_collision = True
     with pytest.raises(RuntimeError, match="self-collision"):

@@ -381,8 +381,9 @@ def test_device_mesh_shards_warns_or_raises_as_jax_would_shard(
         tmp_path, monkeypatch):
     """A value of 2 with one device visible: both packages warn the same
     warning and compute on one device; 1 or less: no mesh and no warning;
-    on two visible cards the port raises naming A18 where the JAX package
-    would shard."""
+    with two ranks visible the port builds a 2-rank ("model",) mesh and
+    shards, as the JAX package does (the sharded run itself is held in
+    tests/test_torch_parallel.py)."""
     import jax
 
     one = jax.devices()[:1]
@@ -398,10 +399,13 @@ def test_device_mesh_shards_warns_or_raises_as_jax_would_shard(
             msgs[pkg] = [str(x.message) for x in w
                          if "device_mesh_shards" in str(x.message)]
         assert msgs["torch"] == msgs["jax"] and bool(msgs["torch"]) == warned
-    cuda = torch.device("cuda")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    from animsnapbases_tpu_torch.parallel import ensemble as tens
+
     with pytest.warns(UserWarning, match="only 1 devices are visible"):
-        tcons.check_mesh_shards(2, cuda)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A18"):
-        tcons.check_mesh_shards(2, cuda)
+        assert tens.mesh_from_shards(2, "cpu") is None
+    built = []
+    monkeypatch.setattr(tens, "visible_ranks", lambda: 2)
+    monkeypatch.setattr(tens, "build_device_mesh",
+                        lambda *a: built.append(a) or "mesh")
+    assert tens.mesh_from_shards(2, "cpu") == "mesh"
+    assert built == [((2,), ("model",), "cpu")]

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from animsnapbases_tpu_torch import device
+from animsnapbases_tpu_torch import device, holds
 from animsnapbases_tpu_torch.ops import _build, affine, affine_chunked, cluster
 from animsnapbases_tpu_torch.sim import reduced
 
@@ -120,6 +120,36 @@ def _chunk_launch_plain(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
+def _fake_run(cmd, *a, **k):
+    """``subprocess.run`` of the rehearsal: the sweep runs (its workers on
+    the CPU); nvidia-smi and nvcc answer a line."""
+    import subprocess
+
+    if "animsnapbases_tpu_torch.sweep" in cmd:
+        return subprocess.run(cmd, *a, **k)
+    return types.SimpleNamespace(returncode=0, stderr="",
+                                 stdout="cpu, 0 W\n")
+
+
+class _FakePopen:
+    """``subprocess.Popen`` of the rehearsal: the battery, started in the
+    background, writes its nine PASS lines (its checks are rehearsed in
+    tests/test_torch_smoke.py) and has ended."""
+
+    def __init__(self, cmd, stdout=None, stderr=None, **k):
+        from animsnapbases_tpu_torch import smoke
+
+        assert "animsnapbases_tpu_torch.smoke" in cmd
+        stdout.write("".join(f"PASS {name} (0.0s)\n"
+                             for name in smoke.CHECKS).encode())
+
+    def wait(self, timeout=None):
+        return 0
+
+    def poll(self):
+        return 0
+
+
 def _fake_card(monkeypatch):
     """The card faked as the module docstring says, the scene cut to
     size; returns the script's own ``require``."""
@@ -143,7 +173,7 @@ def _fake_card(monkeypatch):
                         affine_chunked.affine_chunk_plain)
     monkeypatch.setattr(affine_chunked, "_chunk_launch", _chunk_launch_plain)
     monkeypatch.setattr(cs, "subprocess", types.SimpleNamespace(
-        run=lambda *a, **k: types.SimpleNamespace(stdout="cpu, 0 W\n")))
+        run=_fake_run, Popen=_FakePopen))
     monkeypatch.setattr(cs, "device_breakdown",
                         lambda torch_, fn: (fn(), 1.0, {"kernel": 0.5})[1:])
     monkeypatch.setattr(cs, "device_ms", lambda torch_, fn, reps=1:
@@ -263,7 +293,8 @@ def assert_entries(entries, names):
 # Adam steps, phase [10] at the fakes' sizes (16 frames, 8 of them
 # imported, 6 components, 2 SPLOCS iterations), phase [11]'s event demo
 # on a 6x6 cloth for 22 frames (its first event crossed) with example
-# configs of 5 frames and 4 components and r = 6
+# configs of 5 frames and 4 components and r = 6, phase [12]'s POD at
+# 2,001 rows
 SMALLEST = {"ITERATIONS": 4, "OPTION_BUILDS": cs.OPTION_BUILDS[:1],
             "GROUP_FRAMES": 12, "BAR_FRAMES": 12, "GROUP_STEPS": 6,
             "GROUP_OVERRIDES": {"numFrames": 5, "desired_num_components": 4},
@@ -272,7 +303,8 @@ SMALLEST = {"ITERATIONS": 4, "OPTION_BUILDS": cs.OPTION_BUILDS[:1],
             "DIFF_HORIZON": 4, "DIFF_REPS": 1,
             "SCEN_SYSTEM": {"cloth_width": 6, "cloth_height": 6},
             "SCEN_FRAMES": 22, "SCEN_POS_MODES": 6,
-            "SCEN_OVERRIDES": {"numFrames": 5, "desired_num_components": 4}}
+            "SCEN_OVERRIDES": {"numFrames": 5, "desired_num_components": 4},
+            "MC_POD": (2_001, 16)}
 SMALLEST_SCENES = ("bending cloth",)
 
 
@@ -300,6 +332,8 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
             "position_bases", "scenarios"} <= set(k1)
     assert {"real_bases", "per_group", "megacloth", "self_collision",
             "position_bases"} <= set(k5)
+    for name in cs.MC_KERNELS:
+        assert "multichip" in next(k for k in kernels if k["name"] == name)
     out = "\n".join(lines)
     order = ["[1] built", "[2] step + run_steps", "[2] tiered runs",
              "[3] bench scene holds", "[4] bench scene times",
@@ -308,7 +342,8 @@ def test_chip_smoke_phases_run_on_the_plain_versions(monkeypatch, capsys):
              "[2-4] scale: the megacloth", "[6] pipeline: record, bases",
              "[7] per-group workflow:", "[8] self-collision:",
              "[9] differentiable rollouts:", "[10] position bases: record",
-             "[11] scenarios, command lines and analysis"]
+             "[11] scenarios, command lines and analysis",
+             "[12] sharded paths, battery, sweep and native I/O"]
     at = [out.index(line) for line in order]
     assert at == sorted(at)
 
@@ -323,10 +358,12 @@ def test_chip_smoke_branch_step_rules_run(monkeypatch, capsys):
     computed and fails; its verdicts are collected, not held."""
     _fake_card(monkeypatch)
     verdicts = []
-    monkeypatch.setattr(cs, "require", lambda ok, what: verdicts.append(
+    # the rules live in animsnapbases_tpu_torch/holds.py, which chip_smoke
+    # imports
+    monkeypatch.setattr(holds, "require", lambda ok, what: verdicts.append(
         (ok, what)))
-    monkeypatch.setattr(cs, "STEP_TOL", -1.0)
-    monkeypatch.setattr(cs, "ACC_RATIO", 0.5)
+    monkeypatch.setattr(holds, "STEP_TOL", -1.0)
+    monkeypatch.setattr(holds, "ACC_RATIO", 0.5)
     from animsnapbases_tpu_torch.ops.affine import (
         resident_affine_contact_plain)
     from animsnapbases_tpu_torch.sim.model import DeformableModel

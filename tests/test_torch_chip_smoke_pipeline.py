@@ -31,7 +31,7 @@ def test_chip_smoke_pipeline_phase(monkeypatch, capsys):
     out = capsys.readouterr().out
     for line in ("[6] pipeline: recorded 12 frames", "equals the first bit "
                  "for bit (trajectory and p-snapshots): True",
-                 "the card's recording against the CPU's",
+                 "the card's first 12 frames against the CPU's",
                  "[6] pipeline, tris_strain: the card's bases against the "
                  "CPU's", "reduced-vs-FOM after 12 steps",
                  "[6] pipeline on real bases: run_steps over 16 steps "

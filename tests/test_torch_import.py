@@ -63,7 +63,12 @@ def test_port_imports_no_jax():
                  "sim.checkpoint", "sim_cli", "analysis",
                  "analysis.accuracy", "analysis.compare", "analysis.viewer",
                  "analysis.figures", "analysis.ps_viewer",
-                 "analysis.accuracy_report"):
+                 "analysis.accuracy_report",
+                 # the sharded paths, the native I/O and helpers, the battery
+                 "parallel", "parallel.ensemble", "parallel.reduced_tp",
+                 "parallel.collectives", "parallel.launch", "dryrun",
+                 "io.native", "utils.padding", "utils.transfer",
+                 "utils.profiling", "smoke", "sweep", "holds"):
         assert f"animsnapbases_tpu_torch.{name}" in res["modules"], name
         assert f"animsnapbases_tpu_torch.{name}" in loaded, name
     assert "animsnapbases_tpu_torch.ops.resident" in loaded

@@ -64,7 +64,7 @@ def test_extract_global_matches_jax():
     rec_j = np.einsum("fk,knd->fnd", np.asarray(Wj), np.asarray(Cj))
     np.testing.assert_allclose(rec, rec_j, atol=1e-8)
     np.testing.assert_allclose(R.numpy(), np.asarray(Rj), atol=1e-8)
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         greedy.extract_global(torch.as_tensor(R0), K, mesh=object())
 
 
