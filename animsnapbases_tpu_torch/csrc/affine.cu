@@ -715,13 +715,14 @@ __global__ void mode_predict(Affine<T, M> all, int step) {
 // snT_sel's x and z rows, Vc's y row from the clamped sn_y; the loop and
 // its solve u; the coefficient update (its y row unused in contact mode);
 // buPy' = s + u_y M_utac_y, buVy' = (buPy' - buPy)/dt; the step's slot and
-// the mode set.  The y block does the y-only work, the x and z blocks the
-// affine rows.
+// the mode set, and the step counted (COUNT_K3_CONTACT_STEPS).  The y block
+// does the y-only work, the x and z blocks the affine rows.
 template <typename T, typename M>
 __global__ void __cluster_dims__(3, 1, 1)
     __launch_bounds__(CLUSTER_THREADS, 2)
         mode_solve(Affine<T, M> a, Iter<T> op, int step, int num_iterations,
-                   const int* lane_cols, int ms, int plan) {
+                   const int* lane_cols, int ms, int plan,
+                   unsigned long long* counts) {
   cg::cluster_group cl = cg::this_cluster();
   const int d = (int)cl.block_rank();  // 1: the y block
   const int b = blockIdx.y;
@@ -806,6 +807,7 @@ __global__ void __cluster_dims__(3, 1, 1)
     if (stale) fl[F_STALE] = 0;
     fl[F_MODE] = 1;
     fl[F_STEP + step] |= S_CONTACT;
+    count_add(counts, COUNT_K3_CONTACT_STEPS, 1);
   }
 }
 
@@ -885,11 +887,13 @@ __global__ void rebase_reset(Affine<T, M> all) {
   }
 }
 
+// Every launch of a call on stream s, each counted in `launched`
 template <typename T, typename M, int SG>
 cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
                            int num_iterations, int rebase_every, int mode,
                            int rb_rows, const int* lane_cols, int ms,
-                           int plan, int smem, cudaStream_t s) {
+                           int plan, int smem, cudaStream_t s,
+                           unsigned long long* counts, long long& launched) {
   const int N = a.N, r = a.r, nb = a.nb;
   const int ys = min(nb, SIM_Y);
   const dim3 grid_tiles(a.nblk, ys);
@@ -916,6 +920,7 @@ cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
   project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(a, SRC_FA,
                                                         GATE_ALWAYS, 0);
   init_call<T, M><<<nb, THREADS, 0, s>>>(a);
+  launched += 2;
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const bool floor_test = mode != LEAN_NO_FLOOR;
@@ -926,19 +931,24 @@ cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
     if (i > 0 && i % rebase_every == 0) {
       materialize<T, M><<<grid_entries, THREADS, smem_mat, s>>>(a, 1);
       rebase_reset<T, M><<<nb, THREADS, 0, s>>>(a);
+      launched += 2;
     }
-    if (floor_test)
+    if (floor_test) {
       y_check<T, M, SG><<<grid_y, THREADS, smem_y, s>>>(a, i);
+      launched += 1;
+    }
     // contact mode needs the anchors' projections on its entry too
     project_partials<T, M><<<grid_tiles, THREADS, 0, s>>>(
         a, SRC_ANCHORS, mode == CONTACT ? GATE_STALE : GATE_REFRESH, i);
     free_step<T, M><<<grid_cluster, CLUSTER_THREADS, smem, s>>>(
         a, op, i, mode, num_iterations, lane_cols, ms, plan);
+    launched += 2;
     if (mode == CONTACT) {
       mode_predict<T, M><<<grid_tiles, THREADS, smem_mpred, s>>>(a, i);
       mode_solve<T, M><<<grid_cluster, CLUSTER_THREADS, smem, s>>>(
-          a, op, i, num_iterations, lane_cols, ms, plan);
+          a, op, i, num_iterations, lane_cols, ms, plan, counts);
       mode_lift<T, M><<<grid_verts, THREADS, sizeof(T) * r, s>>>(a, i);
+      launched += 3;
     }
     if (mode == LEAN) {
       contact_predict<T, M><<<grid_tiles, THREADS, smem_pred, s>>>(a, i);
@@ -946,11 +956,13 @@ cudaError_t enqueue_affine(Affine<T, M> a, const Iter<T>& op, int num_steps,
           a, op, i, num_iterations, lane_cols, ms, plan);
       contact_lift<T, M><<<grid_entries, THREADS, sizeof(T) * 3 * r, s>>>(
           a, i);
+      launched += 3;
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   materialize<T, M><<<grid_entries, THREADS, smem_mat, s>>>(a, 0);
+  launched += 1;
   return cudaGetLastError();
 }
 
@@ -967,7 +979,8 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
                   int num_iterations, int rebase_every, int mode, int nb,
                   int flag_stride, double dt, double eta, double floor_h,
                   int rb_rows, long long rb_sim, const void* lane_cols,
-                  int ms, int plan, int smem, void* stream) {
+                  int ms, int plan, int smem, void* stream, void* counts,
+                  void* launched) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Affine<T, M> a;
@@ -1001,12 +1014,17 @@ int launch_affine(void* b0, void* b1, const void* fa, const void* rbex,
   a.floor_h = (T)floor_h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lanes = static_cast<const int*>(lane_cols);
-  return nb == 1 ? enqueue_affine<T, M, 1>(a, op, num_steps, num_iterations,
-                                          rebase_every, mode, rb_rows, lanes,
-                                          ms, plan, smem, s)
-                 : enqueue_affine<T, M, Y_GROUP>(
-                       a, op, num_steps, num_iterations, rebase_every, mode,
-                       rb_rows, lanes, ms, plan, smem, s);
+  unsigned long long* cnt = static_cast<unsigned long long*>(counts);
+  long long n = 0;
+  const int e =
+      nb == 1 ? enqueue_affine<T, M, 1>(a, op, num_steps, num_iterations,
+                                       rebase_every, mode, rb_rows, lanes, ms,
+                                       plan, smem, s, cnt, n)
+              : enqueue_affine<T, M, Y_GROUP>(
+                    a, op, num_steps, num_iterations, rebase_every, mode,
+                    rb_rows, lanes, ms, plan, smem, s, cnt, n);
+  if (launched) *static_cast<long long*>(launched) = n;
+  return e;
 }
 
 // The largest number of clusters resident at once with smem bytes a block,
@@ -1032,7 +1050,9 @@ inline int affine_clusters(int smem) {
 // (3, r) per sim, sim b's at b * rb_sim (0: one schedule shared by the
 // sims), step i reading row min(i, rb_rows - 1); nb = 1 is the solo call;
 // lane_cols (ms,): the loop's projection order; plan: the staging plan's
-// bits, smem its bytes a block of the cluster launches (ops/cluster.py)
+// bits, smem its bytes a block of the cluster launches (ops/cluster.py);
+// counts: the device counters' block (null: not counted); launched (host
+// int64, or null): the kernels the call enqueued
 #define AFFINE_ENTRY(NAME, T, M)                                             \
   extern "C" int NAME(                                                       \
       void* b0, void* b1, const void* fa, const void* rbex,                 \
@@ -1045,13 +1065,14 @@ inline int affine_clusters(int smem) {
       int n_sel, int g, int m, int num_steps, int num_iterations,            \
       int rebase_every, int mode, int nb, int flag_stride, double dt,        \
       double eta, double floor_h, int rb_rows, long long rb_sim,             \
-      const void* lane_cols, int ms, int plan, int smem, void* stream) {     \
+      const void* lane_cols, int ms, int plan, int smem, void* stream,       \
+      void* counts, void* launched) {                                        \
     return ksm::launch_affine<T, M>(                                         \
         b0, b1, fa, rbex, ulift, utac, mutac, uselT, C, inv, WT, gptr, gcol, \
         gw, kind, eg, ef, coef, bu, sn, Pm, u, partial, ys, ybu, pcpart,     \
         flags, N, r, n_sel, g, m, num_steps, num_iterations, rebase_every,   \
         mode, nb, flag_stride, dt, eta, floor_h, rb_rows, rb_sim, lane_cols, \
-        ms, plan, smem, stream);                                             \
+        ms, plan, smem, stream, counts, launched);                           \
   }
 
 AFFINE_ENTRY(resident_affine_f32_f32, float, float)

@@ -20,6 +20,20 @@
 
 namespace ksm {
 
+// The slots of the device counters' int64 block (utils/profiling.py
+// DEVICE_COUNTERS), which kernels 3 and 5 take as `counts` (null: not
+// counted) and add to with at most one atomicAdd per sim per launch (per
+// contact-mode step in kernel 3)
+enum : int {
+  COUNT_K5_EXACT_CHECKS = 0,  // steps kernel 5 ran its exact y-row check
+  COUNT_K3_CONTACT_STEPS = 1  // sim-steps kernel 3 ran in contact mode
+};
+
+__device__ __forceinline__ void count_add(unsigned long long* counts,
+                                          int slot, unsigned long long n) {
+  if (counts && n) atomicAdd(counts + slot, n);
+}
+
 // Entry j of one dimension's row of the damped predictor: j < 3 a base
 // coefficient (ap, av, asn, avd: that row's 3), else reduced coordinate
 // j - 3 (wp, wv, wsn: its r): asn = ap + dt*avd + e2, avd = eta*av,

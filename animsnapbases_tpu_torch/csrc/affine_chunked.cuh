@@ -35,7 +35,10 @@
 //     and 4 form it;
 //   the iteration loop and solve (iteration_cluster.cuh), the coefficient
 //   update.
-// It writes ap, av, wp, wv and k, the steps done.  The exact builds with
+// It writes ap, av, wp, wv and k, the steps done, and counts into the
+// device counters (`counts`, affine.cuh COUNT_*; null: not counted) the
+// steps that ran the exact check: the y block's verdict thread keeps them
+// in a register and adds them once at the chunk's end.  The exact builds with
 // the bound take the y-row minima and maxima, of P and V once per chunk and
 // of fa in the first chunk of a call (ADVICE r5), into `ymm`; the
 // exact-free build reads them from `ymm` (the outer loop takes them).
@@ -194,7 +197,8 @@ template <typename T, typename M, int O>
 __global__ void __cluster_dims__(3, 1, 1)
     __launch_bounds__(CLUSTER_THREADS, 1)
         affine_chunk(Chunk<T, M> all, Iter<T> op, int num_iterations,
-                     const int* lane_cols, int ms, int plan) {
+                     const int* lane_cols, int ms, int plan,
+                     unsigned long long* counts) {
   constexpr bool bound = (O & CHUNK_BOUND) != 0;
   constexpr bool exact = (O & CHUNK_EXACT) != 0;
   constexpr bool fold = (O & CHUNK_FOLD) != 0;
@@ -278,6 +282,7 @@ __global__ void __cluster_dims__(3, 1, 1)
 
   const M* Uy = exact ? a.ulift + (size_t)r * N : nullptr;
   int k = 0;
+  int checks = 0;  // the y block's thread 0: steps of the exact check
   for (int i = 0; i < a.steps; ++i) {
     // the damped predictor of dimension d
     affine_predictor_row(ap, av, wp, wv, r, a.dt, a.eta, asn, avd, wsn);
@@ -310,6 +315,7 @@ __global__ void __cluster_dims__(3, 1, 1)
       }
       __syncthreads();
       int stop = bound ? flags[2] : 1;
+      if (tid == 0) checks += exact && stop;
       if (exact && stop) {
         int hit = 0;
         for (int v = tid; v < N; v += nt)
@@ -358,6 +364,7 @@ __global__ void __cluster_dims__(3, 1, 1)
   }
   coef_rows(a.out, d, r, ap, av, wp, wv, true);
   if (d == 0 && tid == 0) *a.k = k;
+  if (d == 1 && tid == 0) count_add(counts, COUNT_K5_EXACT_CHECKS, checks);
   // no block leaves while a peer may still read its shared memory
   cl.sync();
 }
@@ -383,7 +390,7 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
                  int num_iterations, int first, int nb, double dt,
                  double eta, double floor_h, double c2, double eps,
                  double umax, int rb_T, long long rb_sim, const void* lane_cols,
-                 int ms, int plan, int smem, void* stream) {
+                 int ms, int plan, int smem, void* stream, void* counts) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   Chunk<T, M> a;
@@ -426,7 +433,8 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
   if (e != cudaSuccess) return e;
   affine_chunk<T, M, O><<<dim3(CLUSTER_SIZE, nb), CLUSTER_THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      a, op, num_iterations, static_cast<const int*>(lane_cols), ms, plan);
+      a, op, num_iterations, static_cast<const int*>(lane_cols), ms, plan,
+      static_cast<unsigned long long*>(counts));
   return cudaGetLastError();
 }
 
@@ -436,7 +444,7 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
 // rb_T rows of (3, r) per sim from the chunk's first step, sim b's at
 // b * rb_sim (0: shared by the sims); lane_cols (ms,): the loop's
 // projection order; plan: the staging plan's bits, smem its bytes a block
-// (ops/cluster.py)
+// (ops/cluster.py); counts: the device counters' block (null: not counted)
 #define CHUNK_ENTRY(NAME, T, M, O)                                           \
   extern "C" int NAME(                                                       \
       const void* P, const void* V, const void* fa, void* ymm,               \
@@ -449,12 +457,12 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
       int g, int m, int n_sel, int steps, int num_iterations, int first,     \
       int nb, double dt, double eta, double floor_h, double c2, double eps,  \
       double umax, int rb_T, long long rb_sim, const void* lane_cols,        \
-      int ms, int plan, int smem, void* stream) {                            \
+      int ms, int plan, int smem, void* stream, void* counts) {              \
     return ksm::launch_chunk<T, M, O>(                                       \
         P, V, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa, rbex, ulift, mutac,    \
         UG, usel, C, inv, WT, gptr, gcol, gw, kind, eg, ef, out, k, N, r, g, \
         m, n_sel, steps, num_iterations, first, nb, dt, eta, floor_h, c2,    \
-        eps, umax, rb_T, rb_sim, lane_cols, ms, plan, smem, stream);         \
+        eps, umax, rb_T, rb_sim, lane_cols, ms, plan, smem, stream, counts); \
   }
 
 // a build for both storage types: affine_chunk_f32_f32_o<O> and

@@ -200,7 +200,8 @@ __global__ void lift_update(T* P, T* V, const T* sn, const T* u,
   }
 }
 
-// The step's three launches for sim groups of SG (SG = 1: the solo call).
+// The step's three launches for sim groups of SG (SG = 1: the solo call),
+// each counted in `launched`.
 template <typename T, typename M, int SG>
 cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
                           const T* rb_extra, const M* ulift, const M* utac,
@@ -208,7 +209,8 @@ cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
                           int num_steps, int num_iterations, T dt, T dtv,
                           int floor_on, T floor_h, int rb_rows,
                           long long rb_sim, const int* lane_cols, int ms,
-                          int plan, int smem, cudaStream_t s) {
+                          int plan, int smem, cudaStream_t s,
+                          long long& launched) {
   const int nblk = (N + TILE - 1) / TILE;
   const int groups = (nb + SG - 1) / SG;
   const dim3 grid_a(nblk, groups);
@@ -230,6 +232,7 @@ cudaError_t enqueue_steps(const Iter<T>& op, T* P, T* V, const T* fa,
         num_iterations, lane_cols, ms, plan);
     lift_update<T, M, SG><<<grid_c, THREADS, smem_lift, s>>>(
         P, V, sn, u, ulift, N, r, nb, dt);
+    launched += 3;
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -246,10 +249,12 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                     int m, int num_steps, int num_iterations, int nb,
                     double dt, double dtv, int floor_on, double floor_h,
                     int rb_rows, long long rb_sim, const void* lane_cols,
-                    int ms, int plan, int smem, void* stream) {
+                    int ms, int plan, int smem, void* stream,
+                    void* launched) {
   const Iter<T> op =
       make_iter<T>(C, inv, WT, gptr, gcol, gw, kind, eg, ef, r, g, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long n = 0;
   auto run = [&](auto group) {
     constexpr int SG = decltype(group)::value;
     return enqueue_steps<T, M, SG>(
@@ -259,10 +264,12 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
         static_cast<T*>(sn), static_cast<double*>(partial),
         static_cast<T*>(u), N, r, nb, num_steps, num_iterations, (T)dt,
         (T)dtv, floor_on, (T)floor_h, rb_rows, rb_sim,
-        static_cast<const int*>(lane_cols), ms, plan, smem, s);
+        static_cast<const int*>(lane_cols), ms, plan, smem, s, n);
   };
-  return nb == 1 ? run(std::integral_constant<int, 1>{})
-                 : run(std::integral_constant<int, SIM_GROUP>{});
+  const int e = nb == 1 ? run(std::integral_constant<int, 1>{})
+                        : run(std::integral_constant<int, SIM_GROUP>{});
+  if (launched) *static_cast<long long*>(launched) = n;
+  return e;
 }
 
 }  // namespace ksm
@@ -271,7 +278,8 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
 // rb_extra: rb_rows rows of (3, r) per sim, sim b's at b * rb_sim (0: one
 // schedule shared by the sims); nb = 1 is the solo call; lane_cols (ms,):
 // the loop's projection order; plan: the staging plan's bits, smem its
-// bytes a block of (b) (ops/cluster.py)
+// bytes a block of (b) (ops/cluster.py); launched (host int64, or null):
+// the kernels the call enqueued
 #define RESIDENT_ENTRY(NAME, T, M)                                           \
   extern "C" int NAME(void* P, void* V, const void* fa,                      \
                       const void* rb_extra, const void* ulift,               \
@@ -283,12 +291,12 @@ int launch_resident(void* P, void* V, const void* fa, const void* rb_extra,
                       int num_steps, int num_iterations, int nb, double dt,  \
                       double dtv, int floor_on, double floor_h, int rb_rows, \
                       long long rb_sim, const void* lane_cols, int ms,       \
-                      int plan, int smem, void* stream) {                    \
+                      int plan, int smem, void* stream, void* launched) {    \
     return ksm::launch_resident<T, M>(                                       \
         P, V, fa, rb_extra, ulift, utac, C, inv, WT, gptr, gcol, gw, kind,   \
         eg, ef, sn, partial, u, N, r, g, m, num_steps, num_iterations, nb,   \
         dt, dtv, floor_on, floor_h, rb_rows, rb_sim, lane_cols, ms, plan,    \
-        smem, stream);                                                       \
+        smem, stream, launched);                                             \
   }
 
 RESIDENT_ENTRY(resident_multistep_f32_f32, float, float)

@@ -109,6 +109,12 @@ from animsnapbases_tpu_torch.ops.resident import (
     rb_layout,
     storage_round,
 )
+from animsnapbases_tpu_torch.utils.profiling import (
+    count,
+    count_bytes,
+    device_counts_ptr,
+    register_launches,
+)
 
 # floor level of a model with the floor off: no predictor ever falls below
 # it, so the tier-1 kernels never exit (sim/reduced.py:701-702)
@@ -460,7 +466,8 @@ def affine_run_plain(ao: AffineOperands, P, V, fext, rb_extra,
     each step (:meth:`AffineContext.step`); step i takes the target term
     ``rb_at(rb_extra, i)``.  ``contact_mode`` selects the
     contact-mode build; with the floor off it is the lean build, as in the
-    JAX kernel."""
+    JAX kernel.  It counts what the kernel counts (``utils/profiling.py``):
+    ``k3.contact_steps``, the sim-steps run in contact mode."""
     if P.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     ro = ao.res
@@ -474,6 +481,7 @@ def affine_run_plain(ao: AffineOperands, P, V, fext, rb_extra,
         if _rebase_due(i, rebase_every):
             ctx.rebase(st)
         flags[..., i] = ctx.step(st, rb_at(rb_extra, i), num_iterations)
+    count("k3.contact_steps", int((flags & 2).count_nonzero()))
     return ctx, st, flags
 
 
@@ -546,7 +554,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 _ARGTYPES = (_P,) * 27 + (_I,) * 11 + (_D,) * 3 + (_I, _L, _P) + (_I,) * 3 + (
-    _P,)
+    _P, _P, _P)
 # int32 flag slots of one sim of a call (csrc/affine.cu): stale, done,
 # steps done, contact mode, then one slot per step (what
 # AffineContext.step returns: 1 the floor test clamped, 2 contact mode)
@@ -616,12 +624,14 @@ def affine_buffers(ao: AffineOperands, P, V, fext, num_steps: int,
 
 def affine_args(ao: AffineOperands, bufs: dict, rb_extra, num_steps: int,
                 num_iterations: int, rebase_every: int, variant: str, plan,
-                stream=None):
+                stream=None, counts=None, launched=None):
     """The arguments of csrc/affine.cu's C entry point (``AFFINE_ENTRY``,
     typed by ``_ARGTYPES``) for one call over the sims of the buffers
     ``bufs`` (:func:`affine_buffers`): the kernel's mode of ``variant``,
     the grid's nb sims (one cluster each in its cluster launches), the
-    projection order, the staging plan's bits and bytes a block."""
+    projection order, the staging plan's bits and bytes a block, the
+    device counters' block ``counts`` and the host int64 ``launched`` that
+    takes the number of kernels the call enqueues (None: neither)."""
     ro, fo = ao.res, ao.fused
     b0, flags = bufs["b0"], bufs["flags"]
     nb = b0.shape[0] if b0.dim() == 3 else 1
@@ -638,7 +648,8 @@ def affine_args(ao: AffineOperands, bufs: dict, rb_extra, num_steps: int,
             int(num_iterations), int(rebase_every), mode, nb,
             flags.shape[-1], ro.dt, ro.eta, ao.floor_level, rb_rows, rb_sim,
             p(fo.lane_cols), fo.lane_cols.numel(), plan.bits,
-            plan.smem_bytes, stream)
+            plan.smem_bytes, stream, counts,
+            None if launched is None else ctypes.byref(launched))
 
 
 def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
@@ -651,7 +662,8 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     inputs P, V when no rebase fell in the call; y is contact mode's
     (Py, Vy, buPy, buVy) of the contact variant with the floor on, else
     None; flags, coef and y have a leading sim axis when the state has.
-    A launch the card refuses (a cluster that cannot be placed with the
+    The kernels it enqueues count in ``device.launches``.  A launch the
+    card refuses (a cluster that cannot be placed with the
     plan's shared memory, a plan whose bytes differ from the kernel's
     carving) raises."""
     ro, fo = ao.res, ao.fused
@@ -663,9 +675,12 @@ def _launch_affine(ao: AffineOperands, P, V, fext, rb_extra,
     fn = _build.function("affine", _SYMBOLS[(P.dtype, ro.U_liftT.dtype)],
                          _ARGTYPES)
     bufs = affine_buffers(ao, P, V, fext, num_steps, variant, affine_tile())
+    launched = ctypes.c_longlong(0)
     code = fn(*affine_args(ao, bufs, rb_extra, num_steps, num_iterations,
                            rebase_every, variant, affine_plan(ao, nb),
-                           _build.stream_of(P.device)))
+                           _build.stream_of(P.device),
+                           device_counts_ptr(P.device), launched))
+    count("device.launches", launched.value)
     _build.check("affine", code, "resident_affine")
     r, flags, coef = fo.r, bufs["flags"], bufs["coef"]
     ys, ybu = bufs["ys"], bufs["ybu"]
@@ -782,6 +797,7 @@ def resident_affine_exit(ao: AffineOperands, P, V, fext, rb_extra,
                                                num_steps, num_iterations,
                                                rebase_every, "exit")
     resident_affine_exit.launches += 1
+    count_bytes("transfer.d2h_bytes", flags[2])
     return P_out, V_out, int(flags[2])
 
 
@@ -816,6 +832,7 @@ def resident_affine_exit_batched(ao: AffineOperands, P, V, fext, rb_extra,
     P_out, V_out, flags, _, _ = _launch_affine(
         *call, num_steps, num_iterations, rebase_every, "exit")
     resident_affine_exit_batched.launches += 1
+    count_bytes("transfer.d2h_bytes", flags[:, 2])
     kb = flags[:, 2].tolist()
     k = min(kb)
     if k < max(kb):
@@ -826,6 +843,9 @@ def resident_affine_exit_batched(ao: AffineOperands, P, V, fext, rb_extra,
 
 
 resident_affine_exit_batched.launches = 0
+register_launches(resident_affine, resident_affine_batched,
+                  resident_affine_contact, resident_affine_contact_batched,
+                  resident_affine_exit, resident_affine_exit_batched)
 
 
 def affine_tile() -> int:

@@ -93,6 +93,13 @@ from animsnapbases_tpu_torch.ops.resident import (
     rb_from,
     rb_layout,
 )
+from animsnapbases_tpu_torch.utils.profiling import (
+    annotate,
+    count,
+    count_bytes,
+    device_counts_ptr,
+    register_launches,
+)
 
 # the bound's slack: 25 % of the lift term, and a relative epsilon
 BOUND_SLACK = 1.25
@@ -192,7 +199,9 @@ def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
     The step itself is ``AffineContext``'s (ops/affine.py); what is the
     chunk's own is the O(r) bound, the exact y-row check on a trip (every
     step without the bound) and the gathered values through ``UG_allT``
-    (through ``U_selT`` and the gather without ``fold_vc``).
+    (through ``U_selT`` and the gather without ``fold_vc``).  It counts
+    what the kernel counts (``utils/profiling.py``): ``k5.exact_checks``,
+    the steps that ran the exact y-row check (per sim of a batch).
 
     With a leading batch axis (B, ·) on every per-sim argument (``ymm``
     (B, 6)) it is the plain version of the batched build: each sim tests its
@@ -214,9 +223,11 @@ def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
                                options.sqrt_free_bound)
             if exact and bool(stop.any()):
                 # the bound cannot clear the floor: the exact y row
+                count("k5.exact_checks", int(stop.sum()))
                 stop = stop & (ctx.y_predictor(st, asn, wsn)
                                < floor_h).any(-1)
         else:
+            count("k5.exact_checks", ymm[..., 0].numel())
             stop = (ctx.y_predictor(st, asn, wsn) < floor_h).any(-1)
         if bool(stop.any()):
             break
@@ -267,32 +278,39 @@ def _drive(chunk, ao: AffineOperands, P, V, fext, rb_extra, num_steps: int,
            num_iterations: int, rebase_every: int,
            options: ChunkOptions = DEFAULT_OPTIONS):
     """The outer loop around ``chunk`` -> (P', V', steps_done), for one sim
-    (3, N) or a batch (B, 3, N) whose chunks stop together."""
+    (3, N) or a batch (B, 3, N) whose chunks stop together.  Spans
+    (``utils/profiling.py``): ``asb.tier1`` around the loop, and per chunk
+    ``asb.chunk.operands`` and ``asb.chunk.advance`` here, ``asb.chunk.
+    launch`` and ``asb.chunk.readback`` in the card's chunk."""
     if rebase_every < 1:
         raise ValueError("rebase_every must be >= 1")
     ro = ao.res
     fold = options.fold_vc
-    fa = force_term(ro, fext)
-    fas = gather_vc(ao.fused, fa) if fold else None    # fa_sel G_allT
-    bu_fa = project(ro, fa)
-    ymm = P.new_empty(P.shape[:-2] + (6,))
-    done = 0
-    while done < num_steps:
-        bu0, bu1, b0s, b1s = chunk_anchors(ao, P, V, fold)
-        if not options.floor_exact:
-            # the exact-free chunk has no O(N) operand: its bound's minima
-            # and maxima are taken here
-            fill_ymm(ymm, P, V, fa, done == 0)
-        steps = min(rebase_every, num_steps - done)
-        ap, av, wp, wv, k = chunk(ao, P, V, fa, ymm, done == 0, b0s, b1s,
-                                  fas, bu0, bu1, bu_fa,
-                                  rb_from(rb_extra, done), steps,
-                                  num_iterations, ao.floor_level,
-                                  options=options)
-        P, V = advance(ao, P, V, fa, ap, av, wp, wv)
-        done += k
-        if k < steps:
-            break
+    with annotate("asb.tier1"):
+        with annotate("asb.chunk.operands"):
+            fa = force_term(ro, fext)
+            fas = gather_vc(ao.fused, fa) if fold else None  # fa_sel G_allT
+            bu_fa = project(ro, fa)
+            ymm = P.new_empty(P.shape[:-2] + (6,))
+        done = 0
+        while done < num_steps:
+            with annotate("asb.chunk.operands"):
+                bu0, bu1, b0s, b1s = chunk_anchors(ao, P, V, fold)
+                if not options.floor_exact:
+                    # the exact-free chunk has no O(N) operand: its bound's
+                    # minima and maxima are taken here
+                    fill_ymm(ymm, P, V, fa, done == 0)
+            steps = min(rebase_every, num_steps - done)
+            ap, av, wp, wv, k = chunk(ao, P, V, fa, ymm, done == 0, b0s, b1s,
+                                      fas, bu0, bu1, bu_fa,
+                                      rb_from(rb_extra, done), steps,
+                                      num_iterations, ao.floor_level,
+                                      options=options)
+            with annotate("asb.chunk.advance"):
+                P, V = advance(ao, P, V, fa, ap, av, wp, wv)
+            done += k
+            if k < steps:
+                break
     return P, V, done
 
 
@@ -321,7 +339,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 _ARGTYPES = (_P,) * 26 + (_I,) * 9 + (_D,) * 6 + (_I, _L, _P) + (_I,) * 3 + (
-    _P,)
+    _P, _P)
 
 
 def library(options: ChunkOptions) -> str:
@@ -369,15 +387,17 @@ def counter(options: ChunkOptions, batched: bool):
 def chunk_args(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
                fas, bu0, bu1, bu_fa, rb_ex, steps: int, num_iterations: int,
                floor_h: float, out, k,
-               options: ChunkOptions = DEFAULT_OPTIONS, stream=None):
+               options: ChunkOptions = DEFAULT_OPTIONS, stream=None,
+               counts=None):
     """The arguments of the C entry point of the build of ``options``
     (csrc/affine_chunked.cuh ``CHUNK_ENTRY``, typed by ``_ARGTYPES``) for
     one launch over the sims of the leading axis (none: one sim) into
     ``out`` and ``k``: the grid's nb sims (one cluster each), the
     projection order, the staging plan's bits and bytes a block
-    (:func:`chunk_plan`).  The exact-free build gets no lift (its y slice
-    is never read).  Checks the inputs and raises on what the kernel does
-    not take."""
+    (:func:`chunk_plan`), and ``counts``, the device counters' block
+    (``utils/profiling.py``; None: not counted).  The exact-free build gets
+    no lift (its y slice is never read).  Checks the inputs and raises on
+    what the kernel does not take."""
     ro, fo = ao.res, ao.fused
     for name, t in (("P", P), ("V", V), ("fa", fa), ("ymm", ymm),
                     ("b0s", b0s), ("b1s", b1s), ("fas", fas), ("bu0", bu0),
@@ -405,7 +425,7 @@ def chunk_args(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
             int(num_iterations), int(first), nb, ro.dt, ro.eta,
             float(floor_h), (BOUND_SLACK * ao.umax) ** 2, BOUND_EPS,
             ao.umax, rb_rows, rb_sim, p(fo.lane_cols), fo.lane_cols.numel(),
-            plan.bits, plan.smem_bytes, stream)
+            plan.bits, plan.smem_bytes, stream, counts)
 
 
 def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
@@ -415,9 +435,10 @@ def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     """One launch of the build of ``options`` over the sims of the leading
     axis (none: one sim) -> (coefficients (..., 18 + 6r), k per sim as an
     int32 tensor (...,)): a grid of one cluster of three blocks per sim, on
-    the staging plan of :func:`chunk_plan` (:func:`chunk_args`).  A launch
-    the card refuses (a cluster that cannot be placed with the plan's
-    shared memory) raises."""
+    the staging plan of :func:`chunk_plan` (:func:`chunk_args`), counted in
+    ``device.launches`` and adding to the device counters.  A launch the
+    card refuses (a cluster that cannot be placed with the plan's shared
+    memory) raises."""
     ro, r = ao.res, ao.fused.r
     lead = tuple(P.shape[:-2])
     out = torch.empty(lead + (2 * 9 + 2 * 3 * r,), dtype=P.dtype,
@@ -425,11 +446,13 @@ def _chunk_launch(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     k = torch.zeros(lead, dtype=torch.int32, device=P.device)
     args = chunk_args(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
                       bu_fa, rb_ex, steps, num_iterations, floor_h, out, k,
-                      options, _build.stream_of(P.device))
+                      options, _build.stream_of(P.device),
+                      device_counts_ptr(P.device))
     fn = _build.function(library(options),
                          symbol(P.dtype, ro.U_liftT.dtype, options),
                          _ARGTYPES)
     _build.check(library(options), fn(*args), "affine_chunked")
+    count("device.launches")
     return out, k
 
 
@@ -438,11 +461,15 @@ def _chunk_cuda(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
                 floor_h: float, options: ChunkOptions = DEFAULT_OPTIONS):
     """One launch of the chunk kernel for one sim; reads k back (4
     bytes)."""
-    out, k = _chunk_launch(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1,
-                           bu_fa, rb_ex, steps, num_iterations, floor_h,
-                           options)
-    counter(options, False).launches += 1
-    return (*split_coef(out, ao.fused.r), int(k.item()))
+    with annotate("asb.chunk.launch"):
+        out, k = _chunk_launch(ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0,
+                               bu1, bu_fa, rb_ex, steps, num_iterations,
+                               floor_h, options)
+        counter(options, False).launches += 1
+    with annotate("asb.chunk.readback"):
+        count_bytes("transfer.d2h_bytes", k)
+        k = int(k.item())
+    return (*split_coef(out, ao.fused.r), k)
 
 
 def _chunk_cuda_batched(ao: AffineOperands, P, V, fa, ymm, first: bool,
@@ -457,14 +484,20 @@ def _chunk_cuda_batched(ao: AffineOperands, P, V, fa, ymm, first: bool,
     waits for another: a grid-wide barrier would hang when the clusters
     are not all resident.)"""
     launch = (ao, P, V, fa, ymm, first, b0s, b1s, fas, bu0, bu1, bu_fa, rb_ex)
-    out, kb = _chunk_launch(*launch, steps, num_iterations, floor_h, options)
-    count = counter(options, True)
-    count.launches += 1
-    kb = kb.tolist()
+    launches = counter(options, True)
+    with annotate("asb.chunk.launch"):
+        out, kb = _chunk_launch(*launch, steps, num_iterations, floor_h,
+                                options)
+        launches.launches += 1
+    with annotate("asb.chunk.readback"):
+        count_bytes("transfer.d2h_bytes", kb)
+        kb = kb.tolist()
     k = min(kb)
     if k < max(kb):
-        out, _ = _chunk_launch(*launch, k, num_iterations, floor_h, options)
-        count.launches += 1
+        with annotate("asb.chunk.launch"):
+            out, _ = _chunk_launch(*launch, k, num_iterations, floor_h,
+                                   options)
+            launches.launches += 1
     return (*split_coef(out, ao.fused.r), k)
 
 
@@ -525,3 +558,4 @@ _COUNTERS = {
         f"[{b.label}]")
     for b in BUILDS if b != DEFAULT_OPTIONS for batched in (False, True)}
 COUNTERS = tuple(_COUNTERS.values())
+register_launches(affine_chunked, affine_chunked_batched, *COUNTERS)

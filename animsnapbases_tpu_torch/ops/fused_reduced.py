@@ -51,6 +51,7 @@ from animsnapbases_tpu_torch.ops.strain3d import (
     polar_rotation,
     tet_strain_fhat,
 )
+from animsnapbases_tpu_torch.utils.profiling import count, register_launches
 
 PORTED_KINDS = ("tris_strain", "edge_spring", "tets_strain",
                 "tets_deformation_gradient", "verts_bending")
@@ -632,9 +633,9 @@ def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int):
     """One launch of csrc/fused_reduced.cu over the sims of the leading
     axis of snT_sel (..., 3, n_sel) and rb_const (..., 3, r): a grid of one
     cluster of three blocks per sim, on the staging plan of
-    :func:`fused_plan` -> u.  A launch the card refuses (a cluster that
-    cannot be placed with the plan's shared memory, a plan whose bytes
-    differ from the kernel's carving) raises."""
+    :func:`fused_plan` -> u, counted in ``device.launches``.  A launch the
+    card refuses (a cluster that cannot be placed with the plan's shared
+    memory, a plan whose bytes differ from the kernel's carving) raises."""
     if snT_sel.device.type != "cuda":
         raise ValueError(f"unsupported device {snT_sel.device}")
     u = torch.empty(rb_const.shape, dtype=rb_const.dtype,
@@ -644,6 +645,7 @@ def _launch_fused(fo: FusedOperands, snT_sel, rb_const, num_iterations: int):
     fn = _build.function("fused_reduced", "fused_reduced_iterations_f32",
                          _ARGTYPES)
     _build.check("fused_reduced", fn(*args), "fused_reduced_iterations")
+    count("device.launches")
     return u
 
 
@@ -683,3 +685,4 @@ def fused_reduced_iterations_batched(fo: FusedOperands, snT_sel, rb_const,
 
 
 fused_reduced_iterations_batched.launches = 0
+register_launches(fused_reduced_iterations, fused_reduced_iterations_batched)

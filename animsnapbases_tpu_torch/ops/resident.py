@@ -61,6 +61,7 @@ from animsnapbases_tpu_torch.ops.fused_reduced import (
     fused_reduced_iterations_plain,
     rowvec_bmm,
 )
+from animsnapbases_tpu_torch.utils.profiling import count, register_launches
 
 
 @dataclass(frozen=True)
@@ -211,7 +212,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 _ARGTYPES = ((_P,) * 18 + (_I,) * 7 + (_D, _D, _I, _D, _I, _L, _P)
-             + (_I,) * 3 + (_P,))
+             + (_I,) * 3 + (_P, _P))
 
 
 def check_state(ro: ResidentOperands, P, V, fext, rb_extra):
@@ -262,13 +263,15 @@ def resident_plan(ro: ResidentOperands, nb: int = 1, clusters=None):
 
 
 def resident_args(ro: ResidentOperands, P, V, fa, rb_extra, sn, partial, u,
-                  num_steps: int, num_iterations: int, plan, stream=None):
+                  num_steps: int, num_iterations: int, plan, stream=None,
+                  launched=None):
     """The arguments of csrc/resident.cu's C entry point
     (``RESIDENT_ENTRY``, typed by ``_ARGTYPES``) for one call over the sims
     of the leading axis of the state P, V (updated in place) into the
     buffers sn, partial and u: the grid's nb sims (one cluster each in the
     iteration launch), the projection order, the staging plan's bits and
-    bytes a block."""
+    bytes a block, and the host int64 ``launched`` that takes the number of
+    kernels the call enqueues (None: not counted)."""
     fo = ro.fused
     nb = P.shape[0] if P.dim() == 3 else 1
     rb_rows, rb_sim = rb_layout(rb_extra)
@@ -279,15 +282,17 @@ def resident_args(ro: ResidentOperands, P, V, fa, rb_extra, sn, partial, u,
             p(partial), p(u), ro.n, fo.r, fo.g_total, fo.m_total,
             int(num_steps), int(num_iterations), nb, ro.dt, ro.dt * ro.eta,
             int(ro.floor), ro.floor_h, rb_rows, rb_sim, p(fo.lane_cols),
-            fo.lane_cols.numel(), plan.bits, plan.smem_bytes, stream)
+            fo.lane_cols.numel(), plan.bits, plan.smem_bytes, stream,
+            None if launched is None else ctypes.byref(launched))
 
 
 def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
                      num_steps: int, num_iterations: int):
     """One call of csrc/resident.cu over the (3, N) state or the (B, 3, N)
-    states of B sims -> (P', V').  A launch the card refuses (a cluster
-    that cannot be placed with the plan's shared memory, a plan whose bytes
-    differ from the kernel's carving) raises."""
+    states of B sims -> (P', V'), the kernels it enqueues counted in
+    ``device.launches``.  A launch the card refuses (a cluster that cannot
+    be placed with the plan's shared memory, a plan whose bytes differ from
+    the kernel's carving) raises."""
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
     key = check_state(ro, P, V, fext, rb_extra)
@@ -306,10 +311,12 @@ def _launch_resident(ro: ResidentOperands, P, V, fext, rb_extra,
     partial = torch.empty((nb, (n + tile - 1) // tile, 3, r),
                           dtype=torch.float64, device=P.device)
     u = torch.empty((nb, 3, r), dtype=dtype, device=P.device)
+    launched = ctypes.c_longlong(0)
     code = fn(*resident_args(ro, P_out, V_out, fa, rb_extra, sn, partial, u,
                              num_steps, num_iterations,
                              resident_plan(ro, nb),
-                             _build.stream_of(P.device)))
+                             _build.stream_of(P.device), launched))
+    count("device.launches", launched.value)
     _build.check("resident", code, "resident_multistep")
     return P_out, V_out
 
@@ -357,6 +364,7 @@ def resident_multistep_batched(ro: ResidentOperands, P, V, fext, rb_extra,
 
 
 resident_multistep_batched.launches = 0
+register_launches(resident_multistep, resident_multistep_batched)
 
 
 def resident_tile() -> int:

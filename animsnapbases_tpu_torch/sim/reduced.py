@@ -214,6 +214,11 @@ from animsnapbases_tpu_torch.sim.solver import (
     positional_targets_timeline,
     unflatten,
 )
+from animsnapbases_tpu_torch.utils.profiling import (
+    annotate,
+    count,
+    count_bytes,
+)
 
 GROUP_ARG_NAMES = {
     "verts_bending": ("vert_bending_reduced", "vert_bending_num_components"),
@@ -933,14 +938,21 @@ class AnimSnapBasesSolver:
         return float(min_clearance_device(q, self._model_collide().faces))
 
     def _to_device(self, x):
-        """(N, 3) host array -> permuted (3, N) tensor on the device."""
+        """(N, 3) host array -> permuted (3, N) tensor on the device (the
+        array is cast on the host, so the working dtype's bytes cross)."""
         perm = self._resident.perm
-        return torch.as_tensor(np.ascontiguousarray(np.asarray(x)[perm].T),
-                               dtype=self.dtype, device=self.device)
+        with annotate("asb.to_device"):
+            t = torch.as_tensor(np.ascontiguousarray(np.asarray(x)[perm].T),
+                                dtype=self.dtype, device=self.device)
+            count_bytes("transfer.h2d_bytes", t)
+            return t
 
     def _to_host(self, x):
         """Permuted (3, N) tensor -> (N, 3) float64 host array."""
-        return x.detach().cpu().numpy().astype(float).T[self._resident.iperm]
+        with annotate("asb.to_host"):
+            count_bytes("transfer.d2h_bytes", x)
+            return x.detach().cpu().numpy().astype(float).T[
+                self._resident.iperm]
 
     def _rb_extra(self, frame=None, targets=None):
         """The positional-target term U^T S^T targets (3, r) of ``targets``
@@ -1061,7 +1073,10 @@ class AnimSnapBasesSolver:
         state crosses to the device at the entry of each tier's call and
         back at its exit.  ``_last_fast_steps == num_steps`` afterwards
         certifies that tier 1, which tests the floor every step, served
-        the whole window contact-free.
+        the whole window contact-free.  Spans and counters
+        (``utils/profiling.py``): ``asb.run_steps`` around the tiered path,
+        ``asb.host_check`` and ``asb.contact_tier`` inside it; the steps
+        each tier served in ``steps.tier1`` and ``steps.contact_tier``.
 
         With ``record=True`` the steps run on kernel 1 instead and the
         (num_steps, N, 3) trajectory of positions is returned
@@ -1099,42 +1114,47 @@ class AnimSnapBasesSolver:
                 and not self._in_sc_window):
             return self._run_steps_self_collision(fext, num_steps,
                                                   num_iterations)
-        model = self.model
-        P = self._to_device(model.positions)
-        V = self._to_device(model.velocities)
-        Fx = self._to_device(fext)
-        rb_extra = self._rb_schedule_from(self.frame)
-        fast = self._resident_fast
-        if fast is not None and model.floor_collision:
-            # float64 host check of the step-0 predictor: skip tier 1 when
-            # its first step would clamp (floor-off models run kernel 5
-            # with the sentinel floor and need no check)
-            sn_y0 = (model.positions[:, 1]
-                     + self.dt * self.eta * model.velocities[:, 1]
-                     + self.dt * self.dt * np.asarray(fext)[:, 1]
-                     / model.mass)
-            if float(sn_y0.min()) < model.floor_height:
-                fast = None
-        if fast is not None:
-            Pf, Vf, k = fast(P, V, Fx, rb_extra, num_steps, num_iterations)
-            if k > 0:
-                model.positions = self._to_host(Pf)
-                model.velocities = self._to_host(Vf)
-                self.frame += k
-                if k == num_steps:
-                    self._last_fast_steps = k
-                    return
-                # contact at step k: the recursion's host check routes the
-                # remainder to the contact tier
-                return self.run_steps(fext, num_steps - k, num_iterations)
-            # k == 0: the working-dtype predictor clamped where the float64
-            # check did not (a floor-grazing state); recursing would repeat
-            # the same call, so the contact tier serves this window
-        P, V = self._resident_run(P, V, Fx, rb_extra, num_steps,
-                                  num_iterations)
-        model.positions = self._to_host(P)
-        model.velocities = self._to_host(V)
-        self.frame += num_steps
+        with annotate("asb.run_steps"):
+            model = self.model
+            P = self._to_device(model.positions)
+            V = self._to_device(model.velocities)
+            Fx = self._to_device(fext)
+            rb_extra = self._rb_schedule_from(self.frame)
+            fast = self._resident_fast
+            if fast is not None and model.floor_collision:
+                # float64 host check of the step-0 predictor: skip tier 1 when
+                # its first step would clamp (floor-off models run kernel 5
+                # with the sentinel floor and need no check)
+                with annotate("asb.host_check"):
+                    sn_y0 = (model.positions[:, 1]
+                             + self.dt * self.eta * model.velocities[:, 1]
+                             + self.dt * self.dt * np.asarray(fext)[:, 1]
+                             / model.mass)
+                    if float(sn_y0.min()) < model.floor_height:
+                        fast = None
+            if fast is not None:
+                Pf, Vf, k = fast(P, V, Fx, rb_extra, num_steps, num_iterations)
+                if k > 0:
+                    count("steps.tier1", k)
+                    model.positions = self._to_host(Pf)
+                    model.velocities = self._to_host(Vf)
+                    self.frame += k
+                    if k == num_steps:
+                        self._last_fast_steps = k
+                        return
+                    # contact at step k: the recursion's host check routes the
+                    # remainder to the contact tier
+                    return self.run_steps(fext, num_steps - k, num_iterations)
+                # k == 0: the working-dtype predictor clamped where the float64
+                # check did not (a floor-grazing state); recursing would repeat
+                # the same call, so the contact tier serves this window
+            with annotate("asb.contact_tier"):
+                P, V = self._resident_run(P, V, Fx, rb_extra, num_steps,
+                                          num_iterations)
+            count("steps.contact_tier", num_steps)
+            model.positions = self._to_host(P)
+            model.velocities = self._to_host(V)
+            self.frame += num_steps
 
     def _run_kernel1(self, fext, num_steps, num_iterations, record=False):
         """``num_steps`` steps on kernel 1, the state on the device, step i
@@ -1145,7 +1165,7 @@ class AnimSnapBasesSolver:
         once -> the (num_steps, N, 3) float64 trajectory; with the floor
         on, ``positions_corrections`` is then the last step's, as
         ``step()`` leaves it (y: the raw predictor less the floor where it
-        is below, else 0)."""
+        is below, else 0).  The steps count in ``steps.kernel1``."""
         model, ro = self.model, self._resident
         collide = self._collision_mode == "device"
         P = self._to_device(model.positions)
@@ -1169,8 +1189,10 @@ class AnimSnapBasesSolver:
         model.positions = self._to_host(P)
         model.velocities = self._to_host(V)
         self.frame += num_steps
+        count("steps.kernel1", num_steps)
         if not record:
             return None
+        count_bytes("transfer.d2h_bytes", buf)
         traj = buf.cpu().numpy().astype(float).transpose(0, 2, 1)[:, ro.iperm]
         if model.floor_collision:
             corr = np.zeros_like(model.positions)
@@ -1440,16 +1462,21 @@ class AnimSnapBasesSolver:
     def _pack(self, x):
         """(B, N, 3) host array -> permuted sim-major (B, 3, N) tensor on
         the device.  The permutation is a gather on the device: the host
-        only copies the array across."""
-        x = torch.as_tensor(np.asarray(x), device=self.device)
-        perm = torch.as_tensor(self._resident.perm, device=self.device)
-        return x[:, perm].to(self.dtype).permute(0, 2, 1).contiguous()
+        only copies the array (and the permutation) across."""
+        with annotate("asb.pack"):
+            x = torch.as_tensor(np.asarray(x), device=self.device)
+            perm = torch.as_tensor(self._resident.perm, device=self.device)
+            count_bytes("transfer.h2d_bytes", x, perm)
+            return x[:, perm].to(self.dtype).permute(0, 2, 1).contiguous()
 
     def _unpack(self, x):
         """Permuted (B, 3, N) tensor -> (B, N, 3) float64 host array."""
-        iperm = torch.as_tensor(self._resident.iperm, device=x.device)
-        return x.detach()[:, :, iperm].permute(0, 2, 1).double().cpu() \
-            .numpy()
+        with annotate("asb.unpack"):
+            iperm = torch.as_tensor(self._resident.iperm, device=x.device)
+            out = x.detach()[:, :, iperm].permute(0, 2, 1).double()
+            count_bytes("transfer.h2d_bytes", iperm)
+            count_bytes("transfer.d2h_bytes", out)
+            return out.cpu().numpy()
 
     def _check_batch(self, positions, velocities, fext):
         """Raise ``ValueError`` unless the three arrays are (B, N, 3) of one
@@ -1505,7 +1532,9 @@ class AnimSnapBasesSolver:
         head, _, tail = self._last_batched_path.partition("+")
         self._last_batched_path = (f"{head}-sharded[{axis[1]}x{B // axis[1]}]"
                                    + (f"+{tail}" if tail else ""))
-        return tuple(gather_blocks(x, B, mesh, batch_axis) for x in state)
+        with annotate("asb.gather_sims"):
+            return tuple(gather_blocks(x, B, mesh, batch_axis)
+                         for x in state)
 
     def _refuse_self_collision(self, captured_ok=False):
         """``make_batched_run`` serves no self-collision: the host
@@ -1615,46 +1644,52 @@ class AnimSnapBasesSolver:
         configuration that is not fully reduced runs the batched
         :class:`_FullSpace` step (:meth:`_run_batched_full`).  ``mesh``:
         each rank of ``batch_axis`` serves its block of the sims and the
-        blocks are gathered on every rank (see the module docstring)."""
+        blocks are gathered on every rank (see the module docstring).
+        Spans (``utils/profiling.py``): ``asb.batched_run`` around a call,
+        ``asb.pack``, ``asb.unpack``, ``asb.batched_kernel`` (the route's
+        call) and ``asb.gather_sims`` inside it."""
         axis = self._batch_axis(mesh, batch_axis)
         self._refuse_self_collision()
         serving_frame = [self.frame]
 
         def run(positions, velocities, fext, num_steps, num_iterations=10,
                 targets_seq=None):
-            self._refuse_self_collision()
-            B = self._check_batch(positions, velocities, fext)
-            self._require_batched()
-            lo, hi = self._sim_block(axis, B)
-            positions, velocities = positions[lo:hi], velocities[lo:hi]
-            fext = fext[lo:hi]
-            if self._full is not None:
-                tl = self._full_timeline(targets_seq, B, serving_frame[0],
-                                         int(num_steps))
-                P, V = self._run_batched_full(
-                    positions, velocities, fext, int(num_steps),
-                    num_iterations, tl[lo:hi] if tl.dim() == 4 else tl)
+            with annotate("asb.batched_run"):
+                self._refuse_self_collision()
+                B = self._check_batch(positions, velocities, fext)
+                self._require_batched()
+                lo, hi = self._sim_block(axis, B)
+                positions, velocities = positions[lo:hi], velocities[lo:hi]
+                fext = fext[lo:hi]
+                if self._full is not None:
+                    tl = self._full_timeline(targets_seq, B, serving_frame[0],
+                                             int(num_steps))
+                    with annotate("asb.batched_kernel"):
+                        P, V = self._run_batched_full(
+                            positions, velocities, fext, int(num_steps),
+                            num_iterations, tl[lo:hi] if tl.dim() == 4 else tl)
+                    P, V = self._gather_sims((P, V), B, mesh, batch_axis, axis)
+                    serving_frame[0] += int(num_steps)
+                    return P.cpu().numpy(), V.cpu().numpy()
+                rb = (self._rb_schedule_from(serving_frame[0])
+                      if targets_seq is None
+                      else self._rb_timeline(targets_seq, B))
+                if rb.dim() == 4:
+                    rb = rb[lo:hi]
+                P, V = self._pack(positions), self._pack(velocities)
+                Fx = self._pack(fext)
+                with annotate("asb.batched_kernel"):
+                    if self._resident_kind == "standard":
+                        P, V = self._run_batched_chunked(
+                            P, V, Fx, rb, int(num_steps), num_iterations,
+                            None if axis is None else axis[0])
+                    else:
+                        P, V = self._run_batched_resident(P, V, Fx, rb,
+                                                          int(num_steps),
+                                                          num_iterations)
                 P, V = self._gather_sims((P, V), B, mesh, batch_axis, axis)
                 serving_frame[0] += int(num_steps)
-                return P.cpu().numpy(), V.cpu().numpy()
-            rb = (self._rb_schedule_from(serving_frame[0])
-                  if targets_seq is None
-                  else self._rb_timeline(targets_seq, B))
-            if rb.dim() == 4:
-                rb = rb[lo:hi]
-            P, V = self._pack(positions), self._pack(velocities)
-            Fx = self._pack(fext)
-            if self._resident_kind == "standard":
-                P, V = self._run_batched_chunked(
-                    P, V, Fx, rb, int(num_steps), num_iterations,
-                    None if axis is None else axis[0])
-            else:
-                P, V = self._run_batched_resident(P, V, Fx, rb,
-                                                  int(num_steps),
-                                                  num_iterations)
-            P, V = self._gather_sims((P, V), B, mesh, batch_axis, axis)
-            serving_frame[0] += int(num_steps)
-            return self._unpack(P), self._unpack(V)
+                return self._unpack(P), self._unpack(V)
 
         return run
 
@@ -1679,9 +1714,10 @@ class AnimSnapBasesSolver:
         """The window on the batched kernel 3, lean or in contact mode as
         the solver's contact tier is (B = 1: the solo kernel 3), one call
         for the whole batch; ``rb`` the target-term schedule, shared or
-        per sim."""
+        per sim.  Counts the sims' steps in ``sim_steps.batched_resident``."""
         every = int(getattr(self, "resident_rebase_every", None) or 256)
         self._last_batched_path = "batched-resident"
+        count("sim_steps.batched_resident", P.shape[0] * num_steps)
         solo, batched = ((resident_affine_contact,
                           resident_affine_contact_batched)
                          if self._contact_mode else
@@ -1703,9 +1739,11 @@ class AnimSnapBasesSolver:
         kernel 5.  B = 1 runs the solo kernels 5 and 2.  Each call takes
         the target-term schedule ``rb`` from its own first step on.  With
         the process ``group`` of a batch axis the ranks agree on each
-        commit (:func:`_agree_on_k`)."""
+        commit (:func:`_agree_on_k`).  Counts the sims' steps in
+        ``sim_steps.batched_chunked``."""
         ao = self._affine
         solo = P.shape[0] == 1
+        count("sim_steps.batched_chunked", P.shape[0] * num_steps)
         if solo:
             rb = _sim0(rb)
         window = max(int(getattr(self, "resident_rebase_every", None)
