@@ -25,8 +25,10 @@ namespace ksm {
 // counted) and add to with at most one atomicAdd per sim per launch (per
 // contact-mode step in kernel 3)
 enum : int {
-  COUNT_K5_EXACT_CHECKS = 0,  // steps kernel 5 ran its exact y-row check
-  COUNT_K3_CONTACT_STEPS = 1  // sim-steps kernel 3 ran in contact mode
+  COUNT_K5_EXACT_CHECKS = 0,     // steps kernel 5 ran its exact y-row check
+  COUNT_K3_CONTACT_STEPS = 1,    // sim-steps kernel 3 ran in contact mode
+  COUNT_K5_INTERVAL_CLEARS = 2   // steps kernel 5's interval bound cleared
+                                 // after its Cauchy-Schwarz bound tripped
 };
 
 __device__ __forceinline__ void count_add(unsigned long long* counts,

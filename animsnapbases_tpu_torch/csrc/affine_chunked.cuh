@@ -19,11 +19,28 @@
 //     m^2 < (1.25 umax)^2 ||wsn_y||^2 (CHUNK_SQRT_FREE), or else when
 //     lb_aff - wn umax - (0.25 wn umax + eps (1 + |lb_aff|)) < floor_h
 //     with wn = ||wsn_y||;
-//   in the exact builds (CHUNK_EXACT), when the bound trips or on every
+//   in the exact builds with the bound, where that bound trips, the
+//     per-mode interval bound: with w = wsn_y rounded to the storage type
+//     (wy, what the exact row reads) and lo_j, hi_j the minimum and
+//     maximum over the N vertices of row j of the lift's y slice (`yrange`,
+//     widened from the storage type as the exact row widens it), the step
+//     is certified when
+//       lb_aff + iv - (0.25 ia + eps (1 + |lb_aff|)) >= floor_h,
+//       iv = sum_j (w_j >= 0 ? w_j lo_j : w_j hi_j),
+//       ia = sum_j |w_j| max(-lo_j, hi_j);
+//     iv is at most every vertex's lift sum_j w_j U_jv in exact arithmetic,
+//     and the exact row's float sum and this one each round by under
+//     r u ia (u the state type's unit roundoff: 2.9e-6 ia at r = 48 in
+//     float32), so 0.25 ia covers both with room, as the Cauchy-Schwarz
+//     bound's 25 % covers its own, and eps (1 + |lb_aff|) the anchors' part
+//     as there: a step this bound certifies never has an exact row under
+//     the floor.  Either bound clearing certifies the step;
+//   in the exact builds (CHUNK_EXACT), when both bounds fail or on every
 //     step without the bound, the exact y row a0 P_y + a1 V_y + a2 fa_y +
 //     wsn_y U_y, and the chunk stops before the first step it clamps; in
-//     the exact-free build a bound trip is the stop, and the (r, N) y
-//     slice of the lift is never read (the caller passes no lift);
+//     the exact-free build a trip of the Cauchy-Schwarz bound is the stop
+//     (no interval bound: the JAX package's rule), and the (r, N) y slice
+//     of the lift is never read (the caller passes no lift);
 //   rb_const = rb_i - (a0 bu0 + a1 bu1 + a2 bu_fa + wsn M_utac), rb_i the
 //     row min(i, T - 1) of the target-term schedule from the chunk's first
 //     step (the JAX kernel's rb_seq rows, :1363-1369, :1463-1465; the outer
@@ -37,8 +54,9 @@
 //   update.
 // It writes ap, av, wp, wv and k, the steps done, and counts into the
 // device counters (`counts`, affine.cuh COUNT_*; null: not counted) the
-// steps that ran the exact check: the y block's verdict thread keeps them
-// in a register and adds them once at the chunk's end.  The exact builds with
+// steps that ran the exact check and those the interval bound certified:
+// the y block's verdict thread keeps them in registers and adds them once
+// at the chunk's end.  The exact builds with
 // the bound take the y-row minima and maxima, of P and V once per chunk and
 // of fa in the first chunk of a call (ADVICE r5), into `ymm`; the
 // exact-free build reads them from `ymm` (the outer loop takes them).
@@ -66,7 +84,9 @@
 // memory.  A static target term (T = 1, CHUNK_STATIC) is staged once too;
 // an animated schedule's rows do not fit, so each step reads its own row
 // from L2 where rb_const is formed.  The y block (d = 1) holds what the
-// floor test reads: it decides the bound (one thread) and the exact check
+// floor test reads (the interval bound's 2r constants staged in its shared
+// memory): it decides the bounds (the sums in its first warp, the verdict
+// in one thread) and the exact check
 // (__syncthreads_or) and writes the step's verdict into every block's
 // shared memory before the loop's first exchange; all three read it after
 // that exchange and stop together, so no block leaves the step loop
@@ -118,6 +138,7 @@ struct Chunk {
   const T* bufa;
   const T* rbex;      // rb_T rows of (3, r) from the chunk's first step
   const M* ulift;     // (3, r, N), the exact builds only
+  const T* yrange;    // (2, r): lo, hi of the lift's y rows (exact + bound)
   const T* mutac;     // (3, r, r)
   const T* UG;        // (3, r, g) with CHUNK_FOLD
   T* out;             // ap (9), av (9), wp (3r), wv (3r)
@@ -140,6 +161,7 @@ struct ChunkLayout {
   int coef;                                  // ap, av, asn, avd: 4 each
   int wp, wv, wsn, u, bu0, bu1, bufa, rbex;  // r each
   int wy;                                    // r: wsn_y in the storage type
+  int ylo, yhi;                              // r each: the y block's yrange
   int cols;   // CHUNK_FOLD: b0s, b1s, fas (3 rows of pad4(g)); else snT_sel
   int red, ymm;                              // 16: reductions; 8: bound
   int mutac, map;                            // staged, or -1
@@ -162,6 +184,8 @@ __host__ __device__ inline ChunkLayout chunk_layout(Carve& cv, int r, int g,
   L.bufa = cv.take(r);
   L.rbex = cv.take(r);
   L.wy = cv.take(r);
+  L.ylo = cv.take(r);
+  L.yhi = cv.take(r);
   L.cols = cv.take(fold ? 3 * pad4(g) : n_sel);
   L.red = cv.take(16);
   L.ymm = cv.take(8);
@@ -203,6 +227,7 @@ __global__ void __cluster_dims__(3, 1, 1)
   constexpr bool exact = (O & CHUNK_EXACT) != 0;
   constexpr bool fold = (O & CHUNK_FOLD) != 0;
   constexpr bool sqrt_free = (O & CHUNK_SQRT_FREE) != 0;
+  constexpr bool interval = bound && exact;
   static_assert(bound || exact, "the exact-free build needs the bound");
   cg::cluster_group cl = cg::this_cluster();
   const int d = (int)cl.block_rank();  // the dimension; 1: the y block
@@ -227,6 +252,8 @@ __global__ void __cluster_dims__(3, 1, 1)
   T* bufa = smem + L.bufa;
   T* rbex = smem + L.rbex;
   T* wy = smem + L.wy;
+  T* ylo = smem + L.ylo;  // the y block's interval constants
+  T* yhi = smem + L.yhi;
   T* b0s = smem + L.cols;  // CHUNK_FOLD
   T* b1s = b0s + pad4(g);
   T* fas = b1s + pad4(g);
@@ -246,6 +273,10 @@ __global__ void __cluster_dims__(3, 1, 1)
     bu1[i] = a.bu1[d * r + i];
     bufa[i] = a.bufa[d * r + i];
     if (static_rb) rbex[i] = a.rbex[d * r + i];
+    if (interval && d == 1) {
+      ylo[i] = a.yrange[i];
+      yhi[i] = a.yrange[r + i];
+    }
   }
   if (fold) {
     for (int i = tid; i < g; i += nt) {
@@ -283,6 +314,7 @@ __global__ void __cluster_dims__(3, 1, 1)
   const M* Uy = exact ? a.ulift + (size_t)r * N : nullptr;
   int k = 0;
   int checks = 0;  // the y block's thread 0: steps of the exact check
+  int clears = 0;  // ... and steps the interval bound certified
   for (int i = 0; i < a.steps; ++i) {
     // the damped predictor of dimension d
     affine_predictor_row(ap, av, wp, wv, r, a.dt, a.eta, asn, avd, wsn);
@@ -292,9 +324,23 @@ __global__ void __cluster_dims__(3, 1, 1)
       if (exact)
         for (int j = tid; j < r; j += nt) wy[j] = Round<M, T>::apply(wsn[j]);
       if (bound && tid < 32) {
-        T s2 = T(0);
-        for (int j = tid; j < r; j += 32) s2 += wsn[j] * wsn[j];
+        // ||wsn_y||^2 and, for the interval bound, its sums iv and ia over
+        // the rounded coordinates (the values wy holds)
+        T s2 = T(0), iv = T(0), ia = T(0);
+        for (int j = tid; j < r; j += 32) {
+          s2 += wsn[j] * wsn[j];
+          if (interval) {
+            const T w = Round<M, T>::apply(wsn[j]);
+            const T lo = ylo[j], hi = yhi[j];
+            iv += w >= T(0) ? w * lo : w * hi;
+            ia += (w < T(0) ? -w : w) * (-lo > hi ? -lo : hi);
+          }
+        }
         s2 = warp_sum(s2);
+        if (interval) {
+          iv = warp_sum(iv);
+          ia = warp_sum(ia);
+        }
         if (tid == 0) {
           T lb = T(0);
           for (int j = 0; j < 3; ++j) {
@@ -302,15 +348,23 @@ __global__ void __cluster_dims__(3, 1, 1)
             lb += cj >= T(0) ? cj * ymm[j] : cj * ymm[3 + j];
           }
           const T rel = a.eps * (T(1) + (lb < T(0) ? -lb : lb));
+          bool trip;
           if (sqrt_free) {
             const T mm = lb - a.floor_h - rel;
-            flags[2] = (mm < T(0)) || (mm * mm < a.c2 * s2);
+            trip = (mm < T(0)) || (mm * mm < a.c2 * s2);
           } else {
             // the slack is 0.25 (BOUND_SLACK - 1) of the lift term
             const T wn = tsqrt(s2);
             const T slack = T(0.25) * wn * a.umax + rel;
-            flags[2] = lb - wn * a.umax - slack < a.floor_h;
+            trip = lb - wn * a.umax - slack < a.floor_h;
           }
+          if (interval && trip) {
+            // the interval bound (header; INTERVAL_SLACK 0.25)
+            const bool clear = lb + iv - (T(0.25) * ia + rel) >= a.floor_h;
+            clears += clear;
+            trip = !clear;
+          }
+          flags[2] = trip;
         }
       }
       __syncthreads();
@@ -364,7 +418,10 @@ __global__ void __cluster_dims__(3, 1, 1)
   }
   coef_rows(a.out, d, r, ap, av, wp, wv, true);
   if (d == 0 && tid == 0) *a.k = k;
-  if (d == 1 && tid == 0) count_add(counts, COUNT_K5_EXACT_CHECKS, checks);
+  if (d == 1 && tid == 0) {
+    count_add(counts, COUNT_K5_EXACT_CHECKS, checks);
+    count_add(counts, COUNT_K5_INTERVAL_CLEARS, clears);
+  }
   // no block leaves while a peer may still read its shared memory
   cl.sync();
 }
@@ -381,11 +438,12 @@ template <typename T, typename M, int O>
 int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
                  const void* b0s, const void* b1s, const void* fas,
                  const void* bu0, const void* bu1, const void* bufa,
-                 const void* rbex, const void* ulift, const void* mutac,
-                 const void* UG, const void* usel, const void* C,
-                 const void* inv, const void* WT, const void* gptr,
-                 const void* gcol, const void* gw, const void* kind,
-                 const void* eg, const void* ef, void* out, void* k, int N,
+                 const void* rbex, const void* ulift, const void* yrange,
+                 const void* mutac, const void* UG, const void* usel,
+                 const void* C, const void* inv, const void* WT,
+                 const void* gptr, const void* gcol, const void* gw,
+                 const void* kind, const void* eg, const void* ef, void* out,
+                 void* k, int N,
                  int r, int g, int m, int n_sel, int steps,
                  int num_iterations, int first, int nb, double dt,
                  double eta, double floor_h, double c2, double eps,
@@ -408,6 +466,7 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
   a.rb_T = rb_T;
   a.rb_sim = rb_sim;
   a.ulift = static_cast<const M*>(ulift);
+  a.yrange = static_cast<const T*>(yrange);
   a.mutac = static_cast<const T*>(mutac);
   a.UG = static_cast<const T*>(UG);
   a.usel = static_cast<const T*>(usel);
@@ -442,27 +501,31 @@ int launch_chunk(const void* P, const void* V, const void* fa, void* ymm,
 
 // The C entry point of one build: nb sims (nb = 1: the solo chunk); rbex:
 // rb_T rows of (3, r) per sim from the chunk's first step, sim b's at
-// b * rb_sim (0: shared by the sims); lane_cols (ms,): the loop's
-// projection order; plan: the staging plan's bits, smem its bytes a block
-// (ops/cluster.py); counts: the device counters' block (null: not counted)
+// b * rb_sim (0: shared by the sims); yrange (2, r): the interval bound's
+// constants, shared by the sims (null where the build has no interval
+// bound); lane_cols (ms,): the loop's projection order; plan: the staging
+// plan's bits, smem its bytes a block (ops/cluster.py); counts: the device
+// counters' block (null: not counted)
 #define CHUNK_ENTRY(NAME, T, M, O)                                           \
   extern "C" int NAME(                                                       \
       const void* P, const void* V, const void* fa, void* ymm,               \
       const void* b0s, const void* b1s, const void* fas, const void* bu0,    \
       const void* bu1, const void* bufa, const void* rbex,                   \
-      const void* ulift, const void* mutac, const void* UG,                  \
-      const void* usel, const void* C, const void* inv, const void* WT,      \
-      const void* gptr, const void* gcol, const void* gw, const void* kind,  \
-      const void* eg, const void* ef, void* out, void* k, int N, int r,      \
-      int g, int m, int n_sel, int steps, int num_iterations, int first,     \
-      int nb, double dt, double eta, double floor_h, double c2, double eps,  \
-      double umax, int rb_T, long long rb_sim, const void* lane_cols,        \
-      int ms, int plan, int smem, void* stream, void* counts) {              \
+      const void* ulift, const void* yrange, const void* mutac,              \
+      const void* UG, const void* usel, const void* C, const void* inv,      \
+      const void* WT, const void* gptr, const void* gcol, const void* gw,    \
+      const void* kind, const void* eg, const void* ef, void* out, void* k,  \
+      int N, int r, int g, int m, int n_sel, int steps, int num_iterations,  \
+      int first, int nb, double dt, double eta, double floor_h, double c2,   \
+      double eps, double umax, int rb_T, long long rb_sim,                   \
+      const void* lane_cols, int ms, int plan, int smem, void* stream,       \
+      void* counts) {                                                        \
     return ksm::launch_chunk<T, M, O>(                                       \
-        P, V, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa, rbex, ulift, mutac,    \
-        UG, usel, C, inv, WT, gptr, gcol, gw, kind, eg, ef, out, k, N, r, g, \
-        m, n_sel, steps, num_iterations, first, nb, dt, eta, floor_h, c2,    \
-        eps, umax, rb_T, rb_sim, lane_cols, ms, plan, smem, stream, counts); \
+        P, V, fa, ymm, b0s, b1s, fas, bu0, bu1, bufa, rbex, ulift, yrange,   \
+        mutac, UG, usel, C, inv, WT, gptr, gcol, gw, kind, eg, ef, out, k,   \
+        N, r, g, m, n_sel, steps, num_iterations, first, nb, dt, eta,        \
+        floor_h, c2, eps, umax, rb_T, rb_sim, lane_cols, ms, plan, smem,     \
+        stream, counts);                                                     \
   }
 
 // a build for both storage types: affine_chunk_f32_f32_o<O> and

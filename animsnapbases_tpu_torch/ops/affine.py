@@ -21,7 +21,8 @@ the predictor).  Every ``rebase_every`` steps the state is materialized and
 becomes the new anchors.
 
 * ``AffineOperands`` / ``affine_operands``: the resident operands plus
-  ``M_utac``, ``U_selT`` and the bound constant ``umax`` (kernel 5).
+  ``M_utac``, ``U_selT`` and the floor bounds' constants ``umax`` and
+  ``y_range`` (kernel 5).
 * ``AffineContext``: the plain transcription of ``_make_affine_ctx``
   (``project_base``, ``materialize``, ``init_anchors``, ``predictor``,
   ``y_predictor``, ``rebase``, ``free_step`` and ``gathered_step``, which
@@ -128,6 +129,7 @@ class AffineOperands:
     M_utac: torch.Tensor     # (3, r, r) working dtype, (U^T A_c) U per dim
     U_selT: torch.Tensor     # (3, r, n_sel) working dtype
     umax: float              # largest y-column norm of the stored lift
+    y_range: torch.Tensor    # (2, r) working dtype: each y row's min, max
 
     @property
     def fused(self) -> FusedOperands:
@@ -142,17 +144,22 @@ def affine_operands(res: ResidentOperands, M_utac, U_selT) -> AffineOperands:
     """Cast the host (numpy, float64) ``M_utac`` and ``U_selT`` once to the
     resident operands' device and working dtype.  ``umax`` is the largest
     column norm of the stored lift's y slice, in float32 as the JAX package
-    takes it (the Cauchy-Schwarz constant of kernel 5's floor bound)."""
+    takes it (the Cauchy-Schwarz constant of kernel 5's floor bound).
+    ``y_range`` holds the minimum (row 0) and the maximum (row 1) over all
+    N vertices, pinned included, of each row of that slice, in the storage
+    dtype widened to the working dtype as the exact y row widens it (the
+    constants of kernel 5's per-mode interval bound)."""
     device, dtype = res.fused.C_allT.device, res.fused.C_allT.dtype
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float64),
                                device=device).to(dtype)
 
-    umax = float(torch.linalg.vector_norm(res.U_liftT[1].float(),
-                                          dim=0).max())
+    uy = res.U_liftT[1]
+    umax = float(torch.linalg.vector_norm(uy.float(), dim=0).max())
+    y_range = torch.stack(torch.aminmax(uy.to(dtype), dim=1)).contiguous()
     return AffineOperands(res=res, M_utac=t(M_utac), U_selT=t(U_selT),
-                          umax=umax)
+                          umax=umax, y_range=y_range)
 
 
 def basis(dtype, device):

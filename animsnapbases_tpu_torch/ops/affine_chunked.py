@@ -19,12 +19,24 @@ first with an O(r) Cauchy-Schwarz bound on the y row of the predictor,
 
 ``lb_aff`` from the min/max of the anchors' and the force term's y rows,
 with 25 % slack on the lift term (tested on squared magnitudes; with
-``sqrt_free_bound=False`` on ||wsn_y|| itself); only when the bound cannot
-clear the floor does it materialize the exact y row.  The first step the
-floor would clamp stops the chunk without being applied.  The options:
+``sqrt_free_bound=False`` on ||wsn_y|| itself).  Where it trips, the exact
+builds try a second O(r) bound, per mode over the stored lift's y slice
+(``AffineOperands.y_range``: each row's minimum lo_j and maximum hi_j over
+the N vertices),
 
-* ``floor_exact=False`` (the exact-free build): a bound trip *is* the stop,
-  the kernel never reads the (r, N) y slice of the lift, and the outer loop
+    min_v sn_y[v] >= lb_aff + sum_j min(w_j lo_j, w_j hi_j),
+
+w the y coordinates rounded to the storage dtype as the exact row reads
+them, with the slack 0.25 sum_j |w_j| max(|lo_j|, |hi_j|) + eps (1 +
+|lb_aff|) (:func:`floor_bound`).  Both are lower bounds of the exact row,
+so either one clearing certifies the step; only when both fail does the
+chunk materialize the exact y row.  The first step the floor would clamp
+stops the chunk without being applied.  The options:
+
+* ``floor_exact=False`` (the exact-free build): a trip of the
+  Cauchy-Schwarz bound *is* the stop (the JAX rule: no interval bound
+  there, so its k stays the JAX package's), the kernel never reads the
+  (r, N) y slice of the lift, and the outer loop
   takes the y rows' minima and maxima itself (exact in any order).  The
   caller rebases and re-enters, where the bound is as tight as it gets
   (``run_steps``' recursion), or serves the window on the contact tier.
@@ -92,6 +104,7 @@ from animsnapbases_tpu_torch.ops.resident import (
     rb_at,
     rb_from,
     rb_layout,
+    storage_round,
 )
 from animsnapbases_tpu_torch.utils.profiling import (
     annotate,
@@ -104,6 +117,8 @@ from animsnapbases_tpu_torch.utils.profiling import (
 # the bound's slack: 25 % of the lift term, and a relative epsilon
 BOUND_SLACK = 1.25
 BOUND_EPS = 1e-6
+# the interval bound's slack: 25 % of its absolute lift sum
+INTERVAL_SLACK = 0.25
 
 
 @dataclass(frozen=True)
@@ -165,21 +180,50 @@ def fill_ymm(ymm, P, V, fa, first: bool):
 
 
 def floor_bound(ao: AffineOperands, asn, wsn, ymm, floor_h: float,
-                sqrt_free: bool):
-    """Per sim, whether the O(r) bound cannot clear the floor for the
+                sqrt_free: bool, interval: bool = False):
+    """Per sim, whether the O(r) bounds cannot clear the floor for the
     predictor (asn, wsn): ``lb_aff`` from the y rows' minima and maxima
-    ``ymm`` against the lift term ``||wsn_y|| umax`` with its slack."""
+    ``ymm`` against the lift term ``||wsn_y|| umax`` with its slack, and
+    with ``interval`` (the exact builds), where that trips, the per-mode
+    interval bound (:func:`interval_clears`); the steps the second bound
+    clears count in ``k5.interval_clears``."""
     a = asn[..., 1, :]
     lb_aff = torch.where(a >= 0, a * ymm[..., :3], a * ymm[..., 3:]).sum(-1)
     wn2 = (wsn[..., 1, :] * wsn[..., 1, :]).sum(-1)
     if sqrt_free:
         c2 = (BOUND_SLACK * ao.umax) * (BOUND_SLACK * ao.umax)
         m = lb_aff - floor_h - BOUND_EPS * (1.0 + lb_aff.abs())
-        return (m < 0) | (m * m < c2 * wn2)
-    wn = torch.sqrt(wn2)
-    slack = ((BOUND_SLACK - 1.0) * wn * ao.umax
-             + BOUND_EPS * (1.0 + lb_aff.abs()))
-    return lb_aff - wn * ao.umax - slack < floor_h
+        trip = (m < 0) | (m * m < c2 * wn2)
+    else:
+        wn = torch.sqrt(wn2)
+        slack = ((BOUND_SLACK - 1.0) * wn * ao.umax
+                 + BOUND_EPS * (1.0 + lb_aff.abs()))
+        trip = lb_aff - wn * ao.umax - slack < floor_h
+    if not interval or not bool(trip.any()):
+        return trip
+    cleared = trip & interval_clears(ao, lb_aff, wsn, floor_h)
+    count("k5.interval_clears", int(cleared.sum()))
+    return trip & ~cleared
+
+
+def interval_clears(ao: AffineOperands, lb_aff, wsn, floor_h: float):
+    """Per sim, whether the per-mode interval bound clears the floor:
+    ``lb_aff + sum_j min(w_j lo_j, w_j hi_j) - slack >= floor_h``, w the y
+    coordinates rounded to the storage dtype (the values the exact row
+    reads), lo, hi the rows of ``ao.y_range`` and the slack
+    ``0.25 sum_j |w_j| max(-lo_j, hi_j) + eps (1 + |lb_aff|)``.  Each
+    term bounds its mode's part of every vertex's lift from below, so in
+    exact arithmetic the sum is at most the lift's minimum; the slack
+    covers the rounding of the exact row's sum and of this one (each under
+    r u sum_j |w_j| max(-lo_j, hi_j), u the unit roundoff), and
+    ``eps (1 + |lb_aff|)`` the anchors' part, as in the Cauchy-Schwarz
+    bound (csrc/affine_chunked.cuh)."""
+    wy = storage_round(wsn[..., 1, :], ao.res.U_liftT.dtype)
+    lo, hi = ao.y_range.to(wy.dtype)
+    lift = torch.where(wy >= 0, wy * lo, wy * hi).sum(-1)
+    spread = (wy.abs() * torch.maximum(-lo, hi)).sum(-1)
+    slack = INTERVAL_SLACK * spread + BOUND_EPS * (1.0 + lb_aff.abs())
+    return lb_aff + lift - slack >= floor_h
 
 
 def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
@@ -197,11 +241,15 @@ def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
     with the bound writes those of P and V, and those of fa when ``first``;
     the exact-free build reads all six (the outer loop wrote them).
     The step itself is ``AffineContext``'s (ops/affine.py); what is the
-    chunk's own is the O(r) bound, the exact y-row check on a trip (every
-    step without the bound) and the gathered values through ``UG_allT``
-    (through ``U_selT`` and the gather without ``fold_vc``).  It counts
-    what the kernel counts (``utils/profiling.py``): ``k5.exact_checks``,
-    the steps that ran the exact y-row check (per sim of a batch).
+    chunk's own is the O(r) bounds (:func:`floor_bound`: in the exact
+    builds the interval bound where the Cauchy-Schwarz one trips), the
+    exact y-row check where they cannot clear the floor (every step without
+    the bound) and the gathered values through ``UG_allT`` (through
+    ``U_selT`` and the gather without ``fold_vc``).  It counts what the
+    kernel counts (``utils/profiling.py``), per sim of a batch:
+    ``k5.exact_checks``, the steps that ran the exact y-row check, and
+    ``k5.interval_clears``, the steps the interval bound cleared after
+    the Cauchy-Schwarz bound tripped.
 
     With a leading batch axis (B, ·) on every per-sim argument (``ymm``
     (B, 6)) it is the plain version of the batched build: each sim tests its
@@ -220,7 +268,7 @@ def affine_chunk_plain(ao: AffineOperands, P, V, fa, ymm, first: bool,
         _, _, wp, _, avd, asn, wsn = ctx.predictor(st)
         if bound:
             stop = floor_bound(ao, asn, wsn, ymm, floor_h,
-                               options.sqrt_free_bound)
+                               options.sqrt_free_bound, interval=exact)
             if exact and bool(stop.any()):
                 # the bound cannot clear the floor: the exact y row
                 count("k5.exact_checks", int(stop.sum()))
@@ -338,7 +386,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
-_ARGTYPES = (_P,) * 26 + (_I,) * 9 + (_D,) * 6 + (_I, _L, _P) + (_I,) * 3 + (
+_ARGTYPES = (_P,) * 27 + (_I,) * 9 + (_D,) * 6 + (_I, _L, _P) + (_I,) * 3 + (
     _P, _P)
 
 
@@ -396,8 +444,9 @@ def chunk_args(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     projection order, the staging plan's bits and bytes a block
     (:func:`chunk_plan`), and ``counts``, the device counters' block
     (``utils/profiling.py``; None: not counted).  The exact-free build gets
-    no lift (its y slice is never read).  Checks the inputs and raises on
-    what the kernel does not take."""
+    no lift (its y slice is never read), and only the exact builds with
+    the bound get the interval bound's ``y_range``.  Checks the inputs and
+    raises on what the kernel does not take."""
     ro, fo = ao.res, ao.fused
     for name, t in (("P", P), ("V", V), ("fa", fa), ("ymm", ymm),
                     ("b0s", b0s), ("b1s", b1s), ("fas", fas), ("bu0", bu0),
@@ -410,6 +459,7 @@ def chunk_args(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
     rb_rows, rb_sim = rb_layout(rb_ex)
     nb = P.shape[0] if P.dim() == 3 else 1
     plan = chunk_plan(ao, options)
+    interval = options.floor_exact and options.floor_bound_skip
     p = _build.ptr
 
     def opt(t):
@@ -417,7 +467,8 @@ def chunk_args(ao: AffineOperands, P, V, fa, ymm, first: bool, b0s, b1s,
 
     return (p(P), p(V), p(fa), p(ymm), opt(b0s), opt(b1s), opt(fas), p(bu0),
             p(bu1), p(bu_fa), p(rb_ex),
-            p(ro.U_liftT) if options.floor_exact else None, p(ao.M_utac),
+            p(ro.U_liftT) if options.floor_exact else None,
+            p(ao.y_range) if interval else None, p(ao.M_utac),
             p(fo.UG_allT), p(ao.U_selT), p(fo.C_allT), p(fo.inv3),
             p(fo.WT_all), p(fo.gptr), p(fo.gcol), p(fo.gw), p(fo.elem_kind),
             p(fo.elem_g), p(fo.elem_f), p(out), p(k), ro.n, fo.r,

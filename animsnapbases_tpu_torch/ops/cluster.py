@@ -74,13 +74,14 @@ def buffer_elems(kernel: str, r: int, g: int, m: int, n_sel: int = 0,
     buffers of Vall's three rows, pT, 16 words); kernels 3 and 4's (the
     coefficient rows ap, av, asn, avd, the r-long rows wp, wv, wsn, u and
     contact mode's s, the selected prefix); kernel 5's (the coefficient
-    rows, nine r-long rows, b0s/b1s/fas or the selected prefix,
-    reductions, the bound's minima and maxima)."""
+    rows, eleven r-long rows, the interval bound's two among them,
+    b0s/b1s/fas or the selected prefix, reductions, the bound's minima and
+    maxima)."""
     n = 2 * pad4(r) + 7 * pad4(g) + pad4(m) + 16
     if kernel == "affine":
         n += 16 + 5 * pad4(r) + pad4(n_sel)
     if kernel == "affine_chunked":
-        n += 16 + 9 * pad4(r) + (3 * pad4(g) if fold_vc else pad4(n_sel))
+        n += 16 + 11 * pad4(r) + (3 * pad4(g) if fold_vc else pad4(n_sel))
         n += 16 + 8
     return n
 

@@ -65,8 +65,9 @@ HOST_COUNTERS = (
 # counted on the card, slot by slot (csrc/affine.cuh COUNT_*), and by the
 # plain versions on the host
 DEVICE_COUNTERS = (
-    "k5.exact_checks",    # steps kernel 5 ran its exact y-row check
-    "k3.contact_steps",   # sim-steps kernel 3 ran in contact mode
+    "k5.exact_checks",     # steps kernel 5 ran its exact y-row check
+    "k3.contact_steps",    # sim-steps kernel 3 ran in contact mode
+    "k5.interval_clears",  # steps kernel 5's interval bound certified
 )
 
 _NOOP = contextlib.nullcontext()

@@ -7866,12 +7866,14 @@ def times_phase(torch, b, h):
     outer_ms = cuda_ms(torch, lambda: (chunk_anchors(ao, Pw, Vw),
                                         advance(ao, Pw, Vw, fa0, ap, av, wp,
                                                 wv)))
-    # the exact floor check on its own: the same call with the bound made
-    # to trip on every step after the first (a huge Cauchy-Schwarz
-    # constant) and a floor below every vertex, so that each exact check
-    # runs and clears
-    ao_trip = dataclasses.replace(ao, umax=1e18, res=dataclasses.replace(
-        ro, floor_h=-1e3))
+    # the exact floor check on its own: the same call with both bounds
+    # made to trip on every step after the first (a huge Cauchy-Schwarz
+    # constant and interval constants) and a floor below every vertex, so
+    # that each exact check runs and clears
+    big = torch.full_like(ao.y_range[0], 1e18)
+    ao_trip = dataclasses.replace(ao, umax=1e18,
+                                  y_range=torch.stack([-big, big]),
+                                  res=dataclasses.replace(ro, floor_h=-1e3))
     k5_trip_ms = cuda_ms(torch, lambda: affine_chunked(
         ao_trip, Pw, Vw, F0, rb_extra, SCENE_STEPS, ITERATIONS))
     exact_us = 1e3 * (k5_trip_ms - k5_ms) / (SCENE_STEPS - 1)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from animsnapbases_tpu_torch.ops import affine_chunked as k5
 from animsnapbases_tpu_torch.ops.affine_chunked import (
     BUILDS,
     DEFAULT_OPTIONS,
@@ -144,6 +145,47 @@ def test_builds_agree_bit_for_bit_on_a_floor_clear_window(tmp_path, build):
                                    rtol=0, atol=1e-9)
         np.testing.assert_allclose(got[1].numpy(), default[1].numpy(),
                                    rtol=0, atol=1e-9)
+
+
+def _chunks(ao, options, P, V, F, steps, monkeypatch):
+    """Every chunk's (ap, av, wp, wv, k) of :func:`_port_run`, in order."""
+    seen, real = [], k5.affine_chunk_plain
+
+    def chunk(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out)
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(k5, "affine_chunk_plain", chunk)
+        _port_run(ao, options, P, V, F, steps)
+    return seen
+
+
+@pytest.mark.parametrize(
+    "build", [b for b in BUILDS if b.floor_exact and b.floor_bound_skip],
+    ids=lambda b: b.label or "default")
+def test_exact_builds_keep_their_outputs_with_the_interval_bound(
+        tmp_path, build, monkeypatch):
+    """The exact builds with the bound give every chunk's (ap, av, wp, wv,
+    k) bit for bit as the floor test without the interval bound (the
+    Cauchy-Schwarz bound alone, as before it) gives them, on the
+    near-floor and floor-clear windows and on a batch of both, nb = 3: the
+    exact row decides the stop, and the interval bound only whether it is
+    computed."""
+    s, model = lean_jax_solver(tmp_path)
+    ao = port_affine(s, model)
+    for windows in ([NEAR], [FREE], [FREE, NEAR, FREE]):
+        P, V, F = (torch.from_numpy(x) for x in _states(s, model, windows))
+        got = _chunks(ao, build, P, V, F, NEAR[2], monkeypatch)
+        with monkeypatch.context() as m:
+            m.setattr(k5, "interval_clears", lambda ao, lb_aff, *a:
+                      torch.zeros_like(lb_aff, dtype=torch.bool))
+            want = _chunks(ao, build, P, V, F, NEAR[2], monkeypatch)
+        assert len(got) == len(want) > 1
+        for g, w in zip(got, want):
+            assert g[4] == w[4]
+            assert all(torch.equal(x, y) for x, y in zip(g[:4], w[:4]))
 
 
 @pytest.mark.parametrize("nb", [1, 3])

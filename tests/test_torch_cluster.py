@@ -121,15 +121,15 @@ def test_staging_plan_of_kernels_2_to_4_at_scene_widths(scene):
 
 def test_staging_plan_bench_bytes_and_refusals():
     """At the bench widths kernels 1 and 2 keep 94,560 B a block (two
-    blocks fit on an SM), kernels 3 and 4 164,288 B and kernel 5 167,008 B
-    (one); without fold_vc kernel 5 stages U_selT; a kernel without a
+    blocks fit on an SM), kernels 3 and 4 164,288 B and kernel 5 167,520 B
+    (one; 512 B of it the interval bound's constants); without fold_vc kernel 5 stages U_selT; a kernel without a
     cluster loop, a block whose own buffers do not fit, or another element
     size, is refused."""
     bench = WIDTHS["bench"]
     assert staging_plan("fused_reduced", *bench).smem_bytes == 94_560
     assert staging_plan("resident", *bench).smem_bytes == 94_560
     assert staging_plan("affine", *bench).smem_bytes == 164_288
-    assert staging_plan("affine_chunked", *bench).smem_bytes == 167_008
+    assert staging_plan("affine_chunked", *bench).smem_bytes == 167_520
     assert staging_plan("affine_chunked", *bench,
                         fold_vc=False).staged[-1] == "U_selT"
     with pytest.raises(ValueError, match="buffers"):
@@ -204,7 +204,8 @@ def test_chunk_args_contract(small):
     """Kernel 5's launch arguments match its C entry point's types for
     every build, solo and batched: one cluster per sim (nb), the
     projection order, the plan of the build's fold_vc; the exact-free
-    build passes no lift."""
+    build passes no lift, and only the exact builds with the bound pass
+    the interval bound's constants."""
     model, s = small
     ro, ao = s._resident, s._affine
     fo = ao.fused
@@ -232,10 +233,12 @@ def test_chunk_args_contract(small):
                                         fo.m_total, ro.n_sel,
                                         fold_vc=o.fold_vc)
             assert len(args) == len(k5._ARGTYPES)
-            assert args[34] == (B or 1)
+            assert args[35] == (B or 1)
             assert (args[11] is None) == (not o.floor_exact)
-            assert args[43].value == fo.lane_cols.data_ptr()
-            assert args[44:47] == (fo.lane_cols.numel(), plan.bits,
+            assert (args[12] is None) == (not (o.floor_exact
+                                               and o.floor_bound_skip))
+            assert args[44].value == fo.lane_cols.data_ptr()
+            assert args[45:48] == (fo.lane_cols.numel(), plan.bits,
                                    plan.smem_bytes)
     with pytest.raises(ValueError, match="gathered columns"):
         k5.chunk_args(ao, P, V, fa, torch.zeros(6), True, None, None, None,

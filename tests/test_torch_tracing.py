@@ -311,20 +311,42 @@ def card():
                         resident_rebase_every=64)
 
 
+@pytest.fixture(scope="module")
+def card_stretched():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: kernel 5's interval bound")
+    from test_torch_floor_bound import small_solver as floor_solver
+
+    return floor_solver("stretched", torch.float32, device="cuda")
+
+
 @pytest.mark.card
-def test_device_counters_equal_the_plain_counts(card):
+def test_device_counters_equal_the_plain_counts(card, card_stretched):
     """Kernel 5's solo chunk and kernel 3's contact-mode call count on the
-    card what their plain versions count on the same inputs."""
+    card what their plain versions count on the same inputs; kernel 5 also
+    on the stretched basis's floor-clear window
+    (``tests/test_torch_floor_bound.py``), where its interval bound clears
+    steps (``k5.interval_clears``)."""
+    from test_torch_floor_bound import CLEAR
+
     model, s = card
     ao = s._affine
     _, P, V, F = chunk_inputs(s, model, 3.0, g=4.0)
     _, Pc, Vc, Fc = chunk_inputs(s, model, 0.3, g=4.0)
     rb = s._rb_extra()
+    model2, s2 = card_stretched
+    ao2, rb2, n2 = s2._affine, s2._rb_extra(), CLEAR[2]
+    _, P2, V2, F2 = chunk_inputs(s2, model2, CLEAR[0], g=CLEAR[1])
+    seen = []
     for name, kernel, plain in (
             ("k5", lambda: k5.affine_chunked(ao, P, V, F, rb, 64, 4,
                                              rebase_every=64),
              lambda: k5.affine_chunked_plain(ao, P, V, F, rb, 64, 4,
                                              rebase_every=64)),
+            ("k5", lambda: k5.affine_chunked(ao2, P2, V2, F2, rb2, n2, 4,
+                                             rebase_every=n2),
+             lambda: k5.affine_chunked_plain(ao2, P2, V2, F2, rb2, n2, 4,
+                                             rebase_every=n2)),
             ("k3", lambda: k3.resident_affine_contact(
                 ao, Pc, Vc, Fc, rb, 32, 4, rebase_every=8),
              lambda: k3.resident_affine_contact_plain(
@@ -336,6 +358,8 @@ def test_device_counters_equal_the_plain_counts(card):
             n: on_host[n] for n in counted}, name
         assert any(on_card[n] > 0 for n in counted), name
         assert on_card["device.launches"] > 0 == on_host["device.launches"]
+        seen.append(on_card)
+    assert seen[1]["k5.interval_clears"] > 0
 
 
 @pytest.mark.card
