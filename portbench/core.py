@@ -23,7 +23,7 @@ from types import SimpleNamespace
 import numpy as np
 
 from portbench.reference import bases as bases_maker
-from portbench.reference.scene import build_scene
+from portbench.reference.scene import build_scene, kind_module, per_group
 from portbench.traffic import Requests, Traffic
 from portbench.traffic import load as load_traffic
 from portbench.tracing import CALL, INPUTS, WINDOW, Tracer
@@ -120,6 +120,8 @@ def read_counters(counters: dict) -> dict:
 
 
 def program_model(scene, cfg: dict):
+    """The program's model of the scene: each group added as its kind's
+    ``PROGRAM`` says, the scene's pins fixed."""
     from animsnapbases_tpu_torch.sim.model import DeformableModel
 
     model = DeformableModel(scene.positions, scene.faces,
@@ -127,21 +129,16 @@ def program_model(scene, cfg: dict):
                             floor_collision=scene.floor,
                             init_height_shift=0.0)
     for name, g in cfg["groups"].items():
-        if name == "tris_strain":
-            model.add_tri_constrain_strain(g["sigma_min"], g["sigma_max"],
-                                           wi=g["wi"])
-        elif name == "edge_spring":
-            model.add_edge_spring_constraint(wi=g["wi"])
-        elif name == "tets_deformation_gradient":
-            model.add_tet_constrain_deformation_gradient(g["wi"])
-        else:
-            raise ValueError(f"unknown constraint kind {name}")
+        prog = scene.groups[name].kind.PROGRAM
+        getattr(model, prog["method"])(**{k: g[k] for k in prog["kwargs"]})
     for i in np.flatnonzero(scene.pinned):
         model.fix(int(i))
     return model
 
 
-def program_args(cfg: dict, made: dict):
+def program_args(cfg: dict, made: dict, root=None):
+    """The program's arguments: each group reduced under its kind's
+    program group name with its served modes."""
     from animsnapbases_tpu_torch.config.sim_config import default_sim_args
     from animsnapbases_tpu_torch.sim.reduced import GROUP_ARG_NAMES
 
@@ -151,9 +148,10 @@ def program_args(cfg: dict, made: dict):
     args.constraint_projection_basis_type = "deim_pod_vectorized"
     served = cfg["served"]
     for name in cfg["groups"]:
-        flag, num = GROUP_ARG_NAMES[name]
+        group = kind_module(name, root).PROGRAM["group"]
+        flag, num = GROUP_ARG_NAMES[group]
         setattr(args, flag, True)
-        setattr(args, num, int(served["modes"]))
+        setattr(args, num, per_group(served["modes"], name))
     args.deim_oversample = float(served["oversample"])
     args.geom_interpolation_basis_dir = made["dir"]
     args.geom_interpolation_basis_file = "basis.npz"
@@ -203,8 +201,8 @@ def run(root: Path, cell: str, seed: int, seconds: float, trace: bool,
     hooks = hooks or {}
 
     t_run = time.perf_counter()
-    made = bases_maker.make(cfg, log=log)
-    scene = build_scene(cfg)
+    made = bases_maker.make(cfg, log=log, root=root)
+    scene = build_scene(cfg, root)
     inputs = Requests(traffic, scene.positions, scene.mass,
                       made["tail_velocity"])
     t_bases = time.perf_counter()
@@ -214,7 +212,7 @@ def run(root: Path, cell: str, seed: int, seconds: float, trace: bool,
                            device, control, seed)
 
     model = program_model(scene, cfg)
-    args = program_args(cfg, made)
+    args = program_args(cfg, made, root)
     solver = program_solver(cfg, args, device)
     solver.set_model(model)
     t0 = time.perf_counter()
@@ -311,7 +309,7 @@ def run(root: Path, cell: str, seed: int, seconds: float, trace: bool,
                         limits, device)
     shape = cost_shape(scene, cfg, made)
     ctx = SimpleNamespace(
-        cell=cell, cfg=cfg, traffic=tspec, trace=summary, setup_s=setup_s,
+        root=root, cell=cell, cfg=cfg, traffic=tspec, trace=summary, setup_s=setup_s,
         prepare_s=prepare_s, window_s=window_s, calls=n_calls, sims=sims,
         steps=steps, latencies=latencies, launches=sum(after.values())
         - sum(before.values()), shape=shape,
@@ -494,16 +492,14 @@ def cost_shape(scene, cfg, made) -> dict:
     rows, verts = {}, []
     for name, g in scene.groups.items():
         data = np.load(f"{made['dir']}/{name}/basis.npz")
-        asked = int(served["modes"])
+        asked = per_group(served["modes"], name)
         ranges = data["interpol_alpha_ranges"]
         idx = min(int(round(asked * float(served["oversample"]))),
                   len(ranges))
         n_pt = int(ranges[idx - 1])
         rows[name] = n_pt
         alphas = data["interpol_alphas"][:n_pt].astype(np.int64)
-        key = {"tris_strain": "faces", "edge_spring": "edges",
-               "tets_deformation_gradient": "elements"}[name]
-        verts.append(g.data[key][alphas].reshape(-1))
+        verts.append(g.kind.corners(g.data)[alphas].reshape(-1))
     mb = 2 if cfg["precision"]["matrices"] == "bfloat16" else 4
     return {"n": scene.n, "r": int(served["position_modes"]),
             "n_sel": int(len(np.unique(np.concatenate(verts)))),

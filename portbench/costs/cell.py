@@ -13,8 +13,9 @@ precision, whatever route, build or bound the program takes:
   operands (``Ar^-1``, the rows of ``U`` at the n_sel vertices, the rows'
   ``W``) read once;
 * per sim-step, the loop: ``iterations`` x (u = Ar^-1 rb: 2 x 3r^2; the
-  selected vertices lifted: 2 x 3 r n_sel; each row's projection:
-  ``ROW_FLOPS``; rb = c + W p: 2 x 3 r rows) and the last solve (2 x 3r^2);
+  selected vertices lifted: 2 x 3 r n_sel; each row's projection: its
+  kind's ``ROW_FLOPS``, from ``portbench/reference/kinds/<kind>.py``; rb =
+  c + W p: 2 x 3 r rows) and the last solve (2 x 3r^2);
 * per sim-step whose predictor the floor clamps (counted on the reference's
   own trajectory, never on the program's route or on its bound's trips):
   the y rows of both matrices read (2 r N values), the y rows of the state
@@ -22,10 +23,10 @@ precision, whatever route, build or bound the program takes:
   (2 x 2 r N operations).
 
 Copied at commit 694e46ca6bbdc322cf66d9b3fd65d3e4c5b05da3 from
-``chip_smoke.py`` ``k1_cost``…``k3m_cost``, ``TRI_FLOPS``, ``SPRING_FLOPS``,
-``TET_FLOPS`` and ``bound_ms``, and reworked: those count what each kernel
-of a route reads (kernel 5's chunks and the exact checks its floor bound
-sent it to, kernel 3's rebases); this counts what a step of the model
+``chip_smoke.py`` ``k1_cost``…``k3m_cost`` and ``bound_ms`` (its
+``KIND_FLOPS`` are in the kind files), and reworked: those count what each
+kernel of a route reads (kernel 5's chunks and the exact checks its floor
+bound sent it to, kernel 3's rebases); this counts what a step of the model
 needs, so that a change of route or bound does not change the yardstick.
 Operations are float32, the configurations' precision.
 """
@@ -35,20 +36,20 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-# operations of one projection row, counted from csrc/iteration.cuh and
-# csrc/strain3d.cuh (chip_smoke.py): the 2x2 clamp with its half-angle
-# steps; the spring row; the tet row with its five Jacobi sweeps
-ROW_FLOPS = {"tris_strain": 110, "edge_spring": 20,
-             "tets_deformation_gradient": 1120}
+from portbench.reference.scene import kind_module
+
 STATE_BYTES = 4
 PEAKS = json.loads((Path(__file__).parent / "peaks.json").read_text())
 
 
-def call_cost(shape: dict, sims: int, steps: int, contact_steps: int = 0):
+def call_cost(shape: dict, sims: int, steps: int, contact_steps: int = 0,
+              root=None):
     """(bytes, float32 operations) of one call.  ``shape``: ``n``, ``r``,
     ``n_sel``, ``rows`` ({kind: count}), ``iterations``, ``matrix_bytes``
     (the storage size of an entry of the big matrices); ``contact_steps``
-    the sim-steps of the call whose predictor the floor clamps."""
+    the sim-steps of the call whose predictor the floor clamps.  Each
+    kind's row operations come from its kind file in the checkout at
+    ``root``: a kind without one raises an error, never counts as 0."""
     n, r, n_sel = shape["n"], shape["r"], shape["n_sel"]
     rows = shape["rows"]
     m = sum(rows.values())
@@ -59,7 +60,8 @@ def call_cost(shape: dict, sims: int, steps: int, contact_steps: int = 0):
     nbytes = (STATE_BYTES * sims * 15 * n + mb * 2 * 3 * r * n + small
               + contact_steps * (mb * 2 * r * n + STATE_BYTES * 5 * n))
     step = (it * (2 * 3 * r * r + 2 * 3 * r * n_sel
-                  + sum(ROW_FLOPS[k] * c for k, c in rows.items())
+                  + sum(int(kind_module(k, root).ROW_FLOPS) * c
+                        for k, c in rows.items())
                   + 2 * 3 * r * m) + 2 * 3 * r * r)
     ops = (sims * steps * step + sims * 2 * 2 * 3 * r * n
            + contact_steps * 2 * 2 * r * n)

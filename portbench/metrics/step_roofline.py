@@ -11,5 +11,5 @@ def read(ctx):
         return None
     contact = ctx.clamp_share * ctx.steps * ctx.sims
     least = ctx.calls * bound_s(*call_cost(ctx.shape, ctx.sims, ctx.steps,
-                                           contact))
+                                           contact, root=ctx.root))
     return 100.0 * least / ctx.trace["busy_s"]

@@ -17,9 +17,13 @@ The files are those ``bases/pipeline.py`` ``reduced_args`` points the
 program at: ``<dir>/<group>/basis.npz`` (``components``,
 ``interpol_alphas``, ``Pt``, ``interpol_verts``,
 ``interpol_alpha_ranges``) and ``pos_basis.npz`` (``components`` (r, N,
-3)).  They depend on the configuration alone and are cached under
-``portbench/cache/<digest>/``, a fixed directory inside the checkout; the
-digest covers the configuration's recipe and the maker's sources.
+3)).  A group's modes (``bases.modes``) are one number for every group or
+a ``{group: number}`` map.  The bases depend on the configuration alone
+and are cached under ``portbench/cache/<digest>/``, a fixed directory
+inside the checkout; the digest covers the configuration's recipe, the
+maker's shared sources and the scene and kind files the configuration
+names, so that a kind file added later leaves other configurations'
+digests alone.
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ from pathlib import Path
 import numpy as np
 
 from portbench.reference import fom
-from portbench.reference.scene import build_scene, gravity
+from portbench.reference.scene import (build_scene, gravity, part_path,
+                                       per_group)
 
 CACHE = Path(__file__).resolve().parents[1] / "cache"
 RECIPE_KEYS = ("scene", "groups", "dt", "damping", "recording", "bases")
-MAKER_SOURCES = ("scene.py", "projections.py", "fom.py", "bases.py")
+MAKER_SOURCES = ("scene.py", "fom.py", "bases.py")
 
 
 def snapshot_pod(X: np.ndarray):
@@ -109,20 +114,23 @@ def position_basis(traj: np.ndarray, r: int) -> np.ndarray:
     return comps
 
 
-def digest(cfg: dict) -> str:
+def digest(cfg: dict, root=None) -> str:
     h = hashlib.sha256(json.dumps({k: cfg[k] for k in RECIPE_KEYS},
                                   sort_keys=True).encode())
     here = Path(__file__).resolve().parent
-    for f in MAKER_SOURCES:
-        h.update((here / f).read_bytes())
+    named = [part_path("scenes", cfg["scene"]["kind"], root)] + [
+        part_path("kinds", k, root) for k in sorted(cfg["groups"])]
+    for f in [here / f for f in MAKER_SOURCES] + named:
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
-def make(cfg: dict, log=print) -> dict:
-    """The bases of configuration ``cfg``, made once and cached ->
-    {"dir": <basis dir>, "pos": <pos_basis.npz>, "tail_velocity": (N, 3),
-    "seconds": made here (0 when cached)}."""
-    out = CACHE / digest(cfg)
+def make(cfg: dict, log=print, root=None) -> dict:
+    """The bases of configuration ``cfg``, its scene and kinds read from
+    the checkout at ``root``, made once and cached -> {"dir": <basis dir>,
+    "pos": <pos_basis.npz>, "tail_velocity": (N, 3), "seconds": made here
+    (0 when cached)}."""
+    out = CACHE / digest(cfg, root)
     done = out / "ready.json"
     made = 0.0
     CACHE.mkdir(parents=True, exist_ok=True)
@@ -133,7 +141,7 @@ def make(cfg: dict, log=print) -> dict:
             part = Path(str(out) + ".partial")
             shutil.rmtree(part, ignore_errors=True)
             part.mkdir(parents=True)
-            _make_into(cfg, part, log)
+            _make_into(cfg, part, log, root)
             made = time.perf_counter() - t0
             (part / "ready.json").write_text(json.dumps({"seconds": made}))
             shutil.rmtree(out, ignore_errors=True)
@@ -143,12 +151,13 @@ def make(cfg: dict, log=print) -> dict:
             "seconds": made}
 
 
-def _make_into(cfg: dict, out: Path, log) -> None:
-    scene = build_scene(cfg)
+def _make_into(cfg: dict, out: Path, log, root) -> None:
+    scene = build_scene(cfg, root)
     rec, bcfg = cfg["recording"], cfg["bases"]
     t0 = time.perf_counter()
     traj, snaps = fom.record(scene, rec["frames"], rec["iterations"],
-                             cfg["dt"], cfg["damping"], gravity(scene))
+                             cfg["dt"], cfg["damping"], gravity(scene),
+                             rec.get("events", ()))
     log(f"portbench: recorded {rec['frames']} frames of {scene.n} vertices "
         f"in {time.perf_counter() - t0:.2f} s")
     tail = (traj[-1] - traj[-2]) / cfg["dt"]
@@ -157,7 +166,7 @@ def _make_into(cfg: dict, out: Path, log) -> None:
     inc = int(bcfg["frame_increment"])
     for name, g in scene.groups.items():
         s = snaps[name][0:bcfg["frames"] * inc:inc]
-        comps = pod_vectorized(s, int(bcfg["modes"]), bool(
+        comps = pod_vectorized(s, per_group(bcfg["modes"], name), bool(
             bcfg["standardized"]))
         Pt, alphas, ranges = deim_rows(comps, g.p)
         gdir = out / "bases" / name

@@ -10,7 +10,13 @@ LU solve a dimension), v = (q' - q) / dt.  It keeps each frame's positions
 and each group's projections of the frame's last sweep, as the program's
 recorder writes them to ``<group>_p.npz``.  Changed: one LU of a
 dimension's (N, N) block in place of the (3N, 3N) matrix (the blocks are
-equal), and the projections of ``projections.py``.
+equal), and the projections of each group's kind file.
+
+A pin schedule (``recording.events``: ``{"frame", "action": "fix" |
+"release", "set"}``, ``set`` one of the scene's side sets) pins or frees
+its set before the frame's step and factors the global matrix anew, as
+``demos/scenarios.py`` ``ScenarioDriver.run`` does with its
+``set_dirty()`` after each fix or release.
 """
 
 from __future__ import annotations
@@ -19,58 +25,68 @@ import numpy as np
 import scipy.sparse.linalg
 import torch
 
-from portbench.reference import projections
-from portbench.reference.scene import FLOOR_HEIGHT, Scene, global_block
+from portbench.reference.scene import (FLOOR_HEIGHT, Scene, global_block,
+                                       pin_masses)
 
-
-def corner_index(scene: Scene, name: str) -> np.ndarray:
-    """(e, c) vertex ids of each element's corners."""
-    d = scene.groups[name].data
-    return {"tris_strain": d.get("faces"), "edge_spring": d.get("edges"),
-            "tets_deformation_gradient": d.get("elements")}[name]
-
-
-def group_rows(name: str, corners, data: dict):
-    """All rows (..., e, p, 3) of a group's projection from its corners
-    (..., e, c, 3); ``data`` holds the rest data as tensors."""
-    if name == "tris_strain":
-        return projections.tris_strain(corners, data["P"], data["DmInv"],
-                                       data["sigma_min"], data["sigma_max"])
-    if name == "edge_spring":
-        return projections.edge_spring(corners, data["rest_length"])
-    return projections.tets_deformation_gradient(corners, data["DmInv"])
+ACTIONS = ("fix", "release")
 
 
 def tensor_data(data: dict, device, dtype) -> dict:
+    """A group's rest data with its float arrays as ``dtype`` tensors and
+    its bool arrays (masks) as tensors, on ``device``."""
     out = {}
     for k, v in data.items():
         if isinstance(v, np.ndarray) and v.dtype.kind == "f":
             out[k] = torch.as_tensor(v, dtype=dtype, device=device)
+        elif isinstance(v, np.ndarray) and v.dtype.kind == "b":
+            out[k] = torch.as_tensor(v, device=device)
         else:
             out[k] = v
     return out
 
 
+def schedule(scene: Scene, events) -> dict:
+    """{frame: [(vertex ids, pinned after)]} of a pin schedule."""
+    out = {}
+    for e in events:
+        if e["action"] not in ACTIONS or e["set"] not in scene.sets:
+            raise ValueError(f"portbench: bad pin event {e!r} (actions "
+                             f"{ACTIONS}, sets {sorted(scene.sets)})")
+        out.setdefault(int(e["frame"]), []).append(
+            (scene.sets[e["set"]], e["action"] == "fix"))
+    return out
+
+
 def record(scene: Scene, frames: int, iterations: int, dt: float,
-           damping: float, fext: np.ndarray):
+           damping: float, fext: np.ndarray, events=()):
     """``frames`` steps from the scene's initial state at rest under
-    ``fext`` -> (trajectory (frames, N, 3), {group: (frames, e * p, 3)
-    projections of each frame's last sweep})."""
+    ``fext``, with the pin schedule ``events`` -> (trajectory (frames, N,
+    3), {group: (frames, e * p, 3) projections of each frame's last
+    sweep})."""
     eta = 1.0 - damping
-    m = scene.masses
-    lu = scipy.sparse.linalg.splu(global_block(scene, dt))
-    mass_dt2 = (m / (dt * dt))[:, None]
+    pinned = scene.pinned.copy()
+    plan = schedule(scene, events)
+
+    def factor():
+        m = pin_masses(scene.mass, pinned)
+        lu = scipy.sparse.linalg.splu(global_block(scene, dt, m))
+        return lu, (m / (dt * dt))[:, None], fext / m[:, None]
+
+    lu, mass_dt2, a = factor()
     data = {k: tensor_data(g.data, "cpu", torch.float64)
             for k, g in scene.groups.items()}
-    corners = {k: torch.as_tensor(corner_index(scene, k))
-               for k in scene.groups}
+    corners = {k: torch.as_tensor(g.kind.corners(g.data))
+               for k, g in scene.groups.items()}
     P = scene.positions.copy()
     V = np.zeros_like(P)
-    a = fext / m[:, None]
     traj = np.empty((frames,) + P.shape)
     snaps = {k: np.empty((frames, g.num * g.p, 3))
              for k, g in scene.groups.items()}
     for t in range(frames):
+        if t in plan:
+            for ids, pin in plan[t]:
+                pinned[ids] = pin
+            lu, mass_dt2, a = factor()
         sn = P + dt * eta * V + dt * dt * a
         if scene.floor:
             sn[:, 1] = np.maximum(sn[:, 1], FLOOR_HEIGHT)
@@ -79,7 +95,7 @@ def record(scene: Scene, frames: int, iterations: int, dt: float,
             b = mass_dt2 * sn
             qt = torch.as_tensor(q)
             for k, g in scene.groups.items():
-                p = group_rows(k, qt[corners[k]], data[k])
+                p = g.kind.rows(qt[corners[k]], data[k])
                 p = p.reshape(-1, 3).numpy()
                 b = b + g.ST @ p
                 snaps[k][t] = p

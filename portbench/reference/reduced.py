@@ -8,14 +8,15 @@ hyper-reduced projective dynamics in plain PyTorch, B sims at once:
 
 * per dimension d, ``Ar_d = U_d^T A_d U_d`` and ``U_d^T A_c`` with ``A_c =
   A_d - M / dt^2`` (the displacement form q = s + U u);
-* per group, the DEIM rows kept for ``oversample x modes`` modes and
-  ``W_d = U_d^T (S^T V)_d (PtV_d^T PtV_d + la_d I)^-1 PtV_d^T`` with the
-  program's Tikhonov term ``la_d = 1e-8 tr / K + 1e-12 (max tr / K +
-  1e-30)``;
+* per group, the DEIM rows kept for ``oversample x modes`` modes (the
+  group's ``served.modes``: one number for every group or a ``{group:
+  number}`` map) and ``W_d = U_d^T (S^T V)_d (PtV_d^T PtV_d + la_d I)^-1
+  PtV_d^T`` with the program's Tikhonov term ``la_d = 1e-8 tr / K + 1e-12
+  (max tr / K + 1e-30)``;
 * a step: s = P + dt eta V + dt^2 f / m, its y row clamped at the floor;
   c = -U^T A_c s; rb = 0, then ``iterations`` times: u = Ar^-1 rb, the
-  selected rows projected at s + U u, rb = c + sum W p; finally u = Ar^-1
-  rb, q = s + U u, V = (q - P) / dt.
+  selected rows projected at s + U u by their kind's ``rows``, rb = c +
+  sum W p; finally u = Ar^-1 rb, q = s + U u, V = (q - P) / dt.
 
 ``precision="float64"`` is the reference.  ``precision="tf32"`` is the
 control: float32 state and operands, every matrix product's operands
@@ -30,8 +31,9 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from portbench.reference.fom import corner_index, group_rows, tensor_data
-from portbench.reference.scene import FLOOR_HEIGHT, Scene, global_block
+from portbench.reference.fom import tensor_data
+from portbench.reference.scene import (FLOOR_HEIGHT, Scene, global_block,
+                                       per_group)
 
 PRECISIONS = {"float64": torch.float64, "tf32": torch.float32}
 
@@ -62,14 +64,14 @@ class ReducedReference:
         Ar = np.stack([U[:, :, d].T @ (A @ U[:, :, d]) for d in range(3)])
         UtAc = np.stack([(Ac.T @ U[:, :, d]).T for d in range(3)])
         groups, sel_verts = [], []
-        for name, g in scene.groups.items():
+        for g in scene.groups.values():
             W, alphas, rows = self._group(g, basis_dir, served, U)
-            corners = corner_index(scene, name)[alphas]       # (m, c)
+            corners = g.kind.corners(g.data)[alphas]          # (m, c)
             sel_verts.append(corners.reshape(-1))
             data = {k: (v[alphas] if isinstance(v, np.ndarray)
                         and v.ndim and len(v) == g.num else v)
                     for k, v in g.data.items()}
-            groups.append((name, W, corners, rows, data))
+            groups.append((g.kind, W, corners, rows, data))
         sel = np.unique(np.concatenate(sel_verts))
         lookup = np.full(scene.n, -1, dtype=np.int64)
         lookup[sel] = np.arange(len(sel))
@@ -82,8 +84,8 @@ class ReducedReference:
         self.UtAc = t(UtAc)                                    # (3, r, N)
         self.inv_mass = t(1.0 / scene.masses)
         self.ops = []
-        for name, W, corners, rows, data in groups:
-            self.ops.append((name, t(W),
+        for kind, W, corners, rows, data in groups:
+            self.ops.append((kind, t(W),
                              torch.as_tensor(lookup[corners], device=device),
                              torch.as_tensor(rows, device=device),
                              tensor_data(data, device, self.dtype)))
@@ -96,7 +98,7 @@ class ReducedReference:
     def _group(g, basis_dir, served, U):
         """(W (3, r, n_pt), picked elements (n_pt,), row of each pick)."""
         data = np.load(f"{basis_dir}/{g.name}/basis.npz")
-        asked = int(served["modes"])
+        asked = per_group(served["modes"], g.name)
         Vj = data["components"].swapaxes(0, 1)[:, :asked, :]   # (ep, K, 3)
         K = Vj.shape[1]
         ranges = data["interpol_alpha_ranges"]
@@ -128,8 +130,8 @@ class ReducedReference:
         (B, 3, n_sel) -> (B, 3, r)."""
         total = 0.0
         pts = q_sel.transpose(1, 2)                            # (B, n_sel, 3)
-        for name, W, corners, rows, data in self.ops:
-            p_all = group_rows(name, pts[:, corners], data)   # (B, m, p, 3)
+        for kind, W, corners, rows, data in self.ops:
+            p_all = kind.rows(pts[:, corners], data)           # (B, m, p, 3)
             p = torch.gather(p_all, 2, rows.view(1, -1, 1, 1).expand(
                 p_all.shape[0], -1, 1, 3))[:, :, 0]            # (B, m, 3)
             total = total + self._mm("drn,bnd->bdr", W, p)

@@ -22,11 +22,14 @@ def imported_tops(path: Path) -> set:
 
 
 def test_reference_and_costs_import_neither_package():
-    for sub in ("reference", "costs"):
-        for f in (PB / sub).glob("*.py"):
-            tops = imported_tops(f)
-            assert not tops & {"jax", "jaxlib", "flax", "animsnapbases_tpu",
-                               "animsnapbases_tpu_torch"}, (f, tops)
+    """Also each constraint kind's and scene kind's file."""
+    files = [f for sub in ("reference", "costs")
+             for f in (PB / sub).rglob("*.py")]
+    assert {"kinds", "scenes"} <= {f.parent.name for f in files}
+    for f in files:
+        tops = imported_tops(f)
+        assert not tops & {"jax", "jaxlib", "flax", "animsnapbases_tpu",
+                           "animsnapbases_tpu_torch"}, (f, tops)
 
 
 def test_no_module_of_the_benchmark_imports_jax():

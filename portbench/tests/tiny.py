@@ -1,7 +1,8 @@
-"""A checkout root at test sizes: the benchmark's files with every cloth at
-10 x 10, the bar at 8 x 3 x 3, short rollouts and small ensembles, a
-precision of the test's choosing, and the numbers each cell's committed
-limits compare held to a limit of the test's choosing."""
+"""A checkout root at test sizes: the benchmark's files (configurations,
+mixes, readers, constraint and scene kinds) with every cloth at 10 x 10,
+the bar at 8 x 3 x 3, short rollouts and small ensembles, a precision of
+the test's choosing, and the numbers each cell's committed limits compare
+held to a limit of the test's choosing."""
 
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ def tiny_root(tmp: Path, state="float64", matrices="float64", steps=12,
     tmp = Path(tmp)
     pb = tmp / "portbench"
     pb.mkdir(parents=True)
-    for d in ("traffic", "metrics", "configs"):
-        shutil.copytree(ROOT / "portbench" / d, pb / d)
+    for d in ("traffic", "metrics", "configs", "reference/kinds",
+              "reference/scenes"):
+        shutil.copytree(ROOT / "portbench" / d, pb / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (pb / "limits").mkdir()
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in spec["configs"]:
